@@ -1,5 +1,8 @@
 from .loading import cast_params, load_generator, merge_lora, to_fast_heads
-from .tiles import inference_model, predict_tiles, predictions_to_uint8
+from .tiles import (inference_model, load_serving_model, predict_tiles, predictions_to_uint8,
+                    resolve_device)
+from .wsi import ArraySlide, wsi_inference
 
-__all__ = ["cast_params", "inference_model", "load_generator", "merge_lora",
-           "predict_tiles", "predictions_to_uint8", "to_fast_heads"]
+__all__ = ["ArraySlide", "cast_params", "inference_model", "load_generator",
+           "load_serving_model", "merge_lora", "predict_tiles", "predictions_to_uint8",
+           "resolve_device", "to_fast_heads", "wsi_inference"]

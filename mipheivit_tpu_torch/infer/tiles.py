@@ -79,6 +79,39 @@ def save_prediction_tiff(pred_hwc: np.ndarray, out_path: str) -> None:
                   tile_size=min(512, max(64, pred_hwc.shape[0])))
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device`` when given, else the card. Nothing falls back to the CPU:
+    without a card the CPU runs only when asked for (``device="cpu"``)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                               "(--device cpu) to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+def load_serving_model(cfg, checkpoint_dir: str, img_size, nc_out: int, device):
+    """The generator of a run config's checkpoint dir at ``img_size``, ready
+    to serve on ``device`` (LoRA merged; bf16 on a card, f32 on the CPU),
+    and its H&E normalizer."""
+    from mipheivit_tpu.data.stats import (Normalizer, get_input_mean_std,
+                                          load_channel_stats)
+
+    device = torch.device(device)
+    model_name = cfg.model.model_name
+    encoder_name = cfg.select("model.encoder.encoder_name", "hoptimus0")
+    channel_stats = load_channel_stats(cfg.data.channel_stats_path)
+    norm = Normalizer(get_input_mean_std(model_name, encoder_name, channel_stats.rgb),
+                      mode="he")
+    model = load_generator(
+        model_name, encoder_name, checkpoint_dir, img_size, nc_out,
+        dtype=torch.float32, device=device,
+        encoder_ckpt_path=cfg.select("model.encoder.encoder_weights"),
+        fast_heads=model_name.startswith("myvitmatte"))
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    return cast_params(merge_lora(model), dtype), norm
+
+
 def inference_model(cfg, checkpoint_dir: str, output_dir: str,
                     batch_size: Optional[int] = None, device=None) -> str:
     """Tile-mode ``run_inference``: predict every tile of the test dataframe
@@ -86,14 +119,12 @@ def inference_model(cfg, checkpoint_dir: str, output_dir: str,
 
     ``cfg`` is the JAX package's composed run config. Tiles are read and
     TIFFs written through ``mipheivit_tpu.slideio``; slide-mode dataframes
-    are not ported yet. Runs in bf16 on a card, in f32 on the CPU."""
-    from mipheivit_tpu.data.stats import (Normalizer, get_effective_width_height,
-                                          get_input_mean_std, load_channel_stats)
+    are not ported yet. Runs in bf16 on the card (the default; raises
+    without one), in f32 on the CPU when ``device="cpu"``."""
+    from mipheivit_tpu.data.stats import get_effective_width_height
     from mipheivit_tpu.slideio import read_image
 
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+    device = resolve_device(device)
     out_dir = Path(output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
 
@@ -103,22 +134,11 @@ def inference_model(cfg, checkpoint_dir: str, output_dir: str,
         raise NotImplementedError("slide-mode inference is not ported yet; "
                                   "the test dataframe needs an image_path column")
     paths = [r["image_path"] for r in rows]
-    channel_stats = load_channel_stats(cfg.data.channel_stats_path)
     nc_out = len(cfg.data.targ_channel_names)
     height, width = read_image(paths[0]).shape[:2]
     width, height = get_effective_width_height(width, height, train=True)
     log.info("inference at %dx%d, %d markers", width, height, nc_out)
-
-    model_name = cfg.model.model_name
-    encoder_name = cfg.select("model.encoder.encoder_name", "hoptimus0")
-    norm = Normalizer(get_input_mean_std(model_name, encoder_name, channel_stats.rgb),
-                      mode="he")
-    model = load_generator(
-        model_name, encoder_name, checkpoint_dir, (height, width), nc_out,
-        dtype=torch.float32, device=device,
-        encoder_ckpt_path=cfg.select("model.encoder.encoder_weights"),
-        fast_heads=model_name.startswith("myvitmatte"))
-    cast_params(merge_lora(model), dtype)
+    model, norm = load_serving_model(cfg, checkpoint_dir, (height, width), nc_out, device)
 
     batch = int(batch_size or cfg.train.batch_size)
     for i in range(0, len(paths), batch):

@@ -20,14 +20,17 @@ import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=64)
-def _bicubic_matrix(in_size: int, out_size: int, antialias: bool) -> torch.Tensor:
+def _bicubic_matrix(in_size: int, out_size: int, antialias: bool,
+                    device: torch.device) -> torch.Tensor:
     """``[out, in]`` f32 weights of a 1-D bicubic resize, ``align_corners=False``:
     ``F.interpolate`` applied to the ``in`` one-hot columns. The images are
-    two pixels wide: torch's antialiased path gets a width of one wrong."""
+    two pixels wide: torch's antialiased path gets a width of one wrong.
+    Kept per device: a copy from pageable host memory synchronizes the
+    card's stream, which would stall every forward that re-grids."""
     eye = torch.eye(in_size, dtype=torch.float32).reshape(in_size, 1, in_size, 1)
     cols = F.interpolate(eye.expand(-1, -1, -1, 2), size=(out_size, 2), mode="bicubic",
                          align_corners=False, antialias=antialias)
-    return cols[:, 0, :, 0].T.contiguous()
+    return cols[:, 0, :, 0].T.contiguous().to(device)
 
 
 def resize_bicubic(x, out_hw: Tuple[int, int], antialias: bool = False):
@@ -35,8 +38,8 @@ def resize_bicubic(x, out_hw: Tuple[int, int], antialias: bool = False):
     antialias=antialias)``, computed in f32 and returned in x's dtype
     (the encoder's 14 -> 16 feature re-grid, the position-embedding resample)."""
     (in_h, in_w), (out_h, out_w) = x.shape[-2:], out_hw
-    mh = _bicubic_matrix(in_h, out_h, antialias).to(x.device)
-    mw = _bicubic_matrix(in_w, out_w, antialias).to(x.device)
+    mh = _bicubic_matrix(in_h, out_h, antialias, x.device)
+    mw = _bicubic_matrix(in_w, out_w, antialias, x.device)
     y = torch.matmul(mh, torch.matmul(x.float(), mw.T))
     return y.to(x.dtype)
 

@@ -157,8 +157,8 @@ def test_kernel_ragged_lengths_on_card(cuda, s):
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
     qkv = torch.zeros((1, 40, 3 * 128), device=cuda)
-    with pytest.raises(ValueError, match="K4"):
-        port.attention_qkv(torch.zeros((1, 513, 3 * 128), device=cuda), 2)
+    with pytest.raises(ValueError, match="S <= 512"):   # longer sequences are K4's
+        port._attention_cuda(*torch.zeros((1, 513, 3 * 128), device=cuda).chunk(3, -1), 2)
     with pytest.raises(ValueError, match="head dim"):
         port.attention_qkv(qkv, 4)
     with pytest.raises(ValueError, match="bf16 or f32"):

@@ -21,6 +21,8 @@ CHIP_PATH = [
     "mipheivit_tpu_torch.infer",
     "mipheivit_tpu_torch.infer.loading",
     "mipheivit_tpu_torch.infer.tiles",
+    "mipheivit_tpu_torch.infer.stitch",
+    "mipheivit_tpu_torch.infer.wsi",
 ]
 
 
@@ -31,9 +33,40 @@ def test_chip_path_imports_without_jax():
         f"for name in {CHIP_PATH!r}:\n"
         "    importlib.import_module(name)\n"
         "import mipheivit_tpu_torch.run_inference\n"
+        "from mipheivit_tpu_torch.ops.attention import flash_attention, flash_reference\n"
+        "from mipheivit_tpu_torch.infer import ArraySlide, wsi_inference\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
-        "             and m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yaml',\n"
+        "             and m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yaml', 'cv2',\n"
         "                                     'safetensors', 'mipheivit_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=PKG.parent, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_wsi_on_arrays_runs_without_jax_or_slide_io():
+    """The chip path of stitched inference (an in-memory slide, an array
+    sink) runs end to end with jax unimportable and never loads the JAX
+    package's slide IO (native code, cv2)."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import numpy as np, torch\n"
+        "from mipheivit_tpu_torch.infer import ArraySlide, wsi_inference\n"
+        "from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE\n"
+        "from mipheivit_tpu_torch.models import MipheiViT, ViTConfig\n"
+        "torch.set_num_threads(2)\n"
+        "model = MipheiViT(ViTConfig(img_size=(32, 32), patch_size=4, embed_dim=128, depth=1,\n"
+        "                            num_heads=2, mlp_hidden_dim=256), 2).eval()\n"
+        "image = np.random.default_rng(0).integers(0, 256, (40, 50, 3), dtype=np.uint8)\n"
+        "out = np.zeros((2, 40, 50), np.uint8)\n"
+        "wsi_inference(model, ArraySlide(image), out, ['a', 'b'], HOPTIMUS_HE,\n"
+        "              tile_size=32, overlap=8, batch_size=2, tissue_only=False)\n"
+        "assert out.any()\n"
+        "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
+        "             and m.split('.')[0] in ('jax', 'cv2', 'yaml', 'mipheivit_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
