@@ -50,7 +50,7 @@ def predict_tiles(model, tiles_uint8: np.ndarray, normalizer, batch_size: int = 
     """uint8 H&E tiles ``[N, H, W, 3]`` -> uint8 predictions ``[N, H, W, C]``.
 
     ``normalizer`` carries the H&E ``mean`` and ``std`` (three values each,
-    in pixel units): ``HOPTIMUS_HE``, or the JAX package's ``Normalizer``.
+    in pixel units): ``HOPTIMUS_HE``, or a ``data.stats.Normalizer``.
     ``device`` defaults to the model's."""
     if device is None:
         device = next(model.parameters()).device
@@ -72,8 +72,8 @@ def predict_tiles(model, tiles_uint8: np.ndarray, normalizer, batch_size: int = 
 
 
 def save_prediction_tiff(pred_hwc: np.ndarray, out_path: str) -> None:
-    """Per-tile multi-channel TIFF, written by the JAX package's TIFF engine."""
-    from mipheivit_tpu.slideio import write_pyramid
+    """Per-tile multi-channel TIFF, written by the port's native TIFF engine."""
+    from ..slideio import write_pyramid
 
     write_pyramid(out_path, np.moveaxis(pred_hwc, -1, 0), n_levels=1,
                   tile_size=min(512, max(64, pred_hwc.shape[0])))
@@ -94,8 +94,7 @@ def load_serving_model(cfg, checkpoint_dir: str, img_size, nc_out: int, device):
     """The generator of a run config's checkpoint dir at ``img_size``, ready
     to serve on ``device`` (LoRA merged; bf16 on a card, f32 on the CPU),
     and its H&E normalizer."""
-    from mipheivit_tpu.data.stats import (Normalizer, get_input_mean_std,
-                                          load_channel_stats)
+    from ..data.stats import Normalizer, get_input_mean_std, load_channel_stats
 
     device = torch.device(device)
     model_name = cfg.model.model_name
@@ -117,12 +116,12 @@ def inference_model(cfg, checkpoint_dir: str, output_dir: str,
     """Tile-mode ``run_inference``: predict every tile of the test dataframe
     (``image_path`` column) and write ``<tile>.tiff`` into ``output_dir``.
 
-    ``cfg`` is the JAX package's composed run config. Tiles are read and
-    TIFFs written through ``mipheivit_tpu.slideio``; slide-mode dataframes
+    ``cfg`` is a run config (``config.load_yaml``). Tiles are read and
+    TIFFs written through the port's ``slideio``; slide-mode dataframes
     are not ported yet. Runs in bf16 on the card (the default; raises
     without one), in f32 on the CPU when ``device="cpu"``."""
-    from mipheivit_tpu.data.stats import get_effective_width_height
-    from mipheivit_tpu.slideio import read_image
+    from ..data.stats import get_effective_width_height
+    from ..slideio import read_image
 
     device = resolve_device(device)
     out_dir = Path(output_dir)

@@ -22,7 +22,7 @@ The stitcher thread consumes them in dispatch order (the accumulator needs
 raster order), so stitching runs beside dispatch, not inline with it.
 
 The slide IO (``SlideReader``, ``PyramidWriter``, ``get_locs_otsu``) is
-the JAX package's jax-free ``mipheivit_tpu.slideio``, imported only when a
+the port's ``slideio`` (native code, cv2 for tissue masks), imported only when a
 path or ``tissue_only`` asks for it; ``ArraySlide`` and an array sink need
 none of it.
 """
@@ -74,7 +74,7 @@ def _window_locs(reader, level: int, tile_size: int, overlap: int,
     """Top-left (x, y) of every window, in raster order."""
     w, h = reader.level_dimensions[level]
     if tissue_only:
-        from mipheivit_tpu.slideio import get_locs_otsu
+        from ..slideio import get_locs_otsu
 
         thumb = reader.get_thumbnail((2048, 2048))
         ds = reader.level_downsample(level)
@@ -152,7 +152,7 @@ def wsi_inference(
 
     own_reader = isinstance(slide, (str, os.PathLike))
     if own_reader:
-        from mipheivit_tpu.slideio import SlideReader
+        from ..slideio import SlideReader
 
         reader = SlideReader(str(slide), mode="RGB")
     else:
@@ -170,7 +170,7 @@ def wsi_inference(
                              f"{out.shape} {out.dtype}")
         sink = out
     else:
-        from mipheivit_tpu.slideio import PyramidWriter, build_ome_xml
+        from ..slideio import PyramidWriter, build_ome_xml
 
         xml = build_ome_xml(w, h, channel_names, "uint8", physical_size_um=mpp)
         if memmap_path:
@@ -352,7 +352,7 @@ def wsi_inference(
     if writer is not None:
         writer.close()
     elif xml is not None:
-        from mipheivit_tpu.slideio import write_pyramid
+        from ..slideio import write_pyramid
 
         write_pyramid(str(out), sink, n_levels=n_pyramid_levels,
                       tile_size=min(512, tile_size), mpp=mpp or 0.0, ome_xml=xml)

@@ -7,6 +7,12 @@ what ``mipheivit_tpu.train.checkpoints.mipheivit_state_dict`` exports, key
 for key, and it also reads the JAX-only layouts: scanned ``blocks`` (one
 leading depth axis) as well as ``blocks_{i}``, and the fused ``heads``
 decoder as well as per-head ``segmentation_head_{k}``.
+
+It also maps part of a tree: the trainable sub-tree of a JAX ``TrainState``
+(LoRA adapters and decoder, as ``partition_params`` splits it), its
+``batch_stats``, or a gradient tree of the same shape. Entries the tree does
+not hold are left out of the state dict. ``discriminator_state_dict_from_jax``
+maps ``DiscriminatorPatch`` variables, spectral-norm ``u`` included.
 """
 
 from __future__ import annotations
@@ -35,60 +41,73 @@ def _index(tree, i):
     return np.asarray(tree)[i]
 
 
+def _get(tree, *path):
+    """``tree[path[0]][path[1]]...``, or None where the tree stops."""
+    for key in path:
+        if not isinstance(tree, dict) or key not in tree:
+            return None
+        tree = tree[key]
+    return tree
+
+
 def _vit_state_dict(params: Dict, cfg: ViTConfig, prefix: str) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
 
-    def put(key, val):
-        out[prefix + key] = np.asarray(val)
+    def put(key, val, fn=np.asarray):
+        if val is not None:
+            out[prefix + key] = fn(val)
 
-    put("patch_embed.proj.weight", _conv(params["patch_embed"]["kernel"]))
-    put("patch_embed.proj.bias", params["patch_embed"]["bias"])
+    put("patch_embed.proj.weight", _get(params, "patch_embed", "kernel"), _conv)
+    put("patch_embed.proj.bias", _get(params, "patch_embed", "bias"))
     if cfg.class_token:
-        put("cls_token", params["cls_token"])
+        put("cls_token", _get(params, "cls_token"))
     if cfg.reg_tokens:
-        put("reg_token", params["reg_token"])
-    put("pos_embed", params["pos_embed"])
-    put("norm.weight", params["norm"]["scale"])
-    put("norm.bias", params["norm"]["bias"])
+        put("reg_token", _get(params, "reg_token"))
+    put("pos_embed", _get(params, "pos_embed"))
+    put("norm.weight", _get(params, "norm", "scale"))
+    put("norm.bias", _get(params, "norm", "bias"))
 
     qkv = "attn.qkv.qkv" if cfg.lora_rank > 0 else "attn.qkv"
     for i in range(cfg.depth):
         layer = _index(params["blocks"], i) if "blocks" in params else params[f"blocks_{i}"]
         base = f"blocks.{i}."
-        attn, mlp = layer["attn"], layer["mlp"]
-        put(base + "norm1.weight", layer["norm1"]["scale"])
-        put(base + "norm1.bias", layer["norm1"]["bias"])
-        put(base + "norm2.weight", layer["norm2"]["scale"])
-        put(base + "norm2.bias", layer["norm2"]["bias"])
-        put(base + f"{qkv}.weight", _t(attn["qkv"]["kernel"]))
-        put(base + f"{qkv}.bias", attn["qkv"]["bias"])
-        put(base + "attn.proj.weight", _t(attn["proj"]["kernel"]))
-        put(base + "attn.proj.bias", attn["proj"]["bias"])
-        put(base + "mlp.fc1.weight", _t(mlp["fc1"]["kernel"]))
-        put(base + "mlp.fc1.bias", mlp["fc1"]["bias"])
-        put(base + "mlp.fc2.weight", _t(mlp["fc2"]["kernel"]))
-        put(base + "mlp.fc2.bias", mlp["fc2"]["bias"])
+        for name, path, fn in (
+                ("norm1.weight", ("norm1", "scale"), np.asarray),
+                ("norm1.bias", ("norm1", "bias"), np.asarray),
+                ("norm2.weight", ("norm2", "scale"), np.asarray),
+                ("norm2.bias", ("norm2", "bias"), np.asarray),
+                (f"{qkv}.weight", ("attn", "qkv", "kernel"), _t),
+                (f"{qkv}.bias", ("attn", "qkv", "bias"), np.asarray),
+                ("attn.proj.weight", ("attn", "proj", "kernel"), _t),
+                ("attn.proj.bias", ("attn", "proj", "bias"), np.asarray),
+                ("mlp.fc1.weight", ("mlp", "fc1", "kernel"), _t),
+                ("mlp.fc1.bias", ("mlp", "fc1", "bias"), np.asarray),
+                ("mlp.fc2.weight", ("mlp", "fc2", "kernel"), _t),
+                ("mlp.fc2.bias", ("mlp", "fc2", "bias"), np.asarray)):
+            put(base + name, _get(layer, *path), fn)
         if cfg.init_values is not None:
-            put(base + "ls1.gamma", layer["ls1"])
-            put(base + "ls2.gamma", layer["ls2"])
-        if cfg.lora_rank > 0 and "lora_q" in attn:
+            put(base + "ls1.gamma", _get(layer, "ls1"))
+            put(base + "ls2.gamma", _get(layer, "ls2"))
+        if cfg.lora_rank > 0:
             for lq in ("lora_q", "lora_v"):
-                put(base + f"attn.qkv.{lq}.A", attn[lq]["A"])
-                put(base + f"attn.qkv.{lq}.B", attn[lq]["B"])
+                put(base + f"attn.qkv.{lq}.A", _get(layer, "attn", lq, "A"))
+                put(base + f"attn.qkv.{lq}.B", _get(layer, "attn", lq, "B"))
     return out
 
 
 def _per_head(params: Dict, stats: Dict, out_chans: int):
     """The decoder's heads as K per-head (params, stats) pairs, from either
     the per-head or the fused ``heads`` layout."""
-    if "heads" not in params:
-        return [(params[f"segmentation_head_{k}"], stats[f"segmentation_head_{k}"])
+    if "heads" not in params and "heads" not in stats:
+        return [(_get(params, f"segmentation_head_{k}"), _get(stats, f"segmentation_head_{k}"))
                 for k in range(out_chans)]
-    hp, hs = params["heads"], stats["heads"]
+    if "heads" not in params:
+        raise ValueError("map the fused heads' batch_stats together with their params")
+    hp, hs = params["heads"], stats.get("heads", {})
     c2 = np.asarray(hp["psi_conv1_bias"]).shape[-1]
 
     def part(a, k):
-        return np.asarray(a)[k * c2:(k + 1) * c2]
+        return None if a is None else np.asarray(a)[k * c2:(k + 1) * c2]
 
     heads = []
     for k in range(out_chans):
@@ -101,8 +120,8 @@ def _per_head(params: Dict, stats: Dict, out_chans: int):
                        "bias": part(hp["psi_bn"]["bias"], k)}},
             "conv": {"kernel": np.asarray(hp["conv_kernel"])[k],
                      "bias": np.asarray(hp["conv_bias"])[k]}}
-        s = {"attention": {"psi_bn": {"mean": part(hs["psi_bn"]["mean"], k),
-                                      "var": part(hs["psi_bn"]["var"], k)}}}
+        s = {"attention": {"psi_bn": {"mean": part(_get(hs, "psi_bn", "mean"), k),
+                                      "var": part(_get(hs, "psi_bn", "var"), k)}}}
         heads.append((p, s))
     return heads
 
@@ -111,36 +130,43 @@ def _decoder_state_dict(params: Dict, stats: Dict, out_chans: int,
                         prefix: str = "decoder.") -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
 
+    def put(key, val, fn=np.asarray):
+        if val is not None:
+            out[key] = fn(val)
+
     def put_conv(key, p, bias=True):
-        out[key + ".weight"] = _conv(p["kernel"])
+        put(key + ".weight", _get(p, "kernel"), _conv)
         if bias:
-            out[key + ".bias"] = np.asarray(p["bias"])
+            put(key + ".bias", _get(p, "bias"))
 
     def put_bn(key, p, s):
-        out[key + ".weight"] = np.asarray(p["scale"])
-        out[key + ".bias"] = np.asarray(p["bias"])
-        out[key + ".running_mean"] = np.asarray(s["mean"])
-        out[key + ".running_var"] = np.asarray(s["var"])
-        out[key + ".num_batches_tracked"] = np.asarray(0, np.int64)
+        put(key + ".weight", _get(p, "scale"))
+        put(key + ".bias", _get(p, "bias"))
+        put(key + ".running_mean", _get(s, "mean"))
+        put(key + ".running_var", _get(s, "var"))
+        if _get(s, "mean") is not None:
+            out[key + ".num_batches_tracked"] = np.asarray(0, np.int64)
 
-    n_stream = sum(k.startswith("convs_") for k in params["convstream"])
+    tree = params if params else stats
+    n_stream = sum(k.startswith("convs_") for k in tree["convstream"])
     for i in range(n_stream):
-        p = params["convstream"][f"convs_{i}"]
-        s = stats["convstream"][f"convs_{i}"]
-        put_conv(f"{prefix}convstream.convs.{i}.conv", p["conv"], bias=False)
-        put_bn(f"{prefix}convstream.convs.{i}.bn", p["bn"], s["bn"])
-    n_fusion = sum(k.startswith("fusion_blks_") for k in params)
+        p = _get(params, "convstream", f"convs_{i}")
+        s = _get(stats, "convstream", f"convs_{i}", "bn")
+        put_conv(f"{prefix}convstream.convs.{i}.conv", _get(p, "conv"), bias=False)
+        put_bn(f"{prefix}convstream.convs.{i}.bn", _get(p, "bn"), s)
+    n_fusion = sum(k.startswith("fusion_blks_") for k in tree)
     for i in range(n_fusion):
-        p = params[f"fusion_blks_{i}"]["conv"]
-        s = stats[f"fusion_blks_{i}"]["conv"]
-        put_conv(f"{prefix}fusion_blks.{i}.conv.conv", p["conv"], bias=False)
-        put_bn(f"{prefix}fusion_blks.{i}.conv.bn", p["bn"], s["bn"])
+        p = _get(params, f"fusion_blks_{i}", "conv")
+        s = _get(stats, f"fusion_blks_{i}", "conv", "bn")
+        put_conv(f"{prefix}fusion_blks.{i}.conv.conv", _get(p, "conv"), bias=False)
+        put_bn(f"{prefix}fusion_blks.{i}.conv.bn", _get(p, "bn"), s)
     for k, (p, s) in enumerate(_per_head(params, stats, out_chans)):
         base = f"{prefix}segmentation_head_{k}"
-        put_conv(f"{base}.0.psi.0", p["attention"]["psi_conv1"])
-        put_bn(f"{base}.0.psi.1", p["attention"]["psi_bn"], s["attention"]["psi_bn"])
-        put_conv(f"{base}.0.psi.3", p["attention"]["psi_conv2"])
-        put_conv(f"{base}.1", p["conv"])
+        put_conv(f"{base}.0.psi.0", _get(p, "attention", "psi_conv1"))
+        put_bn(f"{base}.0.psi.1", _get(p, "attention", "psi_bn"),
+               _get(s, "attention", "psi_bn"))
+        put_conv(f"{base}.0.psi.3", _get(p, "attention", "psi_conv2"))
+        put_conv(f"{base}.1", _get(p, "conv"))
     return out
 
 
@@ -150,15 +176,36 @@ def state_dict_from_jax(variables: Dict, vit_cfg: ViTConfig,
 
     ``variables`` holds a ``MipheiViT`` (``params["encoder"]["vit"]`` and
     ``params["decoder"]``) or a bare ``VisionTransformer`` (its params at the
-    top level, no ``batch_stats`` needed). ``vit_cfg.lora_rank`` decides, as
-    in the JAX exporter, whether qkv is named in the LoRA-wrapped layout."""
-    params = variables["params"]
-    if "encoder" not in params:
+    top level, no ``batch_stats`` needed), whole or in part (see the module
+    docstring; ``params`` may be ``{}`` to map ``batch_stats`` alone).
+    ``vit_cfg.lora_rank`` decides, as in the JAX exporter, whether qkv is
+    named in the LoRA-wrapped layout."""
+    params = variables.get("params", {})
+    stats = variables.get("batch_stats", {})
+    if params and "encoder" not in params and "decoder" not in params:
         return _vit_state_dict(params, vit_cfg, "")
-    out = _vit_state_dict(params["encoder"]["vit"], vit_cfg, "encoder.vit.")
-    out.update(_decoder_state_dict(params["decoder"],
-                                   variables.get("batch_stats", {}).get("decoder", {}),
-                                   out_chans))
+    out = {}
+    if _get(params, "encoder", "vit") is not None:
+        out.update(_vit_state_dict(params["encoder"]["vit"], vit_cfg, "encoder.vit."))
+    if params.get("decoder") or stats.get("decoder"):
+        out.update(_decoder_state_dict(params.get("decoder", {}), stats.get("decoder", {}),
+                                       out_chans))
+    return out
+
+
+def discriminator_state_dict_from_jax(variables: Dict) -> Dict[str, np.ndarray]:
+    """JAX ``DiscriminatorPatch`` variables (``params`` and ``spectral``) ->
+    the port's ``DiscriminatorPatch`` state dict: ``conv{n}`` then
+    ``conv_out`` become ``convs.{i}`` (weight OIHW, bias, power-iteration
+    ``u``)."""
+    params, spectral = variables["params"], variables.get("spectral", {})
+    names = sorted((k for k in params if k != "conv_out"), key=lambda k: int(k[len("conv"):]))
+    out = {}
+    for i, name in enumerate(names + ["conv_out"]):
+        out[f"convs.{i}.weight"] = _conv(params[name]["kernel"])
+        if "bias" in params[name]:
+            out[f"convs.{i}.bias"] = np.asarray(params[name]["bias"])
+        out[f"convs.{i}.u"] = np.asarray(spectral[name]["u"])
     return out
 
 

@@ -8,8 +8,11 @@ reference torch layout (``decoder.convstream.convs.{i}.conv/bn``,
 ``decoder.fusion_blks.{i}.conv.conv/bn``,
 ``decoder.segmentation_head_{k}.0.psi.{0,1,3}`` / ``.1``).
 
-BatchNorm in eval mode computes in f32 and returns the activation dtype, so
-bf16 weights with f32 running statistics work.
+BatchNorm computes in f32 and returns the activation dtype, so bf16 weights
+with f32 running statistics work; in training it follows flax's BatchNorm
+(see ``BatchNorm2d``). Convolutions cast their weights to the activation
+dtype at use, as the flax modules do, so a decoder trained in f32 runs in
+bf16 beside a bf16 encoder.
 """
 
 from __future__ import annotations
@@ -25,15 +28,42 @@ from .vit import ViTConfig, VisionTransformer
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose eval mode takes parameters cast to bf16: the
-    running statistics (kept f32) and the f32 copy of weight and bias are
-    applied in f32 by one fused kernel, and the result has x's dtype."""
+    """``nn.BatchNorm2d`` with flax's arithmetic, in f32 whatever the
+    activation dtype, returning x's dtype.
+
+    Eval: the running statistics (kept f32) and the f32 copy of weight and
+    bias are applied by one fused kernel. Training: batch statistics
+    ``mean(x)`` and ``max(mean(x^2) - mean(x)^2, 0)`` normalise the batch,
+    and the running statistics move by momentum 0.1 toward them. The running
+    variance takes the biased batch variance, as flax and the JAX package's
+    ``BatchedSegHeads`` do (torch's own update takes the unbiased one,
+    n/(n-1) larger)."""
 
     def forward(self, x):
-        if self.training:
-            return super().forward(x)
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight.float(),
-                            self.bias.float(), False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight.float(),
+                                self.bias.float(), False, 0.0, self.eps)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
+            self.running_var.copy_(keep * self.running_var + self.momentum * var)
+            self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.float()[:, None, None]
+        return y.to(x.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that casts its weight and bias to the input's dtype at
+    use (flax ``nn.Conv(dtype=x.dtype)``): trainable f32 weights, bf16
+    compute."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 class BasicConv3x3(nn.Module):
@@ -41,7 +71,7 @@ class BasicConv3x3(nn.Module):
 
     def __init__(self, in_chans: int, out_chans: int, stride: int = 2):
         super().__init__()
-        self.conv = nn.Conv2d(in_chans, out_chans, 3, stride, 1, bias=False)
+        self.conv = Conv2d(in_chans, out_chans, 3, stride, 1, bias=False)
         self.bn = BatchNorm2d(out_chans)
 
     def forward(self, x):
@@ -83,8 +113,8 @@ class AttentionGate(nn.Module):
     def __init__(self, chans: int):
         super().__init__()
         self.psi = nn.Sequential(
-            nn.Conv2d(chans, chans // 2, 1), BatchNorm2d(chans // 2), nn.ReLU(),
-            nn.Conv2d(chans // 2, 1, 1), nn.Sigmoid())
+            Conv2d(chans, chans // 2, 1), BatchNorm2d(chans // 2), nn.ReLU(),
+            Conv2d(chans // 2, 1, 1), nn.Sigmoid())
 
     def forward(self, x):
         return x * self.psi(x)
@@ -94,7 +124,7 @@ class SegmentationHead(nn.Sequential):
     """Attention gate + conv3x3 + tanh (reference: unet.py:425-438)."""
 
     def __init__(self, chans: int):
-        super().__init__(AttentionGate(chans), nn.Conv2d(chans, 1, 3, padding=1),
+        super().__init__(AttentionGate(chans), Conv2d(chans, 1, 3, padding=1),
                          nn.Tanh())
 
 
@@ -112,12 +142,12 @@ class BatchedSegHeads(nn.Module):
         super().__init__()
         c2 = chans // 2
         self.heads = heads
-        self.psi_conv1 = nn.Conv2d(chans, heads * c2, 1)
+        self.psi_conv1 = Conv2d(chans, heads * c2, 1)
         self.psi_bn = BatchNorm2d(heads * c2)
-        self.psi_conv2 = nn.Conv2d(heads * c2, heads, 1, groups=heads)
+        self.psi_conv2 = Conv2d(heads * c2, heads, 1, groups=heads)
         # row (dy*3 + dx)*K + k holds head k's 3x3 tap (dy, dx); padding 1
         # makes its output the zero-bordered [H+2, W+2] map the taps slide over
-        self.conv_taps = nn.Conv2d(chans, 9 * heads, 1, padding=1, bias=False)
+        self.conv_taps = Conv2d(chans, 9 * heads, 1, padding=1, bias=False)
         self.conv_bias = nn.Parameter(torch.zeros(heads))
 
     def forward(self, x):

@@ -8,8 +8,16 @@ reference torch layout (timm's ``patch_embed.proj``, ``blocks.{i}.attn.qkv``
 ..., and the LoRA wrapper's ``attn.qkv.qkv`` / ``attn.qkv.lora_q.A``), so a
 released checkpoint loads with ``load_state_dict``.
 
-Attention runs through ``ops.attention``: K1 on the card, the plain version
-on the CPU.
+Attention runs through ``ops.attention``: K1 (S <= 512) or K4 on the card,
+the plain versions on the CPU, each with its backward (the plain recompute
+for K1, K5 for K4).
+
+Training. LoRA stays live (``attn.qkv.lora_q`` / ``lora_v`` trainable, cast
+to the activation dtype at use, as is every LayerScale), and
+``VisionTransformer.grad_checkpointing`` recomputes each block in the
+backward (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+activations. The JAX package's remat-policy menu is TPU machinery and has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import attention_bshd, attention_qkv
@@ -172,11 +181,13 @@ class VisionTransformer(nn.Module):
 
     ``intermediates`` (block indices) also returns the un-normed token
     sequence after those blocks, as the JAX module does. Input is cast to
-    the dtype of the parameters."""
+    the dtype of the parameters. With ``grad_checkpointing`` set and grad
+    enabled, each block's activations are recomputed in the backward."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         self.cfg = cfg
+        self.grad_checkpointing = False
         d, p = cfg.embed_dim, cfg.patch_size
         self.patch_embed = nn.Module()
         self.patch_embed.proj = nn.Conv2d(3, d, p, stride=p)
@@ -207,8 +218,9 @@ class VisionTransformer(nn.Module):
         else:
             x = torch.cat(prefix + [x], dim=1) + pos
         taps = []
+        ckpt = self.grad_checkpointing and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
+            x = torch.utils.checkpoint.checkpoint(blk, x, use_reentrant=False) if ckpt else blk(x)
             if i in intermediates:
                 taps.append(x)
         x = self.norm(x)

@@ -1,5 +1,5 @@
-"""Multi-head attention for the ViT encoder: the K1 and K4 CUDA kernels and
-their plain twins.
+"""Multi-head attention for the ViT encoder: the K1, K4 and K5 CUDA kernels
+and their plain twins, with autograd.
 
 q/k/v stay in the ``[B, S, H*D]`` layout that the fused qkv projection
 produces, and the output is ``[B, S, H*D]`` for the following projection,
@@ -14,6 +14,15 @@ tensor launches K1 (``csrc/attention.cu``) for S <= 512 and K4
 kernel to a plain version. (The JAX package sends 512 < S <= 2048 to XLA on
 the TPU after a TPU measurement; on the card the kernels serve every
 length.)
+
+Training. Both run inside a ``torch.autograd.Function``, as the JAX
+package's ``custom_vjp`` rules do. K1's backward is the plain f32 recompute
+of ``_bshd_bwd_rule`` (the JAX package has no kernel there either). K4
+saves ``(q, k, v, out, lse)`` and its backward is K5
+(``csrc/flash_attention_bwd.cu``, dK/dV then dQ, the probabilities rebuilt
+from the lse) on the card and ``flash_backward_reference`` on the CPU. The
+raw launchers raise when called with grad enabled on tensors that require
+it outside these Functions.
 """
 
 from __future__ import annotations
@@ -30,8 +39,9 @@ MAX_SEQ = 512   # K1's whole-sequence limit, as the TPU kernel's (_MAX_BLOCK)
 HEAD_DIM = 64
 
 # Kernel launches since the last reset, counted where each kernel is launched:
-# "attention" is K1, "flash" is K4.
-launch_counts = {"attention": 0, "flash": 0}
+# "attention" is K1, "flash" is K4, "flash_bwd" is K5 (its two kernels, one
+# call).
+launch_counts = {"attention": 0, "flash": 0, "flash_bwd": 0}
 
 # The plain flash version holds [B, heads, Sq, Sk] f32 logits: it runs a few
 # heads at a time so that one chunk stays near this many elements (1 GiB).
@@ -87,13 +97,66 @@ def flash_reference(q, k, v, num_heads: int, seq_len_k: int | None = None):
     return out, torch.cat(lses, dim=1)
 
 
+def flash_backward_reference(q, k, v, out, lse, dout, num_heads: int,
+                             seq_len_k: int | None = None):
+    """Plain version of K5 (the JAX package's ``_bwd_dkdv_kernel`` and
+    ``_bwd_dq_kernel``): the gradients of ``flash_reference`` from its saved
+    ``out`` and ``lse``. f32 math: ``p = exp(q.k^T/sqrt(D) - lse)`` with keys
+    at or past ``seq_len_k`` masked, ``delta = rowsum(dO*O)``,
+    ``dS = p*(dO.v^T - delta)/sqrt(D)``, ``dV = p^T.dO``, ``dK = dS^T.q``,
+    ``dQ = dS.k``. Chunked over heads as ``flash_reference`` is. With
+    ``lse=None`` the row log-sum-exp is recomputed from the logits: that is
+    K1's backward, the plain recompute of the JAX package's
+    ``_bshd_bwd_rule``. Returns ``(dq, dk, dv)`` in the dtypes of q, k and
+    v."""
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    d = hd // num_heads
+    seq_len_k = sk if seq_len_k is None else seq_len_k
+    scale = 1.0 / math.sqrt(d)
+    delta = _delta(out, dout, num_heads)
+
+    def heads(t, h0, h1):
+        return t[..., h0 * d:h1 * d].reshape(b, t.shape[1], h1 - h0, d).float()
+
+    step = max(1, _PLAIN_CHUNK_ELEMENTS // max(1, b * sq * sk))
+    dqs, dks, dvs = [], [], []
+    for h0 in range(0, num_heads, step):
+        h1 = min(num_heads, h0 + step)
+        qh, kh, vh, gh = (heads(t, h0, h1) for t in (q, k, v, dout))
+        logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
+        if seq_len_k < sk:
+            logits[..., seq_len_k:] = -math.inf
+        rows = torch.logsumexp(logits, dim=-1) if lse is None else lse[:, h0:h1]
+        p = torch.exp(logits - rows[..., None])
+        del logits
+        dvs.append(torch.einsum("bhqk,bqhd->bkhd", p, gh))
+        ds = p * (torch.einsum("bqhd,bkhd->bhqk", gh, vh) - delta[:, h0:h1, :, None]) * scale
+        del p
+        dqs.append(torch.einsum("bhqk,bkhd->bqhd", ds, kh))
+        dks.append(torch.einsum("bhqk,bqhd->bkhd", ds, qh))
+        del ds
+    return tuple(torch.cat(g, dim=2).reshape(b, -1, hd).to(t.dtype)
+                 for g, t in ((dqs, q), (dks, k), (dvs, v)))
+
+
 def flash_attention(q, k, v, num_heads: int, seq_len_k: int | None = None):
     """K4: q ``[B, Sq, H*D]`` over k/v ``[B, Sk, H*D]`` (any row stride), keys
     at or past ``seq_len_k`` masked -> ``(out [B, Sq, H*D], lse [B, H, Sq])``.
-    The counterpart of ``flash_cross_attention`` / ``_long_forward``."""
-    if _device_type(q, k, v) == "cpu":
-        return flash_reference(q, k, v, num_heads, seq_len_k)
-    return _flash_cuda(q, k, v, num_heads, seq_len_k)
+    The counterpart of ``flash_cross_attention`` / ``_long_forward``.
+    Differentiable in q, k and v: the backward is K5 (or its plain version
+    on the CPU)."""
+    _device_type(q, k, v)
+    return _FlashAttention.apply(q, k, v, num_heads, seq_len_k)
+
+
+def flash_backward(q, k, v, out, lse, dout, num_heads: int, seq_len_k: int | None = None):
+    """K5: the gradients ``(dq, dk, dv)`` of ``flash_attention`` from its
+    saved ``out`` and ``lse`` and the output gradient ``dout``. The
+    counterpart of ``_long_backward``."""
+    if _device_type(q, k, v, out, lse, dout) == "cpu":
+        return flash_backward_reference(q, k, v, out, lse, dout, num_heads, seq_len_k)
+    return _flash_bwd_cuda(q, k, v, out, lse, dout, num_heads, seq_len_k)
 
 
 def attention_qkv(qkv, num_heads: int):
@@ -110,9 +173,56 @@ def attention_bshd(q, k, v, num_heads: int):
     above."""
     if q.shape[1] > MAX_SEQ:
         return flash_attention(q, k, v, num_heads)[0]
-    if _device_type(q, k, v) == "cpu":
-        return attention_reference(q, k, v, num_heads)
-    return _attention_cuda(q, k, v, num_heads)
+    _device_type(q, k, v)
+    return _Attention.apply(q, k, v, num_heads)
+
+
+def _delta(out, dout, num_heads: int):
+    """``rowsum(dO * O)`` per head in f32 -> ``[B, H, S]`` (the JAX package
+    computes it in XLA, outside its kernels)."""
+    b, s, hd = out.shape
+    prod = dout.float() * out.float()
+    return prod.reshape(b, s, num_heads, hd // num_heads).sum(-1).transpose(1, 2).contiguous()
+
+
+class _Attention(torch.autograd.Function):
+    """K1 (plain version on the CPU) with the plain recompute backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads):
+        if q.device.type == "cpu":
+            out = attention_reference(q, k, v, num_heads)
+        else:
+            out = _attention_cuda(q, k, v, num_heads)
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        return (*flash_backward_reference(q, k, v, out, None, dout, ctx.num_heads), None)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K4 (plain version on the CPU); the backward is K5 (plain on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, seq_len_k):
+        if q.device.type == "cpu":
+            out, lse = flash_reference(q, k, v, num_heads, seq_len_k)
+        else:
+            out, lse = _flash_cuda(q, k, v, num_heads, seq_len_k)
+        ctx.num_heads, ctx.seq_len_k = num_heads, seq_len_k
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = flash_backward(q, k, v, out, lse, dout, ctx.num_heads, ctx.seq_len_k)
+        return (*grads, None, None)
 
 
 def _device_type(*tensors) -> str:
@@ -147,25 +257,39 @@ def _flash_library():
     return lib
 
 
-def _check_operands(name: str, q, k, v, num_heads: int) -> None:
-    """What K1 and K4 both need of q/k/v ``[B, S, H*D]``."""
-    if len({t.device for t in (q, k, v)}) != 1:
+@functools.lru_cache(maxsize=None)
+def _flash_bwd_library():
+    lib = _build.load("flash_attention_bwd")
+    for fn in (lib.k5_flash_bwd_bf16, lib.k5_flash_bwd_f32):
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 8
+                       + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.k5_error_string.argtypes = [ctypes.c_int]
+    lib.k5_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_operands(name: str, q, k, v, num_heads: int, *more) -> None:
+    """What K1, K4 and K5 need of q/k/v (and K5 of dO) ``[B, S, H*D]``."""
+    ts = (q, k, v) + more
+    if len({t.device for t in ts}) != 1:
         raise ValueError("q, k and v lie on different devices")
     if q.dtype not in (torch.bfloat16, torch.float32) or \
-            k.dtype != q.dtype or v.dtype != q.dtype:
+            any(t.dtype != q.dtype for t in ts):
         raise ValueError(f"{name} takes bf16 or f32 q/k/v of one dtype, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+                         f"{', '.join(str(t.dtype) for t in ts)}")
     hd = q.shape[-1]
     if hd % num_heads or hd // num_heads != HEAD_DIM:
         raise ValueError(f"{name} takes head dim {HEAD_DIM}, got {hd}/{num_heads}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
+    if any(t.stride(-1) != 1 for t in ts):
         raise ValueError(f"{name} needs a unit stride on the last dimension")
-    if any(t.requires_grad for t in (q, k, v)):
-        raise ValueError(f"{name} is forward only; its backward comes with training "
-                         "(run under torch.inference_mode() or no_grad())")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise ValueError(f"{name} is launched raw with grad enabled; go through "
+                         "attention_bshd / flash_attention, whose autograd Function "
+                         "runs the backward")
     if q.dtype == torch.bfloat16:
         # 16-byte vector loads: aligned rows and base pointers
-        for t in (q, k, v):
+        for t in ts:
             if t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8:
                 raise ValueError(f"{name} bf16 needs 16-byte aligned rows "
                                  "(strides multiple of 8, aligned base)")
@@ -221,3 +345,41 @@ def _flash_cuda(q, k, v, num_heads: int, seq_len_k: int | None):
                            f"{lib.k4_error_string(err).decode()} ({err})")
     launch_counts["flash"] += 1
     return out, lse
+
+
+def _flash_bwd_cuda(q, k, v, out, lse, dout, num_heads: int, seq_len_k: int | None):
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2] != hd or \
+            out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"K5 takes q, out, dO [B, Sq, H*D] and k, v [B, Sk, H*D], got "
+                         f"{tuple(q.shape)}, {tuple(out.shape)}, {tuple(dout.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if lse.shape != (b, num_heads, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"K5 takes K4's f32 lse [B, H, Sq], got {lse.dtype} {tuple(lse.shape)}")
+    seq_len_k = sk if seq_len_k is None else seq_len_k
+    if not 1 <= seq_len_k <= sk:
+        raise ValueError(f"K5 takes 1 <= seq_len_k <= Sk, got {seq_len_k}, Sk={sk}")
+    if dout.stride(-1) != 1 or dout.stride(1) != hd or dout.data_ptr() % 16:
+        dout = dout.contiguous()
+    _check_operands("K5", q, k, v, num_heads, dout)
+    delta = _delta(out, dout, num_heads)
+    lse = lse.contiguous()
+
+    lib = _flash_bwd_library()
+    fn = lib.k5_flash_bwd_bf16 if q.dtype == torch.bfloat16 else lib.k5_flash_bwd_f32
+    dq = torch.empty((b, sq, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+                 dout.stride(0), dout.stride(1), b, sq, sk, seq_len_k, num_heads,
+                 _SCALE_LOG2, 1.0 / math.sqrt(HEAD_DIM), stream)
+    if err != 0:
+        raise RuntimeError(f"K5 flash attention backward launch failed: "
+                           f"{lib.k5_error_string(err).decode()} ({err})")
+    launch_counts["flash_bwd"] += 1
+    return dq, dk, dv

@@ -26,11 +26,14 @@ def _bicubic_matrix(in_size: int, out_size: int, antialias: bool,
     ``F.interpolate`` applied to the ``in`` one-hot columns. The images are
     two pixels wide: torch's antialiased path gets a width of one wrong.
     Kept per device: a copy from pageable host memory synchronizes the
-    card's stream, which would stall every forward that re-grids."""
-    eye = torch.eye(in_size, dtype=torch.float32).reshape(in_size, 1, in_size, 1)
-    cols = F.interpolate(eye.expand(-1, -1, -1, 2), size=(out_size, 2), mode="bicubic",
-                         align_corners=False, antialias=antialias)
-    return cols[:, 0, :, 0].T.contiguous().to(device)
+    card's stream, which would stall every forward that re-grids. Made
+    outside inference mode, so a matrix first built there can still be
+    saved for a later training backward."""
+    with torch.inference_mode(False):
+        eye = torch.eye(in_size, dtype=torch.float32).reshape(in_size, 1, in_size, 1)
+        cols = F.interpolate(eye.expand(-1, -1, -1, 2), size=(out_size, 2), mode="bicubic",
+                             align_corners=False, antialias=antialias)
+        return cols[:, 0, :, 0].T.contiguous().to(device)
 
 
 def resize_bicubic(x, out_hw: Tuple[int, int], antialias: bool = False):

@@ -12,8 +12,8 @@ file, and writes per-tile prediction TIFFs to
 sliding-window inference over a whole slide into a pyramidal OME-TIFF
 (``--tile_size 1024 --overlap 128`` for whole-region windows). Runs on the
 card unless ``--device cpu`` is given; without a card it raises. Config
-parsing and slide/TIFF IO are the JAX package's jax-free host modules,
-imported here only.
+parsing (``config.py``) and slide/TIFF IO (``slideio``) are the port's own
+host modules, imported here only.
 """
 
 import argparse
@@ -21,7 +21,7 @@ from pathlib import Path
 
 
 def main(argv=None) -> str:
-    from mipheivit_tpu.config import load_yaml
+    from .config import load_yaml
 
     from .infer import inference_model
 

@@ -163,5 +163,5 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         port.attention_qkv(qkv, 4)
     with pytest.raises(ValueError, match="bf16 or f32"):
         port.attention_qkv(qkv.half(), 2)
-    with pytest.raises(ValueError, match="forward only"):
-        port.attention_qkv(qkv.requires_grad_(), 2)
+    with pytest.raises(ValueError, match="launched raw with grad enabled"):
+        port._attention_cuda(*qkv.requires_grad_().chunk(3, -1), 2)

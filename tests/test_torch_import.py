@@ -23,6 +23,9 @@ CHIP_PATH = [
     "mipheivit_tpu_torch.infer.tiles",
     "mipheivit_tpu_torch.infer.stitch",
     "mipheivit_tpu_torch.infer.wsi",
+    "mipheivit_tpu_torch.config",
+    "mipheivit_tpu_torch.data.stats",
+    "mipheivit_tpu_torch.slideio",
 ]
 
 
@@ -73,6 +76,35 @@ def test_wsi_on_arrays_runs_without_jax_or_slide_io():
                           cwd=PKG.parent, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def _imported_modules(path: Path):
+    """Every module an ``import`` or ``from ... import`` statement of the
+    file names, at any depth (lazy imports inside functions included)."""
+    import ast
+
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
+    """No module of the port, and not chip_smoke.py, imports jax or any
+    ``mipheivit_tpu`` module (the port keeps its own copies of the host
+    modules it needs). Relative imports stay inside the port."""
+    files = [p for p in sorted(PKG.rglob("*.py"))
+             if "build" not in p.relative_to(PKG).parts]
+    files.append(PKG.parent / "chip_smoke.py")
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        for name in _imported_modules(path):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "flax", "optax", "mipheivit_tpu"):
+                bad.append((str(path.relative_to(PKG.parent)), name))
+    assert not bad, bad
 
 
 def test_package_sources_never_name_jax_or_library_attention():

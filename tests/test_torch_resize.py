@@ -57,3 +57,14 @@ def test_upsample2x_bilinear_matches_jax():
     got = upsample2x_bilinear(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     want = np.asarray(upsample2x_bilinear_nhwc(jnp.asarray(x)))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
+
+
+def test_resize_matrices_cached_in_inference_mode_serve_training():
+    """Serving (inference mode) and then training re-grid through the same
+    cached matrices: the cache must hold normal tensors."""
+    x = torch.randn(1, 4, 9, 9)
+    with torch.inference_mode():
+        resize_bicubic(x, (5, 5))
+    y = x.clone().requires_grad_()
+    resize_bicubic(y, (5, 5)).sum().backward()
+    assert y.grad is not None and torch.isfinite(y.grad).all()

@@ -143,11 +143,12 @@ def test_wsi_inference_matches_jax(models, tmp_path):
     jmodel, variables = models["jax"]
     want = _read(jax_wsi_inference(jmodel, variables, path, str(tmp_path / "jax.ome.tiff"),
                                    NAMES, _normalizer(), **_kwargs(models)))
-    port_attention.launch_counts.update(attention=0, flash=0)
+    port_attention.launch_counts.update(attention=0, flash=0, flash_bwd=0)
     stats = {}
     got = _read(wsi_inference(models["port"], path, str(tmp_path / "port.ome.tiff"), NAMES,
                               _normalizer(), stats=stats, **_kwargs(models)))
-    assert port_attention.launch_counts == {"attention": 0, "flash": 0}   # plain on the CPU
+    assert port_attention.launch_counts == {"attention": 0, "flash": 0,  # plain on the CPU
+                                            "flash_bwd": 0}
     assert got.shape == want.shape == models["shape"] + (3,)
     diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
     assert diff.max() <= 1, diff.max()
