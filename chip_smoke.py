@@ -3,14 +3,20 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1 attention, K4 long-sequence flash
-attention, K5 its backward) from mipheivit_tpu_torch/csrc, holds each
-against its plain PyTorch version at the shapes the paths give it, then
-drives the port's paths at full width from a reference-layout MIPHEI-ViT
-checkpoint dir (H-Optimus-0 ViT-g/14 encoder, 16 markers, random weights
-from a numpy seed). Serving: load_generator(fast_heads=True) -> merge_lora
--> cast_params(bf16):
+attention, K5 its backward, K2 the fused SwiGLU fc1 with a second entry
+point for its backward's elementwise terms, K3 the fused marker heads) from
+mipheivit_tpu_torch/csrc, one nvcc each, all at once; holds each against
+its plain PyTorch version at the shapes the paths give it,
+then drives the port's paths at full width from a reference-layout
+MIPHEI-ViT checkpoint dir (H-Optimus-0 ViT-g/14 encoder, 16 markers, random
+weights from a numpy seed). Serving: load_generator(fast_heads=True) ->
+merge_lora -> cast_params(bf16); every encoder block runs K2 and every eval
+forward ends in K3:
 
   [slice]      predict_tiles on 150 uint8 256-px tiles at batch 64 (K1);
+  [serve]      the daemon: build_serving_fn (batch 32, the CLI's default)
+               behind a TileServer on 127.0.0.1, 16 client threads POSTing
+               256 single tiles (K1);
   [wsi 256]    wsi_inference over a synthetic 2048 x 2048 slide, 256-px
                windows, overlap 64, batch 64 (121 windows; K1);
   [wsi 1024]   the same with 1024-px region windows, overlap 128, batch 4
@@ -22,16 +28,18 @@ train.create_train_state(frozen encoder stored bf16) -> make_train_step
 accumulation 2; the generator step of the flagship preset, gan_train off):
 
   [train 256]  256-px tiles, microbatch 8, 3 optimizer steps (K1 forward,
-               plain recompute backward);
+               plain recompute backward; K2 forward, cuBLAS recompute
+               backward with K2's backward terms);
   [train 1024] 1024-px regions, microbatch 1, 2 optimizer steps (K4
-               forward, K5 backward);
+               forward, K5 backward; K2 as above);
   [train 1024 ckpt] the same with each encoder block recomputed in the
-               backward (K4 launches twice per block and microbatch).
+               backward (K4 and K2 launch twice per block and microbatch).
 
 It checks the outputs (the stitched slides against a serial reference
-stitch; finite losses, frozen weights bit-identical and trainable ones
-moved), that every encoder block went through the kernels of its length,
-and the full-width numerics against the CPU and between bf16 and f32. Each
+stitch; every served tile against the same tile in a full batch; finite
+losses, frozen weights bit-identical and trainable ones moved), the exact
+launch counts of every kernel on every path, and the full-width numerics
+against the CPU (plain versions there) and between bf16 and f32. Each
 phase prints one line with its seconds; any failure ends the run with a
 non-zero exit. The line before the card line holds the kernels' summary;
 the last line is the device JSON.
@@ -59,12 +67,10 @@ IMG = 256
 REGION = 1024                    # whole-region window side, px
 MARKERS = 16
 SEED = 0
-# K1's output against the plain version, max |err|
-KERNEL_TOL = {"bf16": 2e-2, "f32": 1e-4}
-# K4's output and K5's dQ, dK, dV against the plain version, scaled to the
-# reference: max |err| / max |ref| and ||err|| / ||ref|| (at a region the
-# gradients are ~0.02 in RMS, so an absolute limit would say little); bf16
-# rounds p (and dS) for the tensor cores and the output
+# every kernel's output (K5's dQ, dK, dV) against its plain version, scaled
+# to the reference: max |err| / max |ref| and ||err|| / ||ref|| (at a region
+# the gradients are ~0.02 in RMS, so an absolute limit would say little);
+# bf16 rounds p (and dS) for the tensor cores, K3's g1, and every output
 SCALED_TOL = {"bf16": (2e-2, 1e-2), "f32": (1e-4, 1e-5)}
 # K4's lse against the plain version: bf16 inputs, f32 inputs
 LSE_TOL = {"bf16": 1e-3, "f32": 1e-5}
@@ -73,6 +79,14 @@ MIN_PEARSON = 0.99
 SLIDE = 2048                     # synthetic slide side, px
 HEADS, HD = 24, 24 * 64          # ViT-g attention
 REGION_S = 73 * 73 + 5           # tokens of a 1024-px region window
+FC1_K, FC1_H = 1536, 4096        # ViT-g's packed SwiGLU fc1: [2H, K]
+HEAD_C = 32                      # the decoder's last fusion width (K3's input)
+# K3's operations per pixel: gate 32x256, psi-conv2 256, taps 32x144 (2 per
+# multiply-add) and the 144-term stencil
+HEAD_FLOPS_PER_PX = 2 * (HEAD_C * 16 * MARKERS + 16 * MARKERS + HEAD_C * 9 * MARKERS
+                         + 9 * MARKERS)
+# the daemon: the CLI's batch, client threads, single-tile requests
+SERVE_BATCH, SERVE_CLIENTS, SERVE_REQUESTS = 32, 16, 256
 # the H100's published dense peaks and memory rate (NVIDIA data sheet, SXM,
 # 700 W), for the least time a kernel's work could take
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -274,6 +288,319 @@ def k5_phase(name, q, k, v, seq_len_k=None, seed=0):
             "bound_by": by, "library_ms": library_ms}
 
 
+def reset_counts() -> None:
+    """Every kernel's launch count to 0 (K1, K4, K5, K2 and its backward
+    terms, K3)."""
+    from mipheivit_tpu_torch.ops import attention, mlp, seg_heads
+
+    for counts in (attention.launch_counts, mlp.launch_counts, seg_heads.launch_counts):
+        for key in counts:
+            counts[key] = 0
+
+
+def read_counts() -> dict:
+    """The launch counts: attention (K1), flash (K4), flash_bwd (K5),
+    swiglu (K2), swiglu_bwd (K2's backward terms), seg_heads (K3)."""
+    from mipheivit_tpu_torch.ops import attention, mlp, seg_heads
+
+    return {**attention.launch_counts, **mlp.launch_counts, **seg_heads.launch_counts}
+
+
+def counts_line(c: dict) -> str:
+    return (f"launches K1 {c['attention']} K2 {c['swiglu']} K2-backward {c['swiglu_bwd']} "
+            f"K3 {c['seg_heads']} K4 {c['flash']} K5 {c['flash_bwd']}")
+
+
+def check_counts(name: str, got: dict, **want) -> None:
+    """Exact launch counts of one path: the kernels named in ``want``, the
+    rest 0."""
+    keys = {"k1": "attention", "k2": "swiglu", "k2b": "swiglu_bwd", "k3": "seg_heads",
+            "k4": "flash", "k5": "flash_bwd"}
+    expect = {key: want.get(k, 0) for k, key in keys.items()}
+    check(all(got[key] == n for key, n in expect.items()),
+          f"{name} {counts_line(got)}, expected {counts_line(expect)}")
+
+
+def k2_phase(name, m, dtype, ln=False, seed=0):
+    """K2 against its plain version on one input at ViT-g's fc1 widths
+    (x [m, 1536], packed w [8192, 1536]; with ``ln`` the LayerNorm
+    variant); prints and checks the scaled errors and times the kernel, the
+    plain version, the library's packed fc1 GEMM plus gate (and its
+    LayerNorm first) and the GEMM alone. Returns the row's numbers."""
+    import torch.nn.functional as F
+
+    from mipheivit_tpu_torch.ops import mlp
+
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    dev = torch.device("cuda:0")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, FC1_K), dtype=np.float32)).to(dev, dtype)
+    w = torch.from_numpy(rng.standard_normal((2 * FC1_H, FC1_K), dtype=np.float32)
+                         / np.float32(FC1_K ** 0.5)).to(dev, dtype)
+    b = torch.from_numpy(rng.standard_normal(2 * FC1_H, dtype=np.float32)
+                         * np.float32(0.1)).to(dev, dtype)
+    lnp = None
+    if ln:
+        lnp = (torch.from_numpy(rng.uniform(0.5, 1.5, FC1_K).astype(np.float32)).to(dev),
+               torch.from_numpy(rng.standard_normal(FC1_K, dtype=np.float32)
+                                * np.float32(0.1)).to(dev))
+
+    def library():
+        xin = x if lnp is None else F.layer_norm(x, (FC1_K,), lnp[0].to(dtype), lnp[1].to(dtype),
+                                                 1e-6)
+        h = F.linear(xin, w, b)
+        return F.silu(h[:, :FC1_H]) * h[:, FC1_H:]
+
+    with torch.inference_mode():
+        got = mlp.swiglu_fc1(x, w, b, ln=lnp)
+        want = mlp.swiglu_reference(x, w, b, lnp)
+        torch.cuda.synchronize()
+        err, rel, fro = scaled_err(got, want)
+        del got, want
+        ms = cuda_ms(lambda: mlp.swiglu_fc1(x, w, b, ln=lnp), reps=10)
+        plain_ms = cuda_ms(lambda: mlp.swiglu_reference(x, w, b, lnp), reps=3, warmup=1)
+        library_ms = cuda_ms(library, reps=10)
+        gemm_ms = cuda_ms(lambda: F.linear(x, w, b), reps=10)
+    n_bytes = ((m * FC1_K + 2 * FC1_H * FC1_K + 2 * FC1_H + m * FC1_H) * x.element_size()
+               + (2 * FC1_K * 4 if ln else 0))
+    bnd, by = bound_ms(n_bytes, 2.0 * m * FC1_K * 2 * FC1_H, dt)
+    print(f"[k2 {name}] x [{m}, {FC1_K}] w [{2 * FC1_H}, {FC1_K}]{' ln' if ln else ''}: max_abs_err "
+          f"{err:.3e} = {rel:.2e} of max|ref|, norm-rel {fro:.2e} (tol {SCALED_TOL[dt][0]:g}, "
+          f"{SCALED_TOL[dt][1]:g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms library "
+          f"{'LN + ' if ln else ''}GEMM + gate {library_ms:.3f} ms, GEMM alone {gemm_ms:.3f} ms "
+          f"bound {bnd:.3f} ms ({by}) ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(rel <= SCALED_TOL[dt][0] and fro <= SCALED_TOL[dt][1],
+          f"K2 {name} disagrees with the plain version")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": library_ms, "gemm_ms": gemm_ms}
+
+
+def k2b_phase(name, m, dtype, seed=0):
+    """K2's backward entry point (the elementwise terms da | dg) against its
+    plain version on one recomputed ag [m, 8192] and output gradient
+    [m, 4096]; prints and checks the scaled errors and times both. There is
+    no single library call for these terms. Returns the row's numbers."""
+    from mipheivit_tpu_torch.ops import mlp
+
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    dev = torch.device("cuda:0")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    ag = torch.from_numpy(rng.standard_normal((m, 2 * FC1_H), dtype=np.float32)).to(dev, dtype)
+    dh = torch.from_numpy(rng.standard_normal((m, FC1_H), dtype=np.float32)
+                          * np.float32(1e-3)).to(dev, dtype)
+    with torch.no_grad():
+        got = mlp.swiglu_gate_grad(ag, dh)
+        want = mlp.swiglu_bwd_reference(ag, dh)
+        torch.cuda.synchronize()
+        err, rel, fro = scaled_err(got, want)
+        del got, want
+        ms = cuda_ms(lambda: mlp.swiglu_gate_grad(ag, dh), reps=10)
+        plain_ms = cuda_ms(lambda: mlp.swiglu_bwd_reference(ag, dh), reps=5, warmup=1)
+    n_bytes = 5 * m * FC1_H * ag.element_size()          # ag and dh read, dc written
+    bnd, by = bound_ms(n_bytes, 12.0 * m * FC1_H, "f32")
+    print(f"[k2 backward {name}] ag [{m}, {2 * FC1_H}] dh [{m}, {FC1_H}]: max_abs_err {err:.3e} = "
+          f"{rel:.2e} of max|ref|, norm-rel {fro:.2e} (tol {SCALED_TOL[dt][0]:g}, "
+          f"{SCALED_TOL[dt][1]:g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms library none bound "
+          f"{bnd:.3f} ms ({by}) ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(rel <= SCALED_TOL[dt][0] and fro <= SCALED_TOL[dt][1],
+          f"K2's backward {name} disagrees with the plain version")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None}
+
+
+def seeded_heads(seed, device):
+    """A BatchedSegHeads (32 channels, 16 markers) in eval mode with weights,
+    biases and BN statistics from a numpy seed."""
+    from mipheivit_tpu_torch.models.mipheivit import BatchedSegHeads
+
+    rng = np.random.default_rng(seed)
+    heads = BatchedSegHeads(HEAD_C, MARKERS)
+    with torch.no_grad():
+        for p in heads.parameters():
+            p.copy_(torch.from_numpy(rng.standard_normal(tuple(p.shape), dtype=np.float32)
+                                     * np.float32(0.1)))
+        heads.psi_bn.running_mean.copy_(torch.from_numpy(
+            rng.standard_normal(16 * MARKERS, dtype=np.float32) * np.float32(0.1)))
+        heads.psi_bn.running_var.copy_(torch.from_numpy(
+            rng.uniform(0.5, 1.5, 16 * MARKERS).astype(np.float32)))
+    return heads.to(device).eval()
+
+
+def k3_phase(name, b, h, w, dtype, seed=0):
+    """K3 against its plain version on one decoder feature map [b, 32, h, w]
+    (channels_last) with seeded heads; prints and checks the scaled errors
+    and times the kernel, the plain version and the module's plain eval
+    chain (cuDNN 1x1 convs, the running-statistics BatchNorm, nine addcmul_).
+    Returns the row's numbers."""
+    from mipheivit_tpu_torch.ops import seg_heads
+
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    dev = torch.device("cuda:0")
+    t0 = time.perf_counter()
+    heads = seeded_heads(seed, dev)
+    weights = seg_heads.fold_heads(heads, dtype)
+    x = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (b, h, w, HEAD_C), dtype=np.float32)).to(dev, dtype).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        got = seg_heads.fused_seg_heads(x, *weights)
+        want = seg_heads.seg_heads_reference(x, *weights)
+        torch.cuda.synchronize()
+        err, rel, fro = scaled_err(got, want)
+        del got, want
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: seg_heads.fused_seg_heads(x, *weights), reps=10)
+        plain_ms = cuda_ms(lambda: seg_heads.seg_heads_reference(x, *weights), reps=3, warmup=1)
+        library_ms = cuda_ms(lambda: heads.chain(x), reps=5, warmup=1)
+    n_px = b * h * w
+    bnd, by = bound_ms(n_px * (HEAD_C + MARKERS) * x.element_size(), 1.0 * n_px * HEAD_FLOPS_PER_PX,
+                       dt)
+    print(f"[k3 {name}] x [{b}, {HEAD_C}, {h}, {w}] -> [{b}, {MARKERS}, {h}, {w}]: max_abs_err "
+          f"{err:.3e} = {rel:.2e} of max|ref|, norm-rel {fro:.2e} (tol {SCALED_TOL[dt][0]:g}, "
+          f"{SCALED_TOL[dt][1]:g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms library (plain "
+          f"eval chain) {library_ms:.3f} ms bound {bnd:.3f} ms ({by}) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(rel <= SCALED_TOL[dt][0] and fro <= SCALED_TOL[dt][1],
+          f"K3 {name} disagrees with the plain version")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": library_ms}
+
+
+def post_npy(url: str, arr: np.ndarray):
+    import io
+    import urllib.request
+
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    req = urllib.request.Request(url, data=buf.getvalue(),
+                                 headers={"Content-Type": "application/x-npy"})
+    return urllib.request.urlopen(req, timeout=120)
+
+
+def serve_clients(url: str, tiles_path: str, out_path: str) -> None:
+    """The daemon's clients, in a process of their own (so that they hold
+    no lock of the server's interpreter): SERVE_CLIENTS threads POST the
+    tiles of ``tiles_path`` one by one, round robin, each waiting for its
+    answer before the next request; the responses, per-request latencies,
+    wall time and errors go to ``out_path`` (npz)."""
+    import io
+    import threading
+
+    tiles = np.load(tiles_path)
+    n = len(tiles)
+    results, lat_s, errors = [None] * n, np.zeros(n), []
+
+    def client(c):
+        for i in range(c, n, SERVE_CLIENTS):
+            t = time.perf_counter()
+            try:
+                with post_npy(url, tiles[i]) as r:
+                    results[i] = np.load(io.BytesIO(r.read()))
+            except (OSError, ValueError) as e:
+                errors.append(f"request {i}: {e!r}")
+                return
+            lat_s[i] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall_s = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or any(r is None for r in results):
+        errors.append("a request got no answer")
+    np.savez(out_path, results=np.stack(results) if not errors else np.zeros(0, np.uint8),
+             lat_s=lat_s, wall_s=wall_s, errors=np.array(errors, str))
+
+
+def serve_phase(model, device):
+    """The daemon on the card: build_serving_fn (its warm-up is one batch)
+    behind a TileServer on 127.0.0.1, and SERVE_CLIENTS client threads in a
+    separate process POSTing SERVE_REQUESTS single tiles, with the launch
+    counts at 0. Checks every response against the same tile through the
+    serving function in a full batch (<= 1 uint8 step), a 400 for an empty
+    batch, and the launch counts. Returns the counts and the number of
+    batches."""
+    import multiprocessing
+    import urllib.error
+    import urllib.request
+
+    from mipheivit_tpu_torch.infer import TileServer, build_serving_fn
+    from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE
+
+    tiles = np.random.default_rng(SEED + 6).integers(0, 256, (SERVE_REQUESTS, IMG, IMG, 3),
+                                                     dtype=np.uint8)
+    reset_counts()
+    t0 = time.perf_counter()
+    fwd_np = build_serving_fn(model, HOPTIMUS_HE, IMG, SERVE_BATCH, device)
+    warm_s = time.perf_counter() - t0
+    fwd_s = []
+
+    def timed_fwd(x):                   # the worker's time in the serving function
+        t = time.perf_counter()
+        y = fwd_np(x)
+        fwd_s.append(time.perf_counter() - t)
+        return y
+
+    srv = TileServer(timed_fwd, IMG, SERVE_BATCH,
+                     channel_names=[f"m{i}" for i in range(MARKERS)], host="127.0.0.1", port=0)
+    srv.start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            check(r.status == 200, "[serve] /healthz did not answer 200")
+        with tempfile.TemporaryDirectory() as tmp:
+            np.save(f"{tmp}/tiles.npy", tiles)
+            proc = multiprocessing.get_context("spawn").Process(
+                target=serve_clients, args=(base + "/v1/predict", f"{tmp}/tiles.npy",
+                                            f"{tmp}/out.npz"))
+            proc.start()
+            proc.join(timeout=900)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+            check(proc.exitcode == 0, f"[serve] the client process exited with {proc.exitcode}")
+            with np.load(f"{tmp}/out.npz") as z:
+                got, lat_s, wall_s, errors = (z["results"], z["lat_s"], float(z["wall_s"]),
+                                              list(z["errors"]))
+        counts = read_counts()
+        stats = srv.batcher.stats()
+        try:
+            post_npy(base + "/v1/predict", np.zeros((0, IMG, IMG, 3), np.uint8)).close()
+            empty_code = 200
+        except urllib.error.HTTPError as e:
+            empty_code = e.code
+    finally:
+        srv.stop()
+    check(not errors, f"[serve] failed requests: {errors[:3]}")
+    want = np.concatenate([fwd_np(tiles[i:i + SERVE_BATCH])
+                           for i in range(0, SERVE_REQUESTS, SERVE_BATCH)])
+    diff = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max())
+    n_batches = stats["n_batches"] + 1                  # the warm-up batch
+    lat = np.sort(lat_s) * 1e3
+    print(f"[serve] TileServer at batch {SERVE_BATCH} on 127.0.0.1: {SERVE_REQUESTS} single-tile "
+          f"requests from {SERVE_CLIENTS} client threads (another process) in {wall_s:.3f} s = "
+          f"{SERVE_REQUESTS / wall_s:.2f} requests/s; client latency p50 "
+          f"{lat[len(lat) // 2]:.1f} ms p95 {lat[min(len(lat) - 1, int(len(lat) * 0.95))]:.1f} ms; "
+          f"server latency p50 {stats['latency_ms_p50']:.1f} ms p95 {stats['latency_ms_p95']:.1f} ms; "
+          f"{stats['n_batches']} batches, occupancy {stats['occupancy']:.3f}, padded rows "
+          f"{stats['n_padded_rows']}; serving function {1e3 * np.mean(fwd_s):.1f} ms per batch "
+          f"(host clock, upload to fetch), worker busy {sum(fwd_s) / wall_s:.3f} of the wall; "
+          f"warm-up {warm_s:.1f} s; {counts_line(counts)} (warm-up counts as a batch); max diff "
+          f"to the same tiles in full batches {diff} uint8 step(s) (target <= 1); empty batch "
+          f"answered {empty_code} (target 400)", flush=True)
+    check(got.shape == (SERVE_REQUESTS, IMG, IMG, MARKERS) and got.dtype == np.uint8,
+          f"[serve] responses {got.shape} {got.dtype}")
+    check(diff <= 1, f"[serve] responses differ from full batches by {diff}")
+    check(empty_code == 400, f"[serve] an empty batch got {empty_code}")
+    depth = model.vit_cfg.depth
+    check_counts("[serve]", counts, k1=depth * n_batches, k2=depth * n_batches, k3=n_batches)
+    return counts, n_batches
+
+
 def train_batches(n, b, img, device, seed):
     """``n`` microbatches of normalized H&E-like images and mIF targets in
     (-0.9, 0.9), made from a numpy seed and put on the card up front."""
@@ -318,7 +645,6 @@ def train_phase(name, model, data, n_opt, device, grad_checkpointing=False):
     weights bit-identical and LoRA and decoder weights moved. Returns the
     launch counts."""
     from mipheivit_tpu_torch.metrics import PixelMetrics
-    from mipheivit_tpu_torch.ops import attention as attn
 
     t_all = time.perf_counter()
     state, step = train_setup(model, device, torch.bfloat16, grad_checkpointing)
@@ -327,8 +653,7 @@ def train_phase(name, model, data, n_opt, device, grad_checkpointing=False):
     metrics = PixelMetrics.zeros(device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for key in attn.launch_counts:
-        attn.launch_counts[key] = 0
+    reset_counts()
     losses, nans, step_s = [], [], []
     for s in range(n_opt):
         t0 = time.perf_counter()
@@ -338,7 +663,7 @@ def train_phase(name, model, data, n_opt, device, grad_checkpointing=False):
             nans.append(log["nan"])
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    counts = dict(attn.launch_counts)
+    counts = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(v) for v in losses]
     frozen_same = all(torch.equal(p, frozen0[n]) for n, p in model.named_parameters()
@@ -355,8 +680,7 @@ def train_phase(name, model, data, n_opt, device, grad_checkpointing=False):
           f"{n_opt} optimizer steps (accumulation {ACCUM}): optimizer step "
           f"{1e3 * steady:.1f} ms (steps {', '.join(f'{1e3 * s:.1f}' for s in step_s)} ms; "
           f"first includes warm-up) = {ACCUM * b / steady:.2f} images/s; peak memory "
-          f"{peak_gb:.2f} GiB; launches K1 {counts['attention']} K4 {counts['flash']} "
-          f"K5 {counts['flash_bwd']}; loss {', '.join(f'{v:.4f}' for v in losses)}; "
+          f"{peak_gb:.2f} GiB; {counts_line(counts)}; loss {', '.join(f'{v:.4f}' for v in losses)}; "
           f"psnr {float(out['psnr']):.3f} ssim {float(out['ssim']):.4f}; frozen bit-identical "
           f"{frozen_same}; moved LoRA {lora_moved}/{n_lora} decoder {dec_moved}/{n_dec} "
           f"({time.perf_counter() - t_all:.1f} s)", flush=True)
@@ -450,18 +774,16 @@ def wsi_phase(name, model, image, tile, overlap, batch, device):
     and the pipeline's stats."""
     from mipheivit_tpu_torch.infer import ArraySlide, wsi_inference
     from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE
-    from mipheivit_tpu_torch.ops import attention as attn
 
     names = [f"m{i}" for i in range(MARKERS)]
     out = np.zeros((MARKERS,) + image.shape[:2], np.uint8)
     stats = {}
     t0 = time.perf_counter()
-    for key in attn.launch_counts:
-        attn.launch_counts[key] = 0
+    reset_counts()
     wsi_inference(model, ArraySlide(image), out, names, HOPTIMUS_HE, tile_size=tile,
                   overlap=overlap, batch_size=batch, tissue_only=False, stats=stats)
     torch.cuda.synchronize()
-    counts = dict(attn.launch_counts)
+    counts = read_counts()
     e2e_s = time.perf_counter() - t0
     t1 = time.perf_counter()
     want = serial_stitch(model, image, tile, overlap, batch, device)
@@ -475,7 +797,7 @@ def wsi_phase(name, model, image, tile, overlap, batch, device):
           f"{steady} windows in {stats['steady_s']:.3f} s = {steady_rate:.2f} windows/s; "
           f"read_wait {stats['read_wait_s']:.3f} s device_wait {stats['device_wait_s']:.3f} s "
           f"stitch {stats['stitch_s']:.3f} s finalize {stats['finalize_s']:.3f} s; "
-          f"launches K1 {counts['attention']} K4 {counts['flash']}; serial-stitch max diff "
+          f"{counts_line(counts)}; serial-stitch max diff "
           f"{diff} uint8 step(s) (target <= 1) ({e2e_s:.1f} s + reference "
           f"{time.perf_counter() - t1:.1f} s)", flush=True)
     check(out.shape == (MARKERS,) + image.shape[:2], f"{name} output shape {out.shape}")
@@ -506,11 +828,12 @@ def main() -> None:
     from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE, predict_tiles
     from mipheivit_tpu_torch.ops import attention as attn
 
-    # 2. build K1, K4 and K5 from the sources in the checkout, one nvcc each, at once
+    # 2. build K1, K4, K5, K2 and K3 from the sources in the checkout, one
+    #    nvcc each, at once
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        libs = list(pool.map(_build.build, ("attention", "flash_attention",
-                                            "flash_attention_bwd")))
+    kernels = ("attention", "flash_attention", "flash_attention_bwd", "swiglu", "seg_heads")
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        libs = list(pool.map(_build.build, kernels))
     root = Path(__file__).resolve().parent
     print(f"[build] {', '.join(str(lib.relative_to(root)) for lib in libs)} "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -533,7 +856,7 @@ def main() -> None:
             got = attn.attention_bshd(q, k, v, 24)
             want = attn.attention_reference(q, k, v, 24)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
+            err, rel, fro = scaled_err(got, want)
             ms = cuda_ms(lambda: attn.attention_bshd(q, k, v, 24))
             plain_ms = cuda_ms(lambda: attn.attention_reference(q, k, v, 24))
             library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -543,10 +866,12 @@ def main() -> None:
                                4.0 * b_ * HEADS * s_ * s_ * 64, kind_dt)
             kernel_rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                  "bound_ms": bnd, "bound_by": by, "library_ms": library_ms}
-            print(f"[k1 {name}] shape {tuple(q.shape)} max_abs_err {err:.3e} "
-                  f"(tol {KERNEL_TOL[kind_dt]:g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+            print(f"[k1 {name}] shape {tuple(q.shape)} max_abs_err {err:.3e} = {rel:.2e} of "
+                  f"max|ref|, norm-rel {fro:.2e} (tol {SCALED_TOL[kind_dt][0]:g}, "
+                  f"{SCALED_TOL[kind_dt][1]:g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
                   f"library {library_ms:.3f} ms bound {bnd:.3f} ms ({by})", flush=True)
-            check(err <= KERNEL_TOL[kind_dt], f"K1 {name} disagrees with the plain version")
+            check(rel <= SCALED_TOL[kind_dt][0] and fro <= SCALED_TOL[kind_dt][1],
+                  f"K1 {name} disagrees with the plain version")
     del big, small, cases
 
     # 3b. K4 against the plain version: a 1024-px region (fused qkv layout),
@@ -589,6 +914,35 @@ def main() -> None:
     k5_phase("f32", *fused(1, 1029, torch.float32, SEED + 24), seed=SEED + 25)
     torch.cuda.empty_cache()
 
+    # 3d. K2 against the plain version at every path's fc1: a batch of 64
+    #     tiles (M = 64 x 329), the daemon's batch of 32, 4 regions (4 x
+    #     5334), a 256-px training microbatch (8 x 329) and a 1024-px one
+    #     (5334); ragged M, f32, and the LayerNorm variant (not on a path);
+    #     then K2's backward terms at the two training microbatches and f32
+    k2_flagship = k2_phase("bf16_tiles", BATCH * 329, torch.bfloat16, seed=SEED + 40)
+    k2_phase("bf16_serve", SERVE_BATCH * 329, torch.bfloat16, seed=SEED + 46)
+    k2_phase("bf16_regions", 4 * REGION_S, torch.bfloat16, seed=SEED + 41)
+    k2_phase("bf16_train256", MICRO * 329, torch.bfloat16, seed=SEED + 47)
+    k2_phase("bf16_train1024", REGION_MICRO * REGION_S, torch.bfloat16, seed=SEED + 48)
+    k2_phase("bf16_ragged", 658, torch.bfloat16, seed=SEED + 42)
+    k2_phase("f32", 658, torch.float32, seed=SEED + 43)
+    k2_phase("bf16_ln", BATCH * 329, torch.bfloat16, ln=True, seed=SEED + 44)
+    k2_phase("f32_ln", 658, torch.float32, ln=True, seed=SEED + 45)
+    k2b_flagship = k2b_phase("bf16_train1024", REGION_MICRO * REGION_S, torch.bfloat16,
+                             seed=SEED + 60)
+    k2b_phase("bf16_train256", MICRO * 329, torch.bfloat16, seed=SEED + 61)
+    k2b_phase("f32", 658, torch.float32, seed=SEED + 62)
+    torch.cuda.empty_cache()
+
+    # 3e. K3 against the plain version: the decoder's last map of a batch of
+    #     64 tiles, of the daemon's batch of 32, of 4 regions, f32, and a
+    #     smaller odd batch
+    k3_flagship = k3_phase("bf16_tiles", BATCH, IMG, IMG, torch.bfloat16, seed=SEED + 50)
+    k3_phase("bf16_serve", SERVE_BATCH, IMG, IMG, torch.bfloat16, seed=SEED + 54)
+    k3_phase("bf16_regions", 4, REGION, REGION, torch.bfloat16, seed=SEED + 51)
+    k3_phase("f32", 2, IMG, IMG, torch.float32, seed=SEED + 52)
+    k3_phase("bf16_small", 3, 128, 128, torch.bfloat16, seed=SEED + 53)
+
     # 4. the slice at full width
     tiles = np.random.default_rng(SEED + 1).integers(0, 256, (N_TILES, IMG, IMG, 3),
                                                     dtype=np.uint8)
@@ -603,21 +957,21 @@ def main() -> None:
         print(f"[load] load_generator + merge_lora + cast_params(bf16) "
               f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
-        attn.launch_counts["attention"] = 0
+        reset_counts()
         t0 = time.perf_counter()
         out = predict_tiles(model, tiles, HOPTIMUS_HE, BATCH, dev)
         torch.cuda.synchronize()
         e2e_s = time.perf_counter() - t0
-        launches = attn.launch_counts["attention"]
+        slice_counts = read_counts()
         depth = model.vit_cfg.depth
         n_batches = -(-N_TILES // BATCH)
         print(f"[slice] predict_tiles {out.shape} {out.dtype} in {e2e_s:.2f} s "
-              f"(first call, includes warm-up); K1 launches {launches} "
-              f"= {depth} blocks x {n_batches} batches", flush=True)
+              f"(first call, includes warm-up); {counts_line(slice_counts)} "
+              f"({depth} blocks x {n_batches} batches)", flush=True)
         check(out.shape == (N_TILES, IMG, IMG, MARKERS), f"output shape {out.shape}")
         check(out.dtype == np.uint8, f"output dtype {out.dtype}")
-        check(launches == depth * n_batches, f"K1 launched {launches} times, "
-              f"expected {depth * n_batches}")
+        check_counts("[slice]", slice_counts, k1=depth * n_batches, k2=depth * n_batches,
+                     k3=n_batches)
 
         mean = torch.as_tensor(HOPTIMUS_HE.mean, device=dev)
         std = torch.as_tensor(HOPTIMUS_HE.std, device=dev)
@@ -626,20 +980,20 @@ def main() -> None:
             pred_bf16 = model(x)
             check(bool(torch.isfinite(pred_bf16).all()), "non-finite output in a batch")
             fwd_ms = cuda_ms(lambda: model(x), reps=10, warmup=2)
-            attn.launch_counts["attention"] = 0
         print(f"[throughput] {BATCH * 1000 / fwd_ms:.1f} tiles/s steady bf16 forward "
               f"at batch {BATCH} ({fwd_ms:.2f} ms/batch, CUDA events, median of 10) "
               f"on {card}", flush=True)
         pred_bf16 = pred_bf16[:1].cpu().numpy()
+
+        # 4a. the serving daemon on the same generator
+        serve_counts, _ = serve_phase(model, dev)
 
         # 4b. stitched whole-slide inference at 256-px windows (K1)
         slide = np.random.default_rng(SEED + 2).integers(0, 256, (SLIDE, SLIDE, 3),
                                                          dtype=np.uint8)
         wsi256, _ = wsi_phase("wsi 256", model, slide, IMG, 64, BATCH, dev)
         n_wsi = -(-len(range(0, SLIDE - 64, IMG - 64)) ** 2 // BATCH)   # 11 x 11 windows
-        check(wsi256["attention"] == depth * n_wsi and wsi256["flash"] == 0,
-              f"wsi 256 launched K1 {wsi256['attention']} and K4 {wsi256['flash']} times, "
-              f"expected {depth * n_wsi} and 0")
+        check_counts("[wsi 256]", wsi256, k1=depth * n_wsi, k2=depth * n_wsi, k3=n_wsi)
         del model
         torch.cuda.empty_cache()
 
@@ -667,9 +1021,7 @@ def main() -> None:
               f"in {time.perf_counter() - t0:.1f} s", flush=True)
         wsi1024, _ = wsi_phase("wsi 1024", model, slide, REGION, 128, 4, dev)
         n_wsi = -(-len(range(0, SLIDE - 128, REGION - 128)) ** 2 // 4)   # 3 x 3 windows
-        check(wsi1024["flash"] == depth * n_wsi and wsi1024["attention"] == 0,
-              f"wsi 1024 launched K4 {wsi1024['flash']} and K1 {wsi1024['attention']} "
-              f"times, expected {depth * n_wsi} and 0")
+        check_counts("[wsi 1024]", wsi1024, k4=depth * n_wsi, k2=depth * n_wsi, k3=n_wsi)
 
         # 7. region numerics: bf16 against f32 on the card at full depth, and
         #    f32 on the card (K4) against f32 on the CPU (plain) with the
@@ -710,10 +1062,8 @@ def main() -> None:
         data = train_batches(3 * ACCUM, MICRO, IMG, dev, SEED + 3)
         train256 = train_phase("train 256", model, data, 3, dev)
         n_micro = 3 * ACCUM
-        check(train256["attention"] == depth * n_micro and train256["flash"] == 0
-              and train256["flash_bwd"] == 0,
-              f"train 256 launched K1 {train256['attention']}, K4 {train256['flash']}, "
-              f"K5 {train256['flash_bwd']} times, expected {depth * n_micro}, 0, 0")
+        check_counts("[train 256]", train256, k1=depth * n_micro, k2=depth * n_micro,
+                     k2b=depth * n_micro)
         del model
         torch.cuda.empty_cache()
 
@@ -725,20 +1075,15 @@ def main() -> None:
         region_data = train_batches(2 * ACCUM, REGION_MICRO, REGION, dev, SEED + 4)
         train1024 = train_phase("train 1024", model, region_data, 2, dev)
         n_micro = 2 * ACCUM
-        check(train1024["flash"] == depth * n_micro and train1024["flash_bwd"] == depth * n_micro
-              and train1024["attention"] == 0,
-              f"train 1024 launched K4 {train1024['flash']}, K5 {train1024['flash_bwd']}, "
-              f"K1 {train1024['attention']} times, expected {depth * n_micro} twice and 0")
+        check_counts("[train 1024]", train1024, k4=depth * n_micro, k5=depth * n_micro,
+                     k2=depth * n_micro, k2b=depth * n_micro)
 
         # 9b. the same with per-block activation checkpointing: each block's
         #     forward (K4) runs again in the backward, before its K5
         train1024c = train_phase("train 1024 ckpt", model, region_data, 2, dev,
                                  grad_checkpointing=True)
-        check(train1024c["flash"] == 2 * depth * n_micro
-              and train1024c["flash_bwd"] == depth * n_micro and train1024c["attention"] == 0,
-              f"train 1024 ckpt launched K4 {train1024c['flash']}, K5 {train1024c['flash_bwd']}, "
-              f"K1 {train1024c['attention']} times, expected {2 * depth * n_micro}, "
-              f"{depth * n_micro} and 0")
+        check_counts("[train 1024 ckpt]", train1024c, k4=2 * depth * n_micro,
+                     k5=depth * n_micro, k2=2 * depth * n_micro, k2b=depth * n_micro)
         del model
         torch.cuda.empty_cache()
 
@@ -785,28 +1130,38 @@ def main() -> None:
     # 11. summary lines
     k1 = kernel_rows["bf16_fused"]
     k4_err, _, k4_ms, k4_plain_ms = k4_region
+    paths = {"slice": slice_counts, "serve": serve_counts, "wsi 256": wsi256,
+             "wsi 1024": wsi1024, "train 256": train256, "train 1024": train1024,
+             "train 1024 ckpt": train1024c}
+
+    def launches(key):
+        by_path = {path: c[key] for path, c in paths.items() if c[key]}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": "k1_attention", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/attention.cu",
-         "replaces": "mipheivit_tpu/ops/attention.py:563",
-         "launches": launches + wsi256["attention"] + train256["attention"], **k1,
-         "launches_by_path": {"slice": launches, "wsi 256": wsi256["attention"],
-                              "train 256": train256["attention"]}},
+         "replaces": "mipheivit_tpu/ops/attention.py:563", **k1, **launches("attention")},
         {"name": "k4_flash_attention", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/flash_attention.cu",
          "replaces": "mipheivit_tpu/ops/attention.py:59",
-         "launches": wsi1024["flash"] + train1024["flash"] + train1024c["flash"],
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
-         "bound_by": k4_by, "library_ms": k4_library_ms,
-         "launches_by_path": {"wsi 1024": wsi1024["flash"], "train 1024": train1024["flash"],
-                              "train 1024 ckpt": train1024c["flash"]}},
+         "bound_by": k4_by, "library_ms": k4_library_ms, **launches("flash")},
         {"name": "k5_flash_attention_bwd", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/flash_attention_bwd.cu",
-         "replaces": "mipheivit_tpu/ops/attention.py:317",
-         "launches": train1024["flash_bwd"] + train1024c["flash_bwd"], **k5_region,
-         "launches_by_path": {"train 1024": train1024["flash_bwd"],
-                              "train 1024 ckpt": train1024c["flash_bwd"]}}]}))
+         "replaces": "mipheivit_tpu/ops/attention.py:317", **k5_region,
+         **launches("flash_bwd")},
+        {"name": "k2_swiglu", "route": "cuda",
+         "source": "mipheivit_tpu_torch/csrc/swiglu.cu",
+         "replaces": "mipheivit_tpu/ops/mlp.py:51", **k2_flagship, **launches("swiglu")},
+        {"name": "k2_swiglu_bwd_gate", "route": "cuda",
+         "source": "mipheivit_tpu_torch/csrc/swiglu.cu",
+         "replaces": "mipheivit_tpu/ops/mlp.py:159", **k2b_flagship, **launches("swiglu_bwd")},
+        {"name": "k3_seg_heads", "route": "cuda",
+         "source": "mipheivit_tpu_torch/csrc/seg_heads.cu",
+         "replaces": "mipheivit_tpu/ops/seg_heads.py:38", **k3_flagship,
+         **launches("seg_heads")}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

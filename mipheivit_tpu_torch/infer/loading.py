@@ -18,6 +18,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..io.safetensors import load_file
 from ..models import get_generator
 from ..models.convert import generator_state_dict, validate_load
@@ -133,11 +134,14 @@ def cast_params(model: torch.nn.Module, dtype) -> torch.nn.Module:
 
 
 def load_generator(model_name: str, encoder_name: str, checkpoint_dir,
-                   img_size, nc_out: int, dtype=torch.float32, device="cpu",
+                   img_size, nc_out: int, dtype=torch.float32, device=None,
                    encoder_ckpt_path: Optional[str] = None,
                    fast_heads: bool = True) -> MipheiViT:
     """Build the generator on ``device``, load a reference-layout checkpoint
-    dir, and return it in eval mode with parameters in ``dtype``."""
+    dir, and return it in eval mode with parameters in ``dtype``. ``device``
+    defaults to the card and raises without one (``device="cpu"`` for the
+    CPU)."""
+    device = resolve_device(device)
     ckpt_dir = Path(checkpoint_dir)
     st_path = ckpt_dir / "model.safetensors"
     ckpt_path = ckpt_dir / "model.weights.ckpt"

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from .loading import cast_params, load_generator, merge_lora
 
 log = logging.getLogger(__name__)
@@ -79,21 +80,10 @@ def save_prediction_tiff(pred_hwc: np.ndarray, out_path: str) -> None:
                   tile_size=min(512, max(64, pred_hwc.shape[0])))
 
 
-def resolve_device(device=None) -> torch.device:
-    """``device`` when given, else the card. Nothing falls back to the CPU:
-    without a card the CPU runs only when asked for (``device="cpu"``)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                               "(--device cpu) to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
-
-
-def load_serving_model(cfg, checkpoint_dir: str, img_size, nc_out: int, device):
+def load_serving_model(cfg, checkpoint_dir: str, img_size, nc_out: int, device, dtype=None):
     """The generator of a run config's checkpoint dir at ``img_size``, ready
-    to serve on ``device`` (LoRA merged; bf16 on a card, f32 on the CPU),
-    and its H&E normalizer."""
+    to serve on ``device`` (LoRA merged; in ``dtype``, by default bf16 on a
+    card and f32 on the CPU), and its H&E normalizer."""
     from ..data.stats import Normalizer, get_input_mean_std, load_channel_stats
 
     device = torch.device(device)
@@ -107,7 +97,8 @@ def load_serving_model(cfg, checkpoint_dir: str, img_size, nc_out: int, device):
         dtype=torch.float32, device=device,
         encoder_ckpt_path=cfg.select("model.encoder.encoder_weights"),
         fast_heads=model_name.startswith("myvitmatte"))
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    if dtype is None:
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     return cast_params(merge_lora(model), dtype), norm
 
 

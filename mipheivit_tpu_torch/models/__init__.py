@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from .._device import resolve_device
 from .foundation import FOUNDATION_MODEL_NAMES, get_encoder_spec
 from .mipheivit import MipheiViT, check_input_size
 from .vit import ViTConfig, VisionTransformer
@@ -11,11 +12,13 @@ from .vit import ViTConfig, VisionTransformer
 
 def get_generator(model_name: str, img_size, nc_out: int,
                   encoder_name: str = "hoptimus0", dtype=torch.float32,
-                  device="cpu") -> MipheiViT:
-    """Build a generator with freshly initialised weights on ``device``.
+                  device=None) -> MipheiViT:
+    """Build a generator with freshly initialised weights on ``device``: the
+    card by default (raises without one), the CPU with ``device="cpu"``.
 
     Only the flagship ``myvitmatte`` family is ported. It always carries
     LoRA rank 8, alpha 1.0 (reference: mipheivit.py:224-233)."""
+    device = resolve_device(device)
     if isinstance(img_size, int):
         img_size = (img_size, img_size)
     if not model_name.startswith("myvitmatte"):

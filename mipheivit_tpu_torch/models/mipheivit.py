@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import resize_bicubic, upsample2x_bilinear
+from ..ops.seg_heads import fold_heads, fused_seg_heads
 from .vit import ViTConfig, VisionTransformer
 
 
@@ -129,14 +130,20 @@ class SegmentationHead(nn.Sequential):
 
 
 class BatchedSegHeads(nn.Module):
-    """All K attention-gated heads in one pass (the XLA path of the JAX
-    ``BatchedSegHeads``; the fused kernel K3 is not ported yet).
+    """All K attention-gated heads in one pass (the JAX ``BatchedSegHeads``).
 
     The K psi gates are one 1x1 conv to K*C/2 channels, BN, ReLU and one
     grouped 1x1 conv to K gates. The K final 3x3 convs use
     ``y_k(p) = sum_D m(p+D)[D, k] * g_k(p+D)`` with ``m`` one 1x1 conv to the
     tap-major 9*K channels. Built from K ``SegmentationHead``s by
-    ``infer.loading.to_fast_heads``; numerically the same function."""
+    ``infer.loading.to_fast_heads``; numerically the same function.
+
+    Eval mode folds the running-statistics BatchNorm into psi-conv1 and runs
+    ``ops.seg_heads.fused_seg_heads``: K3 on the card, its plain version on
+    the CPU. The folded weights are kept while the module's tensors stay as
+    they are (same storage, same version), so serving folds once. Training
+    mode runs the batch-statistics chain, ``chain`` (the JAX package's kernel
+    is gated off in training too)."""
 
     def __init__(self, chans: int, heads: int):
         super().__init__()
@@ -149,8 +156,34 @@ class BatchedSegHeads(nn.Module):
         # makes its output the zero-bordered [H+2, W+2] map the taps slide over
         self.conv_taps = Conv2d(chans, 9 * heads, 1, padding=1, bias=False)
         self.conv_bias = nn.Parameter(torch.zeros(heads))
+        self._folded = None     # (key, the tensors it was made from, fold_heads' tuple)
 
     def forward(self, x):
+        if not self.training:
+            return fused_seg_heads(x, *self._fold(x.dtype))
+        return self.chain(x)
+
+    def _fold(self, dtype):
+        """``fold_heads(self, dtype)``, kept while every parameter and buffer
+        keeps its storage and version. Folded afresh, and not kept, where a
+        gradient may flow to the weights or they are inference tensors."""
+        ts = list(self.parameters()) + list(self.buffers())
+        if (any(t.is_inference() for t in ts)
+                or (torch.is_grad_enabled() and any(t.requires_grad for t in ts))):
+            return fold_heads(self, dtype)
+        key = (dtype, torch.is_inference_mode_enabled(),
+               tuple((t.data_ptr(), t._version) for t in ts))
+        if self._folded is None or self._folded[0] != key:
+            # the source tensors are held, so that no other tensor can take
+            # their addresses while the key names them
+            with torch.no_grad():
+                self._folded = (key, [t.detach() for t in ts], fold_heads(self, dtype))
+        return self._folded[2]
+
+    def chain(self, x):
+        """The plain chain: 1x1 convs, the BatchNorm (batch statistics in
+        training, running ones in eval), nine ``addcmul_``. Training runs
+        it; ``chip_smoke.py`` times it in eval as K3's library yardstick."""
         b, _, h, w = x.shape
         k = self.heads
         g = F.relu(self.psi_bn(self.psi_conv1(x)))

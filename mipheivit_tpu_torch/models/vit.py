@@ -10,7 +10,9 @@ released checkpoint loads with ``load_state_dict``.
 
 Attention runs through ``ops.attention``: K1 (S <= 512) or K4 on the card,
 the plain versions on the CPU, each with its backward (the plain recompute
-for K1, K5 for K4).
+for K1, K5 for K4). The SwiGLU MLP's fc1 and gate run through
+``ops.mlp.swiglu_fc1``: K2 on the card, its plain version on the CPU, with
+a recompute backward.
 
 Training. LoRA stays live (``attn.qkv.lora_q`` / ``lora_v`` trainable, cast
 to the activation dtype at use, as is every LayerScale), and
@@ -31,6 +33,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import attention_bshd, attention_qkv
+from ..ops.mlp import swiglu_fc1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,7 +129,8 @@ class Attention(nn.Module):
 
 class Mlp(nn.Module):
     """Packed SwiGLU (timm SwiGLUPacked: ``silu(first half) * second half``)
-    or GELU MLP."""
+    or GELU MLP. The SwiGLU fc1 and gate run as one ``ops.mlp.swiglu_fc1``
+    (K2 on the card) on fc1's packed weight, whose layout is unchanged."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -138,12 +142,10 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(h, cfg.embed_dim)
 
     def forward(self, x):
-        h = self.fc1(x)
         if self.swiglu:
-            x1, x2 = h.chunk(2, dim=-1)
-            h = F.silu(x1) * x2
+            h = swiglu_fc1(x, self.fc1.weight, self.fc1.bias)
         else:
-            h = F.gelu(h)
+            h = F.gelu(self.fc1(x))
         return self.fc2(h)
 
 

@@ -32,7 +32,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..infer.tiles import resolve_device
+from .._device import resolve_device
 from ..metrics.pixel import PixelMetrics
 from .losses import adversarial_loss
 from .optim import AdamChain, OptState, set_trainable

@@ -14,9 +14,9 @@ the sizes in ``--checkpointed``, after two warm-up optimizer steps:
     optimizer chain, the pixel-metric update; and one whole optimizer step
     of two microbatches through ``make_train_step``;
   * takes a ``torch.profiler`` trace of one optimizer step and prints the
-    device time of its kernels by group (K1, K4, K5, GEMM, convolution,
-    elementwise and reductions, ...) and the top kernels, with the device
-    busy share over the step's wall time.
+    device time of its kernels by group (K1, K2 and its backward terms, K4,
+    K5, GEMM, convolution, elementwise and reductions, ...) and the top
+    kernels, with the device busy share over the step's wall time.
 
 Prints the card's name and power limit first. Needs one CUDA card and nvcc.
 """
@@ -41,6 +41,9 @@ GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("K5 (dkdv + dq)", ("dkdv_bf16", "dq_bf16", "dkdv_f32", "dq_f32")),
     ("K4", ("flash_bf16_kernel", "flash_f32_kernel")),
     ("K1", ("attn_bf16_kernel", "attn_f32_kernel")),
+    ("K2", ("swiglu_bf16_kernel", "swiglu_f32_kernel")),
+    ("K2 backward terms", ("gate_bwd_kernel",)),
+    ("K3", ("heads_bf16_kernel", "heads_f32_kernel")),
     ("GEMM", ("gemm", "Gemm", "xmma", "nvjet", "cutlass", "sm90_", "ampere_")),
     ("convolution (cuDNN)", ("conv", "Conv", "cudnn", "implicit", "winograd", "fft", "dgrad",
                              "wgrad", "fprop", "nhwc", "nchw")),
@@ -155,8 +158,9 @@ def main():
 
     from mipheivit_tpu_torch import _build
 
-    with ThreadPoolExecutor(3) as pool:
-        list(pool.map(_build.build, ("attention", "flash_attention", "flash_attention_bwd")))
+    kernels = ("attention", "flash_attention", "flash_attention_bwd", "swiglu", "seg_heads")
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        list(pool.map(_build.build, kernels))
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, enc, _ = cs.write_checkpoint(Path(tmp), cs.SEED)
         runs = [(img, False) for img in args.sizes] + [(img, True) for img in args.checkpointed]

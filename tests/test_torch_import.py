@@ -11,6 +11,8 @@ CHIP_PATH = [
     "mipheivit_tpu_torch",
     "mipheivit_tpu_torch._build",
     "mipheivit_tpu_torch.ops.attention",
+    "mipheivit_tpu_torch.ops.mlp",
+    "mipheivit_tpu_torch.ops.seg_heads",
     "mipheivit_tpu_torch.ops.resize",
     "mipheivit_tpu_torch.models",
     "mipheivit_tpu_torch.models.vit",
@@ -23,6 +25,7 @@ CHIP_PATH = [
     "mipheivit_tpu_torch.infer.tiles",
     "mipheivit_tpu_torch.infer.stitch",
     "mipheivit_tpu_torch.infer.wsi",
+    "mipheivit_tpu_torch.infer.serve",
     "mipheivit_tpu_torch.config",
     "mipheivit_tpu_torch.data.stats",
     "mipheivit_tpu_torch.slideio",
@@ -36,6 +39,7 @@ def test_chip_path_imports_without_jax():
         f"for name in {CHIP_PATH!r}:\n"
         "    importlib.import_module(name)\n"
         "import mipheivit_tpu_torch.run_inference\n"
+        "import mipheivit_tpu_torch.run_serve\n"
         "from mipheivit_tpu_torch.ops.attention import flash_attention, flash_reference\n"
         "from mipheivit_tpu_torch.infer import ArraySlide, wsi_inference\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"

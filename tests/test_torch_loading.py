@@ -90,7 +90,8 @@ def test_load_generator_matches_jax(jax_generator, tmp_path, monkeypatch, stripp
 
     monkeypatch.setattr(port_loading, "get_generator", _tiny_port)
     model = port_loading.load_generator("myvitmatte", "hoptimus0", tmp_path, (32, 32),
-                                        NC, encoder_ckpt_path=enc_path, fast_heads=True)
+                                        NC, device="cpu", encoder_ckpt_path=enc_path,
+                                        fast_heads=True)
     assert model.decoder.fast_heads
     with torch.inference_mode():
         got = model(torch.from_numpy(x)).numpy()
@@ -112,7 +113,8 @@ def test_load_generator_fills_missing_adapters_as_jax(jax_generator, tmp_path, m
                tmp_path / "model.weights.ckpt")
     jparams, _ = mipheivit_from_torch(sd, cfg, out_chans=NC)
     monkeypatch.setattr(port_loading, "get_generator", _tiny_port)
-    model = port_loading.load_generator("myvitmatte", "hoptimus0", tmp_path, (32, 32), NC)
+    model = port_loading.load_generator("myvitmatte", "hoptimus0", tmp_path, (32, 32), NC,
+                                        device="cpu")
     for i in range(cfg.depth):
         wrap = model.encoder.vit.blocks[i].attn.qkv
         for lq in ("lora_q", "lora_v"):

@@ -560,6 +560,7 @@ def test_export_round_trip_into_jax_forward(tmp_path, monkeypatch):
     monkeypatch.setattr(port_loading, "get_generator",
                         lambda *a, **kw: MipheiViT(pcfg, out_chans=OUT).eval())
     loaded = port_loading.load_generator("myvitmatte", "hoptimus0", tmp_path, (128, 128), OUT,
-                                         encoder_ckpt_path=enc_path, fast_heads=False)
+                                         device="cpu", encoder_ckpt_path=enc_path,
+                                         fast_heads=False)
     with torch.no_grad():
         np.testing.assert_allclose(loaded(_t(x)).numpy(), want, atol=1e-6, rtol=1e-5)

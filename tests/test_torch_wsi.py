@@ -289,10 +289,14 @@ def test_run_inference_cli_refuses_unported_flags(tmp_path, flag):
         run_inference.main(["--checkpoint_dir", str(tmp_path), "--wsi", "s.tiff", flag])
 
 
-@pytest.mark.parametrize("entry", ["inference_model", "cli_tiles", "cli_wsi"])
+@pytest.mark.parametrize("entry", ["inference_model", "cli_tiles", "cli_wsi",
+                                   "load_generator", "get_generator"])
 def test_no_silent_cpu_without_a_card(tmp_path, monkeypatch, entry):
+    """Every entry point runs on the card by default and raises without one:
+    the drivers, and the two loaders they build through."""
     from mipheivit_tpu_torch import run_inference
     from mipheivit_tpu_torch.infer import inference_model
+    from mipheivit_tpu_torch.models import get_generator
 
     ckpt, cfg = _checkpoint(tmp_path, 32)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -302,5 +306,9 @@ def test_no_silent_cpu_without_a_card(tmp_path, monkeypatch, entry):
             inference_model(cfg, str(ckpt), str(tmp_path / "out"))
         elif entry == "cli_tiles":
             run_inference.main(["--checkpoint_dir", str(ckpt)])
-        else:
+        elif entry == "cli_wsi":
             run_inference.main(["--checkpoint_dir", str(ckpt), "--wsi", "slide.tiff"])
+        elif entry == "load_generator":
+            port_loading.load_generator("myvitmatte", "hoptimus0", ckpt, (32, 32), len(NAMES))
+        else:
+            get_generator("myvitmatte", 32, len(NAMES))
