@@ -2,11 +2,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1 attention, K4 long-sequence flash
-attention, K5 its backward, K2 the fused SwiGLU fc1 with a second entry
-point for its backward's elementwise terms, K3 the fused marker heads) from
-mipheivit_tpu_torch/csrc, one nvcc each, all at once; holds each against
-its plain PyTorch version at the shapes the paths give it,
+Builds the port's CUDA kernels (K1 attention and K6 short-sequence
+attention over [B, H, S, D], K4 long-sequence flash attention, K5 its
+backward, K2 the fused SwiGLU fc1 with a second entry point for its
+backward's elementwise terms and a third, K7, the fused LayerNorm + matmul,
+K3 the fused marker heads, K8 the fused attention sublayer) from
+mipheivit_tpu_torch/csrc, one nvcc per source, all at once; holds each
+against its plain PyTorch version at the shapes the paths give it,
 then drives the port's paths at full width from a reference-layout
 MIPHEI-ViT checkpoint dir (H-Optimus-0 ViT-g/14 encoder, 16 markers, random
 weights from a numpy seed). Serving: load_generator(fast_heads=True) ->
@@ -20,7 +22,12 @@ forward ends in K3:
   [wsi 256]    wsi_inference over a synthetic 2048 x 2048 slide, 256-px
                windows, overlap 64, batch 64 (121 windows; K1);
   [wsi 1024]   the same with 1024-px region windows, overlap 128, batch 4
-               (9 windows, S = 5334 tokens; K4).
+               (9 windows, S = 5334 tokens; K4);
+  [attn sublayer] block 0 of the same generator on the tokens of 64 tiles:
+               the attention sublayer before proj three ways, the model's
+               norm1 -> qkv -> attention_qkv (K1), ln_matmul ->
+               attention_qkv (K7 + K1) and ln_qkv_attention (K8), each held
+               against the f32 plain chain.
 
 Training: load_generator(fast_heads=False) with LoRA live ->
 train.create_train_state(frozen encoder stored bf16) -> make_train_step
@@ -33,7 +40,11 @@ accumulation 2; the generator step of the flagship preset, gan_train off):
   [train 1024] 1024-px regions, microbatch 1, 2 optimizer steps (K4
                forward, K5 backward; K2 as above);
   [train 1024 ckpt] the same with each encoder block recomputed in the
-               backward (K4 and K2 launch twice per block and microbatch).
+               backward (K4 and K2 launch twice per block and microbatch);
+  [train ops]  one bf16 forward and backward through each of
+               dot_product_attention (K6), ln_matmul (K7) and
+               ln_qkv_attention (K8) at the profiling shapes, and at a small
+               slice held in cosine against the f32 backward on the CPU.
 
 It checks the outputs (the stitched slides against a serial reference
 stitch; every served tile against the same tile in a full batch; finite
@@ -104,6 +115,10 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL = 1e-4, 1e-2
 # of the LoRA q/v gradients taken together (they flow back through every
 # block's attention: K1 at 256 px, K4 and K5 at 1024 px)
 BF16_LOSS_RTOL, BF16_LORA_COS = 1e-3, 0.99
+# [train ops]: each gradient of the bf16 backward on the card against the
+# f32 backward on the CPU, cosine (bf16 rounds the inputs, q/k/v, p and the
+# output once each)
+OPS_GRAD_COS = 0.999
 # the bf16 region step through K5 against the same step through K5's plain
 # version: the least cosine of any one LoRA q/v tensor's gradients
 K5_STEP_LORA_MIN_COS = 0.999
@@ -288,34 +303,40 @@ def k5_phase(name, q, k, v, seq_len_k=None, seed=0):
             "bound_by": by, "library_ms": library_ms}
 
 
-def reset_counts() -> None:
-    """Every kernel's launch count to 0 (K1, K4, K5, K2 and its backward
-    terms, K3)."""
-    from mipheivit_tpu_torch.ops import attention, mlp, seg_heads
+def _count_dicts():
+    from mipheivit_tpu_torch.ops import attention, attn_block, mlp, seg_heads
 
-    for counts in (attention.launch_counts, mlp.launch_counts, seg_heads.launch_counts):
+    return (attention.launch_counts, mlp.launch_counts, seg_heads.launch_counts,
+            attn_block.launch_counts)
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0 (K1, K4, K5, K6, K2 and its backward
+    terms, K7, K3, K8)."""
+    for counts in _count_dicts():
         for key in counts:
             counts[key] = 0
 
 
 def read_counts() -> dict:
-    """The launch counts: attention (K1), flash (K4), flash_bwd (K5),
-    swiglu (K2), swiglu_bwd (K2's backward terms), seg_heads (K3)."""
-    from mipheivit_tpu_torch.ops import attention, mlp, seg_heads
-
-    return {**attention.launch_counts, **mlp.launch_counts, **seg_heads.launch_counts}
+    """The launch counts: attention (K1), flash (K4), flash_bwd (K5), short
+    (K6), swiglu (K2), swiglu_bwd (K2's backward terms), ln_matmul (K7),
+    seg_heads (K3), attn_block (K8)."""
+    return {k: v for counts in _count_dicts() for k, v in counts.items()}
 
 
 def counts_line(c: dict) -> str:
     return (f"launches K1 {c['attention']} K2 {c['swiglu']} K2-backward {c['swiglu_bwd']} "
-            f"K3 {c['seg_heads']} K4 {c['flash']} K5 {c['flash_bwd']}")
+            f"K3 {c['seg_heads']} K4 {c['flash']} K5 {c['flash_bwd']} K6 {c['short']} "
+            f"K7 {c['ln_matmul']} K8 {c['attn_block']}")
 
 
 def check_counts(name: str, got: dict, **want) -> None:
     """Exact launch counts of one path: the kernels named in ``want``, the
     rest 0."""
     keys = {"k1": "attention", "k2": "swiglu", "k2b": "swiglu_bwd", "k3": "seg_heads",
-            "k4": "flash", "k5": "flash_bwd"}
+            "k4": "flash", "k5": "flash_bwd", "k6": "short", "k7": "ln_matmul",
+            "k8": "attn_block"}
     expect = {key: want.get(k, 0) for k, key in keys.items()}
     check(all(got[key] == n for key, n in expect.items()),
           f"{name} {counts_line(got)}, expected {counts_line(expect)}")
@@ -466,6 +487,265 @@ def k3_phase(name, b, h, w, dtype, seed=0):
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
             "library_ms": library_ms}
+
+
+def seeded(shape, seed, dtype, scale=1.0, device="cuda:0"):
+    """A standard normal tensor from a numpy seed, times ``scale``."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                            * np.float32(scale)).to(device, dtype)
+
+
+def ln_params(d, seed, device="cuda:0"):
+    """A LayerNorm's f32 scale (0.5 .. 1.5) and bias from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.uniform(0.5, 1.5, d).astype(np.float32)).to(device),
+            torch.from_numpy(rng.standard_normal(d, dtype=np.float32) * np.float32(0.1)).to(device))
+
+
+def kernel_row(tag, what, got, want, dt, ms, plain_ms, library_ms, library_what, n_bytes, flops,
+               t0):
+    """Print one kernel-vs-plain line, check the scaled errors, and return
+    the row of the kernels' summary."""
+    err, rel, fro = scaled_err(got, want)
+    bnd, by = bound_ms(n_bytes, flops, dt)
+    print(f"[{tag}] {what}: max_abs_err {err:.3e} = {rel:.2e} of max|ref|, norm-rel {fro:.2e} "
+          f"(tol {SCALED_TOL[dt][0]:g}, {SCALED_TOL[dt][1]:g}) kernel {ms:.3f} ms plain "
+          f"{plain_ms:.3f} ms library ({library_what}) {library_ms:.3f} ms bound {bnd:.3f} ms "
+          f"({by}) ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(bool(torch.isfinite(got).all()) and rel <= SCALED_TOL[dt][0]
+          and fro <= SCALED_TOL[dt][1], f"{tag} disagrees with the plain version")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": library_ms}
+
+
+def k6_phase(name, b, s, dtype, seed=0):
+    """K6 (dot_product_attention up to 512 tokens) against its plain version
+    on q, k, v [b, 24, s, 64], with the library's attention on the same
+    tensors timed beside it. Returns the row's numbers."""
+    import torch.nn.functional as F
+
+    from mipheivit_tpu_torch.ops import attention as attn
+
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    t0 = time.perf_counter()
+    q, k, v = (seeded((b, HEADS, s, 64), seed + i, dtype) for i in range(3))
+    with torch.inference_mode():
+        got = attn.dot_product_attention(q, k, v)
+        want = attn.short_attention_reference(q, k, v)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: attn.dot_product_attention(q, k, v), reps=10)
+        plain_ms = cuda_ms(lambda: attn.short_attention_reference(q, k, v), reps=3, warmup=1)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=10)
+    return kernel_row(f"k6 {name}", f"q, k, v [{b}, {HEADS}, {s}, 64]", got, want, dt, ms,
+                      plain_ms, library_ms, "scaled_dot_product_attention",
+                      4 * b * HEADS * s * 64 * q.element_size(), 4.0 * b * HEADS * s * s * 64, t0)
+
+
+def k6_long_check():
+    """dot_product_attention above 512 tokens reaches K4 and not K6."""
+    from mipheivit_tpu_torch.ops import attention as attn
+
+    q, k, v = (seeded((2, HEADS, 640, 64), SEED + 80 + i, torch.bfloat16) for i in range(3))
+    reset_counts()
+    with torch.inference_mode():
+        got = attn.dot_product_attention(q, k, v)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        rows = [t.transpose(1, 2).reshape(2, 640, HD) for t in (q, k, v)]
+        want = attn.flash_reference(*rows, HEADS)[0].view(2, 640, HEADS, 64).transpose(1, 2)
+    _, rel, fro = scaled_err(got, want)
+    print(f"[k6 long] q, k, v [2, {HEADS}, 640, 64] bf16: {counts_line(counts)}; against K4's "
+          f"plain version {rel:.2e} of max|ref|, norm-rel {fro:.2e}", flush=True)
+    check_counts("[k6 long]", counts, k4=1)
+    check(rel <= SCALED_TOL["bf16"][0] and fro <= SCALED_TOL["bf16"][1],
+          "dot_product_attention above 512 tokens disagrees with K4's plain version")
+
+
+def k7_phase(name, m, dtype, seed=0):
+    """K7 (ln_matmul) against its plain version at ViT-g's qkv projection
+    (x [m, 1536], w [4608, 1536]), with the library's LayerNorm + linear
+    timed beside it. Returns the row's numbers."""
+    import torch.nn.functional as F
+
+    from mipheivit_tpu_torch.ops import mlp
+
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    t0 = time.perf_counter()
+    x = seeded((m, HD), seed, dtype)
+    lns, lnb = ln_params(HD, seed + 1)
+    w = seeded((3 * HD, HD), seed + 2, dtype, HD ** -0.5)
+    b = seeded(3 * HD, seed + 3, dtype, 0.1)
+    lns_t, lnb_t = lns.to(dtype), lnb.to(dtype)
+    with torch.inference_mode():
+        got = mlp.ln_matmul(x, lns, lnb, w, b)
+        want = mlp.ln_matmul_reference(x, lns, lnb, w, b)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: mlp.ln_matmul(x, lns, lnb, w, b), reps=10)
+        plain_ms = cuda_ms(lambda: mlp.ln_matmul_reference(x, lns, lnb, w, b), reps=3, warmup=1)
+        library_ms = cuda_ms(lambda: F.linear(F.layer_norm(x, (HD,), lns_t, lnb_t, 1e-6), w, b),
+                             reps=10)
+    n_bytes = (m * HD + 3 * HD * HD + 3 * HD + m * 3 * HD) * x.element_size() + 2 * HD * 4
+    return kernel_row(f"k7 {name}", f"x [{m}, {HD}] w [{3 * HD}, {HD}]", got, want, dt, ms,
+                      plain_ms, library_ms, "layer_norm + linear", n_bytes,
+                      2.0 * m * HD * 3 * HD, t0)
+
+
+def k8_phase(name, b, s, dtype, seed=0):
+    """K8 (ln_qkv_attention) against the plain chain at ViT-g's attention
+    sublayer (x [b, s, 1536], 24 heads of 64, w [4608, 1536]), with the
+    library's LayerNorm + linear + attention timed beside it. Returns the
+    row's numbers."""
+    import torch.nn.functional as F
+
+    from mipheivit_tpu_torch.ops import attn_block
+
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    t0 = time.perf_counter()
+    x = seeded((b, s, HD), seed, dtype)
+    lns, lnb = ln_params(HD, seed + 1)
+    w = seeded((3 * HD, HD), seed + 2, dtype, HD ** -0.5)
+    bias = seeded(3 * HD, seed + 3, dtype, 0.1)
+    lns_t, lnb_t = lns.to(dtype), lnb.to(dtype)
+
+    def library():
+        qkv = F.linear(F.layer_norm(x, (HD,), lns_t, lnb_t, 1e-6), w, bias)
+        q, k, v = (t.view(b, s, HEADS, 64).transpose(1, 2) for t in qkv.split(HD, -1))
+        return F.scaled_dot_product_attention(q, k, v)
+
+    with torch.inference_mode():
+        got = attn_block.ln_qkv_attention(x, lns, lnb, w, bias, HEADS)
+        want = attn_block.chain_reference(x, lns, lnb, w, bias, HEADS)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: attn_block.ln_qkv_attention(x, lns, lnb, w, bias, HEADS), reps=10)
+        plain_ms = cuda_ms(lambda: attn_block.chain_reference(x, lns, lnb, w, bias, HEADS),
+                           reps=3, warmup=1)
+        library_ms = cuda_ms(library, reps=10)
+    n_bytes = (b * s * HD + 3 * HD * HD + 3 * HD + b * s * HD) * x.element_size() + 2 * HD * 4
+    flops = 2.0 * b * s * HD * 3 * HD + 4.0 * b * HEADS * s * s * 64
+    return kernel_row(f"k8 {name}", f"x [{b}, {s}, {HD}], {HEADS} heads", got, want, dt, ms,
+                      plain_ms, library_ms, "layer_norm + linear + scaled_dot_product_attention",
+                      n_bytes, flops, t0)
+
+
+def block0_tokens(model, x):
+    """The encoder's tokens of the images ``x`` as its first block receives
+    them (the encoder run with its blocks cut to the first)."""
+    vit = model.encoder.vit
+    got = []
+    hook = vit.blocks[0].register_forward_pre_hook(lambda _m, args: got.append(args[0]))
+    blocks, vit.blocks = vit.blocks, vit.blocks[:1]
+    try:
+        with torch.inference_mode():
+            vit(x)
+    finally:
+        vit.blocks = blocks
+        hook.remove()
+    return got[0]
+
+
+def attn_sublayer_phase(model, x):
+    """Block 0's attention sublayer before ``proj`` on the tokens of the
+    images ``x``, three ways: the model's own route (norm1 -> qkv ->
+    attention_qkv: K1), ln_matmul -> attention_qkv (K7 + K1) and
+    ln_qkv_attention (K8), with the launch counts at 0; each held against
+    the f32 plain chain on the same weights, and timed. Returns the counts."""
+    from mipheivit_tpu_torch.ops import attn_block
+    from mipheivit_tpu_torch.ops.attention import attention_qkv
+    from mipheivit_tpu_torch.ops.mlp import ln_matmul
+
+    t0 = time.perf_counter()
+    blk = model.encoder.vit.blocks[0]
+    n1, qkv = blk.norm1, blk.attn.qkv
+    tokens = block0_tokens(model, x)
+    routes = {
+        "model (norm1 -> qkv -> attention_qkv)": lambda: attention_qkv(qkv(n1(tokens)), HEADS),
+        "ln_matmul -> attention_qkv": lambda: attention_qkv(
+            ln_matmul(tokens, n1.weight, n1.bias, qkv.weight, qkv.bias, n1.eps), HEADS),
+        "ln_qkv_attention": lambda: attn_block.ln_qkv_attention(
+            tokens, n1.weight, n1.bias, qkv.weight, qkv.bias, HEADS, n1.eps),
+    }
+    reset_counts()
+    with torch.inference_mode():
+        outs = {name: fn() for name, fn in routes.items()}
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = attn_block.chain_reference(tokens.float(), n1.weight.float(), n1.bias.float(),
+                                          qkv.weight.float(), qkv.bias.float(), HEADS, n1.eps)
+        errs = {name: scaled_err(out, want) for name, out in outs.items()}
+        times = {name: cuda_ms(fn, reps=10) for name, fn in routes.items()}
+    print(f"[attn sublayer] block 0 of the loaded generator, tokens {tuple(tokens.shape)} "
+          f"{tokens.dtype}, against the f32 plain chain: "
+          + "; ".join(f"{name} {e[1]:.2e} of max|ref|, norm-rel {e[2]:.2e}, {times[name]:.3f} ms"
+                      for name, e in errs.items())
+          + f" (tol {SCALED_TOL['bf16'][0]:g}, {SCALED_TOL['bf16'][1]:g}); {counts_line(counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(all(bool(torch.isfinite(o).all()) for o in outs.values()), "[attn sublayer] non-finite")
+    check(all(e[1] <= SCALED_TOL["bf16"][0] and e[2] <= SCALED_TOL["bf16"][1]
+              for e in errs.values()), "[attn sublayer] a route disagrees with the plain chain")
+    check_counts("[attn sublayer]", counts, k1=2, k7=1, k8=1)
+    return counts
+
+
+def train_ops_phase(dev):
+    """One bf16 forward and backward on the card through each of
+    dot_product_attention (q, k, v [64, 24, 329, 64]), ln_matmul (x [21056,
+    1536], w [4608, 1536]) and ln_qkv_attention (x [64, 329, 1536]) with
+    every input needing grad, and the same at a two-item slice held in
+    cosine against the f32 backward on the CPU, with the launch counts at
+    0. Returns the counts."""
+    import torch.nn.functional as F
+
+    from mipheivit_tpu_torch.ops import attention, attn_block, mlp
+
+    t0 = time.perf_counter()
+    lns, lnb = ln_params(HD, SEED + 90)
+    w = seeded((3 * HD, HD), SEED + 91, torch.bfloat16, HD ** -0.5)
+    b = seeded(3 * HD, SEED + 92, torch.bfloat16, 0.1)
+    x_rows = seeded((BATCH * 329, HD), SEED + 96, torch.bfloat16)
+    # name: (function, inputs, output shape, leading inputs cut to the slice,
+    # rows of the slice)
+    cases = {
+        "dot_product_attention": (attention.dot_product_attention,
+                                  [seeded((BATCH, HEADS, 329, 64), SEED + 93 + i, torch.bfloat16)
+                                   for i in range(3)], (BATCH, HEADS, 329, 64), 3, 2),
+        "ln_matmul": (mlp.ln_matmul, [x_rows, lns, lnb, w, b], (BATCH * 329, 3 * HD), 1,
+                      2 * 329),
+        "ln_qkv_attention": (lambda *a: attn_block.ln_qkv_attention(*a, HEADS),
+                             [x_rows.view(BATCH, 329, HD), lns, lnb, w, b], (BATCH, 329, HD), 1, 2),
+    }
+
+    def grads(fn, inputs, r):
+        ts = [t.detach().clone().requires_grad_() for t in inputs]
+        (fn(*ts).float() * r).sum().backward()
+        return [t.grad for t in ts]
+
+    reset_counts()
+    lines, ok = [], True
+    for name, (fn, inputs, shape, n_cut, rows) in cases.items():
+        t1 = time.perf_counter()
+        r = seeded(shape, SEED + 98, torch.float32)
+        full = grads(fn, inputs, r)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(g).all()) for g in full)
+        del full
+        small = [t[:rows] for t in inputs[:n_cut]] + inputs[n_cut:]
+        card = grads(fn, small, r[:rows])
+        cpu = grads(fn, [t.detach().float().cpu() for t in small], r[:rows].cpu())
+        cos = [float(F.cosine_similarity(a.float().cpu().flatten(), c.flatten(), 0))
+               for a, c in zip(card, cpu)]
+        ok = ok and finite and min(cos) >= OPS_GRAD_COS
+        lines.append(f"{name}: {tuple(inputs[0].shape)} bf16 backward finite {finite}, "
+                     f"{tuple(small[0].shape)} card bf16 vs CPU f32 gradient cosine "
+                     f"{', '.join(f'{c:.6f}' for c in cos)} ({time.perf_counter() - t1:.1f} s)")
+        del card, cpu
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    print(f"[train ops] {'; '.join(lines)} (target >= {OPS_GRAD_COS}); {counts_line(counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(ok, "[train ops] a bf16 backward is not finite or does not track the f32 one")
+    check_counts("[train ops]", counts, k6=2, k7=2, k8=2)
+    return counts
 
 
 def post_npy(url: str, arr: np.ndarray):
@@ -828,10 +1108,12 @@ def main() -> None:
     from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE, predict_tiles
     from mipheivit_tpu_torch.ops import attention as attn
 
-    # 2. build K1, K4, K5, K2 and K3 from the sources in the checkout, one
-    #    nvcc each, at once
+    # 2. build the kernels from the sources in the checkout, one nvcc per
+    #    source, at once: K1 and K6 (attention.cu), K4, K5, K2 and K7
+    #    (swiglu.cu), K3, K8
     t0 = time.perf_counter()
-    kernels = ("attention", "flash_attention", "flash_attention_bwd", "swiglu", "seg_heads")
+    kernels = ("attention", "flash_attention", "flash_attention_bwd", "swiglu", "seg_heads",
+               "attn_block")
     with ThreadPoolExecutor(len(kernels)) as pool:
         libs = list(pool.map(_build.build, kernels))
     root = Path(__file__).resolve().parent
@@ -942,6 +1224,23 @@ def main() -> None:
     k3_phase("bf16_regions", 4, REGION, REGION, torch.bfloat16, seed=SEED + 51)
     k3_phase("f32", 2, IMG, IMG, torch.float32, seed=SEED + 52)
     k3_phase("bf16_small", 3, 128, 128, torch.bfloat16, seed=SEED + 53)
+    torch.cuda.empty_cache()
+
+    # 3f. K6, K7 and K8 against their plain versions at the JAX package's
+    #     profiling shapes (dot_product_attention [64, 24, 329, 64]; ViT-g's
+    #     qkv projection and attention sublayer at 64 tiles), ragged and
+    #     longer lengths, f32; dot_product_attention above 512 tokens is K4's
+    k6_flagship = k6_phase("bf16", BATCH, 329, torch.bfloat16, seed=SEED + 70)
+    k6_phase("bf16_ragged_77", BATCH, 77, torch.bfloat16, seed=SEED + 73)
+    k6_phase("f32", 2, 329, torch.float32, seed=SEED + 76)
+    k6_long_check()
+    k7_flagship = k7_phase("bf16", BATCH * 329, torch.bfloat16, seed=SEED + 100)
+    k7_phase("bf16_ragged_658", 658, torch.bfloat16, seed=SEED + 104)
+    k7_phase("f32_658", 658, torch.float32, seed=SEED + 108)
+    k8_flagship = k8_phase("bf16", BATCH, 329, torch.bfloat16, seed=SEED + 110)
+    k8_phase("bf16_1024", 4, 1024, torch.bfloat16, seed=SEED + 114)
+    k8_phase("f32", 2, 329, torch.float32, seed=SEED + 118)
+    torch.cuda.empty_cache()
 
     # 4. the slice at full width
     tiles = np.random.default_rng(SEED + 1).integers(0, 256, (N_TILES, IMG, IMG, 3),
@@ -985,10 +1284,14 @@ def main() -> None:
               f"on {card}", flush=True)
         pred_bf16 = pred_bf16[:1].cpu().numpy()
 
-        # 4a. the serving daemon on the same generator
+        # 4a. block 0's attention sublayer three ways (K1, K7 + K1, K8) on
+        #     the loaded generator's weights and the tokens of 64 tiles
+        sublayer = attn_sublayer_phase(model, x)
+
+        # 4b. the serving daemon on the same generator
         serve_counts, _ = serve_phase(model, dev)
 
-        # 4b. stitched whole-slide inference at 256-px windows (K1)
+        # 4c. stitched whole-slide inference at 256-px windows (K1)
         slide = np.random.default_rng(SEED + 2).integers(0, 256, (SLIDE, SLIDE, 3),
                                                          dtype=np.uint8)
         wsi256, _ = wsi_phase("wsi 256", model, slide, IMG, 64, BATCH, dev)
@@ -1087,6 +1390,10 @@ def main() -> None:
         del model
         torch.cuda.empty_cache()
 
+        # 9c. the backward of dot_product_attention (K6), ln_matmul (K7) and
+        #     ln_qkv_attention (K8)
+        train_ops = train_ops_phase(dev)
+
         # 10. training numerics: the f32 step on the card against the CPU with
         #     the encoder cut to 2 blocks at full width (256 px: K1 and the plain
         #     recompute; 1024 px: K4 and K5), and bf16 against f32 at full depth
@@ -1130,9 +1437,9 @@ def main() -> None:
     # 11. summary lines
     k1 = kernel_rows["bf16_fused"]
     k4_err, _, k4_ms, k4_plain_ms = k4_region
-    paths = {"slice": slice_counts, "serve": serve_counts, "wsi 256": wsi256,
-             "wsi 1024": wsi1024, "train 256": train256, "train 1024": train1024,
-             "train 1024 ckpt": train1024c}
+    paths = {"slice": slice_counts, "attn sublayer": sublayer, "serve": serve_counts,
+             "wsi 256": wsi256, "wsi 1024": wsi1024, "train 256": train256,
+             "train 1024": train1024, "train 1024 ckpt": train1024c, "train ops": train_ops}
 
     def launches(key):
         by_path = {path: c[key] for path, c in paths.items() if c[key]}
@@ -1161,7 +1468,17 @@ def main() -> None:
         {"name": "k3_seg_heads", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/seg_heads.cu",
          "replaces": "mipheivit_tpu/ops/seg_heads.py:38", **k3_flagship,
-         **launches("seg_heads")}]}))
+         **launches("seg_heads")},
+        {"name": "k6_short_attention", "route": "cuda",
+         "source": "mipheivit_tpu_torch/csrc/attention.cu",
+         "replaces": "mipheivit_tpu/ops/attention.py:109", **k6_flagship, **launches("short")},
+        {"name": "k7_ln_matmul", "route": "cuda",
+         "source": "mipheivit_tpu_torch/csrc/swiglu.cu",
+         "replaces": "mipheivit_tpu/ops/mlp.py:251", **k7_flagship, **launches("ln_matmul")},
+        {"name": "k8_attn_block", "route": "cuda",
+         "source": "mipheivit_tpu_torch/csrc/attn_block.cu",
+         "replaces": "mipheivit_tpu/ops/attn_block.py:32", **k8_flagship,
+         **launches("attn_block")}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

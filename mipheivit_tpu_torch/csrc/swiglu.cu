@@ -1,6 +1,7 @@
-// K2: fused SwiGLU fc1 for the ViT MLP, optionally behind a LayerNorm.
+// K2: fused SwiGLU fc1 for the ViT MLP, optionally behind a LayerNorm, and K7:
+// the fused LayerNorm + matmul (third entry point, k7_ln_matmul_*).
 //
-// Replaces the TPU kernel mipheivit_tpu/ops/mlp.py::_swiglu_kernel (variants
+// K2 replaces the TPU kernel mipheivit_tpu/ops/mlp.py::_swiglu_kernel (variants
 // _swiglu_kernel_noln and _swiglu_kernel_ln), launched there by
 // _swiglu_forward. Same math, per row of x [M, K]:
 //
@@ -34,8 +35,22 @@
 //
 // The LayerNorm variant does not cache the normed [BM, K] block as the TPU
 // kernel does in VMEM (a 128-row block of K = 1536 in bf16 is 384 KB, more
-// than the SM's shared memory): a prologue computes each row's f32 mean and
-// rstd, and every A tile is normalised in shared memory after it lands.
+// than the SM's shared memory): a first small kernel of the same call
+// computes each row's f32 mean and rstd once (row_stats_kernel, one warp per
+// row, 16-byte loads; the stats were once a prologue of every block, which
+// read each row once per 96 output columns, 2 bytes at a time), and every A
+// tile is normalised in shared memory after it lands.
+//
+// K7 replaces mipheivit_tpu/ops/mlp.py::_ln_matmul_kernel (:251), launched by
+// _ln_matmul_forward (:262): LN(x) . W^T + b with W the nn.Linear weight
+// [N, K], the LN rows rounded to x's dtype, f32 accumulation, the f32 bias,
+// one rounding at the output. It is K2's LayerNorm kernel with another
+// epilogue (the same template, GATE = false): a block's B tile is W's rows
+// n0 .. n0 + 191, one contiguous run, and the two 96-column accumulators
+// are written side by side with the bias added. At ViT-g's qkv projection
+// (M = 64 * 329, K = 1536, N = 4608) a call is 298 GFLOP against 0.27 GB:
+// the floor is the bf16 tensor-core time, 0.30 ms; the design and what it
+// leaves for later are K2's.
 //
 // Ragged M (329 tokens per tile is no multiple of any tile size) and ragged
 // H or K tails are masked in the kernel: rows and columns past the end are
@@ -60,12 +75,13 @@ namespace {
 struct Args {
   const void* x;       // [M, K], row stride x_rs, unit column stride
   long long x_rs;
-  const void* w;       // [2H, K] contiguous
-  const void* b;       // [2H]
+  const void* w;       // K2: [2H, K]; K7: [H, K] (H = N); contiguous
+  const void* b;       // [2H] or [H]
   const float* ln_w;   // [K] f32, or null: no LayerNorm
   const float* ln_b;   // [K] f32
+  const float* stats;  // [2, M] f32: row means, then rstds (row_stats_kernel); with ln_w
   void* out;           // [M, H] contiguous
-  int M, K, H;
+  int M, K, H;         // H: K2's hidden width, K7's output width N
   float eps;
 };
 
@@ -83,32 +99,48 @@ __device__ __forceinline__ float swiglu(float a, float g) {
   return a * sig * g;
 }
 
-// f32 mean and rstd of rows m0 .. m0 + rows - 1 of x (one warp per row, two
-// passes as _ln_rows: mean, then the mean of squared deviations). Rows past
-// M get 0 and 0.
+// f32 mean and rstd of every row of x [M, K] into stats (means [0, M), rstds
+// [M, 2M)): one warp per row, two passes as _ln_rows (the mean, then the
+// mean of squared deviations); bf16 rows are read 16 bytes at a time (K a
+// multiple of 8, aligned rows), f32 one value at a time.
 template <typename T>
-__device__ void row_stats(const T* x, long long rs, int m0, int rows, int M, int K, float eps,
-                          float* mean_s, float* rstd_s) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nw = blockDim.x / 32;
-  for (int r = warp; r < rows; r += nw) {
-    const int row = m0 + r;
-    float mean = 0.f, rstd = 0.f;
-    if (row < M) {
-      const T* xr = x + (long long)row * rs;
-      float s = 0.f;
-      for (int k = lane; k < K; k += 32) s += to_f(xr[k]);
-      mean = warp_sum(s) / K;
-      float v = 0.f;
-      for (int k = lane; k < K; k += 32) {
-        const float d = to_f(xr[k]) - mean;
-        v += d * d;
+__global__ void __launch_bounds__(256) row_stats_kernel(const T* __restrict__ x, long long rs,
+                                                        int M, int K, float eps,
+                                                        float* __restrict__ stats) {
+  constexpr int V = sizeof(T) == 2 ? 8 : 1;  // values per load
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const T* xr = x + (long long)row * rs;
+  auto sum_over = [&](auto term) {
+    float s = 0.f;
+    for (int k = lane * V; k < K; k += 32 * V) {
+      if constexpr (V == 8) {
+        const uint4 u = *reinterpret_cast<const uint4*>(xr + k);
+        const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+        for (int i = 0; i < V; ++i) s += term(to_f(e[i]));
+      } else {
+        s += term(to_f(xr[k]));
       }
-      rstd = rsqrtf(warp_sum(v) / K + eps);
     }
-    if (lane == 0) {
-      mean_s[r] = mean;
-      rstd_s[r] = rstd;
-    }
+    return warp_sum(s);
+  };
+  const float mean = sum_over([](float v) { return v; }) / K;
+  const float var = sum_over([mean](float v) { return (v - mean) * (v - mean); }) / K;
+  if (lane == 0) {
+    stats[row] = mean;
+    stats[M + row] = rsqrtf(var + eps);
+  }
+}
+
+// The block's rows m0 .. m0 + rows - 1 of the row statistics into shared
+// memory (rows past M get 0 and 0)
+__device__ __forceinline__ void stage_stats(const Args& a, int m0, int rows, float* mean_s,
+                                            float* rstd_s) {
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    const bool ok = m0 + r < a.M;
+    mean_s[r] = ok ? a.stats[m0 + r] : 0.f;
+    rstd_s[r] = ok ? a.stats[a.M + m0 + r] : 0.f;
   }
 }
 
@@ -192,7 +224,11 @@ __device__ __forceinline__ void fence_acc(float (&d)[NR]) {
 // all BN output columns of both halves: per 16 of depth, four m64n96k16
 // products into the a and g accumulators (2 x 2 x 48 f32 registers per
 // thread). One wgmma group stays in flight while the next stage is issued.
-__global__ void __launch_bounds__(THREADS, 1) swiglu_bf16_kernel(Args a) {
+// GATE = false (K7): one block per (192 output columns, 256 rows), grid
+// (N / 2BN, M / BM); the "a" and "g" accumulators hold columns n0 .. +95 and
+// n0 + 96 .. +191 of one product.
+template <bool GATE>
+__global__ void __launch_bounds__(THREADS, 1) gemm_bf16_kernel(Args a) {
   extern __shared__ unsigned char smem_raw[];
   const unsigned raw = static_cast<unsigned>(__cvta_generic_to_shared(smem_raw));
   const unsigned ring = (raw + 1023u) & ~1023u;
@@ -200,7 +236,7 @@ __global__ void __launch_bounds__(THREADS, 1) swiglu_bf16_kernel(Args a) {
   float* mean_s = reinterpret_cast<float*>(ring_ptr + STAGES * STAGE_BYTES);
   float* rstd_s = mean_s + BM;
 
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * (GATE ? BN : 2 * BN), m0 = blockIdx.y * BM;
   const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32, warp_in_wg = (tid % 128) / 32;
   const int g = lane >> 2, tig = lane & 3;  // accumulator row group / column pair
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
@@ -209,8 +245,8 @@ __global__ void __launch_bounds__(THREADS, 1) swiglu_bf16_kernel(Args a) {
   const bool ln = a.ln_w != nullptr;
 
   // x rows m0.. and W rows n0.. (value) and H + n0.. (gate) of depth
-  // k0..k0+63 into one ring slot, swizzled; out-of-range 16-byte chunks are
-  // zero-filled
+  // k0..k0+63 into one ring slot, swizzled (K7: W rows n0 .. n0 + 191);
+  // out-of-range 16-byte chunks are zero-filled
   auto load_stage = [&](int slot, int k0) {
     const unsigned As = ring + slot * STAGE_BYTES, Bs = As + A_BYTES;
 #pragma unroll
@@ -222,10 +258,10 @@ __global__ void __launch_bounds__(THREADS, 1) swiglu_bf16_kernel(Args a) {
 #pragma unroll
     for (int i = tid; i < 2 * BN * 8; i += THREADS) {
       const int r = i / 8, c = i % 8;
-      const int half = r / BN, col = n0 + r % BN;
+      const int col = GATE ? n0 + r % BN : n0 + r;
+      const long long wrow = GATE ? (long long)(r / BN) * a.H + col : col;
       const bool ok = col < a.H && k0 + c * 8 < a.K;
-      cp_async16(Bs + swz(r, c),
-                 w + (ok ? ((long long)half * a.H + col) * a.K + k0 + c * 8 : 0), ok);
+      cp_async16(Bs + swz(r, c), w + (ok ? wrow * a.K + k0 + c * 8 : 0), ok);
     }
   };
 
@@ -234,7 +270,7 @@ __global__ void __launch_bounds__(THREADS, 1) swiglu_bf16_kernel(Args a) {
     if (s < n_k) load_stage(s, s * BK);
     cp_async_commit();
   }
-  if (ln) row_stats(x, a.x_rs, m0, BM, a.M, a.K, a.eps, mean_s, rstd_s);
+  if (ln) stage_stats(a, m0, BM, mean_s, rstd_s);  // first read after a __syncthreads
 
   float acc_a[MT][NR], acc_g[MT][NR];
 #pragma unroll
@@ -314,6 +350,29 @@ __global__ void __launch_bounds__(THREADS, 1) swiglu_bf16_kernel(Args a) {
   // rows w*16 + g (+8) of each slab and columns j*8 + tig*2 (+1).
   const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(a.b);
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+  if (!GATE) {  // K7: acc + f32 bias, one rounding; the two halves side by side
+    auto emit = [&](const float (&acc)[NR], int mt, int c0) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = c0 + j * 8 + tig * 2;
+        if (col >= a.H) continue;
+        const float b0 = __bfloat162float(bias[col]), b1 = __bfloat162float(bias[col + 1]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = m0 + (wg * MT + mt) * 64 + warp_in_wg * 16 + g + 8 * r;
+          if (row >= a.M) continue;
+          *reinterpret_cast<unsigned*>(out + (long long)row * a.H + col) =
+              pack_bf16(acc[4 * j + 2 * r] + b0, acc[4 * j + 2 * r + 1] + b1);
+        }
+      }
+    };
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      emit(acc_a[mt], mt, n0);
+      emit(acc_g[mt], mt, n0 + BN);
+    }
+    return;
+  }
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int col = n0 + j * 8 + tig * 2;
@@ -340,19 +399,26 @@ __global__ void __launch_bounds__(THREADS, 1) swiglu_bf16_kernel(Args a) {
 constexpr int FBM = 64, FBN = 64, FBK = 16;
 constexpr int FTHREADS = 256;  // 16 x 16 threads, 4 x 4 outputs of each half
 
-__global__ void __launch_bounds__(FTHREADS) swiglu_f32_kernel(Args a) {
+// GATE = false (K7): the "a" and "g" accumulators hold columns n0 .. +63 and
+// n0 + 64 .. +127 of one product, grid (N / 2FBN, M / FBM).
+template <bool GATE>
+__global__ void __launch_bounds__(FTHREADS) gemm_f32_kernel(Args a) {
   __shared__ float As[FBK][FBM + 4];  // depth-major: broadcast reads along rows
   __shared__ float Bv[FBK][FBN + 4];
   __shared__ float Bg[FBK][FBN + 4];
   __shared__ float mean_s[FBM], rstd_s[FBM];
 
-  const int n0 = blockIdx.x * FBN, m0 = blockIdx.y * FBM;
+  const int n0 = blockIdx.x * (GATE ? FBN : 2 * FBN), m0 = blockIdx.y * FBM;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const float* x = static_cast<const float*>(a.x);
   const float* w = static_cast<const float*>(a.w);
   const bool ln = a.ln_w != nullptr;
-  if (ln) row_stats(x, a.x_rs, m0, FBM, a.M, a.K, a.eps, mean_s, rstd_s);
+  if (ln) stage_stats(a, m0, FBM, mean_s, rstd_s);
   __syncthreads();
+  // W rows of the two B tiles: value and gate halves (K2), or two runs of
+  // FBN rows (K7)
+  const long long row_v = n0, row_g = GATE ? (long long)a.H + n0 : n0 + FBN;
+  const int lim_v = a.H - n0, lim_g = GATE ? a.H - n0 : a.H - n0 - FBN;
 
   float acc_a[4][4], acc_g[4][4];
 #pragma unroll
@@ -371,10 +437,9 @@ __global__ void __launch_bounds__(FTHREADS) swiglu_f32_kernel(Args a) {
       As[c][r] = v;
     }
     for (int i = threadIdx.x; i < FBN * FBK; i += FTHREADS) {
-      const int r = i / FBK, c = i % FBK, col = n0 + r, k = k0 + c;
-      const bool ok = col < a.H && k < a.K;
-      Bv[c][r] = ok ? w[(long long)col * a.K + k] : 0.f;
-      Bg[c][r] = ok ? w[((long long)a.H + col) * a.K + k] : 0.f;
+      const int r = i / FBK, c = i % FBK, k = k0 + c;
+      Bv[c][r] = r < lim_v && k < a.K ? w[(row_v + r) * a.K + k] : 0.f;
+      Bg[c][r] = r < lim_g && k < a.K ? w[(row_g + r) * a.K + k] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -403,12 +468,16 @@ __global__ void __launch_bounds__(FTHREADS) swiglu_f32_kernel(Args a) {
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + ty * 4 + i;
     if (row >= a.M) continue;
+    float* orow = out + (long long)row * a.H;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + tx * 4 + j;
-      if (col < a.H)
-        out[(long long)row * a.H + col] =
-            swiglu(acc_a[i][j] + bias[col], acc_g[i][j] + bias[a.H + col]);
+      if (GATE) {
+        if (col < a.H) orow[col] = swiglu(acc_a[i][j] + bias[col], acc_g[i][j] + bias[a.H + col]);
+      } else {
+        if (col < a.H) orow[col] = acc_a[i][j] + bias[col];
+        if (col + FBN < a.H) orow[col + FBN] = acc_g[i][j] + bias[col + FBN];
+      }
     }
   }
 }
@@ -483,22 +552,39 @@ int launch_gate_bwd(bool bf16, const void* ag, const void* dh, void* dc, long lo
   return (int)cudaGetLastError();
 }
 
-int launch(bool bf16, const void* x, long long x_rs, const void* w, const void* b,
-           const float* ln_w, const float* ln_b, void* out, int M, int K, int H, float eps,
-           void* stream) {
+// K2 (gate) or K7, bf16 or f32; with ln_w the row statistics first
+int launch(bool bf16, bool gate, const void* x, long long x_rs, const void* w, const void* b,
+           const float* ln_w, const float* ln_b, float* stats, void* out, int M, int K, int H,
+           float eps, void* stream) {
   if (M < 1 || K < 8 || H < 8 || K % 8 || H % 8) return (int)cudaErrorInvalidValue;
-  if ((ln_w == nullptr) != (ln_b == nullptr)) return (int)cudaErrorInvalidValue;
-  const Args a{x, x_rs, w, b, ln_w, ln_b, out, M, K, H, eps};
+  if ((ln_w == nullptr) != (ln_b == nullptr) || (ln_w != nullptr) != (stats != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Args a{x, x_rs, w, b, ln_w, ln_b, stats, out, M, K, H, eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        swiglu_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BF16);
+  if (ln_w != nullptr) {
+    const int blocks = (M + 7) / 8;
+    if (bf16)
+      row_stats_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(x), x_rs, M, K, eps, stats);
+    else
+      row_stats_kernel<float><<<blocks, 256, 0, st>>>(static_cast<const float*>(x), x_rs, M, K,
+                                                      eps, stats);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((H + BN - 1) / BN, (M + BM - 1) / BM);
-    swiglu_bf16_kernel<<<grid, THREADS, SMEM_BF16, st>>>(a);
+  }
+  if (bf16) {
+    auto kernel = gate ? gemm_bf16_kernel<true> : gemm_bf16_kernel<false>;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BF16);
+    if (err != cudaSuccess) return (int)err;
+    const int bn = gate ? BN : 2 * BN;
+    const dim3 grid((H + bn - 1) / bn, (M + BM - 1) / BM);
+    kernel<<<grid, THREADS, SMEM_BF16, st>>>(a);
   } else {
-    const dim3 grid((H + FBN - 1) / FBN, (M + FBM - 1) / FBM);
-    swiglu_f32_kernel<<<grid, FTHREADS, 0, st>>>(a);
+    const int bn = gate ? FBN : 2 * FBN;
+    const dim3 grid((H + bn - 1) / bn, (M + FBM - 1) / FBM);
+    if (gate) gemm_f32_kernel<true><<<grid, FTHREADS, 0, st>>>(a);
+    else gemm_f32_kernel<false><<<grid, FTHREADS, 0, st>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -508,17 +594,31 @@ int launch(bool bf16, const void* x, long long x_rs, const void* w, const void* 
 extern "C" {
 
 // Each returns the cudaError_t of the launch (0 on success). ln_w / ln_b are
-// both null (no LayerNorm) or both f32 [K].
+// both null (no LayerNorm) or both f32 [K], and stats ([2, M] f32 scratch for
+// the row statistics) is null exactly when they are.
 int k2_swiglu_bf16(const void* x, long long x_rs, const void* w, const void* b,
-                   const float* ln_w, const float* ln_b, void* out, int M, int K, int H,
-                   float eps, void* stream) {
-  return launch(true, x, x_rs, w, b, ln_w, ln_b, out, M, K, H, eps, stream);
+                   const float* ln_w, const float* ln_b, float* stats, void* out, int M, int K,
+                   int H, float eps, void* stream) {
+  return launch(true, true, x, x_rs, w, b, ln_w, ln_b, stats, out, M, K, H, eps, stream);
 }
 
 int k2_swiglu_f32(const void* x, long long x_rs, const void* w, const void* b,
-                  const float* ln_w, const float* ln_b, void* out, int M, int K, int H,
-                  float eps, void* stream) {
-  return launch(false, x, x_rs, w, b, ln_w, ln_b, out, M, K, H, eps, stream);
+                  const float* ln_w, const float* ln_b, float* stats, void* out, int M, int K,
+                  int H, float eps, void* stream) {
+  return launch(false, true, x, x_rs, w, b, ln_w, ln_b, stats, out, M, K, H, eps, stream);
+}
+
+// K7: out [M, N] = LN(x) . w^T + b, w [N, K] and b [N] in x's dtype
+int k7_ln_matmul_bf16(const void* x, long long x_rs, const void* w, const void* b,
+                      const float* ln_w, const float* ln_b, float* stats, void* out, int M, int K,
+                      int N, float eps, void* stream) {
+  return launch(true, false, x, x_rs, w, b, ln_w, ln_b, stats, out, M, K, N, eps, stream);
+}
+
+int k7_ln_matmul_f32(const void* x, long long x_rs, const void* w, const void* b,
+                     const float* ln_w, const float* ln_b, float* stats, void* out, int M, int K,
+                     int N, float eps, void* stream) {
+  return launch(false, false, x, x_rs, w, b, ln_w, ln_b, stats, out, M, K, N, eps, stream);
 }
 
 // The backward's elementwise terms: ag [M, 2H], dh [M, H] and dc [M, 2H],

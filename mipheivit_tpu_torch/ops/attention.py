@@ -1,28 +1,40 @@
-"""Multi-head attention for the ViT encoder: the K1, K4 and K5 CUDA kernels
-and their plain twins, with autograd.
+"""Multi-head attention for the ViT encoder: the K1, K4, K5 and K6 CUDA
+kernels and their plain twins, with autograd.
 
-q/k/v stay in the ``[B, S, H*D]`` layout that the fused qkv projection
-produces, and the output is ``[B, S, H*D]`` for the following projection,
-so no head transpose exists on the path (counterpart of
-``mipheivit_tpu/ops/attention.py::attention_qkv`` / ``attention_bshd`` /
-``dot_product_attention`` / ``flash_cross_attention``).
+The counterparts of the JAX package's ``mipheivit_tpu/ops/attention.py``:
+
+- ``attention_qkv`` and ``attention_bshd`` are ``attention_qkv`` and
+  ``attention_bshd``: q/k/v in the ``[B, S, H*D]`` layout that the fused qkv
+  projection produces, the output ``[B, S, H*D]`` for the following
+  projection, so no head transpose exists on the path;
+- ``dot_product_attention`` is ``dot_product_attention`` over ``[B, H, S,
+  D]`` (any strides);
+- ``flash_attention`` (with ``seq_len_k`` and a rectangular q) is
+  ``flash_cross_attention``, here in the ``[B, S, H*D]`` layout.
 
 Dispatch is by device and length. A CPU tensor runs the plain versions:
-``attention_reference`` for S <= 512, ``flash_reference`` above. A CUDA
-tensor launches K1 (``csrc/attention.cu``) for S <= 512 and K4
-(``csrc/flash_attention.cu``) above, or raises. There is no fallback from a
-kernel to a plain version. (The JAX package sends 512 < S <= 2048 to XLA on
-the TPU after a TPU measurement; on the card the kernels serve every
-length.)
+``attention_reference`` for S <= 512, ``flash_reference`` above, and
+``short_attention_reference`` for ``dot_product_attention`` up to 512. A
+CUDA tensor launches K1 (``csrc/attention.cu``) for S <= 512 and K4
+(``csrc/flash_attention.cu``) above; ``dot_product_attention`` launches K6
+(``csrc/attention.cu``'s second entry point) up to 512 and K4 above; or
+raises. There is no fallback from a kernel to a plain version. (The JAX
+package sends 512 < S <= 2048 to XLA on the TPU after a TPU measurement; on
+the card the kernels serve every length.)
 
-Training. Both run inside a ``torch.autograd.Function``, as the JAX
-package's ``custom_vjp`` rules do. K1's backward is the plain f32 recompute
-of ``_bshd_bwd_rule`` (the JAX package has no kernel there either). K4
-saves ``(q, k, v, out, lse)`` and its backward is K5
-(``csrc/flash_attention_bwd.cu``, dK/dV then dQ, the probabilities rebuilt
-from the lse) on the card and ``flash_backward_reference`` on the CPU. The
-raw launchers raise when called with grad enabled on tensors that require
-it outside these Functions.
+K1 and K6 compute the softmax in two different orders, as the TPU kernels
+do: K1 rounds ``exp(s - max)`` to v's dtype and divides the output by the
+row sum, K6 divides the probabilities by the row sum in f32 and then rounds
+them.
+
+Training. All run inside a ``torch.autograd.Function``, as the JAX
+package's ``custom_vjp`` rules do. K1's and K6's backward is the plain f32
+recompute of ``_bshd_bwd_rule`` / ``_flash_bwd_rule`` (the JAX package has
+no kernel there either). K4 saves ``(q, k, v, out, lse)`` and its backward
+is K5 (``csrc/flash_attention_bwd.cu``, dK/dV then dQ, the probabilities
+rebuilt from the lse) on the card and ``flash_backward_reference`` on the
+CPU. The raw launchers raise when called with grad enabled on tensors that
+require it outside these Functions.
 """
 
 from __future__ import annotations
@@ -40,8 +52,8 @@ HEAD_DIM = 64
 
 # Kernel launches since the last reset, counted where each kernel is launched:
 # "attention" is K1, "flash" is K4, "flash_bwd" is K5 (its two kernels, one
-# call).
-launch_counts = {"attention": 0, "flash": 0, "flash_bwd": 0}
+# call), "short" is K6.
+launch_counts = {"attention": 0, "flash": 0, "flash_bwd": 0, "short": 0}
 
 # The plain flash version holds [B, heads, Sq, Sk] f32 logits: it runs a few
 # heads at a time so that one chunk stays near this many elements (1 GiB).
@@ -64,6 +76,18 @@ def attention_reference(q, k, v, num_heads: int):
     probs = torch.softmax(logits, dim=-1).to(v.dtype).float()
     out = torch.einsum("bhqk,bkhd->bqhd", probs, heads(v))
     return out.reshape(b, s, hd).to(v.dtype)
+
+
+def short_attention_reference(q, k, v):
+    """Plain version of K6 (the JAX package's ``_short_kernel``) on q, k, v
+    ``[B, H, S, D]``: f32 logits scaled by ``1/sqrt(D)``, ``p = exp(s -
+    max)`` and its row sum in f32, p divided by the sum in f32 and only then
+    cast to v's dtype, f32 accumulation of ``p . v``, output in q's dtype
+    ``[B, H, S, D]``."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = (p / p.sum(-1, keepdim=True)).to(v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p.float(), v.float()).to(q.dtype)
 
 
 def flash_reference(q, k, v, num_heads: int, seq_len_k: int | None = None):
@@ -177,6 +201,31 @@ def attention_bshd(q, k, v, num_heads: int):
     return _Attention.apply(q, k, v, num_heads)
 
 
+def dot_product_attention(q, k, v):
+    """Softmax attention over q, k, v ``[B, H, S, D]`` (any strides) ->
+    ``[B, H, S, D]``, the counterpart of ``dot_product_attention(impl=
+    "flash")``. Up to 512 tokens: K6 on the card (``short_attention_reference``
+    on the CPU), with the plain f32 recompute backward. Above: K4 with K5 as
+    its backward (their plain versions on the CPU), after the change of
+    layout to ``[B, S, H*D]``. Differentiable in q, k and v."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"dot_product_attention takes q, k, v [B, H, S, D] of one shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    _device_type(q, k, v)
+    b, h, s, d = q.shape
+    if s <= MAX_SEQ:
+        return _ShortAttention.apply(q, k, v)
+    out = flash_attention(_token_major(q), _token_major(k), _token_major(v), h)[0]
+    return out.view(b, s, h, d).transpose(1, 2)
+
+
+def _token_major(t):
+    """``[B, H, S, D]`` -> ``[B, S, H*D]`` (a copy unless t is a head-major
+    view of such a buffer)."""
+    b, h, s, d = t.shape
+    return t.transpose(1, 2).reshape(b, s, h * d)
+
+
 def _delta(out, dout, num_heads: int):
     """``rowsum(dO * O)`` per head in f32 -> ``[B, H, S]`` (the JAX package
     computes it in XLA, outside its kernels)."""
@@ -202,6 +251,28 @@ class _Attention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
         return (*flash_backward_reference(q, k, v, out, None, dout, ctx.num_heads), None)
+
+
+class _ShortAttention(torch.autograd.Function):
+    """K6 (plain version on the CPU) with the plain recompute backward,
+    ``flash_backward_reference`` on a ``[B, S, H*D]`` view of the heads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        if q.device.type == "cpu":
+            out = short_attention_reference(q, k, v)
+        else:
+            out = _short_cuda(q, k, v)
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        b, h, s, d = q.shape
+        grads = flash_backward_reference(*map(_token_major, (q, k, v, out)), None,
+                                         _token_major(dout), h)
+        return tuple(g.view(b, s, h, d).transpose(1, 2) for g in grads)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -240,6 +311,10 @@ def _library():
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
                        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    for fn in (lib.k6_short_attention_bf16, lib.k6_short_attention_f32):
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9
+                       + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     lib.k1_error_string.argtypes = [ctypes.c_int]
     lib.k1_error_string.restype = ctypes.c_char_p
     return lib
@@ -270,7 +345,8 @@ def _flash_bwd_library():
 
 
 def _check_operands(name: str, q, k, v, num_heads: int, *more) -> None:
-    """What K1, K4 and K5 need of q/k/v (and K5 of dO) ``[B, S, H*D]``."""
+    """What K1, K4 and K5 need of q/k/v (and K5 of dO) ``[B, S, H*D]``, and
+    K6 of q/k/v ``[B, H, S, D]`` (``num_heads`` 1: the last dim is D)."""
     ts = (q, k, v) + more
     if len({t.device for t in ts}) != 1:
         raise ValueError("q, k and v lie on different devices")
@@ -285,12 +361,12 @@ def _check_operands(name: str, q, k, v, num_heads: int, *more) -> None:
         raise ValueError(f"{name} needs a unit stride on the last dimension")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise ValueError(f"{name} is launched raw with grad enabled; go through "
-                         "attention_bshd / flash_attention, whose autograd Function "
-                         "runs the backward")
+                         "attention_bshd / flash_attention / dot_product_attention, whose "
+                         "autograd Function runs the backward")
     if q.dtype == torch.bfloat16:
         # 16-byte vector loads: aligned rows and base pointers
         for t in ts:
-            if t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8:
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
                 raise ValueError(f"{name} bf16 needs 16-byte aligned rows "
                                  "(strides multiple of 8, aligned base)")
 
@@ -315,6 +391,32 @@ def _attention_cuda(q, k, v, num_heads: int):
         raise RuntimeError(f"K1 attention launch failed: "
                            f"{lib.k1_error_string(err).decode()} ({err})")
     launch_counts["attention"] += 1
+    return out
+
+
+def _short_cuda(q, k, v):
+    """Launch K6 on q, k, v ``[B, H, S, D]`` (one shape and dtype, unit
+    stride on D, any batch, head and row strides). Returns ``[B, H, S, D]``
+    contiguous in q's dtype."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"K6 takes q, k, v [B, H, S, D] of one shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, s, d = q.shape
+    if not 1 <= s <= MAX_SEQ:
+        raise ValueError(f"K6 takes 1 <= S <= {MAX_SEQ}, got S={s}")
+    _check_operands("K6", q, k, v, 1)
+
+    lib = _library()
+    fn = lib.k6_short_attention_bf16 if q.dtype == torch.bfloat16 else lib.k6_short_attention_f32
+    out = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], b, s, h, _SCALE_LOG2, stream)
+    if err != 0:
+        raise RuntimeError(f"K6 short attention launch failed: "
+                           f"{lib.k1_error_string(err).decode()} ({err})")
+    launch_counts["short"] += 1
     return out
 
 

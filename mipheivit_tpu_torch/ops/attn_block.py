@@ -1,0 +1,175 @@
+"""The fused ViT attention sublayer, LayerNorm -> qkv projection -> softmax
+attention: the K8 CUDA kernel and its plain twin, with autograd.
+
+``ln_qkv_attention(x, ln_scale, ln_bias, w, b, num_heads)`` is the
+counterpart of ``mipheivit_tpu/ops/attn_block.py::ln_qkv_attention``: x
+``[B, S, D]``, ``w`` the block's ``attn.qkv`` weight in ``nn.Linear`` layout
+``[3*H*Dh, D]`` (q | k | v rows; the JAX package takes ``[D, 3*H*Dh]``),
+``b [3*H*Dh]`` -> the attention output ``[B, S, H*Dh]``, before the output
+projection. No model calls it; it is the fused alternative to the
+sublayer's ``norm1 -> qkv -> attention_qkv``.
+
+On a CUDA tensor it launches K8 (``csrc/attn_block.cu``), which computes the
+TPU kernel's function: the LN rows rounded to x's dtype, ``q|k|v`` with the
+f32 bias inside the f32 accumulation and one rounding, ``exp2`` of the
+log2-scaled logits, the f32 row sum, ``p`` rounded to v's dtype and the
+division after ``p . v``; the normed activations and the qkv buffer stay out
+of device memory. On the card it takes Dh = 64, D a multiple of 128 and
+8 <= S <= 1024, and raises otherwise. On a CPU tensor it runs
+``chain_reference``, the counterpart of ``_chain_reference``, which rounds
+the bias into qkv in x's dtype and normalises p before ``p . v``: in bf16
+the two differ by about one rounding.
+
+Training. The backward is the vjp of ``chain_reference`` from the saved
+inputs, the counterpart of ``_fused_bwd_rule``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+
+HEAD_DIM = 64
+MAX_SEQ = 1024
+
+# K8 launches since the last reset, counted where the kernel is launched
+launch_counts = {"attn_block": 0}
+
+_SCALE_LOG2 = math.log2(math.e) / math.sqrt(HEAD_DIM)
+
+
+def chain_reference(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float = 1e-6):
+    """The plain sublayer (the JAX package's ``_chain_reference``): the LN
+    with f32 statistics rounded to x's dtype, ``qkv = normed @ w^T + b`` in
+    x's dtype, f32 logits scaled by ``1/sqrt(Dh)``, the f32 softmax cast to
+    v's dtype, ``p . v`` -> ``[B, S, H*Dh]`` in x's dtype."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    normed = ((xf - mean) * torch.rsqrt(var + eps) * ln_scale.float()
+              + ln_bias.float()).to(x.dtype)
+    qkv = F.linear(normed, w.to(x.dtype)) + b.to(x.dtype)
+    bsz, s, _ = x.shape
+    hd = w.shape[0] // 3
+    dh = hd // num_heads
+
+    def heads(t):
+        return t.reshape(bsz, s, num_heads, dh).transpose(1, 2)
+
+    q, k, v = (heads(t) for t in qkv.split(hd, dim=-1))
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(dh)
+    p = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.float(), v.float()).to(v.dtype)
+    return out.transpose(1, 2).reshape(bsz, s, hd)
+
+
+def ln_qkv_attention(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float = 1e-6):
+    """LayerNorm -> qkv projection -> multi-head attention on x ``[B, S,
+    D]`` with ``w [3*H*Dh, D]`` and ``b [3*H*Dh]`` -> ``[B, S, H*Dh]``: K8
+    on the card, ``chain_reference`` on the CPU. Differentiable in x, the
+    LayerNorm's scale and bias, w and b. w and b are cast to x's dtype."""
+    if x.dim() != 3 or w.dim() != 2 or w.shape[1] != x.shape[-1] or w.shape[0] % 3 \
+            or (w.shape[0] // 3) % num_heads or b.shape != (w.shape[0],):
+        raise ValueError(f"ln_qkv_attention takes x [B, S, D], w [3*H*Dh, D] and b [3*H*Dh] "
+                         f"with H = {num_heads}, got {tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(b.shape)}")
+    devices = {t.device.type for t in (x, ln_scale, ln_bias, w, b)}
+    if devices not in ({"cpu"}, {"cuda"}):
+        raise ValueError(f"ln_qkv_attention needs its tensors all on the CPU or all on one "
+                         f"CUDA device, got {sorted(devices)}")
+    return _LnQkvAttention.apply(x, ln_scale, ln_bias, w.to(x.dtype), b.to(x.dtype), num_heads,
+                                 eps)
+
+
+class _LnQkvAttention(torch.autograd.Function):
+    """K8 (the plain chain on the CPU); the backward is autograd through
+    ``chain_reference`` from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w, b, num_heads, eps):
+        if x.device.type == "cpu":
+            out = chain_reference(x, ln_scale, ln_bias, w, b, num_heads, eps)
+        else:
+            out = _attn_block_cuda(x, ln_scale, ln_bias, w, b, num_heads, eps)
+        ctx.num_heads, ctx.eps = num_heads, eps
+        ctx.save_for_backward(x, ln_scale, ln_bias, w, b)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            out = chain_reference(*ins, ctx.num_heads, ctx.eps)
+        grads = iter(torch.autograd.grad(out, [t for t in ins if t.requires_grad], dout))
+        return (*(next(grads) if t.requires_grad else None for t in ins), None, None)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = _build.load("attn_block")
+    for fn in (lib.k8_attn_block_bf16, lib.k8_attn_block_f32):
+        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.k8_error_string.argtypes = [ctypes.c_int]
+    lib.k8_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _attn_block_cuda(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float):
+    """Launch K8 on x ``[B, S, D]`` (unit column stride), the LayerNorm's
+    scale and bias ``[D]``, w ``[3*H*64, D]`` and b ``[3*H*64]``
+    (contiguous, x's dtype). Returns ``[B, S, H*64]`` in x's dtype."""
+    if x.dim() != 3:
+        raise ValueError(f"K8 takes x [B, S, D], got {tuple(x.shape)}")
+    bsz, s, d = x.shape
+    hd3 = w.shape[0]
+    ts = (x, ln_scale, ln_bias, w, b)
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("K8's operands lie on different devices")
+    if x.dtype not in (torch.bfloat16, torch.float32) or w.dtype != x.dtype or b.dtype != x.dtype:
+        raise ValueError(f"K8 takes bf16 or f32 x, w and b of one dtype, got "
+                         f"{x.dtype}, {w.dtype}, {b.dtype}")
+    if w.shape != (hd3, d) or b.shape != (hd3,) or ln_scale.shape != (d,) \
+            or ln_bias.shape != (d,) or hd3 != 3 * num_heads * HEAD_DIM:
+        raise ValueError(f"K8 takes head dim {HEAD_DIM}: x [B, S, D], scale and bias [D], "
+                         f"w [3*H*{HEAD_DIM}, D], b [3*H*{HEAD_DIM}] with H = {num_heads}, got "
+                         f"{tuple(x.shape)}, {tuple(ln_scale.shape)}, {tuple(ln_bias.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(b.shape)}")
+    if d % 128 or (num_heads * HEAD_DIM) % 128 or not 8 <= s <= MAX_SEQ or bsz < 1:
+        raise ValueError(f"K8 takes D and H*Dh multiples of 128 and 8 <= S <= {MAX_SEQ} (the "
+                         f"JAX kernel's gate), got D={d}, H*Dh={num_heads * HEAD_DIM}, S={s}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise ValueError("K8 is launched raw with grad enabled; go through ln_qkv_attention, "
+                         "whose autograd Function runs the backward")
+    if x.stride(2) != 1:
+        raise ValueError(f"K8 needs x with a unit column stride, got strides {x.stride()}")
+    if not w.is_contiguous() or not b.is_contiguous():
+        raise ValueError("K8 needs contiguous w and b")
+    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or x.stride(0) % 8 or x.stride(1) % 8
+                                      or w.data_ptr() % 16):
+        raise ValueError("K8 bf16 needs 16-byte aligned rows of x and w "
+                         "(strides multiples of 8, aligned base)")
+    ln_w, ln_b = (t.detach().float().contiguous() for t in (ln_scale, ln_bias))
+    stats = torch.empty((2, bsz * s), dtype=torch.float32, device=x.device)
+
+    lib = _library()
+    fn = lib.k8_attn_block_bf16 if x.dtype == torch.bfloat16 else lib.k8_attn_block_f32
+    out = torch.empty((bsz, s, num_heads * HEAD_DIM), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), x.stride(0), x.stride(1), ln_w.data_ptr(), ln_b.data_ptr(),
+                 w.data_ptr(), b.data_ptr(), stats.data_ptr(), out.data_ptr(), bsz, s, d,
+                 num_heads, eps, _SCALE_LOG2, stream)
+    if err != 0:
+        raise RuntimeError(f"K8 attention block launch failed: "
+                           f"{lib.k8_error_string(err).decode()} ({err})")
+    launch_counts["attn_block"] += 1
+    return out

@@ -1,5 +1,5 @@
-"""Fused SwiGLU fc1 for the ViT MLP: the K2 CUDA kernel and its plain twin,
-with autograd.
+"""Fused SwiGLU fc1 for the ViT MLP (K2) and the fused LayerNorm + matmul
+(K7): the CUDA kernels and their plain twins, with autograd.
 
 ``swiglu_fc1(x, w, b)`` computes ``silu(x @ W1^T + b1) * (x @ W2^T + b2)``
 where ``w`` is the packed ``nn.Linear`` weight ``[2H, K]`` (rows ``[0, H)``
@@ -28,6 +28,14 @@ need them (the encoder is frozen: ``dx`` alone). The JAX rule's f32
 matmuls are not copied: without TF32 they would run on the CUDA cores. The
 LayerNorm variant backpropagates through the plain LayerNorm. The raw
 launchers refuse tensors that need grad while grad is enabled.
+
+``ln_matmul(x, lns, lnb, w, b)`` computes ``LayerNorm(x) @ w^T + b`` with
+``w`` the ``nn.Linear`` weight ``[N, K]`` (counterpart of
+``mipheivit_tpu/ops/mlp.py::ln_matmul``, whose ``w`` is ``[K, N]``): the LN
+rows rounded to x's dtype, f32 accumulation and bias, one rounding. On the
+card K7 (the third entry point of ``csrc/swiglu.cu``, K2's LayerNorm kernel
+with a plain epilogue), on the CPU ``ln_matmul_reference``. Its backward is
+the vjp of the plain chain, the counterpart of ``_ln_matmul_bwd_rule``.
 """
 
 from __future__ import annotations
@@ -41,8 +49,8 @@ import torch.nn.functional as F
 from .. import _build
 
 # K2 launches since the last reset (the forward, and the backward's
-# elementwise terms), counted where the kernel is launched
-launch_counts = {"swiglu": 0, "swiglu_bwd": 0}
+# elementwise terms) and K7's ("ln_matmul"), counted where each is launched
+launch_counts = {"swiglu": 0, "swiglu_bwd": 0, "ln_matmul": 0}
 
 
 def ln_rows(x, scale, bias, eps: float):
@@ -144,6 +152,59 @@ def swiglu_bwd_reference(ag, dh):
     return torch.cat([dhf * g * (sig + silu * (1.0 - sig)), dhf * silu], dim=-1).to(ag.dtype)
 
 
+def ln_matmul_reference(x, lns, lnb, w, b, eps: float = 1e-6):
+    """Plain version of K7 (the JAX package's ``_ln_matmul_kernel``): x
+    ``[..., K]``, ``w [N, K]``, ``b [N]`` -> ``[..., N]``. ``ln_rows`` (f32
+    statistics, normed rows rounded to x's dtype), then the rows and the
+    weight taken as f32, f32 product and bias, one rounding to x's dtype."""
+    xn = ln_rows(x, lns, lnb, eps)
+    return F.linear(xn.float(), w.float(), b.float()).to(x.dtype)
+
+
+def ln_matmul(x, lns, lnb, w, b, eps: float = 1e-6):
+    """``LayerNorm(x) @ w^T + b`` for x ``[..., K]``, ``w [N, K]``, ``b [N]``
+    -> ``[..., N]``: K7 on the card, ``ln_matmul_reference`` on the CPU.
+    Differentiable in x, the LayerNorm's scale and bias, w and b. w and b are
+    cast to x's dtype, as the JAX package casts them. On the card N must be a
+    multiple of 256 and K of 128 (the JAX kernel's gate)."""
+    k = x.shape[-1]
+    n = w.shape[0]
+    if w.dim() != 2 or w.shape[1] != k or b.shape != (n,) or lns.shape != (k,) \
+            or lnb.shape != (k,):
+        raise ValueError(f"ln_matmul takes x [..., K], LayerNorm scale and bias [K], w [N, K] "
+                         f"and b [N], got {tuple(x.shape)}, {tuple(lns.shape)}, "
+                         f"{tuple(lnb.shape)}, {tuple(w.shape)}, {tuple(b.shape)}")
+    _device_type(x, lns, lnb, w, b)
+    out = _LnMatmul.apply(x.reshape(-1, k), lns, lnb, w.to(x.dtype), b.to(x.dtype), eps)
+    return out.reshape(*x.shape[:-1], n)
+
+
+class _LnMatmul(torch.autograd.Function):
+    """K7 (plain version on the CPU); the backward is autograd through the
+    plain chain ``ln_rows(x) @ w^T + b`` in the input's dtype, as the JAX
+    rule takes the vjp of ``_ln_reference(x) @ w + b``."""
+
+    @staticmethod
+    def forward(ctx, x, lns, lnb, w, b, eps):
+        if x.device.type == "cpu":
+            out = ln_matmul_reference(x, lns, lnb, w, b, eps)
+        else:
+            out = _ln_matmul_cuda(x, lns, lnb, w, b, eps)
+        ctx.eps = eps
+        ctx.save_for_backward(x, lns, lnb, w, b)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need) for t, need in zip(saved, ctx.needs_input_grad)]
+            x, lns, lnb, w, b = ins
+            out = F.linear(ln_rows(x, lns, lnb, ctx.eps), w, b)
+        grads = iter(torch.autograd.grad(out, [t for t in ins if t.requires_grad], dy))
+        return (*(next(grads) if t.requires_grad else None for t in ins), None)
+
+
 def swiglu_gate_grad(ag, dh):
     """``swiglu_bwd_reference``'s function: K2's backward entry point on the
     card, the plain version on the CPU."""
@@ -156,15 +217,16 @@ def _device_type(*tensors) -> str:
     devices = {t.device.type for t in tensors}
     if devices in ({"cpu"}, {"cuda"}):
         return devices.pop()
-    raise ValueError(f"swiglu_fc1 needs x, w, b all on the CPU or all on one CUDA device, "
-                     f"got {sorted(devices)}")
+    raise ValueError(f"swiglu_fc1 and ln_matmul need their tensors all on the CPU or all on "
+                     f"one CUDA device, got {sorted(devices)}")
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = _build.load("swiglu")
-    for fn in (lib.k2_swiglu_bf16, lib.k2_swiglu_f32):
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 5
+    for fn in (lib.k2_swiglu_bf16, lib.k2_swiglu_f32, lib.k7_ln_matmul_bf16,
+               lib.k7_ln_matmul_f32):
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 6
                        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     for fn in (lib.k2_swiglu_bwd_gate_bf16, lib.k2_swiglu_bwd_gate_f32):
@@ -183,31 +245,17 @@ def _swiglu_cuda(x, w, b, ln, eps: float):
         raise ValueError(f"K2 takes x [M, K], got {tuple(x.shape)}")
     m, k = x.shape
     h = w.shape[0] // 2
-    ts = (x, w, b) + (tuple(ln) if ln is not None else ())
-    if len({t.device for t in ts}) != 1:
-        raise ValueError("K2's operands lie on different devices")
-    if x.dtype not in (torch.bfloat16, torch.float32) or w.dtype != x.dtype or b.dtype != x.dtype:
-        raise ValueError(f"K2 takes bf16 or f32 x, w and b of one dtype, got "
-                         f"{x.dtype}, {w.dtype}, {b.dtype}")
     if w.shape != (2 * h, k) or b.shape != (2 * h,) or m < 1 or k % 8 or h % 8 or h < 8:
         raise ValueError(f"K2 takes x [M, K], w [2H, K], b [2H] with K and H multiples of 8, "
                          f"got {tuple(x.shape)}, {tuple(w.shape)}, {tuple(b.shape)}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise ValueError("K2 is launched raw with grad enabled; go through swiglu_fc1, "
-                         "whose autograd Function runs the backward")
-    if x.stride(1) != 1 or x.stride(0) < k:
-        raise ValueError(f"K2 needs x with a unit column stride, got strides {x.stride()}")
-    if not w.is_contiguous() or not b.is_contiguous():
-        raise ValueError("K2 needs contiguous w and b")
-    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or x.stride(0) % 8 or w.data_ptr() % 16):
-        raise ValueError("K2 bf16 needs 16-byte aligned rows of x and w "
-                         "(row stride a multiple of 8, aligned base)")
-    ln_w = ln_b = None
+    _check_operands("K2", "swiglu_fc1", x, w, b, *(ln if ln is not None else ()))
+    ln_w = ln_b = stats = None
     if ln is not None:
         ln_w, ln_b = (t.detach().float().contiguous() for t in ln)
         if ln_w.shape != (k,) or ln_b.shape != (k,):
             raise ValueError(f"K2's LayerNorm takes scale and bias [K], got "
                              f"{tuple(ln_w.shape)}, {tuple(ln_b.shape)}")
+        stats = torch.empty((2, m), dtype=torch.float32, device=x.device)
 
     lib = _library()
     fn = lib.k2_swiglu_bf16 if x.dtype == torch.bfloat16 else lib.k2_swiglu_f32
@@ -215,12 +263,65 @@ def _swiglu_cuda(x, w, b, ln, eps: float):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), x.stride(0), w.data_ptr(), b.data_ptr(),
-                 None if ln_w is None else ln_w.data_ptr(),
-                 None if ln_b is None else ln_b.data_ptr(),
+                 *(None if t is None else t.data_ptr() for t in (ln_w, ln_b, stats)),
                  out.data_ptr(), m, k, h, eps, stream)
     if err != 0:
         raise RuntimeError(f"K2 swiglu launch failed: {lib.k2_error_string(err).decode()} ({err})")
     launch_counts["swiglu"] += 1
+    return out
+
+
+def _check_operands(name: str, entry: str, x, w, b, *more) -> None:
+    """What K2 and K7 need of x ``[M, K]``, w and b (shapes aside) and of
+    the LayerNorm's scale and bias ``more``."""
+    ts = (x, w, b) + more
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"{name}'s operands lie on different devices")
+    if x.dtype not in (torch.bfloat16, torch.float32) or w.dtype != x.dtype or b.dtype != x.dtype:
+        raise ValueError(f"{name} takes bf16 or f32 x, w and b of one dtype, got "
+                         f"{x.dtype}, {w.dtype}, {b.dtype}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise ValueError(f"{name} is launched raw with grad enabled; go through {entry}, "
+                         "whose autograd Function runs the backward")
+    if x.stride(1) != 1 or x.stride(0) < x.shape[1]:
+        raise ValueError(f"{name} needs x with a unit column stride, got strides {x.stride()}")
+    if not w.is_contiguous() or not b.is_contiguous():
+        raise ValueError(f"{name} needs contiguous w and b")
+    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or x.stride(0) % 8 or w.data_ptr() % 16):
+        raise ValueError(f"{name} bf16 needs 16-byte aligned rows of x and w "
+                         "(row stride a multiple of 8, aligned base)")
+
+
+def _ln_matmul_cuda(x, lns, lnb, w, b, eps: float):
+    """Launch K7 on x ``[M, K]`` (unit column stride), the LayerNorm's scale
+    and bias ``[K]``, w ``[N, K]`` and b ``[N]`` (contiguous, x's dtype), N a
+    multiple of 256 and K of 128. Returns ``[M, N]`` in x's dtype."""
+    if x.dim() != 2:
+        raise ValueError(f"K7 takes x [M, K], got {tuple(x.shape)}")
+    m, k = x.shape
+    n = w.shape[0]
+    if w.shape != (n, k) or b.shape != (n,) or lns.shape != (k,) or lnb.shape != (k,) or m < 1:
+        raise ValueError(f"K7 takes x [M, K], scale and bias [K], w [N, K] and b [N], got "
+                         f"{tuple(x.shape)}, {tuple(lns.shape)}, {tuple(lnb.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(b.shape)}")
+    if n % 256 or k % 128:
+        raise ValueError(f"K7 takes N a multiple of 256 and K of 128 (the JAX kernel's gate), "
+                         f"got N={n}, K={k}")
+    _check_operands("K7", "ln_matmul", x, w, b, lns, lnb)
+    ln_w, ln_b = (t.detach().float().contiguous() for t in (lns, lnb))
+    stats = torch.empty((2, m), dtype=torch.float32, device=x.device)
+
+    lib = _library()
+    fn = lib.k7_ln_matmul_bf16 if x.dtype == torch.bfloat16 else lib.k7_ln_matmul_f32
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), x.stride(0), w.data_ptr(), b.data_ptr(), ln_w.data_ptr(),
+                 ln_b.data_ptr(), stats.data_ptr(), out.data_ptr(), m, k, n, eps, stream)
+    if err != 0:
+        raise RuntimeError(f"K7 ln_matmul launch failed: {lib.k2_error_string(err).decode()} "
+                           f"({err})")
+    launch_counts["ln_matmul"] += 1
     return out
 
 

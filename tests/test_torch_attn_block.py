@@ -1,0 +1,281 @@
+"""K8 (the fused attention sublayer, ``ln_qkv_attention``) in the PyTorch port
+against the JAX package.
+
+On the CPU the port's ``ln_qkv_attention`` runs ``chain_reference``, held
+against the JAX kernel ``_ln_qkv_attn_kernel`` run in interpret mode
+(``ln_qkv_attention(impl="pallas_interpret")``; the JAX weight is ``[D,
+3*H*Dh]``, the port's the ``nn.Linear`` layout ``[3*H*Dh, D]``) and against
+the JAX ``_chain_reference``; its gradients against ``jax.grad`` through the
+interpreted kernel; and one JAX ViT block's ``norm1`` and ``qkv``
+parameters, carried over by ``state_dict_from_jax``, through both packages
+and through the port's own block. The ``gpu`` tests hold K8 against the
+plain chain on the card; they skip here. Run them on a machine with a card
+(tests/conftest.py imports jax, which that machine lacks):
+
+    python -m pytest tests/test_torch_attn_block.py -m gpu --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mipheivit_tpu_torch.ops import attn_block as port
+
+torch.set_num_threads(2)
+
+# f32: the same function in another order of summation (the kernel adds the
+# bias inside its f32 accumulation and divides after p . v, the chain
+# before; in f32 neither rounds)
+RTOL = 1e-5
+GRAD_RTOL = 1e-4
+D, HEADS = 256, 4         # the JAX kernel's gate: D % 128, H*Dh % 128, Dh % 8
+# scaled to the reference: (max |err| / max |ref|, ||err|| / ||ref||); in
+# bf16 K8 and the chain differ by the bias's rounding and where p is divided
+BF16_TOL = (2e-2, 1e-2)
+CARD_TOL = {torch.bfloat16: BF16_TOL, torch.float32: (1e-4, 1e-5)}
+
+
+def _inputs(b, s, seed, d=D, heads=HEADS):
+    """x [b, s, d], the LayerNorm's scale and bias, the JAX layout's w
+    [d, 3*H*64] and b, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, d)).astype(np.float32)
+    lns = rng.uniform(0.5, 1.5, d).astype(np.float32)
+    lnb = (rng.standard_normal(d) * 0.1).astype(np.float32)
+    w = (rng.standard_normal((d, 3 * heads * 64)) / np.sqrt(d)).astype(np.float32)
+    bias = (rng.standard_normal(3 * heads * 64) * 0.1).astype(np.float32)
+    return x, lns, lnb, w, bias
+
+
+def _port(x, lns, lnb, w, b):
+    return [torch.from_numpy(t) for t in (x, lns, lnb, w.T.copy(), b)]
+
+
+def _jax(x, lns, lnb, w, b, impl="pallas_interpret", dtype=None):
+    import jax.numpy as jnp
+
+    from mipheivit_tpu.ops.attn_block import _chain_reference, ln_qkv_attention
+
+    xj = jnp.asarray(x) if dtype is None else jnp.asarray(x, dtype)
+    args = (xj, *map(jnp.asarray, (lns, lnb, w, b)))
+    if impl == "chain":
+        out = _chain_reference(*args, HEADS, 1e-6)
+    else:
+        out = ln_qkv_attention(*args, HEADS, impl=impl)
+    return np.asarray(out.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("impl", ["pallas_interpret", "chain"])
+@pytest.mark.parametrize("s", [37, 128])
+def test_matches_jax(s, impl):
+    args = _inputs(2, s, seed=s)
+    want = _jax(*args, impl=impl)
+    got = port.ln_qkv_attention(*_port(*args), HEADS)
+    assert got.shape == (2, s, HEADS * 64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=RTOL * np.abs(want).max())
+
+
+def test_bf16_matches_jax_kernel():
+    args = _inputs(2, 77, seed=1)
+    want = _jax(*args, dtype="bfloat16")
+    x, lns, lnb, w, b = _port(*args)
+    got = port.ln_qkv_attention(x.bfloat16(), lns, lnb, w, b, HEADS)
+    assert got.dtype == torch.bfloat16
+    err = got.float().numpy() - want
+    assert np.abs(err).max() <= BF16_TOL[0] * np.abs(want).max()
+    assert np.linalg.norm(err) <= BF16_TOL[1] * np.linalg.norm(want)
+
+
+def test_cpu_runs_plain_version_without_launch():
+    port.launch_counts["attn_block"] = 0
+    args = _port(*_inputs(1, 40, seed=2))
+    out = port.ln_qkv_attention(*args, HEADS)
+    assert port.launch_counts["attn_block"] == 0
+    torch.testing.assert_close(out, port.chain_reference(*args, HEADS), rtol=0, atol=0)
+
+
+def test_other_devices_raise():
+    x, lns, lnb, w, b = _port(*_inputs(1, 8, seed=3))
+    with pytest.raises(ValueError, match="CPU or all on one"):
+        port.ln_qkv_attention(x.to("meta"), lns, lnb, w, b, HEADS)
+    with pytest.raises(ValueError, match="takes x"):
+        port.ln_qkv_attention(x, lns, lnb, w.t(), b, HEADS)
+
+
+def test_autograd_matches_jax_grad():
+    """dx, the LayerNorm's dscale and dbias, dW and db of the port's
+    autograd Function against jax.grad through the interpreted kernel
+    (whose backward is the vjp of the XLA chain)."""
+    import jax
+    import jax.numpy as jnp
+
+    from mipheivit_tpu.ops.attn_block import ln_qkv_attention
+
+    args = _inputs(2, 37, seed=4)
+    r = np.random.default_rng(5).standard_normal((2, 37, HEADS * 64)).astype(np.float32)
+
+    def loss(*a):
+        return jnp.sum(ln_qkv_attention(*a, HEADS, impl="pallas_interpret") * r)
+
+    want = jax.grad(loss, argnums=tuple(range(5)))(*map(jnp.asarray, args))
+    ts = [t.requires_grad_() for t in _port(*args)]
+    (port.ln_qkv_attention(*ts, HEADS) * torch.from_numpy(r)).sum().backward()
+    got = [t.grad.numpy() for t in ts]
+    got[3] = got[3].T                                 # [3HD, D] -> the JAX [D, 3HD]
+    for g, w_ in zip(got, map(np.asarray, want)):
+        np.testing.assert_allclose(g, w_, rtol=GRAD_RTOL, atol=GRAD_RTOL * np.abs(w_).max())
+
+
+def test_jax_block_weights_through_both_packages():
+    """One JAX ViT block's norm1 and qkv parameters, carried over by
+    state_dict_from_jax: the JAX kernel (interpreted) and K7 + attention
+    in JAX against ln_qkv_attention and ln_matmul + attention_qkv in the
+    port, and against the port's own block (norm1 -> qkv -> attention)."""
+    import jax
+    import jax.numpy as jnp
+
+    from mipheivit_tpu.models import ViTConfig as JaxViTConfig
+    from mipheivit_tpu.models import VisionTransformer as JaxVisionTransformer
+    from mipheivit_tpu.ops.attention import attention_qkv as jax_attention_qkv
+    from mipheivit_tpu.ops.attn_block import ln_qkv_attention as jax_ln_qkv_attention
+    from mipheivit_tpu.ops.mlp import ln_matmul as jax_ln_matmul
+    from mipheivit_tpu_torch.models import ViTConfig, VisionTransformer
+    from mipheivit_tpu_torch.models.convert import state_dict_from_jax
+    from mipheivit_tpu_torch.ops.attention import attention_qkv
+    from mipheivit_tpu_torch.ops.mlp import ln_matmul
+
+    geom = dict(img_size=(32, 32), patch_size=4, embed_dim=D, depth=1, num_heads=HEADS,
+                mlp_hidden_dim=512, reg_tokens=4)
+    cfg = JaxViTConfig(**geom, remat=False)
+    params = jax.tree.map(np.asarray, jax.jit(JaxVisionTransformer(cfg).init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))["params"])
+    rng = np.random.default_rng(6)
+    blk = params["blocks"]
+    blk["norm1"]["scale"] = rng.uniform(0.5, 1.5, blk["norm1"]["scale"].shape).astype(np.float32)
+    blk["norm1"]["bias"] = (rng.standard_normal(blk["norm1"]["bias"].shape) * 0.1).astype(np.float32)
+    blk["attn"]["qkv"]["bias"] = (rng.standard_normal(blk["attn"]["qkv"]["bias"].shape)
+                                  * 0.1).astype(np.float32)
+    x = rng.standard_normal((2, 69, D)).astype(np.float32)
+    lns, lnb = blk["norm1"]["scale"][0], blk["norm1"]["bias"][0]
+    wq, bq = blk["attn"]["qkv"]["kernel"][0], blk["attn"]["qkv"]["bias"][0]
+    jargs = [jnp.asarray(t) for t in (x, lns, lnb, wq, bq)]
+    want = np.asarray(jax_ln_qkv_attention(*jargs, HEADS, impl="pallas_interpret"))
+    want7 = np.asarray(jax_attention_qkv(jax_ln_matmul(*jargs, impl="pallas_interpret"), HEADS,
+                                         impl="flash_interpret"))
+
+    vit = VisionTransformer(ViTConfig(**geom)).eval()
+    state = state_dict_from_jax({"params": params}, cfg)
+    vit.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in state.items()})
+    block = vit.blocks[0]
+    xt = torch.from_numpy(x)
+    with torch.inference_mode():
+        ours = [port.ln_qkv_attention(xt, block.norm1.weight, block.norm1.bias,
+                                      block.attn.qkv.weight, block.attn.qkv.bias, HEADS),
+                attention_qkv(ln_matmul(xt, block.norm1.weight, block.norm1.bias,
+                                        block.attn.qkv.weight, block.attn.qkv.bias), HEADS),
+                attention_qkv(block.attn.qkv(block.norm1(xt)), HEADS)]
+    tol = dict(rtol=1e-4, atol=1e-4 * np.abs(want).max())
+    np.testing.assert_allclose(want7, want, **tol)
+    for got in ours:
+        np.testing.assert_allclose(got.numpy(), want, **tol)
+
+
+# ---------------------------------------------------------------------------
+# on the card: the CUDA kernel against the plain version
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _card_inputs(b, s, d, heads, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, s, d), generator=g).to(device, dtype)
+    lns = (torch.rand(d, generator=g) + 0.5).to(device)
+    lnb = (torch.randn(d, generator=g) * 0.1).to(device)
+    w = (torch.randn((3 * heads * 64, d), generator=g) / d ** 0.5).to(device, dtype)
+    bias = (torch.randn(3 * heads * 64, generator=g) * 0.1).to(device, dtype)
+    return x, lns, lnb, w, bias
+
+
+def _scaled(got, want):
+    err = got.float() - want.float()
+    return ((err.abs().max() / want.float().abs().max()).item(),
+            (err.norm() / want.float().norm()).item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,s,d,heads", [(4, 329, 1536, 24), (2, 1024, 256, 4), (3, 8, 128, 2),
+                                         (2, 65, 256, 2), (1, 200, 384, 6), (1, 700, 256, 4)])
+def test_kernel_matches_plain_on_card(cuda, b, s, d, heads, dtype):
+    args = _card_inputs(b, s, d, heads, dtype, cuda, seed=s + d)
+    port.launch_counts["attn_block"] = 0
+    with torch.inference_mode():
+        got = port.ln_qkv_attention(*args, heads)
+        want = port.chain_reference(*args, heads)
+        torch.cuda.synchronize()
+    assert port.launch_counts["attn_block"] == 1
+    assert got.shape == (b, s, heads * 64) and got.dtype == dtype
+    rel, fro = _scaled(got, want)
+    assert rel <= CARD_TOL[dtype][0] and fro <= CARD_TOL[dtype][1], (rel, fro)
+
+
+@pytest.mark.gpu
+def test_kernel_reads_strided_rows_on_card(cuda):
+    """x as a column slice of a wider buffer (row stride 2D)."""
+    x, lns, lnb, w, b = _card_inputs(2, 329, 512, 4, torch.bfloat16, cuda, seed=7)
+    xs = x[..., :256]
+    with torch.inference_mode():
+        got = port.ln_qkv_attention(xs, lns[:256], lnb[:256], w[:, :256].contiguous(), b, 4)
+        want = port.chain_reference(xs, lns[:256], lnb[:256], w[:, :256], b, 4)
+        torch.cuda.synchronize()
+    rel, fro = _scaled(got, want)
+    assert rel <= BF16_TOL[0] and fro <= BF16_TOL[1], (rel, fro)
+
+
+@pytest.mark.gpu
+def test_backward_on_card_matches_cpu(cuda):
+    """f32: K8 forward and the chain's backward on the card against the CPU."""
+    args = _card_inputs(2, 50, 128, 2, torch.float32, torch.device("cpu"), seed=8)
+    r = torch.randn((2, 50, 128), generator=torch.Generator().manual_seed(9))
+    grads = []
+    for dev in ("cpu", cuda):
+        ts = [t.detach().to(dev).requires_grad_() for t in args]
+        (port.ln_qkv_attention(*ts, 2) * r.to(dev)).sum().backward()
+        grads.append([t.grad.cpu() for t in ts])
+    for g_card, g_cpu in zip(grads[1], grads[0]):
+        torch.testing.assert_close(g_card, g_cpu, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    x, lns, lnb, w, b = _card_inputs(1, 40, 256, 4, torch.bfloat16, cuda, seed=10)
+    with pytest.raises(ValueError, match="head dim 64"):            # 8 heads of 32
+        port.ln_qkv_attention(x, lns, lnb, w, b, 8)
+    with pytest.raises(ValueError, match="8 <= S <= 1024"):
+        port.ln_qkv_attention(torch.zeros((1, 1025, 256), dtype=torch.bfloat16, device=cuda),
+                              lns, lnb, w, b, 4)
+    with pytest.raises(ValueError, match="8 <= S <= 1024"):
+        port.ln_qkv_attention(x[:, :7], lns, lnb, w, b, 4)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        port.ln_qkv_attention(x[..., :192], lns[:192], lnb[:192], w[:, :192].contiguous(), b, 4)
+    with pytest.raises(ValueError, match="one dtype"):
+        port._attn_block_cuda(x.half(), lns, lnb, w.half(), b.half(), 4, 1e-6)
+    with pytest.raises(ValueError, match="grad enabled"):
+        port._attn_block_cuda(x.requires_grad_(), lns, lnb, w, b, 4, 1e-6)
+
+
+@pytest.mark.gpu
+def test_failed_launch_raises(cuda):
+    """A launch the card refuses (a grid deeper than 65535 batch items)
+    surfaces as an error, and counts no launch."""
+    x, lns, lnb, w, b = _card_inputs(1, 8, 128, 2, torch.bfloat16, cuda, seed=11)
+    port.launch_counts["attn_block"] = 0
+    with torch.inference_mode(), pytest.raises(RuntimeError, match="K8 attention block launch"):
+        port.ln_qkv_attention(x.expand(65536, 8, 128).contiguous(), lns, lnb, w, b, 2)
+    assert port.launch_counts["attn_block"] == 0

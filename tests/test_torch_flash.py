@@ -104,10 +104,10 @@ def test_attention_qkv_long_matches_jax_flash_interpret():
 def test_cpu_dispatch_by_length_without_launch(s, plain):
     """On the CPU S <= 512 runs K1's plain version and S > 512 K4's; no
     kernel is launched."""
-    port.launch_counts.update(attention=0, flash=0, flash_bwd=0)
+    port.launch_counts.update(attention=0, flash=0, flash_bwd=0, short=0)
     qkv = torch.from_numpy(_rand(1, s, 3 * 128, seed=s))
     got = port.attention_qkv(qkv, 2)
-    assert port.launch_counts == {"attention": 0, "flash": 0, "flash_bwd": 0}
+    assert port.launch_counts == {"attention": 0, "flash": 0, "flash_bwd": 0, "short": 0}
     q, k, v = qkv.chunk(3, dim=-1)
     want = getattr(port, plain)(q, k, v, 2)
     want = want[0] if plain == "flash_reference" else want

@@ -114,7 +114,7 @@ def test_attention_autograd_matches_plain_softmax_autograd(s):
     h = 2
     qkv = torch.from_numpy(_rand(1, s, 3 * h * 64, seed=s))
     g = torch.from_numpy(_rand(1, s, h * 64, seed=s + 1))
-    port.launch_counts.update(attention=0, flash=0, flash_bwd=0)
+    port.launch_counts.update(attention=0, flash=0, flash_bwd=0, short=0)
     a = qkv.clone().requires_grad_()
     port.attention_qkv(a, h).backward(g)
     b = qkv.clone().requires_grad_()
@@ -122,7 +122,7 @@ def test_attention_autograd_matches_plain_softmax_autograd(s):
     p = torch.softmax(q @ k.transpose(-1, -2) / 8.0, dim=-1)
     (p @ v).transpose(1, 2).reshape(1, s, h * 64).backward(g)
     torch.testing.assert_close(a.grad, b.grad, atol=ATOL, rtol=RTOL)
-    assert port.launch_counts == {"attention": 0, "flash": 0, "flash_bwd": 0}
+    assert port.launch_counts == {"attention": 0, "flash": 0, "flash_bwd": 0, "short": 0}
 
 
 def test_flash_backward_on_cpu_is_the_plain_version():

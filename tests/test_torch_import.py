@@ -10,7 +10,9 @@ PKG = Path(__file__).resolve().parent.parent / "mipheivit_tpu_torch"
 CHIP_PATH = [
     "mipheivit_tpu_torch",
     "mipheivit_tpu_torch._build",
+    "mipheivit_tpu_torch.ops",
     "mipheivit_tpu_torch.ops.attention",
+    "mipheivit_tpu_torch.ops.attn_block",
     "mipheivit_tpu_torch.ops.mlp",
     "mipheivit_tpu_torch.ops.seg_heads",
     "mipheivit_tpu_torch.ops.resize",

@@ -401,7 +401,7 @@ def test_train_step_matches_jax(route, gan, monkeypatch):
                               disc_opt, ps.StepConfig(gan_train=gan))
     assert {n for n, _ in state.gen_params} == set(want_grads)
 
-    port_attention.launch_counts.update(attention=0, flash=0, flash_bwd=0)
+    port_attention.launch_counts.update(attention=0, flash=0, flash_bwd=0, short=0)
     jmetrics, metrics = JM.zeros(), PixelMetrics.zeros()
     for i, batch in enumerate(batches):
         jstate, jmetrics, jlog = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()},
@@ -417,7 +417,8 @@ def test_train_step_matches_jax(route, gan, monkeypatch):
                 bound = GRAD_NORM_RTOL * np.linalg.norm(want_grads[name]) + \
                     GRAD_NORM_FLOOR * np.sqrt(grad.numel())
                 assert err <= bound, (name, err, bound)
-    assert port_attention.launch_counts == {"attention": 0, "flash": 0, "flash_bwd": 0}
+    assert port_attention.launch_counts == {"attention": 0, "flash": 0, "flash_bwd": 0,
+                                            "short": 0}
     assert state.step == 4 and state.gen_opt_state.adam_count == 2
 
     got = model.state_dict()
