@@ -46,6 +46,11 @@ accumulation 2; the generator step of the flagship preset, gan_train off):
                ln_qkv_attention (K8) at the profiling shapes, and at a small
                slice held in cosine against the f32 backward on the CPU.
 
+Before the paths, [rejects] calls each op entry point on the card at a
+shape its kernel does not take (head dim 32 for the attention entry points
+and K5's, ln_matmul at N 200, ln_qkv_attention at D 96): each must raise
+before any launch, as there is no plain route on the card.
+
 It checks the outputs (the stitched slides against a serial reference
 stitch; every served tile against the same tile in a full batch; finite
 losses, frozen weights bit-identical and trainable ones moved), the exact
@@ -256,8 +261,9 @@ def k4_phase(name, q, k, v, seq_len_k=None):
 def k5_phase(name, q, k, v, seq_len_k=None, seed=0):
     """K5 against its plain version on K4's output for one input and a
     random output gradient; prints and checks the dq/dk/dv errors and times
-    the kernel, the plain version and the library's attention forward plus
-    backward on the same (live) keys. Returns the row's numbers."""
+    the kernel, the plain version, and the library's attention backward
+    alone (the row's ``library_ms``) and its forward plus backward, on the
+    same (live) keys. Returns the row's numbers."""
     import torch.nn.functional as F
 
     from mipheivit_tpu_torch.ops import attention as attn
@@ -281,11 +287,17 @@ def k5_phase(name, q, k, v, seq_len_k=None, seed=0):
     ql, kl, vl = (heads_view(t, True) for t in (q, k[:, :live], v[:, :live]))
     gl = heads_view(g)
 
-    def library():
+    def fwd_bwd():
         o = F.scaled_dot_product_attention(ql, kl, vl)
         torch.autograd.grad(o, (ql, kl, vl), gl)
 
-    library_ms = cuda_ms(library, reps=10)
+    fwd_bwd_ms = cuda_ms(fwd_bwd, reps=10)
+    # the library's backward alone: one forward kept, its gradient timed
+    with torch.enable_grad():
+        o = F.scaled_dot_product_attention(ql, kl, vl)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(o, (ql, kl, vl), gl, retain_graph=True),
+                             reps=10)
+        del o
     b, sq, hd = q.shape
     n_bytes = 4 * b * (sq + k.shape[1]) * hd * q.element_size() + b * HEADS * sq * 4
     bnd, by = bound_ms(n_bytes, 10.0 * b * HEADS * sq * live * 64, dt)
@@ -293,14 +305,14 @@ def k5_phase(name, q, k, v, seq_len_k=None, seed=0):
           f"dq/dk/dv err {'/'.join(f'{e[0]:.3e}' for e in errs)} = "
           f"{'/'.join(f'{e[1]:.2e}' for e in errs)} of max|ref|, norm-rel "
           f"{'/'.join(f'{e[2]:.2e}' for e in errs)} (tol {SCALED_TOL[dt][0]:g}, "
-          f"{SCALED_TOL[dt][1]:g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms library fwd+bwd "
-          f"{library_ms:.3f} ms bound {bnd:.3f} ms ({by}) ({time.perf_counter() - t0:.1f} s)",
-          flush=True)
+          f"{SCALED_TOL[dt][1]:g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms library backward "
+          f"{library_ms:.3f} ms, fwd+bwd {fwd_bwd_ms:.3f} ms bound {bnd:.3f} ms ({by}) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     check(finite and all(e[1] <= SCALED_TOL[dt][0] and e[2] <= SCALED_TOL[dt][1] for e in errs),
           f"K5 {name} disagrees with the plain version")
     return {"max_abs_err": max(e[0] for e in errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd,
-            "bound_by": by, "library_ms": library_ms}
+            "bound_ms": bnd, "bound_by": by, "library_ms": library_ms,
+            "library_fwd_bwd_ms": fwd_bwd_ms}
 
 
 def _count_dicts():
@@ -626,6 +638,60 @@ def k8_phase(name, b, s, dtype, seed=0):
     return kernel_row(f"k8 {name}", f"x [{b}, {s}, {HD}], {HEADS} heads", got, want, dt, ms,
                       plain_ms, library_ms, "layer_norm + linear + scaled_dot_product_attention",
                       n_bytes, flops, t0)
+
+
+def rejects_phase():
+    """Each op entry point on the card at a shape its kernel does not take:
+    the attention entry points at 24 heads of 32 (attention_qkv at S 329,
+    K1's; attention_bshd at S 600, K4's; flash_backward there, K5's;
+    dot_product_attention at S 329, K6's), ln_matmul at N 200 (K7's) and
+    ln_qkv_attention at D 96 (K8's). Each must raise ValueError with no
+    kernel launch: on the card an entry point launches its kernel or
+    raises."""
+    from mipheivit_tpu_torch.ops import attention as attn
+    from mipheivit_tpu_torch.ops import attn_block, mlp
+
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    qkv = seeded((2, 329, 3 * 768), SEED + 120, bf16)
+    long_q, long_k, long_v = seeded((1, 600, 3 * 768), SEED + 121, bf16).chunk(3, -1)
+    g = seeded((1, 600, 768), SEED + 122, bf16)
+    out, lse = attn.flash_reference(long_q, long_k, long_v, HEADS)
+    heads = [seeded((2, HEADS, 329, 32), SEED + 123 + i, bf16) for i in range(3)]
+    x = seeded((658, 256), SEED + 126, bf16)
+    lns, lnb = ln_params(256, SEED + 127)
+    w, b = seeded((200, 256), SEED + 128, bf16, 256 ** -0.5), seeded(200, SEED + 129, bf16, 0.1)
+    x96 = seeded((2, 329, 96), SEED + 130, bf16)
+    lns96, lnb96 = ln_params(96, SEED + 131)
+    w96, b96 = seeded((3 * 128, 96), SEED + 132, bf16, 96 ** -0.5), seeded(384, SEED + 133, bf16)
+    cases = {
+        "attention_qkv [2, 329, 24x32]": lambda: attn.attention_qkv(qkv, HEADS),
+        "attention_bshd [1, 600, 24x32]": lambda: attn.attention_bshd(long_q, long_k, long_v,
+                                                                      HEADS),
+        "flash_backward [1, 600, 24x32]": lambda: attn.flash_backward(
+            long_q, long_k, long_v, out, lse, g, HEADS),
+        "dot_product_attention [2, 24, 329, 32]": lambda: attn.dot_product_attention(*heads),
+        "ln_matmul [658, 256] x [200, 256]": lambda: mlp.ln_matmul(x, lns, lnb, w, b),
+        "ln_qkv_attention [2, 329, 96], 2 heads": lambda: attn_block.ln_qkv_attention(
+            x96, lns96, lnb96, w96, b96, 2),
+    }
+    lines, ok = [], True
+    for name, op in cases.items():
+        reset_counts()
+        try:
+            with torch.inference_mode():
+                op()
+            torch.cuda.synchronize()
+            raised = "returned"
+        except ValueError as e:
+            raised = f"raised ({e})"
+        launched = {k: n for k, n in read_counts().items() if n}
+        ok = ok and raised != "returned" and not launched
+        lines.append(f"{name}: {raised}, launches {launched or 0}")
+    reset_counts()
+    print(f"[rejects] {'; '.join(lines)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(ok, "[rejects] an op entry point did not raise, before any launch, on a shape its "
+              "kernel does not take")
 
 
 def block0_tokens(model, x):
@@ -1241,6 +1307,9 @@ def main() -> None:
     k8_phase("bf16_1024", 4, 1024, torch.bfloat16, seed=SEED + 114)
     k8_phase("f32", 2, 329, torch.float32, seed=SEED + 118)
     torch.cuda.empty_cache()
+
+    # 3g. what no kernel takes raises on the card, before any launch
+    rejects_phase()
 
     # 4. the slice at full width
     tiles = np.random.default_rng(SEED + 1).integers(0, 256, (N_TILES, IMG, IMG, 3),

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 with ``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>-<hash>.so`` (the
-hash is of the source, so an edited kernel is rebuilt) and loaded with
+hash is of the source and the shared headers ``csrc/*.cuh``, so an edited
+kernel or header is rebuilt) and loaded with
 ``ctypes``. Nothing here runs at import time, and nothing falls back: a
 missing ``nvcc`` or a failed compile raises.
 """
@@ -39,8 +40,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by the source's content."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    """Where ``csrc/<name>.cu`` builds to, keyed by the content of the source
+    and of the headers it may include."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD / f"lib{name}-{digest}.so"
 
 

@@ -39,16 +39,27 @@
 // one call is 4*S^2*D*H*B = 42.6 GFLOP and, with q/k/v read once and the
 // output written once, 0.26 GB: 164 FLOP/byte, under the card's ~295, so
 // the floor is the memory time (0.08 ms at 3.35 TB/s; the products alone
-// would take 0.04 ms at the dense bf16 peak). K and V are re-read by each of
-// the 6 q tiles of a head, from L2 (K6 reads K twice). Per (batch, head) the
-// work is small, so the design keeps many blocks resident (46 KB of shared
-// memory, four blocks of 4 warps per SM), runs both products on the tensor
-// cores (mma.sync m16n8k16, bf16 in, f32 accumulate), and keeps logits and
-// probabilities in registers, out of shared and device memory. TMA, wgmma
-// and warp specialisation are left for later.
+// would take 0.04 ms at the dense bf16 peak).
 //
+// K1's bf16 design answers that bound (attn_bf16_kernel): one block per
+// (head, batch item), 1536 blocks at 64 tiles, so each head's K and V are
+// read once (a block per 64-row q tile read them six times over from L2).
+// TMA brings them into shared memory, 86 KB at S = 329 in the 128-byte
+// swizzled layout wgmma reads: TMA rather than cp.async because one thread
+// issues a whole tile, rows past S arrive as zeros without a mask, and the
+// swizzle costs no instruction; one mbarrier per key tile lets the first
+// products start before the rest lands. Two warpgroups take the q tiles in
+// turn; both products run on wgmma (bf16 in, f32 accumulate): s = q . k^T
+// with both operands in shared memory, o += p . v with p in registers. The
+// last key tile is cut to the live keys rounded up to 16 (336 key columns
+// at S = 329, not 384). Two blocks fit on an SM at S = 329 (~101 KB each).
+// K6 keeps the first design: a block per (64-row q tile, head, batch),
+// cp.async tiles, mma.sync m16n8k16, K re-read per q tile (twice, for its
+// two passes) from L2.
+
 // Ragged S (329) is masked inside the kernel: q/k/v rows >= S are loaded as
-// zeros, keys >= S get p = 0, and rows >= S are not stored.
+// zeros (by TMA's out-of-bounds fill in K1), keys >= S get p = 0, and rows
+// >= S are not stored.
 //
 // Two paths for each:
 //   bf16  the main path. K1: online softmax (see attn_bf16_kernel), so p is
@@ -65,7 +76,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::pack_bf16;
 
 constexpr int D = 64;        // head dim
 constexpr int BQ = 64;       // query rows per block
@@ -94,13 +111,8 @@ struct Args {
 // ---- bf16: register-resident tiles on mma.sync (m16n8k16) ---------------------
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(pred ? 16 : 0));
+  hopper::cp_async16(hopper::smem_addr(smem), gmem, pred);
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -120,11 +132,6 @@ __device__ __forceinline__ void mma16816(float* c, const unsigned* a, const unsi
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
 // 64 rows of D bf16 values from global rows r0.. into a padded shared tile,
 // asynchronously; rows >= S are zero-filled.
 __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
@@ -230,84 +237,196 @@ __device__ __forceinline__ void store_rows_bf16(const Args& a, const float (&o)[
   }
 }
 
-// K1. One block per (64-row q tile, head, batch); each of the 4 warps owns 16 q
-// rows. K and V stream through double-buffered shared tiles of 64 keys
-// (cp.async). Logits, probabilities and the output accumulator stay in
-// registers: the mma C fragment of q.k^T is, pair by pair, the A fragment of
-// p.v. The softmax is online (running row max m and sum l, the accumulator
-// rescaled by exp2(m_old - m_new)), so p is rounded to bf16 relative to the
-// running max rather than the final one; l sums the f32 p.
-__global__ void __launch_bounds__(THREADS, 4) attn_bf16_kernel(Args a) {
-  __shared__ __align__(128) __nv_bfloat16 sQ[BQ * LDT];
-  __shared__ __align__(128) __nv_bfloat16 sK[2][BK * LDT];
-  __shared__ __align__(128) __nv_bfloat16 sV[2][BK * LDT];
+// ---- K1 bf16: wgmma over the head's K and V, resident in shared memory ------
 
-  const int S = a.S;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_bs + h * a.q_hs;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_bs + h * a.k_hs;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + h * a.v_hs;
-  const int n_kv = (S + BK - 1) / BK;
+constexpr int K1_WG = 2;                    // warpgroups; each runs one q tile at a time
+constexpr int K1_THREADS = 128 * K1_WG;
+constexpr int TILE_BYTES = 64 * D * 2;      // 64 rows of D bf16, 128-byte swizzled
+constexpr int MAX_KT = MAX_S / 64;          // key tiles of 64
 
-  load_tile_async(sQ, qg, a.q_rs, q0, S);
-  load_tile_async(sK[0], kg, a.k_rs, 0, S);
-  load_tile_async(sV[0], vg, a.v_rs, 0, S);
-  cp_async_commit();
+__host__ __device__ inline int key_tiles(int S) { return (S + 63) / 64; }
+// keys of the last tile, rounded up to the 16 of one p . v step
+__host__ __device__ inline int tail_keys(int S) { return (S - 64 * (key_tiles(S) - 1) + 15) / 16 * 16; }
+// bytes of the head's K (or V) in shared memory: full tiles and the tail
+__host__ __device__ inline int kv_bytes(int S) {
+  return (key_tiles(S) - 1) * TILE_BYTES + tail_keys(S) * D * 2;
+}
+// the 1024-byte alignment, a q tile per warpgroup, K, V, the mbarriers
+inline size_t k1_smem(int S) {
+  return 1024 + (size_t)K1_WG * TILE_BYTES + 2 * (size_t)kv_bytes(S) + 8 * (MAX_KT + K1_WG);
+}
 
-  unsigned qf[D / 16][4];  // this warp's 16 q rows as A fragments, one per 16 of D
-  float o[D / 8][4];       // output accumulator: 8 tiles of 16 rows x 8 dims
+// s = q . k^T over N keys of one tile for the warpgroup's 64 q rows
+template <int N>
+__device__ __forceinline__ void qk_wgmma(float (&s)[N / 2], unsigned q_s, unsigned k_s) {
+  hopper::wgmma_fence();
 #pragma unroll
-  for (int t = 0; t < D / 8; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
-  float l[2] = {0.f, 0.f};              // this thread's partial row sums
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const unsigned long long dq = hopper::smem_desc(q_s + kk * 32);
+    const unsigned long long dk = hopper::smem_desc(k_s + kk * 32);
+    if constexpr (N == 16) hopper::wgmma_ss_n16<0, 0>(s, dq, dk, kk);
+    else if constexpr (N == 32) hopper::wgmma_ss_n32<0, 0>(s, dq, dk, kk);
+    else if constexpr (N == 48) hopper::wgmma_ss_n48<0, 0>(s, dq, dk, kk);
+    else hopper::wgmma_ss_n64<0, 0>(s, dq, dk, kk);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_acc(s);
+}
 
-  for (int j = 0; j < n_kv; ++j) {
-    if (j + 1 < n_kv) {
-      load_tile_async(sK[(j + 1) & 1], kg, a.k_rs, (j + 1) * BK, S);
-      load_tile_async(sV[(j + 1) & 1], vg, a.v_rs, (j + 1) * BK, S);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) {
+// One tile of N keys (key0 the first) for the warpgroup's 64 q rows: the
+// logits on wgmma, the online softmax in registers (running max m and sum
+// l of rows g and g + 8, the accumulator rescaled by exp2(m_old - m_new)),
+// then o += bf16(p) . v on wgmma with p as the register operand: the
+// accumulator layout of s is, 16 keys at a time, the A fragment layout.
+template <int N>
+__device__ __forceinline__ void k1_tile(float (&o)[32], float (&m)[2], float (&l)[2],
+                                        unsigned q_s, unsigned k_s, unsigned v_s, int key0,
+                                        int S, float scale) {
+  float s[N / 2];
+  qk_wgmma<N>(s, q_s, k_s);
+  const int tig = threadIdx.x & 3;
+  float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LDT + kk * 16 + (lane >> 4) * 8);
-    }
-    float s[BK / 8][4];
-    qk_chunk(s, qf, sK[j & 1], j * BK, S, a.scale);
-
-    // online softmax
-    float mx[2], alpha[2];
-    chunk_max(mx, s, m);
+  for (int j = 0; j < N / 8; ++j)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      alpha[r] = exp2f(m[r] - mx[r]);  // 0 on the first chunk (m = -inf)
-      m[r] = mx[r];
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int t = 0; t < BK / 8; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[t][e] = exp2f(s[t][e] - m[e >> 1]);
-        l[e >> 1] += s[t][e];
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int key = key0 + j * 8 + tig * 2 + (e & 1);
+      s[4 * j + e] = key < S ? s[4 * j + e] * scale : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
     }
 #pragma unroll
-    for (int t = 0; t < D / 8; ++t) {
-      o[t][0] *= alpha[0]; o[t][1] *= alpha[0];
-      o[t][2] *= alpha[1]; o[t][3] *= alpha[1];
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    alpha[r] = exp2f(m[r] - mx[r]);  // 0 on the first tile (m = -inf)
+    m[r] = mx[r];
+    l[r] *= alpha[r];
+  }
+  unsigned pa[N / 16][4];
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = exp2f(s[4 * j + e] - m[e >> 1]);
+      l[e >> 1] += s[4 * j + e];
     }
-    pv_chunk(o, s, sV[j & 1]);
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    o[4 * j] *= alpha[0];
+    o[4 * j + 1] *= alpha[0];
+    o[4 * j + 2] *= alpha[1];
+    o[4 * j + 3] *= alpha[1];
+  }
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    hopper::wgmma_rs_n64<1>(o, pa[kk], hopper::smem_desc(v_s + kk * 2048), 1);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_acc(o);
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)  // p's registers stay untouched until the products end
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(pa[kk][i])::"memory");
+}
+
+// K1. One block per (head, batch item), two warpgroups. The head's K and V
+// are loaded once, by TMA, into shared memory (a 64-row box per full tile
+// and a box of the tail's live keys rounded up to 16; rows past S read as
+// zeros), one mbarrier per tile, so the first products start when the
+// first tile lands. Warpgroup w takes the q tiles w, w + 2, ...: its q tile
+// arrives by TMA on its own mbarrier, runs over every key tile (k1_tile),
+// and once the warpgroup is done with it the next q tile is requested
+// while this one's rows are divided by l and stored. Each head's K and V
+// cross from device memory to the SM once, not once per q tile, and the
+// tail tile holds at most 15 dead keys.
+__global__ void __launch_bounds__(K1_THREADS, 2)
+    attn_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap ktail,
+                     const __grid_constant__ CUtensorMap vtail, Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned base = (hopper::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const int S = a.S, h = blockIdx.x, b = blockIdx.y;
+  const int n_kt = key_tiles(S), tail = tail_keys(S);
+  const unsigned k_s = base + K1_WG * TILE_BYTES, v_s = k_s + kv_bytes(S);
+  const unsigned bars = v_s + kv_bytes(S);  // kv tiles' barriers, then the q tiles'
+  const int tid = threadIdx.x, wg = hopper::warpgroup(), lt = tid % 128;
+  const int warp = lt / 32, lane = tid % 32, g = lane >> 2, tig = lane & 3;
+  const unsigned q_s = base + wg * TILE_BYTES, q_bar = bars + 8 * (MAX_KT + wg);
+
+  if (tid == 0) {
+    for (int t = 0; t < n_kt; ++t) hopper::mbar_init(bars + 8 * t, 1);
+    for (int w = 0; w < K1_WG; ++w) hopper::mbar_init(bars + 8 * (MAX_KT + w), 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 0; w < K1_WG && w < n_kt; ++w) {
+      hopper::mbar_expect_tx(bars + 8 * (MAX_KT + w), TILE_BYTES);
+      hopper::tma_load_3d(base + w * TILE_BYTES, &qmap, bars + 8 * (MAX_KT + w), h * D, w * 64, b);
+    }
+    for (int t = 0; t < n_kt; ++t) {
+      const bool last = t == n_kt - 1;
+      hopper::mbar_expect_tx(bars + 8 * t, 2 * (last ? tail * D * 2 : TILE_BYTES));
+      hopper::tma_load_3d(k_s + t * TILE_BYTES, last ? &ktail : &kmap, bars + 8 * t, h * D, t * 64,
+                          b);
+      hopper::tma_load_3d(v_s + t * TILE_BYTES, last ? &vtail : &vmap, bars + 8 * t, h * D, t * 64,
+                          b);
+    }
   }
 
-  quad_sum(l);
-  store_rows_bf16(a, o, l, q0, b, h);
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.out) + b * a.o_bs + h * a.o_hs;
+  unsigned phase = 0;
+  for (int t = wg; t < n_kt; t += K1_WG, phase ^= 1) {
+    hopper::mbar_wait(q_bar, phase);
+    float o[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int c = 0; c < n_kt - 1; ++c) {
+      hopper::mbar_wait(bars + 8 * c, 0);
+      k1_tile<64>(o, m, l, q_s, k_s + c * TILE_BYTES, v_s + c * TILE_BYTES, c * 64, S, a.scale);
+    }
+    {
+      const int c = n_kt - 1;
+      const unsigned kt = k_s + c * TILE_BYTES, vt = v_s + c * TILE_BYTES;
+      hopper::mbar_wait(bars + 8 * c, 0);
+      switch (tail) {
+        case 16: k1_tile<16>(o, m, l, q_s, kt, vt, c * 64, S, a.scale); break;
+        case 32: k1_tile<32>(o, m, l, q_s, kt, vt, c * 64, S, a.scale); break;
+        case 48: k1_tile<48>(o, m, l, q_s, kt, vt, c * 64, S, a.scale); break;
+        default: k1_tile<64>(o, m, l, q_s, kt, vt, c * 64, S, a.scale); break;
+      }
+    }
+    // every warp of the warpgroup is done with its q tile: request the next
+    hopper::named_sync(1 + wg, 128);
+    if (lt == 0 && t + K1_WG < n_kt) {
+      hopper::mbar_expect_tx(q_bar, TILE_BYTES);
+      hopper::tma_load_3d(q_s, &qmap, q_bar, h * D, (t + K1_WG) * 64, b);
+    }
+    quad_sum(l);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = t * 64 + warp * 16 + g + 8 * r;
+      if (row >= S) continue;
+      const float inv = 1.f / l[r];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<unsigned*>(og + row * a.o_rs + j * 8 + tig * 2) =
+            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
+  }
 }
 
 // K6. The same blocks, tiles and fragments as K1, in two passes over the
@@ -500,15 +619,36 @@ __global__ void __launch_bounds__(THREADS) attn_f32_kernel(Args a) {
   }
 }
 
-// K1 (short = false) or K6 (short = true), bf16 or f32, grid (q tiles, H, B)
+// K1 bf16: the tensor maps of q, k and v (k and v twice: 64-row boxes and
+// the tail's box), then one block per (head, batch item)
+int launch_k1_bf16(const Args& a, int B) {
+  const long long cols = (long long)a.H * D;
+  CUtensorMap qm, km, vm, kt, vt;
+  int err = hopper::encode_rows_bf16(&qm, a.q, cols, a.S, B, a.q_rs, a.q_bs, 64);
+  if (!err) err = hopper::encode_rows_bf16(&km, a.k, cols, a.S, B, a.k_rs, a.k_bs, 64);
+  if (!err) err = hopper::encode_rows_bf16(&vm, a.v, cols, a.S, B, a.v_rs, a.v_bs, 64);
+  if (!err) err = hopper::encode_rows_bf16(&kt, a.k, cols, a.S, B, a.k_rs, a.k_bs, tail_keys(a.S));
+  if (!err) err = hopper::encode_rows_bf16(&vt, a.v, cols, a.S, B, a.v_rs, a.v_bs, tail_keys(a.S));
+  if (err) return err;
+  const size_t smem = k1_smem(a.S);
+  const cudaError_t e = cudaFuncSetAttribute(
+      attn_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  attn_bf16_kernel<<<dim3(a.H, B), K1_THREADS, smem, static_cast<cudaStream_t>(a.stream)>>>(
+      qm, km, vm, kt, vt, a);
+  return (int)cudaGetLastError();
+}
+
+// K1 (short = false) or K6 (short = true), bf16 or f32; K6 and the f32
+// paths on grid (q tiles, H, B)
 int launch(bool bf16, bool short_attn, const Args& a, int B) {
   if (B < 1 || a.H < 1 || a.S < 1 || a.S > MAX_S) return (int)cudaErrorInvalidValue;
+  if (bf16 && !short_attn) return launch_k1_bf16(a, B);
   const dim3 grid((a.S + BQ - 1) / BQ, a.H, B);
   cudaStream_t st = static_cast<cudaStream_t>(a.stream);
   if (bf16) {
     // static shared memory, 46 KB
-    if (short_attn) short_bf16_kernel<<<grid, THREADS, 0, st>>>(a);
-    else attn_bf16_kernel<<<grid, THREADS, 0, st>>>(a);
+    short_bf16_kernel<<<grid, THREADS, 0, st>>>(a);
   } else {
     // logits of 64 rows + Q and K/V tiles + row sums: above 48 KB, so opt in
     const size_t smem =

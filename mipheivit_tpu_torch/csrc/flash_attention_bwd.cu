@@ -13,30 +13,63 @@
 //   dK    = dS^T . q / sqrt(D)
 //   dQ    = dS . k / sqrt(D)
 //
-// Two kernels, as on the TPU. dK/dV: one block per (64-key tile, head,
-// batch) holds its key and value tile and loops over every query tile; dQ:
-// one block per (64-row query tile, head, batch) loops over the key tiles
-// that hold a live key. delta is computed outside (one f32 reduction, as the
-// JAX package computes it in XLA).
+// Layout. q, dO (and O) are [B, Sq, H*D] and k, v are [B, Sk, H*D], each
+// with a base pointer, a batch stride and a row stride (the sections of a
+// fused qkv buffer are read in place); dq is written as [B, Sq, H*D], dk
+// and dv as [B, Sk, H*D], in q's dtype. Every offset is 64-bit. delta =
+// rowsum(dO * O) is the JAX package's XLA reduction outside its kernels;
+// here the bf16 path computes it in the call (bwd_prep_kernel), the f32
+// path takes it from the wrapper.
 //
-// Layout. q, dO are [B, Sq, H*D] and k, v are [B, Sk, H*D], each with a
-// base pointer, a batch stride and a row stride (the sections of a fused
-// qkv buffer are read in place); lse and delta are [B, H, Sq] f32; dq is
-// written as [B, Sq, H*D], dk and dv as [B, Sk, H*D], in q's dtype. Every
-// offset is 64-bit.
+// What bounds it on the H100. At a 1024-px region (Sq = Sk = 5334, 24
+// heads) one call is 10 * Sq * Sk * D * H = 437 GFLOP of products against
+// ~0.1 GB of operands: far above the card's ~295 FLOP/byte, so the floor is
+// the bf16 tensor-core time, 0.44 ms at the dense peak.
 //
-// Masking. Keys at or past seq_len_k (L) are a suffix. K/V rows at or past
-// L and q/dO rows at or past Sq are zero-filled on load, so padding that
-// holds NaN or Inf reaches no product; p of a masked key is set to 0, and
-// query rows at or past Sq get lse = +inf (p = 0) and delta = 0 in the
-// dK/dV kernel. Rows of dK/dV at or past L are written as zeros.
+// bf16 design (bwd_bf16_kernel): one kernel, one block per (128-key tile,
+// head, batch item), 1008 blocks at a region, four warpgroups. The block's
+// K and V tiles stay in shared memory (32 KB). A producer warpgroup (one
+// thread) keeps a ring of three stages of 64-row q and dO tiles, with
+// their lse and delta rows, in flight by TMA (cp.async.bulk.tensor on 3-D
+// tensor maps: head columns, rows, batch; rows past Sq and keys past
+// seq_len_k arrive as zeros, so padding that holds NaN or Inf reaches no
+// product) and mbarriers; the tensor maps are encoded per call on the
+// host (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint). Every
+// product is a wgmma (bf16 in, f32 accumulate). Two warpgroups own 64 keys
+// each:
 //
-// bf16 path: all five products on mma.sync m16n8k16 (bf16 in, f32
-// accumulate), logits, p, dP and dS in registers; p is rounded to bf16 for
-// p^T . dO and dS for dS^T . q and dS . k, as K4 rounds p for p . v. The
-// lse is K4's, taken from the f32 p (rounded p never enters it). f32 path:
-// scalar FMAs with every tile in shared memory, p and dS kept f32 (tests,
-// numerics). wgmma, TMA and warp specialisation are left for later.
+//   S^T  = K . Q^T,  dP^T = V . dO^T       both operands in shared memory
+//   P^T, dS^T = P^T * (dP^T - delta)       in registers
+//   dV  += P^T . dO, dK += dS^T . Q        P^T and dS^T as register operands
+//
+// and write dS^T (bf16) into shared memory; the fourth warpgroup takes
+//
+//   dQ   = dS . K                          over the block's 128 keys
+//
+// from there: five products where the first design ran seven (two kernels
+// each recomputed q . k^T and dO . v^T on mma.sync), with no block-wide
+// barrier in a step. The warpgroups meet on named barriers only: dS^T of a
+// step written (the dK / dV warpgroups arrive, the dQ warpgroup waits), and
+// read (the other way round; dS^T has two buffers). dQ is summed over the
+// key tiles in an f32 buffer [B, Sq, H*D] by TMA's bulk reduce-add
+// (cp.reduce.async.bulk.tensor, one thread, from a swizzled f32 tile in
+// shared memory): about 1.4 GB of f32 adds at a region, cheaper this way
+// than as float2 atomics from every thread, and cheaper than the two
+// products a separate dQ kernel would recompute (scripts/
+// profile_k5_parts_torch.py prices both on the card). setmaxnreg moves
+// registers from the producer (24) and the dQ warpgroup (80) to the dK /
+// dV warpgroups (200). The order of the dQ sum differs from run to run, so
+// dq does too, by f32 rounding. Rounding otherwise stays the first
+// design's: p rounded to bf16 for p^T . dO, dS for both of its products;
+// the lse is K4's, taken from the f32 p. In the same call a memset zeroes
+// the dQ buffer, a first short kernel (bwd_prep_kernel) computes delta and
+// puts the lse in log2 units, both padded to whole 64-row tiles (lse +inf
+// and delta 0 past Sq, so those rows get p = 0 and dS = 0), and a last one
+// (dq_cast_kernel) scales dQ by 1/sqrt(D) and casts it to bf16.
+//
+// f32 path: two kernels of scalar FMAs with every tile in shared memory,
+// p and dS kept f32 (tests, numerics): dK/dV per 64-key tile, dQ per
+// 64-row query tile, query rows past Sq given lse = +inf and delta = 0.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC; bound with ctypes (plain C interface below).
@@ -45,19 +78,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int D = 64;        // head dim
 constexpr int BQ = 64;       // query rows per tile
-constexpr int BK = 64;       // keys per tile
-constexpr int WARPS = 4;     // bf16: each warp owns 16 rows of its block's tile
-constexpr int THREADS = WARPS * 32;
-constexpr int LDT = D + 8;   // bf16 tile row stride: conflict-free ldmatrix rows
+constexpr int BK = 64;       // keys per tile of the f32 path
+constexpr int THREADS = 128; // f32 path
 constexpr int LDF = D + 1;   // f32 tile row stride: conflict-free column reads
-constexpr int TILE = BQ * LDT;
 constexpr float LOG2E = 1.4426950408889634f;
-
-static_assert(BQ == BK && BQ == WARPS * 16, "one 16-row mma tile per warp");
 
 struct Args {
   const void* q;
@@ -75,285 +107,313 @@ struct Args {
   float scale;       // 1 / sqrt(D)
 };
 
-// ---- bf16: register-resident tiles on mma.sync (m16n8k16) ---------------------
+// ---- bf16: one kernel per 128-key tile on wgmma, q / dO tiles by TMA --------
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+constexpr int KB = 128;                          // keys per block, 64 per warpgroup
+constexpr int STAGES = 3;                        // the q / dO ring
+constexpr int CONSUMERS = 256;                   // two warpgroups of dK / dV
+constexpr int DQ_WG = 2, PRODUCER_WG = 3;        // a warpgroup for dQ, one for the copies
+constexpr int BWD_THREADS = 512;
+// registers: 128 a thread at launch; the producer keeps 24, the dQ
+// warpgroup 80, the dK / dV warpgroups take the rest
+constexpr int PRODUCER_REGS = 24, DQ_REGS = 80, CONSUMER_REGS = 200;
+static_assert(128 * (PRODUCER_REGS + DQ_REGS) + CONSUMERS * CONSUMER_REGS <= 65536,
+              "register file");
+// named barriers (0 is __syncthreads): dS^T of an even / odd step written
+// (the dK / dV warpgroups arrive, the dQ warpgroup waits), and read (the
+// other way round)
+constexpr int BAR_DS_READY = 1, BAR_DS_FREE = 3, BAR_COUNT = CONSUMERS + 128;
+constexpr int BAR_DQ = 5;                        // the dQ warpgroup alone
+constexpr int TILE_BYTES = BQ * D * 2;           // 64 rows of D bf16, 128-byte swizzled
+constexpr int STAGE_BYTES = 2 * TILE_BYTES + 2 * BQ * 4;  // q, dO, lse, delta
+constexpr int STAGE_STRIDE = (STAGE_BYTES + 1023) / 1024 * 1024;
+constexpr int DS_BYTES = KB * BQ * 2;            // dS^T [128 keys][64 queries] bf16
+constexpr int DQ_BYTES = BQ * D * 4;             // a dQ tile, two boxes of 32 f32 columns
+// alignment, K and V, the ring, dS^T twice, dQ twice, the mbarriers
+constexpr size_t BWD_SMEM = 1024 + 4 * (size_t)TILE_BYTES + (size_t)STAGES * STAGE_STRIDE +
+                            2 * (size_t)DS_BYTES + 2 * (size_t)DQ_BYTES + 8 * (1 + 2 * STAGES);
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-// c += a . b for one 16x8 f32 tile, a 16x16 (row) and b 16x8 (col) bf16
-__device__ __forceinline__ void mma16816(float* c, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
+struct BwdArgs {
+  const float* lse;    // [B, H, Sq_pad], log2 units, +inf past Sq (bwd_prep_kernel)
+  const float* delta;  // [B, H, Sq_pad], 0 past Sq (bwd_prep_kernel)
+  float* dq_acc;       // [B, Sq, H*D] f32, zeroed
+  void* dk;            // [B, Sk, H*D]
+  void* dv;
+  int Sq, Sq_pad, Sk, L, H;
+  float scale_log2, scale;
+};
 
-// 64 rows of D bf16 values from global rows r0.. into a padded shared tile,
-// asynchronously; rows >= n are zero-filled.
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                long long rs, int r0, int n) {
-  constexpr int VPR = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < BQ * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const bool ok = r0 + r < n;
-    cp_async16(dst + r * LDT + c, src + (long long)(ok ? r0 + r : 0) * rs + c, ok);
-  }
-}
-
-// acc[16 rows x 64 cols] += a_tile(16 x 64, A fragments) . t^T, where t is a
-// 64-row shared tile read as the col-major B operand: c[n][..] over t's rows
-// n*8.. (the q . k^T pattern of K4).
-__device__ __forceinline__ void mma_abt(float (*acc)[4], unsigned (*af)[4],
-                                        const __nv_bfloat16* t, int lane) {
+// keeps the compiler from reusing a register operand's registers before
+// the products that read it are done
+__device__ __forceinline__ void fence_frags(unsigned (&a)[4][4]) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      unsigned b[4];  // t rows np*16 + 0..7 and + 8..15, cols kk*16 + 0..15
-      ldmatrix_x4(b, t + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDT + kk * 16 +
-                         ((lane >> 3) & 1) * 8);
-      mma16816(acc[2 * np], af[kk], b);
-      mma16816(acc[2 * np + 1], af[kk], b + 2);
-    }
-  }
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
 }
 
-// acc[16 rows x D] += x(16 x 64, C fragments, rounded to bf16) . t, where t
-// is a 64-row shared tile [row][D] (the p . v pattern of K4).
-__device__ __forceinline__ void mma_ct(float (*acc)[4], float (*x)[4],
-                                       const __nv_bfloat16* t, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const unsigned xa[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                            pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                            pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                            pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      unsigned b[4];  // t rows kk*16 + 0..15, cols dp*16 + 0..7 and + 8..15
-      ldmatrix_x4_trans(b, t + (kk * 16 + (lane & 15)) * LDT + dp * 16 + (lane >> 4) * 8);
-      mma16816(acc[2 * dp], xa, b);
-      mma16816(acc[2 * dp + 1], xa, b + 2);
-    }
-  }
-}
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+    bwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap omap,
+                    const __grid_constant__ CUtensorMap dqmap, BwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw = smem_addr(smem_raw);
+  const unsigned base = (raw + 1023u) & ~1023u;
+  unsigned char* base_ptr = smem_raw + (base - raw);
+  const unsigned k_s = base, v_s = base + 2 * TILE_BYTES, ring = base + 4 * TILE_BYTES;
+  const unsigned ds_s = ring + STAGES * STAGE_STRIDE;
+  const unsigned dq_s = ds_s + 2 * DS_BYTES;
+  const unsigned kv_bar = dq_s + 2 * DQ_BYTES;
+  auto full = [&](int st) { return kv_bar + 8 * (1 + st); };
+  auto empty = [&](int st) { return kv_bar + 8 * (1 + STAGES + st); };
 
-__device__ __forceinline__ void zero(float (*acc)[4]) {
-#pragma unroll
-  for (int t = 0; t < D / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-}
-
-// 16 rows (this warp's) of a 16 x 64 accumulator -> bf16 rows of dst; rows
-// >= n are not stored.
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long rs, int row0, int n,
-                                           float (*acc)[4], float mul, int lane) {
-  const int g = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= n) continue;
-#pragma unroll
-    for (int t = 0; t < D / 8; ++t)
-      *reinterpret_cast<unsigned*>(dst + row * rs + t * 8 + tig * 2) =
-          pack_bf16(acc[t][2 * r] * mul, acc[t][2 * r + 1] * mul);
-  }
-}
-
-constexpr size_t BF16_SMEM = 6 * (size_t)TILE * sizeof(__nv_bfloat16) + 4 * BQ * sizeof(float);
-
-// dK/dV: one block per (64-key tile, head, batch); each warp owns 16 keys.
-// Q, dO, lse and delta tiles stream through double-buffered shared memory.
-__global__ void __launch_bounds__(THREADS) dkdv_bf16_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + TILE;
-  __nv_bfloat16* sQ = sV + TILE;      // [2][TILE]
-  __nv_bfloat16* sO = sQ + 2 * TILE;  // dO, [2][TILE]
-  float* sL = reinterpret_cast<float*>(sO + 2 * TILE);  // [2][BQ] lse, log2 units
-  float* sD = sL + 2 * BQ;                               // [2][BQ] delta
-
-  const int L = a.L, Sq = a.Sq;
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_bs + h * D;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_bs + h * D;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + h * D;
-  const __nv_bfloat16* og = static_cast<const __nv_bfloat16*>(a.dout) + b * a.o_bs + h * D;
-  const float* lg = a.lse + ((long long)b * a.H + h) * Sq;
-  const float* dg = a.delta + ((long long)b * a.H + h) * Sq;
-
-  float dk[D / 8][4], dv[D / 8][4];
-  zero(dk);
-  zero(dv);
-  if (k0 < L) {  // a tile with no live key has dK = dV = 0
-    auto load_q = [&](int i) {
-      const int buf = i & 1, q0 = i * BQ;
-      load_tile_async(sQ + buf * TILE, qg, a.q_rs, q0, Sq);
-      load_tile_async(sO + buf * TILE, og, a.o_rs, q0, Sq);
-      if (threadIdx.x < BQ) {
-        const int r = q0 + threadIdx.x;
-        sL[buf * BQ + threadIdx.x] = r < Sq ? lg[r] * LOG2E : INFINITY;  // p = 0 past Sq
-        sD[buf * BQ + threadIdx.x] = r < Sq ? dg[r] : 0.f;
-      }
-    };
-    load_tile_async(sK, kg, a.k_rs, k0, L);
-    load_tile_async(sV, vg, a.v_rs, k0, L);
-    load_q(0);
-    cp_async_commit();
-
-    unsigned kf[D / 16][4], vf[D / 16][4];  // this warp's 16 keys as A fragments
-    const int n_q = (Sq + BQ - 1) / BQ;
-    for (int i = 0; i < n_q; ++i) {
-      if (i + 1 < n_q) {
-        load_q(i + 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      if (i == 0) {
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const int off = (warp * 16 + (lane & 15)) * LDT + kk * 16 + (lane >> 4) * 8;
-          ldmatrix_x4(kf[kk], sK + off);
-          ldmatrix_x4(vf[kk], sV + off);
-        }
-      }
-      const __nv_bfloat16* qs = sQ + (i & 1) * TILE;
-      const __nv_bfloat16* os = sO + (i & 1) * TILE;
-      const float* ls = sL + (i & 1) * BQ;
-      const float* ds = sD + (i & 1) * BQ;
-
-      float st[BQ / 8][4], dpt[BQ / 8][4];  // s^T and dP^T: 16 keys x 64 queries
-      zero(st);
-      zero(dpt);
-      mma_abt(st, kf, qs, lane);   // k . q^T
-      mma_abt(dpt, vf, os, lane);  // v . dO^T
-#pragma unroll
-      for (int t = 0; t < BQ / 8; ++t) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = t * 8 + tig * 2 + (e & 1);
-          const int key = k0 + warp * 16 + g + (e >> 1) * 8;
-          const float p = key < L ? exp2f(st[t][e] * a.scale_log2 - ls[qc]) : 0.f;
-          st[t][e] = p;
-          dpt[t][e] = p * (dpt[t][e] - ds[qc]);
-        }
-      }
-      mma_ct(dv, st, os, lane);   // dV += p^T . dO
-      mma_ct(dk, dpt, qs, lane);  // dK += dS^T . q
-      __syncthreads();  // every warp is done with this buffer before it is refilled
-    }
-  }
+  const int k0 = blockIdx.x * KB, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int n_q = (a.Sq + BQ - 1) / BQ;
   const long long hd = (long long)a.H * D;
-  const long long out_b = (long long)b * a.Sk * hd + h * D;
-  store_rows(static_cast<__nv_bfloat16*>(a.dk) + out_b, hd, k0 + warp * 16, a.Sk, dk, a.scale,
-             lane);
-  store_rows(static_cast<__nv_bfloat16*>(a.dv) + out_b, hd, k0 + warp * 16, a.Sk, dv, 1.f, lane);
-}
+  __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(a.dk) + (long long)b * a.Sk * hd + h * D;
+  __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(a.dv) + (long long)b * a.Sk * hd + h * D;
 
-// dQ: one block per (64-row query tile, head, batch); each warp owns 16
-// query rows. K and V tiles stream through double-buffered shared memory.
-__global__ void __launch_bounds__(THREADS) dq_bf16_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sO = sQ + TILE;
-  __nv_bfloat16* sK = sO + TILE;      // [2][TILE]
-  __nv_bfloat16* sV = sK + 2 * TILE;  // [2][TILE]
-
-  const int L = a.L, Sq = a.Sq;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_bs + h * D;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_bs + h * D;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + h * D;
-  const __nv_bfloat16* og = static_cast<const __nv_bfloat16*>(a.dout) + b * a.o_bs + h * D;
-  const float* lg = a.lse + ((long long)b * a.H + h) * Sq;
-  const float* dg = a.delta + ((long long)b * a.H + h) * Sq;
-  const int n_kv = (L + BK - 1) / BK;  // tiles with at least one live key
-
-  load_tile_async(sQ, qg, a.q_rs, q0, Sq);
-  load_tile_async(sO, og, a.o_rs, q0, Sq);
-  load_tile_async(sK, kg, a.k_rs, 0, L);
-  load_tile_async(sV, vg, a.v_rs, 0, L);
-  cp_async_commit();
-
-  float lr[2], dr[2];  // lse (log2 units) and delta of rows g and g + 8
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    lr[r] = row < Sq ? lg[row] * LOG2E : 0.f;  // rows past Sq: dO = 0, so dS = 0
-    dr[r] = row < Sq ? dg[row] : 0.f;
-  }
-  unsigned qf[D / 16][4], of[D / 16][4];  // this warp's q and dO rows as A fragments
-  float dq[D / 8][4];
-  zero(dq);
-
-  for (int j = 0; j < n_kv; ++j) {
-    if (j + 1 < n_kv) {
-      load_tile_async(sK + ((j + 1) & 1) * TILE, kg, a.k_rs, (j + 1) * BK, L);
-      load_tile_async(sV + ((j + 1) & 1) * TILE, vg, a.v_rs, (j + 1) * BK, L);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (k0 >= a.L) {  // no live key: dK = dV = 0, no term of dQ
+    for (int i = tid; i < KB * D / 8; i += BWD_THREADS) {
+      const int row = k0 + i / (D / 8), c = (i % (D / 8)) * 8;
+      if (row >= a.Sk) continue;
+      *reinterpret_cast<uint4*>(dkg + row * hd + c) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(dvg + row * hd + c) = make_uint4(0, 0, 0, 0);
     }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = (warp * 16 + (lane & 15)) * LDT + kk * 16 + (lane >> 4) * 8;
-        ldmatrix_x4(qf[kk], sQ + off);
-        ldmatrix_x4(of[kk], sO + off);
+    return;
+  }
+  if (tid == 0) {
+    mbar_init(kv_bar, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = warpgroup();
+  if (wg == PRODUCER_WG) {  // one thread issues every copy
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == PRODUCER_WG * 128) {
+      mbar_expect_tx(kv_bar, 4 * TILE_BYTES);
+      for (int i = 0; i < 2; ++i) {
+        tma_load_3d(k_s + i * TILE_BYTES, &kmap, kv_bar, h * D, k0 + 64 * i, b);
+        tma_load_3d(v_s + i * TILE_BYTES, &vmap, kv_bar, h * D, k0 + 64 * i, b);
+      }
+      const long long row0 = ((long long)b * a.H + h) * a.Sq_pad;
+      for (int i = 0; i < n_q; ++i) {
+        const int st = i % STAGES;
+        mbar_wait(empty(st), ((i / STAGES) & 1) ^ 1);  // the first round passes
+        const unsigned sb = ring + st * STAGE_STRIDE;
+        mbar_expect_tx(full(st), STAGE_BYTES);
+        tma_load_3d(sb, &qmap, full(st), h * D, i * BQ, b);
+        tma_load_3d(sb + TILE_BYTES, &omap, full(st), h * D, i * BQ, b);
+        bulk_load(sb + 2 * TILE_BYTES, a.lse + row0 + i * BQ, BQ * 4, full(st));
+        bulk_load(sb + 2 * TILE_BYTES + BQ * 4, a.delta + row0 + i * BQ, BQ * 4, full(st));
       }
     }
-    const __nv_bfloat16* ks = sK + (j & 1) * TILE;
-    const __nv_bfloat16* vs = sV + (j & 1) * TILE;
+    return;
+  }
 
-    float s[BK / 8][4], dp[BK / 8][4];  // 16 q rows x 64 keys
-    zero(s);
-    zero(dp);
-    mma_abt(s, qf, ks, lane);   // q . k^T
-    mma_abt(dp, of, vs, lane);  // dO . v^T
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  if (wg == DQ_WG) {  // dQ = dS . K over the block's 128 keys, step by step
+    setmaxnreg_dec<DQ_REGS>();
+    const int lt = tid % 128;
+    mbar_wait(kv_bar, 0);
+    for (int i = 0; i < n_q; ++i) {
+      const unsigned dsb = ds_s + (i & 1) * DS_BYTES;
+      named_sync(BAR_DS_READY + (i & 1), BAR_COUNT);
+      float dq[32];
+      wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < BK / 8; ++t) {
+      for (int kk = 0; kk < KB / 16; ++kk)
+        wgmma_ss_n64<1, 1>(dq, smem_desc(dsb + kk * 2048), smem_desc(k_s + kk * 2048), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dq);
+      if (i + 2 < n_q) named_arrive(BAR_DS_FREE + (i & 1), BAR_COUNT);
+      // the tile into shared memory (two 128-byte swizzled boxes of 32
+      // columns), once the reduction of two steps back has read it; then
+      // one thread adds it into dq_acc by TMA
+      if (lt == 0) bulk_wait_read<1>();
+      named_sync(BAR_DQ, 128);
+      const unsigned buf = dq_s + (i & 1) * DQ_BYTES;
+      unsigned char* buf_ptr = base_ptr + (buf - base);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = warp * 16 + g + 8 * r;
+          const int c = 2 * (j & 3) + (tig >> 1);  // 16-byte chunk within the box's row
+          *reinterpret_cast<float2*>(buf_ptr + (j >> 2) * (DQ_BYTES / 2) + swz(row, c) +
+                                     (tig & 1) * 8) =
+              make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+        }
+      fence_proxy_async();
+      named_sync(BAR_DQ, 128);
+      if (lt == 0) {
+        tma_reduce_add_3d(&dqmap, buf, h * D, i * BQ, b);
+        tma_reduce_add_3d(&dqmap, buf + DQ_BYTES / 2, h * D + 32, i * BQ, b);
+        bulk_commit();
+      }
+    }
+    if (lt == 0) bulk_wait<0>();
+    return;
+  }
+
+  // the dK / dV warpgroups: wg owns keys k0 + 64 wg .. + 63. (Letting a
+  // step's dV and dK products finish behind the next step's S^T made ptxas
+  // serialize every wgmma, C7515: each step waits for its own.)
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const unsigned kw = k_s + wg * TILE_BYTES, vw = v_s + wg * TILE_BYTES;
+  float dk[32], dv[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dk[e] = dv[e] = 0.f;
+  mbar_wait(kv_bar, 0);
+
+  for (int i = 0; i < n_q; ++i) {
+    const int st = i % STAGES;
+    mbar_wait(full(st), (i / STAGES) & 1);
+    const unsigned q_t = ring + st * STAGE_STRIDE, o_t = q_t + TILE_BYTES;
+    const float* ls = reinterpret_cast<const float*>(base_ptr + (q_t - base) + 2 * TILE_BYTES);
+    const float* dls = ls + BQ;
+
+    // S^T = K . Q^T and dP^T = V . dO^T: 64 keys x 64 queries each, in two
+    // groups, so that p forms while dP^T is still in flight
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<0, 0>(s, smem_desc(kw + kk * 32), smem_desc(q_t + kk * 32), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<0, 0>(dp, smem_desc(vw + kk * 32), smem_desc(o_t + kk * 32), kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T
+    fence_acc(s);
+
+    // P^T and dS^T in registers; thread (warp, g, tig) holds keys warp*16 +
+    // g (+8) and queries 8j + 2 tig (+1)
+    const int key_a = k0 + wg * 64 + warp * 16 + g;
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = j * BK + t * 8 + tig * 2 + (e & 1);
-        const float p = key < L ? exp2f(s[t][e] * a.scale_log2 - lr[e >> 1]) : 0.f;
-        s[t][e] = p * (dp[t][e] - dr[e >> 1]);  // dS
+        const int qc = j * 8 + tig * 2 + (e & 1);
+        s[4 * j + e] = key_a + 8 * (e >> 1) < a.L
+                           ? exp2f(s[4 * j + e] * a.scale_log2 - ls[qc]) : 0.f;
       }
-    }
-    mma_ct(dq, s, ks, lane);  // dQ += dS . k
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+    wgmma_wait<0>();
+    fence_acc(dp);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - dls[j * 8 + tig * 2 + (e & 1)]);
+    unsigned pa[4][4], da[4][4];  // 16 queries per step of p^T . dO and dS^T . Q
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+      }
+
+    // dV += P^T . dO and dK += dS^T . Q, the query rows as the depth
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64<1>(dv, pa[kk], smem_desc(o_t + kk * 2048), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64<1>(dk, da[kk], smem_desc(q_t + kk * 2048), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dk);
+    fence_acc(dv);
+    fence_frags(pa);
+    fence_frags(da);
+    mbar_arrive(empty(st));  // the stage's q and dO tiles are done with
+
+    // dS^T into this step's buffer (rows = the block's keys, 128-byte
+    // swizzled) once the dQ warpgroup is done with it from two steps back
+    const unsigned dsb = ds_s + (i & 1) * DS_BYTES;
+    unsigned char* dsb_ptr = base_ptr + (dsb - base);
+    if (i >= 2) named_sync(BAR_DS_FREE + (i & 1), BAR_COUNT);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = wg * 64 + warp * 16 + g + 8 * r;
+        *reinterpret_cast<unsigned*>(dsb_ptr + swz(row, j) + tig * 4) =
+            da[j >> 1][(j & 1) * 2 + r];
+      }
+    fence_proxy_async();  // this thread's dS^T writes, for wgmma
+    named_arrive(BAR_DS_READY + (i & 1), BAR_COUNT);
   }
-  const long long hd = (long long)a.H * D;
-  store_rows(static_cast<__nv_bfloat16*>(a.dq) + (long long)b * Sq * hd + h * D, hd,
-             q0 + warp * 16, Sq, dq, a.scale, lane);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + wg * 64 + warp * 16 + g + 8 * r;
+    if (row >= a.Sk) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + tig * 2;
+      *reinterpret_cast<unsigned*>(dkg + row * hd + c) =
+          pack_bf16(dk[4 * j + 2 * r] * a.scale, dk[4 * j + 2 * r + 1] * a.scale);
+      *reinterpret_cast<unsigned*>(dvg + row * hd + c) =
+          pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// The backward's inputs by whole 64-row tiles: lse2 = lse in log2 units and
+// delta2 = rowsum(dO * O) over each head's 64 values (f32), both [B, H,
+// Sq_pad], lse2 = +inf and delta2 = 0 past Sq (p = 0 and dS = 0 there). One
+// thread per (batch item, head, row), 16-byte loads of O and dO.
+__global__ void __launch_bounds__(256)
+    bwd_prep_kernel(const __nv_bfloat16* __restrict__ out, long long out_bs, long long out_rs,
+                    const __nv_bfloat16* __restrict__ dout, long long do_bs, long long do_rs,
+                    const float* __restrict__ lse, float* __restrict__ lse2,
+                    float* __restrict__ delta2, int B, int H, int Sq, int Sq_pad) {
+  const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= (long long)B * H * Sq_pad) return;
+  const int row = (int)(idx % Sq_pad);
+  const long long bh = idx / Sq_pad;
+  const int h = (int)(bh % H), b = (int)(bh / H);
+  float l2 = INFINITY, d = 0.f;
+  if (row < Sq) {
+    l2 = lse[bh * Sq + row] * LOG2E;
+    const uint4* o = reinterpret_cast<const uint4*>(out + b * out_bs + row * out_rs + h * D);
+    const uint4* g = reinterpret_cast<const uint4*>(dout + b * do_bs + row * do_rs + h * D);
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const uint4 ov = o[c], gv = g[c];
+      const __nv_bfloat16* oe = reinterpret_cast<const __nv_bfloat16*>(&ov);
+      const __nv_bfloat16* ge = reinterpret_cast<const __nv_bfloat16*>(&gv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d += __bfloat162float(oe[e]) * __bfloat162float(ge[e]);
+    }
+  }
+  lse2[idx] = l2;
+  delta2[idx] = d;
+}
+
+// dq = dq_acc / sqrt(D), cast to bf16; four values a thread (n a multiple of 4)
+__global__ void __launch_bounds__(256) dq_cast_kernel(const float* __restrict__ acc,
+                                                      __nv_bfloat16* __restrict__ dq, long long n,
+                                                      float scale) {
+  const long long i = ((long long)blockIdx.x * 256 + threadIdx.x) * 4;
+  if (i >= n) return;
+  const float4 v = *reinterpret_cast<const float4*>(acc + i);
+  uint2 out;
+  out.x = pack_bf16(v.x * scale, v.y * scale);
+  out.y = pack_bf16(v.z * scale, v.w * scale);
+  *reinterpret_cast<uint2*>(dq + i) = out;
 }
 
 // ---- f32: scalar FMAs, every tile in shared memory ----------------------------
@@ -536,49 +596,86 @@ cudaError_t launch_one(K kernel, dim3 grid, size_t smem, cudaStream_t st, const 
   return cudaGetLastError();
 }
 
-int launch(bool bf16, const void* q, const void* k, const void* v, const void* dout,
-           const float* lse, const float* delta, void* dq, void* dk, void* dv, long long q_bs,
-           long long q_rs, long long k_bs, long long k_rs, long long v_bs, long long v_rs,
-           long long o_bs, long long o_rs, int B, int Sq, int Sk, int L, int H, float scale_log2,
-           float scale, void* stream) {
-  if (B < 1 || H < 1 || Sq < 1 || L < 1 || L > Sk || B > 65535 || H > 65535)
-    return (int)cudaErrorInvalidValue;
-  const Args a{q,    k,    v,    dout, lse,  delta, dq, dk, dv, q_bs, q_rs, k_bs,
-               k_rs, v_bs, v_rs, o_bs, o_rs, Sq,    Sk, L,  H,  scale_log2, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid_kv((Sk + BK - 1) / BK, H, B), grid_q((Sq + BQ - 1) / BQ, H, B);
-  cudaError_t err;
-  if (bf16) {
-    err = launch_one(dkdv_bf16_kernel, grid_kv, BF16_SMEM, st, a);
-    if (err == cudaSuccess) err = launch_one(dq_bf16_kernel, grid_q, BF16_SMEM, st, a);
-  } else {
-    err = launch_one(dkdv_f32_kernel, grid_kv, F32_DKDV_SMEM, st, a);
-    if (err == cudaSuccess) err = launch_one(dq_f32_kernel, grid_q, F32_DQ_SMEM, st, a);
-  }
+bool bad_dims(int B, int Sq, int Sk, int L, int H) {
+  return B < 1 || H < 1 || Sq < 1 || L < 1 || L > Sk || B > 65535 || H > 65535;
+}
+
+int launch_f32(const Args& a, int B, cudaStream_t st) {
+  const dim3 grid_kv((a.Sk + BK - 1) / BK, a.H, B), grid_q((a.Sq + BQ - 1) / BQ, a.H, B);
+  cudaError_t err = launch_one(dkdv_f32_kernel, grid_kv, F32_DKDV_SMEM, st, a);
+  if (err == cudaSuccess) err = launch_one(dq_f32_kernel, grid_q, F32_DQ_SMEM, st, a);
   return (int)err;
+}
+
+// bf16: the four tensor maps (q and dO over Sq rows, k and v over the L
+// live keys); dq_acc zeroed, lse2 and delta2 prepared (bwd_prep_kernel);
+// the backward kernel; the cast of dq
+int launch_bf16(const void* q, const void* k, const void* v, const void* out, const void* dout,
+                const float* lse, const BwdArgs& a, void* dq, long long q_bs, long long q_rs,
+                long long k_bs, long long k_rs, long long v_bs, long long v_rs, long long out_bs,
+                long long out_rs, long long o_bs, long long o_rs, int B, cudaStream_t st) {
+  const long long cols = (long long)a.H * D;
+  CUtensorMap qm, km, vm, om, dqm;
+  int err = encode_rows_bf16(&qm, q, cols, a.Sq, B, q_rs, q_bs, BQ);
+  if (!err) err = encode_rows_bf16(&km, k, cols, a.L, B, k_rs, k_bs, 64);
+  if (!err) err = encode_rows_bf16(&vm, v, cols, a.L, B, v_rs, v_bs, 64);
+  if (!err) err = encode_rows_bf16(&om, dout, cols, a.Sq, B, o_rs, o_bs, BQ);
+  if (!err)
+    err = encode_rows(&dqm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.dq_acc, cols, a.Sq, B, cols,
+                      (long long)a.Sq * cols, BQ);
+  if (err) return err;
+  const long long n = (long long)B * a.Sq * cols;
+  cudaError_t e = cudaMemsetAsync(a.dq_acc, 0, n * sizeof(float), st);
+  if (e != cudaSuccess) return (int)e;
+  const long long rows = (long long)B * a.H * a.Sq_pad;
+  bwd_prep_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(out), out_bs, out_rs,
+      static_cast<const __nv_bfloat16*>(dout), o_bs, o_rs, lse, const_cast<float*>(a.lse),
+      const_cast<float*>(a.delta), B, a.H, a.Sq, a.Sq_pad);
+  e = cudaFuncSetAttribute(bwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)BWD_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  bwd_bf16_kernel<<<dim3((a.Sk + KB - 1) / KB, a.H, B), BWD_THREADS, BWD_SMEM, st>>>(
+      qm, km, vm, om, dqm, a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dq_cast_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0, st>>>(
+      a.dq_acc, static_cast<__nv_bfloat16*>(dq), n, a.scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each returns the cudaError_t of the launches (0 on success).
-int k5_flash_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
-                      const float* lse, const float* delta, void* dq, void* dk, void* dv,
-                      long long q_bs, long long q_rs, long long k_bs, long long k_rs,
-                      long long v_bs, long long v_rs, long long o_bs, long long o_rs, int B,
-                      int Sq, int Sk, int L, int H, float scale_log2, float scale, void* stream) {
-  return launch(true, q, k, v, dout, lse, delta, dq, dk, dv, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
-                o_bs, o_rs, B, Sq, Sk, L, H, scale_log2, scale, stream);
+// Each returns the cudaError_t of the launches (0 on success). bf16: out
+// (K4's output) with its batch and row strides, lse [B, H, Sq] (natural
+// log, contiguous), ws [2, B, H, Sq_pad] f32 scratch (Sq_pad = Sq rounded up
+// to 64), dq_acc [B, Sq, H*D] f32 scratch.
+int k5_flash_bwd_bf16(const void* q, const void* k, const void* v, const void* out,
+                      const void* dout, const float* lse, float* ws, float* dq_acc, void* dq,
+                      void* dk, void* dv, long long q_bs, long long q_rs, long long k_bs,
+                      long long k_rs, long long v_bs, long long v_rs, long long out_bs,
+                      long long out_rs, long long o_bs, long long o_rs, int B, int Sq, int Sk,
+                      int L, int H, float scale_log2, float scale, void* stream) {
+  if (bad_dims(B, Sq, Sk, L, H)) return (int)cudaErrorInvalidValue;
+  const int sq_pad = (Sq + BQ - 1) / BQ * BQ;
+  const long long plane = (long long)B * H * sq_pad;
+  const BwdArgs a{ws, ws + plane, dq_acc, dk, dv, Sq, sq_pad, Sk, L, H, scale_log2, scale};
+  return launch_bf16(q, k, v, out, dout, lse, a, dq, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, out_bs,
+                     out_rs, o_bs, o_rs, B, static_cast<cudaStream_t>(stream));
 }
 
+// f32: lse (natural log) and delta [B, H, Sq]
 int k5_flash_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
                      const float* lse, const float* delta, void* dq, void* dk, void* dv,
                      long long q_bs, long long q_rs, long long k_bs, long long k_rs,
                      long long v_bs, long long v_rs, long long o_bs, long long o_rs, int B,
                      int Sq, int Sk, int L, int H, float scale_log2, float scale, void* stream) {
-  return launch(false, q, k, v, dout, lse, delta, dq, dk, dv, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
-                o_bs, o_rs, B, Sq, Sk, L, H, scale_log2, scale, stream);
+  if (bad_dims(B, Sq, Sk, L, H)) return (int)cudaErrorInvalidValue;
+  const Args a{q,    k,    v,    dout, lse,  delta, dq, dk, dv, q_bs, q_rs, k_bs,
+               k_rs, v_bs, v_rs, o_bs, o_rs, Sq,    Sk, L,  H,  scale_log2, scale};
+  return launch_f32(a, B, static_cast<cudaStream_t>(stream));
 }
 
 const char* k5_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -70,7 +70,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 struct Args {
   const void* x;       // [M, K], row stride x_rs, unit column stride
@@ -163,62 +167,6 @@ constexpr size_t SMEM_BF16 = (size_t)STAGES * STAGE_BYTES + 1024 + 2 * BM * size
 
 static_assert(BM == 2 * MT * 64 && BN % 8 == 0 && (BN * 128) % 1024 == 0, "wgmma tiling");
 
-__device__ __forceinline__ void cp_async16(unsigned smem, const void* gmem, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem), "l"(gmem),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// Byte offset of 16-byte chunk c (0..7) of row r in a K-major tile of
-// 128-byte rows under the 128-byte swizzle that wgmma reads.
-__device__ __forceinline__ unsigned swz(int r, int c) {
-  return (unsigned)(r * 128 + ((c ^ (r & 7)) << 4));
-}
-
-// Shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row groups
-// 1024 bytes apart (tile bases 1024-byte aligned; a 16-deep slice starts 32
-// bytes further along the row).
-__device__ __forceinline__ unsigned long long smem_desc(unsigned addr) {
-  return (unsigned long long)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// d[64 x 96] += A[64 x 16] . B[96 x 16]^T, both K-major in shared memory
-__device__ __forceinline__ void wgmma_n96(float (&d)[NR], unsigned long long da,
-                                          unsigned long long db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %50, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, %48, %49, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// keeps the compiler from moving accumulator accesses across the async wgmma
-__device__ __forceinline__ void fence_acc(float (&d)[NR]) {
-  asm volatile("" : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]) :: "memory");
-}
-
 // One block per (96 output columns, 256 rows); grid (H / BN, M / BM).
 // Warpgroup wg owns rows wg*128 .. +127 of the tile as two 64-row slabs and
 // all BN output columns of both halves: per 16 of depth, four m64n96k16
@@ -304,7 +252,7 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_bf16_kernel(Args a) {
     // this thread's generic-proxy writes (cp.async, the LayerNorm) become
     // visible to the tensor cores' async proxy; then every thread's are, and
     // every warpgroup has retired its products of stage kt - 2
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     __syncthreads();
     {
       const int nxt = kt + AHEAD;  // refills the slot of stage kt - 2
@@ -325,8 +273,8 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_bf16_kernel(Args a) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const unsigned long long da = smem_desc(As + (wg * MT + mt) * 64 * 128 + kk * 32);
-        wgmma_n96(acc_a[mt], da, dv);
-        wgmma_n96(acc_g[mt], da, dg);
+        wgmma_ss_n96<0, 0>(acc_a[mt], da, dv, 1);
+        wgmma_ss_n96<0, 0>(acc_g[mt], da, dg, 1);
       }
     }
     wgmma_commit();

@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._device import resolve_device
+
 
 def _gaussian_kernel(size: int = 11, sigma: float = 1.5) -> np.ndarray:
     coords = np.arange(size, dtype=np.float64) - (size - 1) / 2.0
@@ -82,7 +84,11 @@ class PixelMetrics:
     images: torch.Tensor    # valid-image count (torchmetrics pools per image)
 
     @classmethod
-    def zeros(cls, device="cpu") -> "PixelMetrics":
+    def zeros(cls, device=None) -> "PixelMetrics":
+        """All sums 0 on ``device``: the card unless the CPU is asked for
+        (``resolve_device``; raises without a card)."""
+        device = resolve_device(device)
+
         def z():
             return torch.zeros((), dtype=torch.float32, device=device)
 

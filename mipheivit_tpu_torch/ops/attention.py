@@ -31,10 +31,13 @@ Training. All run inside a ``torch.autograd.Function``, as the JAX
 package's ``custom_vjp`` rules do. K1's and K6's backward is the plain f32
 recompute of ``_bshd_bwd_rule`` / ``_flash_bwd_rule`` (the JAX package has
 no kernel there either). K4 saves ``(q, k, v, out, lse)`` and its backward
-is K5 (``csrc/flash_attention_bwd.cu``, dK/dV then dQ, the probabilities
-rebuilt from the lse) on the card and ``flash_backward_reference`` on the
-CPU. The raw launchers raise when called with grad enabled on tensors that
-require it outside these Functions.
+is K5 (``csrc/flash_attention_bwd.cu``, one kernel per key tile, the
+probabilities rebuilt from the lse) on the card and
+``flash_backward_reference`` on the CPU. The raw launchers raise when
+called with grad enabled on tensors that require it outside these
+Functions, and on any shape or dtype they do not take (any head dim but
+64, any dtype but bf16 and f32), so the entry points raise there on the
+card.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ MAX_SEQ = 512   # K1's whole-sequence limit, as the TPU kernel's (_MAX_BLOCK)
 HEAD_DIM = 64
 
 # Kernel launches since the last reset, counted where each kernel is launched:
-# "attention" is K1, "flash" is K4, "flash_bwd" is K5 (its two kernels, one
+# "attention" is K1, "flash" is K4, "flash_bwd" is K5 (its kernels, one
 # call), "short" is K6.
 launch_counts = {"attention": 0, "flash": 0, "flash_bwd": 0, "short": 0}
 
@@ -335,9 +338,13 @@ def _flash_library():
 @functools.lru_cache(maxsize=None)
 def _flash_bwd_library():
     lib = _build.load("flash_attention_bwd")
+    lib.k5_flash_bwd_bf16.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 10
+                                      + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                                      + [ctypes.c_void_p])
+    lib.k5_flash_bwd_f32.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 8
+                                     + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                                     + [ctypes.c_void_p])
     for fn in (lib.k5_flash_bwd_bf16, lib.k5_flash_bwd_f32):
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 8
-                       + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.k5_error_string.argtypes = [ctypes.c_int]
     lib.k5_error_string.restype = ctypes.c_char_p
@@ -465,21 +472,38 @@ def _flash_bwd_cuda(q, k, v, out, lse, dout, num_heads: int, seq_len_k: int | No
     if dout.stride(-1) != 1 or dout.stride(1) != hd or dout.data_ptr() % 16:
         dout = dout.contiguous()
     _check_operands("K5", q, k, v, num_heads, dout)
-    delta = _delta(out, dout, num_heads)
+    if out.dtype != q.dtype:
+        raise ValueError(f"K5 takes K4's output in q's dtype, got {out.dtype} and {q.dtype}")
     lse = lse.contiguous()
 
     lib = _flash_bwd_library()
-    fn = lib.k5_flash_bwd_bf16 if q.dtype == torch.bfloat16 else lib.k5_flash_bwd_f32
     dq = torch.empty((b, sq, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+               dout.stride(0), dout.stride(1))
+    scales = (_SCALE_LOG2, 1.0 / math.sqrt(HEAD_DIM))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-                 dout.stride(0), dout.stride(1), b, sq, sk, seq_len_k, num_heads,
-                 _SCALE_LOG2, 1.0 / math.sqrt(HEAD_DIM), stream)
+        if q.dtype == torch.bfloat16:
+            # scratch: the lse in log2 units and delta, padded to whole
+            # 64-row tiles, and the f32 sum of dQ over the key tiles
+            if out.stride(-1) != 1 or out.stride(1) % 8 or out.data_ptr() % 16:
+                out = out.contiguous()
+            ws = torch.empty(2 * b * num_heads * (-(-sq // 64) * 64), dtype=torch.float32,
+                             device=q.device)
+            dq_acc = torch.empty((b, sq, hd), dtype=torch.float32, device=q.device)
+            err = lib.k5_flash_bwd_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), ws.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), *strides[:6], out.stride(0), out.stride(1), *strides[6:], b, sq,
+                sk, seq_len_k, num_heads, *scales, stream)
+        else:
+            delta = _delta(out, dout, num_heads)
+            err = lib.k5_flash_bwd_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                *strides, b, sq, sk, seq_len_k, num_heads, *scales, stream)
     if err != 0:
         raise RuntimeError(f"K5 flash attention backward launch failed: "
                            f"{lib.k5_error_string(err).decode()} ({err})")

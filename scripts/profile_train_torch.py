@@ -38,10 +38,11 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
-    ("K5 (dkdv + dq)", ("dkdv_bf16", "dq_bf16", "dkdv_f32", "dq_f32")),
+    ("K5", ("bwd_bf16_kernel", "bwd_prep_kernel", "dq_cast_kernel", "dkdv_f32", "dq_f32")),
     ("K4", ("flash_bf16_kernel", "flash_f32_kernel")),
     ("K1", ("attn_bf16_kernel", "attn_f32_kernel")),
-    ("K2", ("swiglu_bf16_kernel", "swiglu_f32_kernel")),
+    ("K2", ("gemm_bf16_kernel<true>", "gemm_f32_kernel<true>")),
+    ("K7", ("gemm_bf16_kernel<false>", "gemm_f32_kernel<false>")),
     ("K2 backward terms", ("gate_bwd_kernel",)),
     ("K3", ("heads_bf16_kernel", "heads_f32_kernel")),
     ("GEMM", ("gemm", "Gemm", "xmma", "nvjet", "cutlass", "sm90_", "ampere_")),

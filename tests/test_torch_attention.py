@@ -90,6 +90,37 @@ def test_other_devices_raise():
         port.attention_qkv(qkv, 2)
 
 
+@pytest.mark.parametrize("s", [1, 329, 600])
+@pytest.mark.parametrize("d", [32, 40])
+def test_other_head_dims_match_jax_entry_point(d, s):
+    """Head dims 32 and 40, which no kernel of the port takes (the card
+    raises): on the CPU against the JAX entry point, up to 512 tokens and
+    above, the output and the gradients of q, k and v."""
+    import jax
+    import jax.numpy as jnp
+
+    h = 3
+    q, k, v = np.split(_qkv(1, s, h, d=d, seed=s + d), 3, axis=-1)
+    r = np.random.default_rng(s + 1).standard_normal((1, s, h * d)).astype(np.float32)
+    jatt = _jax_attention()
+
+    def loss(*qkv):
+        return jnp.sum(jatt.attention_bshd(*qkv, h) * r)
+
+    jargs = [jnp.asarray(t) for t in (q, k, v)]
+    want = np.asarray(jatt.attention_bshd(*jargs, h))
+    want_grads = jax.grad(loss, argnums=(0, 1, 2))(*jargs)
+    ts = [torch.from_numpy(t.copy()).requires_grad_() for t in (q, k, v)]
+    got = port.attention_bshd(*ts, h)
+    (got * torch.from_numpy(r)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=ATOL, rtol=RTOL)
+    # held to the largest gradient of the three: at S = 1 the softmax is
+    # constant, so dq and dk are 0 up to f32 rounding in both
+    scale = max(float(np.abs(np.asarray(g)).max()) for g in want_grads)
+    for t, g in zip(ts, want_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=1e-4 * scale, rtol=1e-4)
+
+
 def test_reference_casts_probs_to_value_dtype():
     """bf16 inputs: p is rounded to bf16 before p . v, as in JAX."""
     import jax.numpy as jnp
@@ -152,6 +183,26 @@ def test_kernel_ragged_lengths_on_card(cuda, s):
         q, k, v = qkv.chunk(3, dim=-1)
         want = port.attention_reference(q, k, v, 2)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [8, 32, 64])
+@pytest.mark.parametrize("s", [1, 16, 63, 64, 65, 200, 329, 512])
+def test_bf16_kernel_ragged_lengths_at_batch_on_card(cuda, s, b):
+    """The bf16 kernel (one block per head and batch item, the last key
+    tile cut to the live keys rounded up to 16) against the plain version,
+    scaled to the reference: bf16 rounds p against the running max."""
+    qkv = torch.from_numpy(_qkv(b, s, 4, seed=s + b)).to(cuda, torch.bfloat16)
+    with torch.inference_mode():
+        before = port.launch_counts["attention"]
+        got = port.attention_qkv(qkv, 4)
+        torch.cuda.synchronize()
+        assert port.launch_counts["attention"] == before + 1
+        want = port.attention_reference(*qkv.chunk(3, dim=-1), 4)
+    err = got.float() - want.float()
+    assert torch.isfinite(got).all()
+    assert err.abs().max() <= 2e-2 * want.float().abs().max()
+    assert err.norm() <= 1e-2 * want.float().norm()
 
 
 @pytest.mark.gpu

@@ -94,6 +94,33 @@ def test_cpu_runs_plain_version_without_launch():
     torch.testing.assert_close(out, port.chain_reference(*args, HEADS), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("s,d,heads", [(37, 96, 2), (7, 128, 2), (37, 128, 3)])
+def test_outside_the_gate_matches_jax_entry_point(s, d, heads):
+    """D = 96, S = 7, or H*Dh = 192, outside K8's gate (the card raises
+    there): on the CPU the port's plain chain against the JAX entry point,
+    which runs its chain there; forward and gradients."""
+    import jax
+    import jax.numpy as jnp
+
+    from mipheivit_tpu.ops.attn_block import ln_qkv_attention
+
+    args = _inputs(2, s, seed=22 + d + heads, d=d, heads=heads)
+    r = np.random.default_rng(23).standard_normal((2, s, heads * 64)).astype(np.float32)
+    jargs = [jnp.asarray(t) for t in args]
+    want = np.asarray(ln_qkv_attention(*jargs, heads))
+    want_grads = jax.grad(lambda *a: jnp.sum(ln_qkv_attention(*a, heads) * r),
+                          argnums=tuple(range(5)))(*jargs)
+    ts = [t.requires_grad_() for t in _port(*args)]
+    got = port.ln_qkv_attention(*ts, heads)
+    (got * torch.from_numpy(r)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL, atol=RTOL)
+    grads = [t.grad.numpy() for t in ts]
+    grads[3] = grads[3].T                               # [3*H*Dh, D] -> the JAX [D, 3*H*Dh]
+    for g, w_ in zip(grads, want_grads):
+        w_ = np.asarray(w_)
+        np.testing.assert_allclose(g, w_, rtol=GRAD_RTOL, atol=GRAD_RTOL * np.abs(w_).max())
+
+
 def test_other_devices_raise():
     x, lns, lnb, w, b = _port(*_inputs(1, 8, seed=3))
     with pytest.raises(ValueError, match="CPU or all on one"):

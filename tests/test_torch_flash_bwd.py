@@ -198,6 +198,24 @@ def test_k5_ragged_lengths_on_card(cuda, s, dtype):
 
 
 @pytest.mark.gpu
+def test_k5_runs_agree_on_card(cuda):
+    """The bf16 kernel sums dQ over the key tiles with atomic adds, in an
+    order that changes from run to run: two runs differ by f32 rounding of
+    that sum, rounded once to bf16 (at most about one bf16 step of dq's
+    largest values: 1e-2 of max |dq|, 1e-4 in norm). dK and dV are summed
+    in one block each and come out the same."""
+    q, k, v, g = _inputs(cuda, 1, 5334, 5334, 24, torch.bfloat16, 60)
+    with torch.no_grad():
+        out, lse = port.flash_attention(q, k, v, 24)
+        first = port.flash_backward(q, k, v, out, lse, g, 24)
+        second = port.flash_backward(q, k, v, out, lse, g, 24)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    dq1, dq2 = first[0].float(), second[0].float()
+    assert (dq1 - dq2).abs().max() <= 1e-2 * dq1.abs().max()
+    assert (dq1 - dq2).norm() <= 1e-4 * dq1.norm()
+
+
+@pytest.mark.gpu
 def test_k5_ignores_nonfinite_padding_keys(cuda):
     q, k, v, g = _inputs(cuda, 1, 700, 700, 2, torch.bfloat16, 30)
     k, v = k.clone(), v.clone()
@@ -226,3 +244,20 @@ def test_autograd_launches_k4_then_k5_on_card(cuda):
     out, lse = port.flash_reference(q, k, v, 2)
     want = port.flash_backward_reference(q, k, v, out, lse, g, 2)
     _assert_held(qkv.grad, torch.cat(want, -1), torch.float32)
+
+
+@pytest.mark.gpu
+def test_head_dim_32_raises_on_card(cuda):
+    """Head dim 32, which K4 and K5 do not take: the forward and K5's entry
+    point raise on the card before any launch (there is no plain route on
+    the card)."""
+    qkv = torch.from_numpy(_rand(1, 700, 3 * 96, seed=50)).to(cuda)
+    g = torch.from_numpy(_rand(1, 700, 96, seed=51)).to(cuda)
+    q, k, v = qkv.chunk(3, dim=-1)
+    out, lse = port.flash_reference(q, k, v, 3)
+    launches = dict(port.launch_counts)
+    with pytest.raises(ValueError, match="head dim"):
+        port.attention_qkv(qkv.clone().requires_grad_(), 3)
+    with pytest.raises(ValueError, match="head dim"):
+        port.flash_backward(q, k, v, out, lse, g, 3)
+    assert port.launch_counts == launches

@@ -97,6 +97,32 @@ def test_cpu_runs_plain_version_without_launch():
     torch.testing.assert_close(out, port.ln_matmul_reference(*args), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("k,n", [(128, 200), (192, 256), (128, 384)])
+def test_outside_the_gate_matches_jax_entry_point(k, n):
+    """N not a multiple of 256 or K not of 128, outside K7's gate (the
+    card raises there): on the CPU the port's plain version against the JAX
+    entry point, which runs its plain chain there; forward and gradients."""
+    import jax
+    import jax.numpy as jnp
+
+    from mipheivit_tpu.ops.mlp import ln_matmul
+
+    args = _inputs(37, seed=20 + n, k=k, n=n)
+    r = np.random.default_rng(21).standard_normal((37, n)).astype(np.float32)
+    jargs = [jnp.asarray(t) for t in args]
+    want = np.asarray(ln_matmul(*jargs))
+    want_grads = jax.grad(lambda *a: jnp.sum(ln_matmul(*a) * r), argnums=tuple(range(5)))(*jargs)
+    ts = [t.requires_grad_() for t in _port(*args)]
+    got = port.ln_matmul(*ts)
+    (got * torch.from_numpy(r)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL, atol=RTOL)
+    grads = [t.grad.numpy() for t in ts]
+    grads[3] = grads[3].T                               # [N, K] -> the JAX [K, N]
+    for g, w_ in zip(grads, want_grads):
+        w_ = np.asarray(w_)
+        np.testing.assert_allclose(g, w_, rtol=GRAD_RTOL, atol=GRAD_RTOL * np.abs(w_).max())
+
+
 def test_other_devices_raise():
     x, lns, lnb, w, b = _port(*_inputs(4, seed=4))
     with pytest.raises(ValueError, match="CPU or all on one"):

@@ -142,7 +142,7 @@ def test_pixel_metrics_match_jax():
     batches = [(g.uniform(-1, 1, (3, 24, 20, 2)).astype(np.float32),
                 g.uniform(-0.9, 0.9, (3, 24, 20, 2)).astype(np.float32)) for _ in range(2)]
     mask = np.array([1.0, 1.0, 0.0], np.float32)
-    want, got = jp.PixelMetrics.zeros(), pp.PixelMetrics.zeros()
+    want, got = jp.PixelMetrics.zeros(), pp.PixelMetrics.zeros(device="cpu")
     for i, (p, t) in enumerate(batches):
         m = mask if i else None
         want = want.update(jnp.asarray(p), jnp.asarray(t), mask=None if m is None else jnp.asarray(m))
@@ -160,6 +160,19 @@ def test_pixel_metrics_match_jax():
 
 # ---------------------------------------------------------------------------
 # the optimizer chain
+
+
+def test_pixel_metrics_build_on_the_card_unless_asked(monkeypatch):
+    """``PixelMetrics.zeros()`` goes through ``resolve_device``: without a
+    card it raises, and the CPU builds only when asked for."""
+    from mipheivit_tpu_torch.metrics import PixelMetrics
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PixelMetrics.zeros()
+    m = PixelMetrics.zeros(device="cpu")
+    for t in (m.sse, m.count, m.ssim_sum, m.images):
+        assert t.device.type == "cpu" and t.dtype == torch.float32 and float(t) == 0.0
 
 
 @pytest.mark.parametrize("which", ["generator", "discriminator"])
@@ -402,7 +415,7 @@ def test_train_step_matches_jax(route, gan, monkeypatch):
     assert {n for n, _ in state.gen_params} == set(want_grads)
 
     port_attention.launch_counts.update(attention=0, flash=0, flash_bwd=0, short=0)
-    jmetrics, metrics = JM.zeros(), PixelMetrics.zeros()
+    jmetrics, metrics = JM.zeros(), PixelMetrics.zeros(device="cpu")
     for i, batch in enumerate(batches):
         jstate, jmetrics, jlog = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()},
                                        jmetrics)
@@ -472,7 +485,7 @@ def test_grad_checkpointing_recomputes_blocks_with_the_same_gradients():
         state = steps.create_train_state(model, opt, freeze_model_name="myvitmatte",
                                          device="cpu", grad_checkpointing=ckpt)
         _, _, log = steps.make_train_step(model, losses.mse_loss(1.0), opt)(
-            state, batch, PixelMetrics.zeros())
+            state, batch, PixelMetrics.zeros(device="cpu"))
         runs[ckpt] = (len(calls), float(log["gen_loss"]), log["grads"])
     assert runs[False][0] == 1 and runs[True][0] == 2
     assert runs[True][1] == runs[False][1]
@@ -507,7 +520,7 @@ def test_export_round_trip_into_jax_forward(tmp_path, monkeypatch):
     opt = optim.build_generator_optimizer(1e-2, 40, warmup_iters=1)
     state = steps.create_train_state(model, opt, freeze_model_name="myvitmatte", device="cpu")
     step = steps.make_train_step(model, losses.mse_loss(1.0), opt)
-    metrics = PixelMetrics.zeros()
+    metrics = PixelMetrics.zeros(device="cpu")
     for batch in _batches(2):
         state, metrics, _ = step(state, batch, metrics)
     assert any(p.abs().max() > 0 for n, p in state.gen_params if ".lora_q.B" in n)
@@ -546,7 +559,7 @@ def test_export_round_trip_into_jax_forward(tmp_path, monkeypatch):
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     jmetrics, jlog = js.make_eval_step(jm, jl.mse_loss(1.0))(jstate, jbatch, JM.zeros())
     emetrics, elog = steps.make_eval_step(model, losses.mse_loss(1.0))(
-        state, batch, PixelMetrics.zeros())
+        state, batch, PixelMetrics.zeros(device="cpu"))
     np.testing.assert_allclose(float(elog["gen_loss_sim"]), float(jlog["gen_loss_sim"]),
                                rtol=LOSS_RTOL)
     np.testing.assert_allclose(elog["pred"].numpy(), np.asarray(jlog["pred"]), atol=2e-5,
