@@ -46,10 +46,14 @@ accumulation 2; the generator step of the flagship preset, gan_train off):
                ln_qkv_attention (K8) at the profiling shapes, and at a small
                slice held in cosine against the f32 backward on the CPU.
 
-Before the paths, [rejects] calls each op entry point on the card at a
-shape its kernel does not take (head dim 32 for the attention entry points
-and K5's, ln_matmul at N 200, ln_qkv_attention at D 96): each must raise
-before any launch, as there is no plain route on the card.
+Before the paths, [head dims] runs the four attention entry points at head
+dims 32 and 40 through their kernels (K1, K4, K5, K6; zero-padded to 64)
+and ln_matmul at N 200 and K 192 through K7, each against its plain
+version with its launch counted; [rejects] calls each op entry point on the
+card at a shape its kernel does not take (head dims 80, 128 and 36 for the
+attention entry points and K5's, ln_matmul at K 100, ln_qkv_attention at D
+96): each must raise before any launch, as there is no plain route on the
+card.
 
 It checks the outputs (the stitched slides against a serial reference
 stitch; every served tile against the same tile in a full batch; finite
@@ -232,30 +236,44 @@ def load(ckpt, enc, device, dtype, img=IMG):
 
 
 def k4_phase(name, q, k, v, seq_len_k=None):
-    """K4 against its plain version on one input; prints and checks the
-    errors and returns (out_err, lse_err, ms, plain_ms)."""
+    """K4 against its plain version on one input (keys past ``seq_len_k``
+    may hold NaN or Inf: the plain version sees the live keys only); prints
+    and checks the errors and times the kernel, the plain version and the
+    library's attention on the live keys, with the bound. Returns the row's
+    numbers."""
+    import torch.nn.functional as F
+
     from mipheivit_tpu_torch.ops import attention as attn
 
     dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    live = seq_len_k or k.shape[1]
+    kl, vl = k[:, :live], v[:, :live]
     t0 = time.perf_counter()
     with torch.inference_mode():
         out, lse = attn.flash_attention(q, k, v, HEADS, seq_len_k)
-        want_out, want_lse = attn.flash_reference(q, k, v, HEADS, seq_len_k)
+        want_out, want_lse = attn.flash_reference(q, kl, vl, HEADS)
         torch.cuda.synchronize()
+        finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
         out_err, out_rel, out_fro = scaled_err(out, want_out)
         lse_err = (lse - want_lse).abs().max().item()
         del out, lse, want_out, want_lse
         ms = cuda_ms(lambda: attn.flash_attention(q, k, v, HEADS, seq_len_k), reps=10)
-        plain_ms = cuda_ms(lambda: attn.flash_reference(q, k, v, HEADS, seq_len_k),
-                           reps=3, warmup=1)
-    print(f"[k4 {name}] q {tuple(q.shape)} k {tuple(k.shape)} seq_len_k "
-          f"{seq_len_k or k.shape[1]} out_err {out_err:.3e} = {out_rel:.2e} of max|ref|, "
-          f"norm-rel {out_fro:.2e} (tol {SCALED_TOL[dt][0]:g}, {SCALED_TOL[dt][1]:g}) "
-          f"lse_err {lse_err:.3e} (tol {LSE_TOL[dt]:g}) kernel {ms:.3f} ms "
-          f"plain {plain_ms:.3f} ms ({time.perf_counter() - t0:.1f} s)", flush=True)
-    check(out_rel <= SCALED_TOL[dt][0] and out_fro <= SCALED_TOL[dt][1]
+        plain_ms = cuda_ms(lambda: attn.flash_reference(q, kl, vl, HEADS), reps=3, warmup=1)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            heads_view(q), heads_view(kl), heads_view(vl)), reps=10)
+    b, sq, hd = q.shape
+    n_bytes = (2 * b * sq * hd + 2 * b * live * hd) * q.element_size() + b * HEADS * sq * 4
+    bnd, by = bound_ms(n_bytes, 4.0 * b * HEADS * sq * live * 64, dt)
+    print(f"[k4 {name}] q {tuple(q.shape)} k {tuple(k.shape)} seq_len_k {live} out_err "
+          f"{out_err:.3e} = {out_rel:.2e} of max|ref|, norm-rel {out_fro:.2e} (tol "
+          f"{SCALED_TOL[dt][0]:g}, {SCALED_TOL[dt][1]:g}) lse_err {lse_err:.3e} (tol "
+          f"{LSE_TOL[dt]:g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms library "
+          f"(scaled_dot_product_attention) {library_ms:.3f} ms bound {bnd:.3f} ms ({by}) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(finite and out_rel <= SCALED_TOL[dt][0] and out_fro <= SCALED_TOL[dt][1]
           and lse_err <= LSE_TOL[dt], f"K4 {name} disagrees with the plain version")
-    return out_err, lse_err, ms, plain_ms
+    return {"max_abs_err": out_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+            "bound_by": by, "library_ms": library_ms}
 
 
 def k5_phase(name, q, k, v, seq_len_k=None, seed=0):
@@ -354,12 +372,12 @@ def check_counts(name: str, got: dict, **want) -> None:
           f"{name} {counts_line(got)}, expected {counts_line(expect)}")
 
 
-def k2_phase(name, m, dtype, ln=False, seed=0):
+def k2_phase(name, m, dtype, ln=False, seed=0, k=FC1_K, h=FC1_H):
     """K2 against its plain version on one input at ViT-g's fc1 widths
-    (x [m, 1536], packed w [8192, 1536]; with ``ln`` the LayerNorm
-    variant); prints and checks the scaled errors and times the kernel, the
-    plain version, the library's packed fc1 GEMM plus gate (and its
-    LayerNorm first) and the GEMM alone. Returns the row's numbers."""
+    (x [m, 1536], packed w [8192, 1536]; or other K and H; with ``ln`` the
+    LayerNorm variant); prints and checks the scaled errors and times the
+    kernel, the plain version, the library's packed fc1 GEMM plus gate (and
+    its LayerNorm first) and the GEMM alone. Returns the row's numbers."""
     import torch.nn.functional as F
 
     from mipheivit_tpu_torch.ops import mlp
@@ -368,22 +386,22 @@ def k2_phase(name, m, dtype, ln=False, seed=0):
     dev = torch.device("cuda:0")
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.standard_normal((m, FC1_K), dtype=np.float32)).to(dev, dtype)
-    w = torch.from_numpy(rng.standard_normal((2 * FC1_H, FC1_K), dtype=np.float32)
-                         / np.float32(FC1_K ** 0.5)).to(dev, dtype)
-    b = torch.from_numpy(rng.standard_normal(2 * FC1_H, dtype=np.float32)
+    x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(dev, dtype)
+    w = torch.from_numpy(rng.standard_normal((2 * h, k), dtype=np.float32)
+                         / np.float32(k ** 0.5)).to(dev, dtype)
+    b = torch.from_numpy(rng.standard_normal(2 * h, dtype=np.float32)
                          * np.float32(0.1)).to(dev, dtype)
     lnp = None
     if ln:
-        lnp = (torch.from_numpy(rng.uniform(0.5, 1.5, FC1_K).astype(np.float32)).to(dev),
-               torch.from_numpy(rng.standard_normal(FC1_K, dtype=np.float32)
+        lnp = (torch.from_numpy(rng.uniform(0.5, 1.5, k).astype(np.float32)).to(dev),
+               torch.from_numpy(rng.standard_normal(k, dtype=np.float32)
                                 * np.float32(0.1)).to(dev))
 
     def library():
-        xin = x if lnp is None else F.layer_norm(x, (FC1_K,), lnp[0].to(dtype), lnp[1].to(dtype),
+        xin = x if lnp is None else F.layer_norm(x, (k,), lnp[0].to(dtype), lnp[1].to(dtype),
                                                  1e-6)
-        h = F.linear(xin, w, b)
-        return F.silu(h[:, :FC1_H]) * h[:, FC1_H:]
+        ag = F.linear(xin, w, b)
+        return F.silu(ag[:, :h]) * ag[:, h:]
 
     with torch.inference_mode():
         got = mlp.swiglu_fc1(x, w, b, ln=lnp)
@@ -395,10 +413,10 @@ def k2_phase(name, m, dtype, ln=False, seed=0):
         plain_ms = cuda_ms(lambda: mlp.swiglu_reference(x, w, b, lnp), reps=3, warmup=1)
         library_ms = cuda_ms(library, reps=10)
         gemm_ms = cuda_ms(lambda: F.linear(x, w, b), reps=10)
-    n_bytes = ((m * FC1_K + 2 * FC1_H * FC1_K + 2 * FC1_H + m * FC1_H) * x.element_size()
-               + (2 * FC1_K * 4 if ln else 0))
-    bnd, by = bound_ms(n_bytes, 2.0 * m * FC1_K * 2 * FC1_H, dt)
-    print(f"[k2 {name}] x [{m}, {FC1_K}] w [{2 * FC1_H}, {FC1_K}]{' ln' if ln else ''}: max_abs_err "
+    n_bytes = ((m * k + 2 * h * k + 2 * h + m * h) * x.element_size()
+               + (2 * k * 4 if ln else 0))
+    bnd, by = bound_ms(n_bytes, 2.0 * m * k * 2 * h, dt)
+    print(f"[k2 {name}] x [{m}, {k}] w [{2 * h}, {k}]{' ln' if ln else ''}: max_abs_err "
           f"{err:.3e} = {rel:.2e} of max|ref|, norm-rel {fro:.2e} (tol {SCALED_TOL[dt][0]:g}, "
           f"{SCALED_TOL[dt][1]:g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms library "
           f"{'LN + ' if ln else ''}GEMM + gate {library_ms:.3f} ms, GEMM alone {gemm_ms:.3f} ms "
@@ -640,38 +658,107 @@ def k8_phase(name, b, s, dtype, seed=0):
                       n_bytes, flops, t0)
 
 
+def head_dims_phase():
+    """The attention entry points at head dims 32 and 40 through the
+    kernels (zero-padded to 64, the scale of their own D): attention_qkv at
+    S 329 (K1), attention_bshd at S 600 (K4), flash_backward there (K5),
+    dot_product_attention at S 329 (K6), each at 24 heads in bf16, held
+    against its plain version at that D with its launch counted; and
+    ln_matmul at N 200 and K 192 (K7, under the rule of K2: multiples of
+    8)."""
+    from mipheivit_tpu_torch.ops import attention as attn
+    from mipheivit_tpu_torch.ops import mlp
+
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    lines = []
+    for d in (32, 40):
+        qkv = seeded((4, 329, 3 * HEADS * d), SEED + 140 + d, bf16)
+        lq, lk, lv = seeded((1, 600, 3 * HEADS * d), SEED + 141 + d, bf16).chunk(3, -1)
+        g = seeded((1, 600, HEADS * d), SEED + 142 + d, bf16)
+        lout, llse = attn.flash_reference(lq, lk, lv, HEADS)
+        heads = [seeded((4, HEADS, 329, d), SEED + 143 + d + i, bf16) for i in range(3)]
+        cases = {
+            "attention_qkv": ("attention", lambda: attn.attention_qkv(qkv, HEADS),
+                              lambda: attn.attention_reference(*qkv.chunk(3, -1), HEADS)),
+            "attention_bshd": ("flash", lambda: attn.attention_bshd(lq, lk, lv, HEADS),
+                               lambda: attn.flash_reference(lq, lk, lv, HEADS)[0]),
+            "flash_backward": ("flash_bwd",
+                               lambda: torch.cat(attn.flash_backward(
+                                   lq, lk, lv, lout, llse, g, HEADS), -1),
+                               lambda: torch.cat(attn.flash_backward_reference(
+                                   lq, lk, lv, lout, llse, g, HEADS), -1)),
+            "dot_product_attention": ("short", lambda: attn.dot_product_attention(*heads),
+                                      lambda: attn.short_attention_reference(*heads)),
+        }
+        for name, (key, op, plain) in cases.items():
+            reset_counts()
+            with torch.inference_mode():
+                got = op()
+                torch.cuda.synchronize()
+                counts = read_counts()
+                want = plain()
+            _, rel, fro = scaled_err(got, want)
+            ok = (counts[key] == 1 and sum(counts.values()) == 1 and bool(torch.isfinite(got).all())
+                  and rel <= SCALED_TOL["bf16"][0] and fro <= SCALED_TOL["bf16"][1])
+            lines.append(f"{name} D {d}: {rel:.2e} of max|ref|, norm-rel {fro:.2e}, "
+                         f"launches {counts[key]}")
+            check(ok, f"[head dims] {name} at D {d}: {counts_line(counts)}, {rel:.2e}, {fro:.2e}")
+    x = seeded((658, 192), SEED + 150, bf16)
+    lns, lnb = ln_params(192, SEED + 151)
+    w, b = seeded((200, 192), SEED + 152, bf16, 192 ** -0.5), seeded(200, SEED + 153, bf16, 0.1)
+    reset_counts()
+    with torch.inference_mode():
+        got = mlp.ln_matmul(x, lns, lnb, w, b)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = mlp.ln_matmul_reference(x, lns, lnb, w, b)
+    _, rel, fro = scaled_err(got, want)
+    lines.append(f"ln_matmul [658, 192] x [200, 192]: {rel:.2e} of max|ref|, norm-rel {fro:.2e}, "
+                 f"launches {counts['ln_matmul']}")
+    check(counts["ln_matmul"] == 1 and sum(counts.values()) == 1 and rel <= SCALED_TOL["bf16"][0]
+          and fro <= SCALED_TOL["bf16"][1], f"[head dims] ln_matmul at N 200, K 192: "
+          f"{counts_line(counts)}, {rel:.2e}, {fro:.2e}")
+    reset_counts()
+    print(f"[head dims] {'; '.join(lines)} (tol {SCALED_TOL['bf16'][0]:g}, "
+          f"{SCALED_TOL['bf16'][1]:g}) ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def rejects_phase():
     """Each op entry point on the card at a shape its kernel does not take:
-    the attention entry points at 24 heads of 32 (attention_qkv at S 329,
-    K1's; attention_bshd at S 600, K4's; flash_backward there, K5's;
-    dot_product_attention at S 329, K6's), ln_matmul at N 200 (K7's) and
-    ln_qkv_attention at D 96 (K8's). Each must raise ValueError with no
-    kernel launch: on the card an entry point launches its kernel or
-    raises."""
+    the attention entry points at head dims above 64 (attention_qkv at 24
+    heads of 80 and S 329, K1's; attention_bshd at 24 heads of 128 and S
+    600, K4's; flash_backward there, K5's; dot_product_attention at D 80,
+    K6's) and at head dim 36 (not a multiple of 8; attention_qkv), ln_matmul
+    at K 100 (K7's: not a multiple of 8) and ln_qkv_attention at D 96
+    (K8's). Each must raise ValueError with no kernel launch: on the card an
+    entry point launches its kernel or raises."""
     from mipheivit_tpu_torch.ops import attention as attn
     from mipheivit_tpu_torch.ops import attn_block, mlp
 
     t0 = time.perf_counter()
     bf16 = torch.bfloat16
-    qkv = seeded((2, 329, 3 * 768), SEED + 120, bf16)
-    long_q, long_k, long_v = seeded((1, 600, 3 * 768), SEED + 121, bf16).chunk(3, -1)
-    g = seeded((1, 600, 768), SEED + 122, bf16)
+    qkv80 = seeded((2, 329, 3 * HEADS * 80), SEED + 120, bf16)
+    qkv36 = seeded((2, 329, 3 * HEADS * 36), SEED + 134, bf16)
+    long_q, long_k, long_v = seeded((1, 600, 3 * HEADS * 128), SEED + 121, bf16).chunk(3, -1)
+    g = seeded((1, 600, HEADS * 128), SEED + 122, bf16)
     out, lse = attn.flash_reference(long_q, long_k, long_v, HEADS)
-    heads = [seeded((2, HEADS, 329, 32), SEED + 123 + i, bf16) for i in range(3)]
-    x = seeded((658, 256), SEED + 126, bf16)
-    lns, lnb = ln_params(256, SEED + 127)
-    w, b = seeded((200, 256), SEED + 128, bf16, 256 ** -0.5), seeded(200, SEED + 129, bf16, 0.1)
+    heads = [seeded((2, HEADS, 329, 80), SEED + 123 + i, bf16) for i in range(3)]
+    x = seeded((658, 100), SEED + 126, bf16)
+    lns, lnb = ln_params(100, SEED + 127)
+    w, b = seeded((256, 100), SEED + 128, bf16, 100 ** -0.5), seeded(256, SEED + 129, bf16, 0.1)
     x96 = seeded((2, 329, 96), SEED + 130, bf16)
     lns96, lnb96 = ln_params(96, SEED + 131)
     w96, b96 = seeded((3 * 128, 96), SEED + 132, bf16, 96 ** -0.5), seeded(384, SEED + 133, bf16)
     cases = {
-        "attention_qkv [2, 329, 24x32]": lambda: attn.attention_qkv(qkv, HEADS),
-        "attention_bshd [1, 600, 24x32]": lambda: attn.attention_bshd(long_q, long_k, long_v,
-                                                                      HEADS),
-        "flash_backward [1, 600, 24x32]": lambda: attn.flash_backward(
+        "attention_qkv [2, 329, 24x80]": lambda: attn.attention_qkv(qkv80, HEADS),
+        "attention_qkv [2, 329, 24x36]": lambda: attn.attention_qkv(qkv36, HEADS),
+        "attention_bshd [1, 600, 24x128]": lambda: attn.attention_bshd(long_q, long_k, long_v,
+                                                                       HEADS),
+        "flash_backward [1, 600, 24x128]": lambda: attn.flash_backward(
             long_q, long_k, long_v, out, lse, g, HEADS),
-        "dot_product_attention [2, 24, 329, 32]": lambda: attn.dot_product_attention(*heads),
-        "ln_matmul [658, 256] x [200, 256]": lambda: mlp.ln_matmul(x, lns, lnb, w, b),
+        "dot_product_attention [2, 24, 329, 80]": lambda: attn.dot_product_attention(*heads),
+        "ln_matmul [658, 100] x [256, 100]": lambda: mlp.ln_matmul(x, lns, lnb, w, b),
         "ln_qkv_attention [2, 329, 96], 2 heads": lambda: attn_block.ln_qkv_attention(
             x96, lns96, lnb96, w96, b96, 2),
     }
@@ -1229,20 +1316,16 @@ def main() -> None:
             (b, s, 3 * HD), dtype=np.float32)).to(dev, dtype)
         return t[..., :HD], t[..., HD:2 * HD], t[..., 2 * HD:]
 
+    # (S = 5334 = 41 x 128 + 86: the last q tile and the last key tile ragged)
     q, k, v = fused(2, REGION_S, torch.bfloat16, SEED + 10)
     k4_region = k4_phase("bf16_region", q, k, v)
-    with torch.inference_mode():
-        k4_library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            heads_view(q), heads_view(k), heads_view(v)), reps=10)
-    k4_bound, k4_by = bound_ms(4 * 2 * REGION_S * HD * 2 + 2 * HEADS * REGION_S * 4,
-                               4.0 * 2 * HEADS * REGION_S * REGION_S * 64, "bf16")
-    print(f"[k4 bf16_region] library {k4_library_ms:.3f} ms bound {k4_bound:.3f} ms ({k4_by})",
-          flush=True)
     k4_phase("bf16_cross", q[:, :1334], k, v)
-    # the same rectangle over keys padded to 5376 of which 5334 are live
+    # the same rectangle over keys padded to 5376 of which 5334 are live,
+    # the padding NaN (keys) and Inf (values)
     _, kp, vp = fused(2, 5376, torch.bfloat16, SEED + 11)
     kp[:, :REGION_S], vp[:, :REGION_S] = k, v
-    k4_phase("bf16_cross_padded", q[:, :1334], kp, vp, REGION_S)
+    kp[:, REGION_S:], vp[:, REGION_S:] = float("nan"), float("inf")
+    k4_phase("bf16_cross_padded_nan", q[:, :1334], kp, vp, REGION_S)
     del q, k, v, kp, vp
     k4_phase("f32", *fused(1, 1029, torch.float32, SEED + 12))
     for s_ in (513, 1301, 2049):
@@ -1265,14 +1348,17 @@ def main() -> None:
     # 3d. K2 against the plain version at every path's fc1: a batch of 64
     #     tiles (M = 64 x 329), the daemon's batch of 32, 4 regions (4 x
     #     5334), a 256-px training microbatch (8 x 329) and a 1024-px one
-    #     (5334); ragged M, f32, and the LayerNorm variant (not on a path);
-    #     then K2's backward terms at the two training microbatches and f32
+    #     (5334); ragged M, one row, H and K tails, f32, and the LayerNorm
+    #     variant (not on a path); then K2's backward terms at the two
+    #     training microbatches and f32
     k2_flagship = k2_phase("bf16_tiles", BATCH * 329, torch.bfloat16, seed=SEED + 40)
     k2_phase("bf16_serve", SERVE_BATCH * 329, torch.bfloat16, seed=SEED + 46)
     k2_phase("bf16_regions", 4 * REGION_S, torch.bfloat16, seed=SEED + 41)
     k2_phase("bf16_train256", MICRO * 329, torch.bfloat16, seed=SEED + 47)
     k2_phase("bf16_train1024", REGION_MICRO * REGION_S, torch.bfloat16, seed=SEED + 48)
     k2_phase("bf16_ragged", 658, torch.bfloat16, seed=SEED + 42)
+    k2_phase("bf16_one_row", 1, torch.bfloat16, seed=SEED + 49)
+    k2_phase("bf16_tails", 330, torch.bfloat16, seed=SEED + 63, k=200, h=520)
     k2_phase("f32", 658, torch.float32, seed=SEED + 43)
     k2_phase("bf16_ln", BATCH * 329, torch.bfloat16, ln=True, seed=SEED + 44)
     k2_phase("f32_ln", 658, torch.float32, ln=True, seed=SEED + 45)
@@ -1308,7 +1394,10 @@ def main() -> None:
     k8_phase("f32", 2, 329, torch.float32, seed=SEED + 118)
     torch.cuda.empty_cache()
 
-    # 3g. what no kernel takes raises on the card, before any launch
+    # 3g. head dims below 64 through the attention kernels, K7 off the JAX
+    #     kernel's gate; what no kernel takes raises on the card, before any
+    #     launch
+    head_dims_phase()
     rejects_phase()
 
     # 4. the slice at full width
@@ -1505,7 +1594,6 @@ def main() -> None:
 
     # 11. summary lines
     k1 = kernel_rows["bf16_fused"]
-    k4_err, _, k4_ms, k4_plain_ms = k4_region
     paths = {"slice": slice_counts, "attn sublayer": sublayer, "serve": serve_counts,
              "wsi 256": wsi256, "wsi 1024": wsi1024, "train 256": train256,
              "train 1024": train1024, "train 1024 ckpt": train1024c, "train ops": train_ops}
@@ -1521,9 +1609,7 @@ def main() -> None:
          "replaces": "mipheivit_tpu/ops/attention.py:563", **k1, **launches("attention")},
         {"name": "k4_flash_attention", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "mipheivit_tpu/ops/attention.py:59",
-         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
-         "bound_by": k4_by, "library_ms": k4_library_ms, **launches("flash")},
+         "replaces": "mipheivit_tpu/ops/attention.py:59", **k4_region, **launches("flash")},
         {"name": "k5_flash_attention_bwd", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "mipheivit_tpu/ops/attention.py:317", **k5_region,

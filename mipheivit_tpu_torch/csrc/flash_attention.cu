@@ -11,6 +11,9 @@
 //   out    = (sum_k p_k v_k) / l                in q's dtype
 //   lse    = m + ln(l)                          natural-log units, f32
 //
+// The scale is an argument: a head dim below 64 reaches the kernel zero-
+// padded to 64 with the scale of its own D (ops/attention.py).
+//
 // Layout. q is [B, Sq, H*D], k and v are [B, Sk, H*D]; each has a base
 // pointer, a batch stride and a row stride, so the q | k | v sections of one
 // fused [B, S, 3*H*D] qkv buffer are read in place (no split copy, no head
@@ -20,33 +23,58 @@
 // 16 regions (S = 5334) holds 3.9e8 elements.
 //
 // What bounds it on the H100. A 1024 px region (S = 5334, H = 24) is
-// 4*S^2*D*H = 1.75e11 FLOP per image and block, against 2*S*H*D*2 bytes of
-// q/k/v and out per pass: thousands of FLOP per byte, so it is bound by the
-// tensor cores and by how well the loop keeps them fed, not by memory. The
-// design is the simple one: one block per (64-row q tile, head, batch) of
-// four warps, each owning 16 q rows; K/V tiles of 64 keys stream through
-// double-buffered shared memory (cp.async); both products run on mma.sync
-// m16n8k16 (bf16 in, f32 accumulate); logits, probabilities and the output
-// accumulator stay in registers. wgmma, TMA and warp specialisation are left
-// for later.
+// 4*S^2*D*H = 1.75e11 FLOP per image against 2*S*H*D*2 bytes of q/k/v and
+// out per pass: thousands of FLOP per byte, so the floor is the bf16
+// tensor-core time (0.18 ms per image at the dense peak). At D = 64 the
+// softmax costs about as much as the products: a 64 x 128 tile of logits is
+// 8192 exponentials on the special-function unit (16 a clock per SM), the
+// same number of clocks as the tile's two products on the tensor cores, so
+// the design's work is to run the one under the other.
+//
+// bf16 design (flash_bf16_kernel, FA3's shape on hopper.cuh): one block per
+// (128-row q tile, head, batch item), 2016 blocks at a region pair, three
+// warpgroups. One thread of the producer warpgroup (24 registers, given up
+// by setmaxnreg) loads the q tile once and streams the K and V tiles of
+// 128 keys by TMA (cp.async.bulk.tensor on 3-D maps: head columns, rows,
+// batch) into a ring of four stages, each with a full mbarrier for K, one
+// for V and an empty one; the 128-byte swizzle TMA writes is the layout
+// wgmma reads. Two consumer warpgroups (240 registers) own 64 q rows each:
+//
+//   S = Q . K_j^T        wgmma m64n128k16, both operands in shared memory
+//   m, l, p = exp2(...)  online softmax in registers, log2 units
+//   O += P . V_j         wgmma m64n64k16, p rounded to bf16 as the register
+//                        A operand, V MN-major
+//
+// Step j issues S_j and, behind it, P_{j-1} . V_{j-1}, waits for S_j only,
+// takes the row max and the exponentials while the product of the previous
+// tile runs, and then waits for it before rescaling O: each product is
+// waited for within the step that issued it, so no accumulator stays in
+// flight across a loop step (where ptxas serialises every wgmma, C7514 /
+// C7515). The two warpgroups also take turns to issue their products
+// (ping-pong on named barriers, as FA3 does), so that one's exponentials
+// run while the other's products hold the tensor cores (at a region pair
+// on the H100 a few percent faster than the same kernel without the
+// turns). The output is divided by l, written into the warpgroup's q tile
+// (done with) and stored by TMA.
 //
 // Masking. Keys at or past seq_len_k are a suffix: key tiles that hold none
-// below seq_len_k are never visited, K/V rows at or past seq_len_k are
-// zero-filled on load (so padding that holds NaN or Inf cannot reach
-// p . v), and the remaining masked keys of the last tile get -inf before the
-// row max. Every visited tile has at least one live key, so the running max
-// is finite from the first tile on and exp2(m_old - m_new) never sees
-// (-inf) - (-inf). Rows at or past Sq are zero-filled and not stored.
+// below seq_len_k are never visited, and the K/V tensor maps end at
+// seq_len_k, so TMA fills the rows past it with zeros (padding that holds
+// NaN or Inf cannot reach p . v); the remaining masked keys of the last
+// tile get -inf before the row max. Every visited tile has at least one
+// live key, so the running max is finite from the first tile on and
+// exp2(m_old - m_new) never sees (-inf) - (-inf). q rows at or past Sq
+// arrive as zeros and the TMA store drops them.
 //
 // Where p is rounded (bf16 path). The TPU kernel keeps p in f32 for p . v.
-// Here p is rounded to bf16 for the second mma (relative to the running row
-// max), as K1 does: about 2^-9 relative error per probability, averaged
+// Here p is rounded to bf16 for the second product (relative to the running
+// row max), as K1 does: about 2^-9 relative error per probability, averaged
 // over the keys; the row sum l and the lse are taken from the f32 p. Against
 // the plain version (f32 p) that stays within 2e-2 of unit-scale outputs
 // and 1e-3 of the lse. The f32 path keeps p in f32 throughout.
 //
 // Two paths:
-//   bf16  the serving path: mma.sync as above.
+//   bf16  the serving and training path, as above.
 //   f32   scalar FMAs with logits and p in shared memory (tests, numerics).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -56,18 +84,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+using namespace hopper;
+
 constexpr int D = 64;        // head dim
-constexpr int BQ = 64;       // query rows per block
-constexpr int BK = 64;       // keys per K/V tile
-constexpr int WARPS = 4;     // bf16: each warp owns BQ / WARPS = 16 query rows
-constexpr int THREADS = WARPS * 32;
-constexpr int LDT = D + 8;   // bf16 tile row stride: conflict-free ldmatrix rows
+constexpr int BQ = 64;       // query rows per block of the f32 path
+constexpr int BK = 64;       // keys per K/V tile of the f32 path
+constexpr int THREADS = 128; // f32 path
 constexpr int LDF = D + 1;   // f32 tile row stride: conflict-free column reads
 constexpr float LN2 = 0.6931471805599453f;
 
-static_assert(BQ == WARPS * 16, "one 16-row mma tile per warp");
 static_assert(BK == 64, "the f32 softmax reads two keys per lane");
 
 struct Args {
@@ -81,186 +110,256 @@ struct Args {
   float scale;   // log2(e) / sqrt(D)
 };
 
-// ---- bf16: register-resident tiles on mma.sync (m16n8k16) ---------------------
+// ---- bf16: warp-specialised wgmma, q / K / V tiles by TMA -------------------
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+constexpr int QT = 128;                     // q rows per block, 64 per consumer warpgroup
+constexpr int KT = 128;                     // keys per K / V tile
+constexpr int STAGES = 4;                   // the K / V ring
+constexpr int WS_THREADS = 384;             // producer warpgroup + two consumer warpgroups
+constexpr int CONSUMERS = 256;
+// registers: 168 a thread at launch; the producer keeps 24, the consumers take 240
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+static_assert(128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <= 65536, "register file");
+constexpr int Q_BYTES = QT * D * 2;         // 16 KB, 128-byte swizzled rows
+constexpr int KV_BYTES = KT * D * 2;        // 16 KB each of K and V
+constexpr int WG_ROWS_BYTES = 64 * D * 2;   // one consumer's 64 rows of q (later of out)
+// named barriers (0 is __syncthreads): each consumer's turn to issue
+// products, each consumer's epilogue
+constexpr int BAR_TURN = 1, BAR_EPI = 3;
+// alignment, q, the ring, the mbarriers (q; full K, full V and empty per stage)
+constexpr size_t WS_SMEM = 1024 + (size_t)Q_BYTES + (size_t)STAGES * 2 * KV_BYTES +
+                           8 * (1 + 3 * STAGES);
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-// c += a . b for one 16x8 f32 tile, a 16x16 (row) and b 16x8 (col) bf16
-__device__ __forceinline__ void mma16816(float* c, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
+// keeps the compiler from reusing a register operand's registers before
+// the products that read it are done
+__device__ __forceinline__ void fence_frags(unsigned (&a)[KT / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
 }
 
-// 64 rows of D bf16 values from global rows r0.. into a padded shared tile,
-// asynchronously; rows >= n are zero-filled.
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                long long rs, int r0, int n) {
-  constexpr int VPR = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < BQ * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const bool ok = r0 + r < n;
-    cp_async16(dst + r * LDT + c, src + (long long)(ok ? r0 + r : 0) * rs + c, ok);
+// The online softmax of one tile's logits s (64 rows x 128 keys; thread
+// (warp, g, tig) holds rows warp*16 + g (+8), keys 8j + 2 tig (+1)), in
+// place: keys >= live (the tile's first key is 0) get -inf when mask, the
+// running max m (log2 units) and the partial row sums l move on, s becomes
+// p = exp2(s * scale - m). Returns the factor exp2(m_old - m_new) of each
+// row (0 on the first tile, where m_old = -inf).
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], bool mask, int live,
+                                             float scale) {
+  const int tig = threadIdx.x & 3;
+  if (mask) {
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (j * 8 + tig * 2 + (e & 1) >= live) s[4 * j + e] = -INFINITY;
   }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+  float neg_m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale);  // finite: the tile has a live key
+    alpha[r] = ex2_approx(m[r] - m_new);
+    m[r] = m_new;
+    neg_m[r] = -m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = ex2_approx(fmaf(s[4 * j + e], scale, neg_m[e >> 1]));
+      l[e >> 1] += s[4 * j + e];
+    }
 }
 
-// One block per (64-row q tile, head, batch). K and V stream through
-// double-buffered shared tiles of 64 keys. The mma C fragment of q . k^T is,
-// pair by pair, the A fragment of p . v, so p never leaves registers.
-__global__ void __launch_bounds__(THREADS, 4) flash_bf16_kernel(Args a) {
-  __shared__ __align__(128) __nv_bfloat16 sQ[BQ * LDT];
-  __shared__ __align__(128) __nv_bfloat16 sK[2][BK * LDT];
-  __shared__ __align__(128) __nv_bfloat16 sV[2][BK * LDT];
-
-  const int L = a.L;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;  // mma fragment row group / column pair
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_bs + h * D;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_bs + h * D;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + h * D;
-  const int n_kv = (L + BK - 1) / BK;  // tiles with at least one live key
-
-  load_tile_async(sQ, qg, a.q_rs, q0, a.Sq);
-  load_tile_async(sK[0], kg, a.k_rs, 0, L);
-  load_tile_async(sV[0], vg, a.v_rs, 0, L);
-  cp_async_commit();
-
-  unsigned qf[D / 16][4];  // this warp's 16 q rows as A fragments, one per 16 of D
-  float o[D / 8][4];       // output accumulator: 8 tiles of 16 rows x 8 dims
+__device__ __forceinline__ void pack_p(unsigned (&pa)[KT / 16][4], const float (&s)[64]) {
 #pragma unroll
-  for (int t = 0; t < D / 8; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 units
-  float l[2] = {0.f, 0.f};              // this thread's partial row sums
+  for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+}
 
-  for (int j = 0; j < n_kv; ++j) {
-    if (j + 1 < n_kv) {
-      load_tile_async(sK[(j + 1) & 1], kg, a.k_rs, (j + 1) * BK, L);
-      load_tile_async(sV[(j + 1) & 1], vg, a.v_rs, (j + 1) * BK, L);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+// S = Q . K^T for the warpgroup's 64 rows over one tile of 128 keys (issued)
+__device__ __forceinline__ void issue_qk(float (&s)[64], unsigned q_s, unsigned k_s) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n128<0, 0>(s, smem_desc(q_s + kk * 32), smem_desc(k_s + kk * 32), kk);
+}
+
+// O += P . V over one tile of 128 keys (issued), p as the register operand
+__device__ __forceinline__ void issue_pv(float (&o)[32], const unsigned (&pa)[KT / 16][4],
+                                        unsigned v_s) {
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk) wgmma_rs_n64<1>(o, pa[kk], smem_desc(v_s + kk * 2048), 1);
+}
+
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap omap, float* __restrict__ lse, int Sq,
+                      int L, int H, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw = smem_addr(smem_raw);
+  const unsigned base = (raw + 1023u) & ~1023u;
+  unsigned char* base_ptr = smem_raw + (base - raw);
+  const unsigned q_s = base, ring = base + Q_BYTES;
+  const unsigned q_bar = ring + STAGES * 2 * KV_BYTES;
+  auto k_slot = [&](int st) { return ring + st * 2 * KV_BYTES; };
+  auto v_slot = [&](int st) { return ring + st * 2 * KV_BYTES + KV_BYTES; };
+  auto full_k = [&](int st) { return q_bar + 8 * (1 + st); };
+  auto full_v = [&](int st) { return q_bar + 8 * (1 + STAGES + st); };
+  auto empty = [&](int st) { return q_bar + 8 * (1 + 2 * STAGES + st); };
+
+  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int n_kv = (L + KT - 1) / KT;  // tiles with at least one live key
+
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full_k(st), 1);
+      mbar_init(full_v(st), 1);
+      mbar_init(empty(st), CONSUMERS);
     }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LDT + kk * 16 + (lane >> 4) * 8);
-    }
-    const __nv_bfloat16* ks = sK[j & 1];
-    const __nv_bfloat16* vs = sV[j & 1];
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // s = q . k^T over this tile's 64 keys: 8 tiles of 16 rows x 8 keys
-    float s[BK / 8][4];
-#pragma unroll
-    for (int t = 0; t < BK / 8; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        unsigned kb[4];  // keys np*16 + 0..7 and + 8..15, dims kk*16 + 0..15
-        ldmatrix_x4(kb, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDT + kk * 16 +
-                            ((lane >> 3) & 1) * 8);
-        mma16816(s[2 * np], qf[kk], kb);
-        mma16816(s[2 * np + 1], qf[kk], kb + 2);
+  const int wg = warpgroup();
+  if (wg == 0) {  // the producer: one thread issues every copy
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 0) {
+      mbar_expect_tx(q_bar, Q_BYTES);
+      tma_load_3d(q_s, &qmap, q_bar, h * D, q0, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j % STAGES;
+        mbar_wait(empty(st), ((j / STAGES) & 1) ^ 1);  // the first round passes
+        mbar_expect_tx(full_k(st), KV_BYTES);
+        tma_load_3d(k_slot(st), &kmap, full_k(st), h * D, j * KT, b);
+        mbar_expect_tx(full_v(st), KV_BYTES);
+        tma_load_3d(v_slot(st), &vmap, full_v(st), h * D, j * KT, b);
       }
     }
-
-    // scale to log2 units, mask keys >= L, online softmax
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int t = 0; t < BK / 8; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j * BK + t * 8 + tig * 2 + (e & 1);
-        s[t][e] = key < L ? s[t][e] * a.scale : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[t][e]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2f(m[r] - mx[r]);  // 0 on the first tile (m = -inf, mx finite)
-      m[r] = mx[r];
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int t = 0; t < BK / 8; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[t][e] = exp2f(s[t][e] - m[e >> 1]);
-        l[e >> 1] += s[t][e];
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < D / 8; ++t) {
-      o[t][0] *= alpha[0]; o[t][1] *= alpha[0];
-      o[t][2] *= alpha[1]; o[t][3] *= alpha[1];
-    }
-
-    // o += bf16(p) . v, 16 keys at a time
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        unsigned vb[4];  // keys kk*16 + 0..15, dims dp*16 + 0..7 and + 8..15
-        ldmatrix_x4_trans(vb, vs + (kk * 16 + (lane & 15)) * LDT + dp * 16 + (lane >> 4) * 8);
-        mma16816(o[2 * dp], pa, vb);
-        mma16816(o[2 * dp + 1], pa, vb + 2);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+    return;
   }
 
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int c = wg - 1;  // this consumer's rows: q0 + 64 c ..
+  const int lt = tid % 128, warp = lt / 32, lane = tid % 32, g = lane >> 2, tig = lane & 3;
+  const unsigned qw = q_s + c * WG_ROWS_BYTES;
+  const int tail = L - (n_kv - 1) * KT;  // live keys of the last tile, 1 .. 128
+  const bool ragged = tail < KT;
+  // consumer c issues when it holds the turn BAR_TURN + c; the other
+  // arrives there once it has issued (consumer 1 once ahead, so that
+  // consumer 0 goes first, and not after its last step)
+  auto take_turn = [&] { named_sync(BAR_TURN + c, CONSUMERS); };
+  auto pass_turn = [&](int j) {
+    if (!(c == 1 && j == n_kv - 1)) named_arrive(BAR_TURN + (c ^ 1), CONSUMERS);
+  };
+  if (c == 1) named_arrive(BAR_TURN, CONSUMERS);
+
+  float o[32], s[64];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) o[e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  unsigned pa[KT / 16][4];
+  mbar_wait(q_bar, 0);
+
+  // step 0: S_0 alone
+  mbar_wait(full_k(0), 0);
+  take_turn();
+  wgmma_fence();
+  issue_qk(s, qw, k_slot(0));
+  wgmma_commit();
+  pass_turn(0);
+  wgmma_wait<0>();
+  fence_acc(s);
+  softmax_tile(s, m, l, alpha, ragged && n_kv == 1, tail, scale);
+  pack_p(pa, s);
+
+  // step j: S_j, then P_{j-1} . V_{j-1} behind it; the exponentials of S_j
+  // run while the second product does
+  for (int j = 1; j < n_kv; ++j) {
+    const int st = j % STAGES, prev = (j - 1) % STAGES;
+    mbar_wait(full_k(st), (j / STAGES) & 1);
+    mbar_wait(full_v(prev), ((j - 1) / STAGES) & 1);
+    take_turn();
+    wgmma_fence();
+    issue_qk(s, qw, k_slot(st));
+    wgmma_commit();
+    issue_pv(o, pa, v_slot(prev));
+    wgmma_commit();
+    pass_turn(j);
+    wgmma_wait<1>();  // S_j
+    fence_acc(s);
+    softmax_tile(s, m, l, alpha, ragged && j == n_kv - 1, tail, scale);
+    wgmma_wait<0>();  // P_{j-1} . V_{j-1}
+    fence_acc(o);
+    fence_frags(pa);
+    mbar_arrive(empty(prev));  // K_{j-1} and V_{j-1} are done with
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      o[4 * e] *= alpha[0];
+      o[4 * e + 1] *= alpha[0];
+      o[4 * e + 2] *= alpha[1];
+      o[4 * e + 3] *= alpha[1];
+    }
+    pack_p(pa, s);
+  }
+  {  // the last tile's P . V
+    const int last = (n_kv - 1) % STAGES;
+    mbar_wait(full_v(last), ((n_kv - 1) / STAGES) & 1);
+    wgmma_fence();
+    issue_pv(o, pa, v_slot(last));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(o);
+    fence_frags(pa);
+  }
+
+  // O / l, rounded to bf16, into this consumer's q rows (its products are
+  // done with them), then one TMA store; rows past Sq are dropped by it
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  const long long hd = (long long)a.H * D;
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.out) + (long long)b * a.Sq * hd + h * D;
-  float* lg = a.lse + ((long long)b * a.H + h) * a.Sq;
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  unsigned char* out_ptr = base_ptr + (qw - base);
+  named_sync(BAR_EPI + c, 128);  // every warp's products are done with q
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (row >= a.Sq) continue;
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-    for (int t = 0; t < D / 8; ++t) {
-      *reinterpret_cast<unsigned*>(og + row * hd + t * 8 + tig * 2) =
-          pack_bf16(o[t][2 * r] / l[r], o[t][2 * r + 1] / l[r]);
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + g + 8 * r;
+      *reinterpret_cast<unsigned*>(out_ptr + swz(row, j) + tig * 4) =
+          pack_bf16(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
     }
-    if (tig == 0) lg[row] = m[r] * LN2 + logf(l[r]);
+  fence_proxy_async();
+  named_sync(BAR_EPI + c, 128);
+  if (lt == 0) {
+    tma_store_3d(&omap, qw, h * D, q0 + 64 * c, b);
+    bulk_commit();
   }
+  float* lg = lse + ((long long)b * H + h) * Sq;
+  if (tig == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + 64 * c + warp * 16 + g + 8 * r;
+      if (row < Sq) lg[row] = m[r] * LN2 + logf(l[r]);
+    }
+  }
+  if (lt == 0) bulk_wait_read<0>();  // shared memory stays until the store has read it
 }
 
 // ---- f32: scalar FMAs, logits and p in shared memory --------------------------
@@ -376,6 +475,24 @@ __global__ void __launch_bounds__(THREADS) flash_f32_kernel(Args a) {
   }
 }
 
+// bf16: the tensor maps (q and out over Sq rows, k and v over the L live
+// keys), then one block per (128-row q tile, head, batch item)
+int launch_bf16(const Args& a, int B, cudaStream_t st) {
+  const long long cols = (long long)a.H * D;
+  CUtensorMap qm, km, vm, om;
+  int err = encode_rows_bf16(&qm, a.q, cols, a.Sq, B, a.q_rs, a.q_bs, QT);
+  if (!err) err = encode_rows_bf16(&km, a.k, cols, a.L, B, a.k_rs, a.k_bs, KT);
+  if (!err) err = encode_rows_bf16(&vm, a.v, cols, a.L, B, a.v_rs, a.v_bs, KT);
+  if (!err) err = encode_rows_bf16(&om, a.out, cols, a.Sq, B, cols, (long long)a.Sq * cols, 64);
+  if (err) return err;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WS_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  flash_bf16_kernel<<<dim3((a.Sq + QT - 1) / QT, a.H, B), WS_THREADS, WS_SMEM, st>>>(
+      qm, km, vm, om, a.lse, a.Sq, a.L, a.H, a.scale);
+  return (int)cudaGetLastError();
+}
+
 int launch(bool bf16, const void* q, const void* k, const void* v, void* out, float* lse,
            long long q_bs, long long q_rs, long long k_bs, long long k_rs,
            long long v_bs, long long v_rs, int B, int Sq, int Sk, int L, int H, float scale,
@@ -383,17 +500,14 @@ int launch(bool bf16, const void* q, const void* k, const void* v, void* out, fl
   if (B < 1 || H < 1 || Sq < 1 || L < 1 || L > Sk || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, out, lse, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, Sq, L, H, scale};
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    flash_bf16_kernel<<<grid, THREADS, 0, st>>>(a);  // static shared memory, 46 KB
-  } else {
-    // Q, K/V and logit tiles + row state: above 48 KB, so opt in
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    flash_f32_kernel<<<grid, THREADS, F32_SMEM, st>>>(a);
-  }
+  if (bf16) return launch_bf16(a, B, st);
+  // Q, K/V and logit tiles + row state: above 48 KB, so opt in
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_f32_kernel<<<grid, THREADS, F32_SMEM, st>>>(a);
   return (int)cudaGetLastError();
 }
 

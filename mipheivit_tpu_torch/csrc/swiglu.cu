@@ -21,17 +21,35 @@
 // W and the output: ~2000 FLOP/byte, far above the card's ~295, so the floor
 // is the bf16 tensor-core time (0.54 ms at the dense peak). Both halves of W
 // (25 MB) sit in L2, so what a tile can do is bounded by how many operand
-// bytes it pulls from L2 per product: a block computes a 256 x (96 + 96)
-// product tile, 55 FMA per byte it loads, with wgmma (Hopper's warpgroup
-// matrix multiply, bf16 in, f32 accumulate, operands read from shared
-// memory): two warpgroups of two 64-row slabs each, four m64n96k16 products
-// per 16 of depth, the a and g accumulators in registers. A 4-slot cp.async
-// ring of 64-deep tiles in the 128-byte swizzled layout wgmma reads keeps
-// two stages in flight ahead, and one wgmma group stays in flight while the
-// next stage is issued. The SwiGLU epilogue runs on the registers. TMA,
-// thread-block clusters with multicast (which would cut the L2 bytes per
-// product further), warp specialisation and a persistent schedule are left
-// for later.
+// bytes it pulls from L2 per product, and by how much of the time the
+// tensor cores wait for anything else (loads, the SwiGLU epilogue, a last
+// wave that leaves SMs idle).
+//
+// The bf16 path without LayerNorm, the one every model path runs
+// (swiglu_ws_kernel), answers that with Hopper's own means: a persistent
+// grid of one block per SM walking output tiles of 128 rows x (128 value +
+// 128 gate) columns (5280 tiles at the flagship shape: 40 per SM on 132,
+// where the first design's 3569 blocks made 27.04 waves); a producer warp
+// that keeps a ring of four 64-deep stages (x, the value rows, the gate
+// rows) in flight by TMA, with full and empty mbarriers, so no consumer
+// spends an instruction on a load; two consumer warpgroups (setmaxnreg:
+// 240 registers) that run wgmma m64n128k16 from shared memory, 43 FMA per
+// byte a stage brings from L2 (the first design's 256 x 192 tile: 55); and
+// an epilogue that writes through shared
+// memory and a TMA store while the producer already loads the next tile.
+// Each consumer owns 64 rows of the tile with both accumulators (128 f32
+// registers a thread), so the two warpgroups work on one tile at a time and
+// the epilogue's exponentials do not run under products: a schedule where
+// each warpgroup owns a tile of its own (ping-pong) needs either 256
+// accumulator registers a thread at this tile or a tile that brings 1.3 to
+// 1.7 times the L2 bytes per product.
+//
+// The LayerNorm variant and K7 stay on the first design (gemm_bf16_kernel):
+// one block per 256 x (96 + 96) product tile, 55 FMA per byte it loads, two
+// warpgroups of two 64-row slabs each, four m64n96k16 products per 16 of
+// depth, a 4-slot cp.async ring of 64-deep tiles in the 128-byte swizzled
+// layout, one wgmma group in flight while the next stage is issued, the
+// epilogue on the registers.
 //
 // The LayerNorm variant does not cache the normed [BM, K] block as the TPU
 // kernel does in VMEM (a 128-row block of K = 1536 in bf16 is 384 KB, more
@@ -167,7 +185,8 @@ constexpr size_t SMEM_BF16 = (size_t)STAGES * STAGE_BYTES + 1024 + 2 * BM * size
 
 static_assert(BM == 2 * MT * 64 && BN % 8 == 0 && (BN * 128) % 1024 == 0, "wgmma tiling");
 
-// One block per (96 output columns, 256 rows); grid (H / BN, M / BM).
+// K2's LayerNorm variant (GATE) and K7, every A tile normalised after it
+// lands. One block per (96 output columns, 256 rows); grid (H / BN, M / BM).
 // Warpgroup wg owns rows wg*128 .. +127 of the tile as two 64-row slabs and
 // all BN output columns of both halves: per 16 of depth, four m64n96k16
 // products into the a and g accumulators (2 x 2 x 48 f32 registers per
@@ -190,7 +209,6 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_bf16_kernel(Args a) {
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
   const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
   const int n_k = (a.K + BK - 1) / BK;
-  const bool ln = a.ln_w != nullptr;
 
   // x rows m0.. and W rows n0.. (value) and H + n0.. (gate) of depth
   // k0..k0+63 into one ring slot, swizzled (K7: W rows n0 .. n0 + 191);
@@ -218,7 +236,7 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_bf16_kernel(Args a) {
     if (s < n_k) load_stage(s, s * BK);
     cp_async_commit();
   }
-  if (ln) stage_stats(a, m0, BM, mean_s, rstd_s);  // first read after a __syncthreads
+  stage_stats(a, m0, BM, mean_s, rstd_s);  // first read after a __syncthreads
 
   float acc_a[MT][NR], acc_g[MT][NR];
 #pragma unroll
@@ -229,9 +247,8 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_bf16_kernel(Args a) {
   for (int kt = 0; kt < n_k; ++kt) {
     cp_async_wait<AHEAD - 1>();  // this thread's part of stage kt landed
     const int slot = kt % STAGES;
-    if (ln) {
-      __syncthreads();  // every thread's part of stage kt landed
-      // normalise the landed A tile in place, rounded to bf16 (_ln_rows)
+    __syncthreads();  // every thread's part of stage kt landed
+    {  // normalise the landed A tile in place, rounded to bf16 (_ln_rows)
       const int k0 = kt * BK;
       unsigned char* As = ring_ptr + slot * STAGE_BYTES;
       for (int i = tid; i < BM * 8; i += THREADS) {
@@ -340,6 +357,190 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_bf16_kernel(Args a) {
         *reinterpret_cast<unsigned*>(out + (long long)row * a.H + col) = pack_bf16(v0, v1);
       }
   }
+}
+
+// ---- K2 bf16 without LayerNorm: persistent, warp-specialised, TMA-fed ------
+
+constexpr int TM = 128;             // rows of x per tile: 64 per consumer warpgroup
+constexpr int TN = 128;             // output columns per tile: TN value + TN gate rows of W
+constexpr int TK = 64;              // depth of one stage: one 128-byte swizzled row
+constexpr int WS_STAGES = 4;
+constexpr int WS_THREADS = 384;     // producer warpgroup + two consumer warpgroups
+constexpr int WS_CONSUMERS = 256;
+// registers: 168 a thread at launch; the producer keeps 24, the consumers take 240
+constexpr int WS_PRODUCER_REGS = 24, WS_CONSUMER_REGS = 240;
+static_assert(128 * WS_PRODUCER_REGS + WS_CONSUMERS * WS_CONSUMER_REGS <= 65536,
+              "register file");
+constexpr int WS_A_BYTES = TM * TK * 2;                    // 16 KB
+constexpr int WS_B_BYTES = TN * TK * 2;                    // 16 KB each of value and gate
+constexpr int WS_STAGE_BYTES = WS_A_BYTES + 2 * WS_B_BYTES;
+constexpr int WS_OUT_BYTES = 64 * 64 * 2;                  // one 64 x 64 output box
+constexpr int WS_BAR_EPI = 1;                              // + consumer index
+// alignment, the ring, two output boxes per consumer, the mbarriers:
+// 230,464 of the 232,448 bytes a block may use
+constexpr size_t WS_SMEM = 1024 + (size_t)WS_STAGES * WS_STAGE_BYTES + 4 * (size_t)WS_OUT_BYTES +
+                           8 * 2 * WS_STAGES;
+
+__device__ __forceinline__ float swiglu_fast(float a, float g) {
+  return a * rcp_approx(1.f + ex2_approx(-1.4426950408889634f * a)) * g;
+}
+
+// A persistent grid of one block per SM walks the tiles of 128 rows x 128
+// output columns, t = blockIdx.x, + gridDim.x, ..., in row-block-major order
+// (the blocks in flight share a few 128-row blocks of x; W, 25 MB at
+// ViT-g's fc1, stays in L2). One producer thread streams each tile's stages
+// (x rows, the value rows n0.. and the gate rows H + n0.. of W, 64 deep) by
+// TMA into a ring of four; rows and columns past M, 2H or K arrive as
+// zeros. Two consumer warpgroups take 64 rows each: per 16 of depth a
+// m64n128k16 product into the value and one into the gate accumulator
+// (2 x 64 f32 registers a thread), one stage's group left in flight while
+// the next is issued; then the epilogue (f32 bias, silu(a) * g, one
+// rounding) into two 64 x 64 boxes of shared memory and a TMA store, which
+// drops rows past M and columns past H. The producer keeps loading the
+// next tile's stages meanwhile.
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    swiglu_ws_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap wmap,
+                     const __grid_constant__ CUtensorMap omap,
+                     const __nv_bfloat16* __restrict__ bias, int M, int K, int H) {
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw = smem_addr(smem_raw);
+  const unsigned base = (raw + 1023u) & ~1023u;
+  unsigned char* base_ptr = smem_raw + (base - raw);
+  const unsigned out_s = base + WS_STAGES * WS_STAGE_BYTES;
+  const unsigned bars = out_s + 4 * WS_OUT_BYTES;
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (WS_STAGES + st); };
+
+  const int tid = threadIdx.x;
+  const int n_n = (H + TN - 1) / TN, n_k = (K + TK - 1) / TK;
+  const int tiles = ((M + TM - 1) / TM) * n_n;
+
+  if (tid == 0) {
+    for (int st = 0; st < WS_STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), WS_CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = warpgroup();
+  if (wg == 0) {  // the producer: one thread issues every copy
+    setmaxnreg_dec<WS_PRODUCER_REGS>();
+    if (tid == 0) {
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / n_n) * TM, n0 = (t % n_n) * TN;
+        for (int kt = 0; kt < n_k; ++kt, ++it) {
+          const int st = it % WS_STAGES;
+          mbar_wait(empty(st), ((it / WS_STAGES) & 1) ^ 1);  // the first round passes
+          const unsigned sb = base + st * WS_STAGE_BYTES;
+          mbar_expect_tx(full(st), WS_STAGE_BYTES);
+          tma_load_3d(sb, &xmap, full(st), kt * TK, m0, 0);
+          tma_load_3d(sb + WS_A_BYTES, &wmap, full(st), kt * TK, n0, 0);
+          tma_load_3d(sb + WS_A_BYTES + WS_B_BYTES, &wmap, full(st), kt * TK, H + n0, 0);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<WS_CONSUMER_REGS>();
+  const int c = wg - 1;  // this consumer's rows: m0 + 64 c ..
+  const int lt = tid % 128, warp = lt / 32, lane = tid % 32, g = lane >> 2, tig = lane & 3;
+  const unsigned my_out = out_s + c * 2 * WS_OUT_BYTES;
+  unsigned char* my_out_ptr = base_ptr + (my_out - base);
+  float acc_a[64], acc_g[64];
+  int it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (t / n_n) * TM, n0 = (t % n_n) * TN;
+    for (int kt = 0; kt < n_k; ++kt, ++it) {
+      const int st = it % WS_STAGES;
+      mbar_wait(full(st), (it / WS_STAGES) & 1);
+      const unsigned sb = base + st * WS_STAGE_BYTES;
+      const unsigned a_s = sb + c * 64 * 128, v_s = sb + WS_A_BYTES, g_s = v_s + WS_B_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) {
+        const unsigned long long da = smem_desc(a_s + kk * 32);
+        wgmma_ss_n128<0, 0>(acc_a, da, smem_desc(v_s + kk * 32), kt > 0 || kk > 0);
+        wgmma_ss_n128<0, 0>(acc_g, da, smem_desc(g_s + kk * 32), kt > 0 || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+      fence_acc(acc_a);
+      fence_acc(acc_g);
+      if (kt > 0) mbar_arrive(empty((it - 1) % WS_STAGES));
+    }
+    wgmma_wait<0>();
+    fence_acc(acc_a);
+    fence_acc(acc_g);
+    mbar_arrive(empty((it - 1) % WS_STAGES));
+
+    // epilogue: f32 biases, a * sigmoid(a) * g, one rounding to bf16, into
+    // this consumer's two output boxes once the last store has read them.
+    // Thread (warp, g, tig) holds rows warp*16 + g (+8) and, for each
+    // 8-column chunk j, columns 8j + 2 tig (+1) of both accumulators.
+    if (lt == 0) bulk_wait_read<0>();
+    named_sync(WS_BAR_EPI + c, 128);
+#pragma unroll
+    for (int j = 0; j < TN / 8; ++j) {
+      const int col = n0 + j * 8 + tig * 2;
+      float ba0 = 0.f, ba1 = 0.f, bg0 = 0.f, bg1 = 0.f;
+      if (col < H) {
+        ba0 = __bfloat162float(bias[col]);
+        ba1 = __bfloat162float(bias[col + 1]);
+        bg0 = __bfloat162float(bias[H + col]);
+        bg1 = __bfloat162float(bias[H + col + 1]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + g + 8 * r;
+        const float v0 = swiglu_fast(acc_a[4 * j + 2 * r] + ba0, acc_g[4 * j + 2 * r] + bg0);
+        const float v1 =
+            swiglu_fast(acc_a[4 * j + 2 * r + 1] + ba1, acc_g[4 * j + 2 * r + 1] + bg1);
+        *reinterpret_cast<unsigned*>(my_out_ptr + (j >> 3) * WS_OUT_BYTES + swz(row, j & 7) +
+                                     tig * 4) = pack_bf16(v0, v1);
+      }
+    }
+    fence_proxy_async();
+    named_sync(WS_BAR_EPI + c, 128);
+    if (lt == 0) {
+      tma_store_3d(&omap, my_out, n0, m0 + 64 * c, 0);
+      tma_store_3d(&omap, my_out + WS_OUT_BYTES, n0 + 64, m0 + 64 * c, 0);
+      bulk_commit();
+    }
+  }
+  if (lt == 0) bulk_wait<0>();
+}
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, sms = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms;
+  }();
+  return n;
+}
+
+// K2 bf16 without LayerNorm: the tensor maps of x [M, K] (row stride
+// x_rs), the packed W [2H, K] and out [M, H], then the persistent grid
+int launch_swiglu_ws(const Args& a, cudaStream_t st) {
+  CUtensorMap xm, wm, om;
+  int err = encode_rows_bf16(&xm, a.x, a.K, a.M, 1, a.x_rs, 0, TM);
+  if (!err) err = encode_rows_bf16(&wm, a.w, a.K, 2LL * a.H, 1, a.K, 0, TN);
+  if (!err) err = encode_rows_bf16(&om, a.out, a.H, a.M, 1, a.H, 0, 64);
+  if (err) return err;
+  const cudaError_t e = cudaFuncSetAttribute(
+      swiglu_ws_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WS_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = ((a.M + TM - 1) / TM) * ((a.H + TN - 1) / TN);
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  swiglu_ws_kernel<<<grid, WS_THREADS, WS_SMEM, st>>>(
+      xm, wm, om, static_cast<const __nv_bfloat16*>(a.b), a.M, a.K, a.H);
+  return (int)cudaGetLastError();
 }
 
 // ---- f32 (tests): scalar FMAs --------------------------------------------------
@@ -507,6 +708,7 @@ int launch(bool bf16, bool gate, const void* x, long long x_rs, const void* w, c
   if (M < 1 || K < 8 || H < 8 || K % 8 || H % 8) return (int)cudaErrorInvalidValue;
   if ((ln_w == nullptr) != (ln_b == nullptr) || (ln_w != nullptr) != (stats != nullptr))
     return (int)cudaErrorInvalidValue;
+  if (!gate && ln_w == nullptr) return (int)cudaErrorInvalidValue;  // K7 is LN + matmul
   const Args a{x, x_rs, w, b, ln_w, ln_b, stats, out, M, K, H, eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ln_w != nullptr) {
@@ -520,7 +722,8 @@ int launch(bool bf16, bool gate, const void* x, long long x_rs, const void* w, c
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (bf16) {
+  if (bf16 && ln_w == nullptr) return launch_swiglu_ws(a, st);
+  if (bf16) {  // with the LayerNorm: K2's LN variant and K7
     auto kernel = gate ? gemm_bf16_kernel<true> : gemm_bf16_kernel<false>;
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BF16);

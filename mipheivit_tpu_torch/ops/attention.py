@@ -35,9 +35,18 @@ is K5 (``csrc/flash_attention_bwd.cu``, one kernel per key tile, the
 probabilities rebuilt from the lse) on the card and
 ``flash_backward_reference`` on the CPU. The raw launchers raise when
 called with grad enabled on tensors that require it outside these
-Functions, and on any shape or dtype they do not take (any head dim but
-64, any dtype but bf16 and f32), so the entry points raise there on the
-card.
+Functions, and on any shape or dtype they do not take (any dtype but bf16
+and f32), so the entry points raise there on the card.
+
+Head dims. The kernels compute heads of 64. A head dim from 8 to 56 that
+is a multiple of 8 (the JAX kernels take any ``D % 8 == 0``) reaches them
+zero-padded to 64 (``pad_heads``), with the scale ``1/sqrt(D)`` of its own
+D, and the output (the gradients) sliced back (``unpad_heads``). This is
+exact: the zero columns add nothing to ``q . k^T``, the padded columns of
+out, dq, dk and dv come out 0, and the lse and ``rowsum(dO * O)`` do not
+change. It costs a padded copy of each operand. Head dims above 64, or not
+multiples of 8, raise on the card before any launch; on the CPU the plain
+versions take any head dim.
 """
 
 from __future__ import annotations
@@ -47,11 +56,12 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 
 MAX_SEQ = 512   # K1's whole-sequence limit, as the TPU kernel's (_MAX_BLOCK)
-HEAD_DIM = 64
+HEAD_DIM = 64   # the kernels' head dim; smaller multiples of 8 are padded to it
 
 # Kernel launches since the last reset, counted where each kernel is launched:
 # "attention" is K1, "flash" is K4, "flash_bwd" is K5 (its kernels, one
@@ -62,43 +72,75 @@ launch_counts = {"attention": 0, "flash": 0, "flash_bwd": 0, "short": 0}
 # heads at a time so that one chunk stays near this many elements (1 GiB).
 _PLAIN_CHUNK_ELEMENTS = 1 << 28
 
-_SCALE_LOG2 = math.log2(math.e) / math.sqrt(HEAD_DIM)
+
+def _scale_log2(d: int) -> float:
+    """The kernels' logit scale for head dim d: ``log2(e) / sqrt(d)``."""
+    return math.log2(math.e) / math.sqrt(d)
 
 
-def attention_reference(q, k, v, num_heads: int):
+def pad_heads(t, num_heads: int):
+    """``[B, S, H*D]`` -> ``[B, S, H*64]``: each head's D values, then zeros
+    (a new tensor; ``t`` itself at D = 64)."""
+    b, s, hd = t.shape
+    d = hd // num_heads
+    if d == HEAD_DIM:
+        return t
+    return F.pad(t.reshape(b, s, num_heads, d), (0, HEAD_DIM - d)).reshape(
+        b, s, num_heads * HEAD_DIM)
+
+
+def unpad_heads(t, num_heads: int, d: int):
+    """``[B, S, H*64]`` -> ``[B, S, H*D]``: the first d values of each head
+    (``pad_heads`` undone; ``t`` itself at D = 64)."""
+    if d == HEAD_DIM:
+        return t
+    b, s, _ = t.shape
+    return t.view(b, s, num_heads, HEAD_DIM)[..., :d].reshape(b, s, num_heads * d)
+
+
+def _scaled(logits, d: int, scale: float | None):
+    """The plain versions' logits: divided by ``sqrt(d)``, or times an
+    explicit ``scale`` (a head zero-padded to 64 keeps its own D's)."""
+    return logits / math.sqrt(d) if scale is None else logits * scale
+
+
+def attention_reference(q, k, v, num_heads: int, scale: float | None = None):
     """Plain softmax attention on ``[B, S, H*D]`` tensors (the JAX package's
-    ``_attn_reference``): f32 logits, f32 softmax, probs cast to v's dtype,
-    f32 accumulation of p . v, output in v's dtype."""
+    ``_attn_reference``): f32 logits times ``scale`` (``1/sqrt(D)`` unless
+    given), f32 softmax, probs cast to v's dtype, f32 accumulation of p . v,
+    output in v's dtype."""
     b, s, hd = q.shape
     d = hd // num_heads
 
     def heads(t):
         return t.reshape(b, s, num_heads, d).float()
 
-    logits = torch.einsum("bqhd,bkhd->bhqk", heads(q), heads(k)) / math.sqrt(d)
+    logits = _scaled(torch.einsum("bqhd,bkhd->bhqk", heads(q), heads(k)), d, scale)
     probs = torch.softmax(logits, dim=-1).to(v.dtype).float()
     out = torch.einsum("bhqk,bkhd->bqhd", probs, heads(v))
     return out.reshape(b, s, hd).to(v.dtype)
 
 
-def short_attention_reference(q, k, v):
+def short_attention_reference(q, k, v, scale: float | None = None):
     """Plain version of K6 (the JAX package's ``_short_kernel``) on q, k, v
-    ``[B, H, S, D]``: f32 logits scaled by ``1/sqrt(D)``, ``p = exp(s -
-    max)`` and its row sum in f32, p divided by the sum in f32 and only then
-    cast to v's dtype, f32 accumulation of ``p . v``, output in q's dtype
-    ``[B, H, S, D]``."""
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    ``[B, H, S, D]``: f32 logits scaled by ``scale`` (``1/sqrt(D)`` unless
+    given), ``p = exp(s - max)`` and its row sum in f32, p divided by the
+    sum in f32 and only then cast to v's dtype, f32 accumulation of
+    ``p . v``, output in q's dtype ``[B, H, S, D]``."""
+    logits = _scaled(torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()), q.shape[-1], scale)
     p = torch.exp(logits - logits.amax(-1, keepdim=True))
     p = (p / p.sum(-1, keepdim=True)).to(v.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", p.float(), v.float()).to(q.dtype)
 
 
-def flash_reference(q, k, v, num_heads: int, seq_len_k: int | None = None):
+def flash_reference(q, k, v, num_heads: int, seq_len_k: int | None = None,
+                    scale: float | None = None):
     """Plain version of K4 (the JAX package's ``_flash_kernel``) on q
     ``[B, Sq, H*D]`` over k/v ``[B, Sk, H*D]``: q/k/v taken as f32, f32
-    logits, keys at or past ``seq_len_k`` masked, f32 softmax and f32
-    ``p . v``. Returns ``out [B, Sq, H*D]`` in q's dtype and the row
-    log-sum-exp ``lse [B, H, Sq]`` f32 (natural log)."""
+    logits times ``scale`` (``1/sqrt(D)`` unless given), keys at or past
+    ``seq_len_k`` masked, f32 softmax and f32 ``p . v``. Returns ``out [B,
+    Sq, H*D]`` in q's dtype and the row log-sum-exp ``lse [B, H, Sq]`` f32
+    (natural log)."""
     b, sq, hd = q.shape
     sk = k.shape[1]
     d = hd // num_heads
@@ -111,8 +153,8 @@ def flash_reference(q, k, v, num_heads: int, seq_len_k: int | None = None):
     outs, lses = [], []
     for h0 in range(0, num_heads, step):
         h1 = min(num_heads, h0 + step)
-        logits = torch.einsum("bqhd,bkhd->bhqk", heads(q, h0, h1),
-                              heads(k, h0, h1)) / math.sqrt(d)
+        logits = _scaled(torch.einsum("bqhd,bkhd->bhqk", heads(q, h0, h1),
+                                      heads(k, h0, h1)), d, scale)
         if seq_len_k < sk:
             logits[..., seq_len_k:] = -math.inf
         lse = torch.logsumexp(logits, dim=-1)
@@ -125,13 +167,14 @@ def flash_reference(q, k, v, num_heads: int, seq_len_k: int | None = None):
 
 
 def flash_backward_reference(q, k, v, out, lse, dout, num_heads: int,
-                             seq_len_k: int | None = None):
+                             seq_len_k: int | None = None, scale: float | None = None):
     """Plain version of K5 (the JAX package's ``_bwd_dkdv_kernel`` and
     ``_bwd_dq_kernel``): the gradients of ``flash_reference`` from its saved
-    ``out`` and ``lse``. f32 math: ``p = exp(q.k^T/sqrt(D) - lse)`` with keys
-    at or past ``seq_len_k`` masked, ``delta = rowsum(dO*O)``,
-    ``dS = p*(dO.v^T - delta)/sqrt(D)``, ``dV = p^T.dO``, ``dK = dS^T.q``,
-    ``dQ = dS.k``. Chunked over heads as ``flash_reference`` is. With
+    ``out`` and ``lse``. f32 math, ``scale`` ``1/sqrt(D)`` unless given:
+    ``p = exp(q.k^T*scale - lse)`` with keys at or past ``seq_len_k``
+    masked, ``delta = rowsum(dO*O)``, ``dS = p*(dO.v^T - delta)*scale``,
+    ``dV = p^T.dO``, ``dK = dS^T.q``, ``dQ = dS.k``. Chunked over heads as
+    ``flash_reference`` is. With
     ``lse=None`` the row log-sum-exp is recomputed from the logits: that is
     K1's backward, the plain recompute of the JAX package's
     ``_bshd_bwd_rule``. Returns ``(dq, dk, dv)`` in the dtypes of q, k and
@@ -140,7 +183,7 @@ def flash_backward_reference(q, k, v, out, lse, dout, num_heads: int,
     sk = k.shape[1]
     d = hd // num_heads
     seq_len_k = sk if seq_len_k is None else seq_len_k
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     delta = _delta(out, dout, num_heads)
 
     def heads(t, h0, h1):
@@ -351,9 +394,10 @@ def _flash_bwd_library():
     return lib
 
 
-def _check_operands(name: str, q, k, v, num_heads: int, *more) -> None:
+def _check_operands(name: str, q, k, v, num_heads: int, *more) -> int:
     """What K1, K4 and K5 need of q/k/v (and K5 of dO) ``[B, S, H*D]``, and
-    K6 of q/k/v ``[B, H, S, D]`` (``num_heads`` 1: the last dim is D)."""
+    K6 of q/k/v ``[B, H, S, D]`` (``num_heads`` 1: the last dim is D).
+    Returns the head dim D."""
     ts = (q, k, v) + more
     if len({t.device for t in ts}) != 1:
         raise ValueError("q, k and v lie on different devices")
@@ -362,8 +406,10 @@ def _check_operands(name: str, q, k, v, num_heads: int, *more) -> None:
         raise ValueError(f"{name} takes bf16 or f32 q/k/v of one dtype, got "
                          f"{', '.join(str(t.dtype) for t in ts)}")
     hd = q.shape[-1]
-    if hd % num_heads or hd // num_heads != HEAD_DIM:
-        raise ValueError(f"{name} takes head dim {HEAD_DIM}, got {hd}/{num_heads}")
+    d = hd // num_heads
+    if hd % num_heads or d % 8 or not 8 <= d <= HEAD_DIM:
+        raise ValueError(f"{name} takes a head dim that is a multiple of 8 from 8 to {HEAD_DIM} "
+                         f"(below {HEAD_DIM} zero-padded to it), got {hd}/{num_heads}")
     if any(t.stride(-1) != 1 for t in ts):
         raise ValueError(f"{name} needs a unit stride on the last dimension")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
@@ -376,6 +422,7 @@ def _check_operands(name: str, q, k, v, num_heads: int, *more) -> None:
             if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
                 raise ValueError(f"{name} bf16 needs 16-byte aligned rows "
                                  "(strides multiple of 8, aligned base)")
+    return d
 
 
 def _attention_cuda(q, k, v, num_heads: int):
@@ -384,21 +431,22 @@ def _attention_cuda(q, k, v, num_heads: int):
         raise ValueError(f"q/k/v shapes differ: {q.shape}, {k.shape}, {v.shape}")
     if not 1 <= s <= MAX_SEQ:
         raise ValueError(f"K1 takes 1 <= S <= {MAX_SEQ}, got S={s}")
-    _check_operands("K1", q, k, v, num_heads)
+    d = _check_operands("K1", q, k, v, num_heads)
+    q, k, v = (pad_heads(t, num_heads) for t in (q, k, v))
 
     lib = _library()
     fn = lib.k1_attention_bf16 if q.dtype == torch.bfloat16 else lib.k1_attention_f32
-    out = torch.empty((b, s, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, s, num_heads * HEAD_DIM), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                 v.stride(0), v.stride(1), b, s, num_heads, _SCALE_LOG2, stream)
+                 v.stride(0), v.stride(1), b, s, num_heads, _scale_log2(d), stream)
     if err != 0:
         raise RuntimeError(f"K1 attention launch failed: "
                            f"{lib.k1_error_string(err).decode()} ({err})")
     launch_counts["attention"] += 1
-    return out
+    return unpad_heads(out, num_heads, d)
 
 
 def _short_cuda(q, k, v):
@@ -412,19 +460,22 @@ def _short_cuda(q, k, v):
     if not 1 <= s <= MAX_SEQ:
         raise ValueError(f"K6 takes 1 <= S <= {MAX_SEQ}, got S={s}")
     _check_operands("K6", q, k, v, 1)
+    if d != HEAD_DIM:  # zero-padded heads
+        q, k, v = (F.pad(t, (0, HEAD_DIM - d)) for t in (q, k, v))
 
     lib = _library()
     fn = lib.k6_short_attention_bf16 if q.dtype == torch.bfloat16 else lib.k6_short_attention_f32
-    out = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, h, s, HEAD_DIM), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], b, s, h, _SCALE_LOG2, stream)
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], b, s, h, _scale_log2(d),
+                 stream)
     if err != 0:
         raise RuntimeError(f"K6 short attention launch failed: "
                            f"{lib.k1_error_string(err).decode()} ({err})")
     launch_counts["short"] += 1
-    return out
+    return out if d == HEAD_DIM else out[..., :d].contiguous()
 
 
 def _flash_cuda(q, k, v, num_heads: int, seq_len_k: int | None):
@@ -437,23 +488,24 @@ def _flash_cuda(q, k, v, num_heads: int, seq_len_k: int | None):
     if sq < 1 or not 1 <= seq_len_k <= sk:
         raise ValueError(f"K4 takes Sq >= 1 and 1 <= seq_len_k <= Sk, got "
                          f"Sq={sq}, seq_len_k={seq_len_k}, Sk={sk}")
-    _check_operands("K4", q, k, v, num_heads)
+    d = _check_operands("K4", q, k, v, num_heads)
+    q, k, v = (pad_heads(t, num_heads) for t in (q, k, v))
 
     lib = _flash_library()
     fn = lib.k4_flash_bf16 if q.dtype == torch.bfloat16 else lib.k4_flash_f32
-    out = torch.empty((b, sq, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, num_heads * HEAD_DIM), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, num_heads, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                  q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                  v.stride(0), v.stride(1), b, sq, sk, seq_len_k, num_heads,
-                 _SCALE_LOG2, stream)
+                 _scale_log2(d), stream)
     if err != 0:
         raise RuntimeError(f"K4 flash attention launch failed: "
                            f"{lib.k4_error_string(err).decode()} ({err})")
     launch_counts["flash"] += 1
-    return out, lse
+    return unpad_heads(out, num_heads, d), lse
 
 
 def _flash_bwd_cuda(q, k, v, out, lse, dout, num_heads: int, seq_len_k: int | None):
@@ -471,10 +523,12 @@ def _flash_bwd_cuda(q, k, v, out, lse, dout, num_heads: int, seq_len_k: int | No
         raise ValueError(f"K5 takes 1 <= seq_len_k <= Sk, got {seq_len_k}, Sk={sk}")
     if dout.stride(-1) != 1 or dout.stride(1) != hd or dout.data_ptr() % 16:
         dout = dout.contiguous()
-    _check_operands("K5", q, k, v, num_heads, dout)
+    d = _check_operands("K5", q, k, v, num_heads, dout)
     if out.dtype != q.dtype:
         raise ValueError(f"K5 takes K4's output in q's dtype, got {out.dtype} and {q.dtype}")
     lse = lse.contiguous()
+    q, k, v, out, dout = (pad_heads(t, num_heads) for t in (q, k, v, out, dout))
+    hd = num_heads * HEAD_DIM
 
     lib = _flash_bwd_library()
     dq = torch.empty((b, sq, hd), dtype=q.dtype, device=q.device)
@@ -482,7 +536,7 @@ def _flash_bwd_cuda(q, k, v, out, lse, dout, num_heads: int, seq_len_k: int | No
     dv = torch.empty_like(dk)
     strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
                dout.stride(0), dout.stride(1))
-    scales = (_SCALE_LOG2, 1.0 / math.sqrt(HEAD_DIM))
+    scales = (_scale_log2(d), 1.0 / math.sqrt(d))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if q.dtype == torch.bfloat16:
@@ -508,4 +562,4 @@ def _flash_bwd_cuda(q, k, v, out, lse, dout, num_heads: int, seq_len_k: int | No
         raise RuntimeError(f"K5 flash attention backward launch failed: "
                            f"{lib.k5_error_string(err).decode()} ({err})")
     launch_counts["flash_bwd"] += 1
-    return dq, dk, dv
+    return tuple(unpad_heads(t, num_heads, d) for t in (dq, dk, dv))

@@ -165,8 +165,10 @@ def ln_matmul(x, lns, lnb, w, b, eps: float = 1e-6):
     """``LayerNorm(x) @ w^T + b`` for x ``[..., K]``, ``w [N, K]``, ``b [N]``
     -> ``[..., N]``: K7 on the card, ``ln_matmul_reference`` on the CPU.
     Differentiable in x, the LayerNorm's scale and bias, w and b. w and b are
-    cast to x's dtype, as the JAX package casts them. On the card N must be a
-    multiple of 256 and K of 128 (the JAX kernel's gate)."""
+    cast to x's dtype, as the JAX package casts them. On the card N and K
+    must be multiples of 8, as K2's (the kernel masks ragged tiles; the JAX
+    entry point sends the shapes its kernel does not take to its plain
+    chain)."""
     k = x.shape[-1]
     n = w.shape[0]
     if w.dim() != 2 or w.shape[1] != k or b.shape != (n,) or lns.shape != (k,) \
@@ -294,8 +296,8 @@ def _check_operands(name: str, entry: str, x, w, b, *more) -> None:
 
 def _ln_matmul_cuda(x, lns, lnb, w, b, eps: float):
     """Launch K7 on x ``[M, K]`` (unit column stride), the LayerNorm's scale
-    and bias ``[K]``, w ``[N, K]`` and b ``[N]`` (contiguous, x's dtype), N a
-    multiple of 256 and K of 128. Returns ``[M, N]`` in x's dtype."""
+    and bias ``[K]``, w ``[N, K]`` and b ``[N]`` (contiguous, x's dtype), N
+    and K multiples of 8. Returns ``[M, N]`` in x's dtype."""
     if x.dim() != 2:
         raise ValueError(f"K7 takes x [M, K], got {tuple(x.shape)}")
     m, k = x.shape
@@ -304,9 +306,8 @@ def _ln_matmul_cuda(x, lns, lnb, w, b, eps: float):
         raise ValueError(f"K7 takes x [M, K], scale and bias [K], w [N, K] and b [N], got "
                          f"{tuple(x.shape)}, {tuple(lns.shape)}, {tuple(lnb.shape)}, "
                          f"{tuple(w.shape)}, {tuple(b.shape)}")
-    if n % 256 or k % 128:
-        raise ValueError(f"K7 takes N a multiple of 256 and K of 128 (the JAX kernel's gate), "
-                         f"got N={n}, K={k}")
+    if n % 8 or k % 8 or n < 8 or k < 8:
+        raise ValueError(f"K7 takes N and K multiples of 8, as K2, got N={n}, K={k}")
     _check_operands("K7", "ln_matmul", x, w, b, lns, lnb)
     ln_w, ln_b = (t.detach().float().contiguous() for t in (lns, lnb))
     stats = torch.empty((2, m), dtype=torch.float32, device=x.device)

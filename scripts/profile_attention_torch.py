@@ -1,6 +1,6 @@
-"""K1 and K5 of the PyTorch port on one card, with the library's times beside them.
+"""K1, K4, K5 and K2 of the PyTorch port on one card, with the library's times beside them.
 
-    python3 scripts/profile_attention_torch.py
+    python3 scripts/profile_attention_torch.py [--only k1 k5 k4 k2]
 
 Times, with CUDA events (median of 20 after 3 warm-up calls), at the shapes
 the main path gives them:
@@ -12,7 +12,21 @@ the main path gives them:
   * K5 (``flash_backward``) in bf16 at a 1024-px region (``[1, 5334, 24 x
     64]``) from K4's output and lse and a random output gradient, beside the
     library's attention backward alone (one forward kept, its gradient
-    timed) and its forward plus backward.
+    timed) and its forward plus backward;
+  * K4 (``flash_attention``) in bf16 at a pair of 1024-px regions (``[2,
+    5334, 24 x 64]`` sections of one fused buffer; 5334 = 41 x 128 + 86), a
+    sequence shard's rectangle (1334 q rows over the 5334 keys, and over
+    5376 keys of which 5334 are live, the padding NaN and Inf) and S = 513,
+    beside ``F.scaled_dot_product_attention`` on the live keys;
+  * K2 (``swiglu_fc1`` without LayerNorm) in bf16 at ViT-g's fc1 (K 1536, H
+    4096) for M = 21056 (64 tiles), 10528 (the daemon's 32), 5334 (a 1024-px
+    training microbatch), 2632 (a 256-px one), 658 and 1, and at H and K
+    tails (M 330, K 200, H 520), beside the library's packed GEMM plus gate
+    (``F.linear``, ``F.silu(a) * g``) and the GEMM alone.
+
+K4 and K2 lines give each time twice: CUDA events around one call (host
+launch work counts where the card waits for it), and the device time of the
+call's kernels in a ``torch.profiler`` trace of 10 calls (``device``).
 
 Each line carries the least time the card could take for the kernel's work
 (``chip_smoke.bound_ms``). The script uses only entry points that every
@@ -23,6 +37,7 @@ nvcc.
 
 from __future__ import annotations
 
+import argparse
 import sys
 from pathlib import Path
 
@@ -36,15 +51,107 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of ``fn``'s kernels per call, from a profiler trace of
+    ``reps`` calls after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3
+
+
+def k4_rows(dev):
+    from mipheivit_tpu_torch.ops import attention as attn
+
+    hd, bf16 = cs.HD, torch.bfloat16
+
+    def fused(b, s, seed):
+        t = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (b, s, 3 * hd), dtype=np.float32)).to(dev, bf16)
+        return t[..., :hd], t[..., hd:2 * hd], t[..., 2 * hd:]
+
+    q, k, v = fused(2, cs.REGION_S, cs.SEED + 10)
+    _, kp, vp = fused(2, 5376, cs.SEED + 11)
+    kp[:, :cs.REGION_S], vp[:, :cs.REGION_S] = k, v
+    kp[:, cs.REGION_S:], vp[:, cs.REGION_S:] = float("nan"), float("inf")
+    cases = {"region [2, 5334]": (q, k, v, None), "cross [2, 1334 x 5334]": (q[:, :1334], k, v, None),
+             "cross padded NaN [2, 1334 x 5376, 5334 live]": (q[:, :1334], kp, vp, cs.REGION_S),
+             "S 513 [2, 513]": fused(2, 513, cs.SEED + 513) + (None,)}
+    with torch.inference_mode():
+        for name, (q, k, v, live) in cases.items():
+            n = live or k.shape[1]
+            kl, vl = k[:, :n], v[:, :n]
+
+            def run():
+                return attn.flash_attention(q, k, v, cs.HEADS, live)
+
+            ms, dms = cs.cuda_ms(run), device_ms(run)
+            lib = cs.cuda_ms(lambda: F.scaled_dot_product_attention(
+                cs.heads_view(q), cs.heads_view(kl), cs.heads_view(vl)))
+            b, sq, _ = q.shape
+            bound, by = cs.bound_ms((2 * b * sq + 2 * b * n) * hd * 2 + b * cs.HEADS * sq * 4,
+                                    4.0 * b * cs.HEADS * sq * n * 64, "bf16")
+            print(f"[k4 bf16 {name}]: kernel {ms:.4f} ms (device {dms:.4f} ms), library "
+                  f"(scaled_dot_product_attention) {lib:.4f} ms, bound {bound:.4f} ms ({by})",
+                  flush=True)
+
+
+def k2_rows(dev):
+    from mipheivit_tpu_torch.ops import mlp
+
+    shapes = [(21056, cs.FC1_K, cs.FC1_H), (10528, cs.FC1_K, cs.FC1_H),
+              (5334, cs.FC1_K, cs.FC1_H), (2632, cs.FC1_K, cs.FC1_H), (658, cs.FC1_K, cs.FC1_H),
+              (1, cs.FC1_K, cs.FC1_H), (330, 200, 520)]
+    with torch.inference_mode():
+        for m, k, h in shapes:
+            rng = np.random.default_rng(cs.SEED + m)
+            x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(
+                dev, torch.bfloat16)
+            w = torch.from_numpy(rng.standard_normal((2 * h, k), dtype=np.float32)
+                                 / np.float32(k ** 0.5)).to(dev, torch.bfloat16)
+            b = torch.from_numpy(rng.standard_normal(2 * h, dtype=np.float32)
+                                 * np.float32(0.1)).to(dev, torch.bfloat16)
+
+            def run():
+                return mlp.swiglu_fc1(x, w, b)
+
+            def library():
+                ag = F.linear(x, w, b)
+                return F.silu(ag[:, :h]) * ag[:, h:]
+
+            ms, dms = cs.cuda_ms(run), device_ms(run)
+            lib, lib_d = cs.cuda_ms(library), device_ms(library)
+            gemm = cs.cuda_ms(lambda: F.linear(x, w, b))
+            bound, by = cs.bound_ms((m * k + 2 * h * k + 2 * h + m * h) * 2, 2.0 * m * k * 2 * h,
+                                    "bf16")
+            print(f"[k2 bf16 M {m} K {k} H {h}]: kernel {ms:.4f} ms (device {dms:.4f} ms), "
+                  f"library GEMM + gate {lib:.4f} ms (device {lib_d:.4f} ms), GEMM alone "
+                  f"{gemm:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+
+
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", nargs="*", default=["k1", "k5", "k4", "k2"])
+    args = ap.parse_args()
     cs.check(torch.cuda.is_available(), "no CUDA device; this script runs only on the card")
     print(f"[device] {cs.card_line()} | torch {torch.__version__} | tree {ROOT}", flush=True)
     from mipheivit_tpu_torch import _build
     from mipheivit_tpu_torch.ops import attention as attn
 
-    for name in ("attention", "flash_attention", "flash_attention_bwd"):
+    for name in ("attention", "flash_attention", "flash_attention_bwd", "swiglu"):
         _build.build(name)
     dev, hd, bf16 = torch.device("cuda:0"), cs.HD, torch.bfloat16
+    if "k4" in args.only:
+        k4_rows(dev)
+    if "k2" in args.only:
+        k2_rows(dev)
     rng = np.random.default_rng(cs.SEED)
 
     qkv = torch.from_numpy(rng.standard_normal((cs.BATCH, 329, 3 * hd), dtype=np.float32)).to(
@@ -54,7 +161,7 @@ def main():
     n_bytes = 4 * cs.BATCH * 329 * hd * 2
     bound, by = cs.bound_ms(n_bytes, 4.0 * cs.BATCH * cs.HEADS * 329 * 329 * 64, "bf16")
     with torch.inference_mode():
-        for layout, (q, k, v) in (("fused", fused), ("split", split)):
+        for layout, (q, k, v) in (("fused", fused), ("split", split)) if "k1" in args.only else ():
             ms = cs.cuda_ms(lambda: attn.attention_bshd(q, k, v, cs.HEADS))
             lib = cs.cuda_ms(lambda: F.scaled_dot_product_attention(
                 cs.heads_view(q), cs.heads_view(k), cs.heads_view(v)))
@@ -62,6 +169,8 @@ def main():
                   f"(scaled_dot_product_attention) {lib:.4f} ms, bound {bound:.4f} ms ({by})",
                   flush=True)
     del qkv, fused, split
+    if "k5" not in args.only:
+        return
 
     t = torch.from_numpy(rng.standard_normal((1, cs.REGION_S, 3 * hd), dtype=np.float32)).to(
         dev, bf16)

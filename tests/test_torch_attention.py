@@ -93,9 +93,10 @@ def test_other_devices_raise():
 @pytest.mark.parametrize("s", [1, 329, 600])
 @pytest.mark.parametrize("d", [32, 40])
 def test_other_head_dims_match_jax_entry_point(d, s):
-    """Head dims 32 and 40, which no kernel of the port takes (the card
-    raises): on the CPU against the JAX entry point, up to 512 tokens and
-    above, the output and the gradients of q, k and v."""
+    """Head dims 32 and 40, which the kernels take zero-padded to 64 (see
+    test_padded_route_matches_jax_entry_point): on the CPU, at the original
+    D, against the JAX entry point, up to 512 tokens and above, the output
+    and the gradients of q, k and v."""
     import jax
     import jax.numpy as jnp
 
@@ -119,6 +120,62 @@ def test_other_head_dims_match_jax_entry_point(d, s):
     scale = max(float(np.abs(np.asarray(g)).max()) for g in want_grads)
     for t, g in zip(ts, want_grads):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=1e-4 * scale, rtol=1e-4)
+
+
+@pytest.mark.parametrize("s", [1, 329, 600])
+@pytest.mark.parametrize("d", [8, 32, 40])
+def test_padded_route_matches_jax_entry_point(d, s):
+    """What the card computes for a head dim below 64: each head zero-padded
+    to 64 (``pad_heads``), the plain version at 64 with the scale of the
+    original D (K1's up to 512 tokens; K4's and K5's above, from K4's lse),
+    sliced back (``unpad_heads``). On the inputs of
+    test_other_head_dims_match_jax_entry_point, against the JAX entry point:
+    the output and the gradients of q, k and v within the same f32
+    tolerances, and the padded columns of out, dq, dk and dv exactly 0."""
+    import jax
+    import jax.numpy as jnp
+
+    h = 3
+    q, k, v = np.split(_qkv(1, s, h, d=d, seed=s + d), 3, axis=-1)
+    r = np.random.default_rng(s + 1).standard_normal((1, s, h * d)).astype(np.float32)
+    jatt = _jax_attention()
+
+    def loss(*qkv):
+        return jnp.sum(jatt.attention_bshd(*qkv, h) * r)
+
+    jargs = [jnp.asarray(t) for t in (q, k, v)]
+    want = np.asarray(jatt.attention_bshd(*jargs, h))
+    want_grads = jax.grad(loss, argnums=(0, 1, 2))(*jargs)
+
+    qp, kp, vp, rp = (port.pad_heads(torch.from_numpy(t.copy()), h) for t in (q, k, v, r))
+    scale = 1.0 / np.sqrt(d)
+    if s <= port.MAX_SEQ:
+        out, lse = port.attention_reference(qp, kp, vp, h, scale), None
+    else:
+        out, lse = port.flash_reference(qp, kp, vp, h, scale=scale)
+    grads = port.flash_backward_reference(qp, kp, vp, out, lse, rp, h, scale=scale)
+    for t in (out, *grads):
+        assert t.shape == (1, s, h * 64)
+        assert not t.view(1, s, h, 64)[..., d:].any()
+    np.testing.assert_allclose(port.unpad_heads(out, h, d).numpy(), want, atol=ATOL, rtol=RTOL)
+    scale = max(float(np.abs(np.asarray(g)).max()) for g in want_grads)
+    for g, w in zip(grads, want_grads):
+        np.testing.assert_allclose(port.unpad_heads(g, h, d).numpy(), np.asarray(w),
+                                   atol=1e-4 * scale, rtol=1e-4)
+
+
+def test_pad_heads_round_trip():
+    """pad_heads puts each head's D values first and zeros after them;
+    unpad_heads takes them back; at D = 64 both return their input."""
+    t = torch.arange(2 * 5 * 3 * 40, dtype=torch.float32).reshape(2, 5, 120)
+    p = port.pad_heads(t, 3)
+    assert p.shape == (2, 5, 192)
+    torch.testing.assert_close(p.view(2, 5, 3, 64)[..., :40], t.view(2, 5, 3, 40),
+                               rtol=0, atol=0)
+    assert not p.view(2, 5, 3, 64)[..., 40:].any()
+    torch.testing.assert_close(port.unpad_heads(p, 3, 40), t, rtol=0, atol=0)
+    full = torch.zeros((1, 4, 128))
+    assert port.pad_heads(full, 2) is full and port.unpad_heads(full, 2, 64) is full
 
 
 def test_reference_casts_probs_to_value_dtype():
@@ -206,12 +263,41 @@ def test_bf16_kernel_ragged_lengths_at_batch_on_card(cuda, s, b):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [8, 32, 40])
+def test_head_dims_below_64_on_card(cuda, d, dtype):
+    """Head dims below 64 run through K1, zero-padded to 64 with the scale
+    of their own D, against the plain version at that D; bf16 scaled to the
+    reference as above, f32 within 1e-4."""
+    qkv = torch.from_numpy(_qkv(4, 329, 3, d=d, seed=d)).to(cuda, dtype)
+    with torch.inference_mode():
+        before = port.launch_counts["attention"]
+        got = port.attention_qkv(qkv, 3)
+        torch.cuda.synchronize()
+        assert port.launch_counts["attention"] == before + 1
+        want = port.attention_reference(*qkv.chunk(3, dim=-1), 3)
+    assert got.shape == (4, 329, 3 * d) and got.dtype == dtype
+    err = got.float() - want.float()
+    if dtype == torch.float32:
+        assert err.abs().max() <= 1e-4
+    else:
+        assert err.abs().max() <= 2e-2 * want.float().abs().max()
+        assert err.norm() <= 1e-2 * want.float().norm()
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
     qkv = torch.zeros((1, 40, 3 * 128), device=cuda)
     with pytest.raises(ValueError, match="S <= 512"):   # longer sequences are K4's
         port._attention_cuda(*torch.zeros((1, 513, 3 * 128), device=cuda).chunk(3, -1), 2)
-    with pytest.raises(ValueError, match="head dim"):
-        port.attention_qkv(qkv, 4)
+    launches = dict(port.launch_counts)
+    with pytest.raises(ValueError, match="head dim"):   # 128: above 64
+        port.attention_qkv(qkv, 1)
+    with pytest.raises(ValueError, match="head dim"):   # 80: above 64
+        port.attention_qkv(torch.zeros((1, 40, 3 * 160), device=cuda), 2)
+    with pytest.raises(ValueError, match="head dim"):   # 36: not a multiple of 8
+        port.attention_qkv(torch.zeros((1, 40, 3 * 72), device=cuda), 2)
+    assert port.launch_counts == launches
     with pytest.raises(ValueError, match="bf16 or f32"):
         port.attention_qkv(qkv.half(), 2)
     with pytest.raises(ValueError, match="launched raw with grad enabled"):

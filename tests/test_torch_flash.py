@@ -190,15 +190,27 @@ def _check(q, k, v, h, seq_len_k=None):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["bf16_region", "f32_1029", "bf16_cross", "bf16_cross_padded"])
+@pytest.mark.parametrize("case", ["bf16_region", "f32_1029", "bf16_cross", "bf16_cross_padded",
+                                  "bf16_cross_nan"])
 def test_k4_matches_plain_on_card(cuda, case):
-    """Region shape (1024 px: S = 5334, 24 heads), fused layout; f32; and a
-    sequence shard's rectangle (1334 q rows over 5334 keys, then over 5376
-    keys of which 5334 are live)."""
+    """Region shape (1024 px: S = 5334 = 41 x 128 + 86, 24 heads), fused
+    layout; f32; and a sequence shard's rectangle (1334 q rows over 5334
+    keys, then over 5376 keys of which 5334 are live, the padding random or
+    NaN and Inf)."""
     if case == "bf16_region":
         _check(*_fused(cuda, 2, 5334, 24, torch.bfloat16, 0), 24)
     elif case == "f32_1029":
         _check(*_fused(cuda, 1, 1029, 24, torch.float32, 1), 24)
+    elif case == "bf16_cross_nan":
+        q, k, v = _fused(cuda, 1, 5376, 24, torch.bfloat16, 3)
+        k, v = k.clone(), v.clone()
+        k[:, 5334:], v[:, 5334:] = float("nan"), float("inf")
+        with torch.inference_mode():
+            out, lse = port.flash_attention(q[:, :1334], k, v, 24, 5334)
+            want_out, want_lse = port.flash_reference(q[:, :1334], k[:, :5334], v[:, :5334], 24)
+        assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+        _assert_held(out, want_out, torch.bfloat16)
+        assert (lse - want_lse).abs().max().item() <= CARD_TOL[torch.bfloat16][2]
     else:
         q, k, v = _fused(cuda, 1, 5376 if case.endswith("padded") else 5334, 24,
                          torch.bfloat16, 2)
@@ -210,6 +222,26 @@ def test_k4_matches_plain_on_card(cuda, case):
 @pytest.mark.parametrize("s", [513, 577, 1301, 2049])
 def test_k4_ragged_lengths_on_card(cuda, s, dtype):
     _check(*_fused(cuda, 3, s, 2, dtype, s), 2)
+
+
+@pytest.mark.gpu
+def test_k4_runs_agree_on_card(cuda):
+    """The bf16 kernel sums each row in one block, in a fixed order: two runs
+    at a region give the same output and lse, bit for bit."""
+    q, k, v = _fused(cuda, 2, 5334, 24, torch.bfloat16, 40)
+    with torch.inference_mode():
+        first = port.flash_attention(q, k, v, 24)
+        second = port.flash_attention(q, k, v, 24)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [8, 32, 40])
+def test_k4_head_dims_below_64_on_card(cuda, d):
+    """Head dims below 64 through K4, zero-padded to 64 with the scale of
+    their own D, against the plain version at that D (out and lse)."""
+    t = torch.from_numpy(_rand(2, 600, 3 * 3 * d, seed=d)).to(cuda, torch.bfloat16)
+    _check(*t.chunk(3, dim=-1), 3)
 
 
 @pytest.mark.gpu
@@ -237,8 +269,8 @@ def test_attention_dispatches_by_length_on_card(cuda):
 @pytest.mark.gpu
 def test_k4_rejects_what_it_does_not_take(cuda):
     q, k, v = _fused(cuda, 1, 600, 2, torch.float32, 30)
-    with pytest.raises(ValueError, match="head dim"):
-        port.flash_attention(q, k, v, 4)
+    with pytest.raises(ValueError, match="head dim"):   # 128: above 64
+        port.flash_attention(q, k, v, 1)
     with pytest.raises(ValueError, match="bf16 or f32"):
         port.flash_attention(q.half(), k.half(), v.half(), 2)
     with pytest.raises(ValueError, match="launched raw with grad enabled"):

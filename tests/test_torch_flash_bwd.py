@@ -248,16 +248,19 @@ def test_autograd_launches_k4_then_k5_on_card(cuda):
 
 @pytest.mark.gpu
 def test_head_dim_32_raises_on_card(cuda):
-    """Head dim 32, which K4 and K5 do not take: the forward and K5's entry
-    point raise on the card before any launch (there is no plain route on
-    the card)."""
+    """Head dim 32 runs through K4 and K5 (zero-padded to 64, the scale of
+    its own D), held against the plain version at D = 32; head dim 96,
+    above what the kernels take, raises on the card before any launch, in
+    the forward and in K5's entry point (there is no plain route on the
+    card)."""
     qkv = torch.from_numpy(_rand(1, 700, 3 * 96, seed=50)).to(cuda)
     g = torch.from_numpy(_rand(1, 700, 96, seed=51)).to(cuda)
     q, k, v = qkv.chunk(3, dim=-1)
-    out, lse = port.flash_reference(q, k, v, 3)
+    _check(q, k, v, g, 3)
+    out, lse = port.flash_reference(q, k, v, 1)
     launches = dict(port.launch_counts)
     with pytest.raises(ValueError, match="head dim"):
-        port.attention_qkv(qkv.clone().requires_grad_(), 3)
+        port.attention_qkv(qkv.clone().requires_grad_(), 1)
     with pytest.raises(ValueError, match="head dim"):
-        port.flash_backward(q, k, v, out, lse, g, 3)
+        port.flash_backward(q, k, v, out, lse, g, 1)
     assert port.launch_counts == launches

@@ -24,7 +24,7 @@ torch.set_num_threads(2)
 # f32: the same LayerNorm and product in another order of summation
 RTOL = 1e-5
 GRAD_RTOL = 1e-4
-K, N = 256, 512           # the JAX kernel's gate: N % 256 == 0, K % 128 == 0
+K, N = 256, 512           # inside the JAX kernel's gate: N % 256 == 0, K % 128 == 0
 # scaled to the reference: (max |err| / max |ref|, ||err|| / ||ref||)
 BF16_TOL = (2e-2, 1e-2)
 CARD_TOL = {torch.bfloat16: BF16_TOL, torch.float32: (1e-4, 1e-5)}
@@ -99,9 +99,10 @@ def test_cpu_runs_plain_version_without_launch():
 
 @pytest.mark.parametrize("k,n", [(128, 200), (192, 256), (128, 384)])
 def test_outside_the_gate_matches_jax_entry_point(k, n):
-    """N not a multiple of 256 or K not of 128, outside K7's gate (the
-    card raises there): on the CPU the port's plain version against the JAX
-    entry point, which runs its plain chain there; forward and gradients."""
+    """N not a multiple of 256 or K not of 128, outside the JAX kernel's
+    gate (K7 takes them on the card: any N and K that are multiples of 8):
+    on the CPU the port's plain version against the JAX entry point, which
+    runs its plain chain there; forward and gradients."""
     import jax
     import jax.numpy as jnp
 
@@ -121,6 +122,22 @@ def test_outside_the_gate_matches_jax_entry_point(k, n):
     for g, w_ in zip(grads, want_grads):
         w_ = np.asarray(w_)
         np.testing.assert_allclose(g, w_, rtol=GRAD_RTOL, atol=GRAD_RTOL * np.abs(w_).max())
+
+
+def test_k2_rule_accepts_n200_k192_on_cpu():
+    """K7's rule is K2's (N and K multiples of 8): N 200 and K 192, outside
+    the JAX kernel's gate, go through the plain version on the CPU with no
+    launch and agree with the JAX entry point's plain chain."""
+    import jax.numpy as jnp
+
+    from mipheivit_tpu.ops.mlp import ln_matmul
+
+    args = _inputs(37, seed=30, k=192, n=200)
+    port.launch_counts["ln_matmul"] = 0
+    got = port.ln_matmul(*_port(*args))
+    assert got.shape == (37, 200) and port.launch_counts["ln_matmul"] == 0
+    want = np.asarray(ln_matmul(*map(jnp.asarray, args)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=RTOL)
 
 
 def test_other_devices_raise():
@@ -201,7 +218,7 @@ def _scaled(got, want):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("m,k,n", [(658, 1536, 4608), (329, 128, 256), (1, 256, 768),
-                                   (300, 384, 512)])
+                                   (300, 384, 512), (329, 192, 200), (37, 136, 264)])
 def test_kernel_matches_plain_on_card(cuda, m, k, n, dtype):
     args = _card_inputs(m, k, n, dtype, cuda, seed=m + k)
     port.launch_counts["ln_matmul"] = 0
@@ -246,10 +263,12 @@ def test_backward_on_card_matches_cpu(cuda):
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
     x, lns, lnb, w, b = _card_inputs(16, 256, 512, torch.bfloat16, cuda, seed=13)
-    with pytest.raises(ValueError, match="multiple of 256"):
-        port.ln_matmul(x, lns, lnb, w[:384].contiguous(), b[:384].contiguous())
-    with pytest.raises(ValueError, match="multiple of 256 and K of 128"):
-        port.ln_matmul(x[:, :192], lns[:192], lnb[:192], w[:, :192].contiguous(), b)
+    launches = port.launch_counts["ln_matmul"]
+    with pytest.raises(ValueError, match="multiples of 8"):    # N 196
+        port.ln_matmul(x, lns, lnb, w[:196].contiguous(), b[:196].contiguous())
+    with pytest.raises(ValueError, match="multiples of 8"):    # K 100
+        port.ln_matmul(x[:, :100], lns[:100], lnb[:100], w[:, :100].contiguous(), b)
+    assert port.launch_counts["ln_matmul"] == launches
     with pytest.raises(ValueError, match="one dtype"):
         port._ln_matmul_cuda(x.half(), lns, lnb, w.half(), b.half(), 1e-6)
     with pytest.raises(ValueError, match="grad enabled"):

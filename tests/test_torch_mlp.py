@@ -266,6 +266,27 @@ def test_kernel_matches_plain_on_card(cuda, m, k, h, ln, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m,k,h", [(21056, 1536, 4096), (10528, 1536, 4096), (5334, 1536, 4096),
+                                   (2632, 1536, 4096), (658, 1536, 4096), (1, 1536, 4096),
+                                   (330, 200, 520)])
+def test_k2_at_path_shapes_on_card(cuda, m, k, h):
+    """The bf16 kernel without LayerNorm (the persistent warp-specialised
+    one) at every path's fc1 (64 tiles, the daemon's 32, a 1024-px region,
+    a 256-px training microbatch of 8), ragged rows, one row, and H and K
+    tails, against the plain version scaled to the reference."""
+    x, w, b, _ = _card_inputs(m, k, h, torch.bfloat16, cuda, seed=m + h)
+    port.launch_counts["swiglu"] = 0
+    with torch.inference_mode():
+        got = port.swiglu_fc1(x, w, b)
+        want = port.swiglu_reference(x, w, b)
+        torch.cuda.synchronize()
+    assert port.launch_counts["swiglu"] == 1
+    assert got.shape == (m, h) and torch.isfinite(got).all()
+    rel, fro = _scaled(got, want)
+    assert rel <= CARD_TOL[torch.bfloat16][0] and fro <= CARD_TOL[torch.bfloat16][1], (rel, fro)
+
+
+@pytest.mark.gpu
 def test_kernel_reads_strided_rows_on_card(cuda):
     """x as every other row of a buffer (row stride 2K) and a 3-D input."""
     x, w, b, _ = _card_inputs(2 * 200, 256, 128, torch.bfloat16, cuda, seed=9)
@@ -348,13 +369,16 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 @pytest.mark.gpu
 def test_failed_launch_raises(cuda):
-    """A launch the card refuses (a grid taller than 65535 row blocks of up
-    to 256 rows) surfaces as an error, and counts no launch."""
+    """A launch the card refuses (the LayerNorm variant's grid taller than
+    65535 row blocks of 256 rows; the variant without LayerNorm walks any
+    number of tiles on a persistent grid) surfaces as an error, and counts
+    no launch."""
     m = 65536 * 256 + 1
     x = torch.zeros((m, 8), dtype=torch.bfloat16, device=cuda)
     w = torch.zeros((16, 8), dtype=torch.bfloat16, device=cuda)
     b = torch.zeros(16, dtype=torch.bfloat16, device=cuda)
+    ln = (torch.ones(8, device=cuda), torch.zeros(8, device=cuda))
     port.launch_counts["swiglu"] = 0
     with torch.inference_mode(), pytest.raises(RuntimeError, match="K2 swiglu launch failed"):
-        port.swiglu_fc1(x, w, b)
+        port.swiglu_fc1(x, w, b, ln=ln)
     assert port.launch_counts["swiglu"] == 0

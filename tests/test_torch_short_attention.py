@@ -140,6 +140,33 @@ def test_autograd_matches_jax_grad(s, d):
                                    atol=GRAD_RTOL * np.abs(w).max())
 
 
+@pytest.mark.parametrize("d", [8, 32, 40])
+def test_padded_route_matches_jax_kernel(d):
+    """What the card computes for K6 at a head dim below 64: q, k, v
+    zero-padded to 64 along D, the plain version with the scale of the
+    original D, the output sliced back; against the JAX kernel (interpreted)
+    at test_autograd_matches_jax_grad's short shape, the output, and the
+    gradients of q, k and v by autograd through the padded route."""
+    import torch.nn.functional as F
+
+    s = 77
+    q, k, v = _qkv(1, 2, s, d, seed=6 + s + d)
+    r = np.random.default_rng(7).standard_normal((1, 2, s, d)).astype(np.float32)
+    want = _jax_dpa(q, k, v)
+    want_grads = _jax_grads(q, k, v, r)
+    ts = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    out = port.short_attention_reference(*(F.pad(t, (0, 64 - d)) for t in ts),
+                                         scale=1.0 / np.sqrt(d))
+    assert not out[..., d:].any()
+    got = out[..., :d]
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL,
+                               atol=RTOL * np.abs(want).max())
+    (got * torch.from_numpy(r)).sum().backward()
+    for t, w in zip(ts, want_grads):
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=GRAD_RTOL,
+                                   atol=GRAD_RTOL * np.abs(w).max())
+
+
 # ---------------------------------------------------------------------------
 # on the card: the CUDA kernel against the plain version
 
@@ -226,10 +253,31 @@ def test_backward_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [8, 32, 40])
+def test_head_dims_below_64_on_card(cuda, d, dtype):
+    """Head dims below 64 through K6, zero-padded to 64 with the scale of
+    their own D, against the plain version at that D."""
+    g = torch.Generator().manual_seed(d)
+    q, k, v = (torch.randn((3, 4, 200, d), generator=g).to(cuda, dtype) for _ in range(3))
+    port.launch_counts["short"] = 0
+    with torch.inference_mode():
+        got = port.dot_product_attention(q, k, v)
+        want = port.short_attention_reference(q, k, v)
+        torch.cuda.synchronize()
+    assert port.launch_counts["short"] == 1
+    assert got.shape == (3, 4, 200, d) and got.dtype == dtype
+    rel, fro = _card_scaled(got, want)
+    assert rel <= CARD_TOL[dtype][0] and fro <= CARD_TOL[dtype][1], (rel, fro)
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 2, 40, 64), device=cuda)
-    with pytest.raises(ValueError, match="head dim 64"):
-        port.dot_product_attention(*[torch.zeros((1, 2, 40, 32), device=cuda)] * 3)
+    with pytest.raises(ValueError, match="head dim"):   # 80: above 64
+        port.dot_product_attention(*[torch.zeros((1, 2, 40, 80), device=cuda)] * 3)
+    with pytest.raises(ValueError, match="head dim"):   # 36: not a multiple of 8
+        port.dot_product_attention(*[torch.zeros((1, 2, 40, 36), device=cuda)] * 3)
     with pytest.raises(ValueError, match="S <= 512"):    # longer sequences are K4's
         port._short_cuda(*[torch.zeros((1, 2, 513, 64), device=cuda)] * 3)
     with pytest.raises(ValueError, match="bf16 or f32"):
