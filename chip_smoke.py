@@ -47,13 +47,15 @@ accumulation 2; the generator step of the flagship preset, gan_train off):
                slice held in cosine against the f32 backward on the CPU.
 
 Before the paths, [head dims] runs the four attention entry points at head
-dims 32 and 40 through their kernels (K1, K4, K5, K6; zero-padded to 64)
-and ln_matmul at N 200 and K 192 through K7, each against its plain
-version with its launch counted; [rejects] calls each op entry point on the
-card at a shape its kernel does not take (head dims 80, 128 and 36 for the
-attention entry points and K5's, ln_matmul at K 100, ln_qkv_attention at D
-96): each must raise before any launch, as there is no plain route on the
-card.
+dims 12, 32, 36 and 40 through their kernels (K1, K4, K5, K6; zero-padded
+to 64) and ln_matmul at N 200 and K 192 through K7, each against its plain
+version with its launch counted; [ln_qkv routes] runs ln_qkv_attention
+where it reaches its kernels beyond ViT-g's shape (head dim 32 and D 96
+through K8, S 4 through K8, S 1280 through K7 -> K4), each against the
+plain chain with its launches counted; [rejects] calls each op entry point
+on the card at a shape no kernel takes (head dims 80 and 128 for the
+attention entry points, K5's and ln_qkv_attention's, ln_matmul at K 100):
+each must raise before any launch, as there is no plain route on the card.
 
 It checks the outputs (the stitched slides against a serial reference
 stitch; every served tile against the same tile in a full batch; finite
@@ -659,7 +661,7 @@ def k8_phase(name, b, s, dtype, seed=0):
 
 
 def head_dims_phase():
-    """The attention entry points at head dims 32 and 40 through the
+    """The attention entry points at head dims 12, 32, 36 and 40 through the
     kernels (zero-padded to 64, the scale of their own D): attention_qkv at
     S 329 (K1), attention_bshd at S 600 (K4), flash_backward there (K5),
     dot_product_attention at S 329 (K6), each at 24 heads in bf16, held
@@ -672,7 +674,7 @@ def head_dims_phase():
     t0 = time.perf_counter()
     bf16 = torch.bfloat16
     lines = []
-    for d in (32, 40):
+    for d in (12, 32, 36, 40):
         qkv = seeded((4, 329, 3 * HEADS * d), SEED + 140 + d, bf16)
         lq, lk, lv = seeded((1, 600, 3 * HEADS * d), SEED + 141 + d, bf16).chunk(3, -1)
         g = seeded((1, 600, HEADS * d), SEED + 142 + d, bf16)
@@ -724,22 +726,63 @@ def head_dims_phase():
           f"{SCALED_TOL['bf16'][1]:g}) ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def ln_qkv_routes_phase():
+    """ln_qkv_attention on the card beyond ViT-g's shape, each route held
+    against the plain chain under the bf16 rule with its exact launch
+    counts: 24 heads of 32 at D 1536 and S 329 (K8, the heads padded to 64),
+    2 heads of 64 at D 96 (K8), S 4 at 64 tiles (K8), and S 1280 (above K8's
+    1024 tokens: K7, then K4 through attention_qkv)."""
+    from mipheivit_tpu_torch.ops import attn_block
+
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    # name: (b, s, d, heads, head dim, launches)
+    cases = {"head dim 32": (4, 329, HD, HEADS, 32, {"k8": 1}),
+             "D 96, 2 heads of 64": (4, 329, 96, 2, 64, {"k8": 1}),
+             "S 4": (BATCH, 4, HD, HEADS, 64, {"k8": 1}),
+             "S 1280": (1, 1280, HD, HEADS, 64, {"k7": 1, "k4": 1})}
+    lines = []
+    for i, (name, (b, s_, d, heads, dh, want)) in enumerate(cases.items()):
+        seed = SEED + 160 + 10 * i
+        x = seeded((b, s_, d), seed, bf16)
+        lns, lnb = ln_params(d, seed + 1)
+        w = seeded((3 * heads * dh, d), seed + 2, bf16, d ** -0.5)
+        bias = seeded(3 * heads * dh, seed + 3, bf16, 0.1)
+        reset_counts()
+        with torch.inference_mode():
+            got = attn_block.ln_qkv_attention(x, lns, lnb, w, bias, heads)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            ref = attn_block.chain_reference(x, lns, lnb, w, bias, heads)
+        _, rel, fro = scaled_err(got, ref)
+        lines.append(f"{name} x [{b}, {s_}, {d}] ({attn_block.route(b, s_, d, heads, dh)}): "
+                     f"{rel:.2e} of max|ref|, norm-rel {fro:.2e}, {counts_line(counts)}")
+        check(got.shape == (b, s_, heads * dh) and bool(torch.isfinite(got).all())
+              and rel <= SCALED_TOL["bf16"][0] and fro <= SCALED_TOL["bf16"][1],
+              f"[ln_qkv routes] {name} disagrees with the plain chain: {rel:.2e}, {fro:.2e}")
+        check_counts(f"[ln_qkv routes] {name}", counts, **want)
+    reset_counts()
+    print(f"[ln_qkv routes] {'; '.join(lines)} (tol {SCALED_TOL['bf16'][0]:g}, "
+          f"{SCALED_TOL['bf16'][1]:g}) ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def rejects_phase():
-    """Each op entry point on the card at a shape its kernel does not take:
-    the attention entry points at head dims above 64 (attention_qkv at 24
-    heads of 80 and S 329, K1's; attention_bshd at 24 heads of 128 and S
-    600, K4's; flash_backward there, K5's; dot_product_attention at D 80,
-    K6's) and at head dim 36 (not a multiple of 8; attention_qkv), ln_matmul
-    at K 100 (K7's: not a multiple of 8) and ln_qkv_attention at D 96
-    (K8's). Each must raise ValueError with no kernel launch: on the card an
-    entry point launches its kernel or raises."""
+    """Each op entry point on the card at a shape no kernel takes: the
+    attention entry points at head dims above 64 (attention_qkv at 24 heads
+    of 80 and S 329, K1's; attention_bshd at 24 heads of 128 and S 600,
+    K4's; flash_backward there, K5's; dot_product_attention at D 80, K6's),
+    ln_matmul at K 100 (K7's: not a multiple of 8) and ln_qkv_attention at 2
+    heads of 80 (K8's). Each must raise ValueError with no kernel launch: on
+    the card an entry point launches its kernels or raises. (Head dims below
+    64 that are not multiples of 8, such as 36, reach the kernels padded to
+    64, and ln_qkv_attention at D 96 reaches K8: both moved to [head dims]
+    and [ln_qkv routes], as the JAX entry points serve them.)"""
     from mipheivit_tpu_torch.ops import attention as attn
     from mipheivit_tpu_torch.ops import attn_block, mlp
 
     t0 = time.perf_counter()
     bf16 = torch.bfloat16
     qkv80 = seeded((2, 329, 3 * HEADS * 80), SEED + 120, bf16)
-    qkv36 = seeded((2, 329, 3 * HEADS * 36), SEED + 134, bf16)
     long_q, long_k, long_v = seeded((1, 600, 3 * HEADS * 128), SEED + 121, bf16).chunk(3, -1)
     g = seeded((1, 600, HEADS * 128), SEED + 122, bf16)
     out, lse = attn.flash_reference(long_q, long_k, long_v, HEADS)
@@ -747,20 +790,19 @@ def rejects_phase():
     x = seeded((658, 100), SEED + 126, bf16)
     lns, lnb = ln_params(100, SEED + 127)
     w, b = seeded((256, 100), SEED + 128, bf16, 100 ** -0.5), seeded(256, SEED + 129, bf16, 0.1)
-    x96 = seeded((2, 329, 96), SEED + 130, bf16)
-    lns96, lnb96 = ln_params(96, SEED + 131)
-    w96, b96 = seeded((3 * 128, 96), SEED + 132, bf16, 96 ** -0.5), seeded(384, SEED + 133, bf16)
+    x80 = seeded((2, 329, HD), SEED + 130, bf16)
+    lns80, lnb80 = ln_params(HD, SEED + 131)
+    w80, b80 = seeded((3 * 2 * 80, HD), SEED + 132, bf16, HD ** -0.5), seeded(480, SEED + 133, bf16)
     cases = {
         "attention_qkv [2, 329, 24x80]": lambda: attn.attention_qkv(qkv80, HEADS),
-        "attention_qkv [2, 329, 24x36]": lambda: attn.attention_qkv(qkv36, HEADS),
         "attention_bshd [1, 600, 24x128]": lambda: attn.attention_bshd(long_q, long_k, long_v,
                                                                        HEADS),
         "flash_backward [1, 600, 24x128]": lambda: attn.flash_backward(
             long_q, long_k, long_v, out, lse, g, HEADS),
         "dot_product_attention [2, 24, 329, 80]": lambda: attn.dot_product_attention(*heads),
         "ln_matmul [658, 100] x [256, 100]": lambda: mlp.ln_matmul(x, lns, lnb, w, b),
-        "ln_qkv_attention [2, 329, 96], 2 heads": lambda: attn_block.ln_qkv_attention(
-            x96, lns96, lnb96, w96, b96, 2),
+        "ln_qkv_attention [2, 329, 1536], 2 heads of 80": lambda: attn_block.ln_qkv_attention(
+            x80, lns80, lnb80, w80, b80, 2),
     }
     lines, ok = [], True
     for name, op in cases.items():
@@ -1395,9 +1437,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 3g. head dims below 64 through the attention kernels, K7 off the JAX
-    #     kernel's gate; what no kernel takes raises on the card, before any
-    #     launch
+    #     kernel's gate, ln_qkv_attention's routes beyond ViT-g's shape; what
+    #     no kernel takes raises on the card, before any launch
     head_dims_phase()
+    ln_qkv_routes_phase()
     rejects_phase()
 
     # 4. the slice at full width

@@ -53,9 +53,18 @@
 // with both operands in shared memory, o += p . v with p in registers. The
 // last key tile is cut to the live keys rounded up to 16 (336 key columns
 // at S = 329, not 384). Two blocks fit on an SM at S = 329 (~101 KB each).
-// K6 keeps the first design: a block per (64-row q tile, head, batch),
-// cp.async tiles, mma.sync m16n8k16, K re-read per q tile (twice, for its
-// two passes) from L2.
+// K6's bf16 design is K1's (short_bf16_kernel): one block per (head, batch
+// item), the head's K and V loaded once by TMA through rank-4 tensor maps
+// over q, k and v's own (D, S, H, B) strides (a head-major view of a [B, S,
+// H*D] buffer is read in place), two warpgroups taking the q tiles in turn,
+// the logits on wgmma. Its rounding needs each row's max and sum before any
+// p is formed, so a q tile makes two passes over the resident keys: pass 1
+// takes s = q . k^T and the row max and sum (online, each key tile's max
+// reduced over the row's quad), pass 2 takes s again, forms p = exp2(s - m)
+// * (1/l) in f32, rounds it to bf16 and accumulates p . v on wgmma with p in
+// registers. The K tiles land before the V tiles, each on a barrier of its
+// own, so pass 1 starts on the first key tile. The output tile goes through
+// the q tile's shared memory to a TMA store, which drops rows past S.
 
 // Ragged S (329) is masked inside the kernel: q/k/v rows >= S are loaded as
 // zeros (by TMA's out-of-bounds fill in K1), keys >= S get p = 0, and rows
@@ -65,7 +74,8 @@
 //   bf16  the main path. K1: online softmax (see attn_bf16_kernel), so p is
 //         rounded to bf16 relative to the running row max; against the plain
 //         version (exact max, p / l rounded to bf16) that stays within a few
-//         bf16 ulps of the output scale. K6: the two passes above, exact max.
+//         bf16 ulps of the output scale. K6: the two passes above, exact max
+//         (short_bf16_kernel).
 //   f32   scalar FMAs, exact row max first, logits in shared memory (tests);
 //         K6 divides p by l before p . v, K1 the output after.
 //
@@ -80,20 +90,14 @@
 
 namespace {
 
-using hopper::cp_async_commit;
-using hopper::cp_async_wait;
 using hopper::pack_bf16;
 
 constexpr int D = 64;        // head dim
-constexpr int BQ = 64;       // query rows per block
-constexpr int BK = 64;       // keys per staged K/V chunk
-constexpr int WARPS = 4;     // each warp owns BQ / WARPS = 16 query rows
-constexpr int THREADS = WARPS * 32;
+constexpr int BQ = 64;       // f32 path: query rows per block
+constexpr int BK = 64;       // f32 path: keys per staged K/V chunk
+constexpr int THREADS = 128;  // f32 path
 constexpr int MAX_S = 512;
-constexpr int LDT = D + 8;   // bf16 tile row stride: conflict-free ldmatrix rows
 constexpr int LDF = D + 1;   // f32 tile row stride of the scalar path: conflict-free column reads
-
-static_assert(BQ == WARPS * 16, "one 16-row mma tile per warp");
 
 struct Args {
   const void* q;
@@ -108,132 +112,11 @@ struct Args {
   void* stream;
 };
 
-// ---- bf16: register-resident tiles on mma.sync (m16n8k16) ---------------------
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  hopper::cp_async16(hopper::smem_addr(smem), gmem, pred);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-// c += a . b for one 16x8 f32 tile, a 16x16 (row) and b 16x8 (col) bf16
-__device__ __forceinline__ void mma16816(float* c, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-// 64 rows of D bf16 values from global rows r0.. into a padded shared tile,
-// asynchronously; rows >= S are zero-filled.
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                long long rs, int r0, int S) {
-  constexpr int VPR = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < BQ * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const bool ok = r0 + r < S;
-    cp_async16(dst + r * LDT + c, src + (long long)(ok ? r0 + r : 0) * rs + c, ok);
-  }
-}
-
-// s = q . k^T over one chunk of 64 keys (ks, a padded shared tile): 8 tiles
-// of 16 rows x 8 keys, scaled to log2 units; keys >= S (key0 the chunk's
-// first) get -inf.
-__device__ __forceinline__ void qk_chunk(float (&s)[BK / 8][4], const unsigned (&qf)[D / 16][4],
-                                         const __nv_bfloat16* ks, int key0, int S, float scale) {
-  const int lane = threadIdx.x % 32, tig = lane & 3;
-#pragma unroll
-  for (int t = 0; t < BK / 8; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int np = 0; np < BK / 16; ++np) {
-      unsigned kb[4];  // keys np*16 + 0..7 and + 8..15, dims kk*16 + 0..15
-      ldmatrix_x4(kb, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDT + kk * 16 +
-                          ((lane >> 3) & 1) * 8);
-      mma16816(s[2 * np], qf[kk], kb);
-      mma16816(s[2 * np + 1], qf[kk], kb + 2);
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < BK / 8; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = key0 + t * 8 + tig * 2 + (e & 1);
-      s[t][e] = key < S ? s[t][e] * scale : -INFINITY;
-    }
-}
-
-// o += bf16(p) . v over one chunk of 64 keys, 16 keys at a time: the C
-// fragments of p (as qk_chunk left them) are, pair by pair, the A fragments
-__device__ __forceinline__ void pv_chunk(float (&o)[D / 8][4], const float (&p)[BK / 8][4],
-                                         const __nv_bfloat16* vs) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    const unsigned pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      unsigned vb[4];  // keys kk*16 + 0..15, dims dp*16 + 0..7 and + 8..15
-      ldmatrix_x4_trans(vb, vs + (kk * 16 + (lane & 15)) * LDT + dp * 16 + (lane >> 4) * 8);
-      mma16816(o[2 * dp], pa, vb);
-      mma16816(o[2 * dp + 1], pa, vb + 2);
-    }
-  }
-}
-
-// The row max of rows g and g + 8 over this chunk and m, across the 4
-// threads of a row (the quad)
-__device__ __forceinline__ void chunk_max(float (&mx)[2], const float (&s)[BK / 8][4],
-                                          const float (&m)[2]) {
-  mx[0] = m[0];
-  mx[1] = m[1];
-#pragma unroll
-  for (int t = 0; t < BK / 8; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[t][e]);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-  }
-}
-
 __device__ __forceinline__ void quad_sum(float (&l)[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-}
-
-// Rows q0 + warp*16 + g (+8) of the output accumulator, each divided by its
-// l, rounded to bf16 (rows >= S are not stored).
-__device__ __forceinline__ void store_rows_bf16(const Args& a, const float (&o)[D / 8][4],
-                                                const float (&l)[2], int q0, int b, int h) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.out) + b * a.o_bs + h * a.o_hs;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (row >= a.S) continue;
-#pragma unroll
-    for (int t = 0; t < D / 8; ++t) {
-      *reinterpret_cast<unsigned*>(og + row * a.o_rs + t * 8 + tig * 2) =
-          pack_bf16(o[t][2 * r] / l[r], o[t][2 * r + 1] / l[r]);
-    }
   }
 }
 
@@ -256,24 +139,6 @@ inline size_t k1_smem(int S) {
   return 1024 + (size_t)K1_WG * TILE_BYTES + 2 * (size_t)kv_bytes(S) + 8 * (MAX_KT + K1_WG);
 }
 
-// s = q . k^T over N keys of one tile for the warpgroup's 64 q rows
-template <int N>
-__device__ __forceinline__ void qk_wgmma(float (&s)[N / 2], unsigned q_s, unsigned k_s) {
-  hopper::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const unsigned long long dq = hopper::smem_desc(q_s + kk * 32);
-    const unsigned long long dk = hopper::smem_desc(k_s + kk * 32);
-    if constexpr (N == 16) hopper::wgmma_ss_n16<0, 0>(s, dq, dk, kk);
-    else if constexpr (N == 32) hopper::wgmma_ss_n32<0, 0>(s, dq, dk, kk);
-    else if constexpr (N == 48) hopper::wgmma_ss_n48<0, 0>(s, dq, dk, kk);
-    else hopper::wgmma_ss_n64<0, 0>(s, dq, dk, kk);
-  }
-  hopper::wgmma_commit();
-  hopper::wgmma_wait<0>();
-  hopper::fence_acc(s);
-}
-
 // One tile of N keys (key0 the first) for the warpgroup's 64 q rows: the
 // logits on wgmma, the online softmax in registers (running max m and sum
 // l of rows g and g + 8, the accumulator rescaled by exp2(m_old - m_new)),
@@ -284,7 +149,7 @@ __device__ __forceinline__ void k1_tile(float (&o)[32], float (&m)[2], float (&l
                                         unsigned q_s, unsigned k_s, unsigned v_s, int key0,
                                         int S, float scale) {
   float s[N / 2];
-  qk_wgmma<N>(s, q_s, k_s);
+  hopper::qk_tile<N>(s, q_s, k_s);
   const int tig = threadIdx.x & 3;
   float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -326,17 +191,7 @@ __device__ __forceinline__ void k1_tile(float (&o)[32], float (&m)[2], float (&l
     o[4 * j + 2] *= alpha[1];
     o[4 * j + 3] *= alpha[1];
   }
-  hopper::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk)
-    hopper::wgmma_rs_n64<1>(o, pa[kk], hopper::smem_desc(v_s + kk * 2048), 1);
-  hopper::wgmma_commit();
-  hopper::wgmma_wait<0>();
-  hopper::fence_acc(o);
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk)  // p's registers stay untouched until the products end
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(pa[kk][i])::"memory");
+  hopper::pv_tile<N>(o, pa, v_s);
 }
 
 // K1. One block per (head, batch item), two warpgroups. The head's K and V
@@ -429,82 +284,190 @@ __global__ void __launch_bounds__(K1_THREADS, 2)
   }
 }
 
-// K6. The same blocks, tiles and fragments as K1, in two passes over the
-// keys: steps j < n_kv (pass 1) load K alone and take each row's exact max
-// m and its sum l = sum exp2(s - m) (online: l rescaled as m grows); steps
-// j >= n_kv (pass 2) load K and V again, recompute s, form p = exp2(s - m) / l
-// in f32, round it to bf16 and accumulate p . v in f32. The output is o
-// itself, rounded once.
-__global__ void __launch_bounds__(THREADS, 4) short_bf16_kernel(Args a) {
-  __shared__ __align__(128) __nv_bfloat16 sQ[BQ * LDT];
-  __shared__ __align__(128) __nv_bfloat16 sK[2][BK * LDT];
-  __shared__ __align__(128) __nv_bfloat16 sV[2][BK * LDT];
+// ---- K6 bf16: K1's blocks and tiles, two passes for the exact softmax ---------
 
-  const int S = a.S;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_bs + h * a.q_hs;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_bs + h * a.k_hs;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + h * a.v_hs;
-  const int n_kv = (S + BK - 1) / BK;
+constexpr int K6_THREADS = K1_THREADS;
+// the 1024-byte alignment, a q tile per warpgroup, K, V, the mbarriers (a
+// K and a V barrier per key tile, a q barrier per warpgroup)
+inline size_t k6_smem(int S) {
+  return 1024 + (size_t)K1_WG * TILE_BYTES + 2 * (size_t)kv_bytes(S) + 8 * (2 * MAX_KT + K1_WG);
+}
 
-  auto load_step = [&](int j) {  // K (and V in pass 2) of step j into buffer j & 1
-    const int key0 = (j % n_kv) * BK;
-    load_tile_async(sK[j & 1], kg, a.k_rs, key0, S);
-    if (j >= n_kv) load_tile_async(sV[j & 1], vg, a.v_rs, key0, S);
-  };
-  load_tile_async(sQ, qg, a.q_rs, q0, S);
-  load_step(0);
-  cp_async_commit();
+// Where a rank-4 map keeps S, H and B: map dims 1..3, two bits each (the
+// host orders each operand's dims by stride)
+__device__ __forceinline__ void tma_bhsd(unsigned dst, const CUtensorMap* map, unsigned bar,
+                                         int perm, int row, int h, int b) {
+  const int ps = perm & 3, ph = (perm >> 2) & 3;
+  const int c1 = ps == 1 ? row : ph == 1 ? h : b;
+  const int c2 = ps == 2 ? row : ph == 2 ? h : b;
+  const int c3 = ps == 3 ? row : ph == 3 ? h : b;
+  hopper::tma_load_4d(dst, map, bar, 0, c1, c2, c3);
+}
 
-  unsigned qf[D / 16][4];
-  float o[D / 8][4];
+// Pass 1 over one tile of N keys (key0 the first): s = q . k^T scaled to
+// log2 units, keys >= S masked, the row max m (the quad's: every row sees
+// key0) and the row sum l of exp2(s - m), l rescaled as m grows
+template <int N>
+__device__ __forceinline__ void k6_stats(float (&m)[2], float (&l)[2], unsigned q_s, unsigned k_s,
+                                         int key0, int S, float scale) {
+  float s[N / 2];
+  hopper::qk_tile<N>(s, q_s, k_s);
+  const int tig = threadIdx.x & 3;
+  float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int t = 0; t < D / 8; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-
-  for (int j = 0; j < 2 * n_kv; ++j) {
-    if (j + 1 < 2 * n_kv) {
-      load_step(j + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = key0 + j * 8 + tig * 2 + (e & 1);
+      s[4 * j + e] = key < S ? s[4 * j + e] * scale : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
     }
-    __syncthreads();
-    if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LDT + kk * 16 + (lane >> 4) * 8);
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    l[r] *= exp2f(m[r] - mx[r]);  // 0 on the first tile (m = -inf)
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(s[4 * j + e] - m[e >> 1]);
+}
+
+// Pass 2 over the same tile: s again, p = exp2(s - m) / l in f32, rounded
+// to bf16, o += p . v
+template <int N>
+__device__ __forceinline__ void k6_pv(float (&o)[32], const float (&m)[2], const float (&inv)[2],
+                                      unsigned q_s, unsigned k_s, unsigned v_s, int key0, int S,
+                                      float scale) {
+  float s[N / 2];
+  hopper::qk_tile<N>(s, q_s, k_s);
+  const int tig = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = key0 + j * 8 + tig * 2 + (e & 1);
+      s[4 * j + e] = key < S ? exp2f(s[4 * j + e] * scale - m[e >> 1]) * inv[e >> 1] : 0.f;
     }
-    float s[BK / 8][4];
-    qk_chunk(s, qf, sK[j & 1], (j % n_kv) * BK, S, a.scale);
-    if (j < n_kv) {
-      float mx[2];
-      chunk_max(mx, s, m);
+  unsigned pa[N / 16][4];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l[r] *= exp2f(m[r] - mx[r]);
-        m[r] = mx[r];
-      }
+  for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
-      for (int t = 0; t < BK / 8; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(s[t][e] - m[e >> 1]);
-    } else {
-      if (j == n_kv) quad_sum(l);  // the rows' whole sums, once
-#pragma unroll
-      for (int t = 0; t < BK / 8; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[t][e] = exp2f(s[t][e] - m[e >> 1]) / l[e >> 1];
-      pv_chunk(o, s, sV[j & 1]);
+    for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+  hopper::pv_tile<N>(o, pa, v_s);
+}
+
+// K6. One block per (head, batch item), two warpgroups, as K1: thread 0
+// requests every K tile, then every V tile (a box of the tail's live keys
+// rounded up to 16 last; rows past S read as zeros), each on its own
+// mbarrier, and the first q tile of each warpgroup. Warpgroup w takes the q
+// tiles w, w + 2, ...: pass 1 over the K tiles, pass 2 over K and V, then
+// the output tile, rounded once, goes into the q tile's shared memory and
+// out by a TMA store, and the next q tile is requested once the store has
+// read it.
+__global__ void __launch_bounds__(K6_THREADS, 2)
+    short_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap ktail,
+                      const __grid_constant__ CUtensorMap vtail,
+                      const __grid_constant__ CUtensorMap omap, int perms, Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned base = (hopper::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const int S = a.S, h = blockIdx.x, b = blockIdx.y;
+  const int n_kt = key_tiles(S), tail = tail_keys(S);
+  const int pq = perms & 63, pk = (perms >> 6) & 63, pv = (perms >> 12) & 63, po = perms >> 18;
+  const unsigned k_s = base + K1_WG * TILE_BYTES, v_s = k_s + kv_bytes(S);
+  const unsigned bars = v_s + kv_bytes(S);  // K tiles' barriers, V tiles', the q tiles'
+  const int tid = threadIdx.x, wg = hopper::warpgroup(), lt = tid % 128;
+  const int warp = lt / 32, lane = tid % 32, g = lane >> 2, tig = lane & 3;
+  const unsigned q_s = base + wg * TILE_BYTES, q_bar = bars + 8 * (2 * MAX_KT + wg);
+  auto kbar = [&](int t) { return bars + 8 * t; };
+  auto vbar = [&](int t) { return bars + 8 * (MAX_KT + t); };
+
+  if (tid == 0) {
+    for (int i = 0; i < 2 * MAX_KT + K1_WG; ++i) hopper::mbar_init(bars + 8 * i, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 0; w < K1_WG && w < n_kt; ++w) {
+      const unsigned bar = bars + 8 * (2 * MAX_KT + w);
+      hopper::mbar_expect_tx(bar, TILE_BYTES);
+      tma_bhsd(base + w * TILE_BYTES, &qmap, bar, pq, w * 64, h, b);
     }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+    for (int t = 0; t < n_kt; ++t) {
+      const bool last = t == n_kt - 1;
+      hopper::mbar_expect_tx(kbar(t), last ? tail * D * 2 : TILE_BYTES);
+      tma_bhsd(k_s + t * TILE_BYTES, last ? &ktail : &kmap, kbar(t), pk, t * 64, h, b);
+    }
+    for (int t = 0; t < n_kt; ++t) {
+      const bool last = t == n_kt - 1;
+      hopper::mbar_expect_tx(vbar(t), last ? tail * D * 2 : TILE_BYTES);
+      tma_bhsd(v_s + t * TILE_BYTES, last ? &vtail : &vmap, vbar(t), pv, t * 64, h, b);
+    }
   }
 
-  const float one[2] = {1.f, 1.f};
-  store_rows_bf16(a, o, one, q0, b, h);
+  const int c_last = n_kt - 1;
+  const unsigned kt_last = k_s + c_last * TILE_BYTES, vt_last = v_s + c_last * TILE_BYTES;
+  unsigned phase = 0;
+  for (int t = wg; t < n_kt; t += K1_WG, phase ^= 1) {
+    hopper::mbar_wait(q_bar, phase);
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int c = 0; c < c_last; ++c) {
+      hopper::mbar_wait(kbar(c), 0);
+      k6_stats<64>(m, l, q_s, k_s + c * TILE_BYTES, c * 64, S, a.scale);
+    }
+    hopper::mbar_wait(kbar(c_last), 0);
+    switch (tail) {
+      case 16: k6_stats<16>(m, l, q_s, kt_last, c_last * 64, S, a.scale); break;
+      case 32: k6_stats<32>(m, l, q_s, kt_last, c_last * 64, S, a.scale); break;
+      case 48: k6_stats<48>(m, l, q_s, kt_last, c_last * 64, S, a.scale); break;
+      default: k6_stats<64>(m, l, q_s, kt_last, c_last * 64, S, a.scale); break;
+    }
+    quad_sum(l);
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+
+    float o[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[e] = 0.f;
+    for (int c = 0; c < c_last; ++c) {
+      hopper::mbar_wait(vbar(c), 0);
+      k6_pv<64>(o, m, inv, q_s, k_s + c * TILE_BYTES, v_s + c * TILE_BYTES, c * 64, S, a.scale);
+    }
+    hopper::mbar_wait(vbar(c_last), 0);
+    switch (tail) {
+      case 16: k6_pv<16>(o, m, inv, q_s, kt_last, vt_last, c_last * 64, S, a.scale); break;
+      case 32: k6_pv<32>(o, m, inv, q_s, kt_last, vt_last, c_last * 64, S, a.scale); break;
+      case 48: k6_pv<48>(o, m, inv, q_s, kt_last, vt_last, c_last * 64, S, a.scale); break;
+      default: k6_pv<64>(o, m, inv, q_s, kt_last, vt_last, c_last * 64, S, a.scale); break;
+    }
+
+    // every warp is done reading its q tile: the output tile takes its place
+    hopper::named_sync(1 + wg, 128);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        hopper::st_shared_u32(q_s + hopper::swz(warp * 16 + g + 8 * r, j) + tig * 4,
+                              pack_bf16(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]));
+    hopper::fence_proxy_async();
+    hopper::named_sync(1 + wg, 128);
+    if (lt == 0) {
+      const int ps = po & 3, ph = (po >> 2) & 3, row = t * 64;
+      hopper::tma_store_4d(&omap, q_s, 0, ps == 1 ? row : ph == 1 ? h : b,
+                           ps == 2 ? row : ph == 2 ? h : b, ps == 3 ? row : ph == 3 ? h : b);
+      hopper::bulk_commit();
+      hopper::bulk_wait_read<0>();
+      if (t + K1_WG < n_kt) {
+        hopper::mbar_expect_tx(q_bar, TILE_BYTES);
+        tma_bhsd(q_s, &qmap, q_bar, pq, (t + K1_WG) * 64, h, b);
+      }
+    }
+  }
+  if (lt == 0) hopper::bulk_wait<0>();
 }
 
 // ---- f32 (tests): scalar FMAs, exact row max first --------------------------
@@ -639,25 +602,68 @@ int launch_k1_bf16(const Args& a, int B) {
   return (int)cudaGetLastError();
 }
 
-// K1 (short = false) or K6 (short = true), bf16 or f32; K6 and the f32
-// paths on grid (q tiles, H, B)
+// A rank-4 map of one [B, H, S, D] operand (D = 64, unit stride) with
+// boxes of 64 values x ``box_rows`` rows of one head and batch item. Map
+// dims 1..3 hold S, H and B in the order of their strides (strides of dims
+// of size 1 do not matter: they are set to 64); ``perm`` receives where
+// each went (two bits each: S, H, B).
+int encode_bhsd(CUtensorMap* map, const void* base, int S, int H, int B, long long rs,
+                long long hs, long long bs, int box_rows, int* perm) {
+  const long long dm[3] = {S, H, B};
+  long long st[3] = {rs, hs, bs};
+  const int bx[3] = {box_rows, 1, 1};
+  for (int i = 0; i < 3; ++i)
+    if (dm[i] == 1) st[i] = D;
+  int o[3] = {0, 1, 2};  // dims by stride
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && st[o[j]] < st[o[j - 1]]; --j) {
+      const int t = o[j];
+      o[j] = o[j - 1];
+      o[j - 1] = t;
+    }
+  const long long dims[4] = {D, dm[o[0]], dm[o[1]], dm[o[2]]};
+  const long long strides[3] = {st[o[0]], st[o[1]], st[o[2]]};
+  const int box[4] = {D, bx[o[0]], bx[o[1]], bx[o[2]]};
+  *perm = 0;
+  for (int i = 0; i < 3; ++i) *perm |= (i + 1) << (2 * o[i]);
+  return hopper::encode_4d_bf16(map, base, dims, strides, box);
+}
+
+// K6 bf16: the maps of q, k and v (k and v twice: 64-row boxes and the
+// tail's box) and of the contiguous output, then one block per (head,
+// batch item)
+int launch_k6_bf16(const Args& a, int B) {
+  const int tail = tail_keys(a.S);
+  CUtensorMap qm, km, vm, kt, vt, om;
+  int pq = 0, pk = 0, pv = 0, po = 0, unused = 0;
+  int err = encode_bhsd(&qm, a.q, a.S, a.H, B, a.q_rs, a.q_hs, a.q_bs, 64, &pq);
+  if (!err) err = encode_bhsd(&km, a.k, a.S, a.H, B, a.k_rs, a.k_hs, a.k_bs, 64, &pk);
+  if (!err) err = encode_bhsd(&vm, a.v, a.S, a.H, B, a.v_rs, a.v_hs, a.v_bs, 64, &pv);
+  if (!err) err = encode_bhsd(&kt, a.k, a.S, a.H, B, a.k_rs, a.k_hs, a.k_bs, tail, &unused);
+  if (!err) err = encode_bhsd(&vt, a.v, a.S, a.H, B, a.v_rs, a.v_hs, a.v_bs, tail, &unused);
+  if (!err) err = encode_bhsd(&om, a.out, a.S, a.H, B, a.o_rs, a.o_hs, a.o_bs, 64, &po);
+  if (err) return err;
+  const size_t smem = k6_smem(a.S);
+  const cudaError_t e = cudaFuncSetAttribute(
+      short_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  short_bf16_kernel<<<dim3(a.H, B), K6_THREADS, smem, static_cast<cudaStream_t>(a.stream)>>>(
+      qm, km, vm, kt, vt, om, pq | pk << 6 | pv << 12 | po << 18, a);
+  return (int)cudaGetLastError();
+}
+
+// K1 (short = false) or K6 (short = true), bf16 or f32; the f32 paths on
+// grid (q tiles, H, B)
 int launch(bool bf16, bool short_attn, const Args& a, int B) {
   if (B < 1 || a.H < 1 || a.S < 1 || a.S > MAX_S) return (int)cudaErrorInvalidValue;
-  if (bf16 && !short_attn) return launch_k1_bf16(a, B);
+  if (bf16) return short_attn ? launch_k6_bf16(a, B) : launch_k1_bf16(a, B);
   const dim3 grid((a.S + BQ - 1) / BQ, a.H, B);
-  cudaStream_t st = static_cast<cudaStream_t>(a.stream);
-  if (bf16) {
-    // static shared memory, 46 KB
-    short_bf16_kernel<<<grid, THREADS, 0, st>>>(a);
-  } else {
-    // logits of 64 rows + Q and K/V tiles + row sums: above 48 KB, so opt in
-    const size_t smem =
-        ((size_t)BQ * logits_ld(a.S) + (size_t)(BQ + BK) * LDF + BQ) * sizeof(float);
-    const cudaError_t err = cudaFuncSetAttribute(
-        attn_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    attn_f32_kernel<<<grid, THREADS, smem, st>>>(a);
-  }
+  // logits of 64 rows + Q and K/V tiles + row sums: above 48 KB, so opt in
+  const size_t smem = ((size_t)BQ * logits_ld(a.S) + (size_t)(BQ + BK) * LDF + BQ) * sizeof(float);
+  const cudaError_t err =
+      cudaFuncSetAttribute(attn_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attn_f32_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(a.stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -8,44 +8,62 @@
 //   xn     = LN(x), f32 row mean and variance, rounded to W's (= x's) dtype
 //   q|k|v  = xn . W_h^T + b_h       f32 accumulation, f32 bias, one rounding
 //   s      = (q . k^T) * log2(e)/sqrt(Dh)       f32
-//   p      = exp2(s - rowmax), l = rowsum(p)    f32
+//   p      = exp2(s - rowmax), l = rowsum(p)    f32, the exact row max
 //   out    = (cast(p, v.dtype) . v) / l          f32 accumulation, divided after
 //
 // written as [B, S, H*Dh], before the output projection. Like the TPU
 // kernel it keeps the normed activations and the [S, 3*H*Dh] qkv buffer out
-// of device memory.
+// of device memory. (Head dims below 64 arrive zero-padded to 64 by the
+// caller, with the scale of their own Dh.)
 //
 // The TPU design does not carry over: it holds the whole 14 MB bf16 qkv
 // weight in VMEM and projects all heads at once; an SM has 227 KB. Here a
-// block owns one head and projects only that head's 192 weight rows, which
-// stream from L2 in 64-deep chunks. The keys and values of the head stay in
-// shared memory for the attention. At S = 1024 they are 256 KB, more than a
-// block can hold, so each (batch item, head) is a cluster of two blocks on
-// neighbouring SMs (distributed shared memory): block r projects k and v of
-// its half of the rows (S padded to a multiple of 128, so a half is whole
-// 64-row chunks; 147 KB at S = 1024, 55 KB at S = 329) and keeps them, then
-// both blocks wait at the cluster barrier, and each runs the attention of
-// its own half of the query rows over all the keys, reading the partner's
-// key and value chunks through the cluster's shared-memory window into a
-// local staging tile. The projection is done once; recomputing the keys
-// per query block instead would have cost S/64 times the projection.
-//
-// Per 64-row block of rows, 4 warps of 16 rows each: the x rows and the
-// weight rows land in shared memory by cp.async (two buffers), each x tile
-// is layer-normed in place with row statistics computed once per row by a
-// first small kernel of the same call (row_stats_kernel, 8 bytes per row in
-// device memory), and the products run on the tensor cores (mma.sync
-// m16n8k16, bf16 in, f32 accumulate). The query rows' C fragments, biased
-// and rounded, are the A fragments of q . k^T, so q never leaves registers.
-// The row max is exact, as on the TPU: one pass of q . k^T takes the max,
-// a second recomputes the logits and forms p, l and p . v.
+// block owns one head and projects only that head's 192 weight rows.
 //
 // What bounds it on the H100. At ViT-g (B = 64, S = 329, D = 1536, 24 heads)
 // a call is 298.1 GFLOP of projection and 42.6 of attention against 0.14 GB
-// (x read once, the output written once): the floor is the tensor-core time,
-// 0.34 ms. Each block re-reads its head's weight rows (590 KB) and its x
-// rows from L2. wgmma, TMA multicast of the weight across the heads of a
-// cluster, and a wider block are left for later.
+// of device memory (x read once, the output written once): the floor is the
+// tensor-core time, 0.34 ms. What a block can do is bounded by the operand
+// bytes it pulls from L2 per product: each block reads its batch item's x
+// rows and its head's weight rows from L2, 2.9 MB for 226 MFLOP at S = 329
+// (77 FLOP a byte), 4.5 GB a call.
+//
+// The bf16 design (block_bf16_kernel), warp-specialised as K2's:
+//   * a cluster of CL blocks per (head, batch item), CL = ceil(S / 384):
+//     block r owns key tiles [r*tpb, r*tpb + tpb) of 64 rows (tpb <= 6), and
+//     keeps q, k and v of its rows in shared memory in the 128-byte swizzled
+//     layout (144 KB at 384 rows), so the projection is done once;
+//   * phase 1, the projection: a producer warp streams stages of the x rows
+//     of a pair of tiles (a 128 x 64 box) and the head's q, k and v weight
+//     rows (three 64 x 64 boxes) by TMA into a ring of two, with full and
+//     empty mbarriers; rows past S and columns past D arrive as zeros. Two
+//     consumer warpgroups (setmaxnreg: 240 registers) take 64 rows each:
+//     each loads its x rows from the stage into the A fragment layout
+//     (ldmatrix), applies (x - mean) * rstd * gamma + beta in registers from
+//     the row statistics of a first small kernel (row_stats_kernel, 8 bytes
+//     a row), rounds to bf16 and runs wgmma m64n192k16 with A from those
+//     registers and B the weight stage; the epilogue adds the f32 bias,
+//     rounds once and writes q, k and v of the tile into shared memory;
+//   * phase 2, the attention, after a cluster barrier: the consumers take
+//     the block's q tiles in turn, each as K1 does on wgmma (s = q . k^T
+//     with both operands in shared memory, p . v with p from registers),
+//     in two passes over all S keys: the exact row max first, then p, l and
+//     p . v. A key tile another block of the cluster holds is copied from
+//     its shared memory (distributed shared memory) into a staging buffer
+//     in the ring's space, two buffers a warpgroup. The last key tile is cut
+//     to the live keys rounded up to 16; its keys past S, which LayerNorm
+//     made from zero rows into beta . W + b rather than 0, are masked.
+//
+// At S = 329 that is one block per (head, batch item), 1536 blocks at 64
+// tiles on 132 SMs, one block an SM (230 KB), so an SM runs a block's
+// projection and its attention in turn; at S = 1024 clusters of three, 288
+// blocks at 4 tiles: 2.2 waves, the last 18 % full, and each q tile reads
+// about 10 of its 16 key tiles (twice for K, once for V) from a
+// neighbour. (scripts/profile_k8_parts_torch.py times the projection alone
+// and the normalisation's share.) Multicasting each weight stage to a cluster of two batch items
+// (30 % fewer L2 bytes a stage) was measured slower on the H100, the
+// coupled blocks waiting on each other's consumers, and is not built;
+// multicasting the x stages across the heads of a batch item is untried.
 //
 // Two paths:
 //   bf16  the main path, as above;
@@ -57,35 +75,45 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC; bound with ctypes (plain C interface below).
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
+
 constexpr int DH = 64;            // head dim
-constexpr int BR = 64;            // rows per block step: 4 warps of 16
-constexpr int BKD = 64;           // depth of one projection stage
-constexpr int THREADS = 128;
-constexpr int LDT = 72;           // bf16 tile row stride: conflict-free ldmatrix rows
+constexpr int BR = 64;            // rows of a tile
 constexpr int MAX_S = 1024;
-constexpr int TILE = BR * LDT;    // elements of one 64-row tile
+constexpr int TILE = BR * DH * 2;               // a 64-row tile of 64 bf16 values: 8 KB
+constexpr int MAX_TPB = 6;                      // key tiles a block holds: 384 rows
+constexpr int X_BYTES = 2 * TILE;               // a stage's x box: 128 rows x 64 deep
+constexpr int W_BYTES = 3 * TILE;               // the head's q, k and v weight rows x 64 deep
+constexpr int STAGE_BYTES = X_BYTES + W_BYTES;  // 40 KB
+constexpr int STAGES = 2;
+constexpr int THREADS = 384;                    // producer warpgroup + two consumer warpgroups
+constexpr int CONSUMERS = 256;
+// registers: the producer keeps 24, the consumers take 240
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+static_assert(128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <= 65536, "register file");
+constexpr int STAGING_BYTES = 4 * TILE;         // per consumer: two buffers of a K and a V tile
+static_assert(2 * STAGING_BYTES <= STAGES * STAGE_BYTES, "remote key tiles stage in the ring");
 
 struct Args {
   const void* x;        // [B, S, D], batch stride x_bs, row stride x_rs, unit column stride
   long long x_bs, x_rs;
-  const float* ln_w;    // [D] f32
-  const float* ln_b;    // [D] f32
+  const float* ln_w;    // [D rounded up to 64] f32, zeros past D
+  const float* ln_b;    // [D rounded up to 64] f32, zeros past D
   const void* w;        // [3*H*DH, D] contiguous, x's dtype
   const void* b;        // [3*H*DH], x's dtype
   float* stats;         // [2, B*S] f32 scratch: row means, then rstds
   void* out;            // [B, S, H*DH] contiguous
   int B, S, D, H;
   float eps;
-  float scale;          // log2(e) / sqrt(DH)
+  float scale;          // log2(e) / sqrt(Dh)
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -131,303 +159,309 @@ __global__ void __launch_bounds__(256) row_stats_kernel(Args a) {
   }
 }
 
-// ---- bf16: mma.sync, a cluster of two blocks per (head, batch item) -------------
+// ---- bf16: warp-specialised, TMA-fed wgmma, clusters of CL blocks ---------------
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(pred ? 16 : 0));
+// the 1024-byte alignment, q, k and v of the block's tpb tiles, the ring,
+// the mbarriers: 230,432 bytes at tpb = 6
+inline size_t smem_bf16(int tpb) {
+  return 1024 + 3 * (size_t)tpb * TILE + (size_t)STAGES * STAGE_BYTES + 8 * 2 * STAGES;
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// two bf16 values of x (a register of the A fragment) layer-normed in f32,
+// (x - mean) * rstd * gamma + beta with nm = -mean * rstd, rounded to bf16
+__device__ __forceinline__ unsigned ln_pair(unsigned raw, float rs, float nm, float2 gm,
+                                            float2 bt) {
+  const float lo = __uint_as_float(raw << 16), hi = __uint_as_float(raw & 0xffff0000u);
+  return pack_bf16(fmaf(fmaf(lo, rs, nm), gm.x, bt.x), fmaf(fmaf(hi, rs, nm), gm.y, bt.y));
+}
+
+// pass 1 over one tile of N keys (key0 the first): the row max of the
+// scaled logits of the live keys
 template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-// c += a . b for one 16x8 f32 tile, a 16x16 (row) and b 16x8 (col) bf16
-__device__ __forceinline__ void mma16816(float* c, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
+__device__ __forceinline__ void k8_max(float (&m)[2], unsigned q_s, unsigned k_s, int key0, int S,
+                                       float scale) {
+  float s[N / 2];
+  qk_tile<N>(s, q_s, k_s);
+  const int tig = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (key0 + j * 8 + tig * 2 + (e & 1) < S) m[e >> 1] = fmaxf(m[e >> 1], s[4 * j + e] * scale);
 }
 
-// Shared memory of the bf16 kernel: the head's k and v for this block's SH
-// rows, two x tiles and two weight tiles of 128 rows (the attention reuses
-// the x tiles to stage the partner's key and value chunks), and the row
-// statistics of this block's rows.
-__host__ __device__ inline size_t smem_bf16(int sh) {
-  return (size_t)2 * sh * LDT * 2 + (size_t)2 * (BR + 2 * BR) * LDT * 2 + (size_t)2 * sh * 4;
-}
-
-// acc[NT][4] = LN(x rows R0 .. R0 + 63) . W^T over the whole depth D, for NT*8
-// weight rows: rows j < 64 are W's rows w0 + j, rows j >= 64 are w1 + j - 64.
-// Warp w computes rows w*16 .. +15; its C fragments (tile t = columns t*8 ..
-// t*8 + 7; rows g and g + 8, columns tig*2 and +1).
-template <int NT>
-__device__ __forceinline__ void project(float (&acc)[NT][4], const Args& a, const __nv_bfloat16* xb,
-                                        int R0, int lr0, long long w0, long long w1,
-                                        __nv_bfloat16* sX, __nv_bfloat16* sW,
-                                        const float* mean_s, const float* rstd_s) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
-  const int n_k = a.D / BKD;
-  auto stage = [&](int kt, int buf) {
-    const int k0 = kt * BKD;
-    for (int i = tid; i < BR * 8; i += THREADS) {
-      const int r = i / 8, c = (i % 8) * 8;
-      const bool ok = R0 + r < a.S;
-      cp_async16(sX + buf * TILE + r * LDT + c, xb + (ok ? (long long)(R0 + r) * a.x_rs : 0) + k0 + c,
-                 ok);
-    }
-    for (int i = tid; i < NT * 8 * 8; i += THREADS) {
-      const int r = i / 8, c = (i % 8) * 8;
-      const long long row = r < 64 ? w0 + r : w1 + r - 64;
-      cp_async16(sW + buf * 2 * TILE + r * LDT + c, w + row * a.D + k0 + c, true);
-    }
-  };
+// pass 2 over the same tile: s again, p = exp2(s - m) and its f32 row sum
+// l, o += bf16(p) . v
+template <int N>
+__device__ __forceinline__ void k8_pv(float (&o)[32], float (&l)[2], const float (&m)[2],
+                                      unsigned q_s, unsigned k_s, unsigned v_s, int key0, int S,
+                                      float scale) {
+  float s[N / 2];
+  qk_tile<N>(s, q_s, k_s);
+  const int tig = threadIdx.x & 3;
 #pragma unroll
-  for (int t = 0; t < NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-  stage(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < n_k; ++kt) {
-    if (kt + 1 < n_k) {
-      stage(kt + 1, (kt + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    // layer-norm the landed x tile in place, rounded to bf16 (_ln_rows)
-    __nv_bfloat16* xs = sX + (kt & 1) * TILE;
-    const int k0 = kt * BKD;
-    for (int i = tid; i < BR * 8; i += THREADS) {
-      const int r = i / 8, c = (i % 8) * 8;
-      uint4* p = reinterpret_cast<uint4*>(xs + r * LDT + c);
-      uint4 raw = *p;
-      __nv_bfloat16* v = reinterpret_cast<__nv_bfloat16*>(&raw);
-      const float mu = mean_s[lr0 + r], rs = rstd_s[lr0 + r];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float y = (__bfloat162float(v[e]) - mu) * rs;
-        v[e] = __float2bfloat16(y * __ldg(a.ln_w + k0 + c + e) + __ldg(a.ln_b + k0 + c + e));
-      }
-      *p = raw;
-    }
-    __syncthreads();
-    const __nv_bfloat16* ws = sW + (kt & 1) * 2 * TILE;
-#pragma unroll
-    for (int kk = 0; kk < BKD / 16; ++kk) {
-      unsigned af[4];
-      ldmatrix_x4(af, xs + (warp * 16 + (lane & 15)) * LDT + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        unsigned bf[4];  // weight rows np*16 + 0..7 and + 8..15, depth kk*16 + 0..15
-        ldmatrix_x4(bf, ws + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDT + kk * 16 +
-                            ((lane >> 3) & 1) * 8);
-        mma16816(acc[2 * np], af, bf);
-        mma16816(acc[2 * np + 1], af, bf + 2);
-      }
-    }
-    __syncthreads();  // every warp is done with these buffers before they are refilled
-  }
-}
-
-// s = q . k^T over one chunk of 64 keys (ks, a padded shared tile), in log2
-// units; keys >= S get -inf
-__device__ __forceinline__ void qk_chunk(float (&s)[8][4], const unsigned (&qf)[4][4],
-                                         const __nv_bfloat16* ks, int key0, int S, float scale) {
-  const int lane = threadIdx.x % 32, tig = lane & 3;
-#pragma unroll
-  for (int t = 0; t < 8; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      unsigned kb[4];
-      ldmatrix_x4(kb, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDT + kk * 16 +
-                          ((lane >> 3) & 1) * 8);
-      mma16816(s[2 * np], qf[kk], kb);
-      mma16816(s[2 * np + 1], qf[kk], kb + 2);
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < 8; ++t)
+  for (int j = 0; j < N / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int key = key0 + t * 8 + tig * 2 + (e & 1);
-      s[t][e] = key < S ? s[t][e] * scale : -INFINITY;
+      const int key = key0 + j * 8 + tig * 2 + (e & 1);
+      s[4 * j + e] = key < S ? exp2f(s[4 * j + e] * scale - m[e >> 1]) : 0.f;
+      l[e >> 1] += s[4 * j + e];
     }
+  unsigned pa[N / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+  pv_tile<N>(o, pa, v_s);
 }
 
-// grid (2*H, B), clusters of two blocks along x: block rank r of the cluster
-// for head blockIdx.x / 2 of batch item blockIdx.y owns rows [r*SH, r*SH + SH)
-// with SH = (S rounded up to 128) / 2.
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS)
-    block_bf16_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int h = blockIdx.x / 2, bi = blockIdx.y;
-  const int S = a.S, SH = (S + 2 * BR - 1) / (2 * BR) * BR, r0 = rank * SH;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, tig = lane & 3;
+// 8 KB (a tile) from block ``owner`` of the cluster, at the same offset as
+// ``src`` here, into this block's shared memory at ``dst``; the warpgroup's
+// 128 threads, 16 bytes a load
+__device__ __forceinline__ void copy_from(unsigned dst, unsigned src, unsigned owner) {
+  const unsigned from = map_rank(src, owner), lt = threadIdx.x % 128;
+  uint4 v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = ld_cluster_v4(from + (lt + 128 * i) * 16);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) st_shared_v4(dst + (lt + 128 * i) * 16, v[i]);
+}
+
+// grid (CL*H, B), clusters of CL blocks along x: block rank r of the cluster
+// for head blockIdx.x / CL of batch item blockIdx.y owns the rows of key
+// tiles [r*tpb, r*tpb + tpb).
+template <int CL>
+__global__ void __launch_bounds__(THREADS, 1)
+    block_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap, Args a, int tpb) {
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const int rank = CL > 1 ? (int)cluster_rank() : 0;
+  const int h = blockIdx.x / CL, bi = blockIdx.y, S = a.S;
+  const int n_kt = (S + BR - 1) / BR, t0 = rank * tpb;
+  const int live = min(tpb, n_kt - t0);  // this block's tiles with rows < S
+  const int n_pairs = (live + 1) / 2, n_k = (a.D + 63) / 64;
   const long long HD = (long long)a.H * DH;
+  const unsigned q_s = base, k_s = q_s + tpb * TILE, v_s = k_s + tpb * TILE;
+  const unsigned ring = v_s + tpb * TILE, bars = ring + STAGES * STAGE_BYTES;
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (STAGES + st); };
+  const int tid = threadIdx.x, wg = warpgroup();
 
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + SH * LDT;
-  __nv_bfloat16* sX = sV + SH * LDT;        // 2 tiles
-  __nv_bfloat16* sW = sX + 2 * TILE;        // 2 x 2 tiles
-  float* mean_s = reinterpret_cast<float*>(sW + 4 * TILE);
-  float* rstd_s = mean_s + SH;
-
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(a.x) + bi * a.x_bs;
-  const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(a.b);
-  const int n = a.B * S;
-  for (int r = tid; r < SH; r += THREADS) {
-    const bool ok = r0 + r < S;
-    mean_s[r] = ok ? a.stats[bi * S + r0 + r] : 0.f;
-    rstd_s[r] = ok ? a.stats[n + bi * S + r0 + r] : 0.f;
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), CONSUMERS);
+    }
+    mbar_fence_init();
   }
   __syncthreads();
 
-  // 1. k and v of this block's rows into shared memory, biased, rounded once
-  for (int lr = 0; lr < SH; lr += BR) {
-    if (r0 + lr >= S) {  // a block of padding rows: zeros
-      for (int i = tid; i < BR * DH / 2; i += THREADS) {
-        const int r = i / (DH / 2), c = (i % (DH / 2)) * 2;
-        *reinterpret_cast<unsigned*>(sK + (lr + r) * LDT + c) = 0u;
-        *reinterpret_cast<unsigned*>(sV + (lr + r) * LDT + c) = 0u;
+  // the barrier between the projection and the attention (all threads of
+  // the cluster), and the one after the attention: the cluster is done
+  // reading this block's k and v
+  auto phase_sync = [] {
+    if constexpr (CL > 1)
+      cluster_sync();
+    else
+      __syncthreads();
+  };
+
+  // 1. q, k and v of the block's rows into shared memory
+  if (wg == 0) {  // the producer: one thread issues every copy
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 0) {
+      int it = 0;
+      for (int p = 0; p < n_pairs; ++p) {
+        const int row0 = (t0 + 2 * p) * BR;
+        for (int kt = 0; kt < n_k; ++kt, ++it) {
+          const int st = it % STAGES;
+          mbar_wait(empty(st), ((it / STAGES) & 1) ^ 1);  // the first round passes
+          const unsigned sb = ring + st * STAGE_BYTES;
+          mbar_expect_tx(full(st), STAGE_BYTES);
+          tma_load_3d(sb, &xmap, full(st), kt * 64, row0, bi);
+          for (int sec = 0; sec < 3; ++sec)
+            tma_load_3d(sb + X_BYTES + sec * TILE, &wmap, full(st), kt * 64, sec * HD + h * DH, 0);
+        }
       }
-      continue;
     }
-    float acc[16][4];
-    project<16>(acc, a, xb, r0 + lr, lr, HD + h * DH, 2 * HD + h * DH, sX, sW, mean_s, rstd_s);
-#pragma unroll
-    for (int t = 0; t < 16; ++t) {
-      const int col = (t % 8) * 8 + tig * 2;
-      const long long bcol = (t < 8 ? HD : 2 * HD) + h * DH + col;
-      const float b0 = __bfloat162float(bias[bcol]), b1 = __bfloat162float(bias[bcol + 1]);
-      __nv_bfloat16* dst = t < 8 ? sK : sV;
+    __syncwarp();
+    phase_sync();
+    if constexpr (CL > 1) cluster_sync();
+    return;
+  }
+
+  {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1, lt = tid % 128, warp = lt / 32, lane = tid % 32;
+    const int g = lane >> 2, tig = lane & 3;
+    const float2* gamma = reinterpret_cast<const float2*>(a.ln_w);
+    const float2* beta = reinterpret_cast<const float2*>(a.ln_b);
+    const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(a.b);
+    const int n = a.B * S;
+    float acc[96];
+    int it = 0;
+    for (int p = 0; p < n_pairs; ++p) {
+      const int tl = 2 * p + c;  // this consumer's tile of the pair
+      const bool mine = tl < live;
+      float rs[2], nm[2];  // rows warp*16 + g and + 8: rstd and -mean * rstd
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int row = lr + warp * 16 + g + 8 * r;
-        *reinterpret_cast<unsigned*>(dst + row * LDT + col) =
-            r0 + row < S ? pack_bf16(acc[t][2 * r] + b0, acc[t][2 * r + 1] + b1) : 0u;
+        const int row = (t0 + tl) * BR + warp * 16 + g + 8 * r;
+        const bool ok = mine && row < S;
+        const float mean = ok ? a.stats[bi * S + row] : 0.f;
+        rs[r] = ok ? a.stats[n + bi * S + row] : 0.f;
+        nm[r] = -mean * rs[r];
+      }
+      for (int kt = 0; kt < n_k; ++kt, ++it) {
+        const int st = it % STAGES;
+        mbar_wait(full(st), (it / STAGES) & 1);
+        if (mine) {
+          const unsigned sb = ring + st * STAGE_BYTES, xs = sb + c * TILE;
+          unsigned af[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            unsigned raw[4];
+            ldmatrix_x4(raw, xs + swz(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
+            const int col2 = (kt * 64 + kk * 16 + tig * 2) / 2;
+            const float2 g0 = __ldg(gamma + col2), b0 = __ldg(beta + col2);
+            const float2 g1 = __ldg(gamma + col2 + 4), b1 = __ldg(beta + col2 + 4);
+            af[kk][0] = ln_pair(raw[0], rs[0], nm[0], g0, b0);
+            af[kk][1] = ln_pair(raw[1], rs[1], nm[1], g0, b0);
+            af[kk][2] = ln_pair(raw[2], rs[0], nm[0], g1, b1);
+            af[kk][3] = ln_pair(raw[3], rs[1], nm[1], g1, b1);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs_n192<0>(acc, af[kk], smem_desc(sb + X_BYTES + kk * 32), kt > 0 || kk > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(acc);
+        }
+        mbar_arrive(empty(st));
+      }
+      if (mine) {
+        // f32 bias, one rounding, into the tile's q, k and v: thread (warp,
+        // g, tig) holds rows warp*16 + g (+8) and, for each 8-column chunk
+        // j of q | k | v, columns 8j + 2 tig (+1)
+#pragma unroll
+        for (int j = 0; j < 24; ++j) {
+          const int sec = j / 8, col = (j % 8) * 8 + tig * 2;
+          const long long bcol = sec * HD + h * DH + col;
+          const float b0 = __bfloat162float(bias[bcol]), b1 = __bfloat162float(bias[bcol + 1]);
+          const unsigned dst = (sec == 0 ? q_s : sec == 1 ? k_s : v_s) + tl * TILE;
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            st_shared_u32(dst + swz(warp * 16 + g + 8 * r, j % 8) + tig * 4,
+                          pack_bf16(acc[4 * j + 2 * r] + b0, acc[4 * j + 2 * r + 1] + b1));
+        }
       }
     }
+    fence_proxy_async();
   }
-  cluster.sync();  // both halves of k and v are in place
+  phase_sync();  // every block's q, k and v are in place
 
-  // 2. the attention of this block's query rows over all keys
-  const __nv_bfloat16* pK = cluster.map_shared_rank(sK, rank ^ 1);
-  const __nv_bfloat16* pV = cluster.map_shared_rank(sV, rank ^ 1);
-  const int n_kv = (S + BR - 1) / BR, per = SH / BR;
-  // chunk c of the keys: in place if this block holds it, else copied from
-  // the partner into the staging tile dst
-  auto chunk = [&](const __nv_bfloat16* mine, const __nv_bfloat16* theirs, int c,
-                   __nv_bfloat16* dst) -> const __nv_bfloat16* {
-    if (c / per == rank) return mine + (c % per) * TILE;
-    const __nv_bfloat16* src = theirs + (c % per) * TILE;
-    for (int i = tid; i < BR * DH / 8; i += THREADS) {
-      const int r = i / (DH / 8), col = (i % (DH / 8)) * 8;
-      *reinterpret_cast<uint4*>(dst + r * LDT + col) =
-          *reinterpret_cast<const uint4*>(src + r * LDT + col);
-    }
-    return dst;
-  };
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.out) + (long long)bi * S * HD + h * DH;
-  for (int lr = 0; lr < SH && r0 + lr < S; lr += BR) {
-    float qa[8][4];
-    project<8>(qa, a, xb, r0 + lr, lr, h * DH, 0, sX, sW, mean_s, rstd_s);
-    unsigned qf[4][4];  // q rounded once, as the A fragments of q . k^T
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int col = t * 8 + tig * 2;
-      const float b0 = __bfloat162float(bias[h * DH + col]);
-      const float b1 = __bfloat162float(bias[h * DH + col + 1]);
-      qf[t / 2][(t & 1) * 2] = pack_bf16(qa[t][0] + b0, qa[t][1] + b1);
-      qf[t / 2][(t & 1) * 2 + 1] = pack_bf16(qa[t][2] + b0, qa[t][3] + b1);
-    }
-    float m[2] = {-INFINITY, -INFINITY};
-    for (int c = 0; c < n_kv; ++c) {  // pass 1: the exact row max
-      const __nv_bfloat16* ks = chunk(sK, pK, c, sX);
-      __syncthreads();
-      float s[8][4];
-      qk_chunk(s, qf, ks, c * BR, S, a.scale);
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], s[t][e]);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
-      m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
-    }
-    float o[8][4], l[2] = {0.f, 0.f};
-#pragma unroll
-    for (int t = 0; t < 8; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
-    for (int c = 0; c < n_kv; ++c) {  // pass 2: p, its f32 sum and bf16(p) . v
-      const __nv_bfloat16* ks = chunk(sK, pK, c, sX);
-      const __nv_bfloat16* vs = chunk(sV, pV, c, sX + TILE);
-      __syncthreads();
-      float s[8][4];
-      qk_chunk(s, qf, ks, c * BR, S, a.scale);
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[t][e] = exp2f(s[t][e] - m[e >> 1]);
-          l[e >> 1] += s[t][e];
-        }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int dp = 0; dp < DH / 16; ++dp) {
-          unsigned vb[4];
-          ldmatrix_x4_trans(vb, vs + (kk * 16 + (lane & 15)) * LDT + dp * 16 + (lane >> 4) * 8);
-          mma16816(o[2 * dp], pa, vb);
-          mma16816(o[2 * dp + 1], pa, vb + 2);
-        }
+  // 2. the attention of the block's q tiles over all keys
+  {
+    const int c = wg - 1, lt = tid % 128, warp = lt / 32, lane = tid % 32;
+    const int g = lane >> 2, tig = lane & 3;
+    const int c_last = n_kt - 1, tail = (S - BR * c_last + 15) / 16 * 16;
+    const unsigned stg = ring + c * STAGING_BYTES;
+    int staged = 0;
+    // key tile t (with its V tile when with_v): in place, or copied from the
+    // block of the cluster that holds it into one of two staging buffers
+    auto key_tile = [&](int t, bool with_v, unsigned& ks, unsigned& vs) {
+      const int owner = t / tpb, local = t % tpb;
+      ks = k_s + local * TILE;
+      vs = v_s + local * TILE;
+      if (CL == 1 || owner == rank) return;
+      const unsigned buf = stg + (staged++ & 1) * 2 * TILE;
+      copy_from(buf, ks, owner);
+      if (with_v) copy_from(buf + TILE, vs, owner);
+      fence_proxy_async();
+      named_sync(1 + c, 128);
+      ks = buf;
+      vs = buf + TILE;
+    };
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.out) + (long long)bi * S * HD + h * DH;
+    for (int tl = c; tl < live; tl += 2) {
+      const unsigned qt = q_s + tl * TILE;
+      unsigned ks, vs;
+      float m[2] = {-INFINITY, -INFINITY};
+      for (int t = 0; t < c_last; ++t) {
+        key_tile(t, false, ks, vs);
+        k8_max<64>(m, qt, ks, t * BR, S, a.scale);
       }
-      __syncthreads();
-    }
+      key_tile(c_last, false, ks, vs);
+      switch (tail) {
+        case 16: k8_max<16>(m, qt, ks, c_last * BR, S, a.scale); break;
+        case 32: k8_max<32>(m, qt, ks, c_last * BR, S, a.scale); break;
+        case 48: k8_max<48>(m, qt, ks, c_last * BR, S, a.scale); break;
+        default: k8_max<64>(m, qt, ks, c_last * BR, S, a.scale); break;
+      }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    }
+      for (int r = 0; r < 2; ++r) {
+        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+      }
+      float o[32], l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = r0 + lr + warp * 16 + g + 8 * r;
-      if (row >= S) continue;
+      for (int e = 0; e < 32; ++e) o[e] = 0.f;
+      for (int t = 0; t < c_last; ++t) {
+        key_tile(t, true, ks, vs);
+        k8_pv<64>(o, l, m, qt, ks, vs, t * BR, S, a.scale);
+      }
+      key_tile(c_last, true, ks, vs);
+      switch (tail) {
+        case 16: k8_pv<16>(o, l, m, qt, ks, vs, c_last * BR, S, a.scale); break;
+        case 32: k8_pv<32>(o, l, m, qt, ks, vs, c_last * BR, S, a.scale); break;
+        case 48: k8_pv<48>(o, l, m, qt, ks, vs, c_last * BR, S, a.scale); break;
+        default: k8_pv<64>(o, l, m, qt, ks, vs, c_last * BR, S, a.scale); break;
+      }
 #pragma unroll
-      for (int t = 0; t < 8; ++t)
-        *reinterpret_cast<unsigned*>(og + row * HD + t * 8 + tig * 2) =
-            pack_bf16(o[t][2 * r] / l[r], o[t][2 * r + 1] / l[r]);
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = (t0 + tl) * BR + warp * 16 + g + 8 * r;
+        if (row >= S) continue;
+        const float inv = 1.f / l[r];
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j)
+          *reinterpret_cast<unsigned*>(og + row * HD + j * 8 + tig * 2) =
+              pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      }
     }
   }
-  cluster.sync();  // the partner has read its last chunk of this block's k and v
+  if constexpr (CL > 1) cluster_sync();
+}
+
+// K8 bf16 with clusters of CL blocks: launched with the cluster dimension
+template <int CL>
+int launch_bf16(const Args& a, const CUtensorMap& xm, const CUtensorMap& wm, int tpb,
+                cudaStream_t st) {
+  const size_t smem = smem_bf16(tpb);
+  cudaError_t e = cudaFuncSetAttribute(block_bf16_kernel<CL>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL * a.H, a.B);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, block_bf16_kernel<CL>, xm, wm, a, tpb);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 // ---- f32 (tests): scalar FMAs -------------------------------------------------
@@ -464,7 +498,7 @@ __device__ __forceinline__ void project_f32(float (&acc)[4][4], const Args& a, c
     for (int i = tid; i < 4 * RG * FDK; i += FTHREADS) {
       const int r = i / FDK, c = i % FDK, row = R0 + r, k = k0 + c;
       float v = 0.f;
-      if (row < a.S) {
+      if (row < a.S && k < a.D) {
         const float mu = a.stats[bi * a.S + row], rs = a.stats[n + bi * a.S + row];
         v = (xb[(long long)row * a.x_rs + k] - mu) * rs * a.ln_w[k] + a.ln_b[k];
       }
@@ -473,7 +507,7 @@ __device__ __forceinline__ void project_f32(float (&acc)[4][4], const Args& a, c
     for (int i = tid; i < NC * FDK; i += FTHREADS) {
       const int r = i / FDK, c = i % FDK;
       const long long row = r < 64 ? w0 + r : w1 + r - 64;
-      sWs[r * (FDK + 1) + c] = w[row * a.D + k0 + c];
+      sWs[r * (FDK + 1) + c] = k0 + c < a.D ? w[row * a.D + k0 + c] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -582,7 +616,7 @@ __global__ void __launch_bounds__(FTHREADS) block_f32_kernel(Args a) {
 }
 
 int launch(bool bf16, const Args& a, void* stream) {
-  if (a.B < 1 || a.H < 1 || a.S < 8 || a.S > MAX_S || a.D < BKD || a.D % 128)
+  if (a.B < 1 || a.H < 1 || a.S < 1 || a.S > MAX_S || a.D < 8 || a.D % 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = a.B * a.S;
@@ -593,19 +627,24 @@ int launch(bool bf16, const Args& a, void* stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (bf16) {
-    const int sh = (a.S + 2 * BR - 1) / (2 * BR) * BR;
-    const size_t smem = smem_bf16(sh);
-    err = cudaFuncSetAttribute(block_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    block_bf16_kernel<<<dim3(2 * a.H, a.B), THREADS, smem, st>>>(a);
-  } else {
-    const size_t smem = smem_f32();
-    err = cudaFuncSetAttribute(block_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    block_f32_kernel<<<dim3((a.S + BR - 1) / BR, a.H, a.B), FTHREADS, smem, st>>>(a);
+    // the tiles of S over clusters of CL blocks, at most MAX_TPB a block
+    const int n_kt = (a.S + BR - 1) / BR, cl = (n_kt + MAX_TPB - 1) / MAX_TPB;
+    const int tpb = (n_kt + cl - 1) / cl;
+    CUtensorMap xm, wm;
+    int e = encode_rows_bf16(&xm, a.x, a.D, a.S, a.B, a.x_rs, a.x_bs, 2 * BR);
+    if (!e) e = encode_rows_bf16(&wm, a.w, a.D, 3LL * a.H * DH, 1, a.D, 0, BR);
+    if (e) return e;
+    switch (cl) {
+      case 1: return launch_bf16<1>(a, xm, wm, tpb, st);
+      case 2: return launch_bf16<2>(a, xm, wm, tpb, st);
+      default: return launch_bf16<3>(a, xm, wm, tpb, st);
+    }
   }
+  const size_t smem = smem_f32();
+  err = cudaFuncSetAttribute(block_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  block_f32_kernel<<<dim3((a.S + BR - 1) / BR, a.H, a.B), FTHREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -614,9 +653,10 @@ int launch(bool bf16, const Args& a, void* stream) {
 extern "C" {
 
 // Each returns the cudaError_t of the launch (0 on success). x [B, S, D] with
-// batch stride x_bs and row stride x_rs (unit column stride); ln_w, ln_b f32
-// [D]; w [3*H*64, D] and b [3*H*64] contiguous in x's dtype; stats [2, B*S]
-// f32 scratch; out [B, S, H*64] contiguous. 8 <= S <= 1024, D a multiple of 128.
+// batch stride x_bs and row stride x_rs (unit column stride; bf16: 16-byte
+// aligned base and strides); ln_w, ln_b f32 [D rounded up to 64], zeros past
+// D; w [3*H*64, D] and b [3*H*64] contiguous in x's dtype; stats [2, B*S]
+// f32 scratch; out [B, S, H*64] contiguous. 1 <= S <= 1024, D a multiple of 8.
 int k8_attn_block_bf16(const void* x, long long x_bs, long long x_rs, const float* ln_w,
                        const float* ln_b, const void* w, const void* b, float* stats, void* out,
                        int B, int S, int D, int H, float eps, float scale, void* stream) {

@@ -2,8 +2,8 @@
 // the 128-byte swizzled shared-memory layout and wgmma's matrix
 // descriptors, wgmma issue and synchronisation, mbarriers, TMA loads and
 // stores, named barriers, and on the host the encoding of TMA tensor maps.
-// K1 (attention.cu), K2 and K7 (swiglu.cu), K4 (flash_attention.cu) and K5
-// (flash_attention_bwd.cu) include it.
+// K1 and K6 (attention.cu), K2 and K7 (swiglu.cu), K4 (flash_attention.cu),
+// K5 (flash_attention_bwd.cu) and K8 (attn_block.cu) include it.
 //
 // The tile layout. A tile of rows of 64 bf16 values (128 bytes) lives at a
 // 1024-byte aligned base; 16-byte chunk c of row r sits at r*128 +
@@ -191,6 +191,58 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const unsigned (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
 }
 
+// d[64 x 192] (+)= A[64 x 16] . B[192 x 16]^T with A in registers (as in
+// wgmma_rs_n64) and B in shared memory (TB = 1: MN-major, else K-major);
+// acc = 0 overwrites d
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const unsigned (&a)[4],
+                                             unsigned long long db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
+// s = q . k^T over N keys (16, 32, 48 or 64) for the warpgroup's 64 q rows:
+// q and k are tiles of 64-value rows in shared memory (the 128-byte
+// swizzled layout, K-major), s the accumulator layout (rows g and g + 8 of
+// each warp's 16, columns 8j + 2 tig and + 1); waits for the products
+template <int N>
+__device__ __forceinline__ void qk_tile(float (&s)[N / 2], unsigned q_s, unsigned k_s) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const unsigned long long dq = smem_desc(q_s + kk * 32);
+    const unsigned long long dk = smem_desc(k_s + kk * 32);
+    if constexpr (N == 16) wgmma_ss_n16<0, 0>(s, dq, dk, kk);
+    else if constexpr (N == 32) wgmma_ss_n32<0, 0>(s, dq, dk, kk);
+    else if constexpr (N == 48) wgmma_ss_n48<0, 0>(s, dq, dk, kk);
+    else wgmma_ss_n64<0, 0>(s, dq, dk, kk);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(s);
+}
+
+// o += p . v over N keys: p as bf16 pairs in the A fragment layout (the
+// accumulator layout of s, 16 keys at a time), v a tile of 64-value rows in
+// shared memory (MN-major); waits for the products, and keeps p's registers
+// untouched until they end
+template <int N>
+__device__ __forceinline__ void pv_tile(float (&o)[32], unsigned (&pa)[N / 16][4], unsigned v_s) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) wgmma_rs_n64<1>(o, pa[kk], smem_desc(v_s + kk * 2048), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(o);
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(pa[kk][i])::"memory");
+}
+
 // registers of every thread of the warpgroup, moved between warpgroups
 // (the count a multiple of 8 in 24 .. 256; all four warps execute it)
 template <int N>
@@ -207,6 +259,52 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // the wgmma inside is not serialized
 __device__ __forceinline__ int warpgroup() {
   return __shfl_sync(0xffffffffu, (int)(threadIdx.x / 128), 0);
+}
+
+// ---- shared memory: ldmatrix, stores, the cluster's shared memory ------------
+
+// four 8 x 8 bf16 matrices from shared memory (lane i gives the row address
+// of matrix i / 8): the A fragment of a 16 x 16 tile when lanes 0-15 address
+// its rows at columns 0-7 and lanes 16-31 at columns 8-15
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void st_shared_u32(unsigned addr, unsigned v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_shared_v4(unsigned addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+// this block's rank in its cluster
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// the address of the same shared-memory location in block ``rank`` of the
+// cluster (every block of a kernel has the same layout)
+__device__ __forceinline__ unsigned map_rank(unsigned addr, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ uint4 ld_cluster_v4(unsigned addr) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+// every thread of every block of the cluster; shared-memory writes before
+// it are visible to the cluster after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" :::
+                   "memory");
 }
 
 // ---- mbarriers, TMA, named barriers ---------------------------------------------
@@ -249,6 +347,15 @@ __device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap* map
       "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+// the same for a 4-D tensor map at coordinates (c0, c1, c2, c3)
+__device__ __forceinline__ void tma_load_4d(unsigned dst, const CUtensorMap* map, unsigned bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
 // ``bytes`` (a multiple of 16; both addresses 16-byte aligned) of contiguous
 // memory into shared memory, completing on ``bar``
 __device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes,
@@ -279,6 +386,15 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, unsigned sr
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
           reinterpret_cast<unsigned long long>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// the same for a 4-D tensor map
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, unsigned src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<unsigned long long>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
@@ -351,6 +467,29 @@ inline int encode_rows_bf16(CUtensorMap* map, const void* base, long long cols, 
                             long long batches, long long rs, long long bs, int box_rows) {
   return encode_rows(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, cols, rows, batches, rs, bs,
                      box_rows);
+}
+
+// A 4-D map over bf16 values: dims[0] values with unit stride (64: one
+// 128-byte row), then dims[1..3] with strides[0..2] (in values, multiples
+// of 8); boxes of box[0..3] land in the 128-byte swizzled layout; indices
+// at or past a dim read as zeros and are dropped by a store. Returns a
+// cudaError_t.
+inline int encode_4d_bf16(CUtensorMap* map, const void* base, const long long (&dims)[4],
+                          const long long (&strides)[3], const int (&box)[4]) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  cuuint64_t gd[4], gs[3];
+  cuuint32_t bx[4];
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    gd[i] = (cuuint64_t)dims[i];
+    bx[i] = (cuuint32_t)box[i];
+  }
+  for (int i = 0; i < 3; ++i) gs[i] = (cuuint64_t)strides[i] * 2;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), gd, gs,
+                        bx, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace hopper

@@ -38,15 +38,20 @@ called with grad enabled on tensors that require it outside these
 Functions, and on any shape or dtype they do not take (any dtype but bf16
 and f32), so the entry points raise there on the card.
 
-Head dims. The kernels compute heads of 64. A head dim from 8 to 56 that
-is a multiple of 8 (the JAX kernels take any ``D % 8 == 0``) reaches them
-zero-padded to 64 (``pad_heads``), with the scale ``1/sqrt(D)`` of its own
-D, and the output (the gradients) sliced back (``unpad_heads``). This is
-exact: the zero columns add nothing to ``q . k^T``, the padded columns of
-out, dq, dk and dv come out 0, and the lse and ``rowsum(dO * O)`` do not
-change. It costs a padded copy of each operand. Head dims above 64, or not
-multiples of 8, raise on the card before any launch; on the CPU the plain
-versions take any head dim.
+Head dims. The kernels compute heads of 64. Any head dim from 1 to 63
+(the JAX entry points serve every one: their kernels those that are
+multiples of 8, XLA the rest) reaches them zero-padded to 64
+(``pad_heads``), with the scale ``1/sqrt(D)`` of its own D, and the output
+(the gradients) sliced back (``unpad_heads``). This is exact: the zero
+columns add nothing to ``q . k^T``, the padded columns of out, dq, dk and
+dv come out 0, and the lse and ``rowsum(dO * O)`` do not change. It costs a
+padded copy of each operand. Head dims above 64 raise on the card before
+any launch; on the CPU the plain versions take any head dim.
+
+Strides. K6's bf16 kernel reads q, k and v through TMA, which needs 16-byte
+aligned bases and batch, head and row strides: an operand without them is
+copied contiguous first (``_tma_ready``). K1, K4 and K5 raise on such
+operands at head dim 64 (below it the padded copy is aligned).
 """
 
 from __future__ import annotations
@@ -61,7 +66,7 @@ import torch.nn.functional as F
 from .. import _build
 
 MAX_SEQ = 512   # K1's whole-sequence limit, as the TPU kernel's (_MAX_BLOCK)
-HEAD_DIM = 64   # the kernels' head dim; smaller multiples of 8 are padded to it
+HEAD_DIM = 64   # the kernels' head dim; smaller head dims are padded to it
 
 # Kernel launches since the last reset, counted where each kernel is launched:
 # "attention" is K1, "flash" is K4, "flash_bwd" is K5 (its kernels, one
@@ -407,22 +412,38 @@ def _check_operands(name: str, q, k, v, num_heads: int, *more) -> int:
                          f"{', '.join(str(t.dtype) for t in ts)}")
     hd = q.shape[-1]
     d = hd // num_heads
-    if hd % num_heads or d % 8 or not 8 <= d <= HEAD_DIM:
-        raise ValueError(f"{name} takes a head dim that is a multiple of 8 from 8 to {HEAD_DIM} "
-                         f"(below {HEAD_DIM} zero-padded to it), got {hd}/{num_heads}")
+    if hd % num_heads or not 1 <= d <= HEAD_DIM:
+        raise ValueError(f"{name} takes a head dim from 1 to {HEAD_DIM} (below {HEAD_DIM} "
+                         f"zero-padded to it), got {hd}/{num_heads}")
     if any(t.stride(-1) != 1 for t in ts):
         raise ValueError(f"{name} needs a unit stride on the last dimension")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise ValueError(f"{name} is launched raw with grad enabled; go through "
                          "attention_bshd / flash_attention / dot_product_attention, whose "
                          "autograd Function runs the backward")
-    if q.dtype == torch.bfloat16:
-        # 16-byte vector loads: aligned rows and base pointers
-        for t in ts:
-            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
-                raise ValueError(f"{name} bf16 needs 16-byte aligned rows "
-                                 "(strides multiple of 8, aligned base)")
     return d
+
+
+def _check_aligned(name: str, *ts) -> None:
+    """bf16 operands as the kernels read them (after padding): 16-byte
+    aligned rows and base pointers."""
+    if ts[0].dtype != torch.bfloat16:
+        return
+    for t in ts:
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
+            raise ValueError(f"{name} bf16 needs 16-byte aligned rows "
+                             "(strides multiple of 8, aligned base)")
+
+
+def _tma_ready(t):
+    """A bf16 ``[B, H, S, D]`` operand as K6's tensor maps take it: ``t``
+    itself when its base is 16-byte aligned and every batch, head and row
+    stride (of a dim longer than 1) is a positive multiple of 8 values, else
+    a contiguous copy."""
+    if t.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(
+            n > 1 and (st <= 0 or st % 8) for n, st in zip(t.shape[:-1], t.stride()[:-1]))):
+        return t.contiguous()
+    return t
 
 
 def _attention_cuda(q, k, v, num_heads: int):
@@ -433,6 +454,7 @@ def _attention_cuda(q, k, v, num_heads: int):
         raise ValueError(f"K1 takes 1 <= S <= {MAX_SEQ}, got S={s}")
     d = _check_operands("K1", q, k, v, num_heads)
     q, k, v = (pad_heads(t, num_heads) for t in (q, k, v))
+    _check_aligned("K1", q, k, v)
 
     lib = _library()
     fn = lib.k1_attention_bf16 if q.dtype == torch.bfloat16 else lib.k1_attention_f32
@@ -451,8 +473,9 @@ def _attention_cuda(q, k, v, num_heads: int):
 
 def _short_cuda(q, k, v):
     """Launch K6 on q, k, v ``[B, H, S, D]`` (one shape and dtype, unit
-    stride on D, any batch, head and row strides). Returns ``[B, H, S, D]``
-    contiguous in q's dtype."""
+    stride on D, any batch, head and row strides: in bf16 those TMA cannot
+    take are copied contiguous). Returns ``[B, H, S, D]`` contiguous in q's
+    dtype."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"K6 takes q, k, v [B, H, S, D] of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -462,6 +485,7 @@ def _short_cuda(q, k, v):
     _check_operands("K6", q, k, v, 1)
     if d != HEAD_DIM:  # zero-padded heads
         q, k, v = (F.pad(t, (0, HEAD_DIM - d)) for t in (q, k, v))
+    q, k, v = (_tma_ready(t) for t in (q, k, v))
 
     lib = _library()
     fn = lib.k6_short_attention_bf16 if q.dtype == torch.bfloat16 else lib.k6_short_attention_f32
@@ -490,6 +514,7 @@ def _flash_cuda(q, k, v, num_heads: int, seq_len_k: int | None):
                          f"Sq={sq}, seq_len_k={seq_len_k}, Sk={sk}")
     d = _check_operands("K4", q, k, v, num_heads)
     q, k, v = (pad_heads(t, num_heads) for t in (q, k, v))
+    _check_aligned("K4", q, k, v)
 
     lib = _flash_library()
     fn = lib.k4_flash_bf16 if q.dtype == torch.bfloat16 else lib.k4_flash_f32
@@ -528,6 +553,7 @@ def _flash_bwd_cuda(q, k, v, out, lse, dout, num_heads: int, seq_len_k: int | No
         raise ValueError(f"K5 takes K4's output in q's dtype, got {out.dtype} and {q.dtype}")
     lse = lse.contiguous()
     q, k, v, out, dout = (pad_heads(t, num_heads) for t in (q, k, v, out, dout))
+    _check_aligned("K5", q, k, v, dout)
     hd = num_heads * HEAD_DIM
 
     lib = _flash_bwd_library()

@@ -9,19 +9,27 @@ counterpart of ``mipheivit_tpu/ops/attn_block.py::ln_qkv_attention``: x
 projection. No model calls it; it is the fused alternative to the
 sublayer's ``norm1 -> qkv -> attention_qkv``.
 
-On a CUDA tensor it launches K8 (``csrc/attn_block.cu``), which computes the
-TPU kernel's function: the LN rows rounded to x's dtype, ``q|k|v`` with the
-f32 bias inside the f32 accumulation and one rounding, ``exp2`` of the
-log2-scaled logits, the f32 row sum, ``p`` rounded to v's dtype and the
-division after ``p . v``; the normed activations and the qkv buffer stay out
-of device memory. On the card it takes Dh = 64, D a multiple of 128 and
-8 <= S <= 1024, and raises otherwise. On a CPU tensor it runs
+On CUDA tensors ``route`` picks the kernels, for what the JAX entry point
+answers (through its kernel or its chain): K8 (``csrc/attn_block.cu``) for
+1 <= S <= 1024, with head dims below 64 padded to 64 by zero weight rows and
+zero bias of each head (exact; the scale stays that of the head's own Dh);
+above 1024 tokens K7 -> K4, ``ln_matmul`` then ``attention_qkv``, the
+structure of the JAX chain with every launch a kernel. D must be a multiple
+of 8 (K7's rule, and TMA's 16-byte rows) and Dh at most 64; other shapes
+raise on the card before any launch. K8 computes the TPU kernel's function:
+the LN rows rounded to x's dtype, ``q|k|v`` with the f32 bias inside the f32
+accumulation and one rounding, ``exp2`` of the log2-scaled logits, the exact
+row max, the f32 row sum, ``p`` rounded to v's dtype and the division after
+``p . v``; the normed activations and the qkv buffer stay out of device
+memory. On CPU tensors the same routes run the plain versions:
 ``chain_reference``, the counterpart of ``_chain_reference``, which rounds
-the bias into qkv in x's dtype and normalises p before ``p . v``: in bf16
-the two differ by about one rounding.
+the bias into qkv in x's dtype and normalises p before ``p . v`` (in bf16
+the two differ by about one rounding), and above 1024 tokens
+``ln_matmul`` and ``attention_qkv`` on the CPU.
 
-Training. The backward is the vjp of ``chain_reference`` from the saved
-inputs, the counterpart of ``_fused_bwd_rule``.
+Training. K8's backward is the vjp of ``chain_reference`` from the saved
+inputs, the counterpart of ``_fused_bwd_rule``; the K7 -> K4 route's is that
+of its two entry points.
 """
 
 from __future__ import annotations
@@ -34,21 +42,23 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .attention import attention_qkv
+from .mlp import ln_matmul
 
-HEAD_DIM = 64
-MAX_SEQ = 1024
+HEAD_DIM = 64   # K8's head dim; smaller head dims are padded to it
+MAX_SEQ = 1024  # K8's longest sequence; longer ones take K7 -> K4
 
 # K8 launches since the last reset, counted where the kernel is launched
 launch_counts = {"attn_block": 0}
 
-_SCALE_LOG2 = math.log2(math.e) / math.sqrt(HEAD_DIM)
 
-
-def chain_reference(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float = 1e-6):
+def chain_reference(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float = 1e-6,
+                    scale: float | None = None):
     """The plain sublayer (the JAX package's ``_chain_reference``): the LN
     with f32 statistics rounded to x's dtype, ``qkv = normed @ w^T + b`` in
-    x's dtype, f32 logits scaled by ``1/sqrt(Dh)``, the f32 softmax cast to
-    v's dtype, ``p . v`` -> ``[B, S, H*Dh]`` in x's dtype."""
+    x's dtype, f32 logits scaled by ``scale`` (``1/sqrt(Dh)`` unless given:
+    a head padded to 64 keeps its own Dh's), the f32 softmax cast to v's
+    dtype, ``p . v`` -> ``[B, S, H*Dh]`` in x's dtype."""
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = (xf - mean).square().mean(-1, keepdim=True)
@@ -63,17 +73,52 @@ def chain_reference(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float = 1e-
         return t.reshape(bsz, s, num_heads, dh).transpose(1, 2)
 
     q, k, v = (heads(t) for t in qkv.split(hd, dim=-1))
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(dh)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    logits = logits / math.sqrt(dh) if scale is None else logits * scale
     p = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhqk,bhkd->bhqd", p.float(), v.float()).to(v.dtype)
     return out.transpose(1, 2).reshape(bsz, s, hd)
 
 
+def pad_head_rows(w, b, num_heads: int):
+    """w ``[3*H*Dh, D]`` and b ``[3*H*Dh]`` -> ``[3*H*64, D]`` and
+    ``[3*H*64]``: each head's Dh rows of q, k and v, then zero rows and a
+    zero bias (``w`` and ``b`` themselves at Dh = 64). With them the
+    sublayer at Dh = 64 and the scale of the original Dh is the original
+    one, each head followed by 64 - Dh zero columns."""
+    d = w.shape[1]
+    dh = w.shape[0] // 3 // num_heads
+    if dh == HEAD_DIM:
+        return w, b
+    return (F.pad(w.reshape(3, num_heads, dh, d), (0, 0, 0, HEAD_DIM - dh)).reshape(-1, d),
+            F.pad(b.reshape(3, num_heads, dh), (0, HEAD_DIM - dh)).reshape(-1))
+
+
+def route(b: int, s: int, d: int, heads: int, head_dim: int) -> str:
+    """The kernels ``ln_qkv_attention`` launches on the card for x ``[b, s,
+    d]`` and ``heads`` heads of ``head_dim``: ``"k8"`` up to 1024 tokens,
+    ``"k7+attention_qkv"`` above (``ln_matmul``, then ``attention_qkv``,
+    which is K4 there). Raises ValueError where no kernel takes the shape:
+    a head dim above 64, D not a multiple of 8 (K7's rule), an empty
+    shape."""
+    if min(b, s, d, heads) < 1:
+        raise ValueError(f"ln_qkv_attention takes a non-empty x [B, S, D] and H >= 1, got "
+                         f"B={b}, S={s}, D={d}, H={heads}")
+    if not 1 <= head_dim <= HEAD_DIM:
+        raise ValueError(f"ln_qkv_attention takes a head dim from 1 to {HEAD_DIM} on the card "
+                         f"(below {HEAD_DIM} padded to it), got {head_dim}")
+    if d % 8:
+        raise ValueError(f"ln_qkv_attention takes D a multiple of 8 on the card (K7's rule, "
+                         f"16-byte rows), got D={d}")
+    return "k8" if s <= MAX_SEQ else "k7+attention_qkv"
+
+
 def ln_qkv_attention(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float = 1e-6):
     """LayerNorm -> qkv projection -> multi-head attention on x ``[B, S,
-    D]`` with ``w [3*H*Dh, D]`` and ``b [3*H*Dh]`` -> ``[B, S, H*Dh]``: K8
-    on the card, ``chain_reference`` on the CPU. Differentiable in x, the
-    LayerNorm's scale and bias, w and b. w and b are cast to x's dtype."""
+    D]`` with ``w [3*H*Dh, D]`` and ``b [3*H*Dh]`` -> ``[B, S, H*Dh]``: on
+    the card the kernels ``route`` names, on the CPU their plain versions.
+    Differentiable in x, the LayerNorm's scale and bias, w and b. w and b
+    are cast to x's dtype."""
     if x.dim() != 3 or w.dim() != 2 or w.shape[1] != x.shape[-1] or w.shape[0] % 3 \
             or (w.shape[0] // 3) % num_heads or b.shape != (w.shape[0],):
         raise ValueError(f"ln_qkv_attention takes x [B, S, D], w [3*H*Dh, D] and b [3*H*Dh] "
@@ -83,8 +128,16 @@ def ln_qkv_attention(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float = 1e
     if devices not in ({"cpu"}, {"cuda"}):
         raise ValueError(f"ln_qkv_attention needs its tensors all on the CPU or all on one "
                          f"CUDA device, got {sorted(devices)}")
-    return _LnQkvAttention.apply(x, ln_scale, ln_bias, w.to(x.dtype), b.to(x.dtype), num_heads,
-                                 eps)
+    bsz, s, d = x.shape
+    head_dim = w.shape[0] // 3 // num_heads
+    if devices == {"cuda"}:
+        which = route(bsz, s, d, num_heads, head_dim)
+    else:  # the plain versions take any D and head dim
+        which = "k8" if s <= MAX_SEQ else "k7+attention_qkv"
+    w, b = w.to(x.dtype), b.to(x.dtype)
+    if which == "k7+attention_qkv":
+        return attention_qkv(ln_matmul(x, ln_scale, ln_bias, w, b, eps), num_heads)
+    return _LnQkvAttention.apply(x, ln_scale, ln_bias, w, b, num_heads, eps)
 
 
 class _LnQkvAttention(torch.autograd.Function):
@@ -125,8 +178,10 @@ def _library():
 
 def _attn_block_cuda(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float):
     """Launch K8 on x ``[B, S, D]`` (unit column stride), the LayerNorm's
-    scale and bias ``[D]``, w ``[3*H*64, D]`` and b ``[3*H*64]``
-    (contiguous, x's dtype). Returns ``[B, S, H*64]`` in x's dtype."""
+    scale and bias ``[D]``, w ``[3*H*Dh, D]`` and b ``[3*H*Dh]`` (x's
+    dtype). Head dims below 64 are padded to 64 here; in bf16, x and w
+    without 16-byte aligned rows are copied. Returns ``[B, S, H*Dh]`` in x's
+    dtype."""
     if x.dim() != 3:
         raise ValueError(f"K8 takes x [B, S, D], got {tuple(x.shape)}")
     bsz, s, d = x.shape
@@ -137,27 +192,29 @@ def _attn_block_cuda(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float):
     if x.dtype not in (torch.bfloat16, torch.float32) or w.dtype != x.dtype or b.dtype != x.dtype:
         raise ValueError(f"K8 takes bf16 or f32 x, w and b of one dtype, got "
                          f"{x.dtype}, {w.dtype}, {b.dtype}")
+    dh = hd3 // 3 // num_heads
     if w.shape != (hd3, d) or b.shape != (hd3,) or ln_scale.shape != (d,) \
-            or ln_bias.shape != (d,) or hd3 != 3 * num_heads * HEAD_DIM:
-        raise ValueError(f"K8 takes head dim {HEAD_DIM}: x [B, S, D], scale and bias [D], "
-                         f"w [3*H*{HEAD_DIM}, D], b [3*H*{HEAD_DIM}] with H = {num_heads}, got "
+            or ln_bias.shape != (d,) or hd3 != 3 * num_heads * dh or not 1 <= dh <= HEAD_DIM:
+        raise ValueError(f"K8 takes a head dim from 1 to {HEAD_DIM}: x [B, S, D], scale and bias "
+                         f"[D], w [3*H*Dh, D], b [3*H*Dh] with H = {num_heads}, got "
                          f"{tuple(x.shape)}, {tuple(ln_scale.shape)}, {tuple(ln_bias.shape)}, "
                          f"{tuple(w.shape)}, {tuple(b.shape)}")
-    if d % 128 or (num_heads * HEAD_DIM) % 128 or not 8 <= s <= MAX_SEQ or bsz < 1:
-        raise ValueError(f"K8 takes D and H*Dh multiples of 128 and 8 <= S <= {MAX_SEQ} (the "
-                         f"JAX kernel's gate), got D={d}, H*Dh={num_heads * HEAD_DIM}, S={s}")
+    if d % 8 or not 1 <= s <= MAX_SEQ or bsz < 1:
+        raise ValueError(f"K8 takes D a multiple of 8 and 1 <= S <= {MAX_SEQ}, got D={d}, S={s}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise ValueError("K8 is launched raw with grad enabled; go through ln_qkv_attention, "
                          "whose autograd Function runs the backward")
     if x.stride(2) != 1:
         raise ValueError(f"K8 needs x with a unit column stride, got strides {x.stride()}")
-    if not w.is_contiguous() or not b.is_contiguous():
-        raise ValueError("K8 needs contiguous w and b")
-    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or x.stride(0) % 8 or x.stride(1) % 8
-                                      or w.data_ptr() % 16):
-        raise ValueError("K8 bf16 needs 16-byte aligned rows of x and w "
-                         "(strides multiples of 8, aligned base)")
-    ln_w, ln_b = (t.detach().float().contiguous() for t in (ln_scale, ln_bias))
+    w, b = (t.contiguous() for t in pad_head_rows(w, b, num_heads))
+    if x.dtype == torch.bfloat16:  # TMA reads 16-byte aligned rows
+        if x.data_ptr() % 16 or x.stride(0) % 8 or x.stride(1) % 8:
+            x = x.contiguous()
+        if w.data_ptr() % 16:
+            w = w.clone()
+    # the LayerNorm's f32 scale and bias, zeros up to the next multiple of 64
+    ln_w, ln_b = (F.pad(t.detach().float(), (0, -d % 64)).contiguous()
+                  for t in (ln_scale, ln_bias))
     stats = torch.empty((2, bsz * s), dtype=torch.float32, device=x.device)
 
     lib = _library()
@@ -167,9 +224,11 @@ def _attn_block_cuda(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), x.stride(0), x.stride(1), ln_w.data_ptr(), ln_b.data_ptr(),
                  w.data_ptr(), b.data_ptr(), stats.data_ptr(), out.data_ptr(), bsz, s, d,
-                 num_heads, eps, _SCALE_LOG2, stream)
+                 num_heads, eps, math.log2(math.e) / math.sqrt(dh), stream)
     if err != 0:
         raise RuntimeError(f"K8 attention block launch failed: "
                            f"{lib.k8_error_string(err).decode()} ({err})")
     launch_counts["attn_block"] += 1
-    return out
+    if dh == HEAD_DIM:
+        return out
+    return out.view(bsz, s, num_heads, HEAD_DIM)[..., :dh].reshape(bsz, s, num_heads * dh)

@@ -1,6 +1,6 @@
-"""K1, K4, K5 and K2 of the PyTorch port on one card, with the library's times beside them.
+"""K1, K4, K5, K2, K6 and K8 of the PyTorch port on one card, with the library's times beside them.
 
-    python3 scripts/profile_attention_torch.py [--only k1 k5 k4 k2]
+    python3 scripts/profile_attention_torch.py [--only k1 k5 k4 k2 k2ln k6 k8]
 
 Times, with CUDA events (median of 20 after 3 warm-up calls), at the shapes
 the main path gives them:
@@ -22,11 +22,22 @@ the main path gives them:
     4096) for M = 21056 (64 tiles), 10528 (the daemon's 32), 5334 (a 1024-px
     training microbatch), 2632 (a 256-px one), 658 and 1, and at H and K
     tails (M 330, K 200, H 520), beside the library's packed GEMM plus gate
-    (``F.linear``, ``F.silu(a) * g``) and the GEMM alone.
+    (``F.linear``, ``F.silu(a) * g``) and the GEMM alone; and its LayerNorm
+    variant (``swiglu_fc1(..., ln=...)``, off every model path) at M 21056
+    beside ``F.layer_norm`` + the same GEMM and gate;
+  * K6 (``dot_product_attention`` up to 512 tokens) in bf16 on q, k, v
+    ``[64, 24, 329, 64]`` and ``[64, 24, 77, 64]``, beside
+    ``F.scaled_dot_product_attention`` on the same tensors;
+  * K8 (``ln_qkv_attention``) in bf16 on x ``[64, 329, 1536]`` and ``[4,
+    1024, 1536]`` with ViT-g's qkv weight (24 heads of 64), beside
+    ``F.layer_norm`` + ``F.linear`` + ``F.scaled_dot_product_attention`` and
+    beside the model's own route, ``F.layer_norm`` + ``F.linear`` +
+    ``attention_qkv`` (K1 at 329 tokens, K4 at 1024).
 
-K4 and K2 lines give each time twice: CUDA events around one call (host
-launch work counts where the card waits for it), and the device time of the
-call's kernels in a ``torch.profiler`` trace of 10 calls (``device``).
+The K4, K2, K6 and K8 lines give each time twice: CUDA events around one
+call (host launch work counts where the card waits for it), and the device
+time of the call's kernels in a ``torch.profiler`` trace of 10 calls
+(``device``).
 
 Each line carries the least time the card could take for the kernel's work
 (``chip_smoke.bound_ms``). The script uses only entry points that every
@@ -136,22 +147,114 @@ def k2_rows(dev):
                   f"{gemm:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
 
 
+def k2ln_rows(dev):
+    from mipheivit_tpu_torch.ops import mlp
+
+    m, k, h = 21056, cs.FC1_K, cs.FC1_H
+    rng = np.random.default_rng(cs.SEED + 44)
+    x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(dev, torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((2 * h, k), dtype=np.float32)
+                         / np.float32(k ** 0.5)).to(dev, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal(2 * h, dtype=np.float32)
+                         * np.float32(0.1)).to(dev, torch.bfloat16)
+    lns, lnb = cs.ln_params(k, cs.SEED + 45, dev)
+    lns_t, lnb_t = lns.bfloat16(), lnb.bfloat16()
+
+    def run():
+        return mlp.swiglu_fc1(x, w, b, ln=(lns, lnb))
+
+    def library():
+        ag = F.linear(F.layer_norm(x, (k,), lns_t, lnb_t, 1e-6), w, b)
+        return F.silu(ag[:, :h]) * ag[:, h:]
+
+    with torch.inference_mode():
+        ms, dms = cs.cuda_ms(run), device_ms(run)
+        lib, lib_d = cs.cuda_ms(library), device_ms(library)
+    bound, by = cs.bound_ms((m * k + 2 * h * k + 2 * h + m * h) * 2 + 2 * k * 4,
+                            2.0 * m * k * 2 * h, "bf16")
+    print(f"[k2 ln bf16 M {m} K {k} H {h}]: kernel {ms:.4f} ms (device {dms:.4f} ms), library "
+          f"LN + GEMM + gate {lib:.4f} ms (device {lib_d:.4f} ms), bound {bound:.4f} ms ({by})",
+          flush=True)
+
+
+def k6_rows(dev):
+    from mipheivit_tpu_torch.ops import attention as attn
+
+    with torch.inference_mode():
+        for b, s in ((cs.BATCH, 329), (cs.BATCH, 77)):
+            q, k, v = (cs.seeded((b, cs.HEADS, s, 64), cs.SEED + 70 + i, torch.bfloat16, device=dev)
+                       for i in range(3))
+
+            def run():
+                return attn.dot_product_attention(q, k, v)
+
+            def library():
+                return F.scaled_dot_product_attention(q, k, v)
+
+            ms, dms = cs.cuda_ms(run), device_ms(run)
+            lib, lib_d = cs.cuda_ms(library), device_ms(library)
+            bound, by = cs.bound_ms(4 * b * cs.HEADS * s * 64 * 2,
+                                    4.0 * b * cs.HEADS * s * s * 64, "bf16")
+            print(f"[k6 bf16 [{b}, {cs.HEADS}, {s}, 64]]: kernel {ms:.4f} ms (device {dms:.4f} ms), "
+                  f"library (scaled_dot_product_attention) {lib:.4f} ms (device {lib_d:.4f} ms), "
+                  f"bound {bound:.4f} ms ({by})", flush=True)
+
+
+def k8_rows(dev):
+    from mipheivit_tpu_torch.ops import attn_block
+    from mipheivit_tpu_torch.ops.attention import attention_qkv
+
+    hd, heads = cs.HD, cs.HEADS
+    lns, lnb = cs.ln_params(hd, cs.SEED + 111, dev)
+    w = cs.seeded((3 * hd, hd), cs.SEED + 112, torch.bfloat16, hd ** -0.5, device=dev)
+    bias = cs.seeded(3 * hd, cs.SEED + 113, torch.bfloat16, 0.1, device=dev)
+    lns_t, lnb_t = lns.bfloat16(), lnb.bfloat16()
+    with torch.inference_mode():
+        for b, s in ((cs.BATCH, 329), (4, 1024)):
+            x = cs.seeded((b, s, hd), cs.SEED + 110, torch.bfloat16, device=dev)
+
+            def run():
+                return attn_block.ln_qkv_attention(x, lns, lnb, w, bias, heads)
+
+            def qkv():
+                return F.linear(F.layer_norm(x, (hd,), lns_t, lnb_t, 1e-6), w, bias)
+
+            def library():
+                q, k, v = (t.view(b, s, heads, 64).transpose(1, 2) for t in qkv().split(hd, -1))
+                return F.scaled_dot_product_attention(q, k, v)
+
+            def model_route():
+                return attention_qkv(qkv(), heads)
+
+            ms, dms = cs.cuda_ms(run), device_ms(run)
+            lib, lib_d = cs.cuda_ms(library), device_ms(library)
+            route, route_d = cs.cuda_ms(model_route), device_ms(model_route)
+            bound, by = cs.bound_ms((2 * b * s * hd + 3 * hd * hd + 3 * hd) * 2 + 2 * hd * 4,
+                                    2.0 * b * s * hd * 3 * hd + 4.0 * b * heads * s * s * 64,
+                                    "bf16")
+            print(f"[k8 bf16 [{b}, {s}, {hd}]]: kernel {ms:.4f} ms (device {dms:.4f} ms), "
+                  f"library "
+                  f"(layer_norm + linear + scaled_dot_product_attention) {lib:.4f} ms (device "
+                  f"{lib_d:.4f} ms), model route (layer_norm + linear + attention_qkv) {route:.4f} "
+                  f"ms (device {route_d:.4f} ms), bound {bound:.4f} ms ({by})", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", nargs="*", default=["k1", "k5", "k4", "k2"])
+    ap.add_argument("--only", nargs="*", default=["k1", "k5", "k4", "k2", "k2ln", "k6", "k8"])
     args = ap.parse_args()
     cs.check(torch.cuda.is_available(), "no CUDA device; this script runs only on the card")
     print(f"[device] {cs.card_line()} | torch {torch.__version__} | tree {ROOT}", flush=True)
     from mipheivit_tpu_torch import _build
     from mipheivit_tpu_torch.ops import attention as attn
 
-    for name in ("attention", "flash_attention", "flash_attention_bwd", "swiglu"):
+    for name in ("attention", "flash_attention", "flash_attention_bwd", "swiglu", "attn_block"):
         _build.build(name)
     dev, hd, bf16 = torch.device("cuda:0"), cs.HD, torch.bfloat16
-    if "k4" in args.only:
-        k4_rows(dev)
-    if "k2" in args.only:
-        k2_rows(dev)
+    rows = {"k4": k4_rows, "k2": k2_rows, "k2ln": k2ln_rows, "k6": k6_rows, "k8": k8_rows}
+    for name, fn in rows.items():
+        if name in args.only:
+            fn(dev)
     rng = np.random.default_rng(cs.SEED)
 
     qkv = torch.from_numpy(rng.standard_normal((cs.BATCH, 329, 3 * hd), dtype=np.float32)).to(

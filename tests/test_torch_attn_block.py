@@ -35,15 +35,15 @@ BF16_TOL = (2e-2, 1e-2)
 CARD_TOL = {torch.bfloat16: BF16_TOL, torch.float32: (1e-4, 1e-5)}
 
 
-def _inputs(b, s, seed, d=D, heads=HEADS):
+def _inputs(b, s, seed, d=D, heads=HEADS, dh=64):
     """x [b, s, d], the LayerNorm's scale and bias, the JAX layout's w
-    [d, 3*H*64] and b, from a numpy seed."""
+    [d, 3*H*dh] and b, from a numpy seed."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, s, d)).astype(np.float32)
     lns = rng.uniform(0.5, 1.5, d).astype(np.float32)
     lnb = (rng.standard_normal(d) * 0.1).astype(np.float32)
-    w = (rng.standard_normal((d, 3 * heads * 64)) / np.sqrt(d)).astype(np.float32)
-    bias = (rng.standard_normal(3 * heads * 64) * 0.1).astype(np.float32)
+    w = (rng.standard_normal((d, 3 * heads * dh)) / np.sqrt(d)).astype(np.float32)
+    bias = (rng.standard_normal(3 * heads * dh) * 0.1).astype(np.float32)
     return x, lns, lnb, w, bias
 
 
@@ -96,9 +96,10 @@ def test_cpu_runs_plain_version_without_launch():
 
 @pytest.mark.parametrize("s,d,heads", [(37, 96, 2), (7, 128, 2), (37, 128, 3)])
 def test_outside_the_gate_matches_jax_entry_point(s, d, heads):
-    """D = 96, S = 7, or H*Dh = 192, outside K8's gate (the card raises
-    there): on the CPU the port's plain chain against the JAX entry point,
-    which runs its chain there; forward and gradients."""
+    """D = 96, S = 7, or H*Dh = 192, outside the JAX kernel's gate (the JAX
+    entry point runs its chain there; the card runs K8): on the CPU the
+    port's plain chain against the JAX entry point; forward and
+    gradients."""
     import jax
     import jax.numpy as jnp
 
@@ -119,6 +120,106 @@ def test_outside_the_gate_matches_jax_entry_point(s, d, heads):
     for g, w_ in zip(grads, want_grads):
         w_ = np.asarray(w_)
         np.testing.assert_allclose(g, w_, rtol=GRAD_RTOL, atol=GRAD_RTOL * np.abs(w_).max())
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((64, 329, 1536, 24, 64), "k8"),                   # ViT-g at 64 tiles
+    ((4, 1024, 1536, 24, 64), "k8"),                   # the longest K8 takes
+    ((2, 1, 128, 2, 64), "k8"),                        # one token
+    ((2, 4, 256, 4, 64), "k8"),
+    ((2, 37, 128, 4, 32), "k8"),                       # head dim 32, padded to 64
+    ((2, 37, 96, 2, 64), "k8"),                        # D a multiple of 8, not of 128
+    ((2, 37, 200, 3, 12), "k8"),
+    ((1, 1025, 1536, 24, 64), "k7+attention_qkv"),     # above 1024 tokens
+    ((1, 5334, 1536, 24, 64), "k7+attention_qkv"),     # a 1024-px region
+    ((1, 1100, 64, 2, 32), "k7+attention_qkv"),
+    ((1, 329, 100, 2, 64), ValueError),                # D not a multiple of 8
+    ((1, 329, 1536, 12, 128), ValueError),             # head dim above 64
+    ((1, 329, 1536, 24, 80), ValueError),
+    ((0, 329, 1536, 24, 64), ValueError),              # empty
+    ((1, 0, 1536, 24, 64), ValueError),
+])
+def test_route_table(shape, want):
+    """The kernels ln_qkv_attention launches on the card by shape: K8 up to
+    1024 tokens at any D that is a multiple of 8 and any head dim up to 64;
+    K7 -> attention_qkv (K4) above; a ValueError where no kernel takes the
+    shape."""
+    if want is ValueError:
+        with pytest.raises(ValueError):
+            port.route(*shape)
+    else:
+        assert port.route(*shape) == want
+
+
+@pytest.mark.parametrize("b,s,d,heads,dh", [(2, 37, 128, 4, 32), (2, 4, 256, 4, 64),
+                                            (2, 37, 96, 2, 64), (1, 1100, 64, 2, 32)],
+                         ids=["head_dim_32", "s_4", "d_96", "s_1100_k7_route"])
+def test_routes_match_jax_entry_point(b, s, d, heads, dh):
+    """The shapes the card now serves through K8 (head dim 32, S 4, D 96 with
+    2 heads of 64) and through K7 -> attention_qkv (S 1100): on the CPU the
+    port (the plain chain up to 1024 tokens; ln_matmul and attention_qkv's
+    plain versions above) against the JAX entry point (its chain here);
+    forward within 1e-5 of max |ref|, gradients within 1e-4."""
+    import jax
+    import jax.numpy as jnp
+
+    from mipheivit_tpu.ops.attn_block import ln_qkv_attention
+
+    args = _inputs(b, s, seed=30 + s + dh, d=d, heads=heads, dh=dh)
+    r = np.random.default_rng(31).standard_normal((b, s, heads * dh)).astype(np.float32)
+    jargs = [jnp.asarray(t) for t in args]
+    want = np.asarray(ln_qkv_attention(*jargs, heads))
+    want_grads = jax.grad(lambda *a: jnp.sum(ln_qkv_attention(*a, heads) * r),
+                          argnums=tuple(range(5)))(*jargs)
+    ts = [t.requires_grad_() for t in _port(*args)]
+    got = port.ln_qkv_attention(*ts, heads)
+    assert got.shape == (b, s, heads * dh)
+    (got * torch.from_numpy(r)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL,
+                               atol=RTOL * np.abs(want).max())
+    grads = [t.grad.numpy() for t in ts]
+    grads[3] = grads[3].T                               # [3*H*Dh, D] -> the JAX [D, 3*H*Dh]
+    for g, w_ in zip(grads, want_grads):
+        w_ = np.asarray(w_)
+        np.testing.assert_allclose(g, w_, rtol=GRAD_RTOL, atol=GRAD_RTOL * np.abs(w_).max())
+
+
+def test_k7_route_on_cpu_runs_its_entry_points():
+    """Above 1024 tokens ln_qkv_attention is ln_matmul then attention_qkv
+    (on the CPU their plain versions, no launch)."""
+    from mipheivit_tpu_torch.ops.attention import attention_qkv
+    from mipheivit_tpu_torch.ops.mlp import ln_matmul
+
+    port.launch_counts["attn_block"] = 0
+    x, lns, lnb, w, b = _port(*_inputs(1, 1030, seed=32, d=64, heads=1))
+    got = port.ln_qkv_attention(x, lns, lnb, w, b, 1)
+    assert port.launch_counts["attn_block"] == 0
+    torch.testing.assert_close(got, attention_qkv(ln_matmul(x, lns, lnb, w, b), 1),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dh", [12, 32])
+def test_padded_route_matches_jax_entry_point(dh):
+    """What the card computes for a head dim below 64: the weight rows and
+    bias of each head padded to 64 by zeros (``pad_head_rows``), the chain
+    at 64 with the scale of the original Dh, each head sliced back; against
+    the JAX entry point within 1e-5 of max |ref|, and the padded columns
+    exactly 0."""
+    import jax.numpy as jnp
+
+    from mipheivit_tpu.ops.attn_block import ln_qkv_attention
+
+    heads, s = 3, 37
+    args = _inputs(2, s, seed=33 + dh, d=128, heads=heads, dh=dh)
+    want = np.asarray(ln_qkv_attention(*map(jnp.asarray, args), heads))
+    x, lns, lnb, w, b = _port(*args)
+    wp, bp = port.pad_head_rows(w, b, heads)
+    assert wp.shape == (3 * heads * 64, 128) and bp.shape == (3 * heads * 64,)
+    out = port.chain_reference(x, lns, lnb, wp, bp, heads, scale=1.0 / np.sqrt(dh))
+    out = out.view(2, s, heads, 64)
+    assert not out[..., dh:].any()
+    got = out[..., :dh].reshape(2, s, heads * dh).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=RTOL * np.abs(want).max())
 
 
 def test_other_devices_raise():
@@ -219,13 +320,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _card_inputs(b, s, d, heads, dtype, device, seed):
+def _card_inputs(b, s, d, heads, dtype, device, seed, dh=64):
     g = torch.Generator().manual_seed(seed)
     x = torch.randn((b, s, d), generator=g).to(device, dtype)
     lns = (torch.rand(d, generator=g) + 0.5).to(device)
     lnb = (torch.randn(d, generator=g) * 0.1).to(device)
-    w = (torch.randn((3 * heads * 64, d), generator=g) / d ** 0.5).to(device, dtype)
-    bias = (torch.randn(3 * heads * 64, generator=g) * 0.1).to(device, dtype)
+    w = (torch.randn((3 * heads * dh, d), generator=g) / d ** 0.5).to(device, dtype)
+    bias = (torch.randn(3 * heads * dh, generator=g) * 0.1).to(device, dtype)
     return x, lns, lnb, w, bias
 
 
@@ -237,17 +338,26 @@ def _scaled(got, want):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("b,s,d,heads", [(4, 329, 1536, 24), (2, 1024, 256, 4), (3, 8, 128, 2),
-                                         (2, 65, 256, 2), (1, 200, 384, 6), (1, 700, 256, 4)])
-def test_kernel_matches_plain_on_card(cuda, b, s, d, heads, dtype):
-    args = _card_inputs(b, s, d, heads, dtype, cuda, seed=s + d)
+@pytest.mark.parametrize("b,s,d,heads,dh", [
+    (4, 329, 1536, 24, 64), (2, 1024, 256, 4, 64), (3, 8, 128, 2, 64), (2, 65, 256, 2, 64),
+    (1, 200, 384, 6, 64), (1, 700, 256, 4, 64),
+    # ragged S: one token, a part tile, a tile and one, past one and two
+    # clusters' blocks
+    (2, 1, 128, 2, 64), (2, 7, 128, 2, 64), (2, 63, 256, 2, 64), (2, 513, 256, 4, 64),
+    (1, 1000, 256, 2, 64),
+    # D a multiple of 8 only; head dims below 64
+    (2, 329, 96, 2, 64), (2, 329, 200, 3, 64), (2, 329, 256, 4, 12), (2, 329, 256, 8, 32)])
+def test_kernel_matches_plain_on_card(cuda, b, s, d, heads, dh, dtype):
+    """K8 against the plain chain, one launch, up to 1024 tokens at any D
+    that is a multiple of 8 and head dims up to 64 (below it padded)."""
+    args = _card_inputs(b, s, d, heads, dtype, cuda, seed=s + d + dh, dh=dh)
     port.launch_counts["attn_block"] = 0
     with torch.inference_mode():
         got = port.ln_qkv_attention(*args, heads)
         want = port.chain_reference(*args, heads)
         torch.cuda.synchronize()
     assert port.launch_counts["attn_block"] == 1
-    assert got.shape == (b, s, heads * 64) and got.dtype == dtype
+    assert got.shape == (b, s, heads * dh) and got.dtype == dtype
     rel, fro = _scaled(got, want)
     assert rel <= CARD_TOL[dtype][0] and fro <= CARD_TOL[dtype][1], (rel, fro)
 
@@ -280,17 +390,38 @@ def test_backward_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("s", [1100, 1280])
+def test_long_sequences_go_to_k7_and_k4_on_card(cuda, s):
+    """Above 1024 tokens: ln_matmul (K7) then attention_qkv (K4), one launch
+    each, against the plain chain."""
+    from mipheivit_tpu_torch.ops import attention, mlp
+
+    args = _card_inputs(1, s, 256, 4, torch.bfloat16, cuda, seed=s)
+    for counts in (port.launch_counts, attention.launch_counts, mlp.launch_counts):
+        for key in counts:
+            counts[key] = 0
+    with torch.inference_mode():
+        got = port.ln_qkv_attention(*args, 4)
+        want = port.chain_reference(*args, 4)
+        torch.cuda.synchronize()
+    assert port.launch_counts["attn_block"] == 0
+    assert mlp.launch_counts["ln_matmul"] == 1 and attention.launch_counts["flash"] == 1
+    assert sum(attention.launch_counts.values()) == 1
+    rel, fro = _scaled(got, want)
+    assert rel <= BF16_TOL[0] and fro <= BF16_TOL[1], (rel, fro)
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
+    """What still raises on the card: head dims above 64, D not a multiple
+    of 8, other dtypes, a raw launch with grad enabled."""
     x, lns, lnb, w, b = _card_inputs(1, 40, 256, 4, torch.bfloat16, cuda, seed=10)
-    with pytest.raises(ValueError, match="head dim 64"):            # 8 heads of 32
-        port.ln_qkv_attention(x, lns, lnb, w, b, 8)
-    with pytest.raises(ValueError, match="8 <= S <= 1024"):
-        port.ln_qkv_attention(torch.zeros((1, 1025, 256), dtype=torch.bfloat16, device=cuda),
-                              lns, lnb, w, b, 4)
-    with pytest.raises(ValueError, match="8 <= S <= 1024"):
-        port.ln_qkv_attention(x[:, :7], lns, lnb, w, b, 4)
-    with pytest.raises(ValueError, match="multiples of 128"):
-        port.ln_qkv_attention(x[..., :192], lns[:192], lnb[:192], w[:, :192].contiguous(), b, 4)
+    launches = dict(port.launch_counts)
+    with pytest.raises(ValueError, match="head dim"):               # 2 heads of 128
+        port.ln_qkv_attention(x, lns, lnb, w, b, 2)
+    with pytest.raises(ValueError, match="multiple of 8"):          # D = 100
+        port.ln_qkv_attention(x[..., :100], lns[:100], lnb[:100], w[:, :100].contiguous(), b, 4)
+    assert port.launch_counts == launches
     with pytest.raises(ValueError, match="one dtype"):
         port._attn_block_cuda(x.half(), lns, lnb, w.half(), b.half(), 4, 1e-6)
     with pytest.raises(ValueError, match="grad enabled"):

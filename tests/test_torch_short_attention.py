@@ -140,10 +140,10 @@ def test_autograd_matches_jax_grad(s, d):
                                    atol=GRAD_RTOL * np.abs(w).max())
 
 
-@pytest.mark.parametrize("d", [8, 32, 40])
+@pytest.mark.parametrize("d", [8, 12, 32, 36, 40])
 def test_padded_route_matches_jax_kernel(d):
-    """What the card computes for K6 at a head dim below 64: q, k, v
-    zero-padded to 64 along D, the plain version with the scale of the
+    """What the card computes for K6 at a head dim below 64, a multiple of 8
+    or not: q, k, v zero-padded to 64 along D, the plain version with the scale of the
     original D, the output sliced back; against the JAX kernel (interpreted)
     at test_autograd_matches_jax_grad's short shape, the output, and the
     gradients of q, k and v by autograd through the padded route."""
@@ -223,6 +223,29 @@ def test_kernel_reads_strided_heads_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("offset", [4, 8], ids=["unaligned_base", "aligned_base"])
+def test_kernel_reads_rows_tma_cannot_take_on_card(cuda, offset):
+    """bf16 head-major views of q, k and v in a [3, B, S, H*64 + 12] buffer:
+    a row stride of H*64 + 12 values (not a multiple of 8, so not of 16
+    bytes), at a base 8 or 16 bytes into each row. The entry point copies such operands
+    contiguous for K6's tensor maps; one launch, held to the plain version
+    on the same views."""
+    g = torch.Generator().manual_seed(12)
+    buf = torch.randn((3, 4, 329, 4 * 64 + 4 + 8), generator=g).to(cuda, torch.bfloat16)
+    q, k, v = (buf[i, ..., offset:offset + 256].view(4, 329, 4, 64).transpose(1, 2)
+               for i in range(3))
+    assert q.stride(2) % 8 and not q.is_contiguous()
+    port.launch_counts["short"] = 0
+    with torch.inference_mode():
+        got = port.dot_product_attention(q, k, v)
+        want = port.short_attention_reference(q, k, v)
+        torch.cuda.synchronize()
+    assert port.launch_counts["short"] == 1
+    rel, fro = _card_scaled(got, want)
+    assert rel <= BF16_TOL[0] and fro <= BF16_TOL[1], (rel, fro)
+
+
+@pytest.mark.gpu
 def test_long_sequences_go_to_k4_on_card(cuda):
     q, k, v = _card_qkv(1, 2, 640, torch.bfloat16, cuda, seed=9)
     for key in port.launch_counts:
@@ -254,10 +277,11 @@ def test_backward_on_card_matches_cpu(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("d", [8, 32, 40])
+@pytest.mark.parametrize("d", [8, 12, 32, 36, 40])
 def test_head_dims_below_64_on_card(cuda, d, dtype):
-    """Head dims below 64 through K6, zero-padded to 64 with the scale of
-    their own D, against the plain version at that D."""
+    """Head dims below 64, multiples of 8 or not, through K6, zero-padded to
+    64 with the scale of their own D, against the plain version at that
+    D."""
     g = torch.Generator().manual_seed(d)
     q, k, v = (torch.randn((3, 4, 200, d), generator=g).to(cuda, dtype) for _ in range(3))
     port.launch_counts["short"] = 0
@@ -276,8 +300,6 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 2, 40, 64), device=cuda)
     with pytest.raises(ValueError, match="head dim"):   # 80: above 64
         port.dot_product_attention(*[torch.zeros((1, 2, 40, 80), device=cuda)] * 3)
-    with pytest.raises(ValueError, match="head dim"):   # 36: not a multiple of 8
-        port.dot_product_attention(*[torch.zeros((1, 2, 40, 36), device=cuda)] * 3)
     with pytest.raises(ValueError, match="S <= 512"):    # longer sequences are K4's
         port._short_cuda(*[torch.zeros((1, 2, 513, 64), device=cuda)] * 3)
     with pytest.raises(ValueError, match="bf16 or f32"):
