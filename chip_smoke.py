@@ -48,14 +48,16 @@ accumulation 2; the generator step of the flagship preset, gan_train off):
 
 Before the paths, [head dims] runs the four attention entry points at head
 dims 12, 32, 36 and 40 through their kernels (K1, K4, K5, K6; zero-padded
-to 64) and ln_matmul at N 200 and K 192 through K7, each against its plain
-version with its launch counted; [ln_qkv routes] runs ln_qkv_attention
-where it reaches its kernels beyond ViT-g's shape (head dim 32 and D 96
-through K8, S 4 through K8, S 1280 through K7 -> K4), each against the
-plain chain with its launches counted; [rejects] calls each op entry point
-on the card at a shape no kernel takes (head dims 80 and 128 for the
-attention entry points, K5's and ln_qkv_attention's, ln_matmul at K 100):
-each must raise before any launch, as there is no plain route on the card.
+to 64), ln_matmul at N 200 and K 192 and at K 100 (zero-padded to 104)
+through K7, and swiglu_fc1 at K 100 and H 100 (padded to 104), with and
+without its LayerNorm, through K2, each against its plain version with its
+launch counted; [ln_qkv routes] runs ln_qkv_attention where it reaches its
+kernels beyond ViT-g's shape (head dim 32, D 96 and D 100 (padded) through
+K8, S 4 through K8, S 1280 through K7 -> K4), each against the plain chain
+with its launches counted; [rejects] calls each op entry point on the card
+at a shape no kernel takes (head dims 80 and 128 for the attention entry
+points, K5's and ln_qkv_attention's): each must raise before any launch, as
+there is no plain route on the card.
 
 It checks the outputs (the stitched slides against a serial reference
 stitch; every served tile against the same tile in a full batch; finite
@@ -665,9 +667,10 @@ def head_dims_phase():
     kernels (zero-padded to 64, the scale of their own D): attention_qkv at
     S 329 (K1), attention_bshd at S 600 (K4), flash_backward there (K5),
     dot_product_attention at S 329 (K6), each at 24 heads in bf16, held
-    against its plain version at that D with its launch counted; and
-    ln_matmul at N 200 and K 192 (K7, under the rule of K2: multiples of
-    8)."""
+    against its plain version at that D with its launch counted; ln_matmul
+    at N 200 and K 192 (K7) and at K 100 (zero-padded to 104), and
+    swiglu_fc1 at K 100 and H 100 (padded to 104), with and without its
+    LayerNorm (K2), each with exactly one launch."""
     from mipheivit_tpu_torch.ops import attention as attn
     from mipheivit_tpu_torch.ops import mlp
 
@@ -706,21 +709,34 @@ def head_dims_phase():
             lines.append(f"{name} D {d}: {rel:.2e} of max|ref|, norm-rel {fro:.2e}, "
                          f"launches {counts[key]}")
             check(ok, f"[head dims] {name} at D {d}: {counts_line(counts)}, {rel:.2e}, {fro:.2e}")
-    x = seeded((658, 192), SEED + 150, bf16)
-    lns, lnb = ln_params(192, SEED + 151)
-    w, b = seeded((200, 192), SEED + 152, bf16, 192 ** -0.5), seeded(200, SEED + 153, bf16, 0.1)
-    reset_counts()
-    with torch.inference_mode():
-        got = mlp.ln_matmul(x, lns, lnb, w, b)
-        torch.cuda.synchronize()
-        counts = read_counts()
-        want = mlp.ln_matmul_reference(x, lns, lnb, w, b)
-    _, rel, fro = scaled_err(got, want)
-    lines.append(f"ln_matmul [658, 192] x [200, 192]: {rel:.2e} of max|ref|, norm-rel {fro:.2e}, "
-                 f"launches {counts['ln_matmul']}")
-    check(counts["ln_matmul"] == 1 and sum(counts.values()) == 1 and rel <= SCALED_TOL["bf16"][0]
-          and fro <= SCALED_TOL["bf16"][1], f"[head dims] ln_matmul at N 200, K 192: "
-          f"{counts_line(counts)}, {rel:.2e}, {fro:.2e}")
+    # K7 and K2 off their kernels' widths: (name, count key, op, plain)
+    mats = []
+    for k, n in ((192, 200), (100, 256)):
+        x = seeded((658, k), SEED + 150 + k, bf16)
+        lns, lnb = ln_params(k, SEED + 151 + k)
+        w, b = seeded((n, k), SEED + 152 + k, bf16, k ** -0.5), seeded(n, SEED + 153 + k, bf16, 0.1)
+        mats.append((f"ln_matmul [658, {k}] x [{n}, {k}]", "ln_matmul",
+                     lambda x=x, a=(lns, lnb, w, b): mlp.ln_matmul(x, *a),
+                     lambda x=x, a=(lns, lnb, w, b): mlp.ln_matmul_reference(x, *a)))
+    x = seeded((658, 100), SEED + 154, bf16)
+    w, b = seeded((200, 100), SEED + 155, bf16, 0.1), seeded(200, SEED + 156, bf16, 0.1)
+    for lnp in (None, ln_params(100, SEED + 157)):
+        mats.append((f"swiglu_fc1 [658, 100] x [200, 100]{' ln' if lnp else ''}", "swiglu",
+                     lambda lnp=lnp: mlp.swiglu_fc1(x, w, b, ln=lnp),
+                     lambda lnp=lnp: mlp.swiglu_reference(x, w, b, lnp)))
+    for name, key, op, plain in mats:
+        reset_counts()
+        with torch.inference_mode():
+            got = op()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            want = plain()
+        _, rel, fro = scaled_err(got, want)
+        lines.append(f"{name}: {rel:.2e} of max|ref|, norm-rel {fro:.2e}, launches {counts[key]}")
+        check(counts[key] == 1 and sum(counts.values()) == 1 and got.shape == want.shape
+              and bool(torch.isfinite(got).all()) and rel <= SCALED_TOL["bf16"][0]
+              and fro <= SCALED_TOL["bf16"][1],
+              f"[head dims] {name}: {counts_line(counts)}, {rel:.2e}, {fro:.2e}")
     reset_counts()
     print(f"[head dims] {'; '.join(lines)} (tol {SCALED_TOL['bf16'][0]:g}, "
           f"{SCALED_TOL['bf16'][1]:g}) ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -730,8 +746,9 @@ def ln_qkv_routes_phase():
     """ln_qkv_attention on the card beyond ViT-g's shape, each route held
     against the plain chain under the bf16 rule with its exact launch
     counts: 24 heads of 32 at D 1536 and S 329 (K8, the heads padded to 64),
-    2 heads of 64 at D 96 (K8), S 4 at 64 tiles (K8), and S 1280 (above K8's
-    1024 tokens: K7, then K4 through attention_qkv)."""
+    2 heads of 64 at D 96 (K8), 2 heads of 32 at D 100 (K8, D zero-padded to
+    104), S 4 at 64 tiles (K8), and S 1280 (above K8's 1024 tokens: K7, then
+    K4 through attention_qkv)."""
     from mipheivit_tpu_torch.ops import attn_block
 
     t0 = time.perf_counter()
@@ -739,6 +756,7 @@ def ln_qkv_routes_phase():
     # name: (b, s, d, heads, head dim, launches)
     cases = {"head dim 32": (4, 329, HD, HEADS, 32, {"k8": 1}),
              "D 96, 2 heads of 64": (4, 329, 96, 2, 64, {"k8": 1}),
+             "D 100, 2 heads of 32": (4, 329, 100, 2, 32, {"k8": 1}),
              "S 4": (BATCH, 4, HD, HEADS, 64, {"k8": 1}),
              "S 1280": (1, 1280, HD, HEADS, 64, {"k7": 1, "k4": 1})}
     lines = []
@@ -770,15 +788,16 @@ def rejects_phase():
     """Each op entry point on the card at a shape no kernel takes: the
     attention entry points at head dims above 64 (attention_qkv at 24 heads
     of 80 and S 329, K1's; attention_bshd at 24 heads of 128 and S 600,
-    K4's; flash_backward there, K5's; dot_product_attention at D 80, K6's),
-    ln_matmul at K 100 (K7's: not a multiple of 8) and ln_qkv_attention at 2
-    heads of 80 (K8's). Each must raise ValueError with no kernel launch: on
-    the card an entry point launches its kernels or raises. (Head dims below
-    64 that are not multiples of 8, such as 36, reach the kernels padded to
-    64, and ln_qkv_attention at D 96 reaches K8: both moved to [head dims]
-    and [ln_qkv routes], as the JAX entry points serve them.)"""
+    K4's; flash_backward there, K5's; dot_product_attention at D 80, K6's)
+    and ln_qkv_attention at 2 heads of 80 (K8's). Each must raise ValueError
+    with no kernel launch: on the card an entry point launches its kernels
+    or raises. (Head dims below 64 that are not multiples of 8, such as 36,
+    reach the kernels padded to 64; widths that are not multiples of 8, as
+    ln_matmul at K 100 and ln_qkv_attention at D 100, reach K7, K2 and K8
+    zero-padded: both moved to [head dims] and [ln_qkv routes], as the JAX
+    entry points serve them.)"""
     from mipheivit_tpu_torch.ops import attention as attn
-    from mipheivit_tpu_torch.ops import attn_block, mlp
+    from mipheivit_tpu_torch.ops import attn_block
 
     t0 = time.perf_counter()
     bf16 = torch.bfloat16
@@ -787,9 +806,6 @@ def rejects_phase():
     g = seeded((1, 600, HEADS * 128), SEED + 122, bf16)
     out, lse = attn.flash_reference(long_q, long_k, long_v, HEADS)
     heads = [seeded((2, HEADS, 329, 80), SEED + 123 + i, bf16) for i in range(3)]
-    x = seeded((658, 100), SEED + 126, bf16)
-    lns, lnb = ln_params(100, SEED + 127)
-    w, b = seeded((256, 100), SEED + 128, bf16, 100 ** -0.5), seeded(256, SEED + 129, bf16, 0.1)
     x80 = seeded((2, 329, HD), SEED + 130, bf16)
     lns80, lnb80 = ln_params(HD, SEED + 131)
     w80, b80 = seeded((3 * 2 * 80, HD), SEED + 132, bf16, HD ** -0.5), seeded(480, SEED + 133, bf16)
@@ -800,7 +816,6 @@ def rejects_phase():
         "flash_backward [1, 600, 24x128]": lambda: attn.flash_backward(
             long_q, long_k, long_v, out, lse, g, HEADS),
         "dot_product_attention [2, 24, 329, 80]": lambda: attn.dot_product_attention(*heads),
-        "ln_matmul [658, 100] x [256, 100]": lambda: mlp.ln_matmul(x, lns, lnb, w, b),
         "ln_qkv_attention [2, 329, 1536], 2 heads of 80": lambda: attn_block.ln_qkv_attention(
             x80, lns80, lnb80, w80, b80, 2),
     }
@@ -1436,9 +1451,10 @@ def main() -> None:
     k8_phase("f32", 2, 329, torch.float32, seed=SEED + 118)
     torch.cuda.empty_cache()
 
-    # 3g. head dims below 64 through the attention kernels, K7 off the JAX
-    #     kernel's gate, ln_qkv_attention's routes beyond ViT-g's shape; what
-    #     no kernel takes raises on the card, before any launch
+    # 3g. head dims below 64 through the attention kernels, K7 and K2 off
+    #     their kernels' widths (zero-padded), ln_qkv_attention's routes
+    #     beyond ViT-g's shape; what no kernel takes raises on the card,
+    #     before any launch
     head_dims_phase()
     ln_qkv_routes_phase()
     rejects_phase()

@@ -14,7 +14,9 @@
 // written as [B, S, H*Dh], before the output projection. Like the TPU
 // kernel it keeps the normed activations and the [S, 3*H*Dh] qkv buffer out
 // of device memory. (Head dims below 64 arrive zero-padded to 64 by the
-// caller, with the scale of their own Dh.)
+// caller, with the scale of their own Dh; D not a multiple of 8 arrives
+// zero-padded to one, with zero gamma and beta there, and the row statistics
+// run over the true width.)
 //
 // The TPU design does not carry over: it holds the whole 14 MB bf16 qkv
 // weight in VMEM and projects all heads at once; an SM has 227 KB. Here a
@@ -112,6 +114,7 @@ struct Args {
   float* stats;         // [2, B*S] f32 scratch: row means, then rstds
   void* out;            // [B, S, H*DH] contiguous
   int B, S, D, H;
+  int width;            // the LayerNorm's width: D, or less where x comes zero-padded to D
   float eps;
   float scale;          // log2(e) / sqrt(Dh)
 };
@@ -126,9 +129,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // f32 mean and rstd of every row of x [B, S, D] into stats (means [0, B*S),
-// rstds [B*S, 2*B*S)): one warp per row, two passes as _ln_rows (the mean,
-// then the mean of squared deviations); bf16 rows are read 16 bytes at a
-// time, f32 one value at a time.
+// rstds [B*S, 2*B*S)) over the row's first ``width`` values (the rest are
+// the zero padding, kept out of both sums): one warp per row, two passes as
+// _ln_rows (the mean, then the mean of squared deviations); bf16 rows are
+// read 16 bytes at a time, f32 one value at a time.
 template <typename T>
 __global__ void __launch_bounds__(256) row_stats_kernel(Args a) {
   constexpr int V = sizeof(T) == 2 ? 8 : 1;  // values per load
@@ -139,20 +143,21 @@ __global__ void __launch_bounds__(256) row_stats_kernel(Args a) {
                 (long long)(i % a.S) * a.x_rs;
   auto sum_over = [&](auto term) {
     float s = 0.f;
-    for (int k = lane * V; k < a.D; k += 32 * V) {
+    for (int k = lane * V; k < a.width; k += 32 * V) {
       if constexpr (V == 8) {
         const uint4 u = *reinterpret_cast<const uint4*>(xr + k);
         const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
-        for (int j = 0; j < V; ++j) s += term(to_f(e[j]));
+        for (int j = 0; j < V; ++j)
+          if (k + j < a.width) s += term(to_f(e[j]));
       } else {
         s += term(to_f(xr[k]));
       }
     }
     return warp_sum(s);
   };
-  const float mean = sum_over([](float v) { return v; }) / a.D;
-  const float var = sum_over([mean](float v) { return (v - mean) * (v - mean); }) / a.D;
+  const float mean = sum_over([](float v) { return v; }) / a.width;
+  const float var = sum_over([mean](float v) { return (v - mean) * (v - mean); }) / a.width;
   if (lane == 0) {
     a.stats[i] = mean;
     a.stats[n + i] = rsqrtf(var + a.eps);
@@ -165,14 +170,6 @@ __global__ void __launch_bounds__(256) row_stats_kernel(Args a) {
 // the mbarriers: 230,432 bytes at tpb = 6
 inline size_t smem_bf16(int tpb) {
   return 1024 + 3 * (size_t)tpb * TILE + (size_t)STAGES * STAGE_BYTES + 8 * 2 * STAGES;
-}
-
-// two bf16 values of x (a register of the A fragment) layer-normed in f32,
-// (x - mean) * rstd * gamma + beta with nm = -mean * rstd, rounded to bf16
-__device__ __forceinline__ unsigned ln_pair(unsigned raw, float rs, float nm, float2 gm,
-                                            float2 bt) {
-  const float lo = __uint_as_float(raw << 16), hi = __uint_as_float(raw & 0xffff0000u);
-  return pack_bf16(fmaf(fmaf(lo, rs, nm), gm.x, bt.x), fmaf(fmaf(hi, rs, nm), gm.y, bt.y));
 }
 
 // pass 1 over one tile of N keys (key0 the first): the row max of the
@@ -616,7 +613,8 @@ __global__ void __launch_bounds__(FTHREADS) block_f32_kernel(Args a) {
 }
 
 int launch(bool bf16, const Args& a, void* stream) {
-  if (a.B < 1 || a.H < 1 || a.S < 1 || a.S > MAX_S || a.D < 8 || a.D % 8)
+  if (a.B < 1 || a.H < 1 || a.S < 1 || a.S > MAX_S || a.D < 8 || a.D % 8 || a.width < 1 ||
+      a.width > a.D)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = a.B * a.S;
@@ -656,18 +654,22 @@ extern "C" {
 // batch stride x_bs and row stride x_rs (unit column stride; bf16: 16-byte
 // aligned base and strides); ln_w, ln_b f32 [D rounded up to 64], zeros past
 // D; w [3*H*64, D] and b [3*H*64] contiguous in x's dtype; stats [2, B*S]
-// f32 scratch; out [B, S, H*64] contiguous. 1 <= S <= 1024, D a multiple of 8.
+// f32 scratch; out [B, S, H*64] contiguous. 1 <= S <= 1024, D a multiple of 8;
+// the LayerNorm's statistics over the first ``width`` (1 .. D) values of a
+// row, the rest of the row x's zero padding (with zero gamma and beta).
 int k8_attn_block_bf16(const void* x, long long x_bs, long long x_rs, const float* ln_w,
                        const float* ln_b, const void* w, const void* b, float* stats, void* out,
-                       int B, int S, int D, int H, float eps, float scale, void* stream) {
-  const Args a{x, x_bs, x_rs, ln_w, ln_b, w, b, stats, out, B, S, D, H, eps, scale};
+                       int B, int S, int D, int H, int width, float eps, float scale,
+                       void* stream) {
+  const Args a{x, x_bs, x_rs, ln_w, ln_b, w, b, stats, out, B, S, D, H, width, eps, scale};
   return launch(true, a, stream);
 }
 
 int k8_attn_block_f32(const void* x, long long x_bs, long long x_rs, const float* ln_w,
                       const float* ln_b, const void* w, const void* b, float* stats, void* out,
-                      int B, int S, int D, int H, float eps, float scale, void* stream) {
-  const Args a{x, x_bs, x_rs, ln_w, ln_b, w, b, stats, out, B, S, D, H, eps, scale};
+                      int B, int S, int D, int H, int width, float eps, float scale,
+                      void* stream) {
+  const Args a{x, x_bs, x_rs, ln_w, ln_b, w, b, stats, out, B, S, D, H, width, eps, scale};
   return launch(false, a, stream);
 }
 

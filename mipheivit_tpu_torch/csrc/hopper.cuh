@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: cp.async,
 // the 128-byte swizzled shared-memory layout and wgmma's matrix
-// descriptors, wgmma issue and synchronisation, mbarriers, TMA loads and
-// stores, named barriers, and on the host the encoding of TMA tensor maps.
+// descriptors, wgmma issue and synchronisation, the LayerNorm of an A
+// fragment in registers, mbarriers, TMA loads and stores, named barriers,
+// and on the host the encoding of TMA tensor maps.
 // K1 and K6 (attention.cu), K2 and K7 (swiglu.cu), K4 (flash_attention.cu),
 // K5 (flash_attention_bwd.cu) and K8 (attn_block.cu) include it.
 //
@@ -43,6 +44,14 @@ __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_gr
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// two bf16 values (one register of an A fragment) layer-normed in f32,
+// (x - mean) * rstd * gamma + beta with nm = -mean * rstd, rounded to bf16
+__device__ __forceinline__ unsigned ln_pair(unsigned raw, float rs, float nm, float2 gm,
+                                            float2 bt) {
+  const float lo = __uint_as_float(raw << 16), hi = __uint_as_float(raw & 0xffff0000u);
+  return pack_bf16(fmaf(fmaf(lo, rs, nm), gm.x, bt.x), fmaf(fmaf(hi, rs, nm), gm.y, bt.y));
 }
 
 // 2^x and 1/x on the special-function unit (about 2 ulp; ftz)
@@ -188,6 +197,19 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const unsigned (&a)
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
+// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T with A in registers (as in
+// wgmma_rs_n64) and B in shared memory (TB = 1: MN-major, else K-major);
+// acc = 0 overwrites d
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const unsigned (&a)[4],
+                                             unsigned long long db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
 }
 

@@ -16,66 +16,69 @@
 // shifted block index maps of _swiglu_forward), so no split copy exists and
 // the [M, 2H] product never reaches device memory.
 //
-// What bounds it on the H100. At the flagship shape (M = 64 * 329 = 21056,
-// K = 1536, H = 4096) one call is 2*M*K*2H = 530 GFLOP against 0.26 GB of x,
-// W and the output: ~2000 FLOP/byte, far above the card's ~295, so the floor
-// is the bf16 tensor-core time (0.54 ms at the dense peak). Both halves of W
-// (25 MB) sit in L2, so what a tile can do is bounded by how many operand
-// bytes it pulls from L2 per product, and by how much of the time the
-// tensor cores wait for anything else (loads, the SwiGLU epilogue, a last
-// wave that leaves SMs idle).
-//
-// The bf16 path without LayerNorm, the one every model path runs
-// (swiglu_ws_kernel), answers that with Hopper's own means: a persistent
-// grid of one block per SM walking output tiles of 128 rows x (128 value +
-// 128 gate) columns (5280 tiles at the flagship shape: 40 per SM on 132,
-// where the first design's 3569 blocks made 27.04 waves); a producer warp
-// that keeps a ring of four 64-deep stages (x, the value rows, the gate
-// rows) in flight by TMA, with full and empty mbarriers, so no consumer
-// spends an instruction on a load; two consumer warpgroups (setmaxnreg:
-// 240 registers) that run wgmma m64n128k16 from shared memory, 43 FMA per
-// byte a stage brings from L2 (the first design's 256 x 192 tile: 55); and
-// an epilogue that writes through shared
-// memory and a TMA store while the producer already loads the next tile.
-// Each consumer owns 64 rows of the tile with both accumulators (128 f32
-// registers a thread), so the two warpgroups work on one tile at a time and
-// the epilogue's exponentials do not run under products: a schedule where
-// each warpgroup owns a tile of its own (ping-pong) needs either 256
-// accumulator registers a thread at this tile or a tile that brings 1.3 to
-// 1.7 times the L2 bytes per product.
-//
-// The LayerNorm variant and K7 stay on the first design (gemm_bf16_kernel):
-// one block per 256 x (96 + 96) product tile, 55 FMA per byte it loads, two
-// warpgroups of two 64-row slabs each, four m64n96k16 products per 16 of
-// depth, a 4-slot cp.async ring of 64-deep tiles in the 128-byte swizzled
-// layout, one wgmma group in flight while the next stage is issued, the
-// epilogue on the registers.
-//
-// The LayerNorm variant does not cache the normed [BM, K] block as the TPU
-// kernel does in VMEM (a 128-row block of K = 1536 in bf16 is 384 KB, more
-// than the SM's shared memory): a first small kernel of the same call
-// computes each row's f32 mean and rstd once (row_stats_kernel, one warp per
-// row, 16-byte loads; the stats were once a prologue of every block, which
-// read each row once per 96 output columns, 2 bytes at a time), and every A
-// tile is normalised in shared memory after it lands.
-//
 // K7 replaces mipheivit_tpu/ops/mlp.py::_ln_matmul_kernel (:251), launched by
 // _ln_matmul_forward (:262): LN(x) . W^T + b with W the nn.Linear weight
 // [N, K], the LN rows rounded to x's dtype, f32 accumulation, the f32 bias,
-// one rounding at the output. It is K2's LayerNorm kernel with another
-// epilogue (the same template, GATE = false): a block's B tile is W's rows
-// n0 .. n0 + 191, one contiguous run, and the two 96-column accumulators
-// are written side by side with the bias added. At ViT-g's qkv projection
-// (M = 64 * 329, K = 1536, N = 4608) a call is 298 GFLOP against 0.27 GB:
-// the floor is the bf16 tensor-core time, 0.30 ms; the design and what it
-// leaves for later are K2's.
+// one rounding at the output.
+//
+// What bounds them on the H100. At the flagship fc1 (M = 64 * 329 = 21056,
+// K = 1536, H = 4096) one call is 2*M*K*2H = 530 GFLOP against 0.26 GB of x,
+// W and the output: ~2000 FLOP/byte, far above the card's ~295, so the floor
+// is the bf16 tensor-core time (0.54 ms at the dense peak); at ViT-g's qkv
+// projection (K7, N = 4608) 298 GFLOP against 0.27 GB, 0.30 ms. W (25 MB;
+// 14 MB) sits in L2, so what a tile can do is bounded by the operand bytes
+// it pulls from L2 per product, and by how much of the time the tensor
+// cores wait for anything else (loads, the LayerNorm, the epilogue, a last
+// wave that leaves SMs idle).
+//
+// One design serves the three bf16 kernels (gemm_ws_kernel<LN, GATE>): a
+// persistent grid of one block per SM walking output tiles of 128 rows x 256
+// product columns (K2: 128 value + 128 gate columns; K7: 256 output
+// columns), 5280 tiles at the flagship fc1 (40 per SM on 132); a producer
+// warp that keeps a ring of four 64-deep stages (128 x rows and two 128-row
+// B tiles of W) in flight by TMA, with full and empty mbarriers, so no
+// consumer spends an instruction on a load; two consumer warpgroups
+// (setmaxnreg: 240 registers) of 64 rows each, which run two wgmma
+// m64n128k16 per 16 of depth into two 64-register accumulators (43 FMA per
+// byte a stage brings from L2); and an epilogue that writes through shared
+// memory and TMA stores while the producer already loads the next tile. Both
+// warpgroups work on one tile at a time, so the epilogue's exponentials do
+// not run under products: a ping-pong schedule needs 256 accumulator
+// registers a thread at this tile, or a tile that brings 1.3 to 1.7 times
+// the L2 bytes per product.
+//
+// The LayerNorm (K2's LN variant, K7). The TPU kernel caches the normed
+// [BM, K] block in VMEM; a 128-row block at K = 1536 in bf16 is 384 KB, more
+// than an SM's shared memory, and a normed copy in device memory is the
+// traffic the fusion exists to avoid. Here a first small kernel of the same
+// call computes each row's f32 mean and rstd once (row_stats_kernel, one warp
+// per row, 16-byte loads, 8 bytes a row out), and each consumer builds its A
+// fragments from the landed, swizzled x tile in registers: ldmatrix, then
+// (x * rstd - mean * rstd) * gamma + beta in f32, rounded to bf16 (ln_pair),
+// and wgmma with A from registers (RS). Each fragment feeds both 128-column
+// products of the tile, so the normalisation is paid once per 256 product
+// columns, and the normed rows never touch shared or device memory. The
+// fragments are double-buffered (two register sets, the k loop unrolled by
+// 2): stage k + 1 is normalised while stage k's products run, then
+// wgmma_wait<1>. Registers: 128 accumulators and 2 x 16 fragment registers
+// a thread of the 240. (gamma is not folded into W nor beta into the bias:
+// that computes another function, rounding W * gamma instead of the normed
+// rows, and cancels badly where |mean| >> std.)
+//
+// K7's epilogue (GATE = false): a tile's second B tile is W's rows n0 + 128
+// .. (not H + n0 ..), and the 128 x 256 output tile leaves in two halves of
+// 128 columns through the same two 64 x 64 shared-memory boxes a consumer
+// owns (f32 bias, one rounding), each by TMA stores that drop rows past M
+// and columns past N.
 //
 // Ragged M (329 tokens per tile is no multiple of any tile size) and ragged
-// H or K tails are masked in the kernel: rows and columns past the end are
-// zero-filled on load and not stored.
+// H, N or K tails: TMA zero-fills rows and columns past the end on load and
+// drops them on store. K, H and N are multiples of 8 (TMA moves 16-byte
+// rows): the entry points zero-pad other widths, with zero gamma and beta on
+// the padded columns of x, and the row statistics run over the true width.
 //
 // Two paths:
-//   bf16  the main path (wgmma);
+//   bf16  the main path (wgmma, as above);
 //   f32   scalar FMAs on 64 x 64 output tiles (tests and f32 numerics).
 //
 // A second entry point forms the training backward's elementwise terms in
@@ -99,11 +102,12 @@ struct Args {
   long long x_rs;
   const void* w;       // K2: [2H, K]; K7: [H, K] (H = N); contiguous
   const void* b;       // [2H] or [H]
-  const float* ln_w;   // [K] f32, or null: no LayerNorm
-  const float* ln_b;   // [K] f32
-  const float* stats;  // [2, M] f32: row means, then rstds (row_stats_kernel); with ln_w
+  const float* ln_w;   // [K rounded up to 64] f32, zeros past width; or null: no LayerNorm
+  const float* ln_b;   // [K rounded up to 64] f32, zeros past width
+  float* stats;        // [2, M] f32: row means, then rstds (row_stats_kernel); with ln_w
   void* out;           // [M, H] contiguous
   int M, K, H;         // H: K2's hidden width, K7's output width N
+  int width;           // the LayerNorm's width: K, or less where x comes zero-padded to K
   float eps;
 };
 
@@ -122,12 +126,13 @@ __device__ __forceinline__ float swiglu(float a, float g) {
 }
 
 // f32 mean and rstd of every row of x [M, K] into stats (means [0, M), rstds
-// [M, 2M)): one warp per row, two passes as _ln_rows (the mean, then the
-// mean of squared deviations); bf16 rows are read 16 bytes at a time (K a
-// multiple of 8, aligned rows), f32 one value at a time.
+// [M, 2M)) over the row's first ``width`` values (the rest are the zero
+// padding, kept out of both sums): one warp per row, two passes as _ln_rows
+// (the mean, then the mean of squared deviations); bf16 rows are read 16
+// bytes at a time (K a multiple of 8, aligned rows), f32 one value at a time.
 template <typename T>
 __global__ void __launch_bounds__(256) row_stats_kernel(const T* __restrict__ x, long long rs,
-                                                        int M, int K, float eps,
+                                                        int M, int width, float eps,
                                                         float* __restrict__ stats) {
   constexpr int V = sizeof(T) == 2 ? 8 : 1;  // values per load
   const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -135,20 +140,21 @@ __global__ void __launch_bounds__(256) row_stats_kernel(const T* __restrict__ x,
   const T* xr = x + (long long)row * rs;
   auto sum_over = [&](auto term) {
     float s = 0.f;
-    for (int k = lane * V; k < K; k += 32 * V) {
+    for (int k = lane * V; k < width; k += 32 * V) {
       if constexpr (V == 8) {
         const uint4 u = *reinterpret_cast<const uint4*>(xr + k);
         const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
-        for (int i = 0; i < V; ++i) s += term(to_f(e[i]));
+        for (int i = 0; i < V; ++i)
+          if (k + i < width) s += term(to_f(e[i]));
       } else {
         s += term(to_f(xr[k]));
       }
     }
     return warp_sum(s);
   };
-  const float mean = sum_over([](float v) { return v; }) / K;
-  const float var = sum_over([mean](float v) { return (v - mean) * (v - mean); }) / K;
+  const float mean = sum_over([](float v) { return v; }) / width;
+  const float var = sum_over([mean](float v) { return (v - mean) * (v - mean); }) / width;
   if (lane == 0) {
     stats[row] = mean;
     stats[M + row] = rsqrtf(var + eps);
@@ -166,203 +172,10 @@ __device__ __forceinline__ void stage_stats(const Args& a, int m0, int rows, flo
   }
 }
 
-// ---- bf16: wgmma GEMM with the SwiGLU epilogue ----------------------------
-
-constexpr int BM = 256;             // rows of x per block: two 64-row slabs per warpgroup
-constexpr int BN = 96;              // output columns per block: BN value + BN gate rows of W
-constexpr int BK = 64;              // depth of one stage: one 128-byte swizzled row
-constexpr int STAGES = 4;
-constexpr int AHEAD = STAGES - 2;   // stages in flight ahead of the one computed
-constexpr int MT = 2;               // 64-row slabs per warpgroup
-constexpr int THREADS = 256;        // two warpgroups
-constexpr int NR = BN / 2;          // accumulator registers per slab and half
-constexpr int A_BYTES = BM * BK * 2;
-constexpr int B_BYTES = 2 * BN * BK * 2;
-constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-// the ring, its 1024-byte alignment, and the LayerNorm's row statistics:
-// exactly the 227 KB a block may use
-constexpr size_t SMEM_BF16 = (size_t)STAGES * STAGE_BYTES + 1024 + 2 * BM * sizeof(float);
-
-static_assert(BM == 2 * MT * 64 && BN % 8 == 0 && (BN * 128) % 1024 == 0, "wgmma tiling");
-
-// K2's LayerNorm variant (GATE) and K7, every A tile normalised after it
-// lands. One block per (96 output columns, 256 rows); grid (H / BN, M / BM).
-// Warpgroup wg owns rows wg*128 .. +127 of the tile as two 64-row slabs and
-// all BN output columns of both halves: per 16 of depth, four m64n96k16
-// products into the a and g accumulators (2 x 2 x 48 f32 registers per
-// thread). One wgmma group stays in flight while the next stage is issued.
-// GATE = false (K7): one block per (192 output columns, 256 rows), grid
-// (N / 2BN, M / BM); the "a" and "g" accumulators hold columns n0 .. +95 and
-// n0 + 96 .. +191 of one product.
-template <bool GATE>
-__global__ void __launch_bounds__(THREADS, 1) gemm_bf16_kernel(Args a) {
-  extern __shared__ unsigned char smem_raw[];
-  const unsigned raw = static_cast<unsigned>(__cvta_generic_to_shared(smem_raw));
-  const unsigned ring = (raw + 1023u) & ~1023u;
-  unsigned char* ring_ptr = smem_raw + (ring - raw);
-  float* mean_s = reinterpret_cast<float*>(ring_ptr + STAGES * STAGE_BYTES);
-  float* rstd_s = mean_s + BM;
-
-  const int n0 = blockIdx.x * (GATE ? BN : 2 * BN), m0 = blockIdx.y * BM;
-  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32, warp_in_wg = (tid % 128) / 32;
-  const int g = lane >> 2, tig = lane & 3;  // accumulator row group / column pair
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
-  const int n_k = (a.K + BK - 1) / BK;
-
-  // x rows m0.. and W rows n0.. (value) and H + n0.. (gate) of depth
-  // k0..k0+63 into one ring slot, swizzled (K7: W rows n0 .. n0 + 191);
-  // out-of-range 16-byte chunks are zero-filled
-  auto load_stage = [&](int slot, int k0) {
-    const unsigned As = ring + slot * STAGE_BYTES, Bs = As + A_BYTES;
-#pragma unroll
-    for (int i = tid; i < BM * 8; i += THREADS) {
-      const int r = i / 8, c = i % 8;
-      const bool ok = m0 + r < a.M && k0 + c * 8 < a.K;
-      cp_async16(As + swz(r, c), x + (ok ? (long long)(m0 + r) * a.x_rs + k0 + c * 8 : 0), ok);
-    }
-#pragma unroll
-    for (int i = tid; i < 2 * BN * 8; i += THREADS) {
-      const int r = i / 8, c = i % 8;
-      const int col = GATE ? n0 + r % BN : n0 + r;
-      const long long wrow = GATE ? (long long)(r / BN) * a.H + col : col;
-      const bool ok = col < a.H && k0 + c * 8 < a.K;
-      cp_async16(Bs + swz(r, c), w + (ok ? wrow * a.K + k0 + c * 8 : 0), ok);
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < AHEAD; ++s) {
-    if (s < n_k) load_stage(s, s * BK);
-    cp_async_commit();
-  }
-  stage_stats(a, m0, BM, mean_s, rstd_s);  // first read after a __syncthreads
-
-  float acc_a[MT][NR], acc_g[MT][NR];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int e = 0; e < NR; ++e) acc_a[mt][e] = acc_g[mt][e] = 0.f;
-
-  for (int kt = 0; kt < n_k; ++kt) {
-    cp_async_wait<AHEAD - 1>();  // this thread's part of stage kt landed
-    const int slot = kt % STAGES;
-    __syncthreads();  // every thread's part of stage kt landed
-    {  // normalise the landed A tile in place, rounded to bf16 (_ln_rows)
-      const int k0 = kt * BK;
-      unsigned char* As = ring_ptr + slot * STAGE_BYTES;
-      for (int i = tid; i < BM * 8; i += THREADS) {
-        const int r = i / 8, c = i % 8;
-        if (k0 + c * 8 >= a.K) continue;  // the zero-filled tail stays zero
-        uint4* p = reinterpret_cast<uint4*>(As + swz(r, c));
-        uint4 raw4 = *p;
-        __nv_bfloat16* v = reinterpret_cast<__nv_bfloat16*>(&raw4);
-        const float mu = mean_s[r], rs = rstd_s[r];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float y = (__bfloat162float(v[e]) - mu) * rs;
-          v[e] = __float2bfloat16(y * a.ln_w[k0 + c * 8 + e] + a.ln_b[k0 + c * 8 + e]);
-        }
-        *p = raw4;
-      }
-    }
-    // this thread's generic-proxy writes (cp.async, the LayerNorm) become
-    // visible to the tensor cores' async proxy; then every thread's are, and
-    // every warpgroup has retired its products of stage kt - 2
-    fence_proxy_async();
-    __syncthreads();
-    {
-      const int nxt = kt + AHEAD;  // refills the slot of stage kt - 2
-      if (nxt < n_k) load_stage(nxt % STAGES, nxt * BK);
-      cp_async_commit();
-    }
-    const unsigned As = ring + slot * STAGE_BYTES, Bs = As + A_BYTES;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      fence_acc(acc_a[mt]);
-      fence_acc(acc_g[mt]);
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const unsigned long long dv = smem_desc(Bs + kk * 32);
-      const unsigned long long dg = smem_desc(Bs + BN * 128 + kk * 32);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const unsigned long long da = smem_desc(As + (wg * MT + mt) * 64 * 128 + kk * 32);
-        wgmma_ss_n96<0, 0>(acc_a[mt], da, dv, 1);
-        wgmma_ss_n96<0, 0>(acc_g[mt], da, dg, 1);
-      }
-    }
-    wgmma_commit();
-    wgmma_wait<1>();  // stage kt - 1's products done; stage kt's in flight
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      fence_acc(acc_a[mt]);
-      fence_acc(acc_g[mt]);
-    }
-  }
-  wgmma_wait<0>();
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    fence_acc(acc_a[mt]);
-    fence_acc(acc_g[mt]);
-  }
-  cp_async_wait<0>();
-
-  // epilogue: f32 biases, a * sigmoid(a) * g, one rounding to bf16. Thread
-  // (warp w of its warpgroup, g, tig) holds, for each 8-column chunk j,
-  // rows w*16 + g (+8) of each slab and columns j*8 + tig*2 (+1).
-  const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(a.b);
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
-  if (!GATE) {  // K7: acc + f32 bias, one rounding; the two halves side by side
-    auto emit = [&](const float (&acc)[NR], int mt, int c0) {
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int col = c0 + j * 8 + tig * 2;
-        if (col >= a.H) continue;
-        const float b0 = __bfloat162float(bias[col]), b1 = __bfloat162float(bias[col + 1]);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int row = m0 + (wg * MT + mt) * 64 + warp_in_wg * 16 + g + 8 * r;
-          if (row >= a.M) continue;
-          *reinterpret_cast<unsigned*>(out + (long long)row * a.H + col) =
-              pack_bf16(acc[4 * j + 2 * r] + b0, acc[4 * j + 2 * r + 1] + b1);
-        }
-      }
-    };
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      emit(acc_a[mt], mt, n0);
-      emit(acc_g[mt], mt, n0 + BN);
-    }
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = n0 + j * 8 + tig * 2;
-    if (col >= a.H) continue;
-    const float ba0 = __bfloat162float(bias[col]), ba1 = __bfloat162float(bias[col + 1]);
-    const float bg0 = __bfloat162float(bias[a.H + col]);
-    const float bg1 = __bfloat162float(bias[a.H + col + 1]);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = m0 + (wg * MT + mt) * 64 + warp_in_wg * 16 + g + 8 * r;
-        if (row >= a.M) continue;
-        const float v0 = swiglu(acc_a[mt][4 * j + 2 * r] + ba0, acc_g[mt][4 * j + 2 * r] + bg0);
-        const float v1 =
-            swiglu(acc_a[mt][4 * j + 2 * r + 1] + ba1, acc_g[mt][4 * j + 2 * r + 1] + bg1);
-        *reinterpret_cast<unsigned*>(out + (long long)row * a.H + col) = pack_bf16(v0, v1);
-      }
-  }
-}
-
-// ---- K2 bf16 without LayerNorm: persistent, warp-specialised, TMA-fed ------
+// ---- bf16: persistent, warp-specialised, TMA-fed (K2, its LN variant, K7) ----
 
 constexpr int TM = 128;             // rows of x per tile: 64 per consumer warpgroup
-constexpr int TN = 128;             // output columns per tile: TN value + TN gate rows of W
+constexpr int TN = 128;             // columns of one B tile of W (two a stage)
 constexpr int TK = 64;              // depth of one stage: one 128-byte swizzled row
 constexpr int WS_STAGES = 4;
 constexpr int WS_THREADS = 384;     // producer warpgroup + two consumer warpgroups
@@ -372,7 +185,7 @@ constexpr int WS_PRODUCER_REGS = 24, WS_CONSUMER_REGS = 240;
 static_assert(128 * WS_PRODUCER_REGS + WS_CONSUMERS * WS_CONSUMER_REGS <= 65536,
               "register file");
 constexpr int WS_A_BYTES = TM * TK * 2;                    // 16 KB
-constexpr int WS_B_BYTES = TN * TK * 2;                    // 16 KB each of value and gate
+constexpr int WS_B_BYTES = TN * TK * 2;                    // 16 KB each of the two B tiles
 constexpr int WS_STAGE_BYTES = WS_A_BYTES + 2 * WS_B_BYTES;
 constexpr int WS_OUT_BYTES = 64 * 64 * 2;                  // one 64 x 64 output box
 constexpr int WS_BAR_EPI = 1;                              // + consumer index
@@ -385,24 +198,39 @@ __device__ __forceinline__ float swiglu_fast(float a, float g) {
   return a * rcp_approx(1.f + ex2_approx(-1.4426950408889634f * a)) * g;
 }
 
-// A persistent grid of one block per SM walks the tiles of 128 rows x 128
-// output columns, t = blockIdx.x, + gridDim.x, ..., in row-block-major order
-// (the blocks in flight share a few 128-row blocks of x; W, 25 MB at
-// ViT-g's fc1, stays in L2). One producer thread streams each tile's stages
-// (x rows, the value rows n0.. and the gate rows H + n0.. of W, 64 deep) by
-// TMA into a ring of four; rows and columns past M, 2H or K arrive as
-// zeros. Two consumer warpgroups take 64 rows each: per 16 of depth a
-// m64n128k16 product into the value and one into the gate accumulator
-// (2 x 64 f32 registers a thread), one stage's group left in flight while
-// the next is issued; then the epilogue (f32 bias, silu(a) * g, one
-// rounding) into two 64 x 64 boxes of shared memory and a TMA store, which
-// drops rows past M and columns past H. The producer keeps loading the
-// next tile's stages meanwhile.
+// keeps an A fragment's registers live up to here: the wgmma that reads them
+// runs asynchronously until a wgmma_wait retires it
+__device__ __forceinline__ void keep_frag(unsigned (&af)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(af[kk][i])::"memory");
+}
+
+// A persistent grid of one block per SM walks the tiles of 128 rows x 256
+// product columns, t = blockIdx.x, + gridDim.x, ..., in row-block-major order
+// (the blocks in flight share a few 128-row blocks of x; W stays in L2).
+// One producer thread streams each tile's stages (x rows m0.., and W's rows
+// n0.. and H + n0.. for K2 or n0 + 128.. for K7, 64 deep) by TMA into a ring
+// of four; rows and columns past M, W's rows or K arrive as zeros. Two
+// consumer warpgroups take 64 rows each: per 16 of depth two m64n128k16
+// products (value and gate, or K7's two column halves) into two 64-register
+// accumulators, A from shared memory (SS) or, with LN, from registers
+// normalised as they are loaded (RS); one stage's group left in flight while
+// the next is prepared and issued. Then the epilogue (f32 bias; K2 silu(a) *
+// g; one rounding) into two 64 x 64 boxes of shared memory per consumer and
+// TMA stores, which drop rows past M and columns past H (N). The producer
+// keeps loading the next tile's stages meanwhile. With LN, ln_w and ln_b
+// are f32 [K rounded up to 64] with zeros past the LayerNorm's width, and
+// stats the row means then rstds [2, M].
+template <bool LN, bool GATE>
 __global__ void __launch_bounds__(WS_THREADS, 1)
-    swiglu_ws_kernel(const __grid_constant__ CUtensorMap xmap,
-                     const __grid_constant__ CUtensorMap wmap,
-                     const __grid_constant__ CUtensorMap omap,
-                     const __nv_bfloat16* __restrict__ bias, int M, int K, int H) {
+    gemm_ws_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap wmap,
+                   const __grid_constant__ CUtensorMap omap,
+                   const __nv_bfloat16* __restrict__ bias, const float* __restrict__ ln_w,
+                   const float* __restrict__ ln_b, const float* __restrict__ stats, int M, int K,
+                   int H) {
   extern __shared__ unsigned char smem_raw[];
   const unsigned raw = smem_addr(smem_raw);
   const unsigned base = (raw + 1023u) & ~1023u;
@@ -412,8 +240,9 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   auto full = [&](int st) { return bars + 8 * st; };
   auto empty = [&](int st) { return bars + 8 * (WS_STAGES + st); };
 
+  constexpr int TILE_N = GATE ? TN : 2 * TN;  // output columns per tile
   const int tid = threadIdx.x;
-  const int n_n = (H + TN - 1) / TN, n_k = (K + TK - 1) / TK;
+  const int n_n = (H + TILE_N - 1) / TILE_N, n_k = (K + TK - 1) / TK;
   const int tiles = ((M + TM - 1) / TM) * n_n;
 
   if (tid == 0) {
@@ -431,15 +260,20 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     if (tid == 0) {
       int it = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int m0 = (t / n_n) * TM, n0 = (t % n_n) * TN;
+        const int m0 = (t / n_n) * TM, n0 = (t % n_n) * TILE_N;
+        // K7's second B tile lies past N when the tile's last 128 columns
+        // do: it is not loaded (its products land in columns the store drops)
+        const bool second = GATE || n0 + TN < H;
         for (int kt = 0; kt < n_k; ++kt, ++it) {
           const int st = it % WS_STAGES;
           mbar_wait(empty(st), ((it / WS_STAGES) & 1) ^ 1);  // the first round passes
           const unsigned sb = base + st * WS_STAGE_BYTES;
-          mbar_expect_tx(full(st), WS_STAGE_BYTES);
+          mbar_expect_tx(full(st), second ? WS_STAGE_BYTES : WS_A_BYTES + WS_B_BYTES);
           tma_load_3d(sb, &xmap, full(st), kt * TK, m0, 0);
           tma_load_3d(sb + WS_A_BYTES, &wmap, full(st), kt * TK, n0, 0);
-          tma_load_3d(sb + WS_A_BYTES + WS_B_BYTES, &wmap, full(st), kt * TK, H + n0, 0);
+          if (second)
+            tma_load_3d(sb + WS_A_BYTES + WS_B_BYTES, &wmap, full(st), kt * TK,
+                        GATE ? H + n0 : n0 + TN, 0);
         }
       }
     }
@@ -451,65 +285,150 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   const int lt = tid % 128, warp = lt / 32, lane = tid % 32, g = lane >> 2, tig = lane & 3;
   const unsigned my_out = out_s + c * 2 * WS_OUT_BYTES;
   unsigned char* my_out_ptr = base_ptr + (my_out - base);
+  const float2* gamma = reinterpret_cast<const float2*>(ln_w);
+  const float2* beta = reinterpret_cast<const float2*>(ln_b);
   float acc_a[64], acc_g[64];
+  unsigned af0[4][4], af1[4][4];  // LN: the A fragments of two stages
   int it = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int m0 = (t / n_n) * TM, n0 = (t % n_n) * TN;
-    for (int kt = 0; kt < n_k; ++kt, ++it) {
+    const int m0 = (t / n_n) * TM, n0 = (t % n_n) * TILE_N;
+    float rs[2] = {0.f, 0.f}, nm[2] = {0.f, 0.f};  // LN: rstd and -mean * rstd of rows g, g + 8
+    if constexpr (LN) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = m0 + 64 * c + warp * 16 + g + 8 * r;
+        if (row < M) {
+          rs[r] = stats[M + row];
+          nm[r] = -stats[row] * rs[r];
+        }
+      }
+    }
+    // one stage: wait for it to land; with LN build its A fragments in af;
+    // issue its products; retire the previous stage's (whose fragments are
+    // prev) and hand that stage's slot back to the producer
+    auto stage = [&](int kt, unsigned (&af)[4][4], unsigned (&prev)[4][4]) {
       const int st = it % WS_STAGES;
       mbar_wait(full(st), (it / WS_STAGES) & 1);
       const unsigned sb = base + st * WS_STAGE_BYTES;
       const unsigned a_s = sb + c * 64 * 128, v_s = sb + WS_A_BYTES, g_s = v_s + WS_B_BYTES;
+      if constexpr (LN) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          unsigned xr[4];
+          ldmatrix_x4(xr, a_s + swz(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
+          const int col2 = (kt * TK + kk * 16 + tig * 2) / 2;
+          const float2 g0 = __ldg(gamma + col2), b0 = __ldg(beta + col2);
+          const float2 g1 = __ldg(gamma + col2 + 4), b1 = __ldg(beta + col2 + 4);
+          af[kk][0] = ln_pair(xr[0], rs[0], nm[0], g0, b0);
+          af[kk][1] = ln_pair(xr[1], rs[1], nm[1], g0, b0);
+          af[kk][2] = ln_pair(xr[2], rs[0], nm[0], g1, b1);
+          af[kk][3] = ln_pair(xr[3], rs[1], nm[1], g1, b1);
+        }
+      }
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < TK / 16; ++kk) {
-        const unsigned long long da = smem_desc(a_s + kk * 32);
-        wgmma_ss_n128<0, 0>(acc_a, da, smem_desc(v_s + kk * 32), kt > 0 || kk > 0);
-        wgmma_ss_n128<0, 0>(acc_g, da, smem_desc(g_s + kk * 32), kt > 0 || kk > 0);
+        const int acc = kt > 0 || kk > 0;
+        if constexpr (LN) {
+          wgmma_rs_n128<0>(acc_a, af[kk], smem_desc(v_s + kk * 32), acc);
+          wgmma_rs_n128<0>(acc_g, af[kk], smem_desc(g_s + kk * 32), acc);
+        } else {
+          const unsigned long long da = smem_desc(a_s + kk * 32);
+          wgmma_ss_n128<0, 0>(acc_a, da, smem_desc(v_s + kk * 32), acc);
+          wgmma_ss_n128<0, 0>(acc_g, da, smem_desc(g_s + kk * 32), acc);
+        }
       }
       wgmma_commit();
       wgmma_wait<1>();  // the previous stage's products are done
       fence_acc(acc_a);
       fence_acc(acc_g);
+      if constexpr (LN) keep_frag(prev);
       if (kt > 0) mbar_arrive(empty((it - 1) % WS_STAGES));
+      ++it;
+    };
+    if constexpr (LN) {  // two fragment sets in turn
+      int kt = 0;
+      for (; kt + 1 < n_k; kt += 2) {
+        stage(kt, af0, af1);
+        stage(kt + 1, af1, af0);
+      }
+      if (kt < n_k) stage(kt, af0, af1);
+    } else {
+      for (int kt = 0; kt < n_k; ++kt) stage(kt, af0, af0);
     }
     wgmma_wait<0>();
     fence_acc(acc_a);
     fence_acc(acc_g);
+    if constexpr (LN) {
+      keep_frag(af0);
+      keep_frag(af1);
+    }
     mbar_arrive(empty((it - 1) % WS_STAGES));
 
-    // epilogue: f32 biases, a * sigmoid(a) * g, one rounding to bf16, into
-    // this consumer's two output boxes once the last store has read them.
-    // Thread (warp, g, tig) holds rows warp*16 + g (+8) and, for each
-    // 8-column chunk j, columns 8j + 2 tig (+1) of both accumulators.
-    if (lt == 0) bulk_wait_read<0>();
-    named_sync(WS_BAR_EPI + c, 128);
+    // epilogue into this consumer's two output boxes, once the last store
+    // has read them. Thread (warp, g, tig) holds rows warp*16 + g (+8) and,
+    // for each 8-column chunk j, columns 8j + 2 tig (+1) of both
+    // accumulators.
+    if constexpr (GATE) {  // K2: f32 biases, a * sigmoid(a) * g, one rounding
+      if (lt == 0) bulk_wait_read<0>();
+      named_sync(WS_BAR_EPI + c, 128);
 #pragma unroll
-    for (int j = 0; j < TN / 8; ++j) {
-      const int col = n0 + j * 8 + tig * 2;
-      float ba0 = 0.f, ba1 = 0.f, bg0 = 0.f, bg1 = 0.f;
-      if (col < H) {
-        ba0 = __bfloat162float(bias[col]);
-        ba1 = __bfloat162float(bias[col + 1]);
-        bg0 = __bfloat162float(bias[H + col]);
-        bg1 = __bfloat162float(bias[H + col + 1]);
-      }
+      for (int j = 0; j < TN / 8; ++j) {
+        const int col = n0 + j * 8 + tig * 2;
+        float ba0 = 0.f, ba1 = 0.f, bg0 = 0.f, bg1 = 0.f;
+        if (col < H) {
+          ba0 = __bfloat162float(bias[col]);
+          ba1 = __bfloat162float(bias[col + 1]);
+          bg0 = __bfloat162float(bias[H + col]);
+          bg1 = __bfloat162float(bias[H + col + 1]);
+        }
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = warp * 16 + g + 8 * r;
-        const float v0 = swiglu_fast(acc_a[4 * j + 2 * r] + ba0, acc_g[4 * j + 2 * r] + bg0);
-        const float v1 =
-            swiglu_fast(acc_a[4 * j + 2 * r + 1] + ba1, acc_g[4 * j + 2 * r + 1] + bg1);
-        *reinterpret_cast<unsigned*>(my_out_ptr + (j >> 3) * WS_OUT_BYTES + swz(row, j & 7) +
-                                     tig * 4) = pack_bf16(v0, v1);
+        for (int r = 0; r < 2; ++r) {
+          const int row = warp * 16 + g + 8 * r;
+          const float v0 = swiglu_fast(acc_a[4 * j + 2 * r] + ba0, acc_g[4 * j + 2 * r] + bg0);
+          const float v1 =
+              swiglu_fast(acc_a[4 * j + 2 * r + 1] + ba1, acc_g[4 * j + 2 * r + 1] + bg1);
+          *reinterpret_cast<unsigned*>(my_out_ptr + (j >> 3) * WS_OUT_BYTES + swz(row, j & 7) +
+                                       tig * 4) = pack_bf16(v0, v1);
+        }
       }
-    }
-    fence_proxy_async();
-    named_sync(WS_BAR_EPI + c, 128);
-    if (lt == 0) {
-      tma_store_3d(&omap, my_out, n0, m0 + 64 * c, 0);
-      tma_store_3d(&omap, my_out + WS_OUT_BYTES, n0 + 64, m0 + 64 * c, 0);
-      bulk_commit();
+      fence_proxy_async();
+      named_sync(WS_BAR_EPI + c, 128);
+      if (lt == 0) {
+        tma_store_3d(&omap, my_out, n0, m0 + 64 * c, 0);
+        tma_store_3d(&omap, my_out + WS_OUT_BYTES, n0 + 64, m0 + 64 * c, 0);
+        bulk_commit();
+      }
+    } else {  // K7: f32 bias, one rounding; columns n0.. then n0 + 128..
+      auto half = [&](const float(&acc)[64], int col0) {
+        if (lt == 0) bulk_wait_read<0>();
+        named_sync(WS_BAR_EPI + c, 128);
+#pragma unroll
+        for (int j = 0; j < TN / 8; ++j) {
+          const int col = col0 + j * 8 + tig * 2;
+          float b0 = 0.f, b1 = 0.f;
+          if (col < H) {
+            b0 = __bfloat162float(bias[col]);
+            b1 = __bfloat162float(bias[col + 1]);
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = warp * 16 + g + 8 * r;
+            *reinterpret_cast<unsigned*>(my_out_ptr + (j >> 3) * WS_OUT_BYTES + swz(row, j & 7) +
+                                         tig * 4) =
+                pack_bf16(acc[4 * j + 2 * r] + b0, acc[4 * j + 2 * r + 1] + b1);
+          }
+        }
+        fence_proxy_async();
+        named_sync(WS_BAR_EPI + c, 128);
+        if (lt == 0) {
+          tma_store_3d(&omap, my_out, col0, m0 + 64 * c, 0);
+          if (col0 + 64 < H) tma_store_3d(&omap, my_out + WS_OUT_BYTES, col0 + 64, m0 + 64 * c, 0);
+          bulk_commit();
+        }
+      };
+      half(acc_a, n0);
+      if (n0 + TN < H) half(acc_g, n0 + TN);
     }
   }
   if (lt == 0) bulk_wait<0>();
@@ -525,21 +444,24 @@ int sm_count() {
   return n;
 }
 
-// K2 bf16 without LayerNorm: the tensor maps of x [M, K] (row stride
-// x_rs), the packed W [2H, K] and out [M, H], then the persistent grid
-int launch_swiglu_ws(const Args& a, cudaStream_t st) {
+// The bf16 kernels: the tensor maps of x [M, K] (row stride x_rs), W (K2's
+// packed [2H, K], K7's [N, K]) and out [M, H], then the persistent grid
+template <bool LN, bool GATE>
+int launch_ws(const Args& a, cudaStream_t st) {
   CUtensorMap xm, wm, om;
   int err = encode_rows_bf16(&xm, a.x, a.K, a.M, 1, a.x_rs, 0, TM);
-  if (!err) err = encode_rows_bf16(&wm, a.w, a.K, 2LL * a.H, 1, a.K, 0, TN);
+  if (!err) err = encode_rows_bf16(&wm, a.w, a.K, GATE ? 2LL * a.H : a.H, 1, a.K, 0, TN);
   if (!err) err = encode_rows_bf16(&om, a.out, a.H, a.M, 1, a.H, 0, 64);
   if (err) return err;
-  const cudaError_t e = cudaFuncSetAttribute(
-      swiglu_ws_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WS_SMEM);
+  auto kernel = gemm_ws_kernel<LN, GATE>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WS_SMEM);
   if (e != cudaSuccess) return (int)e;
-  const int tiles = ((a.M + TM - 1) / TM) * ((a.H + TN - 1) / TN);
+  const int tile_n = GATE ? TN : 2 * TN;
+  const int tiles = ((a.M + TM - 1) / TM) * ((a.H + tile_n - 1) / tile_n);
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  swiglu_ws_kernel<<<grid, WS_THREADS, WS_SMEM, st>>>(
-      xm, wm, om, static_cast<const __nv_bfloat16*>(a.b), a.M, a.K, a.H);
+  kernel<<<grid, WS_THREADS, WS_SMEM, st>>>(xm, wm, om, static_cast<const __nv_bfloat16*>(a.b),
+                                            a.ln_w, a.ln_b, a.stats, a.M, a.K, a.H);
   return (int)cudaGetLastError();
 }
 
@@ -702,41 +624,32 @@ int launch_gate_bwd(bool bf16, const void* ag, const void* dh, void* dc, long lo
 }
 
 // K2 (gate) or K7, bf16 or f32; with ln_w the row statistics first
-int launch(bool bf16, bool gate, const void* x, long long x_rs, const void* w, const void* b,
-           const float* ln_w, const float* ln_b, float* stats, void* out, int M, int K, int H,
-           float eps, void* stream) {
-  if (M < 1 || K < 8 || H < 8 || K % 8 || H % 8) return (int)cudaErrorInvalidValue;
-  if ((ln_w == nullptr) != (ln_b == nullptr) || (ln_w != nullptr) != (stats != nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (!gate && ln_w == nullptr) return (int)cudaErrorInvalidValue;  // K7 is LN + matmul
-  const Args a{x, x_rs, w, b, ln_w, ln_b, stats, out, M, K, H, eps};
+int launch(bool bf16, bool gate, const Args& a, void* stream) {
+  if (a.M < 1 || a.K < 8 || a.H < 8 || a.K % 8 || a.H % 8) return (int)cudaErrorInvalidValue;
+  const bool ln = a.ln_w != nullptr;
+  if ((a.ln_b != nullptr) != ln || (a.stats != nullptr) != ln) return (int)cudaErrorInvalidValue;
+  if (!gate && !ln) return (int)cudaErrorInvalidValue;  // K7 is LN + matmul
+  if (ln && (a.width < 1 || a.width > a.K)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ln_w != nullptr) {
-    const int blocks = (M + 7) / 8;
+  if (ln) {
+    const int blocks = (a.M + 7) / 8;
     if (bf16)
       row_stats_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(x), x_rs, M, K, eps, stats);
+          static_cast<const __nv_bfloat16*>(a.x), a.x_rs, a.M, a.width, a.eps, a.stats);
     else
-      row_stats_kernel<float><<<blocks, 256, 0, st>>>(static_cast<const float*>(x), x_rs, M, K,
-                                                      eps, stats);
+      row_stats_kernel<float><<<blocks, 256, 0, st>>>(static_cast<const float*>(a.x), a.x_rs, a.M,
+                                                      a.width, a.eps, a.stats);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (bf16 && ln_w == nullptr) return launch_swiglu_ws(a, st);
-  if (bf16) {  // with the LayerNorm: K2's LN variant and K7
-    auto kernel = gate ? gemm_bf16_kernel<true> : gemm_bf16_kernel<false>;
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BF16);
-    if (err != cudaSuccess) return (int)err;
-    const int bn = gate ? BN : 2 * BN;
-    const dim3 grid((H + bn - 1) / bn, (M + BM - 1) / BM);
-    kernel<<<grid, THREADS, SMEM_BF16, st>>>(a);
-  } else {
-    const int bn = gate ? FBN : 2 * FBN;
-    const dim3 grid((H + bn - 1) / bn, (M + FBM - 1) / FBM);
-    if (gate) gemm_f32_kernel<true><<<grid, FTHREADS, 0, st>>>(a);
-    else gemm_f32_kernel<false><<<grid, FTHREADS, 0, st>>>(a);
+  if (bf16) {
+    if (!ln) return launch_ws<false, true>(a, st);
+    return gate ? launch_ws<true, true>(a, st) : launch_ws<true, false>(a, st);
   }
+  const int bn = gate ? FBN : 2 * FBN;
+  const dim3 grid((a.H + bn - 1) / bn, (a.M + FBM - 1) / FBM);
+  if (gate) gemm_f32_kernel<true><<<grid, FTHREADS, 0, st>>>(a);
+  else gemm_f32_kernel<false><<<grid, FTHREADS, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -744,32 +657,38 @@ int launch(bool bf16, bool gate, const void* x, long long x_rs, const void* w, c
 
 extern "C" {
 
-// Each returns the cudaError_t of the launch (0 on success). ln_w / ln_b are
-// both null (no LayerNorm) or both f32 [K], and stats ([2, M] f32 scratch for
-// the row statistics) is null exactly when they are.
+// Each returns the cudaError_t of the launch (0 on success). x [M, K] with row
+// stride x_rs (unit column stride); w and b contiguous in x's dtype; K and H
+// (N) multiples of 8. ln_w / ln_b are both null (no LayerNorm) or both f32
+// [K rounded up to 64] with zeros past ``width`` (the LayerNorm's width,
+// 1 .. K: the rest of a row of x is zero padding), and stats ([2, M] f32
+// scratch for the row statistics) is null exactly when they are.
 int k2_swiglu_bf16(const void* x, long long x_rs, const void* w, const void* b,
                    const float* ln_w, const float* ln_b, float* stats, void* out, int M, int K,
-                   int H, float eps, void* stream) {
-  return launch(true, true, x, x_rs, w, b, ln_w, ln_b, stats, out, M, K, H, eps, stream);
+                   int H, int width, float eps, void* stream) {
+  return launch(true, true, {x, x_rs, w, b, ln_w, ln_b, stats, out, M, K, H, width, eps}, stream);
 }
 
 int k2_swiglu_f32(const void* x, long long x_rs, const void* w, const void* b,
                   const float* ln_w, const float* ln_b, float* stats, void* out, int M, int K,
-                  int H, float eps, void* stream) {
-  return launch(false, true, x, x_rs, w, b, ln_w, ln_b, stats, out, M, K, H, eps, stream);
+                  int H, int width, float eps, void* stream) {
+  return launch(false, true, {x, x_rs, w, b, ln_w, ln_b, stats, out, M, K, H, width, eps},
+                stream);
 }
 
 // K7: out [M, N] = LN(x) . w^T + b, w [N, K] and b [N] in x's dtype
 int k7_ln_matmul_bf16(const void* x, long long x_rs, const void* w, const void* b,
                       const float* ln_w, const float* ln_b, float* stats, void* out, int M, int K,
-                      int N, float eps, void* stream) {
-  return launch(true, false, x, x_rs, w, b, ln_w, ln_b, stats, out, M, K, N, eps, stream);
+                      int N, int width, float eps, void* stream) {
+  return launch(true, false, {x, x_rs, w, b, ln_w, ln_b, stats, out, M, K, N, width, eps},
+                stream);
 }
 
 int k7_ln_matmul_f32(const void* x, long long x_rs, const void* w, const void* b,
                      const float* ln_w, const float* ln_b, float* stats, void* out, int M, int K,
-                     int N, float eps, void* stream) {
-  return launch(false, false, x, x_rs, w, b, ln_w, ln_b, stats, out, M, K, N, eps, stream);
+                     int N, int width, float eps, void* stream) {
+  return launch(false, false, {x, x_rs, w, b, ln_w, ln_b, stats, out, M, K, N, width, eps},
+                stream);
 }
 
 // The backward's elementwise terms: ag [M, 2H], dh [M, H] and dc [M, 2H],

@@ -12,11 +12,13 @@ sublayer's ``norm1 -> qkv -> attention_qkv``.
 On CUDA tensors ``route`` picks the kernels, for what the JAX entry point
 answers (through its kernel or its chain): K8 (``csrc/attn_block.cu``) for
 1 <= S <= 1024, with head dims below 64 padded to 64 by zero weight rows and
-zero bias of each head (exact; the scale stays that of the head's own Dh);
+zero bias of each head (exact; the scale stays that of the head's own Dh),
+and D not a multiple of 8 zero-padded to one (zero columns of x and w, zero
+LayerNorm scale and bias there, the row statistics over the true D: exact);
 above 1024 tokens K7 -> K4, ``ln_matmul`` then ``attention_qkv``, the
-structure of the JAX chain with every launch a kernel. D must be a multiple
-of 8 (K7's rule, and TMA's 16-byte rows) and Dh at most 64; other shapes
-raise on the card before any launch. K8 computes the TPU kernel's function:
+structure of the JAX chain with every launch a kernel. Head dims above 64
+and empty shapes raise on the card before any launch. K8 computes the TPU
+kernel's function:
 the LN rows rounded to x's dtype, ``q|k|v`` with the f32 bias inside the f32
 accumulation and one rounding, ``exp2`` of the log2-scaled logits, the exact
 row max, the f32 row sum, ``p`` rounded to v's dtype and the division after
@@ -43,7 +45,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from .attention import attention_qkv
-from .mlp import ln_matmul
+from .mlp import kernel_ln_params, ln_matmul, ln_rows, pad_ln_matmul
 
 HEAD_DIM = 64   # K8's head dim; smaller head dims are padded to it
 MAX_SEQ = 1024  # K8's longest sequence; longer ones take K7 -> K4
@@ -53,17 +55,15 @@ launch_counts = {"attn_block": 0}
 
 
 def chain_reference(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float = 1e-6,
-                    scale: float | None = None):
+                    scale: float | None = None, width: int | None = None):
     """The plain sublayer (the JAX package's ``_chain_reference``): the LN
-    with f32 statistics rounded to x's dtype, ``qkv = normed @ w^T + b`` in
-    x's dtype, f32 logits scaled by ``scale`` (``1/sqrt(Dh)`` unless given:
-    a head padded to 64 keeps its own Dh's), the f32 softmax cast to v's
-    dtype, ``p . v`` -> ``[B, S, H*Dh]`` in x's dtype."""
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = (xf - mean).square().mean(-1, keepdim=True)
-    normed = ((xf - mean) * torch.rsqrt(var + eps) * ln_scale.float()
-              + ln_bias.float()).to(x.dtype)
+    with f32 statistics rounded to x's dtype (``ln_rows``; with ``width``
+    the statistics over each row's first ``width`` values, for x padded by
+    ``mlp.pad_ln_matmul``), ``qkv = normed @ w^T + b`` in x's dtype, f32 logits
+    scaled by ``scale`` (``1/sqrt(Dh)`` unless given: a head padded to 64
+    keeps its own Dh's), the f32 softmax cast to v's dtype, ``p . v`` ->
+    ``[B, S, H*Dh]`` in x's dtype."""
+    normed = ln_rows(x, ln_scale, ln_bias, eps, width)
     qkv = F.linear(normed, w.to(x.dtype)) + b.to(x.dtype)
     bsz, s, _ = x.shape
     hd = w.shape[0] // 3
@@ -98,18 +98,15 @@ def route(b: int, s: int, d: int, heads: int, head_dim: int) -> str:
     """The kernels ``ln_qkv_attention`` launches on the card for x ``[b, s,
     d]`` and ``heads`` heads of ``head_dim``: ``"k8"`` up to 1024 tokens,
     ``"k7+attention_qkv"`` above (``ln_matmul``, then ``attention_qkv``,
-    which is K4 there). Raises ValueError where no kernel takes the shape:
-    a head dim above 64, D not a multiple of 8 (K7's rule), an empty
-    shape."""
+    which is K4 there), at any D (padded to a multiple of 8). Raises
+    ValueError where no kernel takes the shape: a head dim above 64, an
+    empty shape."""
     if min(b, s, d, heads) < 1:
         raise ValueError(f"ln_qkv_attention takes a non-empty x [B, S, D] and H >= 1, got "
                          f"B={b}, S={s}, D={d}, H={heads}")
     if not 1 <= head_dim <= HEAD_DIM:
         raise ValueError(f"ln_qkv_attention takes a head dim from 1 to {HEAD_DIM} on the card "
                          f"(below {HEAD_DIM} padded to it), got {head_dim}")
-    if d % 8:
-        raise ValueError(f"ln_qkv_attention takes D a multiple of 8 on the card (K7's rule, "
-                         f"16-byte rows), got D={d}")
     return "k8" if s <= MAX_SEQ else "k7+attention_qkv"
 
 
@@ -169,7 +166,7 @@ def _library():
     lib = _build.load("attn_block")
     for fn in (lib.k8_attn_block_bf16, lib.k8_attn_block_f32):
         fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.k8_error_string.argtypes = [ctypes.c_int]
     lib.k8_error_string.restype = ctypes.c_char_p
@@ -179,9 +176,10 @@ def _library():
 def _attn_block_cuda(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float):
     """Launch K8 on x ``[B, S, D]`` (unit column stride), the LayerNorm's
     scale and bias ``[D]``, w ``[3*H*Dh, D]`` and b ``[3*H*Dh]`` (x's
-    dtype). Head dims below 64 are padded to 64 here; in bf16, x and w
-    without 16-byte aligned rows are copied. Returns ``[B, S, H*Dh]`` in x's
-    dtype."""
+    dtype). Head dims below 64 are padded to 64 here (``pad_head_rows``), D
+    to a multiple of 8 (``mlp.pad_ln_matmul``, the statistics over the true
+    D); in bf16, x and w without 16-byte aligned rows are copied. Returns
+    ``[B, S, H*Dh]`` in x's dtype."""
     if x.dim() != 3:
         raise ValueError(f"K8 takes x [B, S, D], got {tuple(x.shape)}")
     bsz, s, d = x.shape
@@ -199,22 +197,23 @@ def _attn_block_cuda(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float):
                          f"[D], w [3*H*Dh, D], b [3*H*Dh] with H = {num_heads}, got "
                          f"{tuple(x.shape)}, {tuple(ln_scale.shape)}, {tuple(ln_bias.shape)}, "
                          f"{tuple(w.shape)}, {tuple(b.shape)}")
-    if d % 8 or not 1 <= s <= MAX_SEQ or bsz < 1:
-        raise ValueError(f"K8 takes D a multiple of 8 and 1 <= S <= {MAX_SEQ}, got D={d}, S={s}")
+    if not 1 <= s <= MAX_SEQ or bsz < 1 or d < 1:
+        raise ValueError(f"K8 takes 1 <= S <= {MAX_SEQ} and D >= 1, got S={s}, D={d}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise ValueError("K8 is launched raw with grad enabled; go through ln_qkv_attention, "
                          "whose autograd Function runs the backward")
     if x.stride(2) != 1:
         raise ValueError(f"K8 needs x with a unit column stride, got strides {x.stride()}")
-    w, b = (t.contiguous() for t in pad_head_rows(w, b, num_heads))
+    w, b = pad_head_rows(w, b, num_heads)
+    x, ln_scale, ln_bias, w, b = pad_ln_matmul(x, ln_scale, ln_bias, w, b)
+    w, b = w.contiguous(), b.contiguous()
     if x.dtype == torch.bfloat16:  # TMA reads 16-byte aligned rows
         if x.data_ptr() % 16 or x.stride(0) % 8 or x.stride(1) % 8:
             x = x.contiguous()
         if w.data_ptr() % 16:
             w = w.clone()
-    # the LayerNorm's f32 scale and bias, zeros up to the next multiple of 64
-    ln_w, ln_b = (F.pad(t.detach().float(), (0, -d % 64)).contiguous()
-                  for t in (ln_scale, ln_bias))
+    dp = x.shape[-1]
+    ln_w, ln_b = kernel_ln_params(ln_scale, ln_bias)
     stats = torch.empty((2, bsz * s), dtype=torch.float32, device=x.device)
 
     lib = _library()
@@ -223,8 +222,8 @@ def _attn_block_cuda(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), x.stride(0), x.stride(1), ln_w.data_ptr(), ln_b.data_ptr(),
-                 w.data_ptr(), b.data_ptr(), stats.data_ptr(), out.data_ptr(), bsz, s, d,
-                 num_heads, eps, math.log2(math.e) / math.sqrt(dh), stream)
+                 w.data_ptr(), b.data_ptr(), stats.data_ptr(), out.data_ptr(), bsz, s, dp,
+                 num_heads, d, eps, math.log2(math.e) / math.sqrt(dh), stream)
     if err != 0:
         raise RuntimeError(f"K8 attention block launch failed: "
                            f"{lib.k8_error_string(err).decode()} ({err})")

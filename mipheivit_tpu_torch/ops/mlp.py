@@ -29,13 +29,24 @@ matmuls are not copied: without TF32 they would run on the CUDA cores. The
 LayerNorm variant backpropagates through the plain LayerNorm. The raw
 launchers refuse tensors that need grad while grad is enabled.
 
+Widths. The kernels take K, H and N that are multiples of 8 (TMA moves rows
+of 16 bytes). On the card the forward zero-pads other widths to the next
+multiple of 8 (``pad_swiglu``, ``pad_ln_matmul``): zero columns of x and of
+W, zero LayerNorm scale and bias on those columns (so a padded column
+normalises to exactly 0, with the row statistics taken over the true width),
+zero weight rows and bias for the padded output columns (each half of K2's
+packed weight padded on its own); the output is sliced back. The backward
+runs on the unpadded tensors. The plain versions take the same ``width``
+argument, so the padded route runs on the CPU too.
+
 ``ln_matmul(x, lns, lnb, w, b)`` computes ``LayerNorm(x) @ w^T + b`` with
 ``w`` the ``nn.Linear`` weight ``[N, K]`` (counterpart of
 ``mipheivit_tpu/ops/mlp.py::ln_matmul``, whose ``w`` is ``[K, N]``): the LN
 rows rounded to x's dtype, f32 accumulation and bias, one rounding. On the
-card K7 (the third entry point of ``csrc/swiglu.cu``, K2's LayerNorm kernel
-with a plain epilogue), on the CPU ``ln_matmul_reference``. Its backward is
-the vjp of the plain chain, the counterpart of ``_ln_matmul_bwd_rule``.
+card K7 (the third entry point of ``csrc/swiglu.cu``, K2's kernel with the
+LayerNorm and a plain epilogue), on the CPU ``ln_matmul_reference``. Its
+backward is the vjp of the plain chain, the counterpart of
+``_ln_matmul_bwd_rule``.
 """
 
 from __future__ import annotations
@@ -53,24 +64,71 @@ from .. import _build
 launch_counts = {"swiglu": 0, "swiglu_bwd": 0, "ln_matmul": 0}
 
 
-def ln_rows(x, scale, bias, eps: float):
+def ln_rows(x, scale, bias, eps: float, width: int | None = None):
     """Row LayerNorm with f32 statistics (mean, then the mean of squared
-    deviations), rounded to x's dtype (the JAX package's ``_ln_rows``)."""
+    deviations), rounded to x's dtype (the JAX package's ``_ln_rows``).
+    With ``width`` the statistics run over each row's first ``width`` values
+    only: the rest is zero padding (with zero scale and bias it normalises
+    to exactly 0)."""
     xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = (xf - mean).square().mean(-1, keepdim=True)
+    xs = xf if width is None else xf[..., :width]
+    mean = xs.mean(-1, keepdim=True)
+    var = (xs - mean).square().mean(-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
-def swiglu_reference(x, w, b, ln=None, eps: float = 1e-6):
+def padded_width(n: int) -> int:
+    """The width the kernels take for ``n``: the next multiple of 8, at
+    least 8 (TMA moves rows of 16 bytes)."""
+    return max(8, -(-n // 8) * 8)
+
+
+def pad_swiglu(x, w, b, ln=None):
+    """K2's operands zero-padded to widths its kernel takes: x ``[..., K]``
+    (and the LayerNorm's scale and bias) to ``padded_width(K)`` columns;
+    each half of the packed ``w [2H, K]`` to ``padded_width(H)`` rows (the
+    gate half then starts at that row) and the padded K columns; each half
+    of ``b`` likewise. The padded output columns are ``silu(0) * 0 = 0``.
+    Operands at kernel widths come back as they are."""
+    k, h = x.shape[-1], w.shape[0] // 2
+    dk, dh = padded_width(k) - k, padded_width(h) - h
+    if dk:
+        x = F.pad(x, (0, dk))
+        if ln is not None:
+            ln = tuple(F.pad(t, (0, dk)) for t in ln)
+    if dk or dh:
+        w = F.pad(w.reshape(2, h, k), (0, dk, 0, dh)).reshape(2 * (h + dh), k + dk)
+        b = F.pad(b.reshape(2, h), (0, dh)).reshape(2 * (h + dh))
+    return x, w, b, ln
+
+
+def pad_ln_matmul(x, lns, lnb, w, b):
+    """K7's operands zero-padded to widths its kernel takes: x ``[..., K]``
+    and the LayerNorm's scale and bias to ``padded_width(K)`` columns, ``w
+    [N, K]`` to ``padded_width(N)`` rows and the padded K columns, ``b`` to
+    ``padded_width(N)``. The padded output columns are exactly 0. Operands
+    at kernel widths come back as they are."""
+    k, n = x.shape[-1], w.shape[0]
+    dk, dn = padded_width(k) - k, padded_width(n) - n
+    if dk:
+        x, lns, lnb = (F.pad(t, (0, dk)) for t in (x, lns, lnb))
+    if dk or dn:
+        w = F.pad(w, (0, dk, 0, dn))
+        b = F.pad(b, (0, dn))
+    return x, lns, lnb, w, b
+
+
+def swiglu_reference(x, w, b, ln=None, eps: float = 1e-6, width: int | None = None):
     """Plain version of K2 (the JAX package's ``_swiglu_kernel``): x
     ``[..., K]``, packed ``w [2H, K]``, ``b [2H]`` -> ``[..., H]``. The
     (optionally LayerNormed) input and the weights taken as f32, f32 products
-    and biases, ``a * sigmoid(a) * g`` in f32, one rounding to x's dtype."""
+    and biases, ``a * sigmoid(a) * g`` in f32, one rounding to x's dtype.
+    ``width``: the LayerNorm's statistics over the first ``width`` columns
+    (``ln_rows``), for operands padded by ``pad_swiglu``."""
     h = w.shape[0] // 2
     if ln is not None:
-        x = ln_rows(x, ln[0], ln[1], eps)
+        x = ln_rows(x, ln[0], ln[1], eps, width)
     xf, wf, bf = x.float(), w.float(), b.float()
     a = F.linear(xf, wf[:h], bf[:h])
     g = F.linear(xf, wf[h:], bf[h:])
@@ -79,9 +137,10 @@ def swiglu_reference(x, w, b, ln=None, eps: float = 1e-6):
 
 def swiglu_fc1(x, w, b, *, ln=None, eps: float = 1e-6):
     """``silu(x @ W1^T + b1) * (x @ W2^T + b2)`` with W1 | W2 the packed
-    ``w [2H, K]``: K2 on the card, ``swiglu_reference`` on the CPU.
-    Differentiable in x, w, b (and the LayerNorm's scale and bias). w and b
-    are cast to x's dtype, as the JAX package casts them."""
+    ``w [2H, K]``: K2 on the card (any K and H, padded to multiples of 8),
+    ``swiglu_reference`` on the CPU. Differentiable in x, w, b (and the
+    LayerNorm's scale and bias). w and b are cast to x's dtype, as the JAX
+    package casts them."""
     k = x.shape[-1]
     h = w.shape[0] // 2
     if w.dim() != 2 or w.shape != (2 * h, k) or b.shape != (2 * h,):
@@ -102,7 +161,7 @@ class _SwiGLU(torch.autograd.Function):
         if x.device.type == "cpu":
             out = swiglu_reference(x, w, b, ln, eps)
         else:
-            out = _swiglu_cuda(x, w, b, ln, eps)
+            out = _swiglu_card(x, w, b, ln, eps)
         ctx.eps = eps
         ctx.save_for_backward(x, w, b, lns, lnb)
         return out
@@ -152,23 +211,23 @@ def swiglu_bwd_reference(ag, dh):
     return torch.cat([dhf * g * (sig + silu * (1.0 - sig)), dhf * silu], dim=-1).to(ag.dtype)
 
 
-def ln_matmul_reference(x, lns, lnb, w, b, eps: float = 1e-6):
+def ln_matmul_reference(x, lns, lnb, w, b, eps: float = 1e-6, width: int | None = None):
     """Plain version of K7 (the JAX package's ``_ln_matmul_kernel``): x
     ``[..., K]``, ``w [N, K]``, ``b [N]`` -> ``[..., N]``. ``ln_rows`` (f32
     statistics, normed rows rounded to x's dtype), then the rows and the
-    weight taken as f32, f32 product and bias, one rounding to x's dtype."""
-    xn = ln_rows(x, lns, lnb, eps)
+    weight taken as f32, f32 product and bias, one rounding to x's dtype.
+    ``width``: the statistics over the first ``width`` columns, for
+    operands padded by ``pad_ln_matmul``."""
+    xn = ln_rows(x, lns, lnb, eps, width)
     return F.linear(xn.float(), w.float(), b.float()).to(x.dtype)
 
 
 def ln_matmul(x, lns, lnb, w, b, eps: float = 1e-6):
     """``LayerNorm(x) @ w^T + b`` for x ``[..., K]``, ``w [N, K]``, ``b [N]``
-    -> ``[..., N]``: K7 on the card, ``ln_matmul_reference`` on the CPU.
-    Differentiable in x, the LayerNorm's scale and bias, w and b. w and b are
-    cast to x's dtype, as the JAX package casts them. On the card N and K
-    must be multiples of 8, as K2's (the kernel masks ragged tiles; the JAX
-    entry point sends the shapes its kernel does not take to its plain
-    chain)."""
+    -> ``[..., N]``: K7 on the card (any N and K, padded to multiples of 8),
+    ``ln_matmul_reference`` on the CPU. Differentiable in x, the LayerNorm's
+    scale and bias, w and b. w and b are cast to x's dtype, as the JAX
+    package casts them."""
     k = x.shape[-1]
     n = w.shape[0]
     if w.dim() != 2 or w.shape[1] != k or b.shape != (n,) or lns.shape != (k,) \
@@ -191,7 +250,7 @@ class _LnMatmul(torch.autograd.Function):
         if x.device.type == "cpu":
             out = ln_matmul_reference(x, lns, lnb, w, b, eps)
         else:
-            out = _ln_matmul_cuda(x, lns, lnb, w, b, eps)
+            out = _ln_matmul_card(x, lns, lnb, w, b, eps)
         ctx.eps = eps
         ctx.save_for_backward(x, lns, lnb, w, b)
         return out
@@ -229,7 +288,7 @@ def _library():
     for fn in (lib.k2_swiglu_bf16, lib.k2_swiglu_f32, lib.k7_ln_matmul_bf16,
                lib.k7_ln_matmul_f32):
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     for fn in (lib.k2_swiglu_bwd_gate_bf16, lib.k2_swiglu_bwd_gate_f32):
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
@@ -239,24 +298,37 @@ def _library():
     return lib
 
 
-def _swiglu_cuda(x, w, b, ln, eps: float):
+def _swiglu_card(x, w, b, ln, eps: float):
+    """K2 on x ``[M, K]``, w ``[2H, K]`` and b ``[2H]`` at any K and H: the
+    operands zero-padded to widths the kernel takes (``pad_swiglu``), the
+    statistics over the true K, the output sliced back to ``[M, H]``."""
+    k, h = x.shape[1], w.shape[0] // 2
+    out = _swiglu_cuda(*pad_swiglu(x, w, b, ln), eps, width=k)
+    return out if out.shape[1] == h else out[:, :h].contiguous()
+
+
+def _swiglu_cuda(x, w, b, ln, eps: float, width: int | None = None):
     """Launch K2 on x ``[M, K]`` (unit column stride), w ``[2H, K]`` and b
-    ``[2H]`` (contiguous, x's dtype); ``ln`` the LayerNorm's ``(scale,
-    bias)`` or None. Returns ``[M, H]`` in x's dtype."""
+    ``[2H]`` (contiguous, x's dtype), K and H multiples of 8; ``ln`` the
+    LayerNorm's ``(scale, bias)`` or None, its statistics over each row's
+    first ``width`` values (default K; the rest zero padding with zero scale
+    and bias). Returns ``[M, H]`` in x's dtype."""
     if x.dim() != 2:
         raise ValueError(f"K2 takes x [M, K], got {tuple(x.shape)}")
     m, k = x.shape
     h = w.shape[0] // 2
-    if w.shape != (2 * h, k) or b.shape != (2 * h,) or m < 1 or k % 8 or h % 8 or h < 8:
+    width = k if width is None else width
+    if w.shape != (2 * h, k) or b.shape != (2 * h,) or m < 1 or k % 8 or h % 8 or min(k, h) < 8 \
+            or not 1 <= width <= k:
         raise ValueError(f"K2 takes x [M, K], w [2H, K], b [2H] with K and H multiples of 8, "
                          f"got {tuple(x.shape)}, {tuple(w.shape)}, {tuple(b.shape)}")
     _check_operands("K2", "swiglu_fc1", x, w, b, *(ln if ln is not None else ()))
     ln_w = ln_b = stats = None
     if ln is not None:
-        ln_w, ln_b = (t.detach().float().contiguous() for t in ln)
-        if ln_w.shape != (k,) or ln_b.shape != (k,):
+        if ln[0].shape != (k,) or ln[1].shape != (k,):
             raise ValueError(f"K2's LayerNorm takes scale and bias [K], got "
-                             f"{tuple(ln_w.shape)}, {tuple(ln_b.shape)}")
+                             f"{tuple(ln[0].shape)}, {tuple(ln[1].shape)}")
+        ln_w, ln_b = kernel_ln_params(*ln)
         stats = torch.empty((2, m), dtype=torch.float32, device=x.device)
 
     lib = _library()
@@ -266,11 +338,29 @@ def _swiglu_cuda(x, w, b, ln, eps: float):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), x.stride(0), w.data_ptr(), b.data_ptr(),
                  *(None if t is None else t.data_ptr() for t in (ln_w, ln_b, stats)),
-                 out.data_ptr(), m, k, h, eps, stream)
+                 out.data_ptr(), m, k, h, width, eps, stream)
     if err != 0:
         raise RuntimeError(f"K2 swiglu launch failed: {lib.k2_error_string(err).decode()} ({err})")
     launch_counts["swiglu"] += 1
     return out
+
+
+def kernel_ln_params(scale, bias):
+    """The LayerNorm's scale and bias as the kernels (K2, K7, K8) read them:
+    f32, zeros up to the next multiple of 64 (the bf16 kernels read whole
+    64-deep stages), contiguous from an 8-byte aligned base (they read
+    ``float2`` pairs). A caller's f32 tensor that already is all that comes
+    back as it is; anything else is copied."""
+    pad = -scale.shape[0] % 64
+    out = []
+    for t in (scale, bias):
+        t = t.detach().float()
+        if pad:
+            t = F.pad(t, (0, pad))
+        elif not t.is_contiguous() or t.data_ptr() % 8:
+            t = t.clone(memory_format=torch.contiguous_format)
+        out.append(t)
+    return tuple(out)
 
 
 def _check_operands(name: str, entry: str, x, w, b, *more) -> None:
@@ -294,22 +384,34 @@ def _check_operands(name: str, entry: str, x, w, b, *more) -> None:
                          "(row stride a multiple of 8, aligned base)")
 
 
-def _ln_matmul_cuda(x, lns, lnb, w, b, eps: float):
+def _ln_matmul_card(x, lns, lnb, w, b, eps: float):
+    """K7 on x ``[M, K]``, w ``[N, K]`` and b ``[N]`` at any K and N: the
+    operands zero-padded to widths the kernel takes (``pad_ln_matmul``), the
+    statistics over the true K, the output sliced back to ``[M, N]``."""
+    k, n = x.shape[1], w.shape[0]
+    out = _ln_matmul_cuda(*pad_ln_matmul(x, lns, lnb, w, b), eps, width=k)
+    return out if out.shape[1] == n else out[:, :n].contiguous()
+
+
+def _ln_matmul_cuda(x, lns, lnb, w, b, eps: float, width: int | None = None):
     """Launch K7 on x ``[M, K]`` (unit column stride), the LayerNorm's scale
     and bias ``[K]``, w ``[N, K]`` and b ``[N]`` (contiguous, x's dtype), N
-    and K multiples of 8. Returns ``[M, N]`` in x's dtype."""
+    and K multiples of 8; the statistics over each row's first ``width``
+    values (default K; the rest zero padding with zero scale and bias).
+    Returns ``[M, N]`` in x's dtype."""
     if x.dim() != 2:
         raise ValueError(f"K7 takes x [M, K], got {tuple(x.shape)}")
     m, k = x.shape
     n = w.shape[0]
+    width = k if width is None else width
     if w.shape != (n, k) or b.shape != (n,) or lns.shape != (k,) or lnb.shape != (k,) or m < 1:
         raise ValueError(f"K7 takes x [M, K], scale and bias [K], w [N, K] and b [N], got "
                          f"{tuple(x.shape)}, {tuple(lns.shape)}, {tuple(lnb.shape)}, "
                          f"{tuple(w.shape)}, {tuple(b.shape)}")
-    if n % 8 or k % 8 or n < 8 or k < 8:
+    if n % 8 or k % 8 or n < 8 or k < 8 or not 1 <= width <= k:
         raise ValueError(f"K7 takes N and K multiples of 8, as K2, got N={n}, K={k}")
     _check_operands("K7", "ln_matmul", x, w, b, lns, lnb)
-    ln_w, ln_b = (t.detach().float().contiguous() for t in (lns, lnb))
+    ln_w, ln_b = kernel_ln_params(lns, lnb)
     stats = torch.empty((2, m), dtype=torch.float32, device=x.device)
 
     lib = _library()
@@ -318,7 +420,7 @@ def _ln_matmul_cuda(x, lns, lnb, w, b, eps: float):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), x.stride(0), w.data_ptr(), b.data_ptr(), ln_w.data_ptr(),
-                 ln_b.data_ptr(), stats.data_ptr(), out.data_ptr(), m, k, n, eps, stream)
+                 ln_b.data_ptr(), stats.data_ptr(), out.data_ptr(), m, k, n, width, eps, stream)
     if err != 0:
         raise RuntimeError(f"K7 ln_matmul launch failed: {lib.k2_error_string(err).decode()} "
                            f"({err})")

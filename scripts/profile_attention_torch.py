@@ -1,6 +1,6 @@
-"""K1, K4, K5, K2, K6 and K8 of the PyTorch port on one card, with the library's times beside them.
+"""K1, K4, K5, K2, K6, K7 and K8 of the PyTorch port on one card, beside the library's times.
 
-    python3 scripts/profile_attention_torch.py [--only k1 k5 k4 k2 k2ln k6 k8]
+    python3 scripts/profile_attention_torch.py [--only k1 k5 k4 k2 k2ln k6 k7 k8]
 
 Times, with CUDA events (median of 20 after 3 warm-up calls), at the shapes
 the main path gives them:
@@ -25,6 +25,9 @@ the main path gives them:
     (``F.linear``, ``F.silu(a) * g``) and the GEMM alone; and its LayerNorm
     variant (``swiglu_fc1(..., ln=...)``, off every model path) at M 21056
     beside ``F.layer_norm`` + the same GEMM and gate;
+  * K7 (``ln_matmul``) in bf16 at ViT-g's qkv projection (K 1536, N 4608)
+    for M = 21056 (64 tiles) and 658 (two tiles), beside ``F.layer_norm`` +
+    ``F.linear`` on the same tensors;
   * K6 (``dot_product_attention`` up to 512 tokens) in bf16 on q, k, v
     ``[64, 24, 329, 64]`` and ``[64, 24, 77, 64]``, beside
     ``F.scaled_dot_product_attention`` on the same tensors;
@@ -34,7 +37,7 @@ the main path gives them:
     beside the model's own route, ``F.layer_norm`` + ``F.linear`` +
     ``attention_qkv`` (K1 at 329 tokens, K4 at 1024).
 
-The K4, K2, K6 and K8 lines give each time twice: CUDA events around one
+The K4, K2, K6, K7 and K8 lines give each time twice: CUDA events around one
 call (host launch work counts where the card waits for it), and the device
 time of the call's kernels in a ``torch.profiler`` trace of 10 calls
 (``device``).
@@ -177,6 +180,33 @@ def k2ln_rows(dev):
           flush=True)
 
 
+def k7_rows(dev):
+    from mipheivit_tpu_torch.ops import mlp
+
+    hd = cs.HD
+    lns, lnb = cs.ln_params(hd, cs.SEED + 101, dev)
+    w = cs.seeded((3 * hd, hd), cs.SEED + 102, torch.bfloat16, hd ** -0.5, device=dev)
+    b = cs.seeded(3 * hd, cs.SEED + 103, torch.bfloat16, 0.1, device=dev)
+    lns_t, lnb_t = lns.bfloat16(), lnb.bfloat16()
+    with torch.inference_mode():
+        for m in (cs.BATCH * 329, 2 * 329):
+            x = cs.seeded((m, hd), cs.SEED + 100, torch.bfloat16, device=dev)
+
+            def run():
+                return mlp.ln_matmul(x, lns, lnb, w, b)
+
+            def library():
+                return F.linear(F.layer_norm(x, (hd,), lns_t, lnb_t, 1e-6), w, b)
+
+            ms, dms = cs.cuda_ms(run), device_ms(run)
+            lib, lib_d = cs.cuda_ms(library), device_ms(library)
+            bound, by = cs.bound_ms((m * hd + 3 * hd * hd + 3 * hd + m * 3 * hd) * 2 + 2 * hd * 4,
+                                    2.0 * m * hd * 3 * hd, "bf16")
+            print(f"[k7 bf16 M {m} K {hd} N {3 * hd}]: kernel {ms:.4f} ms (device {dms:.4f} ms), "
+                  f"library (layer_norm + linear) {lib:.4f} ms (device {lib_d:.4f} ms), bound "
+                  f"{bound:.4f} ms ({by})", flush=True)
+
+
 def k6_rows(dev):
     from mipheivit_tpu_torch.ops import attention as attn
 
@@ -241,7 +271,8 @@ def k8_rows(dev):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", nargs="*", default=["k1", "k5", "k4", "k2", "k2ln", "k6", "k8"])
+    ap.add_argument("--only", nargs="*",
+                    default=["k1", "k5", "k4", "k2", "k2ln", "k6", "k7", "k8"])
     args = ap.parse_args()
     cs.check(torch.cuda.is_available(), "no CUDA device; this script runs only on the card")
     print(f"[device] {cs.card_line()} | torch {torch.__version__} | tree {ROOT}", flush=True)
@@ -251,7 +282,8 @@ def main():
     for name in ("attention", "flash_attention", "flash_attention_bwd", "swiglu", "attn_block"):
         _build.build(name)
     dev, hd, bf16 = torch.device("cuda:0"), cs.HD, torch.bfloat16
-    rows = {"k4": k4_rows, "k2": k2_rows, "k2ln": k2ln_rows, "k6": k6_rows, "k8": k8_rows}
+    rows = {"k4": k4_rows, "k2": k2_rows, "k2ln": k2ln_rows, "k6": k6_rows, "k7": k7_rows,
+            "k8": k8_rows}
     for name, fn in rows.items():
         if name in args.only:
             fn(dev)

@@ -41,8 +41,8 @@ GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("K5", ("bwd_bf16_kernel", "bwd_prep_kernel", "dq_cast_kernel", "dkdv_f32", "dq_f32")),
     ("K4", ("flash_bf16_kernel", "flash_f32_kernel")),
     ("K1", ("attn_bf16_kernel", "attn_f32_kernel")),
-    ("K2", ("swiglu_ws_kernel", "gemm_bf16_kernel<true>", "gemm_f32_kernel<true>")),
-    ("K7", ("gemm_bf16_kernel<false>", "gemm_f32_kernel<false>")),
+    ("K2", ("gemm_ws_kernel<false, true>", "gemm_ws_kernel<true, true>", "gemm_f32_kernel<true>")),
+    ("K7", ("gemm_ws_kernel<true, false>", "gemm_f32_kernel<false>")),
     ("K2 backward terms", ("gate_bwd_kernel",)),
     ("K3", ("heads_bf16_kernel", "heads_f32_kernel")),
     ("GEMM", ("gemm", "Gemm", "xmma", "nvjet", "cutlass", "sm90_", "ampere_")),

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from mipheivit_tpu_torch.ops import attn_block as port
+from mipheivit_tpu_torch.ops import mlp
 
 torch.set_num_threads(2)
 
@@ -133,7 +134,9 @@ def test_outside_the_gate_matches_jax_entry_point(s, d, heads):
     ((1, 1025, 1536, 24, 64), "k7+attention_qkv"),     # above 1024 tokens
     ((1, 5334, 1536, 24, 64), "k7+attention_qkv"),     # a 1024-px region
     ((1, 1100, 64, 2, 32), "k7+attention_qkv"),
-    ((1, 329, 100, 2, 64), ValueError),                # D not a multiple of 8
+    ((1, 329, 100, 2, 64), "k8"),                      # D not a multiple of 8: padded
+    ((2, 37, 4, 1, 8), "k8"),                          # D below 8
+    ((1, 1100, 100, 2, 32), "k7+attention_qkv"),
     ((1, 329, 1536, 12, 128), ValueError),             # head dim above 64
     ((1, 329, 1536, 24, 80), ValueError),
     ((0, 329, 1536, 24, 64), ValueError),              # empty
@@ -141,9 +144,9 @@ def test_outside_the_gate_matches_jax_entry_point(s, d, heads):
 ])
 def test_route_table(shape, want):
     """The kernels ln_qkv_attention launches on the card by shape: K8 up to
-    1024 tokens at any D that is a multiple of 8 and any head dim up to 64;
-    K7 -> attention_qkv (K4) above; a ValueError where no kernel takes the
-    shape."""
+    1024 tokens at any D (padded to a multiple of 8) and any head dim up to
+    64; K7 -> attention_qkv (K4) above; a ValueError where no kernel takes
+    the shape."""
     if want is ValueError:
         with pytest.raises(ValueError):
             port.route(*shape)
@@ -220,6 +223,51 @@ def test_padded_route_matches_jax_entry_point(dh):
     assert not out[..., dh:].any()
     got = out[..., :dh].reshape(2, s, heads * dh).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=RTOL * np.abs(want).max())
+
+
+def test_padded_width_route_matches_jax_entry_point():
+    """What the card computes at D 100 with 2 heads of 32: x, the LayerNorm's
+    scale and bias and w zero-padded to D 104 (``mlp.pad_ln_matmul``), each
+    head's weight rows and bias padded to 64 (``pad_head_rows``), the plain
+    chain with the statistics over the true D and the scale of the original
+    head dim, each head sliced back; against the JAX entry point (its chain at
+    this D): forward within 1e-5 of max |ref|, gradients within 1e-4, and
+    the padded columns of the output and of every gradient exactly 0."""
+    import jax
+    import jax.numpy as jnp
+
+    from mipheivit_tpu.ops.attn_block import ln_qkv_attention
+
+    b, s, d, heads, dh = 2, 37, 100, 2, 32
+    args = _inputs(b, s, seed=60, d=d, heads=heads, dh=dh)
+    r = np.random.default_rng(61).standard_normal((b, s, heads * dh)).astype(np.float32)
+    jargs = [jnp.asarray(t) for t in args]
+    want = np.asarray(ln_qkv_attention(*jargs, heads))
+    want_grads = jax.grad(lambda *a: jnp.sum(ln_qkv_attention(*a, heads) * r),
+                          argnums=tuple(range(5)))(*jargs)
+    x, lns, lnb, w, bias = _port(*args)
+    w, bias = port.pad_head_rows(w, bias, heads)
+    leaves = [t.requires_grad_() for t in mlp.pad_ln_matmul(x, lns, lnb, w, bias)]
+    xp, lnsp, lnbp, wp, bp = leaves
+    assert xp.shape == (b, s, 104) and wp.shape == (3 * heads * 64, 104)
+    out = port.chain_reference(*leaves, heads, scale=1.0 / np.sqrt(dh), width=d)
+    out = out.view(b, s, heads, 64)
+    assert not out[..., dh:].any()
+    got = out[..., :dh].reshape(b, s, heads * dh)
+    (got * torch.from_numpy(r)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL,
+                               atol=RTOL * np.abs(want).max())
+    wg = wp.grad.view(3, heads, 64, 104)
+    bg = bp.grad.view(3, heads, 64)
+    for pad in (xp.grad[..., d:], lnsp.grad[d:], lnbp.grad[d:], wg[..., d:], wg[:, :, dh:],
+                bg[..., dh:]):
+        assert not pad.any()
+    grads = [xp.grad[..., :d], lnsp.grad[:d], lnbp.grad[:d],
+             wg[:, :, :dh, :d].reshape(-1, d).T, bg[..., :dh].reshape(-1)]
+    for g, w_ in zip(grads, want_grads):
+        w_ = np.asarray(w_)
+        np.testing.assert_allclose(g.numpy(), w_, rtol=GRAD_RTOL,
+                                   atol=GRAD_RTOL * np.abs(w_).max())
 
 
 def test_other_devices_raise():
@@ -346,10 +394,13 @@ def _scaled(got, want):
     (2, 1, 128, 2, 64), (2, 7, 128, 2, 64), (2, 63, 256, 2, 64), (2, 513, 256, 4, 64),
     (1, 1000, 256, 2, 64),
     # D a multiple of 8 only; head dims below 64
-    (2, 329, 96, 2, 64), (2, 329, 200, 3, 64), (2, 329, 256, 4, 12), (2, 329, 256, 8, 32)])
+    (2, 329, 96, 2, 64), (2, 329, 200, 3, 64), (2, 329, 256, 4, 12), (2, 329, 256, 8, 32),
+    # D not a multiple of 8, or below 8: zero-padded
+    (2, 329, 100, 2, 32), (2, 37, 4, 1, 8)])
 def test_kernel_matches_plain_on_card(cuda, b, s, d, heads, dh, dtype):
     """K8 against the plain chain, one launch, up to 1024 tokens at any D
-    that is a multiple of 8 and head dims up to 64 (below it padded)."""
+    (not a multiple of 8: padded) and head dims up to 64 (below it
+    padded)."""
     args = _card_inputs(b, s, d, heads, dtype, cuda, seed=s + d + dh, dh=dh)
     port.launch_counts["attn_block"] = 0
     with torch.inference_mode():
@@ -360,6 +411,29 @@ def test_kernel_matches_plain_on_card(cuda, b, s, d, heads, dh, dtype):
     assert got.shape == (b, s, heads * dh) and got.dtype == dtype
     rel, fro = _scaled(got, want)
     assert rel <= CARD_TOL[dtype][0] and fro <= CARD_TOL[dtype][1], (rel, fro)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1536, 100])
+def test_kernel_takes_unaligned_ln_params_on_card(cuda, d):
+    """The LayerNorm's scale and bias as views at an odd element offset of a
+    packed buffer: K8 reads them from an aligned copy, one launch, against
+    the plain chain."""
+    heads = 24 if d == 1536 else 2
+    x, lns, lnb, w, b = _card_inputs(2, 329, d, heads, torch.bfloat16, cuda, seed=d + 13,
+                                     dh=64 if d == 1536 else 32)
+    packed = torch.empty(2 * d + 1, device=cuda)
+    packed[1:d + 1], packed[d + 1:] = lns, lnb
+    lns, lnb = packed[1:d + 1], packed[d + 1:]
+    assert lns.data_ptr() % 8
+    port.launch_counts["attn_block"] = 0
+    with torch.inference_mode():
+        got = port.ln_qkv_attention(x, lns, lnb, w, b, heads)
+        want = port.chain_reference(x, lns, lnb, w, b, heads)
+        torch.cuda.synchronize()
+    assert port.launch_counts["attn_block"] == 1
+    rel, fro = _scaled(got, want)
+    assert rel <= BF16_TOL[0] and fro <= BF16_TOL[1], (rel, fro)
 
 
 @pytest.mark.gpu
@@ -394,7 +468,7 @@ def test_backward_on_card_matches_cpu(cuda):
 def test_long_sequences_go_to_k7_and_k4_on_card(cuda, s):
     """Above 1024 tokens: ln_matmul (K7) then attention_qkv (K4), one launch
     each, against the plain chain."""
-    from mipheivit_tpu_torch.ops import attention, mlp
+    from mipheivit_tpu_torch.ops import attention
 
     args = _card_inputs(1, s, 256, 4, torch.bfloat16, cuda, seed=s)
     for counts in (port.launch_counts, attention.launch_counts, mlp.launch_counts):
@@ -412,15 +486,35 @@ def test_long_sequences_go_to_k7_and_k4_on_card(cuda, s):
 
 
 @pytest.mark.gpu
+def test_long_sequence_at_d_100_on_card(cuda):
+    """Above 1024 tokens at D 100 (2 heads of 32): ln_matmul (K7, K and N
+    padded) then attention_qkv (K4), one launch each, against the plain
+    chain."""
+    from mipheivit_tpu_torch.ops import attention
+
+    args = _card_inputs(1, 1100, 100, 2, torch.bfloat16, cuda, seed=12, dh=32)
+    for counts in (port.launch_counts, attention.launch_counts, mlp.launch_counts):
+        for key in counts:
+            counts[key] = 0
+    with torch.inference_mode():
+        got = port.ln_qkv_attention(*args, 2)
+        want = port.chain_reference(*args, 2)
+        torch.cuda.synchronize()
+    assert got.shape == (1, 1100, 64) and port.launch_counts["attn_block"] == 0
+    assert mlp.launch_counts["ln_matmul"] == 1 and attention.launch_counts["flash"] == 1
+    rel, fro = _scaled(got, want)
+    assert rel <= BF16_TOL[0] and fro <= BF16_TOL[1], (rel, fro)
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    """What still raises on the card: head dims above 64, D not a multiple
-    of 8, other dtypes, a raw launch with grad enabled."""
+    """What still raises on the card: head dims above 64, other dtypes, a
+    raw launch with grad enabled (D not a multiple of 8 is served, padded:
+    test_kernel_matches_plain_on_card)."""
     x, lns, lnb, w, b = _card_inputs(1, 40, 256, 4, torch.bfloat16, cuda, seed=10)
     launches = dict(port.launch_counts)
     with pytest.raises(ValueError, match="head dim"):               # 2 heads of 128
         port.ln_qkv_attention(x, lns, lnb, w, b, 2)
-    with pytest.raises(ValueError, match="multiple of 8"):          # D = 100
-        port.ln_qkv_attention(x[..., :100], lns[:100], lnb[:100], w[:, :100].contiguous(), b, 4)
     assert port.launch_counts == launches
     with pytest.raises(ValueError, match="one dtype"):
         port._attn_block_cuda(x.half(), lns, lnb, w.half(), b.half(), 4, 1e-6)

@@ -140,6 +140,67 @@ def test_k2_rule_accepts_n200_k192_on_cpu():
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=RTOL)
 
 
+@pytest.mark.parametrize("k,n", [(100, 200), (36, 4)])
+def test_padded_route_matches_jax_entry_point(k, n):
+    """What the card computes for K or N not a multiple of 8 (or N below 8):
+    the operands zero-padded by ``pad_ln_matmul`` (zero columns of x, of W
+    and of the LayerNorm's scale and bias; zero rows of W, zero bias), the
+    plain version with the statistics over the true K, sliced back; against
+    the JAX entry point (its plain chain at these widths): forward within
+    1e-5 of max |ref|, gradients within 1e-4, and the padded columns of the
+    output and of every gradient exactly 0."""
+    import jax
+    import jax.numpy as jnp
+
+    from mipheivit_tpu.ops.mlp import ln_matmul
+
+    kp, np_ = port.padded_width(k), port.padded_width(n)
+    args = _inputs(37, seed=40 + k + n, k=k, n=n)
+    r = np.random.default_rng(41).standard_normal((37, n)).astype(np.float32)
+    jargs = [jnp.asarray(t) for t in args]
+    want = np.asarray(ln_matmul(*jargs))
+    want_grads = jax.grad(lambda *a: jnp.sum(ln_matmul(*a) * r), argnums=tuple(range(5)))(*jargs)
+    padded = [t.requires_grad_() for t in port.pad_ln_matmul(*_port(*args))]
+    xp, lnsp, lnbp, wp, bp = padded
+    assert (xp.shape, lnsp.shape, wp.shape, bp.shape) == ((37, kp), (kp,), (np_, kp), (np_,))
+    out = port.ln_matmul_reference(*padded, width=k)
+    assert out.shape == (37, np_) and not out[:, n:].any()
+    (out[:, :n] * torch.from_numpy(r)).sum().backward()
+    np.testing.assert_allclose(out[:, :n].detach().numpy(), want, rtol=RTOL,
+                               atol=RTOL * np.abs(want).max())
+    for pad in (xp.grad[:, k:], lnsp.grad[k:], lnbp.grad[k:], wp.grad[n:], wp.grad[:, k:],
+                bp.grad[n:]):
+        assert not pad.any()
+    grads = [xp.grad[:, :k], lnsp.grad[:k], lnbp.grad[:k], wp.grad[:n, :k].T, bp.grad[:n]]
+    for g, w_ in zip(grads, want_grads):
+        w_ = np.asarray(w_)
+        np.testing.assert_allclose(g.numpy(), w_, rtol=GRAD_RTOL,
+                                   atol=GRAD_RTOL * np.abs(w_).max())
+
+
+def test_true_width_statistics_leave_out_the_padding():
+    """The padded route's row statistics run over the true width: its normed
+    rows are the unpadded ones. Statistics over the padded row with the true
+    divisor alone (the mean comes out right, but every padded column adds
+    (0 - mean)^2 to the variance) differ, at rows whose mean is not 0."""
+    rng = np.random.default_rng(42)
+    x = torch.from_numpy((rng.standard_normal((16, 100)) + 3.0).astype(np.float32))
+    lns = torch.from_numpy(rng.uniform(0.5, 1.5, 100).astype(np.float32))
+    lnb = torch.from_numpy((rng.standard_normal(100) * 0.1).astype(np.float32))
+    xp, lnsp, lnbp, _, _ = port.pad_ln_matmul(x, lns, lnb, torch.zeros((8, 100)),
+                                             torch.zeros(8))
+    assert xp.shape == (16, 104)
+    got = port.ln_rows(xp, lnsp, lnbp, 1e-6, width=100)
+    assert not got[:, 100:].any()
+    torch.testing.assert_close(got[:, :100], port.ln_rows(x, lns, lnb, 1e-6), rtol=1e-6,
+                               atol=1e-6)
+    mean = xp.sum(-1, keepdim=True) / 100
+    var_true = (x - x.mean(-1, keepdim=True)).square().mean(-1)
+    var_divisor_only = (xp - mean).square().sum(-1) / 100
+    torch.testing.assert_close(mean, x.mean(-1, keepdim=True), rtol=1e-5, atol=1e-6)
+    assert ((var_divisor_only - var_true).abs() > 0.2 * var_true).all()
+
+
 def test_other_devices_raise():
     x, lns, lnb, w, b = _port(*_inputs(4, seed=4))
     with pytest.raises(ValueError, match="CPU or all on one"):
@@ -233,6 +294,67 @@ def test_kernel_matches_plain_on_card(cuda, m, k, n, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m", [21056, 10528, 5334, 658, 329, 1])
+def test_k7_at_path_shapes_on_card(cuda, m):
+    """The bf16 kernel (K2's persistent warp-specialised kernel with the
+    LayerNorm in registers) at ViT-g's qkv projection (K 1536, N 4608) for
+    the row counts of 64 tiles, the daemon's 32, a 1024-px region, two
+    tiles, one tile and one row, against the plain version scaled to the
+    reference."""
+    args = _card_inputs(m, 1536, 4608, torch.bfloat16, cuda, seed=m)
+    port.launch_counts["ln_matmul"] = 0
+    with torch.inference_mode():
+        got = port.ln_matmul(*args)
+        want = port.ln_matmul_reference(*args)
+        torch.cuda.synchronize()
+    assert port.launch_counts["ln_matmul"] == 1
+    assert got.shape == (m, 4608) and torch.isfinite(got).all()
+    rel, fro = _scaled(got, want)
+    assert rel <= BF16_TOL[0] and fro <= BF16_TOL[1], (rel, fro)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m,k,n", [(37, 256, 196), (658, 100, 256), (329, 100, 200),
+                                   (16, 36, 4), (5, 1, 9)])
+def test_padded_route_on_card(cuda, m, k, n, dtype):
+    """N or K not a multiple of 8 (or below 8): the entry point zero-pads the
+    operands and slices the output back; one launch, against the plain
+    version on the unpadded operands."""
+    args = _card_inputs(m, k, n, dtype, cuda, seed=m + k + n)
+    port.launch_counts["ln_matmul"] = 0
+    with torch.inference_mode():
+        got = port.ln_matmul(*args)
+        want = port.ln_matmul_reference(*args)
+        torch.cuda.synchronize()
+    assert port.launch_counts["ln_matmul"] == 1
+    assert got.shape == (m, n) and got.dtype == dtype
+    rel, fro = _scaled(got, want)
+    assert rel <= CARD_TOL[dtype][0] and fro <= CARD_TOL[dtype][1], (rel, fro)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1536, 100])
+def test_kernel_takes_unaligned_ln_params_on_card(cuda, k):
+    """The LayerNorm's scale and bias as views at an odd element offset of a
+    packed buffer: the kernel reads them from an aligned copy, one launch,
+    against the plain version."""
+    x, lns, lnb, w, b = _card_inputs(329, k, 200, torch.bfloat16, cuda, seed=k + 12)
+    packed = torch.empty(2 * k + 1, device=cuda)
+    packed[1:k + 1], packed[k + 1:] = lns, lnb
+    lns, lnb = packed[1:k + 1], packed[k + 1:]
+    assert lns.data_ptr() % 8
+    port.launch_counts["ln_matmul"] = 0
+    with torch.inference_mode():
+        got = port.ln_matmul(x, lns, lnb, w, b)
+        want = port.ln_matmul_reference(x, lns, lnb, w, b)
+        torch.cuda.synchronize()
+    assert port.launch_counts["ln_matmul"] == 1
+    rel, fro = _scaled(got, want)
+    assert rel <= BF16_TOL[0] and fro <= BF16_TOL[1], (rel, fro)
+
+
+@pytest.mark.gpu
 def test_kernel_reads_strided_rows_on_card(cuda):
     """x as every other row of a buffer (row stride 2K) and a 3-D input."""
     x, lns, lnb, w, b = _card_inputs(2 * 200, 256, 512, torch.bfloat16, cuda, seed=9)
@@ -262,12 +384,16 @@ def test_backward_on_card_matches_cpu(cuda):
 
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
+    """The raw launcher refuses what the kernel does not take: widths that
+    are not multiples of 8 (the entry point pads them, as
+    test_padded_route_on_card holds), other dtypes, a launch with grad
+    enabled; none launches."""
     x, lns, lnb, w, b = _card_inputs(16, 256, 512, torch.bfloat16, cuda, seed=13)
     launches = port.launch_counts["ln_matmul"]
     with pytest.raises(ValueError, match="multiples of 8"):    # N 196
-        port.ln_matmul(x, lns, lnb, w[:196].contiguous(), b[:196].contiguous())
+        port._ln_matmul_cuda(x, lns, lnb, w[:196].contiguous(), b[:196].contiguous(), 1e-6)
     with pytest.raises(ValueError, match="multiples of 8"):    # K 100
-        port.ln_matmul(x[:, :100], lns[:100], lnb[:100], w[:, :100].contiguous(), b)
+        port._ln_matmul_cuda(x[:, :100], lns[:100], lnb[:100], w[:, :100].contiguous(), b, 1e-6)
     assert port.launch_counts["ln_matmul"] == launches
     with pytest.raises(ValueError, match="one dtype"):
         port._ln_matmul_cuda(x.half(), lns, lnb, w.half(), b.half(), 1e-6)
@@ -277,14 +403,16 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 @pytest.mark.gpu
 def test_failed_launch_raises(cuda):
-    """A launch the card refuses (a grid taller than 65535 row blocks of 256
-    rows) surfaces as an error, and counts no launch."""
-    m = 65536 * 256 + 1
-    x = torch.zeros((m, 128), dtype=torch.bfloat16, device=cuda)
+    """A launch the card refuses surfaces as an error, and counts no launch:
+    the persistent grid walks any number of rows, so the refusal here is the
+    tensor map's (x's row at a stride of 2^40 values, past what TMA takes;
+    a one-row view, which the entry point's reshape would make contiguous,
+    so the raw launcher is called)."""
+    x = torch.zeros(128, dtype=torch.bfloat16, device=cuda).as_strided((1, 128), (2 ** 40, 1))
     lns, lnb = torch.ones(128, device=cuda), torch.zeros(128, device=cuda)
     w = torch.zeros((256, 128), dtype=torch.bfloat16, device=cuda)
     b = torch.zeros(256, dtype=torch.bfloat16, device=cuda)
     port.launch_counts["ln_matmul"] = 0
     with torch.inference_mode(), pytest.raises(RuntimeError, match="K7 ln_matmul launch failed"):
-        port.ln_matmul(x, lns, lnb, w, b)
+        port._ln_matmul_cuda(x, lns, lnb, w, b, 1e-6)
     assert port.launch_counts["ln_matmul"] == 0

@@ -93,6 +93,28 @@ def test_reference_rounds_once_in_bf16():
     torch.testing.assert_close(got, (a * torch.sigmoid(a) * g).bfloat16(), rtol=0, atol=0)
 
 
+def test_kernel_ln_params_are_aligned_f32():
+    """What the kernels read of the LayerNorm's scale and bias: an aligned
+    contiguous f32 tensor of a width that is a multiple of 64 comes back as
+    it is; one at an odd element offset or with a stride is copied to an
+    aligned base (the bf16 kernels read float2 pairs); another width is
+    zero-padded to the next multiple of 64; values are kept."""
+    base = torch.arange(257, dtype=torch.float32)
+    whole = base[:128].clone()
+    for got, want in zip(port.kernel_ln_params(whole, whole), (whole, whole)):
+        assert got.data_ptr() == want.data_ptr()
+    for view in (base[1:129], base[:256:2]):
+        assert view.data_ptr() % 8 or not view.is_contiguous()
+        for got in port.kernel_ln_params(view, view):
+            assert got.is_contiguous() and got.data_ptr() % 8 == 0
+            torch.testing.assert_close(got, view, rtol=0, atol=0)
+    bf = torch.randn(100).bfloat16()
+    for got in port.kernel_ln_params(bf, bf):
+        assert got.dtype == torch.float32 and got.shape == (128,) and got.data_ptr() % 8 == 0
+        torch.testing.assert_close(got[:100], bf.float(), rtol=0, atol=0)
+        assert not got[100:].any()
+
+
 def test_other_devices_raise():
     x = torch.empty((4, K), device="meta")
     with pytest.raises(ValueError, match="CPU or all on one"):
@@ -130,6 +152,61 @@ def test_autograd_matches_jax_grad(ln):
     assert len(got) == len(want) == (5 if ln else 3)
     for g, w_ in zip(got, want):
         np.testing.assert_allclose(g, w_, rtol=GRAD_RTOL, atol=GRAD_RTOL * np.abs(w_).max())
+
+
+@pytest.mark.parametrize("ln", [False, True], ids=["plain", "ln"])
+@pytest.mark.parametrize("k,h", [(100, 100), (36, 4)])
+def test_padded_route_matches_jax_entry_point(k, h, ln):
+    """What the card computes for K or H not a multiple of 8 (or H below 8):
+    the operands zero-padded by ``pad_swiglu`` (zero columns of x, of W and
+    of the LayerNorm's scale and bias; each half of the packed W padded to
+    ``padded_width(H)`` rows on its own, with zero bias), the plain version
+    with the statistics over the true K, sliced back; against the JAX entry
+    point (its plain chain at these widths): forward within 1e-5 of max
+    |ref|, gradients within 1e-4, and the padded columns of the output and
+    of every gradient exactly 0."""
+    import jax
+    import jax.numpy as jnp
+
+    from mipheivit_tpu.ops.mlp import swiglu_fc1
+
+    kp, hp = port.padded_width(k), port.padded_width(h)
+    rng = np.random.default_rng(50 + k + h)
+    x = rng.standard_normal((37, k)).astype(np.float32)
+    w = (rng.standard_normal((k, 2 * h)) / np.sqrt(k)).astype(np.float32)
+    b = (rng.standard_normal(2 * h) * 0.1).astype(np.float32)
+    lns = rng.uniform(0.5, 1.5, k).astype(np.float32)
+    lnb = (rng.standard_normal(k) * 0.1).astype(np.float32)
+    r = rng.standard_normal((37, h)).astype(np.float32)
+    jargs = [jnp.asarray(t) for t in ((x, w, b, lns, lnb) if ln else (x, w, b))]
+
+    def jax_fc1(*a):
+        return swiglu_fc1(a[0], a[1], a[2], ln=a[3:] if ln else None)
+
+    want = np.asarray(jax_fc1(*jargs))
+    want_grads = jax.grad(lambda *a: jnp.sum(jax_fc1(*a) * r),
+                          argnums=tuple(range(len(jargs))))(*jargs)
+    xp, wp, bp, lnp = port.pad_swiglu(torch.from_numpy(x), torch.from_numpy(w.T.copy()),
+                                      torch.from_numpy(b), _port_ln(lns, lnb) if ln else None)
+    leaves = [t.requires_grad_() for t in (xp, wp, bp, *(lnp or ()))]
+    assert xp.shape == (37, kp) and wp.shape == (2 * hp, kp) and bp.shape == (2 * hp,)
+    out = port.swiglu_reference(xp, wp, bp, lnp, width=k)
+    assert out.shape == (37, hp) and not out[:, h:].any()
+    (out[:, :h] * torch.from_numpy(r)).sum().backward()
+    np.testing.assert_allclose(out[:, :h].detach().numpy(), want, rtol=RTOL,
+                               atol=RTOL * np.abs(want).max())
+    halves = [slice(0, h), slice(hp, hp + h)]           # the value and gate rows of the padding
+    pads = [xp.grad[:, k:], wp.grad[:, k:], wp.grad[h:hp], wp.grad[hp + h:], bp.grad[h:hp],
+            bp.grad[hp + h:]] + [t.grad[k:] for t in leaves[3:]]
+    for pad in pads:
+        assert not pad.any()
+    grads = [xp.grad[:, :k], torch.cat([wp.grad[sl, :k] for sl in halves]).T,
+             torch.cat([bp.grad[sl] for sl in halves])] + [t.grad[:k] for t in leaves[3:]]
+    assert len(grads) == len(want_grads)
+    for g, w_ in zip(grads, want_grads):
+        w_ = np.asarray(w_)
+        np.testing.assert_allclose(g.numpy(), w_, rtol=GRAD_RTOL,
+                                   atol=GRAD_RTOL * np.abs(w_).max())
 
 
 def test_backward_computes_only_what_is_needed():
@@ -287,6 +364,86 @@ def test_k2_at_path_shapes_on_card(cuda, m, k, h):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m,k,h", [(21056, 1536, 4096), (10528, 1536, 4096), (5334, 1536, 4096),
+                                   (658, 1536, 4096), (329, 1536, 4096), (1, 1536, 4096),
+                                   (329, 192, 200), (330, 200, 520)])
+def test_k2_ln_at_path_shapes_on_card(cuda, m, k, h):
+    """The bf16 LayerNorm variant (the persistent warp-specialised kernel
+    with the LayerNorm applied to its A fragments in registers) at ViT-g's
+    fc1 widths for the row counts of 64 tiles, the daemon's 32, a 1024-px
+    region, two tiles, one tile and one row, and at ragged H and K, against
+    the plain version scaled to the reference."""
+    x, w, b, lnp = _card_inputs(m, k, h, torch.bfloat16, cuda, seed=m + k + h, ln=True)
+    port.launch_counts["swiglu"] = 0
+    with torch.inference_mode():
+        got = port.swiglu_fc1(x, w, b, ln=lnp)
+        want = port.swiglu_reference(x, w, b, lnp)
+        torch.cuda.synchronize()
+    assert port.launch_counts["swiglu"] == 1
+    assert got.shape == (m, h) and torch.isfinite(got).all()
+    rel, fro = _scaled(got, want)
+    assert rel <= CARD_TOL[torch.bfloat16][0] and fro <= CARD_TOL[torch.bfloat16][1], (rel, fro)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("ln", [False, True], ids=["plain", "ln"])
+@pytest.mark.parametrize("m,k,h", [(329, 100, 100), (37, 36, 4), (658, 100, 4096),
+                                   (5, 1, 3)])
+def test_padded_route_on_card(cuda, m, k, h, ln, dtype):
+    """K or H not a multiple of 8 (or H below 8): the entry point zero-pads
+    the operands (each half of the packed weight on its own) and slices the
+    output back; one launch, against the plain version on the unpadded
+    operands."""
+    x, w, b, lnp = _card_inputs(m, k, h, dtype, cuda, seed=m + k + h, ln=ln)
+    port.launch_counts["swiglu"] = 0
+    with torch.inference_mode():
+        got = port.swiglu_fc1(x, w, b, ln=lnp)
+        want = port.swiglu_reference(x, w, b, lnp)
+        torch.cuda.synchronize()
+    assert port.launch_counts["swiglu"] == 1
+    assert got.shape == (m, h) and got.dtype == dtype
+    rel, fro = _scaled(got, want)
+    assert rel <= CARD_TOL[dtype][0] and fro <= CARD_TOL[dtype][1], (rel, fro)
+
+
+@pytest.mark.gpu
+def test_ln_variant_reads_strided_rows_on_card(cuda):
+    """The LayerNorm variant on x as every other row of a buffer (row stride
+    2K) and on a 3-D input."""
+    x, w, b, lnp = _card_inputs(2 * 200, 256, 200, torch.bfloat16, cuda, seed=10, ln=True)
+    with torch.inference_mode():
+        got = port.swiglu_fc1(x[::2], w, b, ln=lnp)
+        want = port.swiglu_reference(x[::2], w, b, lnp)
+        got3 = port.swiglu_fc1(x.reshape(4, 100, 256), w, b, ln=lnp)
+        torch.cuda.synchronize()
+    assert got3.shape == (4, 100, 200)
+    assert max(_scaled(got, want)) <= 1e-2
+    assert max(_scaled(got3.reshape(-1, 200), port.swiglu_reference(x, w, b, lnp))) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1536, 100])
+def test_ln_variant_takes_unaligned_ln_params_on_card(cuda, k):
+    """The LayerNorm's scale and bias as views at an odd element offset of a
+    packed buffer: the kernel reads them from an aligned copy, one launch,
+    against the plain version."""
+    x, w, b, (lns, lnb) = _card_inputs(329, k, 264, torch.bfloat16, cuda, seed=k + 11, ln=True)
+    packed = torch.empty(2 * k + 1, device=cuda)
+    packed[1:k + 1], packed[k + 1:] = lns, lnb
+    lnp = (packed[1:k + 1], packed[k + 1:])
+    assert lnp[0].data_ptr() % 8
+    port.launch_counts["swiglu"] = 0
+    with torch.inference_mode():
+        got = port.swiglu_fc1(x, w, b, ln=lnp)
+        want = port.swiglu_reference(x, w, b, lnp)
+        torch.cuda.synchronize()
+    assert port.launch_counts["swiglu"] == 1
+    rel, fro = _scaled(got, want)
+    assert rel <= CARD_TOL[torch.bfloat16][0] and fro <= CARD_TOL[torch.bfloat16][1], (rel, fro)
+
+
+@pytest.mark.gpu
 def test_kernel_reads_strided_rows_on_card(cuda):
     """x as every other row of a buffer (row stride 2K) and a 3-D input."""
     x, w, b, _ = _card_inputs(2 * 200, 256, 128, torch.bfloat16, cuda, seed=9)
@@ -369,16 +526,18 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 @pytest.mark.gpu
 def test_failed_launch_raises(cuda):
-    """A launch the card refuses (the LayerNorm variant's grid taller than
-    65535 row blocks of 256 rows; the variant without LayerNorm walks any
-    number of tiles on a persistent grid) surfaces as an error, and counts
-    no launch."""
-    m = 65536 * 256 + 1
-    x = torch.zeros((m, 8), dtype=torch.bfloat16, device=cuda)
+    """A launch the card refuses surfaces as an error, and counts no launch,
+    with and without the LayerNorm: the persistent grid walks any number of
+    rows, so the refusal here is the tensor map's (x's row at a stride of
+    2^40 values, past what TMA takes; a one-row view, which the entry
+    point's reshape would make contiguous, so the raw launcher is
+    called)."""
+    x = torch.zeros(8, dtype=torch.bfloat16, device=cuda).as_strided((1, 8), (2 ** 40, 1))
     w = torch.zeros((16, 8), dtype=torch.bfloat16, device=cuda)
     b = torch.zeros(16, dtype=torch.bfloat16, device=cuda)
     ln = (torch.ones(8, device=cuda), torch.zeros(8, device=cuda))
     port.launch_counts["swiglu"] = 0
-    with torch.inference_mode(), pytest.raises(RuntimeError, match="K2 swiglu launch failed"):
-        port.swiglu_fc1(x, w, b, ln=ln)
+    for lnp in (ln, None):
+        with torch.inference_mode(), pytest.raises(RuntimeError, match="K2 swiglu launch failed"):
+            port._swiglu_cuda(x, w, b, lnp, 1e-6)
     assert port.launch_counts["swiglu"] == 0
