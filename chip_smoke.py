@@ -105,10 +105,6 @@ HEADS, HD = 24, 24 * 64          # ViT-g attention
 REGION_S = 73 * 73 + 5           # tokens of a 1024-px region window
 FC1_K, FC1_H = 1536, 4096        # ViT-g's packed SwiGLU fc1: [2H, K]
 HEAD_C = 32                      # the decoder's last fusion width (K3's input)
-# K3's operations per pixel: gate 32x256, psi-conv2 256, taps 32x144 (2 per
-# multiply-add) and the 144-term stencil
-HEAD_FLOPS_PER_PX = 2 * (HEAD_C * 16 * MARKERS + 16 * MARKERS + HEAD_C * 9 * MARKERS
-                         + 9 * MARKERS)
 # the daemon: the CLI's batch, client threads, single-tile requests
 SERVE_BATCH, SERVE_CLIENTS, SERVE_REQUESTS = 32, 16, 256
 # the H100's published dense peaks and memory rate (NVIDIA data sheet, SXM,
@@ -465,36 +461,42 @@ def k2b_phase(name, m, dtype, seed=0):
             "library_ms": None}
 
 
-def seeded_heads(seed, device):
-    """A BatchedSegHeads (32 channels, 16 markers) in eval mode with weights,
+def head_flops_per_px(k):
+    """K3's operations per pixel at k heads: gate 32 x 16k, psi-conv2 16k,
+    taps 32 x 9k (2 per multiply-add) and the 9k-term stencil."""
+    return 2 * (HEAD_C * 16 * k + 16 * k + HEAD_C * 9 * k + 9 * k)
+
+
+def seeded_heads(seed, device, k=MARKERS):
+    """A BatchedSegHeads (32 channels, k markers) in eval mode with weights,
     biases and BN statistics from a numpy seed."""
     from mipheivit_tpu_torch.models.mipheivit import BatchedSegHeads
 
     rng = np.random.default_rng(seed)
-    heads = BatchedSegHeads(HEAD_C, MARKERS)
+    heads = BatchedSegHeads(HEAD_C, k)
     with torch.no_grad():
         for p in heads.parameters():
             p.copy_(torch.from_numpy(rng.standard_normal(tuple(p.shape), dtype=np.float32)
                                      * np.float32(0.1)))
         heads.psi_bn.running_mean.copy_(torch.from_numpy(
-            rng.standard_normal(16 * MARKERS, dtype=np.float32) * np.float32(0.1)))
+            rng.standard_normal(16 * k, dtype=np.float32) * np.float32(0.1)))
         heads.psi_bn.running_var.copy_(torch.from_numpy(
-            rng.uniform(0.5, 1.5, 16 * MARKERS).astype(np.float32)))
+            rng.uniform(0.5, 1.5, 16 * k).astype(np.float32)))
     return heads.to(device).eval()
 
 
-def k3_phase(name, b, h, w, dtype, seed=0):
+def k3_phase(name, b, h, w, dtype, seed=0, k=MARKERS):
     """K3 against its plain version on one decoder feature map [b, 32, h, w]
-    (channels_last) with seeded heads; prints and checks the scaled errors
+    (channels_last) with k seeded heads; prints and checks the scaled errors
     and times the kernel, the plain version and the module's plain eval
-    chain (cuDNN 1x1 convs, the running-statistics BatchNorm, nine addcmul_).
-    Returns the row's numbers."""
+    chain (cuDNN 1x1 convs, the running-statistics BatchNorm, nine addcmul_;
+    the library yardstick). Returns the row's numbers."""
     from mipheivit_tpu_torch.ops import seg_heads
 
     dt = "bf16" if dtype == torch.bfloat16 else "f32"
     dev = torch.device("cuda:0")
     t0 = time.perf_counter()
-    heads = seeded_heads(seed, dev)
+    heads = seeded_heads(seed, dev, k)
     weights = seg_heads.fold_heads(heads, dtype)
     x = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
         (b, h, w, HEAD_C), dtype=np.float32)).to(dev, dtype).permute(0, 3, 1, 2)
@@ -509,11 +511,11 @@ def k3_phase(name, b, h, w, dtype, seed=0):
         plain_ms = cuda_ms(lambda: seg_heads.seg_heads_reference(x, *weights), reps=3, warmup=1)
         library_ms = cuda_ms(lambda: heads.chain(x), reps=5, warmup=1)
     n_px = b * h * w
-    bnd, by = bound_ms(n_px * (HEAD_C + MARKERS) * x.element_size(), 1.0 * n_px * HEAD_FLOPS_PER_PX,
+    bnd, by = bound_ms(n_px * (HEAD_C + k) * x.element_size(), 1.0 * n_px * head_flops_per_px(k),
                        dt)
-    print(f"[k3 {name}] x [{b}, {HEAD_C}, {h}, {w}] -> [{b}, {MARKERS}, {h}, {w}]: max_abs_err "
+    print(f"[k3 {name}] x [{b}, {HEAD_C}, {h}, {w}] -> [{b}, {k}, {h}, {w}]: max_abs_err "
           f"{err:.3e} = {rel:.2e} of max|ref|, norm-rel {fro:.2e} (tol {SCALED_TOL[dt][0]:g}, "
-          f"{SCALED_TOL[dt][1]:g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms library (plain "
+          f"{SCALED_TOL[dt][1]:g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms library (cuDNN "
           f"eval chain) {library_ms:.3f} ms bound {bnd:.3f} ms ({by}) "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     check(rel <= SCALED_TOL[dt][0] and fro <= SCALED_TOL[dt][1],
@@ -1426,13 +1428,15 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 3e. K3 against the plain version: the decoder's last map of a batch of
-    #     64 tiles, of the daemon's batch of 32, of 4 regions, f32, and a
-    #     smaller odd batch
+    #     64 tiles, of the daemon's batch of 32, of 4 regions, f32, a smaller
+    #     odd batch, and a 19-marker panel (three groups of 8 heads in one
+    #     pass of 24; its rows of 38-byte pixels leave by 16-byte stores)
     k3_flagship = k3_phase("bf16_tiles", BATCH, IMG, IMG, torch.bfloat16, seed=SEED + 50)
     k3_phase("bf16_serve", SERVE_BATCH, IMG, IMG, torch.bfloat16, seed=SEED + 54)
     k3_phase("bf16_regions", 4, REGION, REGION, torch.bfloat16, seed=SEED + 51)
     k3_phase("f32", 2, IMG, IMG, torch.float32, seed=SEED + 52)
     k3_phase("bf16_small", 3, 128, 128, torch.bfloat16, seed=SEED + 53)
+    k3_phase("bf16_panel19", 8, IMG, IMG, torch.bfloat16, seed=SEED + 55, k=19)
     torch.cuda.empty_cache()
 
     # 3f. K6, K7 and K8 against their plain versions at the JAX package's

@@ -3,8 +3,9 @@
 // descriptors, wgmma issue and synchronisation, the LayerNorm of an A
 // fragment in registers, mbarriers, TMA loads and stores, named barriers,
 // and on the host the encoding of TMA tensor maps.
-// K1 and K6 (attention.cu), K2 and K7 (swiglu.cu), K4 (flash_attention.cu),
-// K5 (flash_attention_bwd.cu) and K8 (attn_block.cu) include it.
+// K1 and K6 (attention.cu), K2 and K7 (swiglu.cu), K3 (seg_heads.cu), K4
+// (flash_attention.cu), K5 (flash_attention_bwd.cu) and K8 (attn_block.cu)
+// include it.
 //
 // The tile layout. A tile of rows of 64 bf16 values (128 bytes) lives at a
 // 1024-byte aligned base; 16-byte chunk c of row r sits at r*128 +
@@ -17,6 +18,14 @@
 //   MN-major (the depth runs down the rows, transpose flag 1): the slice of
 //            rows 16k .. 16k + 15 starts 2048*k bytes into the tile; the
 //            64 values of a row are the M or N extent.
+//
+// A second layout, for rows of 32 bf16 values (64 bytes: K3's pixels of 32
+// channels): 16-byte chunk c of row r at r*64 + ((c ^ ((r >> 1) & 3)) << 4)
+// from a 512-byte aligned base, which TMA writes under
+// CU_TENSOR_MAP_SWIZZLE_64B and wgmma reads under the 64-byte swizzle
+// (smem_desc64: 8-row groups 512 bytes apart; the 16-deep slice k of a
+// K-major tile starts 32*k bytes in). ldmatrix reads any 8 consecutive rows
+// of it without bank conflicts.
 //
 // Build: included by a .cu compiled with nvcc -gencode
 // arch=compute_90a,code=sm_90a; libcuda's cuTensorMapEncodeTiled is looked
@@ -83,6 +92,16 @@ __device__ __forceinline__ unsigned swz(int r, int c) {
 __device__ __forceinline__ unsigned long long smem_desc(unsigned addr) {
   return (unsigned long long)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
          (1ull << 62);
+}
+
+// The 64-byte swizzled layout: byte offset of 16-byte chunk c (0..3) of row
+// r, and the descriptor of a tile in it (8-row groups 512 bytes apart)
+__device__ __forceinline__ unsigned swz64(int r, int c) {
+  return (unsigned)(r * 64 + ((c ^ ((r >> 1) & 3)) << 4));
+}
+__device__ __forceinline__ unsigned long long smem_desc64(unsigned addr) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (32ull << 32) |
+         (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -185,6 +204,38 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], unsigned long long
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// d[64 x N] (+)= A[64 x 16] . B[N x 16]^T with A in registers (as in
+// wgmma_rs_n64) and B in shared memory (TB = 1: MN-major, else K-major);
+// acc = 0 overwrites d; N = 8, 48 and 72
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const unsigned (&a)[4],
+                                           unsigned long long db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n48(float (&d)[24], const unsigned (&a)[4],
+                                            unsigned long long db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n72(float (&d)[36], const unsigned (&a)[4],
+                                            unsigned long long db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, {%36, %37, %38, %39}, %40, p, 1, 1, %42;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
 }
 
 // d[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T with A in registers (four
@@ -491,13 +542,15 @@ inline int encode_rows_bf16(CUtensorMap* map, const void* base, long long cols, 
                      box_rows);
 }
 
-// A 4-D map over bf16 values: dims[0] values with unit stride (64: one
-// 128-byte row), then dims[1..3] with strides[0..2] (in values, multiples
-// of 8); boxes of box[0..3] land in the 128-byte swizzled layout; indices
-// at or past a dim read as zeros and are dropped by a store. Returns a
-// cudaError_t.
+// A 4-D map over bf16 values: dims[0] values with unit stride, then
+// dims[1..3] with strides[0..2] (in values, multiples of 8); boxes of
+// box[0..3] land in shared memory under ``swizzle`` (box[0] values are at
+// most the swizzle's width: 64 under the 128-byte swizzle, 32 under the
+// 64-byte one; a multiple of 8 without one); indices before 0 or at or past
+// a dim read as zeros and are dropped by a store. Returns a cudaError_t.
 inline int encode_4d_bf16(CUtensorMap* map, const void* base, const long long (&dims)[4],
-                          const long long (&strides)[3], const int (&box)[4]) {
+                          const long long (&strides)[3], const int (&box)[4],
+                          CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   cuuint64_t gd[4], gs[3];
@@ -509,7 +562,7 @@ inline int encode_4d_bf16(CUtensorMap* map, const void* base, const long long (&
   }
   for (int i = 0; i < 3; ++i) gs[i] = (cuuint64_t)strides[i] * 2;
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), gd, gs,
-                        bx, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        bx, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }

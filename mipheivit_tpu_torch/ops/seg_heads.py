@@ -17,7 +17,8 @@ the activation are f32, and the output is rounded once to x's dtype.
 x is ``[B, C, H, W]`` in channels_last memory (the decoder's layout) and the
 output ``[B, K, H, W]`` channels_last in x's dtype. A CPU tensor runs
 ``seg_heads_reference``; a CUDA tensor launches K3 (``csrc/seg_heads.cu``,
-C = 32 channels, up to 16 heads) or raises. K3 has no backward: training
+C = 32 channels, any number of heads, in groups of 8 inside the one launch)
+or raises. K3 has no backward: training
 runs the batch-statistics chain of ``models.mipheivit.BatchedSegHeads``, and
 the raw launcher refuses tensors that need grad while grad is enabled.
 """
@@ -36,7 +37,8 @@ from .. import _build
 launch_counts = {"seg_heads": 0}
 
 _ACTIVATIONS = {None: 0, "tanh": 1, "sigmoid": 2}
-_KERNEL_C, _KERNEL_C2, _KERNEL_HEADS = 32, 16, 16
+_KERNEL_C, _KERNEL_C2 = 32, 16
+_HEAD_GROUP = 8     # K3 runs heads in groups of 8: the weights are zero-padded to whole groups
 
 
 def fold_heads(heads, dtype):
@@ -46,7 +48,8 @@ def fold_heads(heads, dtype):
     dtype), as the JAX package folds before its kernel. Returns
     ``(w1eff [C, K*C2], b1eff [K*C2], w2 [K, C2], b2 [K], wm [C, 9K],
     bf [K])``; w1eff and wm are transposes of contiguous output-major
-    tensors, the layout K3 reads, so a launch at 16 heads copies nothing."""
+    tensors, the layout K3 reads, so a launch at a multiple of 8 heads
+    copies nothing."""
     bn = heads.psi_bn
     mul = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
     w1t = heads.psi_conv1.weight[:, :, 0, 0].float() * mul[:, None]
@@ -119,14 +122,15 @@ def _library():
 
 
 def _padded_weights(w1eff, b1eff, w2, b2, wm, bf):
-    """The kernel's layout: heads zero-padded to 16 and the two matmul
-    weights output-major (``w1t [16*C2, C]``, ``wmt [9*16, C]`` with row
-    ``t*16 + k``), all contiguous. Padded heads have zero weights, so their
-    m is 0 and they are not stored. At 16 heads with ``fold_heads``'s
-    layout these are views, not copies."""
+    """The kernel's layout: heads zero-padded to a multiple of 8 (KP) and
+    the two matmul weights output-major (``w1t [KP*C2, C]``, ``wmt [9*KP,
+    C]`` with row ``t*KP + k``), all contiguous and 16-byte aligned. Padded
+    heads have zero weights, so their m is 0 and they are not stored. At a
+    multiple of 8 heads with ``fold_heads``'s layout these are views, not
+    copies."""
     c, kc2 = w1eff.shape
     k = b2.shape[0]
-    pad = _KERNEL_HEADS - k
+    pad = -k % _HEAD_GROUP
 
     def heads_first(t):       # pad the leading head axis with zeros
         return (F.pad(t, (0, 0) * (t.dim() - 1) + (0, pad)) if pad else t).contiguous()
@@ -135,7 +139,10 @@ def _padded_weights(w1eff, b1eff, w2, b2, wm, bf):
     b1 = heads_first(b1eff.reshape(k, -1)).reshape(-1)
     wmt = wm.t().reshape(9, k, c)
     wmt = (F.pad(wmt, (0, 0, 0, pad)) if pad else wmt).reshape(-1, c).contiguous()
-    return w1t, b1, heads_first(w2), heads_first(b2), wmt, heads_first(bf)
+    out = (w1t, b1, heads_first(w2), heads_first(b2), wmt, heads_first(bf))
+    # the kernel reads weight rows 16 bytes at a time: a view at another
+    # offset is copied to a fresh (aligned) tensor
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in out)
 
 
 def _seg_heads_cuda(x, w1eff, b1eff, w2, b2, wm, bf, activation):
@@ -147,8 +154,8 @@ def _seg_heads_cuda(x, w1eff, b1eff, w2, b2, wm, bf, activation):
     if x.dtype not in (torch.bfloat16, torch.float32) or any(t.dtype != x.dtype for t in ts):
         raise ValueError(f"K3 takes bf16 or f32 x and weights of one dtype, got "
                          f"{', '.join(str(t.dtype) for t in ts)}")
-    if c != _KERNEL_C or not 1 <= k <= _KERNEL_HEADS:
-        raise ValueError(f"K3 takes C = {_KERNEL_C} channels and 1..{_KERNEL_HEADS} heads, "
+    if c != _KERNEL_C or k < 1:
+        raise ValueError(f"K3 takes C = {_KERNEL_C} channels and at least one head, "
                          f"got C = {c}, K = {k}")
     if (w1eff.shape != (c, k * _KERNEL_C2) or b1eff.shape != (k * _KERNEL_C2,)
             or w2.shape != (k, _KERNEL_C2) or b2.shape != (k,) or wm.shape != (c, 9 * k)

@@ -1,6 +1,6 @@
-"""K1, K4, K5, K2, K6, K7 and K8 of the PyTorch port on one card, beside the library's times.
+"""K1, K4, K5, K2, K6, K7, K8 and K3 of the PyTorch port on one card, beside the library's times.
 
-    python3 scripts/profile_attention_torch.py [--only k1 k5 k4 k2 k2ln k6 k7 k8]
+    python3 scripts/profile_attention_torch.py [--only k1 k5 k4 k2 k2ln k6 k7 k8 k3]
 
 Times, with CUDA events (median of 20 after 3 warm-up calls), at the shapes
 the main path gives them:
@@ -35,9 +35,14 @@ the main path gives them:
     1024, 1536]`` with ViT-g's qkv weight (24 heads of 64), beside
     ``F.layer_norm`` + ``F.linear`` + ``F.scaled_dot_product_attention`` and
     beside the model's own route, ``F.layer_norm`` + ``F.linear`` +
-    ``attention_qkv`` (K1 at 329 tokens, K4 at 1024).
+    ``attention_qkv`` (K1 at 329 tokens, K4 at 1024);
+  * K3 (``fused_seg_heads``) in bf16 on the decoder's last map [B, 32, H, W]
+    at the serving paths' shapes (64 and 32 tiles of 256 px, 4 regions of
+    1024 px, 16 markers) and a 19-marker panel on 64 tiles, beside its plain
+    version and the module's cuDNN eval chain (``BatchedSegHeads.chain``); a
+    tree whose K3 takes 16 heads at most says so.
 
-The K4, K2, K6, K7 and K8 lines give each time twice: CUDA events around one
+The K4, K2, K6, K7, K8 and K3 lines give each time twice: CUDA events around one
 call (host launch work counts where the card waits for it), and the device
 time of the call's kernels in a ``torch.profiler`` trace of 10 calls
 (``device``).
@@ -269,21 +274,66 @@ def k8_rows(dev):
                   f"ms (device {route_d:.4f} ms), bound {bound:.4f} ms ({by})", flush=True)
 
 
+def k3_rows(dev):
+    from mipheivit_tpu_torch.ops import seg_heads
+
+    cases = (("tiles", cs.BATCH, cs.IMG, cs.MARKERS), ("serve", cs.SERVE_BATCH, cs.IMG, cs.MARKERS),
+             ("regions", 4, cs.REGION, cs.MARKERS), ("panel19", cs.BATCH, cs.IMG, 19))
+    # a tree whose K3 takes 16 heads at most has a smoke script with 16-marker
+    # heads and their operation count only
+    flops_per_px = getattr(cs, "head_flops_per_px", lambda k: cs.HEAD_FLOPS_PER_PX)
+    with torch.inference_mode():
+        for name, b, side, k in cases:
+            tag = f"[k3 bf16 {name} [{b}, {cs.HEAD_C}, {side}, {side}] K {k}]"
+            try:
+                heads = cs.seeded_heads(cs.SEED + 50, dev, *([k] if k != cs.MARKERS else []))
+            except TypeError:
+                print(f"{tag}: not run (this tree's K3 takes 16 heads at most)", flush=True)
+                continue
+            heads = heads.to(torch.bfloat16)
+            weights = seg_heads.fold_heads(heads, torch.bfloat16)
+            x = cs.seeded((b, side, side, cs.HEAD_C), cs.SEED + 51, torch.bfloat16,
+                          device=dev).permute(0, 3, 1, 2)
+
+            def run():
+                return seg_heads.fused_seg_heads(x, *weights)
+
+            def plain():
+                return seg_heads.seg_heads_reference(x, *weights)
+
+            def library():
+                return heads.chain(x)
+
+            ms, dms = cs.cuda_ms(run), device_ms(run)
+            plain_ms = cs.cuda_ms(plain, reps=3, warmup=1)
+            lib, lib_d = cs.cuda_ms(library, reps=5, warmup=1), device_ms(library, reps=3)
+            n_px = b * side * side
+            bound, by = cs.bound_ms(n_px * (cs.HEAD_C + k) * 2, 1.0 * n_px * flops_per_px(k),
+                                    "bf16")
+            print(f"{tag}: kernel {ms:.4f} ms "
+                  f"(device {dms:.4f} ms), plain {plain_ms:.4f} ms, library (cuDNN eval chain) "
+                  f"{lib:.4f} ms (device {lib_d:.4f} ms), bound {bound:.4f} ms ({by})",
+                  flush=True)
+            del x, heads, weights
+            torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", nargs="*",
-                    default=["k1", "k5", "k4", "k2", "k2ln", "k6", "k7", "k8"])
+                    default=["k1", "k5", "k4", "k2", "k2ln", "k6", "k7", "k8", "k3"])
     args = ap.parse_args()
     cs.check(torch.cuda.is_available(), "no CUDA device; this script runs only on the card")
     print(f"[device] {cs.card_line()} | torch {torch.__version__} | tree {ROOT}", flush=True)
     from mipheivit_tpu_torch import _build
     from mipheivit_tpu_torch.ops import attention as attn
 
-    for name in ("attention", "flash_attention", "flash_attention_bwd", "swiglu", "attn_block"):
+    for name in ("attention", "flash_attention", "flash_attention_bwd", "swiglu", "attn_block",
+                 "seg_heads"):
         _build.build(name)
     dev, hd, bf16 = torch.device("cuda:0"), cs.HD, torch.bfloat16
     rows = {"k4": k4_rows, "k2": k2_rows, "k2ln": k2ln_rows, "k6": k6_rows, "k7": k7_rows,
-            "k8": k8_rows}
+            "k8": k8_rows, "k3": k3_rows}
     for name, fn in rows.items():
         if name in args.only:
             fn(dev)

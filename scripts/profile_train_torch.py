@@ -44,7 +44,7 @@ GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("K2", ("gemm_ws_kernel<false, true>", "gemm_ws_kernel<true, true>", "gemm_f32_kernel<true>")),
     ("K7", ("gemm_ws_kernel<true, false>", "gemm_f32_kernel<false>")),
     ("K2 backward terms", ("gate_bwd_kernel",)),
-    ("K3", ("heads_bf16_kernel", "heads_f32_kernel")),
+    ("K3", ("heads_ws_kernel", "heads_f32_kernel")),
     ("GEMM", ("gemm", "Gemm", "xmma", "nvjet", "cutlass", "sm90_", "ampere_")),
     ("convolution (cuDNN)", ("conv", "Conv", "cudnn", "implicit", "winograd", "fft", "dgrad",
                              "wgrad", "fprop", "nhwc", "nchw")),

@@ -25,8 +25,11 @@ torch.set_num_threads(2)
 # f32: the same function in another summation order, BN folded in f32 on both sides
 ATOL, RTOL = 2e-5, 1e-4
 # (batch, height, width, channels, heads): the JAX package's own parity case
-# (tests/test_model_parity.py) and the flagship widths (C = 32, 16 markers)
-CASES = {"parity": (2, 16, 32, 8, 3), "flagship": (2, 16, 24, 32, 16)}
+# (tests/test_model_parity.py), the flagship widths (C = 32, 16 markers) and
+# a 19-marker panel (more heads than one group of 16; H and W multiples of 8,
+# as the JAX kernel needs)
+CASES = {"parity": (2, 16, 32, 8, 3), "flagship": (2, 16, 24, 32, 16),
+         "panel19": (1, 8, 16, 32, 19)}
 # K3 against its plain version on the card, scaled to the reference: (max
 # |err| / max |ref|, ||err|| / ||ref||); bf16 rounds g1 and the output
 CARD_TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (1e-4, 1e-5)}
@@ -171,6 +174,27 @@ def test_fold_layout_needs_no_copy_at_16_heads():
     assert kernel[0].shape == (16 * 16, 32) and kernel[4].shape == (9 * 16, 32)
 
 
+def test_padded_weights_round_heads_up_to_groups_of_8():
+    """At 19 heads the kernel's weights are padded to 24: the tap matrix's
+    row t*24 + k is wm's column t*19 + k, and every padded head's weights
+    and biases are zero (its m is 0, so nothing of it reaches the output)."""
+    variables, _, _ = _jax_heads("panel19", seed=6)
+    weights = port.fold_heads(_port_heads(variables, 32, 19), torch.float32)
+    w1t, b1, w2, b2, wmt, bf = port._padded_weights(*weights)
+    assert all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (w1t, b1, w2, b2, wmt, bf))
+    assert w1t.shape == (24 * 16, 32) and b1.shape == (24 * 16,) and w2.shape == (24, 16)
+    assert b2.shape == bf.shape == (24,) and wmt.shape == (9 * 24, 32)
+    wm = weights[4]
+    for t in range(9):
+        torch.testing.assert_close(wmt[t * 24:t * 24 + 19], wm[:, t * 19:(t + 1) * 19].t(),
+                                   rtol=0, atol=0)
+        assert not wmt[t * 24 + 19:(t + 1) * 24].any()
+    torch.testing.assert_close(w1t[:19 * 16], weights[0].t(), rtol=0, atol=0)
+    for pad in (w1t[19 * 16:], b1[19 * 16:], w2[19:], b2[19:], bf[19:]):
+        assert not pad.any()
+
+
 def test_training_mode_runs_batch_statistics(monkeypatch):
     """train(): batch statistics normalise and the running statistics move,
     as the JAX module's train=True (its fused route is gated off there too);
@@ -233,8 +257,19 @@ def _scaled(got, want):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("b,h,w,k,act", [(3, 128, 128, 16, "tanh"), (2, 37, 50, 16, "tanh"),
-                                         (1, 20, 15, 5, "sigmoid"), (2, 9, 300, 16, None)])
+@pytest.mark.parametrize("b,h,w,k,act", [
+    (3, 128, 128, 16, "tanh"), (2, 37, 50, 16, "tanh"), (1, 20, 15, 5, "sigmoid"),
+    (2, 9, 300, 16, None),
+    # any number of heads. One pass: 1 and 5 (of 16 heads), 19 and 24 (of 24);
+    # rows of 2K bytes not a multiple of 16 (K 1, 5, 19: a 19-marker pixel is
+    # 38 B) leave by 16-byte vector stores of their span, whose edge chunks
+    # two items beside each other share (W 200, 300). Two passes: 32 (16 + 16),
+    # 37 and 40 (24 + 16; 37 stores each pass's heads pixel by pixel)
+    (2, 37, 50, 1, "tanh"), (1, 20, 200, 5, "tanh"), (2, 37, 50, 19, "tanh"),
+    (1, 9, 300, 19, None), (2, 33, 130, 24, "sigmoid"), (2, 33, 70, 32, "sigmoid"),
+    (1, 20, 100, 37, "tanh"), (1, 20, 100, 40, "tanh"),
+    # a 1024-px row: several 64-column items side by side
+    (1, 12, 1024, 16, "tanh"), (1, 12, 1024, 19, "tanh")])
 def test_kernel_matches_plain_on_card(cuda, b, h, w, k, act, dtype):
     _, weights = _card_heads(k, cuda, dtype, seed=h + w)
     x = torch.randn((b, h, w, 32), generator=torch.Generator().manual_seed(w)).to(
@@ -264,6 +299,23 @@ def test_eval_heads_launch_k3_on_card(cuda):
         torch.cuda.synchronize()
     assert port.launch_counts["seg_heads"] == 1
     assert max(_scaled(out, want)) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_eval_heads_launch_k3_once_at_19_heads(cuda):
+    heads, _ = _card_heads(19, cuda, torch.bfloat16, seed=7)
+    heads = heads.to(torch.bfloat16)
+    x = torch.randn((2, 32, 64, 96), device=cuda, dtype=torch.bfloat16).to(
+        memory_format=torch.channels_last)
+    port.launch_counts["seg_heads"] = 0
+    with torch.inference_mode():
+        out = heads(x)
+        want = port.seg_heads_reference(x, *port.fold_heads(heads, torch.bfloat16))
+        torch.cuda.synchronize()
+    assert port.launch_counts["seg_heads"] == 1
+    assert out.shape == (2, 19, 64, 96) and out.is_contiguous(memory_format=torch.channels_last)
+    rel, fro = _scaled(out, want)
+    assert rel <= CARD_TOL[torch.bfloat16][0] and fro <= CARD_TOL[torch.bfloat16][1], (rel, fro)
 
 
 @pytest.mark.gpu
