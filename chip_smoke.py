@@ -46,6 +46,19 @@ accumulation 2; the generator step of the flagship preset, gan_train off):
                ln_qkv_attention (K8) at the profiling shapes, and at a small
                slice held in cosine against the f32 backward on the CPU.
 
+The training driver: the flagship preset (as config.compose resolves it,
+held as a dict here) with the same checkpoint dir, on 48 train, 16 val and
+16 test tiles of 256 px written from a numpy seed:
+
+  [trainer]    train_patchgan for 1 epoch of 4 microbatches of 8, then
+               again with resume=True to epoch 2 (the data pipeline with
+               device_prefetch, the step, val and test epochs, the step-1
+               PNG grid, snapshots and the model.safetensors export; K1,
+               K2 and K2's backward terms), with its steady images/s beside
+               [train 256]'s, the loader's wait and decode shares and the
+               snapshot write and restore seconds;
+  [test driver] test_model on that run's directory (K1, K2).
+
 Before the paths, [head dims] runs the four attention entry points at head
 dims 12, 32, 36 and 40 through their kernels (K1, K4, K5, K6; zero-padded
 to 64), ln_matmul at N 200 and K 192 and at K 100 (zero-padded to 104)
@@ -131,6 +144,40 @@ OPS_GRAD_COS = 0.999
 # the bf16 region step through K5 against the same step through K5's plain
 # version: the least cosine of any one LoRA q/v tensor's gradients
 K5_STEP_LORA_MIN_COS = 0.999
+# the training driver: the flagship preset as ``config.compose(
+# ["+default_configs=miphei-vit"])`` resolves it (PyYAML is absent on the
+# card; tests/test_torch_config.py holds this dict equal to the port's
+# compose), trained on TIFF tiles of 256 px through train_patchgan, 1 epoch
+# and a resume to 2, then evaluated by test_model
+FLAGSHIP_PRESET = {
+    "data": {"slide_dataframe_path": "/root/workdir/data/slide_dataframe.csv",
+             "train_dataframe_path": "/root/workdir/data/train_dataframe.csv",
+             "val_dataframe_path": "/root/workdir/data/val_dataframe.csv",
+             "test_dataframe_path": "/root/workdir/data/test_dataframe.csv",
+             "augmentation_dir": None, "channel_stats_path": "channel_stats.json",
+             "targ_channel_names": ["Hoechst", "CD31", "CD45", "CD68", "CD4", "FOXP3", "CD8a",
+                                    "CD45RO", "CD20", "PD-L1", "CD3e", "CD163", "E-cadherin",
+                                    "Ki67", "Pan-CK", "SMA"]},
+    "train": {"epochs": 15, "batch_size": 8, "grad_accum_steps": 2, "gan_train": False,
+              "gan_mode": "structural", "learning_rate_d": 0.0002, "learning_rate_g": 0.0002,
+              "precision": "bf16-mixed", "foreground_head": False, "use_cell_metrics": True,
+              "wandb_project": "he-if-image-to-image", "wandb_note": "miphei_vit", "seed": 0,
+              "losses": {"lambda_factor": 50, "use_weighted_mae": False,
+                         "adversarial_loss": "binary_crossentropy", "perceptual_loss": False,
+                         "cell_loss": {"use_loss": False, "use_mse": False,
+                                       "use_clustering": False, "mlp_path": "mlp.ckpt"}},
+              "callbacks": {"modelcheckpoint": {"mode": "max", "monitor": "val_cell_auc"}},
+              "mesh": {"data_axis": "data", "model_axis": None, "num_model_shards": 1,
+                       "remat_encoder": True},
+              "data_sampler": {"use_sampler": False, "mode": "cell", "tresh": 4,
+                               "other_percent": 0.2}},
+    "model": {"model_name": "myvitmatte", "dropout": 0.1, "foreground_head": False,
+              "checkpoint_path": None,
+              "encoder": {"encoder_name": "hoptimus0", "encoder_weights": None},
+              "remat_policy": "fc1"},
+}
+TRAINER_TILES = {"train": 48, "val": 16, "test": 16}
+TRAINER_STEPS = 4                # train_patchgan's max_steps_per_epoch
 
 
 def bound_ms(n_bytes: float, flops: float, dt: str):
@@ -1135,7 +1182,7 @@ def train_phase(name, model, data, n_opt, device, grad_checkpointing=False):
     """Drive the train step over ``n_opt`` optimizer steps of ``ACCUM``
     microbatches with the launch counts at 0; check finite losses, frozen
     weights bit-identical and LoRA and decoder weights moved. Returns the
-    launch counts."""
+    launch counts and the steady images/s."""
     from mipheivit_tpu_torch.metrics import PixelMetrics
 
     t_all = time.perf_counter()
@@ -1179,7 +1226,7 @@ def train_phase(name, model, data, n_opt, device, grad_checkpointing=False):
     check(all(np.isfinite(losses)) and not any(bool(v) for v in nans), f"{name}: non-finite loss")
     check(frozen_same, f"{name}: a frozen weight changed")
     check(lora_moved == n_lora and dec_moved > 0, f"{name}: trainable weights did not move")
-    return counts
+    return counts, ACCUM * b / steady
 
 
 def one_step_grads(model, batch, device, frozen_dtype=None):
@@ -1295,6 +1342,223 @@ def wsi_phase(name, model, image, tile, overlap, batch, device):
     check(out.shape == (MARKERS,) + image.shape[:2], f"{name} output shape {out.shape}")
     check(diff <= 1, f"{name}: the stitched slide differs from the serial stitch by {diff}")
     return counts, stats
+
+
+def write_trainer_data(root: Path, seed: int) -> dict:
+    """``TRAINER_TILES`` tiles of 256 px from a numpy seed (H&E uint8 x 3,
+    mIF uint8 x 16) as ``.npy`` files, which the port's ``read_image``
+    decodes with numpy alone (TIFF tiles would need libtiff for the native
+    engine, which a CUDA host may lack, and PNG tiles cv2), the split CSVs
+    and ``channel_stats.json``; returns the config values that point at
+    them."""
+    import csv
+
+    rng = np.random.default_rng(seed)
+    names = FLAGSHIP_PRESET["data"]["targ_channel_names"]
+    root.mkdir()
+    values = {}
+    for split, n in TRAINER_TILES.items():
+        rows = []
+        for i in range(n):
+            img, targ = root / f"{split}{i}.npy", root / f"{split}{i}_mif.npy"
+            np.save(img, rng.integers(0, 256, (IMG, IMG, 3), dtype=np.uint8))
+            np.save(targ, rng.integers(0, 256, (IMG, IMG, MARKERS), dtype=np.uint8))
+            rows.append({"image_path": str(img), "target_path": str(targ)})
+        with open(root / f"{split}.csv", "w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=["image_path", "target_path"])
+            writer.writeheader()
+            writer.writerows(rows)
+        values[f"data.{split}_dataframe_path"] = str(root / f"{split}.csv")
+    stds = rng.uniform(20.0, 60.0, MARKERS)
+    stats = {"RGB": {"mean": [180.0, 140.0, 170.0], "std": [40.0, 45.0, 35.0]},
+             **{m: {"idx_channel": i, "std": float(stds[i]), "min": 0, "is_structural": i < 2}
+                for i, m in enumerate(names)}}
+    (root / "channel_stats.json").write_text(json.dumps(stats))
+    values["data.channel_stats_path"] = str(root / "channel_stats.json")
+    return values
+
+
+def trainer_overrides(data_values: dict, ckpt: Path, enc: Path, epochs: int) -> dict:
+    """The dotted overrides of the flagship preset for the [trainer] phase:
+    the written data, no slide dataframe (so no cell metrics), the smoke's
+    checkpoint dir and encoder file, monitor val_gen_loss_sim / min."""
+    return {**data_values, "data.slide_dataframe_path": None,
+            "model.checkpoint_path": str(ckpt / "model.safetensors"),
+            "model.encoder.encoder_weights": str(enc),
+            "train.callbacks.modelcheckpoint.monitor": "val_gen_loss_sim",
+            "train.callbacks.modelcheckpoint.mode": "min", "train.epochs": epochs}
+
+
+def trainer_config(overrides: dict):
+    from mipheivit_tpu_torch.config import Config
+
+    cfg = Config.create(FLAGSHIP_PRESET)
+    for key, value in overrides.items():
+        cfg.set_dotted(key, value)
+    return cfg
+
+
+def instrument_trainer(trainer):
+    """Time what the [trainer] phase reports without changing the path:
+    wrap the trainer module's ``create_train_state`` (keep copies of the
+    frozen and trainable weights as built), ``make_train_step`` (a CUDA event
+    behind each step; no sync), ``device_prefetch`` (the host wall time of
+    each loop and its loader's statistics), ``save_train_state`` and
+    ``restore_train_state`` (seconds). Returns the records and an undo."""
+    rec = {"states": [], "events": [], "loops": [], "save_s": [], "restore_s": []}
+    names = ("create_train_state", "make_train_step", "device_prefetch", "save_train_state",
+             "restore_train_state")
+    real = {name: getattr(trainer, name) for name in names}
+
+    def create_train_state(*a, **kw):
+        state = real["create_train_state"](*a, **kw)
+        rec["states"].append((
+            {n: p.detach().clone() for n, p in state.generator.named_parameters()
+             if not p.requires_grad},
+            {n: p.detach().clone() for n, p in state.gen_params}))
+        rec["events"].append([])
+        return state
+
+    def make_train_step(*a, **kw):
+        step = real["make_train_step"](*a, **kw)
+
+        def timed(*args):
+            out = step(*args)
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            rec["events"][-1].append(event)
+            return out
+
+        return timed
+
+    def device_prefetch(loader, **kw):
+        t0 = time.perf_counter()
+        try:
+            yield from real["device_prefetch"](loader, **kw)
+        finally:
+            rec["loops"].append((loader.pad_to_batch, loader.stats, time.perf_counter() - t0))
+
+    def timed_io(name, key):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*a, **kw)
+            torch.cuda.synchronize()
+            rec[key].append(time.perf_counter() - t0)
+            return out
+
+        return run
+
+    wrappers = {"create_train_state": create_train_state, "make_train_step": make_train_step,
+                "device_prefetch": device_prefetch,
+                "save_train_state": timed_io("save_train_state", "save_s"),
+                "restore_train_state": timed_io("restore_train_state", "restore_s")}
+    for name, fn in wrappers.items():
+        setattr(trainer, name, fn)
+    return rec, lambda: [setattr(trainer, n, f) for n, f in real.items()]
+
+
+def trainer_phase(tmp: Path, ckpt: Path, enc: Path, depth: int, train256_rate: float):
+    """The training driver on the flagship preset at full width and depth:
+    ``train_patchgan`` for 1 epoch of ``TRAINER_STEPS`` microbatches of 8,
+    then again with ``resume`` to epoch 2, through K1 and K2 (forward and
+    backward terms). Checks finite losses, frozen weights bit-identical,
+    LoRA and decoder weights moved, the resumed step, ``status.txt``, the
+    step-1 PNG and the exact launch counts. Returns the counts, the config
+    and the run's directory."""
+    import mipheivit_tpu_torch.train.trainer as trainer
+
+    t_all = time.perf_counter()
+    data = write_trainer_data(tmp / "trainer_data", SEED + 7)
+    t_data = time.perf_counter() - t_all
+    logdir = tmp / "trainer_run"
+    rec, undo = instrument_trainer(trainer)
+    runs, t_runs = [], []
+    try:
+        reset_counts()
+        for epochs, resume in ((1, False), (2, True)):
+            cfg = trainer_config(trainer_overrides(data, ckpt, enc, epochs))
+            t0 = time.perf_counter()
+            out = trainer.train_patchgan(cfg, str(logdir), max_steps_per_epoch=TRAINER_STEPS,
+                                         use_wandb=False, resume=resume)
+            torch.cuda.synchronize()
+            t_runs.append(time.perf_counter() - t0)
+            state = out["state"]
+            frozen0, train0 = rec["states"][-1]
+            frozen_same = all(torch.equal(p, frozen0[n]) for n, p in
+                              state.generator.named_parameters() if not p.requires_grad)
+            moved = {n for n, p in state.gen_params if not torch.equal(p.detach(), train0[n])}
+            runs.append({"step": state.step, "history": out["history"],
+                         "frozen_same": frozen_same and len(frozen0) > 0,
+                         "frozen_bf16": all(v.dtype == torch.bfloat16 for v in frozen0.values()
+                                            if v.is_floating_point()),
+                         "lora": (sum(".lora_" in n for n in moved),
+                                  sum(".lora_" in n for n in train0)),
+                         "decoder": sum(n.startswith("decoder.") for n in moved)})
+            del out, state
+            torch.cuda.empty_cache()
+        counts = read_counts()
+    finally:
+        undo()
+    status = (logdir / "status.txt").read_text()
+    png = (logdir / "logs_img" / "step1.png").exists()
+    losses = [h[k] for r in runs for h in r["history"] if "epoch" in h
+              for k in ("gen_loss", "gen_loss_sim", "val_gen_loss_sim")]
+    # steady rate from the events behind each microbatch: steps 3-4 and 7-8
+    # (one optimizer step each; step 1 is followed by the debug grid)
+    rates = [2 * 8 * 1000.0 / ev[1].elapsed_time(ev[3]) for ev in rec["events"]]
+    train_loops = [(stats, wall) for padded, stats, wall in rec["loops"] if not padded]
+    shares = [f"wait {stats.wait_s / wall:.3f} decode {stats.decode_s / wall:.3f} of "
+              f"{wall:.2f} s" for stats, wall in train_loops]
+    print(f"[trainer] train_patchgan, flagship preset at {IMG} px, {depth} blocks, microbatch 8 x "
+          f"accumulation 2, {TRAINER_STEPS} microbatches an epoch: 1 epoch in {t_runs[0]:.1f} s, "
+          f"resumed to 2 in {t_runs[1]:.1f} s (data written in {t_data:.1f} s); steady "
+          f"{', '.join(f'{r:.2f}' for r in rates)} images/s (one optimizer step, CUDA events "
+          f"behind the steps, no sync) vs [train 256] {train256_rate:.2f} images/s "
+          f"(ratio {min(rates) / train256_rate:.3f}); train loader {'; '.join(shares)}; "
+          f"snapshot write {', '.join(f'{s:.2f}' for s in rec['save_s'])} s, restore "
+          f"{', '.join(f'{s:.2f}' for s in rec['restore_s'])} s; steps {runs[0]['step']} -> "
+          f"{runs[1]['step']}; losses {', '.join(f'{v:.4f}' for v in losses)}; frozen "
+          f"bit-identical {[r['frozen_same'] for r in runs]}, bf16 {runs[0]['frozen_bf16']}; "
+          f"moved LoRA {runs[0]['lora'][0]}/{runs[0]['lora'][1]} decoder "
+          f"{runs[0]['decoder']}; status {status!r}; step-1 PNG {png}; {counts_line(counts)} "
+          f"({time.perf_counter() - t_all:.1f} s)", flush=True)
+    check(all(np.isfinite(losses)) and len(losses) == 6, "[trainer] non-finite losses")
+    check(all(r["frozen_same"] for r in runs) and runs[0]["frozen_bf16"],
+          "[trainer] a frozen weight changed or is not bf16")
+    check(runs[0]["lora"][0] == runs[0]["lora"][1] > 0 and runs[0]["decoder"] > 0,
+          "[trainer] trainable weights did not move")
+    check(runs[0]["step"] == TRAINER_STEPS and runs[1]["step"] == 2 * TRAINER_STEPS
+          and len(rec["restore_s"]) == 1, "[trainer] the resumed run did not continue")
+    check(status == "finished" and png, "[trainer] status.txt or the step-1 PNG")
+    # forwards: 2 x 4 microbatches, the step-1 debug grid, val and test
+    # (2 batches each) in both runs; backward terms: the microbatches
+    n_val = 2 * (TRAINER_TILES["val"] // 8 + TRAINER_TILES["test"] // 8)
+    n_fwd = 2 * TRAINER_STEPS + 1 + n_val
+    check_counts("[trainer]", counts, k1=depth * n_fwd, k2=depth * n_fwd,
+                 k2b=depth * 2 * TRAINER_STEPS)
+    return counts, cfg, logdir
+
+
+def test_driver_phase(cfg, logdir: Path, depth: int):
+    """``test_model`` on the [trainer] run's directory (its best
+    ``model.safetensors``, loaded by ``load_generator``): val and test pixel
+    metrics, finite, through K1 and K2."""
+    from mipheivit_tpu_torch.train.test_driver import test_model
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = test_model(cfg, str(logdir), logdir.name)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"[test driver] test_model on the [trainer] run: "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in res.items())}; {counts_line(counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(len(res) == 6 and all(np.isfinite(v) for v in res.values()),
+          "[test driver] non-finite metrics")
+    n_fwd = TRAINER_TILES["val"] // 8 + TRAINER_TILES["test"] // 8
+    check_counts("[test driver]", counts, k1=depth * n_fwd, k2=depth * n_fwd)
+    return counts
 
 
 def pearson(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -1584,7 +1848,7 @@ def main() -> None:
         print(f"[load] training generator at {IMG} px (LoRA live, per-head decoder) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         data = train_batches(3 * ACCUM, MICRO, IMG, dev, SEED + 3)
-        train256 = train_phase("train 256", model, data, 3, dev)
+        train256, train256_rate = train_phase("train 256", model, data, 3, dev)
         n_micro = 3 * ACCUM
         check_counts("[train 256]", train256, k1=depth * n_micro, k2=depth * n_micro,
                      k2b=depth * n_micro)
@@ -1597,15 +1861,15 @@ def main() -> None:
         print(f"[load] training generator at {REGION} px in {time.perf_counter() - t0:.1f} s",
               flush=True)
         region_data = train_batches(2 * ACCUM, REGION_MICRO, REGION, dev, SEED + 4)
-        train1024 = train_phase("train 1024", model, region_data, 2, dev)
+        train1024, _ = train_phase("train 1024", model, region_data, 2, dev)
         n_micro = 2 * ACCUM
         check_counts("[train 1024]", train1024, k4=depth * n_micro, k5=depth * n_micro,
                      k2=depth * n_micro, k2b=depth * n_micro)
 
         # 9b. the same with per-block activation checkpointing: each block's
         #     forward (K4) runs again in the backward, before its K5
-        train1024c = train_phase("train 1024 ckpt", model, region_data, 2, dev,
-                                 grad_checkpointing=True)
+        train1024c, _ = train_phase("train 1024 ckpt", model, region_data, 2, dev,
+                                    grad_checkpointing=True)
         check_counts("[train 1024 ckpt]", train1024c, k4=2 * depth * n_micro,
                      k5=depth * n_micro, k2=2 * depth * n_micro, k2b=depth * n_micro)
         del model
@@ -1655,11 +1919,19 @@ def main() -> None:
         check(f32_ok, "the f32 train step on the card differs from the CPU")
         check(bf16_ok, "the bf16 train step does not track f32")
 
-    # 11. summary lines
+        # 11. the training driver on the flagship preset (1 epoch, then a
+        #     resume to 2) and the eval-only driver on its checkpoint dir
+        del data, region_data
+        torch.cuda.empty_cache()
+        trainer_counts, cfg, logdir = trainer_phase(Path(tmp), ckpt, enc, depth, train256_rate)
+        test_driver_counts = test_driver_phase(cfg, logdir, depth)
+
+    # 12. summary lines
     k1 = kernel_rows["bf16_fused"]
     paths = {"slice": slice_counts, "attn sublayer": sublayer, "serve": serve_counts,
              "wsi 256": wsi256, "wsi 1024": wsi1024, "train 256": train256,
-             "train 1024": train1024, "train 1024 ckpt": train1024c, "train ops": train_ops}
+             "train 1024": train1024, "train 1024 ckpt": train1024c, "train ops": train_ops,
+             "trainer": trainer_counts, "test driver": test_driver_counts}
 
     def launches(key):
         by_path = {path: c[key] for path, c in paths.items() if c[key]}

@@ -3,12 +3,13 @@
 uint8 tiles go to the device as they are; the H&E normalization
 ``(x - mean) / std`` and the output codec to uint8 run there, so only uint8
 crosses the bus in either direction. The ragged last batch is padded to the
-batch size, as the JAX driver pads it to its compiled shape.
+batch size, as the JAX driver pads it to its compiled shape. The driver
+``inference_model`` reads tiles in tile or slide mode through the data
+layer's datasets and threaded ``Loader``.
 """
 
 from __future__ import annotations
 
-import csv
 import logging
 from pathlib import Path
 from typing import NamedTuple, Optional
@@ -104,44 +105,52 @@ def load_serving_model(cfg, checkpoint_dir: str, img_size, nc_out: int, device, 
 
 def inference_model(cfg, checkpoint_dir: str, output_dir: str,
                     batch_size: Optional[int] = None, device=None) -> str:
-    """Tile-mode ``run_inference``: predict every tile of the test dataframe
-    (``image_path`` column) and write ``<tile>.tiff`` into ``output_dir``.
+    """``run_inference``: predict every tile of the test dataframe and write
+    ``<tile>.tiff`` into ``output_dir``.
 
-    ``cfg`` is a run config (``config.load_yaml``). Tiles are read and
-    TIFFs written through the port's ``slideio``; slide-mode dataframes
-    are not ported yet. Runs in bf16 on the card (the default; raises
-    without one), in f32 on the CPU when ``device="cpu"``."""
+    ``cfg`` is a run config (``config.load_yaml``). Tile mode reads the
+    ``image_path`` files (``data.dataset.TileDataset``); slide mode (no
+    ``image_path`` column) cuts the rows' windows (x, y, level,
+    tile_size_x, tile_size_y) out of the slides of the slide dataframe
+    (``SlideDataset``). Either way each input is center-cropped to the
+    power-of-two size and its prediction is named after the tile. uint8
+    tiles go to the device and are normalized there. Runs in bf16 on the
+    card (the default; raises without one), in f32 on the CPU when
+    ``device="cpu"``."""
+    from ..data.augment import get_augmentations
+    from ..data.dataset import SlideDataset, TileDataset
+    from ..data.pipeline import Loader
     from ..data.stats import get_effective_width_height
+    from ..data.table import Table
     from ..slideio import read_image
 
     device = resolve_device(device)
     out_dir = Path(output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    with open(cfg.data.test_dataframe_path, newline="") as f:
-        rows = list(csv.DictReader(f))
-    if not rows or "image_path" not in rows[0]:
-        raise NotImplementedError("slide-mode inference is not ported yet; "
-                                  "the test dataframe needs an image_path column")
-    paths = [r["image_path"] for r in rows]
+    test_df = Table.read_csv(cfg.data.test_dataframe_path)
+    from_slide = "image_path" not in test_df.columns
     nc_out = len(cfg.data.targ_channel_names)
-    height, width = read_image(paths[0]).shape[:2]
+    if from_slide:
+        width, height = int(test_df["tile_size_x"][0]), int(test_df["tile_size_y"][0])
+    else:
+        height, width = read_image(test_df["image_path"][0]).shape[:2]
     width, height = get_effective_width_height(width, height, train=True)
     log.info("inference at %dx%d, %d markers", width, height, nc_out)
     model, norm = load_serving_model(cfg, checkpoint_dir, (height, width), nc_out, device)
 
+    spatial, _ = get_augmentations(width, height, training=False)
+    if from_slide:
+        dataset = SlideDataset(Table.read_csv(cfg.data.slide_dataframe_path), test_df,
+                               spatial_augmentations=spatial)
+    else:
+        dataset = TileDataset(test_df, spatial_augmentations=spatial)
     batch = int(batch_size or cfg.train.batch_size)
-    for i in range(0, len(paths), batch):
-        chunk = paths[i:i + batch]
-        tiles = np.stack([_center_crop(read_image(p), height, width) for p in chunk])
-        preds = predict_tiles(model, tiles, norm, batch, device)
-        for pred, path in zip(preds, chunk):
-            save_prediction_tiff(pred, str(out_dir / f"{Path(path).stem}.tiff"))
-    log.info("wrote %d prediction tiles to %s", len(paths), out_dir)
+    n_done = 0
+    for host_batch in Loader(dataset, batch, shuffle=False, drop_last=False, num_workers=4):
+        preds = predict_tiles(model, host_batch["image"], norm, batch, device)
+        for pred, tile_name in zip(preds, host_batch["tile_name"]):
+            save_prediction_tiff(pred, str(out_dir / f"{tile_name}.tiff"))
+        n_done += len(preds)
+    log.info("wrote %d prediction tiles to %s", n_done, out_dir)
     return str(out_dir)
-
-
-def _center_crop(arr: np.ndarray, height: int, width: int) -> np.ndarray:
-    h, w = arr.shape[:2]
-    y0, x0 = (h - height) // 2, (w - width) // 2
-    return arr[y0:y0 + height, x0:x0 + width]

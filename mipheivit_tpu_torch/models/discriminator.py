@@ -6,8 +6,8 @@ pyramid, spectral norm on every conv, LeakyReLU(0.2); the input is
 concat(H&E, generated) along channels.
 Images are NHWC at the public call, logits come back NHWC ``[B, h, w, 1]``,
 as in JAX. Only what the reference trains with is ported: no norm layers,
-no dropout, every output marker discriminated (the structural mode's
-``selected_channels`` comes with the trainer).
+no dropout. ``selected_channels`` (the structural GAN mode) discriminates
+only those markers of the generated image.
 
 Spectral norm follows the JAX power iteration exactly, which
 ``torch.nn.utils.spectral_norm`` does not: the persistent state is ``u``
@@ -19,6 +19,8 @@ detached, ``n(x) = x / (|x| + 1e-12)``, ``W`` the weight as ``[out, -1]``.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -54,8 +56,12 @@ class SpectralConv(nn.Module):
 
 
 class DiscriminatorPatch(nn.Module):
-    def __init__(self, in_chans: int, ndf: int = 64, n_layers: int = 3):
+    def __init__(self, in_chans: int, ndf: int = 64, n_layers: int = 3,
+                 selected_channels: Optional[Sequence[int]] = None):
+        """``in_chans``: 3 plus the number of markers discriminated (all of
+        them, or ``len(selected_channels)``)."""
         super().__init__()
+        self.selected_channels = None if selected_channels is None else list(selected_channels)
         chans = [in_chans] + [ndf * min(2 ** n, 8) for n in range(n_layers + 1)]
         strides = [2] * n_layers + [1]
         self.convs = nn.ModuleList(
@@ -65,6 +71,8 @@ class DiscriminatorPatch(nn.Module):
     def forward(self, x, fake_images, update_stats: bool = False):
         """``x`` ``[B, H, W, 3]``, ``fake_images`` ``[B, H, W, C]`` -> logits
         ``[B, h, w, 1]``."""
+        if self.selected_channels is not None:
+            fake_images = fake_images[..., self.selected_channels]
         h = torch.cat([x, fake_images], dim=-1).permute(0, 3, 1, 2)
         for i, conv in enumerate(self.convs):
             h = conv(h, update_stats)

@@ -9,7 +9,8 @@ C++ engine on libtiff (native/slidetiff.cpp) + thin Python facade:
   * ``write_pyramid`` / ``build_ome_xml`` — tiled pyramidal OME-TIFF output
   * ``get_locs_otsu`` — tissue tiling
   * ``read_image`` — small-tile decode dispatch (jpeg/png via cv2,
-    tiff via the native engine)
+    tiff via the native engine, npy via numpy: the tile format that needs
+    neither cv2 nor libtiff)
 """
 
 from .ome import build_ome_xml, parse_channel_names
@@ -19,12 +20,17 @@ from .tiling import get_locs_otsu, order_tiles_horizontally
 
 
 def read_image(path, channel_idxs=None):
-    """Decode a tile file into an HWC numpy array."""
+    """Decode a tile file (TIFF, PNG/JPEG, or an HWC or HW ``.npy`` array)
+    into an HWC numpy array."""
     import numpy as np
     from pathlib import Path
 
     suffix = Path(path).suffix.lower()
-    if suffix in (".tif", ".tiff"):
+    if suffix == ".npy":
+        arr = np.load(path)
+        if arr.ndim == 2:
+            arr = arr[..., None]
+    elif suffix in (".tif", ".tiff"):
         ts = TiffSlide(str(path))
         try:
             w, h = ts.dimensions

@@ -124,9 +124,10 @@ def adversarial_loss(logits, targets, lsgan: bool = False) -> torch.Tensor:
 
 def get_foreground_weight(channel_names, train_dataframe) -> np.ndarray:
     """Channel weight = max(p_bg/p_fg, 1) from ``{m}_prop`` tile-dataframe
-    columns (reference: src/utils.py:202-206)."""
-    cols = [f"{name}_prop" for name in channel_names]
-    p_fg = train_dataframe[cols].mean(axis=0).to_numpy(dtype=np.float64)
+    columns (reference: src/utils.py:202-206); ``train_dataframe`` is a
+    ``data.table.Table`` or a ``pandas.DataFrame``."""
+    p_fg = np.array([np.asarray(train_dataframe[f"{name}_prop"], np.float64).mean()
+                     for name in channel_names])
     fw = 1.0 - p_fg
     return np.maximum(fw / (1.0 - fw), 1.0)
 

@@ -103,8 +103,10 @@ def make_train_step(model, loss_reconstruct: Callable, gen_optimizer: AdamChain,
 
     batch: ``{"image": [B, H, W, 3], "target": [B, H, W, C]}`` (numpy or
     torch; moved to the state's device). ``log`` holds the losses as 0-d
-    tensors, the NaN flag, and ``grads``: this microbatch's gradients of the
-    trainable parameters by name (before clipping)."""
+    tensors (the JAX step's keys; ``loss_cell`` and ``gen_foreground_loss``
+    are 0, their terms not being ported), the NaN flag, and ``grads``: this
+    microbatch's gradients of the trainable parameters by name (before
+    clipping)."""
     if cfg.gan_train and (disc is None or disc_optimizer is None):
         raise ValueError("gan_train needs a discriminator and its optimizer")
 
@@ -130,9 +132,10 @@ def make_train_step(model, loss_reconstruct: Callable, gen_optimizer: AdamChain,
         gen_optimizer.step(params, grads, state.gen_opt_state)
 
         fake = fake.detach()
+        zero = torch.zeros((), device=state.device)    # the unported cell and foreground terms
         log = {"gen_loss": loss.detach(), "gen_loss_sim": loss_sim.detach(),
-               "gen_adv_loss": adv.detach(), "nan": torch.isnan(fake).any(),
-               "grads": dict(zip(names, grads))}
+               "gen_adv_loss": adv.detach(), "loss_cell": zero, "gen_foreground_loss": zero,
+               "nan": torch.isnan(fake).any(), "grads": dict(zip(names, grads))}
         if cfg.gan_train:
             d_params = list(disc.parameters())
             logits_fake = disc(x, fake, update_stats=True)

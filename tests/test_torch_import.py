@@ -1,5 +1,6 @@
 """The PyTorch port imports without JAX and keeps the JAX package, YAML and
-the native slide IO off its chip path."""
+the native slide IO off its chip path; its training driver runs without
+JAX, pandas, cv2, PyYAML and scikit-learn."""
 
 import subprocess
 import sys
@@ -30,6 +31,16 @@ CHIP_PATH = [
     "mipheivit_tpu_torch.infer.serve",
     "mipheivit_tpu_torch.config",
     "mipheivit_tpu_torch.data.stats",
+    "mipheivit_tpu_torch.data.table",
+    "mipheivit_tpu_torch.data.augment",
+    "mipheivit_tpu_torch.data.sampler",
+    "mipheivit_tpu_torch.data.dataset",
+    "mipheivit_tpu_torch.data.pipeline",
+    "mipheivit_tpu_torch.ops.hed",
+    "mipheivit_tpu_torch.utils",
+    "mipheivit_tpu_torch.train",
+    "mipheivit_tpu_torch.train.trainer",
+    "mipheivit_tpu_torch.train.test_driver",
     "mipheivit_tpu_torch.slideio",
 ]
 
@@ -42,6 +53,8 @@ def test_chip_path_imports_without_jax():
         "    importlib.import_module(name)\n"
         "import mipheivit_tpu_torch.run_inference\n"
         "import mipheivit_tpu_torch.run_serve\n"
+        "import mipheivit_tpu_torch.run\n"
+        "import mipheivit_tpu_torch.run_test\n"
         "from mipheivit_tpu_torch.ops.attention import flash_attention, flash_reference\n"
         "from mipheivit_tpu_torch.infer import ArraySlide, wsi_inference\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
@@ -82,6 +95,47 @@ def test_wsi_on_arrays_runs_without_jax_or_slide_io():
                           cwd=PKG.parent, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_trainer_runs_an_epoch_without_jax_pandas_cv2_yaml_or_sklearn():
+    """The machine with the card may lack all five: the training driver
+    imports, composes nothing from YAML (the flagship preset comes as a
+    dict, as chip_smoke.py passes it), reads its CSVs and TIFF tiles, writes
+    config.yaml, its snapshot, the PNG grid and model.safetensors, and runs
+    one CPU epoch and the test epoch."""
+    code = (
+        "import sys, tempfile\n"
+        "from pathlib import Path\n"
+        "for name in ('jax', 'pandas', 'cv2', 'yaml', 'sklearn'):\n"
+        "    sys.modules[name] = None\n"       # any import of these now raises
+        "sys.path.insert(0, 'tests')\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
+        "import chip_smoke\n"
+        "import torch_synthetic_run as syn\n"
+        "import mipheivit_tpu_torch.infer.loading as loading\n"
+        "from mipheivit_tpu_torch.config import Config\n"
+        "from mipheivit_tpu_torch.train.trainer import train_patchgan\n"
+        "loading.get_generator = syn.tiny_generator\n"
+        "root = Path(tempfile.mkdtemp())\n"
+        "values = syn.write_run(root)\n"
+        "values['model.checkpoint_path'] = str(syn.write_checkpoint(root))\n"
+        "cfg = syn.configure(Config.create(chip_smoke.FLAGSHIP_PRESET), values,\n"
+        "                    train__epochs=1)\n"
+        "out = train_patchgan(cfg, str(root / 'run'), use_wandb=False, device='cpu')\n"
+        "assert (root / 'run' / 'status.txt').read_text() == 'finished'\n"
+        "assert out['state'].step == 2 and (root / 'run' / 'model.safetensors').exists()\n"
+        "assert (root / 'run' / 'config.yaml').read_text().startswith('data:')\n"
+        "assert (root / 'run' / 'logs_img' / 'step1.png').exists()\n"
+        "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
+        "             and m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pandas', 'cv2',\n"
+        "                                     'yaml', 'sklearn', 'mipheivit_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=PKG.parent, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
 
 
 def _imported_modules(path: Path):

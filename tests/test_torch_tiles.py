@@ -113,3 +113,65 @@ def test_run_inference_cli_writes_tiles(tmp_path, monkeypatch):
     finally:
         ts.close()
 
+
+
+def test_slide_mode_inference_matches_jax(tmp_path, monkeypatch):
+    """Slide mode (a tile dataframe of windows x, y, level, tile_size_x,
+    tile_size_y over a 2-level pyramid): the port writes the JAX driver's
+    tiles, each within one uint8 step of the JAX package's."""
+    import csv
+
+    import mipheivit_tpu.infer.loading as jax_loading
+    from mipheivit_tpu.config import compose
+    from mipheivit_tpu.infer.tiles import inference_model as jax_inference_model
+    from mipheivit_tpu.models import MipheiViT as JaxMipheiViT
+    from mipheivit_tpu.models import ViTConfig as JaxViTConfig
+    from mipheivit_tpu.slideio import read_image
+    from mipheivit_tpu_torch.infer.tiles import inference_model
+    from mipheivit_tpu_torch.io.safetensors import save_file
+    from mipheivit_tpu_torch.slideio import write_pyramid
+
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    save_file(_model(lora=8).state_dict(), ckpt / "model.safetensors")
+    slide = np.random.default_rng(4).integers(0, 255, (3, 120, 100), dtype=np.uint8)
+    write_pyramid(str(tmp_path / "s0.tiff"), slide, n_levels=2, tile_size=32)
+    rows = [{"in_slide_name": "s0", "x": x, "y": y, "level": level, "tile_size_x": 40,
+             "tile_size_y": 36} for x, y, level in ((0, 0, 0), (50, 70, 0), (60, 0, 0),
+                                                   (8, 20, 1), (10, 4, 1))]
+    for name, part in (("test", rows), ("slides", [{"in_slide_name": "s0",
+                                                    "in_slide_path": str(tmp_path / "s0.tiff")}])):
+        with open(tmp_path / f"{name}.csv", "w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=list(part[0]))
+            writer.writeheader()
+            writer.writerows(part)
+    stats = {"RGB": {"mean": [180.0, 140.0, 170.0], "std": [40.0, 45.0, 35.0]},
+             **{m: {"idx_channel": i, "std": 10.0, "min": 0}
+                for i, m in enumerate(("CD31", "CD3e", "Ki67"))}}
+    (tmp_path / "channel_stats.json").write_text(json.dumps(stats))
+    cfg = compose(["+default_configs=miphei-vit"])
+    cfg.data.test_dataframe_path = str(tmp_path / "test.csv")
+    cfg.data.slide_dataframe_path = str(tmp_path / "slides.csv")
+    cfg.data.channel_stats_path = str(tmp_path / "channel_stats.json")
+    cfg.data.targ_channel_names = ["CD31", "CD3e", "Ki67"]
+    cfg.train.batch_size = 2
+
+    def tiny(model_name, img_size, nc_out, encoder_name="hoptimus0",
+             dtype=torch.float32, device="cpu"):
+        assert tuple(img_size) == (32, 32)     # 40x36 windows snap to 32x32
+        return MipheiViT(ViTConfig(**GEOM, lora_rank=8), nc_out).eval()
+
+    monkeypatch.setattr(port_loading, "get_generator", tiny)
+    monkeypatch.setattr(jax_loading, "build_generator",
+                        lambda c, img_size, nc_out, dtype="float32": JaxMipheiViT(
+                            vit_cfg=JaxViTConfig(**GEOM, lora_rank=8, attn_impl="xla",
+                                                 remat=False), out_chans=nc_out))
+    want_dir = Path(jax_inference_model(cfg, str(ckpt), str(tmp_path / "jax"), dtype="float32"))
+    got_dir = Path(inference_model(cfg, str(ckpt), str(tmp_path / "port"), device="cpu"))
+    names = sorted(p.name for p in want_dir.glob("*.tiff"))
+    assert names == sorted(p.name for p in got_dir.glob("*.tiff"))
+    assert names == sorted(f"s0_{r['x']}_{r['y']}_{r['level']}_40_36.tiff" for r in rows)
+    for name in names:
+        got, want = read_image(str(got_dir / name)), read_image(str(want_dir / name))
+        assert got.shape == want.shape == (32, 32, 3) and got.dtype == np.uint8
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1, name
