@@ -59,6 +59,24 @@ held as a dict here) with the same checkpoint dir, on 48 train, 16 val and
                snapshot write and restore seconds;
   [test driver] test_model on that run's directory (K1, K2).
 
+The single-cell path, on the same checkpoint dir:
+
+  [segment pool] nucleus_pool (CellMetrics' pooling; plain PyTorch, XLA in
+               the JAX package) at 8 tiles of 256 px, 15 markers, ~150 disc
+               nuclei a tile with int32 ids up to 2**31 - 1, capacity 2048
+               and 64, against the CPU, timed at 8 and 64 tiles; the cell
+               loss's forward and backward under set_sync_debug_mode("error");
+  [cell trainer] train_patchgan on the flagship preset as it ships (cell
+               metrics on a slide dataframe, monitor val_cell_auc / max) with
+               the cell loss on (MSE + clustering, a seeded mlp.ckpt), 1 epoch
+               of 4 microbatches of 8, two slides a split, on .npy tiles with int32
+               nuclei (K1, K2, K2's backward terms), its images/s beside
+               [trainer]'s and validation's cell-metric host seconds;
+  [cell test driver] test_model on that run: test_dataframe_cell.csv;
+  [eval orion], [eval immucan], [eval hemit] each evaluation script's run()
+               on that run's export (the fused-heads bf16 forward: K1, K2,
+               K3; HEMIT on 512-px tiles, its forward at 256 px).
+
 Before the paths, [head dims] runs the four attention entry points at head
 dims 12, 32, 36 and 40 through their kernels (K1, K4, K5, K6; zero-padded
 to 64), ln_matmul at N 200 and K 192 and at K 100 (zero-padded to 104)
@@ -178,6 +196,16 @@ FLAGSHIP_PRESET = {
 }
 TRAINER_TILES = {"train": 48, "val": 16, "test": 16}
 TRAINER_STEPS = 4                # train_patchgan's max_steps_per_epoch
+# the single-cell path: disc nuclei a 256-px tile, CellMetrics' capacity, the
+# 15 gated markers (Hoechst excluded), the pooled sums against the CPU's
+# (relative to the largest), the eval scripts' batch, HEMIT's 512-px tiles
+CELL_NUCLEI, POOL_CAPACITY, CELL_MARKERS = 150, 2048, MARKERS - 1
+POOL_SUM_RTOL = 1e-5
+# the cell loss on the card (f32) against the CPU: value relative, gradient
+# norm-relative
+CELL_LOSS_RTOL, CELL_GRAD_NORM_RTOL = 1e-4, 1e-3
+EVAL_BATCH = 8
+HEMIT_IMG, HEMIT_TILES = 512, {"train": 8, "val": 4, "test": 4}
 
 
 def bound_ms(n_bytes: float, flops: float, dt: str):
@@ -1344,28 +1372,38 @@ def wsi_phase(name, model, image, tile, overlap, batch, device):
     return counts, stats
 
 
-def write_trainer_data(root: Path, seed: int) -> dict:
-    """``TRAINER_TILES`` tiles of 256 px from a numpy seed (H&E uint8 x 3,
-    mIF uint8 x 16) as ``.npy`` files, which the port's ``read_image``
-    decodes with numpy alone (TIFF tiles would need libtiff for the native
-    engine, which a CUDA host may lack, and PNG tiles cv2), the split CSVs
-    and ``channel_stats.json``; returns the config values that point at
-    them."""
+def write_trainer_data(root: Path, seed: int, img: int = IMG, tiles=TRAINER_TILES,
+                       nuclei: bool = False) -> dict:
+    """``tiles`` tiles of ``img`` px from a numpy seed (H&E uint8 x 3, mIF
+    uint8 x 16; with ``nuclei`` int32 nuclei of ``CELL_NUCLEI`` discs, ids
+    unique to the slide; a split's tiles alternate between two slides of
+    its own) as
+    ``.npy`` files, which the port's ``read_image`` decodes with numpy
+    alone (TIFF tiles would need libtiff for the native engine, which a
+    CUDA host may lack, and PNG tiles cv2), the split CSVs and
+    ``channel_stats.json``; returns the config values that point at them."""
     import csv
 
     rng = np.random.default_rng(seed)
     names = FLAGSHIP_PRESET["data"]["targ_channel_names"]
     root.mkdir()
     values = {}
-    for split, n in TRAINER_TILES.items():
+    n_before = 0
+    for split, n in tiles.items():
         rows = []
         for i in range(n):
-            img, targ = root / f"{split}{i}.npy", root / f"{split}{i}_mif.npy"
-            np.save(img, rng.integers(0, 256, (IMG, IMG, 3), dtype=np.uint8))
-            np.save(targ, rng.integers(0, 256, (IMG, IMG, MARKERS), dtype=np.uint8))
-            rows.append({"image_path": str(img), "target_path": str(targ)})
+            image, targ = root / f"{split}{i}.npy", root / f"{split}{i}_mif.npy"
+            np.save(image, rng.integers(0, 256, (img, img, 3), dtype=np.uint8))
+            np.save(targ, rng.integers(0, 256, (img, img, MARKERS), dtype=np.uint8))
+            rows.append({"image_path": str(image), "target_path": str(targ)})
+            if nuclei:
+                tile = n_before + i
+                nuc = root / f"{split}{i}_nuc.npy"
+                np.save(nuc, disc_nuclei(rng, 1, img, lambda t, j: 1000 * tile + j + 1)[0])
+                rows[-1].update(nuclei_path=str(nuc), in_slide_name=f"{split}{i % 2}")
+        n_before += n
         with open(root / f"{split}.csv", "w", newline="") as f:
-            writer = csv.DictWriter(f, fieldnames=["image_path", "target_path"])
+            writer = csv.DictWriter(f, fieldnames=list(rows[0]))
             writer.writeheader()
             writer.writerows(rows)
         values[f"data.{split}_dataframe_path"] = str(root / f"{split}.csv")
@@ -1464,8 +1502,8 @@ def trainer_phase(tmp: Path, ckpt: Path, enc: Path, depth: int, train256_rate: f
     then again with ``resume`` to epoch 2, through K1 and K2 (forward and
     backward terms). Checks finite losses, frozen weights bit-identical,
     LoRA and decoder weights moved, the resumed step, ``status.txt``, the
-    step-1 PNG and the exact launch counts. Returns the counts, the config
-    and the run's directory."""
+    step-1 PNG and the exact launch counts. Returns the counts, the config,
+    the run's directory and the slower of its two steady rates (images/s)."""
     import mipheivit_tpu_torch.train.trainer as trainer
 
     t_all = time.perf_counter()
@@ -1537,7 +1575,7 @@ def trainer_phase(tmp: Path, ckpt: Path, enc: Path, depth: int, train256_rate: f
     n_fwd = 2 * TRAINER_STEPS + 1 + n_val
     check_counts("[trainer]", counts, k1=depth * n_fwd, k2=depth * n_fwd,
                  k2b=depth * 2 * TRAINER_STEPS)
-    return counts, cfg, logdir
+    return counts, cfg, logdir, min(rates)
 
 
 def test_driver_phase(cfg, logdir: Path, depth: int):
@@ -1558,6 +1596,353 @@ def test_driver_phase(cfg, logdir: Path, depth: int):
           "[test driver] non-finite metrics")
     n_fwd = TRAINER_TILES["val"] // 8 + TRAINER_TILES["test"] // 8
     check_counts("[test driver]", counts, k1=depth * n_fwd, k2=depth * n_fwd)
+    return counts
+
+
+def disc_nuclei(rng, n_tiles: int, img: int, ids) -> np.ndarray:
+    """``[n_tiles, img, img]`` int32 label maps of ``CELL_NUCLEI`` discs a
+    tile (radius 4-8 px, later discs over earlier ones); ``ids(t, j)`` is the
+    label of tile t's disc j."""
+    out = np.zeros((n_tiles, img, img), np.int32)
+    for t in range(n_tiles):
+        centres = rng.integers(0, img, (CELL_NUCLEI, 2))
+        radii = rng.integers(4, 9, CELL_NUCLEI)
+        for j, ((cy, cx), r) in enumerate(zip(centres, radii)):
+            y0, y1 = max(cy - r, 0), min(cy + r + 1, img)
+            x0, x1 = max(cx - r, 0), min(cx + r + 1, img)
+            yy, xx = np.ogrid[y0:y1, x0:x1]
+            out[t, y0:y1, x0:x1][(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = ids(t, j)
+    return out
+
+
+def write_mlp(path: Path, n_channels: int, seed: int) -> str:
+    """A seeded cluster-MLP checkpoint for the cell loss in the reference's
+    layout (``model.{0,1,3,5}.*``: normalisation, 64, 32, n_channels)."""
+    g = torch.Generator().manual_seed(seed)
+    state = {"model.0.mean": torch.full((n_channels,), 127.5),
+             "model.0.std": torch.full((n_channels,), 40.0),
+             "model.1.weight": torch.randn(64, n_channels, generator=g) / n_channels ** 0.5,
+             "model.1.bias": torch.randn(64, generator=g) * 0.1,
+             "model.3.weight": torch.randn(32, 64, generator=g) / 8.0,
+             "model.3.bias": torch.randn(32, generator=g) * 0.1,
+             "model.5.weight": torch.randn(n_channels, 32, generator=g) / 32 ** 0.5,
+             "model.5.bias": torch.randn(n_channels, generator=g) * 0.1}
+    torch.save(state, path)
+    return str(path)
+
+
+def segment_pool_phase(dev, tmp: Path):
+    """``nucleus_pool`` on the card at CellMetrics' shapes (8 tiles of 256
+    px, 15 markers, ~150 disc nuclei a tile with int32 ids up to 2**31 - 1,
+    capacity 2048; and capacity 64, fewer slots than labels) against the
+    CPU: ids and counts exactly, sums within ``POOL_SUM_RTOL`` of the
+    largest; CUDA-event times at 8 and 64 tiles. Then the cell loss (MSE
+    and clustering, 16 channels) forward and backward on a microbatch of 8
+    under ``set_sync_debug_mode("error")``, against the CPU. Returns the
+    pooling ms at 8 and 64 tiles and the loss's forward + backward ms."""
+    from mipheivit_tpu_torch.ops.segment_pool import nucleus_pool
+    from mipheivit_tpu_torch.train.cell_loss import build_cell_loss
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 200)
+    ids = rng.integers(1, 2 ** 31, (8, CELL_NUCLEI))
+    ids[0, :3] = 2 ** 31 - 1 - np.arange(3)
+    labels = torch.from_numpy(disc_nuclei(rng, 8, IMG, lambda t, j: ids[t, j]))
+    values = torch.from_numpy(rng.random((8, IMG, IMG, CELL_MARKERS), dtype=np.float32))
+    lines, ms, pool_ok = [], {}, True
+    for cap in (POOL_CAPACITY, 64):
+        want = nucleus_pool(values, labels, cap)
+        got = [t.cpu() for t in nucleus_pool(values.to(dev), labels.to(dev), cap)]
+        _, rel, _ = scaled_err(got[1], want[1])
+        exact = torch.equal(got[0], want[0]), torch.equal(got[2], want[2])
+        lines.append(f"capacity {cap}: ids exact {exact[0]}, counts exact {exact[1]}, sums max "
+                     f"err {rel:.2e} of max|ref| (tol {POOL_SUM_RTOL:g}), "
+                     f"{int((want[2][:, 1:] > 0).sum())} nuclei kept")
+        pool_ok = pool_ok and all(exact) and rel <= POOL_SUM_RTOL
+    v8, l8 = values.to(dev), labels.to(dev)
+    ms[8] = cuda_ms(lambda: nucleus_pool(v8, l8, POOL_CAPACITY))
+    v64, l64 = v8.repeat(8, 1, 1, 1), l8.repeat(8, 1, 1)
+    ms[64] = cuda_ms(lambda: nucleus_pool(v64, l64, POOL_CAPACITY))
+    del v64, l64
+
+    mlp = write_mlp(tmp / "pool_mlp.ckpt", MARKERS, SEED + 201)
+    pred = torch.from_numpy(rng.uniform(-0.9, 0.9, (8, IMG, IMG, MARKERS)).astype(np.float32))
+    target = torch.from_numpy(rng.uniform(-0.9, 0.9, (8, IMG, IMG, MARKERS)).astype(np.float32))
+    results = {}
+    for device in (dev, torch.device("cpu")):
+        loss = build_cell_loss(mlp, MARKERS, lambda_factor=LAMBDA, device=device)
+        p = pred.to(device).requires_grad_()
+        args = (target.to(device), labels.to(device))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")    # any host sync raises
+        try:
+            value = loss(p, *args)
+            (grad,) = torch.autograd.grad(value, p)
+        finally:
+            if device.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+        results[device.type] = (value.detach().item(), grad.cpu())
+        if device.type == "cuda":
+            loss_ms = cuda_ms(lambda: torch.autograd.grad(loss(p, *args), p))
+    (v_card, g_card), (v_cpu, g_cpu) = results["cuda"], results["cpu"]
+    v_rel = abs(v_card - v_cpu) / abs(v_cpu)
+    g_rel = float((g_card - g_cpu).norm() / g_cpu.norm())
+    print(f"[segment pool] nucleus_pool at 8 tiles of {IMG} px, {CELL_MARKERS} markers, "
+          f"{CELL_NUCLEI} discs a tile: {'; '.join(lines)}; {ms[8]:.3f} ms at 8 tiles, "
+          f"{ms[64]:.3f} ms at 64 (CUDA events, median of 20); cell loss (MSE + clustering) "
+          f"forward + backward at microbatch 8 with no host sync: {v_card:.6f} vs CPU "
+          f"{v_cpu:.6f} (rel {v_rel:.2e}, tol {CELL_LOSS_RTOL:g}), gradient norm-rel {g_rel:.2e} "
+          f"(tol {CELL_GRAD_NORM_RTOL:g}), {loss_ms:.3f} ms ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    check(pool_ok, "[segment pool] nucleus_pool on the card differs from the CPU")
+    check(np.isfinite(v_card) and v_rel <= CELL_LOSS_RTOL and g_rel <= CELL_GRAD_NORM_RTOL,
+          "[segment pool] the cell loss on the card differs from the CPU")
+    return ms, loss_ms
+
+
+def write_cell_data(root: Path, seed: int, img: int = IMG, tiles=TRAINER_TILES) -> dict:
+    """``tiles`` tiles of ``img`` px from a numpy seed as ``.npy`` files (H&E
+    uint8 x 3, mIF uint8 x 16, int32 nuclei of ``CELL_NUCLEI`` discs, ids
+    unique to the slide), each split's alternating between two slides of
+    its own; each slide's nuclei CSV (``label`` and the 15 ``{marker}_pos``
+    columns), the slide dataframe, the split CSVs and
+    ``channel_stats.json``. Returns the config values that point at them."""
+    import csv
+
+    rng = np.random.default_rng(seed)
+    names = FLAGSHIP_PRESET["data"]["targ_channel_names"]
+    pos_cols = [f"{m}_pos" for m in names if m != "Hoechst"]
+    values = write_trainer_data(root, seed, img, tiles, nuclei=True)
+    cells = {f"{split}{k}": [] for split in tiles for k in range(2)}
+    for split, n in tiles.items():
+        for i in range(n):
+            labels = np.unique(np.load(root / f"{split}{i}_nuc.npy"))
+            slide = f"{split}{i % 2}"
+            positive = rng.random((len(labels), len(pos_cols))) < 0.3
+            cells[slide] += [[int(lab)] + ["True" if p else "False" for p in row]
+                             for lab, row in zip(labels, positive) if lab > 0]
+    for slide, rows in cells.items():
+        with open(root / f"{slide}_cells.csv", "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(["label"] + pos_cols)
+            writer.writerows(rows)
+    with open(root / "slides.csv", "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["in_slide_name", "nuclei_csv_path"])
+        writer.writerows([[s, str(root / f"{s}_cells.csv")] for s in cells])
+    values["data.slide_dataframe_path"] = str(root / "slides.csv")
+    return values
+
+
+def instrument_cell_metrics():
+    """Host seconds of ``CellMetrics``' end-of-epoch work without changing
+    it: ``update`` (pooling, the one copy to the host, the per-slide
+    lists; timed after a sync, so the forward's device time is not in
+    it), ``get_dataframe_cell_pred_target`` (the tables), ``train_logistic
+    _regression`` (the fit) and ``compute`` (all of it), per call. Returns
+    the records and an undo."""
+    from mipheivit_tpu_torch.metrics.cell import CellMetrics
+
+    rec = {"update": [], "frames": [], "fit": [], "compute": []}
+    names = {"update": "update", "frames": "get_dataframe_cell_pred_target",
+             "fit": "train_logistic_regression", "compute": "compute"}
+    real = {key: getattr(CellMetrics, name) for key, name in names.items()}
+
+    def timed(key):
+        def run(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[key](self, *a, **kw)
+            rec[key].append(time.perf_counter() - t0)
+            return out
+
+        return run
+
+    for key, name in names.items():
+        setattr(CellMetrics, name, timed(key))
+    return rec, lambda: [setattr(CellMetrics, names[k], f) for k, f in real.items()]
+
+
+def cell_trainer_phase(tmp: Path, ckpt: Path, enc: Path, depth: int, trainer_rate: float):
+    """``train_patchgan`` on the flagship preset as it ships (cell metrics on
+    a slide dataframe, ``monitor: val_cell_auc``/max) with only the data,
+    the checkpoint, the encoder file, the epochs and the cell loss (MSE and
+    clustering, a seeded ``mlp.ckpt``) overridden: 1 epoch of
+    ``TRAINER_STEPS`` microbatches of 8 (two slides a split). Checks a finite,
+    positive ``loss_cell``, a finite ``val_cell_auc`` in ``metrics.jsonl``,
+    the export under it, and the exact launches. Returns the counts, the
+    config and the run's directory."""
+    import mipheivit_tpu_torch.train.trainer as trainer
+
+    t_all = time.perf_counter()
+    data = write_cell_data(tmp / "cell_data", SEED + 9)
+    t_data = time.perf_counter() - t_all
+    logdir = tmp / "cell_run"
+    overrides = {**data, "model.checkpoint_path": str(ckpt / "model.safetensors"),
+                 "model.encoder.encoder_weights": str(enc), "train.epochs": 1,
+                 "train.losses.cell_loss.use_loss": True, "train.losses.cell_loss.use_mse": True,
+                 "train.losses.cell_loss.use_clustering": True,
+                 "train.losses.cell_loss.mlp_path": write_mlp(tmp / "mlp.ckpt", MARKERS,
+                                                              SEED + 202)}
+    cfg = trainer_config(overrides)
+    rec, undo = instrument_trainer(trainer)
+    cell_rec, undo_cells = instrument_cell_metrics()
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = trainer.train_patchgan(cfg, str(logdir), max_steps_per_epoch=TRAINER_STEPS,
+                                     use_wandb=False)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        undo()
+        undo_cells()
+    lines = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
+    epoch = next(line for line in lines if "epoch" in line)
+    ev = rec["events"][0]
+    rate = 2 * 8 * 1000.0 / ev[1].elapsed_time(ev[3])
+    # validation's compute is the first call, the test split's the second
+    val_s = {k: v[0] for k, v in cell_rec.items() if k != "update"}
+    n_val_batches = TRAINER_TILES["val"] // 8
+    fetch_s = sum(cell_rec["update"][:n_val_batches])
+    host_s = fetch_s + val_s["compute"]
+    print(f"[cell trainer] train_patchgan, flagship preset as it ships (cell metrics, monitor "
+          f"val_cell_auc/max) + the cell loss (MSE + clustering) at {IMG} px, {depth} blocks, "
+          f"{TRAINER_STEPS} microbatches of 8, 2 slides a split: 1 epoch in {t_run:.1f} s (data "
+          f"written in {t_data:.1f} s); steady {rate:.2f} images/s (one optimizer step, CUDA "
+          f"events) vs [trainer] {trainer_rate:.2f} (ratio {rate / trainer_rate:.3f}); loss_cell "
+          f"{epoch['loss_cell']:.5f}, gen_loss {epoch['gen_loss']:.5f}; val_cell_auc "
+          f"{epoch['val_cell_auc']:.4f} auc_logreg {epoch['val_cell_auc_logreg']:.4f} "
+          f"balanced_acc {epoch['val_cell_balanced_acc']:.4f} f1 {epoch['val_cell_f1']:.4f}; "
+          f"validation's cell metrics on the host: {host_s:.3f} s = fetch {fetch_s:.3f} s "
+          f"({n_val_batches} batches) + compute {val_s['compute']:.3f} s (tables "
+          f"{val_s['frames']:.3f} s, fit {val_s['fit']:.3f} s = {val_s['fit'] / host_s:.3f} of "
+          f"the host seconds); best {out['best']:.4f}; {counts_line(counts)} "
+          f"({time.perf_counter() - t_all:.1f} s)", flush=True)
+    check(np.isfinite(epoch["loss_cell"]) and epoch["loss_cell"] > 0,
+          "[cell trainer] loss_cell is not finite and positive")
+    check(np.isfinite(epoch["val_cell_auc"]) and out["best"] == epoch["val_cell_auc"]
+          and (logdir / "model.safetensors").exists()
+          and cfg.train.callbacks.modelcheckpoint.monitor == "val_cell_auc",
+          "[cell trainer] no export under val_cell_auc")
+    check(all(np.isfinite(epoch[k]) for k in ("gen_loss", "gen_loss_sim", "val_gen_loss_sim")),
+          "[cell trainer] non-finite losses")
+    # forwards: 4 microbatches, the step-1 debug grid, val and test (2
+    # batches each); backward terms: the microbatches
+    n_fwd = TRAINER_STEPS + 1 + TRAINER_TILES["val"] // 8 + TRAINER_TILES["test"] // 8
+    check_counts("[cell trainer]", counts, k1=depth * n_fwd, k2=depth * n_fwd,
+                 k2b=depth * TRAINER_STEPS)
+    return counts, cfg, logdir, data
+
+
+def cell_test_driver_phase(cfg, logdir: Path, depth: int):
+    """``test_model`` on the [cell trainer] run: cell metrics on val (which
+    fits the head), then on test with it, writing
+    ``test_dataframe_cell.csv``."""
+    from mipheivit_tpu_torch.data.table import Table
+    from mipheivit_tpu_torch.train.test_driver import test_model
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = test_model(cfg, str(logdir), logdir.name)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    table = Table.read_csv(logdir / "test_dataframe_cell.csv")
+    names = [m for m in FLAGSHIP_PRESET["data"]["targ_channel_names"] if m != "Hoechst"]
+    columns = (["cell_id"] + [f"{m}_pred" for m in names] + ["slide_name", "label"]
+               + [f"{m}_pos" for m in names])
+    print(f"[cell test driver] test_model on the [cell trainer] run: "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in res.items())}; test_dataframe_cell.csv "
+          f"{len(table)} cells x {len(table.columns)} columns; {counts_line(counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(np.isfinite(res["test_cell_auc"]) and all(np.isfinite(v) for v in res.values()),
+          "[cell test driver] non-finite metrics")
+    check(table.columns == columns and len(table) > 0,
+          f"[cell test driver] test_dataframe_cell.csv columns {table.columns}")
+    n_fwd = TRAINER_TILES["val"] // 8 + TRAINER_TILES["test"] // 8
+    check_counts("[cell test driver]", counts, k1=depth * n_fwd, k2=depth * n_fwd)
+    return counts
+
+
+def eval_phase(module, cfg, logdir: Path, files):
+    """One evaluation script's ``run`` on the [cell trainer] checkpoint (the
+    fused-heads bf16 forward: K1, K2, K3): its output, launch counts,
+    seconds and the ``files`` it did not write."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = module.run(cfg, str(logdir), batch_size=EVAL_BATCH)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    missing = [f for f in files if not (logdir / f).exists()]
+    return out, counts, time.perf_counter() - t0, missing
+
+
+def eval_phases(cfg, logdir: Path, data: dict, tmp: Path, depth: int):
+    """[eval orion], [eval immucan] (after orion: its ``logreg.npz``) and
+    [eval hemit] (512-px tiles, the forward at 256 px) on the [cell trainer]
+    checkpoint. Returns each one's counts."""
+    import copy
+
+    from mipheivit_tpu_torch.data.table import Table
+    from mipheivit_tpu_torch.evaluation import eval_hemit, eval_immucan, eval_orion
+
+    counts = {}
+    # ORION: the val and test tiles
+    n_tiles = TRAINER_TILES["val"] + TRAINER_TILES["test"]
+    out, counts["eval orion"], secs, missing = eval_phase(
+        eval_orion, cfg, logdir,
+        ["results_logreg.csv", "cell_dataframe.csv", "logreg.npz", "logreg.pth"])
+    results = out["results"]
+    print(f"[eval orion] eval_orion.run on the [cell trainer] checkpoint, {n_tiles} tiles at "
+          f"batch {EVAL_BATCH}: {len(out['cell_dataframe'])} cells, mean AUC "
+          f"{np.mean(results['ROC AUC']):.4f} over {len(results)} markers; missing files "
+          f"{missing}; {counts_line(counts['eval orion'])} ({secs:.1f} s)", flush=True)
+    check(not missing and len(results) == CELL_MARKERS and np.isfinite(results["ROC AUC"]).all(),
+          "[eval orion] results")
+    n = -(-n_tiles // EVAL_BATCH)
+    check_counts("[eval orion]", counts["eval orion"], k1=depth * n, k2=depth * n, k3=n)
+
+    # IMMUCAN: the test tiles with per-tile ground-truth counts
+    test = Table.read_csv(data["data.test_dataframe_path"])
+    rng = np.random.default_rng(SEED + 203)
+    for marker in ("CD3e", "CD8a", "CD4", "FOXP3", "Pan-CK"):
+        test = test.replace(f"{marker}_count", rng.integers(0, 60, len(test)))
+    test.to_csv(tmp / "immucan.csv")
+    imm_cfg = copy.deepcopy(cfg)
+    imm_cfg.data.test_dataframe_path = str(tmp / "immucan.csv")
+    out, counts["eval immucan"], secs, missing = eval_phase(
+        eval_immucan, imm_cfg, logdir, ["immucan_corr.csv", "immucan_tile_sums.csv"])
+    corr = out["corr"]
+    print(f"[eval immucan] eval_immucan.run, {len(test)} tiles: Pearson "
+          f"{dict(zip(corr['Marker'].tolist(), np.round(corr['Pearson'], 4).tolist()))} over "
+          f"{len(out['tile_sums'])} tiles; missing files {missing}; "
+          f"{counts_line(counts['eval immucan'])} ({secs:.1f} s)", flush=True)
+    check(not missing and len(corr) == 5 and len(out["tile_sums"]) == len(test),
+          "[eval immucan] results")
+    n = -(-len(test) // EVAL_BATCH)
+    check_counts("[eval immucan]", counts["eval immucan"], k1=depth * n, k2=depth * n, k3=n)
+
+    # HEMIT: 512-px tiles, two slides a split, the forward at 256 px
+    hemit = write_cell_data(tmp / "hemit_data", SEED + 11, HEMIT_IMG, HEMIT_TILES)
+    hemit_cfg = copy.deepcopy(cfg)
+    for key, value in hemit.items():
+        hemit_cfg.set_dotted(key, value)
+    n_tiles = sum(HEMIT_TILES.values())
+    out, counts["eval hemit"], secs, missing = eval_phase(
+        eval_hemit, hemit_cfg, logdir,
+        ["hemit_results_logreg_val.csv", "hemit_results_logreg_test.csv",
+         "hemit_cell_dataframe.csv"])
+    print(f"[eval hemit] eval_hemit.run, {n_tiles} tiles of {HEMIT_IMG} px (forward at "
+          f"{HEMIT_IMG // 2} px): {len(out['cell_dataframe'])} cells, mean AUC val "
+          f"{np.nanmean(out['val']['ROC AUC']):.4f} test {np.nanmean(out['test']['ROC AUC']):.4f}; "
+          f"missing files {missing}; {counts_line(counts['eval hemit'])} ({secs:.1f} s)",
+          flush=True)
+    check(not missing and len(out["val"]) == len(out["test"]) == CELL_MARKERS,
+          "[eval hemit] results")
+    n = -(-n_tiles // EVAL_BATCH)
+    check_counts("[eval hemit]", counts["eval hemit"], k1=depth * n, k2=depth * n, k3=n)
     return counts
 
 
@@ -1726,6 +2111,12 @@ def main() -> None:
     head_dims_phase()
     ln_qkv_routes_phase()
     rejects_phase()
+
+    # 3h. per-nucleus pooling and the cell loss (plain PyTorch on the card:
+    #     XLA in the JAX package, no Pallas kernel to port)
+    with tempfile.TemporaryDirectory() as tmp:
+        pool_ms, cell_loss_ms = segment_pool_phase(dev, Path(tmp))
+    torch.cuda.empty_cache()
 
     # 4. the slice at full width
     tiles = np.random.default_rng(SEED + 1).integers(0, 256, (N_TILES, IMG, IMG, 3),
@@ -1923,15 +2314,28 @@ def main() -> None:
         #     resume to 2) and the eval-only driver on its checkpoint dir
         del data, region_data
         torch.cuda.empty_cache()
-        trainer_counts, cfg, logdir = trainer_phase(Path(tmp), ckpt, enc, depth, train256_rate)
+        trainer_counts, cfg, logdir, trainer_rate = trainer_phase(Path(tmp), ckpt, enc, depth,
+                                                                  train256_rate)
         test_driver_counts = test_driver_phase(cfg, logdir, depth)
+        torch.cuda.empty_cache()
 
-    # 12. summary lines
+        # 12. the single-cell path: the flagship preset as it ships (cell
+        #     metrics, val_cell_auc) with the cell loss, its eval-only run,
+        #     and the ORION / IMMUCAN / HEMIT evaluation scripts on its export
+        cell_counts, cell_cfg, cell_dir, cell_data = cell_trainer_phase(Path(tmp), ckpt, enc,
+                                                                        depth, trainer_rate)
+        cell_test_counts = cell_test_driver_phase(cell_cfg, cell_dir, depth)
+        eval_counts = eval_phases(cell_cfg, cell_dir, cell_data, Path(tmp), depth)
+
+    # 13. summary lines
     k1 = kernel_rows["bf16_fused"]
     paths = {"slice": slice_counts, "attn sublayer": sublayer, "serve": serve_counts,
              "wsi 256": wsi256, "wsi 1024": wsi1024, "train 256": train256,
              "train 1024": train1024, "train 1024 ckpt": train1024c, "train ops": train_ops,
-             "trainer": trainer_counts, "test driver": test_driver_counts}
+             "trainer": trainer_counts, "test driver": test_driver_counts,
+             "cell trainer": cell_counts, "cell test driver": cell_test_counts, **eval_counts}
+    print(f"[cell path] nucleus_pool {pool_ms[8]:.3f} ms at 8 tiles, {pool_ms[64]:.3f} ms at 64; "
+          f"cell loss forward + backward {cell_loss_ms:.3f} ms at microbatch 8", flush=True)
 
     def launches(key):
         by_path = {path: c[key] for path, c in paths.items() if c[key]}

@@ -5,7 +5,9 @@ machine with the card need not have. ``Table`` holds one numpy array per column 
 offers what the data layer and the trainer use of a ``pandas.DataFrame``:
 ``len``, ``columns``, ``table[col]`` (the column's array), ``table[[cols]]``
 (a sub-table), ``row(i)`` (one row as a dict), ``take``, ``filter``,
-``unique`` and ``replace``. ``read_csv`` infers each column's type as
+``unique`` and ``replace``; and what the single-cell frames use:
+``concat``, ``isin``, ``rename``, ``drop``, ``sample``, ``groupby_sum``,
+``merge`` and ``to_csv``, sort-based in numpy. ``read_csv`` infers each column's type as
 ``pandas.read_csv`` does for the columns these CSVs hold: all integers ->
 int64; all numbers -> float64, empty cells NaN; all ``True``/``False`` ->
 bool; anything else -> str (an object array, empty cells None where pandas
@@ -17,7 +19,7 @@ from __future__ import annotations
 import csv
 import re
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence, Union
+from typing import Dict, Iterable, List, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -58,7 +60,9 @@ class Table:
             raise ValueError(f"columns of different lengths: {sorted(lengths)}")
 
     @classmethod
-    def read_csv(cls, path: Union[str, Path]) -> "Table":
+    def read_csv(cls, path: Union[str, Path], usecols: Sequence[str] = None) -> "Table":
+        """The CSV's columns (those named in ``usecols`` only, in the file's
+        order, when given)."""
         with open(path, newline="") as f:
             reader = csv.reader(f)
             header = next(reader, [])
@@ -67,7 +71,12 @@ class Table:
             if len(r) != len(header):
                 raise ValueError(f"{path}: row {i + 1} has {len(r)} fields, the header "
                                  f"{len(header)}")
-        return cls({name: _column([r[j] for r in rows]) for j, name in enumerate(header)})
+        if usecols is not None:
+            missing = set(usecols) - set(header)
+            if missing:
+                raise ValueError(f"{path}: no column(s) {sorted(missing)}")
+        return cls({name: _column([r[j] for r in rows]) for j, name in enumerate(header)
+                    if usecols is None or name in usecols})
 
     @classmethod
     def from_records(cls, records: Sequence[Dict]) -> "Table":
@@ -107,3 +116,124 @@ class Table:
     def mapping(self, key: str, value: str) -> Dict:
         """``{key: value}`` over the rows (``set_index(key)[value].to_dict()``)."""
         return dict(zip(self._cols[key].tolist(), self._cols[value].tolist()))
+
+    # -- what the cell frames use (the JAX package does these in pandas) ----
+    @classmethod
+    def concat(cls, tables: Sequence["Table"]) -> "Table":
+        """The rows of ``tables`` in order (``pd.concat``); all hold the
+        first one's columns."""
+        names = tables[0].columns
+        for t in tables[1:]:
+            if set(t.columns) != set(names):
+                raise ValueError(f"concat of different columns: {names} and {t.columns}")
+        return cls({n: np.concatenate([t._cols[n] for t in tables]) for n in names})
+
+    def isin(self, name: str, values) -> np.ndarray:
+        """The rows whose ``name`` is one of ``values``, as a bool mask."""
+        return np.isin(self._cols[name], np.asarray(list(values), dtype=self._cols[name].dtype))
+
+    def rename(self, mapping: Dict[str, str]) -> "Table":
+        return Table({mapping.get(n, n): v for n, v in self._cols.items()})
+
+    def drop(self, names: Iterable[str]) -> "Table":
+        names = set(names)
+        return Table({n: v for n, v in self._cols.items() if n not in names})
+
+    def sample(self, n: int, random_state: int = 42) -> "Table":
+        """``n`` rows drawn without replacement, the rows ``DataFrame.sample(n,
+        random_state=...)`` draws: ``RandomState(seed).choice(len, n, False)``."""
+        return self.take(np.random.RandomState(random_state).choice(len(self), n, replace=False))
+
+    def _codes(self, keys: Sequence[str]) -> Tuple[np.ndarray, List[np.ndarray]]:
+        """Each row's group code, the groups sorted by ``keys`` in turn, and
+        each key column's value per group."""
+        code = np.zeros(len(self), np.int64)
+        for name in keys:
+            values, inverse = np.unique(self._cols[name], return_inverse=True)
+            code = code * len(values) + inverse.reshape(-1)
+        _, first, code = np.unique(code, return_index=True, return_inverse=True)
+        return code.reshape(-1), [self._cols[name][first] for name in keys]
+
+    def groupby_sum(self, keys: Union[str, Sequence[str]], columns: Sequence[str]) -> "Table":
+        """``groupby(keys)[columns].sum().reset_index()``: one row per
+        distinct key, sorted by the keys; bool and integer columns sum to
+        int64, floats to float64."""
+        keys = [keys] if isinstance(keys, str) else list(keys)
+        code, key_values = self._codes(keys)
+        order = np.argsort(code, kind="stable")
+        starts = np.flatnonzero(np.r_[True, code[order][1:] != code[order][:-1]])
+        out = dict(zip(keys, key_values))
+        for name in columns:
+            col = self._cols[name]
+            col = col.astype(np.int64) if col.dtype.kind in "biu" else col.astype(np.float64)
+            out[name] = (np.add.reduceat(col[order], starts) if len(col)
+                         else np.zeros(0, col.dtype))
+        return Table(out)
+
+    def merge(self, right: "Table", left_on: Sequence[str], right_on: Sequence[str],
+              how: str = "left") -> "Table":
+        """``self.merge(right, left_on=..., right_on=..., how=...)`` for
+        ``how`` "left" or "inner": the left rows in order, each repeated
+        once per matching right row (a left row without one is kept with
+        missing values by "left": NaN, which turns int and bool columns
+        into float64 and object ones). Columns: the left ones, then the
+        right ones, less a right key of the same name as its left key."""
+        if how not in ("left", "inner"):
+            raise ValueError(f"how={how!r}")
+        n_left = len(self)
+        both = Table.concat([
+            Table({f"k{i}": self._key(a) for i, a in enumerate(left_on)}),
+            Table({f"k{i}": right._key(b) for i, b in enumerate(right_on)})])
+        code, _ = both._codes([f"k{i}" for i in range(len(left_on))])
+        lcode, rcode = code[:n_left], code[n_left:]
+        r_order = np.argsort(rcode, kind="stable")
+        r_sorted = rcode[r_order]
+        lo = np.searchsorted(r_sorted, lcode, "left")
+        n_match = np.searchsorted(r_sorted, lcode, "right") - lo
+        reps = np.maximum(n_match, 1) if how == "left" else n_match
+        left_idx = np.repeat(np.arange(n_left), reps)
+        offset = np.arange(len(left_idx)) - np.repeat(np.cumsum(reps) - reps, reps)
+        matched = np.repeat(n_match, reps) > 0
+        right_idx = np.where(matched, r_order[np.minimum(np.repeat(lo, reps) + offset,
+                                                         max(len(r_order) - 1, 0))], -1)
+        out = {n: v[left_idx] for n, v in self._cols.items()}
+        shared = {b for a, b in zip(left_on, right_on) if a == b}
+        for name, col in right._cols.items():
+            if name in shared:
+                continue
+            if name in out:
+                raise ValueError(f"merge: column {name!r} on both sides")
+            taken = col[np.maximum(right_idx, 0)] if len(col) else np.zeros(len(right_idx),
+                                                                               col.dtype)
+            if not matched.all():
+                if taken.dtype.kind in "iuf":
+                    taken = taken.astype(np.float64)
+                    taken[~matched] = np.nan
+                else:
+                    taken = taken.astype(object)
+                    taken[~matched] = np.nan
+            out[name] = taken
+        return Table(out)
+
+    def _key(self, name: str) -> np.ndarray:
+        """A join key column: unsigned ids as int64, so that they compare
+        with signed labels."""
+        col = self._cols[name]
+        return col.astype(np.int64) if col.dtype.kind == "u" else col
+
+    def to_csv(self, path: Union[str, Path]) -> None:
+        """``to_csv(path, index=False)``: bools as True/False, NaN and None
+        as empty cells, floats at full precision."""
+        def cells(col: np.ndarray) -> List[str]:
+            if col.dtype.kind == "f":
+                return ["" if v != v else repr(v) for v in col.astype(np.float64).tolist()]
+            if col.dtype.kind == "O":
+                return ["" if v is None or (isinstance(v, float) and v != v) else str(v)
+                        for v in col.tolist()]
+            return [str(v) for v in col.tolist()]
+
+        columns = [cells(c) for c in self._cols.values()]
+        with open(path, "w", newline="") as f:
+            writer = csv.writer(f, lineterminator="\n")
+            writer.writerow(self.columns)
+            writer.writerows(zip(*columns))

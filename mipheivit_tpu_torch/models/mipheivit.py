@@ -160,6 +160,9 @@ class BatchedSegHeads(nn.Module):
 
     def forward(self, x):
         if not self.training:
+            # a decoder run from a 1x1 feature map (inputs under 32 px) loses
+            # the channels_last layout; K3 reads channels_last rows
+            x = x.contiguous(memory_format=torch.channels_last)
             return fused_seg_heads(x, *self._fold(x.dtype))
         return self.chain(x)
 

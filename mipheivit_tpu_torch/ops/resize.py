@@ -47,6 +47,13 @@ def resize_bicubic(x, out_hw: Tuple[int, int], antialias: bool = False):
     return y.to(x.dtype)
 
 
+def resize_bilinear(x, out_hw: Tuple[int, int]):
+    """``F.interpolate(x, out_hw, mode="bilinear", align_corners=False)``
+    (the JAX package's ``resize_bilinear`` without antialias: the eval
+    scripts' half-resolution forward)."""
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False)
+
+
 def upsample2x_bilinear(x):
     """x2 bilinear upsample, ``align_corners=False`` (the fusion blocks)."""
     return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)

@@ -52,12 +52,13 @@ class TrainState:
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """The JAX ``StepConfig`` without the foreground head and the cell loss,
-    which are not ported yet, and without ``freeze_model_name``: the
-    trainable partition is the state's (``create_train_state``)."""
+    """The JAX ``StepConfig`` without the foreground head, which is not
+    ported yet, and without ``freeze_model_name``: the trainable partition
+    is the state's (``create_train_state``)."""
 
     gan_train: bool = False
     lsgan: bool = False
+    use_cell_loss: bool = False
     data_range: tuple = (-0.9, 0.9)
 
 
@@ -98,17 +99,20 @@ def _on_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 def make_train_step(model, loss_reconstruct: Callable, gen_optimizer: AdamChain,
                     disc=None, disc_optimizer: Optional[AdamChain] = None,
-                    cfg: StepConfig = StepConfig()):
+                    cfg: StepConfig = StepConfig(), cell_loss_fn: Optional[Callable] = None):
     """The train step: ``(state, batch, metrics) -> (state, metrics, log)``.
 
-    batch: ``{"image": [B, H, W, 3], "target": [B, H, W, C]}`` (numpy or
-    torch; moved to the state's device). ``log`` holds the losses as 0-d
-    tensors (the JAX step's keys; ``loss_cell`` and ``gen_foreground_loss``
-    are 0, their terms not being ported), the NaN flag, and ``grads``: this
-    microbatch's gradients of the trainable parameters by name (before
-    clipping)."""
+    batch: ``{"image": [B, H, W, 3], "target": [B, H, W, C]}`` and, with
+    the cell loss on, ``"nuclei": [B, H, W]`` (numpy or torch; moved to the
+    state's device). With ``cfg.use_cell_loss`` and a ``cell_loss_fn``,
+    ``cell_loss_fn(fake, target, nuclei)`` joins the generator loss. ``log``
+    holds the losses as 0-d tensors (the JAX step's keys;
+    ``gen_foreground_loss`` is 0, its term not being ported), the NaN flag,
+    and ``grads``: this microbatch's gradients of the trainable parameters
+    by name (before clipping)."""
     if cfg.gan_train and (disc is None or disc_optimizer is None):
         raise ValueError("gan_train needs a discriminator and its optimizer")
+    use_cell = cfg.use_cell_loss and cell_loss_fn is not None
 
     def train_step(state: TrainState, batch, metrics: PixelMetrics):
         batch = _on_device(batch, state.device)
@@ -127,14 +131,19 @@ def make_train_step(model, loss_reconstruct: Callable, gen_optimizer: AdamChain,
             logits = disc(x, fake, update_stats=False)
             adv = adversarial_loss(logits, torch.zeros_like(logits), cfg.lsgan)
             loss = loss + adv
+        zero = torch.zeros((), device=state.device)
+        cell = zero
+        if use_cell:
+            cell = cell_loss_fn(fake, y, batch["nuclei"])
+            loss = loss + cell
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
         gen_optimizer.step(params, grads, state.gen_opt_state)
 
         fake = fake.detach()
-        zero = torch.zeros((), device=state.device)    # the unported cell and foreground terms
         log = {"gen_loss": loss.detach(), "gen_loss_sim": loss_sim.detach(),
-               "gen_adv_loss": adv.detach(), "loss_cell": zero, "gen_foreground_loss": zero,
+               "gen_adv_loss": adv.detach(), "loss_cell": cell.detach(),
+               "gen_foreground_loss": zero,    # the unported foreground term
                "nan": torch.isnan(fake).any(), "grads": dict(zip(names, grads))}
         if cfg.gan_train:
             d_params = list(disc.parameters())

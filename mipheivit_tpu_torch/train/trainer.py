@@ -14,12 +14,20 @@ INT_MAX)``), so the forensic dump (``weights_nan.safetensors`` and
 ``weights_nan.step``) names it exactly (reference: src/models.py:102-105).
 Batches reach the card through ``data.pipeline.device_prefetch``.
 
+With ``train.use_cell_metrics`` and a slide dataframe, the loaders return
+the nuclei masks, validation and test pool the predictions per nucleus
+(``metrics.cell.CellMetrics``; the test split reuses validation's logreg
+head) and log ``{split}_cell_{auc,auc_logreg,balanced_acc,f1}`` and their
+per-marker keys, which ``monitor: val_cell_auc`` reads. With
+``train.losses.cell_loss.use_loss`` the step adds the cell loss
+(``train.cell_loss``) on the training batch's nuclei.
+
 Runs on the card unless ``device="cpu"`` is given (without a card it
 raises), with the frozen foundation encoder stored and run in bf16 on the
-card and f32 on the CPU. Not ported yet, and refused before any work: cell
-metrics (ROADMAP.md queue 1, item 12), the cell loss and the foreground
-head (item 10), ``model.attn_impl=seq_shard`` (items 13-14) and more than
-one process (item 13).
+card and f32 on the CPU. Not ported yet, and refused before any work: the
+foreground head (ROADMAP.md queue 1, item 15: only the SMP U-Net has one),
+``model.attn_impl=seq_shard`` (items 13-14) and more than one process
+(item 13).
 """
 
 from __future__ import annotations
@@ -43,9 +51,11 @@ from ..data.stats import (Normalizer, get_effective_width_height, get_input_mean
 from ..data.table import Table
 from ..infer.loading import load_generator
 from ..metrics import PixelMetrics
+from ..metrics.cell import METRIC_KEYS, CellMetrics
 from ..models import get_generator
 from ..models.discriminator import DiscriminatorPatch
 from ..utils import MetricsLogger, save_image_grid
+from .cell_loss import build_cell_loss
 from .checkpoints import latest_checkpoint, restore_train_state, save_generator, save_train_state
 from .losses import build_reconstruction_loss
 from .optim import build_discriminator_optimizer, build_generator_optimizer
@@ -67,14 +77,10 @@ def _n_processes() -> int:
 
 def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for what the port cannot train yet."""
-    if cfg.select("train.use_cell_metrics") and cfg.select("data.slide_dataframe_path"):
+    if cfg.select("train.foreground_head"):
         raise NotImplementedError(
-            "cell metrics (train.use_cell_metrics with a slide dataframe) are not ported to "
-            "PyTorch yet (ROADMAP.md queue 1, item 12: metrics/cell.py, ops/segment_pool.py)")
-    if cfg.select("train.losses.cell_loss.use_loss") or cfg.select("train.foreground_head"):
-        raise NotImplementedError(
-            "the cell loss and the foreground head are not ported to PyTorch yet "
-            "(ROADMAP.md queue 1, item 10: train/cell_loss.py, ops/segment_pool.py)")
+            "the foreground head is not ported to PyTorch yet (ROADMAP.md queue 1, item 15: "
+            "only the SMP U-Net generator of the JAX package has one)")
     if cfg.select("model.attn_impl", "auto") == "seq_shard":
         raise NotImplementedError(
             "model.attn_impl=seq_shard is not ported to PyTorch yet (ROADMAP.md queue 1, "
@@ -83,6 +89,36 @@ def refuse_unported(cfg: Config) -> None:
         raise NotImplementedError(
             "training over several processes is not ported to PyTorch yet (ROADMAP.md "
             "queue 1, item 13: DDP over NCCL)")
+
+
+def uses_cell_metrics(cfg: Config) -> bool:
+    """Cell metrics need ``train.use_cell_metrics`` and a slide dataframe
+    (its nuclei CSVs), as in the JAX trainer."""
+    return bool(cfg.select("train.use_cell_metrics")) and bool(
+        cfg.select("data.slide_dataframe_path"))
+
+
+def check_cell_loss(cfg: Config) -> None:
+    """The cell loss pools over the nuclei masks, which the loaders return
+    only with cell metrics on: raise ``ValueError`` before any work
+    otherwise (the JAX trainer gets as far as its first step and fails
+    there on the missing ``"nuclei"``)."""
+    if cfg.select("train.losses.cell_loss.use_loss") and not uses_cell_metrics(cfg):
+        raise ValueError(
+            "train.losses.cell_loss.use_loss needs the nuclei masks, which are loaded only "
+            "with train.use_cell_metrics true and a data.slide_dataframe_path; got "
+            f"train.use_cell_metrics={cfg.select('train.use_cell_metrics')!r}, "
+            f"data.slide_dataframe_path={cfg.select('data.slide_dataframe_path')!r}")
+
+
+def cell_metric_keys(split: str, cm: Dict, marker_cols) -> Dict[str, float]:
+    """The logged cell metrics of one split (the JAX trainer's keys)."""
+    out = {f"{split}_cell_{key}": float(cm[key]) for key in METRIC_KEYS}
+    for marker_col in marker_cols:
+        for key in METRIC_KEYS:
+            if f"{marker_col}_{key}" in cm:
+                out[f"{split}_cell_{key}_{marker_col}"] = float(cm[f"{marker_col}_{key}"])
+    return out
 
 
 def get_width_height(dataframe: Table) -> tuple:
@@ -118,6 +154,7 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
     the card, "float32" on the CPU); ``resume`` continues from the newest
     snapshot in ``<logdir>/snapshots``."""
     refuse_unported(cfg)
+    check_cell_loss(cfg)
     device = resolve_device(device)
     logdir = Path(logdir)
     logdir.mkdir(parents=True, exist_ok=True)
@@ -153,10 +190,11 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
         # batch; drawing it here too keeps both trainers' epochs the same
         sampler.epoch_indices()
 
+    use_cell_metrics = uses_cell_metrics(cfg)
     dm = DataModule(
         slide_dataframe=slide_df, train_dataframe=train_df, val_dataframe=val_df,
         test_dataframe=test_df, targ_channel_idxs=targ_idxs, batch_size=cfg.train.batch_size,
-        input_shape=(width, height), from_slide=from_slide, return_nuclei=False,
+        input_shape=(width, height), from_slide=from_slide, return_nuclei=use_cell_metrics,
         train_sampler=sampler, preprocess_input_fn=he_norm, preprocess_target_fn=if_norm,
         seed=cfg.train.seed)
     dm.setup()
@@ -174,6 +212,14 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
     loss_reconstruct = build_reconstruction_loss(
         cfg, channel_names, channel_stats,
         train_dataframe=train_df if cfg.train.losses.use_weighted_mae else None)
+
+    cell_loss_cfg = cfg.train.losses.cell_loss
+    cell_loss_fn = None
+    if cell_loss_cfg.use_loss:
+        cell_loss_fn = build_cell_loss(
+            cell_loss_cfg.mlp_path, nc_out, use_mse=cell_loss_cfg.use_mse,
+            use_clustering=cell_loss_cfg.use_clustering,
+            lambda_factor=cfg.train.losses.lambda_factor, device=device)
 
     gan_train = bool(cfg.train.gan_train)
     disc = None
@@ -201,8 +247,11 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
     disc_opt = build_discriminator_optimizer(lr_d, total_iters,
                                              grad_accum_steps=accum) if gan_train else None
 
+    cell_metrics = CellMetrics(slide_df, channel_names) if use_cell_metrics else None
+
     step_cfg = StepConfig(gan_train=gan_train,
-                          lsgan=cfg.select("train.losses.adversarial_loss") == "lsgan")
+                          lsgan=cfg.select("train.losses.adversarial_loss") == "lsgan",
+                          use_cell_loss=cell_loss_fn is not None)
     state = create_train_state(
         model, gen_opt, disc, disc_opt, freeze_model_name=cfg.model.model_name,
         frozen_dtype=torch.bfloat16 if dtype == "bfloat16" else None, seed=cfg.train.seed,
@@ -217,7 +266,8 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
             start_epoch = state.step // max(steps_per_epoch, 1)
             log.info("resumed from %s at step %d (epoch %d)", ckpt, state.step, start_epoch)
 
-    train_step = make_train_step(model, loss_reconstruct, gen_opt, disc, disc_opt, step_cfg)
+    train_step = make_train_step(model, loss_reconstruct, gen_opt, disc, disc_opt, step_cfg,
+                                 cell_loss_fn=cell_loss_fn)
     eval_step = make_eval_step(model, loss_reconstruct, step_cfg)
 
     save_config(cfg, logdir / "config.yaml")
@@ -227,6 +277,7 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
     monitor = cfg.train.callbacks.modelcheckpoint.monitor
     mode = cfg.train.callbacks.modelcheckpoint.mode
     best = -np.inf if mode == "max" else np.inf
+    logreg_head = None
     history = []
     aug_rng = np.random.default_rng(cfg.train.seed)
 
@@ -249,6 +300,7 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
     try:
 
         def run_eval(split: str, epoch: int) -> Dict:
+            nonlocal logreg_head
             metrics = PixelMetrics.zeros(device)
             losses = []
             loader = dm.loader(split, epoch=epoch)
@@ -257,9 +309,18 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
                 b = {"image": batch["image"], "target": batch["target"], "mask": batch["mask"]}
                 metrics, elog = eval_step(state, b, metrics)
                 losses.append(elog["gen_loss_sim"])
+                if cell_metrics is not None:
+                    n_valid = int(batch["mask"].sum())
+                    cell_metrics.update(elog["pred"][:n_valid], batch["nuclei"][:n_valid],
+                                        batch["slide_name"][:n_valid])
             out = {f"{split}_{k}": float(v) for k, v in metrics.compute().items()}
             out[f"{split}_gen_loss_sim"] = (float(np.mean([float(v) for v in losses]))
                                             if losses else np.nan)
+            if cell_metrics is not None:
+                cm = cell_metrics.compute(logreg_head=logreg_head if split == "test" else None)
+                if split == "val":
+                    logreg_head = cm["logreg_head"]
+                out.update(cell_metric_keys(split, cm, cell_metrics.marker_cols))
             return out
 
         def export_checkpoint(tag: str):
@@ -300,6 +361,8 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
                 if preempt["sig"] is not None:
                     break
                 b = {"image": batch["image"], "target": batch["target"]}
+                if step_cfg.use_cell_loss:
+                    b["nuclei"] = batch["nuclei"]
                 state, train_metrics, slog = train_step(state, b, train_metrics)
                 global_step += 1
                 scalars = {k: v for k, v in slog.items() if k not in ("nan", "grads")}

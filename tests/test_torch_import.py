@@ -17,6 +17,7 @@ CHIP_PATH = [
     "mipheivit_tpu_torch.ops.mlp",
     "mipheivit_tpu_torch.ops.seg_heads",
     "mipheivit_tpu_torch.ops.resize",
+    "mipheivit_tpu_torch.ops.segment_pool",
     "mipheivit_tpu_torch.models",
     "mipheivit_tpu_torch.models.vit",
     "mipheivit_tpu_torch.models.foundation",
@@ -38,9 +39,17 @@ CHIP_PATH = [
     "mipheivit_tpu_torch.data.pipeline",
     "mipheivit_tpu_torch.ops.hed",
     "mipheivit_tpu_torch.utils",
+    "mipheivit_tpu_torch.metrics",
+    "mipheivit_tpu_torch.metrics.cell",
+    "mipheivit_tpu_torch.metrics._gating",
     "mipheivit_tpu_torch.train",
+    "mipheivit_tpu_torch.train.cell_loss",
     "mipheivit_tpu_torch.train.trainer",
     "mipheivit_tpu_torch.train.test_driver",
+    "mipheivit_tpu_torch.evaluation.common",
+    "mipheivit_tpu_torch.evaluation.eval_orion",
+    "mipheivit_tpu_torch.evaluation.eval_immucan",
+    "mipheivit_tpu_torch.evaluation.eval_hemit",
     "mipheivit_tpu_torch.slideio",
 ]
 
@@ -59,7 +68,8 @@ def test_chip_path_imports_without_jax():
         "from mipheivit_tpu_torch.infer import ArraySlide, wsi_inference\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
         "             and m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yaml', 'cv2',\n"
-        "                                     'safetensors', 'mipheivit_tpu'))\n"
+        "                                     'safetensors', 'mipheivit_tpu', 'pandas',\n"
+        "                                     'sklearn'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -100,9 +110,11 @@ def test_wsi_on_arrays_runs_without_jax_or_slide_io():
 def test_trainer_runs_an_epoch_without_jax_pandas_cv2_yaml_or_sklearn():
     """The machine with the card may lack all five: the training driver
     imports, composes nothing from YAML (the flagship preset comes as a
-    dict, as chip_smoke.py passes it), reads its CSVs and TIFF tiles, writes
-    config.yaml, its snapshot, the PNG grid and model.safetensors, and runs
-    one CPU epoch and the test epoch."""
+    dict, as chip_smoke.py passes it), reads its CSVs, TIFF tiles, nuclei
+    tiles and nuclei CSV, writes config.yaml, its snapshot, the PNG grid and
+    model.safetensors, and runs one CPU epoch with the cell loss (MSE and
+    clustering) and the val and test epochs with cell metrics, then
+    ``test_model`` writes test_dataframe_cell.csv."""
     code = (
         "import sys, tempfile\n"
         "from pathlib import Path\n"
@@ -118,13 +130,19 @@ def test_trainer_runs_an_epoch_without_jax_pandas_cv2_yaml_or_sklearn():
         "from mipheivit_tpu_torch.train.trainer import train_patchgan\n"
         "loading.get_generator = syn.tiny_generator\n"
         "root = Path(tempfile.mkdtemp())\n"
-        "values = syn.write_run(root)\n"
+        "values = syn.write_run(root, cells=True)\n"
         "values['model.checkpoint_path'] = str(syn.write_checkpoint(root))\n"
-        "cfg = syn.configure(Config.create(chip_smoke.FLAGSHIP_PRESET), values,\n"
+        "cfg = syn.configure(Config.create(chip_smoke.FLAGSHIP_PRESET), values, cells=True,\n"
         "                    train__epochs=1)\n"
         "out = train_patchgan(cfg, str(root / 'run'), use_wandb=False, device='cpu')\n"
         "assert (root / 'run' / 'status.txt').read_text() == 'finished'\n"
         "assert out['state'].step == 2 and (root / 'run' / 'model.safetensors').exists()\n"
+        "line = out['history'][0]\n"
+        "assert line['loss_cell'] > 0 and line['val_cell_auc'] == out['best']\n"
+        "from mipheivit_tpu_torch.train.test_driver import test_model\n"
+        "res = test_model(cfg, str(root / 'run'), 'run', device='cpu')\n"
+        "assert 0 <= res['test_cell_auc'] <= 1\n"
+        "assert (root / 'run' / 'test_dataframe_cell.csv').exists()\n"
         "assert (root / 'run' / 'config.yaml').read_text().startswith('data:')\n"
         "assert (root / 'run' / 'logs_img' / 'step1.png').exists()\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"

@@ -6,7 +6,12 @@ metrics off; ``tests/torch_synthetic_run.py`` writes its tiles as TIFF).
 Both packages start from one safetensors checkpoint through
 ``model.checkpoint_path``; with the GAN on, the port's discriminator starts
 from the JAX one's initial weights and draws the JAX step's label noise.
-The tolerances are ``tests/test_torch_train.py``'s.
+The tolerances are ``tests/test_torch_train.py``'s. The same run with
+nuclei tiles, a slide dataframe, cell metrics and the cell loss on and
+``val_cell_auc``/max monitored holds its cell keys within the tolerances
+of ``tests/test_torch_cell_metrics.py`` (every AUC 2e-3, balanced accuracy
+and F1 1e-2), and ``test_model``'s ``test_dataframe_cell.csv`` within its
+table tolerances.
 """
 
 import json
@@ -35,6 +40,8 @@ CLOCK_KEYS = ("time", "input_decode_ms_per_batch", "input_wait_ms_per_batch")
 # SSIM of random predictions is ~1e-3: an absolute floor, as in test_torch_train.py
 SSIM_ATOL = 1e-7
 N_NOISE_DRAWS = 16
+# the cell metrics' keys: the tolerances of tests/test_torch_cell_metrics.py
+CELL_AUC_ATOL, CELL_HARD_ATOL = 2e-3, 1e-2
 
 
 @pytest.fixture(scope="module")
@@ -45,14 +52,23 @@ def workspace(tmp_path_factory):
     return root, values
 
 
+@pytest.fixture(scope="module")
+def cell_workspace(tmp_path_factory):
+    root = tmp_path_factory.mktemp("trainer_cells")
+    values = syn.write_run(root, cells=True)
+    values["model.checkpoint_path"] = str(syn.write_checkpoint(root))
+    return root, values
+
+
 @pytest.fixture
 def tiny_port(monkeypatch):
     monkeypatch.setattr(port_loading, "get_generator", syn.tiny_generator)
     monkeypatch.setattr(port_trainer, "get_generator", syn.tiny_generator)
 
 
-def _port_cfg(values, **overrides):
-    return syn.configure(compose(["+default_configs=miphei-vit"]), values, **overrides)
+def _port_cfg(values, cells=False, **overrides):
+    return syn.configure(compose(["+default_configs=miphei-vit"]), values, cells=cells,
+                         **overrides)
 
 
 def _jax_tiny(monkeypatch):
@@ -72,21 +88,21 @@ def _jax_tiny(monkeypatch):
 _JAX_RUNS = {}
 
 
-def _jax_run(workspace, gan: bool) -> Path:
-    """The JAX trainer on the workspace (once per GAN setting per module)."""
-    if gan not in _JAX_RUNS:
+def _jax_run(workspace, gan: bool, cells: bool = False) -> Path:
+    """The JAX trainer on the workspace (once per setting per module)."""
+    if (gan, cells) not in _JAX_RUNS:
         from mipheivit_tpu.config import compose as jax_compose
         from mipheivit_tpu.train.trainer import train_patchgan
 
         root, values = workspace
         logdir = root / f"jax_gan{int(gan)}"
-        cfg = syn.configure(jax_compose(["+default_configs=miphei-vit"]), values,
+        cfg = syn.configure(jax_compose(["+default_configs=miphei-vit"]), values, cells=cells,
                             train__gan_train=gan)
         with pytest.MonkeyPatch.context() as mp:
             _jax_tiny(mp)
             train_patchgan(cfg, str(logdir), dtype="float32", use_wandb=False)
-        _JAX_RUNS[gan] = logdir
-    return _JAX_RUNS[gan]
+        _JAX_RUNS[gan, cells] = logdir
+    return _JAX_RUNS[gan, cells]
 
 
 def _jax_discriminator(monkeypatch):
@@ -128,6 +144,15 @@ def _lines(logdir: Path):
     return [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
 
 
+def _assert_value_matches(key, got, want, err_msg):
+    if "_cell_" in key:
+        atol = CELL_AUC_ATOL if "_cell_auc" in key else CELL_HARD_ATOL
+        np.testing.assert_allclose(got, want, rtol=0, atol=atol, err_msg=err_msg)
+    else:
+        atol = SSIM_ATOL if "ssim" in key else 0.0
+        np.testing.assert_allclose(got, want, rtol=LOSS_RTOL, atol=atol, err_msg=err_msg)
+
+
 def _assert_lines_match(got, want):
     assert len(got) == len(want)
     for i, (g, w) in enumerate(zip(got, want)):
@@ -136,9 +161,7 @@ def _assert_lines_match(got, want):
             if key in CLOCK_KEYS:
                 continue
             if isinstance(value, float):
-                atol = SSIM_ATOL if "ssim" in key else 0.0
-                np.testing.assert_allclose(g[key], value, rtol=LOSS_RTOL, atol=atol,
-                                           err_msg=f"line {i}: {key}")
+                _assert_value_matches(key, g[key], value, f"line {i}: {key}")
             else:
                 assert g[key] == value, (i, key, g[key], value)
 
@@ -163,14 +186,21 @@ def test_train_patchgan_matches_jax(workspace, tiny_port, monkeypatch, gan):
     assert out["state"].step == 4
 
     # the best epoch's export (epoch 0 or 1, as the JAX run chose)
+    best_epoch = min(range(2), key=lambda e: lines[e]["val_gen_loss_sim"])
+    _assert_export_matches(got_dir, want_dir, values, best_epoch, out["state"])
+
+
+def _assert_export_matches(got_dir, want_dir, values, best_epoch, state):
+    """``model.safetensors`` of both runs: frozen weights as loaded, the
+    trainable ones moved like the JAX run's after ``best_epoch``'s updates,
+    BatchNorm statistics within ``STAT_ATOL``."""
     got, want = load_file(got_dir / "model.safetensors"), load_file(want_dir / "model.safetensors")
     before = load_file(values["model.checkpoint_path"])
     assert set(got) == set(want)
-    best_epoch = min(range(2), key=lambda e: lines[e]["val_gen_loss_sim"])
     n_updates = 2 * (best_epoch + 1)
     # the lr-scaled budget of test_torch_train.py, summed over the updates
     lr_step = scaled_lr(2e-4, 4) * sum(pix2pix_schedule(1.0, 4)(c) for c in range(n_updates))
-    trainable = {n for n, _ in out["state"].gen_params}
+    trainable = {n for n, _ in state.gen_params}
     for name, value in got.items():
         value, ref = value.numpy(), want[name].numpy()
         if name.endswith("num_batches_tracked"):
@@ -370,6 +400,77 @@ def test_test_model_matches_jax(workspace, tiny_port, tmp_path, monkeypatch):
     assert len(_lines(dirs["port"])) == 2
 
 
+def test_train_patchgan_with_cells_matches_jax(cell_workspace, tiny_port):
+    """The flagship preset's cell settings (cell metrics on a slide
+    dataframe, the cell loss with MSE and clustering, ``val_cell_auc``/max):
+    every line of ``metrics.jsonl``, and the export of the epoch with the
+    best ``val_cell_auc``."""
+    from mipheivit_tpu_torch.train.trainer import train_patchgan
+
+    want_dir = _jax_run(cell_workspace, False, cells=True)
+    root, values = cell_workspace
+    got_dir = root / "port_cells"
+    out = train_patchgan(_port_cfg(values, cells=True), str(got_dir), use_wandb=False,
+                         device="cpu")
+    lines = _lines(got_dir)
+    _assert_lines_match(lines, _lines(want_dir))
+    assert all(line["loss_cell"] > 0 for line in lines[:2])
+    assert {"val_cell_auc", "val_cell_f1_CD31_pos", "test_cell_auc_logreg"} <= (
+        set(lines[0]) | set(lines[-1]))
+    assert np.isfinite(lines[0]["val_cell_auc"]) and out["best"] == max(
+        line["val_cell_auc"] for line in lines[:2])
+    best_epoch = max(range(2), key=lambda e: (lines[e]["val_cell_auc"], -e))
+    _assert_export_matches(got_dir, want_dir, values, best_epoch, out["state"])
+
+
+def _read_table(path):
+    from mipheivit_tpu_torch.data.table import Table
+
+    return Table.read_csv(path)
+
+
+def assert_csv_matches(got_path, want_path, float_atol=1.0 / 21 + 1e-6):
+    """Two CSVs parsed: the same columns and rows, non-float columns equal,
+    float columns (the cell means, of the sums quantised at ``* 255``) within
+    ``float_atol``: one quantisation step over the smallest area kept."""
+    got, want = _read_table(got_path), _read_table(want_path)
+    assert got.columns == want.columns and len(got) == len(want) > 0
+    for col in want.columns:
+        if want[col].dtype.kind == "f":
+            np.testing.assert_allclose(got[col], want[col], rtol=0, atol=float_atol, err_msg=col)
+        else:
+            assert got[col].tolist() == want[col].tolist(), col
+
+
+def test_test_model_with_cells_matches_jax(cell_workspace, tiny_port, tmp_path, monkeypatch):
+    """``test_model`` with cell metrics on the JAX cell run's export: the
+    val and test metrics, and ``test_dataframe_cell.csv``."""
+    import shutil
+
+    from mipheivit_tpu.config import load_yaml as jax_load_yaml
+    from mipheivit_tpu.train.test_driver import test_model as jax_test_model
+    from mipheivit_tpu_torch.config import load_yaml
+    from mipheivit_tpu_torch.train.test_driver import test_model
+
+    src = _jax_run(cell_workspace, False, cells=True)
+    dirs = {}
+    for side in ("jax", "port"):
+        dirs[side] = tmp_path / side
+        dirs[side].mkdir()
+        for name in ("config.yaml", "model.safetensors"):
+            shutil.copy(src / name, dirs[side] / name)
+    _jax_tiny(monkeypatch)
+    want = jax_test_model(jax_load_yaml(dirs["jax"] / "config.yaml"), str(dirs["jax"]), "td",
+                          dtype="float32")
+    got = test_model(load_yaml(dirs["port"] / "config.yaml"), str(dirs["port"]), "td",
+                     device="cpu")
+    assert set(got) == set(want) and "test_cell_auc" in got and np.isfinite(got["test_cell_auc"])
+    for key, value in want.items():
+        _assert_value_matches(key, got[key], value, key)
+    assert_csv_matches(dirs["port"] / "test_dataframe_cell.csv",
+                       dirs["jax"] / "test_dataframe_cell.csv")
+
+
 def test_run_and_run_test_entry_points(workspace, tiny_port, tmp_path, monkeypatch):
     """``python -m mipheivit_tpu_torch.run`` (a run, a 2-job sweep and a
     resume) and ``.run_test``, in-process, with the root scripts' logs/
@@ -401,29 +502,41 @@ def test_run_and_run_test_entry_points(workspace, tiny_port, tmp_path, monkeypat
     assert (logdir / "status.txt").read_text() == "finished"
 
 
-@pytest.mark.parametrize("case", ["cell_metrics", "cell_loss", "foreground_head", "seq_shard",
-                                  "processes"])
+@pytest.mark.parametrize("case", ["foreground_head", "seq_shard", "processes"])
 def test_unported_options_raise_before_any_work(workspace, tmp_path, monkeypatch, case):
     from mipheivit_tpu_torch.train.test_driver import test_model
     from mipheivit_tpu_torch.train.trainer import train_patchgan
 
     _, values = workspace
-    overrides = {"cell_metrics": {"train__use_cell_metrics": True,
-                                  "data__slide_dataframe_path": "slides.csv"},
-                 "cell_loss": {"train__losses__cell_loss__use_loss": True},
-                 "foreground_head": {"train__foreground_head": True},
+    overrides = {"foreground_head": {"train__foreground_head": True},
                  "seq_shard": {"model__attn_impl": "seq_shard"},
                  "processes": {}}[case]
     if case == "processes":
         monkeypatch.setenv("WORLD_SIZE", "2")
-    item = {"cell_metrics": "item 12", "cell_loss": "item 10", "foreground_head": "item 10",
-            "seq_shard": "items 13-14", "processes": "item 13"}[case]
+    item = {"foreground_head": "item 15", "seq_shard": "items 13-14",
+            "processes": "item 13"}[case]
     cfg = _port_cfg(values, **overrides)
     with pytest.raises(NotImplementedError, match=item):
         train_patchgan(cfg, str(tmp_path / "run"), use_wandb=False, device="cpu")
     assert not (tmp_path / "run").exists()
     with pytest.raises(NotImplementedError, match=item):
         test_model(cfg, str(tmp_path / "ckpt"), "ckpt", device="cpu")
+
+
+@pytest.mark.parametrize("case", ["no_cell_metrics", "no_slide_dataframe"])
+def test_cell_loss_without_nuclei_raises_before_any_work(cell_workspace, tmp_path, case):
+    """The cell loss needs the nuclei, which only cell metrics on a slide
+    dataframe load: a ``ValueError`` naming both settings, before any work
+    (the JAX trainer fails at its first step with a ``KeyError``)."""
+    from mipheivit_tpu_torch.train.trainer import train_patchgan
+
+    _, values = cell_workspace
+    override = {"no_cell_metrics": {"train__use_cell_metrics": False},
+                "no_slide_dataframe": {"data__slide_dataframe_path": None}}[case]
+    cfg = _port_cfg(values, cells=True, **override)
+    with pytest.raises(ValueError, match=r"train\.use_cell_metrics.*data\.slide_dataframe_path"):
+        train_patchgan(cfg, str(tmp_path / "run"), use_wandb=False, device="cpu")
+    assert not (tmp_path / "run").exists()
 
 
 def test_swap_augmentation_replicas_matches_jax(workspace, tmp_path):
