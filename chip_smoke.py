@@ -77,6 +77,37 @@ The single-cell path, on the same checkpoint dir:
                on that run's export (the fused-heads bf16 forward: K1, K2,
                K3; HEMIT on 512-px tiles, its forward at 256 px).
 
+The baseline generators (random weights from seeds; the UNETR checkpoint dir
+foundation-stripped beside the flagship's H-Optimus-0 encoder file):
+
+  [unetr]      the unet_lora / H-Optimus-0 preset through load_generator ->
+               merge_lora -> bf16: predict_tiles on the 150 tiles at batch
+               64 (K1 and K2 in bf16, 40 a batch), the steady forward's
+               tiles/s, f32 card vs CPU at 4 blocks (the taps need 4; held
+               absolutely, against each marker map's spread and by
+               per-marker Pearson), bf16 vs f32 at 40 blocks;
+  [unetr bf16 probe] one tile with the heads as drawn (before contrast_head):
+               each stage's relative bf16 error, the output's spread beside
+               bf16's spacing, the Pearson that the contrast heads avoid;
+  [unetr provgigapath] patch 16, S 257, the class token's position embedded:
+               the bf16 forward at batch 64 against f32 (K1, K2);
+  [smp convnext] smp_unet on ConvNeXt-L with the foreground head, batch 16:
+               the bf16 forward's tiles/s, f32 card vs CPU (TF32 off), no
+               kernel of the port;
+  [unet resnet50] the ResNet-50 UNETR, the same checks;
+  [train unetr], [train convnext fg] two optimizer steps of the presets'
+               microbatches (8 and 16; f32 parameters, bf16 compute), the
+               second with the foreground term: every trainable tensor with a
+               gradient moves, the trainable count is the JAX rule's, K1 = K2
+               = K2's backward terms = 40 a microbatch on the UNETR;
+  [trainer unetr] train_patchgan on the unetr preset as it ships (cell
+               metrics, val_cell_auc) for 4 microbatches of 8 on .npy tiles,
+               its export loaded back through load_generator;
+  [k2 backward need_w] swiglu_fc1's backward with fc1 trainable (the
+               UNETR's route) beside the frozen flagship's: device time from
+               the profiler, CUDA events beside it (last, after every timed
+               phase).
+
 Before the paths, [head dims] runs the four attention entry points at head
 dims 12, 32, 36 and 40 through their kernels (K1, K4, K5, K6; zero-padded
 to 64), ln_matmul at N 200 and K 192 and at K 100 (zero-padded to 104)
@@ -106,6 +137,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -206,6 +238,43 @@ POOL_SUM_RTOL = 1e-5
 CELL_LOSS_RTOL, CELL_GRAD_NORM_RTOL = 1e-4, 1e-3
 EVAL_BATCH = 8
 HEMIT_IMG, HEMIT_TILES = 512, {"train": 8, "val": 4, "test": 4}
+# the baseline generators: the SMP presets' batch (16), the depth of the
+# UNETR's f32 card-vs-CPU check (its taps need 4 blocks), Prov-GigaPath's
+UNETR_CUT, SMP_BATCH, GIGA_DEPTH = 4, 16, 40
+# the baseline generators' f32 card-vs-CPU checks, beside the absolute
+# limit: per-marker Pearson, and max |err| of each marker against its map's
+# spread max |ref - mean(ref)| (the UNETR's maps sit near a constant, so an
+# absolute limit alone would pass features that kept only their mean)
+F32_MIN_PEARSON, F32_SPREAD_RTOL = 0.9999, 1e-2
+# the UNETR's bf16 forward against f32, each stage's relative error in norm
+# (bf16 rounding through 40 blocks, measured 0.3-1.6 % on an H100)
+BF16_STAGE_RTOL = 5e-2
+
+
+def preset_with(base: dict, changes: dict, drop=()) -> dict:
+    """A copy of the preset ``base`` with dotted ``changes`` set and the
+    dotted keys in ``drop`` removed."""
+    out = json.loads(json.dumps(base))
+    for dotted, value in changes.items():
+        *parents, leaf = dotted.split(".")
+        node = out
+        for part in parents:
+            node = node[part]
+        node[leaf] = value
+    for dotted in drop:
+        *parents, leaf = dotted.split(".")
+        node = out
+        for part in parents:
+            node = node[part]
+        del node[leaf]
+    return out
+
+
+# the UNETR preset as ``config.compose(["+default_configs=unetr"])`` resolves
+# it (tests/test_torch_train_families.py holds it equal)
+UNETR_PRESET = preset_with(FLAGSHIP_PRESET, {
+    "train.grad_accum_steps": 1, "train.wandb_note": "foundation_model_hoptimus",
+    "model.model_name": "unet_lora"}, drop=("model.remat_policy",))
 
 
 def bound_ms(n_bytes: float, flops: float, dt: str):
@@ -254,6 +323,22 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of ``fn``'s kernels per call, from a profiler trace of
+    ``reps`` calls after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3
 
 
 def synth_value(name: str, shape, seed: int) -> np.ndarray:
@@ -1946,6 +2031,581 @@ def eval_phases(cfg, logdir: Path, data: dict, tmp: Path, depth: int):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the baseline generators: the UNETR on the ViT encoders and on ResNet-50, the
+# SMP U-Net on ConvNeXt-L with its foreground head
+
+
+def seeded_fill(model, seed: int):
+    """Every floating parameter and buffer of ``model`` from a per-name seed,
+    drawn on its device and scaled as ``synth_value`` scales them (LoRA B
+    non-zero, layer scales at 0.1, BatchNorm statistics off their init)."""
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if not t.is_floating_point():
+                continue
+            key = int.from_bytes(hashlib.sha256(f"{seed}:{name}".encode()).digest()[:8],
+                                 "little") % 2 ** 63
+            g = torch.Generator(device=t.device).manual_seed(key)
+
+            def rand(normal=False):
+                draw = torch.randn if normal else torch.rand
+                return draw(t.shape, generator=g, device=t.device, dtype=torch.float32)
+
+            if "running_var" in name:
+                v = rand() + 0.5
+            elif "running_mean" in name:
+                v = rand(normal=True) * 0.1
+            elif name.endswith("gamma"):
+                v = (rand() + 0.5) * 0.1
+            elif t.dim() == 1 and name.endswith(".weight"):
+                v = rand() * 0.2 + 0.9
+            else:
+                v = rand(normal=True) * 0.02
+            t.copy_(v)
+    return model
+
+
+def contrast_head(w: np.ndarray) -> np.ndarray:
+    """A marker head's final conv weight ``[1, C, 3, 3]`` made to respond to
+    contrast: zero sum over its fan-in, times 25. With ``synth_value``'s
+    N(0, 0.02) weights the UNETR's maps sit near a constant set by the
+    features' mean (mean |y| ~0.02), with a spatial std of ~3.5e-4, a few
+    of bf16's steps at that magnitude (1.2e-4): a bf16-vs-f32 Pearson then
+    reads the heads' rounding, not the path, while every stage before them
+    stays within bf16's rounding of f32 (measured on an H100).
+    ``unetr_rounding_probe`` prints both on every run ([unetr bf16
+    probe])."""
+    return ((w - w.mean(axis=(1, 2, 3), keepdims=True)) * 25.0).astype(np.float32)
+
+
+def contrast_heads(model):
+    """``contrast_head`` on every marker head of ``model``, in place."""
+    with torch.no_grad():
+        for name, m in model.named_children():
+            if name.startswith("segmentation_head_"):
+                w = m[1].weight
+                w.copy_(torch.from_numpy(contrast_head(w.float().cpu().numpy())))
+    return model
+
+
+def write_unetr_checkpoint(root: Path, seed: int) -> Path:
+    """The ``unet_lora`` preset's checkpoint dir with the foundation encoder
+    stripped (LoRA rank 8 adapters, the feature upsampler, the decoder, the
+    heads, their final convs through ``contrast_head``), as
+    ``save_generator(strip_foundation=True)`` writes it; the encoder is the
+    flagship's H-Optimus-0 file (the same timm layout)."""
+    from mipheivit_tpu_torch.io.safetensors import save_file
+    from mipheivit_tpu_torch.models import get_generator
+
+    shapes = {k: tuple(v.shape) for k, v in get_generator(
+        "unet_lora", IMG, MARKERS, "hoptimus0", device="meta").state_dict().items()}
+    gen = {name: synth_value(name, shape, seed) for name, shape in shapes.items()
+           if not name.startswith("encoder.model.") or ".lora_" in name}
+    for name in gen:
+        if re.fullmatch(r"segmentation_head_\d+\.1\.weight", name):
+            gen[name] = contrast_head(gen[name])
+    ckpt = root / "unetr_ckpt"
+    ckpt.mkdir()
+    save_file(gen, ckpt / "model.safetensors")
+    return ckpt
+
+
+def dtype_probe():
+    """Record the input dtype of every K1, K2 and K2-backward launch without
+    changing it (wraps the launchers). Returns the record and an undo."""
+    from mipheivit_tpu_torch.ops import attention, mlp
+
+    rec = {"k1": set(), "k2": set(), "k2b": set()}
+    real = {"k1": (attention, "_attention_cuda"), "k2": (mlp, "_swiglu_cuda"),
+            "k2b": (mlp, "_gate_bwd_cuda")}
+    saved = {k: getattr(mod, name) for k, (mod, name) in real.items()}
+
+    def wrap(key):
+        def run(first, *a, **kw):
+            rec[key].add(str(first.dtype).replace("torch.", ""))
+            return saved[key](first, *a, **kw)
+
+        return run
+
+    for key, (mod, name) in real.items():
+        setattr(mod, name, wrap(key))
+    return rec, lambda: [setattr(mod, name, saved[k]) for k, (mod, name) in real.items()]
+
+
+def card_vs_cpu(model_card, model_cpu, x):
+    """The f32 forward on one input on the card and on the CPU (each output
+    of a foreground-head model), TF32 off: max |card - CPU|, the worst
+    marker's max |card - CPU| over its CPU map's spread max |ref - mean|,
+    the least per-marker Pearson, and the CPU outputs' range."""
+    with torch.inference_mode():
+        a, b = model_card(x), model_cpu(x.cpu())
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    a = [u.cpu().double().flatten(0, -2) for u in a]
+    b = [w.double().flatten(0, -2) for w in b]
+    diff = max(float((u - w).abs().max()) for u, w in zip(a, b))
+    ratio = max(float(((u - w).abs().amax(0) / (w - w.mean(0)).abs().amax(0)).max())
+                for u, w in zip(a, b))
+    r = min(float(pearson(u.numpy(), w.numpy()).min()) for u, w in zip(a, b))
+    lo, hi = min(float(w.min()) for w in b), max(float(w.max()) for w in b)
+    return {"diff": diff, "ratio": ratio, "pearson": r, "range": (lo, hi)}
+
+
+def card_vs_cpu_text(c) -> str:
+    return (f"max_abs_diff {c['diff']:.3e} (target <= {F32_CARD_VS_CPU_TOL:g}), "
+            f"{c['ratio']:.3e} of the worst marker's spread (target <= {F32_SPREAD_RTOL:g}), "
+            f"per-marker Pearson min {c['pearson']:.7f} (target >= {F32_MIN_PEARSON}), "
+            f"CPU output in [{c['range'][0]:.4f}, {c['range'][1]:.4f}]")
+
+
+def check_card_vs_cpu(tag: str, c) -> None:
+    check(c["diff"] <= F32_CARD_VS_CPU_TOL and c["ratio"] <= F32_SPREAD_RTOL
+          and c["pearson"] >= F32_MIN_PEARSON, f"{tag} f32 card output differs from the CPU")
+
+
+def unetr_stages(model, x):
+    """The UNETR's forward on ``x`` with what each stage gave: the patch
+    embedding, each tapped block, the feature upsampler's five maps, the
+    decoder and the marker heads' convs before the tanh (all markers)."""
+    from mipheivit_tpu_torch.models.unetr import extract_layers_for_depth
+
+    vit = model.encoder.model
+    heads = [getattr(model, f"segmentation_head_{k}")[1] for k in range(model.out_chans)]
+    mods = {"patch embed": vit.patch_embed.proj,
+            **{f"block {i}": vit.blocks[i] for i in extract_layers_for_depth(vit.cfg.depth)},
+            "upsampler": model.encoder.feature_upsampler, "decoder": model.decoder,
+            **{f"head conv {k}": m for k, m in enumerate(heads)}}
+    got = {}
+    hooks = [m.register_forward_hook(lambda m, a, out, name=name: got.__setitem__(name, out))
+             for name, m in mods.items()]
+    try:
+        with torch.inference_mode():
+            out = model(x).float()
+    finally:
+        for h in hooks:
+            h.remove()
+    stages = {k: got[k] for k in mods if k.startswith(("patch", "block"))}
+    stages.update((f"upsampler {i}", t) for i, t in enumerate(got["upsampler"]))
+    stages["decoder"] = got["decoder"]
+    stages["head convs"] = torch.cat([got[f"head conv {k}"] for k in range(len(heads))], 1)
+    return {k: v.float() for k, v in stages.items()}, out
+
+
+def unetr_rounding_probe(model_bf16, model_f32, x, ckpt_seed: int):
+    """Why the UNETR's heads go through ``contrast_head`` before its
+    bf16-vs-f32 Pearson: on one tile, with the heads' final convs as
+    ``synth_value`` draws them (unmodified), each stage's relative bf16
+    error (``unetr_stages``), the output's mean and spatial spread beside
+    bf16's spacing at that magnitude, and the per-marker Pearson. The heads
+    are put back as they were. Returns the least Pearson with the raw heads
+    and the stages' errors."""
+    heads = [(getattr(model_bf16, f"segmentation_head_{k}")[1].weight,
+              getattr(model_f32, f"segmentation_head_{k}")[1].weight)
+             for k in range(model_f32.out_chans)]
+    kept = [(wb.clone(), wf.clone()) for wb, wf in heads]
+    with torch.no_grad():
+        for k, (wb, wf) in enumerate(heads):
+            raw = torch.from_numpy(synth_value(f"segmentation_head_{k}.1.weight",
+                                               tuple(wf.shape), ckpt_seed)).to(wf.device)
+            wb.copy_(raw)
+            wf.copy_(raw)
+    try:
+        sb, ob = unetr_stages(model_bf16, x)
+        sf, of = unetr_stages(model_f32, x)
+    finally:
+        with torch.no_grad():
+            for (wb, wf), (kb, kf) in zip(heads, kept):
+                wb.copy_(kb)
+                wf.copy_(kf)
+    errs = {k: float((sb[k] - sf[k]).norm() / sf[k].norm()) for k in sf}
+    of, ob = of.cpu().numpy(), ob.cpu().numpy()
+    mean = max(float(np.abs(of).mean()), 1e-30)
+    spread = float(of.reshape(-1, of.shape[-1]).std(0).mean())
+    spacing = 2.0 ** (np.floor(np.log2(mean)) - 7)      # bf16: 8 significant bits
+    r = pearson(ob, of)
+    print(f"[unetr bf16 probe] one tile, heads' final convs as synth_value draws them: bf16 vs "
+          f"f32 relative error " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (target <= {BF16_STAGE_RTOL:g}); output mean |y| {mean:.4f}, spatial std "
+          f"{spread:.2e} (mean over markers), bf16 spacing at that magnitude {spacing:.2e}; "
+          f"per-marker Pearson min {r.min():.5f}, all {np.round(r, 4).tolist()}", flush=True)
+    return float(r.min()), errs
+
+
+def cut_unetr(model, depth: int):
+    """A UNETR's encoder cut to its first ``depth`` blocks at full width (its
+    taps follow the depth: ``extract_layers_for_depth``)."""
+    vit = model.encoder.model
+    vit.blocks = vit.blocks[:depth]
+    vit.cfg = vit.cfg.replace(depth=depth)
+    return model
+
+
+def unetr_phase(ckpt: Path, ckpt_seed: int, enc: Path, tiles: np.ndarray, dev):
+    """[unetr]: the ``unet_lora`` / H-Optimus-0 preset through
+    ``load_generator`` -> ``merge_lora`` -> ``cast_params(bf16)``:
+    ``predict_tiles`` on the tiles at batch 64 (K1 and K2, in bf16, 40 a
+    batch), the steady forward's tiles/s, f32 on the card against the CPU
+    at ``UNETR_CUT`` blocks, bf16 against f32 at 40 blocks, and
+    ``unetr_rounding_probe``. Returns the launch counts and the rate."""
+    from mipheivit_tpu_torch.infer import cast_params, load_generator, merge_lora
+    from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE, predict_tiles
+    from mipheivit_tpu_torch.models.unetr import extract_layers_for_depth
+
+    def loaded(device, dtype, depth=None):
+        model = load_generator("unet_lora", "hoptimus0", ckpt, (IMG, IMG), MARKERS,
+                               device=device, encoder_ckpt_path=str(enc))
+        if depth is not None:
+            cut_unetr(model, depth)
+        return cast_params(merge_lora(model), dtype)
+
+    t0 = time.perf_counter()
+    model = loaded(dev, torch.bfloat16)
+    depth = model.vit_cfg.depth
+    t_load = time.perf_counter() - t0
+    probe, undo = dtype_probe()
+    try:
+        reset_counts()
+        out = predict_tiles(model, tiles, HOPTIMUS_HE, BATCH, dev)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        undo()
+    n_batches = -(-len(tiles) // BATCH)
+    mean = torch.as_tensor(HOPTIMUS_HE.mean, device=dev)
+    std = torch.as_tensor(HOPTIMUS_HE.std, device=dev)
+    x = (torch.from_numpy(tiles[:BATCH]).to(dev).float() - mean) / std
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        pred_bf16 = model(x[:1]).float().cpu().numpy()
+        fwd_ms = cuda_ms(lambda: model(x), reps=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    model_f32 = loaded(dev, torch.float32)
+    with torch.inference_mode():
+        pred_f32 = model_f32(x[:1]).cpu().numpy()
+    raw_r, stage_errs = unetr_rounding_probe(model, model_f32, x[:1], ckpt_seed)
+    del model, model_f32
+    torch.cuda.empty_cache()
+    f32 = card_vs_cpu(loaded(dev, torch.float32, UNETR_CUT),
+                      loaded("cpu", torch.float32, UNETR_CUT), x[:1])
+    torch.cuda.empty_cache()
+    r = pearson(pred_bf16, pred_f32)
+    rate = BATCH * 1000 / fwd_ms
+    print(f"[unetr] unet_lora / hoptimus0 (UnetrViT, {depth} blocks, taps "
+          f"{extract_layers_for_depth(depth)}), load_generator + merge_lora + bf16 in {t_load:.1f} s: "
+          f"predict_tiles {out.shape} {out.dtype}; {rate:.1f} tiles/s steady bf16 forward at "
+          f"batch {BATCH} ({fwd_ms:.2f} ms/batch, CUDA events, median of 10), peak memory "
+          f"{peak:.2f} GiB; launch dtypes K1 {sorted(probe['k1'])} K2 {sorted(probe['k2'])}; "
+          f"f32 card vs CPU at {UNETR_CUT} blocks {card_vs_cpu_text(f32)}; bf16 vs f32 at "
+          f"{depth} blocks (heads through contrast_head) per-marker Pearson min {r.min():.5f} "
+          f"(target >= {MIN_PEARSON}; {raw_r:.5f} with the raw heads, [unetr bf16 probe]); "
+          f"{counts_line(counts)} on {card_line()}", flush=True)
+    check(out.shape == (len(tiles), IMG, IMG, MARKERS) and out.dtype == np.uint8,
+          f"[unetr] output {out.shape} {out.dtype}")
+    check(probe["k1"] == {"bfloat16"} and probe["k2"] == {"bfloat16"},
+          f"[unetr] K1/K2 launched in {probe}, not bf16")
+    check_card_vs_cpu("[unetr]", f32)
+    check(bool(np.isfinite(pred_bf16).all() and (r >= MIN_PEARSON).all()),
+          "[unetr] bf16 output does not track f32")
+    check(max(stage_errs.values()) <= BF16_STAGE_RTOL,
+          f"[unetr bf16 probe] a stage departs from f32 beyond bf16 rounding: {stage_errs}")
+    check_counts("[unetr]", counts, k1=depth * n_batches, k2=depth * n_batches)
+    return counts, rate
+
+
+def fresh_generator(model_name, encoder_name, dev, seed, **kw):
+    """A preset's generator at full width on ``dev``, its weights from
+    ``seeded_fill``."""
+    from mipheivit_tpu_torch.models import get_generator
+
+    return seeded_fill(get_generator(model_name, IMG, MARKERS, encoder_name, device=dev, **kw),
+                       seed)
+
+
+def unetr_giga_phase(dev):
+    """[unetr provgigapath]: ``unet_lora`` on Prov-GigaPath (patch 16, no
+    re-grid, the class token's position embedded, S 257) at full width and
+    ``GIGA_DEPTH`` blocks, LoRA merged: the bf16 forward at batch 64 against
+    f32 on the card, per-marker Pearson; K1 and K2 once a block."""
+    from mipheivit_tpu_torch.infer import cast_params, merge_lora
+
+    t0 = time.perf_counter()
+    model = merge_lora(contrast_heads(fresh_generator("unet_lora", "provgigapath", dev,
+                                                      SEED + 30)))
+    cut_unetr(model, GIGA_DEPTH)
+    cfg = model.vit_cfg
+    x = torch.from_numpy(np.random.default_rng(SEED + 31).standard_normal(
+        (BATCH, IMG, IMG, 3), dtype=np.float32)).to(dev)
+    with torch.inference_mode():
+        f32 = model(x[:4]).cpu().numpy()
+        cast_params(model, torch.bfloat16)
+        reset_counts()
+        bf16 = model(x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        bf16 = bf16[:4].float().cpu().numpy()
+        fwd_ms = cuda_ms(lambda: model(x), reps=10, warmup=2)
+    del model
+    torch.cuda.empty_cache()
+    r = pearson(bf16, f32)
+    print(f"[unetr provgigapath] patch {cfg.patch_size}, S {cfg.num_prefix_tokens + cfg.num_patches}, "
+          f"{cfg.depth} blocks, no_embed_class {cfg.no_embed_class}: bf16 forward at batch "
+          f"{BATCH} {fwd_ms:.2f} ms = {BATCH * 1000 / fwd_ms:.1f} tiles/s; bf16 vs f32 per-marker "
+          f"Pearson min {r.min():.5f} (target >= {MIN_PEARSON}); {counts_line(counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(cfg.num_prefix_tokens + cfg.num_patches == 257 and not cfg.no_embed_class,
+          "[unetr provgigapath] geometry")
+    check(bool(np.isfinite(bf16).all() and (r >= MIN_PEARSON).all()),
+          "[unetr provgigapath] bf16 output does not track f32")
+    check_counts("[unetr provgigapath]", counts, k1=cfg.depth, k2=cfg.depth)
+    return counts
+
+
+def cnn_phase(tag, model_name, encoder_name, dev, seed, foreground_head=False):
+    """[smp convnext] / [unet resnet50]: a CNN preset's generator at full
+    width: the bf16 forward at batch ``SMP_BATCH`` (tiles/s), f32 on the card
+    against the CPU (TF32 off) on one tile, the foreground logits where the
+    head is on; no kernel of the port launches."""
+    from mipheivit_tpu_torch.infer import cast_params
+    from mipheivit_tpu_torch.models import get_generator
+
+    t0 = time.perf_counter()
+    model = fresh_generator(model_name, encoder_name, dev, seed, foreground_head=foreground_head)
+    cpu = get_generator(model_name, IMG, MARKERS, encoder_name, device="cpu",
+                        foreground_head=foreground_head)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (SMP_BATCH, IMG, IMG, 3), dtype=np.float32)).to(dev)
+    f32 = card_vs_cpu(model, cpu, x[:1])
+    del cpu
+    cast_params(model, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        reset_counts()
+        out = model(x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        fwd_ms = cuda_ms(lambda: model(x), reps=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    masks, fg = out if foreground_head else (out, None)
+    finite = bool(torch.isfinite(masks).all()) and (fg is None or bool(torch.isfinite(fg).all()))
+    n_params = sum(p.numel() for p in model.parameters())
+    fg_txt = "" if fg is None else (f"; foreground logits {tuple(fg.shape)} in "
+                                    f"[{float(fg.min()):.3f}, {float(fg.max()):.3f}]")
+    del model, out
+    torch.cuda.empty_cache()
+    print(f"[{tag}] {model_name} / {encoder_name} ({n_params / 1e6:.1f} M params): bf16 forward "
+          f"at batch {SMP_BATCH} {fwd_ms:.2f} ms = {SMP_BATCH * 1000 / fwd_ms:.1f} tiles/s (CUDA "
+          f"events, median of 10), peak memory {peak:.2f} GiB; masks {tuple(masks.shape)}{fg_txt}; "
+          f"f32 card vs CPU (TF32 off) {card_vs_cpu_text(f32)}; {counts_line(counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(finite and masks.shape == (SMP_BATCH, IMG, IMG, MARKERS), f"[{tag}] output")
+    check(foreground_head == (fg is not None) and (fg is None or fg.shape == masks.shape),
+          f"[{tag}] foreground head")
+    check_card_vs_cpu(f"[{tag}]", f32)
+    check_counts(f"[{tag}]", counts)
+    return counts, SMP_BATCH * 1000 / fwd_ms
+
+
+def k2_need_w_ms(dev, m=MICRO * 329):
+    """The SwiGLU fc1's backward with fc1 trainable (the UNETR's route: dx,
+    dW and db, K2's backward terms inside) and with fc1 frozen (the
+    flagship's: dx alone), bf16 at M = ``m``: for each, the device time of
+    its kernels (profiler, 20 calls) and the CUDA-event median of 10 calls
+    (host autograd work counts there), ms."""
+    from mipheivit_tpu_torch.ops.mlp import swiglu_fc1
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    x = torch.randn(m, FC1_K, generator=g, device=dev).to(torch.bfloat16).requires_grad_()
+    w = (torch.randn(2 * FC1_H, FC1_K, generator=g, device=dev) * 0.02)
+    b = torch.zeros(2 * FC1_H, device=dev)
+    dh = torch.randn(m, FC1_H, generator=g, device=dev).to(torch.bfloat16)
+    out = {}
+    for need_w in (True, False):
+        w.requires_grad_(need_w)
+        b.requires_grad_(need_w)
+        h = swiglu_fc1(x, w, b)
+        wanted = (x, w, b) if need_w else (x,)
+
+        def backward():
+            return torch.autograd.grad(h, wanted, dh, retain_graph=True)
+
+        out[need_w] = {"device": device_ms(backward, reps=20),
+                       "events": cuda_ms(backward, reps=10)}
+    return out[True], out[False]
+
+
+def train_family_phase(tag, model, model_name, n_micro, micro, dev, foreground_head=False,
+                       counted=0):
+    """[train unetr] / [train convnext fg]: ``n_micro`` microbatches of
+    ``micro`` 256-px tiles through the preset's step (no accumulation, so
+    one optimizer step each, the first a zero update; f32 parameters, bf16
+    compute, weighted MSE, the foreground term where the head is on).
+    Checks finite losses, every trainable tensor with a gradient moved, the
+    trainable count against the JAX rule's, and the launches (``counted``
+    K1/K2 blocks a microbatch). Returns the counts and the last step's
+    rate."""
+    from mipheivit_tpu_torch.metrics import PixelMetrics
+    from mipheivit_tpu_torch.models.layers import set_compute_dtype
+    from mipheivit_tpu_torch.train import (StepConfig, build_generator_optimizer,
+                                           create_train_state, make_train_step, scaled_lr,
+                                           weighted_mse_loss)
+    from mipheivit_tpu_torch.train.losses import marker_weights_from_stds
+    from mipheivit_tpu_torch.train.optim import is_trainable, jax_path
+
+    t_all = time.perf_counter()
+    set_compute_dtype(model, torch.bfloat16)
+    opt = build_generator_optimizer(scaled_lr(LR_G, micro), TOTAL_ITERS, warmup_iters=1)
+    state = create_train_state(model, opt, freeze_model_name=model_name, seed=SEED, device=dev)
+    stds = np.random.default_rng(SEED + 5).uniform(0.1, 0.3, MARKERS)
+    step = make_train_step(model, weighted_mse_loss(LAMBDA, marker_weights_from_stds(stds)),
+                           opt, cfg=StepConfig(foreground_head=foreground_head))
+    data = train_batches(n_micro, micro, IMG, dev, SEED + 33)
+    n_rule = sum(is_trainable(jax_path(model, n), model_name) for n, _ in model.named_parameters())
+    n_all = sum(1 for _ in model.parameters())
+    train0 = {n: p.detach().clone() for n, p in state.gen_params}
+    metrics = PixelMetrics.zeros(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    probe, undo = dtype_probe()
+    losses, step_s, no_grad = [], [], set()
+    try:
+        reset_counts()
+        for i in range(n_micro):
+            t0 = time.perf_counter()
+            state, metrics, log = step(state, data[i], metrics)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append({k: float(log[k]) for k in ("gen_loss", "gen_foreground_loss")})
+            no_grad |= {n for n, g in log["grads"].items() if not bool(g.any())}
+        counts = read_counts()
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = {n for n, p in state.gen_params if not torch.equal(p.detach(), train0[n])}
+    still = sorted(set(train0) - moved - no_grad)
+    steady = step_s[-1]
+    n_params = sum(p.numel() for _, p in state.gen_params)
+    print(f"[{tag}] {model_name}, {n_micro} microbatches of {micro} x {IMG} px, one optimizer "
+          f"step each: {1e3 * steady:.1f} ms a step (steps "
+          f"{', '.join(f'{1e3 * s:.1f}' for s in step_s)} ms; the first includes warm-up) = "
+          f"{micro / steady:.2f} images/s; peak memory {peak:.2f} GiB; losses "
+          f"{', '.join(f'{v['gen_loss']:.4f}' for v in losses)}, gen_foreground_loss "
+          f"{', '.join(f'{v['gen_foreground_loss']:.4f}' for v in losses)}; trainable tensors "
+          f"{len(train0)} ({n_params / 1e6:.1f} M values; the JAX rule's count {n_rule} of "
+          f"{n_all}), moved {len(moved)}, no gradient {len(no_grad)} {sorted(no_grad)}; launch "
+          f"dtypes {dict((k, sorted(v)) for k, v in probe.items())}; {counts_line(counts)} "
+          f"({time.perf_counter() - t_all:.1f} s)", flush=True)
+    check(all(np.isfinite(list(v.values())).all() for v in losses), f"[{tag}] non-finite loss")
+    check(all((v["gen_foreground_loss"] > 0) == foreground_head for v in losses),
+          f"[{tag}] gen_foreground_loss")
+    check(len(train0) == n_rule, f"[{tag}] trains {len(train0)} tensors, the JAX rule {n_rule}")
+    check(not still and len(moved) > 0, f"[{tag}] trainable tensors did not move: {still[:5]}")
+    if counted:
+        check(all(v <= {"bfloat16"} for v in probe.values()), f"[{tag}] launch dtypes {probe}")
+    check_counts(f"[{tag}]", counts, k1=counted * n_micro, k2=counted * n_micro,
+                 k2b=counted * n_micro)
+    return counts, micro / steady
+
+
+def trainer_unetr_phase(tmp: Path, ckpt: Path, enc: Path, dev):
+    """[trainer unetr]: ``train_patchgan`` on the ``unetr`` preset as it
+    ships (``unet_lora``, train: cell, cell metrics on a slide dataframe,
+    monitor val_cell_auc) from the UNETR checkpoint dir: 1 epoch of
+    ``TRAINER_STEPS`` microbatches of 8 on .npy tiles. Checks finite losses
+    and val_cell_auc, the export loading back through ``load_generator``,
+    and the launches."""
+    import mipheivit_tpu_torch.train.trainer as trainer
+    from mipheivit_tpu_torch.config import Config
+    from mipheivit_tpu_torch.infer import load_generator
+
+    t_all = time.perf_counter()
+    data = write_cell_data(tmp / "unetr_data", SEED + 13)
+    logdir = tmp / "unetr_run"
+    cfg = Config.create(UNETR_PRESET)
+    for key, value in {**data, "model.checkpoint_path": str(ckpt / "model.safetensors"),
+                       "model.encoder.encoder_weights": str(enc), "train.epochs": 1}.items():
+        cfg.set_dotted(key, value)
+    rec, undo = instrument_trainer(trainer)
+    try:
+        reset_counts()
+        out = trainer.train_patchgan(cfg, str(logdir), max_steps_per_epoch=TRAINER_STEPS,
+                                     use_wandb=False)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        undo()
+    state = out["state"]
+    depth = state.generator.vit_cfg.depth
+    n_trainable, n_all = len(state.gen_params), sum(1 for _ in state.generator.parameters())
+    del out, state
+    torch.cuda.empty_cache()
+    lines = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
+    epoch = next(line for line in lines if "epoch" in line)
+    ev = rec["events"][0]
+    rate = 2 * 8 * 1000.0 / ev[1].elapsed_time(ev[3])
+    reloaded = load_generator("unet_lora", "hoptimus0", logdir, (IMG, IMG), MARKERS,
+                              dtype=torch.bfloat16, device=dev, encoder_ckpt_path=str(enc))
+    x = torch.from_numpy(np.random.default_rng(SEED + 14).standard_normal(
+        (2, IMG, IMG, 3), dtype=np.float32)).to(dev)
+    reset_counts()
+    with torch.inference_mode():
+        y = reloaded(x)
+    reload_counts = read_counts()
+    del reloaded
+    torch.cuda.empty_cache()
+    print(f"[trainer unetr] train_patchgan, unetr preset as it ships (unet_lora / hoptimus0, "
+          f"{depth} blocks, cell metrics, monitor val_cell_auc/max), {TRAINER_STEPS} "
+          f"microbatches of 8 at {IMG} px: {time.perf_counter() - t_all:.1f} s; steady "
+          f"{rate:.2f} images/s (CUDA events, two steps); trainable tensors {n_trainable} of "
+          f"{n_all}; gen_loss {epoch['gen_loss']:.5f} val_gen_loss_sim "
+          f"{epoch['val_gen_loss_sim']:.5f} val_cell_auc {epoch['val_cell_auc']:.4f}; export "
+          f"reloaded through load_generator: {tuple(y.shape)}, {counts_line(reload_counts)}; "
+          f"{counts_line(counts)}", flush=True)
+    check(all(np.isfinite(epoch[k]) for k in ("gen_loss", "val_gen_loss_sim", "val_cell_auc")),
+          "[trainer unetr] non-finite losses or val_cell_auc")
+    check(n_trainable == n_all, "[trainer unetr] the JAX rule trains every tensor of unet_lora")
+    check(bool(torch.isfinite(y).all()) and y.shape == (2, IMG, IMG, MARKERS),
+          "[trainer unetr] the export does not reload")
+    check_counts("[trainer unetr reload]", reload_counts, k1=depth, k2=depth)
+    n_fwd = TRAINER_STEPS + 1 + TRAINER_TILES["val"] // 8 + TRAINER_TILES["test"] // 8
+    check_counts("[trainer unetr]", counts, k1=depth * n_fwd, k2=depth * n_fwd,
+                 k2b=depth * TRAINER_STEPS)
+    return counts
+
+
+def baseline_phases(tmp: Path, enc: Path, tiles: np.ndarray, dev):
+    """The baseline generators' phases, in order; returns each one's launch
+    counts and the numbers the summary reports."""
+    counts, numbers = {}, {}
+    ckpt = write_unetr_checkpoint(tmp, SEED + 3)
+    counts["unetr"], numbers["unetr tiles/s"] = unetr_phase(ckpt, SEED + 3, enc, tiles, dev)
+    counts["unetr provgigapath"] = unetr_giga_phase(dev)
+    counts["smp convnext"], numbers["smp convnext tiles/s"] = cnn_phase(
+        "smp convnext", "smp_unet", "tu-convnext_large", dev, SEED + 40, foreground_head=True)
+    counts["unet resnet50"], numbers["unet resnet50 tiles/s"] = cnn_phase(
+        "unet resnet50", "unet", "restnet50_lunit_swav", dev, SEED + 50)
+    model = fresh_generator("unet_lora", "hoptimus0", dev, SEED + 60)
+    depth = model.vit_cfg.depth
+    counts["train unetr"], numbers["train unetr images/s"] = train_family_phase(
+        "train unetr", model, "unet_lora", 2, MICRO, dev, counted=depth)
+    del model
+    torch.cuda.empty_cache()
+    model = fresh_generator("smp_unet", "tu-convnext_large", dev, SEED + 61, foreground_head=True)
+    counts["train convnext fg"], numbers["train convnext images/s"] = train_family_phase(
+        "train convnext fg", model, "smp_unet", 2, SMP_BATCH, dev, foreground_head=True)
+    del model
+    torch.cuda.empty_cache()
+    counts["trainer unetr"] = trainer_unetr_phase(tmp, ckpt, enc, dev)
+    # last: no timed phase runs after the profiler's trace
+    need_w, frozen_w = k2_need_w_ms(dev)
+    numbers["k2 need_w device ms"] = need_w["device"]
+    print(f"[k2 backward need_w] swiglu_fc1's backward at M {MICRO * 329} bf16, device time "
+          f"(profiler, 20 calls) [CUDA events, median of 10]: fc1 trainable (dx, dW, db; the "
+          f"UNETR's route) {need_w['device']:.4f} ms [{need_w['events']:.3f}], fc1 frozen (dx; "
+          f"the flagship's) {frozen_w['device']:.4f} ms [{frozen_w['events']:.3f}]", flush=True)
+    return counts, numbers
+
+
 def pearson(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Per-marker Pearson correlation of two ``[..., C]`` arrays."""
     a = a.reshape(-1, a.shape[-1]).astype(np.float64)
@@ -2326,16 +2986,24 @@ def main() -> None:
                                                                         depth, trainer_rate)
         cell_test_counts = cell_test_driver_phase(cell_cfg, cell_dir, depth)
         eval_counts = eval_phases(cell_cfg, cell_dir, cell_data, Path(tmp), depth)
+        torch.cuda.empty_cache()
 
-    # 13. summary lines
+        # 13. the baseline generators: the UNETR preset served and trained
+        #     (K1, K2), Prov-GigaPath's UNETR, the SMP U-Net on ConvNeXt-L
+        #     with its foreground head and the ResNet-50 UNETR (no kernel)
+        baseline_counts, baseline = baseline_phases(Path(tmp), enc, tiles, dev)
+
+    # 14. summary lines
     k1 = kernel_rows["bf16_fused"]
     paths = {"slice": slice_counts, "attn sublayer": sublayer, "serve": serve_counts,
              "wsi 256": wsi256, "wsi 1024": wsi1024, "train 256": train256,
              "train 1024": train1024, "train 1024 ckpt": train1024c, "train ops": train_ops,
              "trainer": trainer_counts, "test driver": test_driver_counts,
-             "cell trainer": cell_counts, "cell test driver": cell_test_counts, **eval_counts}
+             "cell trainer": cell_counts, "cell test driver": cell_test_counts, **eval_counts,
+             **baseline_counts}
     print(f"[cell path] nucleus_pool {pool_ms[8]:.3f} ms at 8 tiles, {pool_ms[64]:.3f} ms at 64; "
           f"cell loss forward + backward {cell_loss_ms:.3f} ms at microbatch 8", flush=True)
+    print(f"[baselines] {'; '.join(f'{k} {v:.3f}' for k, v in baseline.items())}", flush=True)
 
     def launches(key):
         by_path = {path: c[key] for path, c in paths.items() if c[key]}

@@ -1,7 +1,8 @@
 """Generator construction + checkpoint loading for inference (PyTorch).
 
 Counterpart of ``mipheivit_tpu/infer/loading.py`` and the reference load
-path (src/inference.py:134-153): prefer ``model.safetensors`` (strict=False
+path (src/inference.py:134-153), for the flagship and the UNETR on a ViT:
+prefer ``model.safetensors`` (strict=False
 with ``validate_load`` rules, foundation encoder possibly stripped and then
 grafted from the encoder checkpoint), fall back to the Lightning
 ``model.weights.ckpt`` (``generator.`` prefix). The serving transforms
@@ -53,13 +54,15 @@ def _wrap_qkv_names(state: Dict, model_keys) -> Dict:
     return out
 
 
-def _init_missing_lora(state: Dict, model: MipheiViT) -> None:
+def _init_missing_lora(state: Dict, cfg, prefix: str) -> None:
     """A checkpoint without adapters gets the JAX package's fresh ones:
-    A from ``np.random.default_rng(block)``, B = 0 (import_weights.py:195-201)."""
-    cfg = model.vit_cfg
+    A from ``np.random.default_rng(block)``, B = 0 (import_weights.py:195-201).
+    ``prefix`` is the ViT's (``encoder.vit.``, ``encoder.model.``)."""
+    if cfg.lora_rank <= 0:
+        return
     for i in range(cfg.depth):
         for lq in ("lora_q", "lora_v"):
-            base = f"encoder.vit.blocks.{i}.attn.qkv.{lq}"
+            base = f"{prefix}blocks.{i}.attn.qkv.{lq}"
             if f"{base}.A" in state:
                 continue
             rng = np.random.default_rng(i)
@@ -136,11 +139,21 @@ def cast_params(model: torch.nn.Module, dtype) -> torch.nn.Module:
 def load_generator(model_name: str, encoder_name: str, checkpoint_dir,
                    img_size, nc_out: int, dtype=torch.float32, device=None,
                    encoder_ckpt_path: Optional[str] = None,
-                   fast_heads: bool = True) -> MipheiViT:
+                   fast_heads: bool = True, dropout: float = 0.0) -> torch.nn.Module:
     """Build the generator on ``device``, load a reference-layout checkpoint
     dir, and return it in eval mode with parameters in ``dtype``. ``device``
     defaults to the card and raises without one (``device="cpu"`` for the
-    CPU)."""
+    CPU).
+
+    As the JAX ``load_generator`` (infer/loading.py:207-235): the flagship
+    (foundation ViT under ``encoder.vit.``) and the UNETR on a ViT
+    (``encoder.model.``) load, each whole or foundation-stripped with the
+    encoder file grafted in; the SMP U-Net and the ResNet-50 UNETR raise
+    ``NotImplementedError``. ``fast_heads`` applies to the flagship alone
+    (K3 is on no other family's path). ``dropout`` is the config's
+    ``model.dropout`` (it acts only in training)."""
+    from ..models.unetr import UnetrViT
+
     device = resolve_device(device)
     ckpt_dir = Path(checkpoint_dir)
     st_path = ckpt_dir / "model.safetensors"
@@ -155,27 +168,34 @@ def load_generator(model_name: str, encoder_name: str, checkpoint_dir,
     state = generator_state_dict(state)
 
     model = get_generator(model_name, img_size, nc_out, encoder_name,
-                          dtype=torch.float32, device=device)
-    cfg = model.vit_cfg
-    enc_present = any(k.startswith("encoder.vit.") and ".lora" not in k for k in state)
+                          dtype=torch.float32, device=device, dropout=dropout)
+    if isinstance(model, MipheiViT):
+        prefix, vit = "encoder.vit.", model.encoder.vit
+    elif isinstance(model, UnetrViT):
+        prefix, vit = "encoder.model.", model.encoder.model
+    else:
+        raise NotImplementedError(
+            f"checkpoint import not implemented for {model_name!r} ({encoder_name}), as in "
+            "the JAX package")
+    cfg = vit.cfg
+    enc_present = any(k.startswith(prefix) and ".lora" not in k for k in state)
     if not enc_present:
         if not encoder_ckpt_path or not Path(encoder_ckpt_path).exists():
             raise ValueError(
                 "Checkpoint has the foundation encoder stripped; pass "
                 "encoder_ckpt_path with the raw foundation checkpoint.")
         encoder = load_state_dict(encoder_ckpt_path)
-        state = {**{f"encoder.vit.{k}": v for k, v in encoder.items()}, **state}
+        state = {**{f"{prefix}{k}": v for k, v in encoder.items()}, **state}
     model_keys = set(model.state_dict())
     state = _wrap_qkv_names(state, model_keys)
-    pos_key = "encoder.vit.pos_embed"
-    want = model.encoder.vit.pos_embed.shape
-    if pos_key in state and state[pos_key].shape != want:
+    pos_key = f"{prefix}pos_embed"
+    if pos_key in state and state[pos_key].shape != vit.pos_embed.shape:
         n_prefix = 0 if cfg.no_embed_class else cfg.num_prefix_tokens
         state[pos_key] = resample_pos_embed(state[pos_key].float(), cfg.grid_size, n_prefix)
-    _init_missing_lora(state, model)
+    _init_missing_lora(state, cfg, prefix)
 
     missing, unexpected = model.load_state_dict(state, strict=False)
     validate_load(missing, unexpected)
-    if fast_heads:
+    if fast_heads and isinstance(model, MipheiViT):
         to_fast_heads(model)
     return cast_params(model, dtype)

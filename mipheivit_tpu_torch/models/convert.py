@@ -13,6 +13,11 @@ It also maps part of a tree: the trainable sub-tree of a JAX ``TrainState``
 ``batch_stats``, or a gradient tree of the same shape. Entries the tree does
 not hold are left out of the state dict. ``discriminator_state_dict_from_jax``
 maps ``DiscriminatorPatch`` variables, spectral-norm ``u`` included.
+``unetr_state_dict_from_jax``, ``unet_resnet50_state_dict_from_jax`` and
+``smp_unet_state_dict_from_jax`` map the baseline generators the same way:
+flax ``ConvTranspose`` kernels are flipped into torch's layout, ``Dense``
+kernels transposed, LayerNorm ``scale`` becomes ``weight`` and BatchNorm
+``mean`` / ``var`` the running buffers.
 """
 
 from __future__ import annotations
@@ -191,6 +196,181 @@ def state_dict_from_jax(variables: Dict, vit_cfg: ViTConfig,
         out.update(_decoder_state_dict(params.get("decoder", {}), stats.get("decoder", {}),
                                        out_chans))
     return out
+
+
+def _convT(k) -> np.ndarray:
+    """flax ``ConvTranspose`` kernel ``[kh, kw, in, out]`` (stored
+    un-flipped: flax correlates) -> torch ``ConvTranspose2d`` weight
+    ``[in, out, kh, kw]``; the inverse of import_weights.py:353-358."""
+    return np.ascontiguousarray(np.asarray(k).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+
+
+class _Emitter:
+    """Writes torch names from (possibly partial) flax sub-trees: entries the
+    tree does not hold are left out."""
+
+    def __init__(self):
+        self.out: Dict[str, np.ndarray] = {}
+
+    def put(self, key, val, fn=np.asarray):
+        if val is not None:
+            self.out[key] = fn(val)
+
+    def conv(self, key, p, fn=_conv):
+        self.put(key + ".weight", _get(p, "kernel"), fn)
+        self.put(key + ".bias", _get(p, "bias"))
+
+    def norm(self, key, p, s=None):
+        """LayerNorm, or BatchNorm with its running statistics in ``s``."""
+        self.put(key + ".weight", _get(p, "scale"))
+        self.put(key + ".bias", _get(p, "bias"))
+        self.put(key + ".running_mean", _get(s, "mean"))
+        self.put(key + ".running_var", _get(s, "var"))
+        if _get(s, "mean") is not None:
+            self.out[key + ".num_batches_tracked"] = np.asarray(0, np.int64)
+
+    def conv_block(self, key, p, s):
+        """``unetr.Conv2DBlock``: ``block.0`` conv, ``block.1`` BN."""
+        self.conv(key + ".block.0", _get(p, "conv"))
+        self.norm(key + ".block.1", _get(p, "bn"), _get(s, "bn"))
+
+    def deconv_block(self, key, p, s):
+        """``unetr.Deconv2DBlock``: ``block.0`` transposed conv, ``block.1``
+        conv, ``block.2`` BN."""
+        self.conv(key + ".block.0", _get(p, "deconv"), _convT)
+        self.conv(key + ".block.1", _get(p, "conv"))
+        self.norm(key + ".block.2", _get(p, "bn"), _get(s, "bn"))
+
+    def head(self, key, p, s):
+        """``SegmentationHead``: the gate's ``0.psi.{0,1,3}`` (if any), the
+        conv ``1``."""
+        self.conv(f"{key}.0.psi.0", _get(p, "attention", "psi_conv1"))
+        self.norm(f"{key}.0.psi.1", _get(p, "attention", "psi_bn"),
+                  _get(s, "attention", "psi_bn"))
+        self.conv(f"{key}.0.psi.3", _get(p, "attention", "psi_conv2"))
+        self.conv(f"{key}.1", _get(p, "conv"))
+
+    def heads(self, params, stats, names):
+        for name in names:
+            self.head(name, _get(params, name), _get(stats, name))
+
+    def cellvit_decoder(self, p, s):
+        self.conv("decoder.bottleneck_upsampler", _get(p, "bottleneck_upsampler"), _convT)
+        for stage, n_blocks in (("decoder3", 3), ("decoder2", 2), ("decoder1", 2)):
+            base = f"decoder.{stage}_upsampler"
+            for b in range(n_blocks):
+                self.conv_block(f"{base}.{b}", _get(p, f"{stage}_{b}"), _get(s, f"{stage}_{b}"))
+            self.conv(f"{base}.{n_blocks}", _get(p, f"{stage}_up"), _convT)
+        for b in range(2):
+            self.conv_block(f"decoder.decoder0_header.{b}", _get(p, f"decoder0_{b}"),
+                            _get(s, f"decoder0_{b}"))
+        self.conv("decoder.decoder0_header.2", _get(p, "decoder0_out"))
+
+    def resnet(self, prefix, p, s):
+        """The JAX ``ResNet50`` (``conv1``, ``bn1``, ``layer{s}_{b}``) in the
+        torchvision / timm names."""
+        self.conv(prefix + "conv1", _get(p, "conv1"))
+        self.norm(prefix + "bn1", _get(p, "bn1"), _get(s, "bn1"))
+        tree = p if p else s
+        for name in sorted((k for k in tree if k.startswith("layer")),
+                           key=lambda k: tuple(int(v) for v in k[len("layer"):].split("_"))):
+            si, bi = name[len("layer"):].split("_")
+            base = f"{prefix}layer{si}.{bi}."
+            bp, bs = _get(p, name), _get(s, name)
+            for i in (1, 2, 3):
+                self.conv(f"{base}conv{i}", _get(bp, f"conv{i}"))
+                self.norm(f"{base}bn{i}", _get(bp, f"bn{i}"), _get(bs, f"bn{i}"))
+            self.conv(f"{base}downsample.0", _get(bp, "downsample_conv"))
+            self.norm(f"{base}downsample.1", _get(bp, "downsample_bn"), _get(bs, "downsample_bn"))
+
+    def convnext(self, prefix, p):
+        """The JAX ``ConvNeXt`` (``stem_conv``, ``stem_norm``,
+        ``down{s}_*``, ``stage{s}_{b}``) in the FeatureListNet-flattened timm
+        names."""
+        self.conv(prefix + "stem.0", _get(p, "stem_conv"))
+        self.norm(prefix + "stem.1", _get(p, "stem_norm"))
+        for name in (p or {}):
+            if name.startswith("down") and name.endswith("_norm"):
+                self.norm(f"{prefix}stages_{name[4:-5]}.downsample.0", p[name])
+            elif name.startswith("down") and name.endswith("_conv"):
+                self.conv(f"{prefix}stages_{name[4:-5]}.downsample.1", p[name])
+            elif name.startswith("stage"):
+                si, bi = name[len("stage"):].split("_")
+                base = f"{prefix}stages_{si}.blocks.{bi}."
+                self.conv(base + "conv_dw", _get(p, name, "dwconv"))
+                self.norm(base + "norm", _get(p, name, "norm"))
+                self.conv(base + "mlp.fc1", _get(p, name, "pwconv1"), _t)
+                self.conv(base + "mlp.fc2", _get(p, name, "pwconv2"), _t)
+                self.put(base + "gamma", _get(p, name, "gamma"))
+
+
+def _head_names(tree: Dict):
+    return sorted((k for k in tree if k.startswith("segmentation_head_")),
+                  key=lambda k: int(k.rsplit("_", 1)[1]))
+
+
+def unetr_state_dict_from_jax(variables: Dict, vit_cfg: ViTConfig) -> Dict[str, np.ndarray]:
+    """JAX ``UnetrViT`` variables (whole, or a sub-tree as in the module
+    docstring) -> the port's ``unetr.UnetrViT`` state dict, the reference
+    layout that ``unetr_from_torch`` reads."""
+    params = variables.get("params", {})
+    stats = variables.get("batch_stats", {})
+    e = _Emitter()
+    if params.get("encoder_vit"):
+        e.out.update(_vit_state_dict(params["encoder_vit"], vit_cfg, "encoder.model."))
+    fp, fs = params.get("feature_upsampler", {}), stats.get("feature_upsampler", {})
+    fu = "encoder.feature_upsampler"
+    for i in range(2):
+        e.conv_block(f"{fu}.convsteam.{i}", _get(fp, f"convsteam_{i}"), _get(fs, f"convsteam_{i}"))
+    for j, n_deconv in ((0, 3), (1, 2), (2, 1)):
+        for d in range(n_deconv):
+            e.deconv_block(f"{fu}.upsampler{j}.{d + 1}", _get(fp, f"upsampler{j}_{d}"),
+                           _get(fs, f"upsampler{j}_{d}"))
+    e.cellvit_decoder(params.get("decoder", {}), stats.get("decoder", {}))
+    e.heads(params, stats, _head_names({**stats, **params}))
+    return e.out
+
+
+def unet_resnet50_state_dict_from_jax(variables: Dict) -> Dict[str, np.ndarray]:
+    """JAX ``UnetResnet50`` variables -> the port's ``cnn.UnetResnet50``
+    state dict (``encoder.model.*``, ``encoder.convsteam.*``, ``decoder.*``,
+    the heads)."""
+    params = variables.get("params", {})
+    stats = variables.get("batch_stats", {})
+    e = _Emitter()
+    for i in range(2):
+        e.conv_block(f"encoder.convsteam.{i}", _get(params, f"convsteam_{i}"),
+                     _get(stats, f"convsteam_{i}"))
+    e.resnet("encoder.model.", params.get("model", {}), stats.get("model", {}))
+    e.cellvit_decoder(params.get("decoder", {}), stats.get("decoder", {}))
+    e.heads(params, stats, _head_names({**stats, **params}))
+    return e.out
+
+
+def smp_unet_state_dict_from_jax(variables: Dict) -> Dict[str, np.ndarray]:
+    """JAX ``UnetMultiHeads`` variables -> the port's
+    ``smp_unet.UnetMultiHeads`` state dict: a ConvNeXt encoder (JAX
+    ``stem_conv``) under ``encoder.model.``, a ResNet-50 under ``encoder.``;
+    ``decoder.blocks.{i}.conv{1,2}.{0,1}``; the heads and
+    ``foreground_head``."""
+    params = variables.get("params", {})
+    stats = variables.get("batch_stats", {})
+    e = _Emitter()
+    enc_p, enc_s = params.get("encoder", {}), stats.get("encoder", {})
+    if "stem_conv" in enc_p:
+        e.convnext("encoder.model.", enc_p)
+    else:
+        e.resnet("encoder.", enc_p, enc_s)
+    tree = {**stats, **params}
+    for name in (k for k in tree if k.startswith("decoder_block_")):
+        i = name[len("decoder_block_"):]
+        for conv in ("conv1", "conv2"):
+            e.conv(f"decoder.blocks.{i}.{conv}.0", _get(params, name, conv, "conv"))
+            e.norm(f"decoder.blocks.{i}.{conv}.1", _get(params, name, conv, "bn"),
+                   _get(stats, name, conv, "bn"))
+    e.heads(params, stats, _head_names(tree) + (["foreground_head"] if "foreground_head" in tree
+                                                else []))
+    return e.out
 
 
 def discriminator_state_dict_from_jax(variables: Dict) -> Dict[str, np.ndarray]:

@@ -1,8 +1,10 @@
 """Foundation-encoder registry: ViTConfig presets for the pathology models.
 
-Counterpart of ``mipheivit_tpu/models/foundation.py`` for its five ViT
-encoders (all head dim 64, so every one runs on K1). The Swin and ResNet
-encoders of the UNETR baseline are not ported yet.
+Counterpart of ``mipheivit_tpu/models/foundation.py``: its five ViT
+encoders (all head dim 64, so every one runs on K1) and the ResNet-50 of
+the UNETR baseline (``restnet50_lunit_swav``, family "resnet", built by
+``models.cnn.UnetResnet50``). The Swin encoder (``ctranspath``) is not
+ported yet (ROADMAP.md queue 1, item 15: ``swin.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from .vit import ViTConfig
 @dataclasses.dataclass(frozen=True)
 class EncoderSpec:
     name: str
-    family: str                     # "vit"
+    family: str                     # "vit" | "resnet"
     vit_cfg: Optional[ViTConfig] = None
     hf_repo: Optional[str] = None   # provenance only; no net access assumed
 
@@ -51,8 +53,8 @@ _VIT_SPECS = {
         "MountSinaiCompPath/SP85M"),
 }
 
-NOT_PORTED = ("ctranspath", "restnet50_lunit_swav")
-FOUNDATION_MODEL_NAMES = tuple(_VIT_SPECS) + NOT_PORTED
+NOT_PORTED = ("ctranspath",)
+FOUNDATION_MODEL_NAMES = tuple(_VIT_SPECS) + ("restnet50_lunit_swav",) + NOT_PORTED
 
 
 def get_encoder_spec(name: str, img_size) -> EncoderSpec:
@@ -61,7 +63,10 @@ def get_encoder_spec(name: str, img_size) -> EncoderSpec:
     if name in _VIT_SPECS:
         kw, repo = _VIT_SPECS[name]
         return EncoderSpec(name, "vit", ViTConfig(img_size=tuple(img_size), **kw), repo)
+    if name == "restnet50_lunit_swav":
+        return EncoderSpec(name, "resnet", None, "1aurent/resnet50.lunit_swav")
     if name in NOT_PORTED:
-        raise NotImplementedError(f"encoder {name!r} is not ported to PyTorch yet")
+        raise NotImplementedError(f"encoder {name!r} (Swin) is not ported to PyTorch yet "
+                                  "(ROADMAP.md queue 1, item 15: swin.py)")
     raise KeyError(f"Unknown encoder {name!r}; known: "
                    f"{', '.join(FOUNDATION_MODEL_NAMES)}")

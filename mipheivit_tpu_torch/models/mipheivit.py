@@ -10,7 +10,7 @@ reference torch layout (``decoder.convstream.convs.{i}.conv/bn``,
 
 BatchNorm computes in f32 and returns the activation dtype, so bf16 weights
 with f32 running statistics work; in training it follows flax's BatchNorm
-(see ``BatchNorm2d``). Convolutions cast their weights to the activation
+(see ``layers.BatchNorm2d``). Convolutions cast their weights to the activation
 dtype at use, as the flax modules do, so a decoder trained in f32 runs in
 bf16 beside a bf16 encoder.
 """
@@ -25,46 +25,8 @@ from torch import nn
 
 from ..ops.resize import resize_bicubic, upsample2x_bilinear
 from ..ops.seg_heads import fold_heads, fused_seg_heads
+from .layers import BatchNorm2d, Conv2d
 from .vit import ViTConfig, VisionTransformer
-
-
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` with flax's arithmetic, in f32 whatever the
-    activation dtype, returning x's dtype.
-
-    Eval: the running statistics (kept f32) and the f32 copy of weight and
-    bias are applied by one fused kernel. Training: batch statistics
-    ``mean(x)`` and ``max(mean(x^2) - mean(x)^2, 0)`` normalise the batch,
-    and the running statistics move by momentum 0.1 toward them. The running
-    variance takes the biased batch variance, as flax and the JAX package's
-    ``BatchedSegHeads`` do (torch's own update takes the unbiased one,
-    n/(n-1) larger)."""
-
-    def forward(self, x):
-        if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight.float(),
-                                self.bias.float(), False, 0.0, self.eps)
-        xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            keep = 1.0 - self.momentum
-            self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
-            self.running_var.copy_(keep * self.running_var + self.momentum * var)
-            self.num_batches_tracked += 1
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.float()[:, None, None]
-        return y.to(x.dtype)
-
-
-class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` that casts its weight and bias to the input's dtype at
-    use (flax ``nn.Conv(dtype=x.dtype)``): trainable f32 weights, bf16
-    compute."""
-
-    def forward(self, x):
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 class BasicConv3x3(nn.Module):
@@ -121,12 +83,20 @@ class AttentionGate(nn.Module):
         return x * self.psi(x)
 
 
-class SegmentationHead(nn.Sequential):
-    """Attention gate + conv3x3 + tanh (reference: unet.py:425-438)."""
+_ACTIVATIONS = {"tanh": nn.Tanh, "sigmoid": nn.Sigmoid}
 
-    def __init__(self, chans: int):
-        super().__init__(AttentionGate(chans), Conv2d(chans, 1, 3, padding=1),
-                         nn.Tanh())
+
+class SegmentationHead(nn.Sequential):
+    """Attention gate (or nothing) + conv3x3 + activation (reference:
+    unet.py:425-438; the JAX ``SegmentationHead``): ``activation`` is
+    "tanh", "sigmoid" or anything else for none. Slot 0 holds the gate or
+    an ``nn.Identity``, slot 1 the conv, as in the reference layout."""
+
+    def __init__(self, chans: int, use_attention: bool = True, activation: str = "tanh",
+                 out_channels: int = 1):
+        act = _ACTIVATIONS.get(activation, nn.Identity)
+        super().__init__(AttentionGate(chans) if use_attention else nn.Identity(),
+                         Conv2d(chans, out_channels, 3, padding=1), act())
 
 
 class BatchedSegHeads(nn.Module):

@@ -14,8 +14,9 @@ for K1, K5 for K4). The SwiGLU MLP's fc1 and gate run through
 ``ops.mlp.swiglu_fc1``: K2 on the card, its plain version on the CPU, with
 a recompute backward.
 
-Training. LoRA stays live (``attn.qkv.lora_q`` / ``lora_v`` trainable, cast
-to the activation dtype at use, as is every LayerScale), and
+Training. LoRA stays live (``attn.qkv.lora_q`` / ``lora_v`` trainable), every
+weight is cast to the activation dtype at use (``models.layers``), so an
+encoder that trains keeps f32 weights and may compute in bf16, and
 ``VisionTransformer.grad_checkpointing`` recomputes each block in the
 backward (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
 activations. The JAX package's remat-policy menu is TPU machinery and has no
@@ -34,6 +35,7 @@ from torch import nn
 
 from ..ops.attention import attention_bshd, attention_qkv
 from ..ops.mlp import swiglu_fc1
+from .layers import Conv2d, LayerNorm, Linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,7 +98,7 @@ class LoRAQKV(nn.Module):
 
     def __init__(self, dim: int, rank: int, alpha: float, bias: bool = True):
         super().__init__()
-        self.qkv = nn.Linear(dim, 3 * dim, bias=bias)
+        self.qkv = Linear(dim, 3 * dim, bias=bias)
         self.lora_q = LoRA(dim, dim, rank, alpha)
         self.lora_v = LoRA(dim, dim, rank, alpha)
 
@@ -114,8 +116,8 @@ class Attention(nn.Module):
         if cfg.lora_rank > 0:
             self.qkv = LoRAQKV(d, cfg.lora_rank, cfg.lora_alpha, cfg.qkv_bias)
         else:
-            self.qkv = nn.Linear(d, 3 * d, bias=cfg.qkv_bias)
-        self.proj = nn.Linear(d, d)
+            self.qkv = Linear(d, 3 * d, bias=cfg.qkv_bias)
+        self.proj = Linear(d, d)
 
     def forward(self, x):
         if isinstance(self.qkv, LoRAQKV):
@@ -138,8 +140,8 @@ class Mlp(nn.Module):
             raise ValueError(f"unknown mlp_type {cfg.mlp_type!r}")
         self.swiglu = cfg.mlp_type == "swiglu"
         h = cfg.mlp_hidden_dim
-        self.fc1 = nn.Linear(cfg.embed_dim, 2 * h if self.swiglu else h)
-        self.fc2 = nn.Linear(h, cfg.embed_dim)
+        self.fc1 = Linear(cfg.embed_dim, 2 * h if self.swiglu else h)
+        self.fc2 = Linear(h, cfg.embed_dim)
 
     def forward(self, x):
         if self.swiglu:
@@ -162,9 +164,9 @@ class Block(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         d = cfg.embed_dim
-        self.norm1 = nn.LayerNorm(d, eps=cfg.norm_eps)
+        self.norm1 = LayerNorm(d, eps=cfg.norm_eps)
         self.attn = Attention(cfg)
-        self.norm2 = nn.LayerNorm(d, eps=cfg.norm_eps)
+        self.norm2 = LayerNorm(d, eps=cfg.norm_eps)
         self.mlp = Mlp(cfg)
         if cfg.init_values is None:
             self.ls1 = self.ls2 = nn.Identity()
@@ -183,16 +185,19 @@ class VisionTransformer(nn.Module):
 
     ``intermediates`` (block indices) also returns the un-normed token
     sequence after those blocks, as the JAX module does. Input is cast to
-    the dtype of the parameters. With ``grad_checkpointing`` set and grad
-    enabled, each block's activations are recomputed in the backward."""
+    ``compute_dtype``, by default (None) the dtype of the patch embedding's
+    weight; every layer casts its weights to it at use (the JAX
+    ``ViTConfig.dtype``). With ``grad_checkpointing`` set and grad enabled,
+    each block's activations are recomputed in the backward."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         self.cfg = cfg
         self.grad_checkpointing = False
+        self.compute_dtype: Optional[torch.dtype] = None
         d, p = cfg.embed_dim, cfg.patch_size
         self.patch_embed = nn.Module()
-        self.patch_embed.proj = nn.Conv2d(3, d, p, stride=p)
+        self.patch_embed.proj = Conv2d(3, d, p, stride=p)
         if cfg.class_token:
             self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         if cfg.reg_tokens:
@@ -200,12 +205,12 @@ class VisionTransformer(nn.Module):
         n_pos = cfg.num_patches + (0 if cfg.no_embed_class else cfg.num_prefix_tokens)
         self.pos_embed = nn.Parameter(torch.randn(1, n_pos, d) * 0.02)
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
-        self.norm = nn.LayerNorm(d, eps=cfg.norm_eps)
+        self.norm = LayerNorm(d, eps=cfg.norm_eps)
 
     def forward(self, x, intermediates: Sequence[int] = ()):
         cfg = self.cfg
-        w = self.patch_embed.proj.weight
-        x = self.patch_embed.proj(x.to(w.dtype).permute(0, 3, 1, 2))
+        dtype = self.compute_dtype or self.patch_embed.proj.weight.dtype
+        x = self.patch_embed.proj(x.to(dtype).permute(0, 3, 1, 2))
         x = x.flatten(2).transpose(1, 2)                  # [B, gh*gw, d]
         b = x.shape[0]
         prefix = []

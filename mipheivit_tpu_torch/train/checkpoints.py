@@ -16,7 +16,10 @@ reference torch key names (``encoder.vit.*`` with the LoRA wrapper's
 optionally with the frozen foundation encoder stripped so that only LoRA and
 the decoder ship (reference: scripts/ckpt_remove_foundation_model.py:7-22).
 It loads with the JAX package's ``mipheivit_from_torch`` / ``load_generator``
-and with the port's ``infer.load_generator``.
+and with the port's ``infer.load_generator``. The baseline generators export
+their own module layout the same way, which is the reference's too (the UNETR
+under ``encoder.model.*``, which ``unetr_from_torch`` reads); the JAX trainer
+writes those in a flattened flax layout instead (trainer.py:419-427).
 """
 
 from __future__ import annotations
@@ -30,17 +33,23 @@ import numpy as np
 import torch
 
 from ..io.safetensors import save_file
+from ..models.vit import VisionTransformer
 
 
 def generator_state_dict(model: torch.nn.Module,
                          strip_foundation: bool = False) -> Dict[str, np.ndarray]:
-    """Reference-layout state dict of numpy arrays (floating values as f32)."""
+    """Reference-layout state dict of numpy arrays (floating values as f32);
+    ``strip_foundation`` leaves out the foundation ViT but its LoRA
+    adapters."""
     if getattr(model.decoder, "fast_heads", False):
         raise ValueError("export takes the per-head decoder (fast_heads=False), "
                          "the reference layout")
+    # the foundation ViT's own names (``encoder.vit.``, ``encoder.model.``)
+    vit_prefixes = tuple(f"{n}." for n, m in model.named_modules()
+                         if isinstance(m, VisionTransformer))
     out = {}
     for name, value in model.state_dict().items():
-        if strip_foundation and name.startswith("encoder.vit.") and ".lora_" not in name:
+        if strip_foundation and name.startswith(vit_prefixes) and ".lora_" not in name:
             continue
         value = value.detach().cpu()
         out[name] = (value.float() if value.is_floating_point() else value).numpy()
@@ -110,7 +119,7 @@ def _restore_opt(opt, saved: Optional[Dict], device) -> None:
         return
     for name, value in saved.items():
         if isinstance(value, (list, tuple)):
-            value = [t.to(device) for t in value]
+            value = [t.to(device) if torch.is_tensor(t) else t for t in value]
         setattr(opt, name, value)
 
 

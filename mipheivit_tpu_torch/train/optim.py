@@ -17,10 +17,16 @@ update every k calls.
 
 Trainability is ``requires_grad``: the frozen foundation encoder has no
 gradients and no Adam moments (the JAX package's ``partition_params``), so
-the JAX chain's ``masked_updates`` has nothing to mask, and the generator's
-and the discriminator's chains are the same. The JAX package's layer-wise
-LR decay applies only to fully trainable ``unet`` encoders, which are not
-ported; it comes with them.
+the JAX chain's ``masked_updates`` has nothing to mask. The rule is the JAX
+package's ``is_trainable``, applied to each parameter's JAX module path
+(``jax_path``), so the port trains exactly the tensors the JAX package does.
+That includes its quirk: ``unet_lora`` and ``unet_frozen`` freeze nothing,
+because the JAX ``UnetrViT`` has no module named ``encoder``
+(ROADMAP.md queue 3).
+
+The generator's chain takes the layer-wise LR decay of fully trainable
+``unet`` encoders (``layer_decay_multiplier``) between the clip and Adam,
+as the JAX chain does (mipheivit_tpu/train/optim.py:117-128).
 The chain runs as multi-tensor ``torch._foreach_*`` ops over all trainable
 tensors at once (a few hundred: per-tensor ops cost ~0.1 s of launches per
 step on an H100), updating the moments and the parameters in place.
@@ -34,14 +40,16 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..models.vit import VisionTransformer
 from .schedule import pix2pix_schedule
 
 
 def is_trainable(name: str, model_name: str) -> bool:
-    """myvitmatte (and LoRA models): the encoder is frozen except its LoRA
+    """The JAX package's rule on a dotted JAX module path (``jax_path``):
+    myvitmatte (and LoRA models): the encoder is frozen except its LoRA
     adapters and any feature upsampler; the decoder trains. ``frozen``
     models: the encoder is frozen except the feature upsampler. Others: all
-    trainable. ``name`` is a torch parameter name."""
+    trainable."""
     if model_name.startswith("myvitmatte") or "lora" in model_name:
         if name.startswith("encoder."):
             return "lora_q" in name or "lora_v" in name or "feature_upsampler" in name
@@ -51,15 +59,49 @@ def is_trainable(name: str, model_name: str) -> bool:
     return True
 
 
+def jax_path(model: torch.nn.Module, name: str) -> str:
+    """A parameter's name with its top-level scope renamed to the JAX
+    module's (the model's ``JAX_SCOPES``; ``UnetrViT``'s
+    ``encoder.model.`` is the JAX ``encoder_vit``, for one). The flagship's
+    and the SMP U-Net's scopes are the JAX ones already."""
+    for port, jax in getattr(model, "JAX_SCOPES", {}).items():
+        if name.startswith(port):
+            return jax + name[len(port):]
+    return name
+
+
+def layer_decay_multiplier(model: torch.nn.Module, name: str, lr_decay_rate: float = 0.65,
+                           num_layers: int = 40) -> float:
+    """The JAX ``layer_decay_multiplier`` (mipheivit_tpu/train/optim.py:58-69)
+    of the parameter ``name`` of ``model``, in f32: ``rate^(L + 1)`` for the
+    position and patch embeddings and the cls / register tokens,
+    ``rate^(L - i)`` for ViT block i, 1 otherwise. L is ``num_layers``
+    whatever the encoder's depth (the JAX trainer passes 40, univ2 has 24
+    blocks)."""
+    for vit_name, vit in model.named_modules():
+        if not isinstance(vit, VisionTransformer):
+            continue
+        prefix = f"{vit_name}." if vit_name else ""
+        if not name.startswith(prefix):
+            continue
+        rest = name[len(prefix):]
+        if rest.startswith("blocks."):
+            i = int(rest.split(".")[1])
+            return float(np.float32(lr_decay_rate) ** np.float32(num_layers - i))
+    if any(t in name for t in ("pos_embed", "patch_embed", "cls_token", "reg_token")):
+        return float(np.float32(lr_decay_rate ** (num_layers + 1)))
+    return 1.0
+
+
 def set_trainable(model: torch.nn.Module, model_name: str,
                   frozen_dtype: Optional[torch.dtype] = None) -> List[Tuple[str, torch.nn.Parameter]]:
-    """Mark each parameter trainable or frozen by ``is_trainable``; store
-    the frozen floating ones in ``frozen_dtype`` when given (they never
-    update, and the forward casts them to the compute dtype anyway). Returns
-    the trainable ``(name, parameter)`` pairs."""
+    """Mark each parameter trainable or frozen by ``is_trainable`` on its
+    ``jax_path``; store the frozen floating ones in ``frozen_dtype`` when
+    given (they never update, and the forward casts them to the compute
+    dtype anyway). Returns the trainable ``(name, parameter)`` pairs."""
     trainable = []
     for name, p in model.named_parameters():
-        keep = is_trainable(name, model_name)
+        keep = is_trainable(jax_path(model, name), model_name)
         p.requires_grad_(keep)
         if keep:
             trainable.append((name, p))
@@ -79,24 +121,34 @@ class OptState:
     mini_step: int = 0                        # MultiSteps
     gradient_step: int = 0
     acc: Optional[List[torch.Tensor]] = None  # running mean of microbatch grads
+    layer_scale: Optional[List[float]] = None  # the layer decay's multipliers
 
 
 class AdamChain:
     """The chain of ``build_generator_optimizer`` /
-    ``build_discriminator_optimizer``, applied in place."""
+    ``build_discriminator_optimizer``, applied in place. With
+    ``layer_decay`` (rate, num_layers) the clipped gradients are scaled by
+    the multipliers ``init`` was given, before Adam."""
 
     max_norm, b1, b2, eps = 1.0, 0.5, 0.999, 1e-7
 
     def __init__(self, lr: float, total_iters: int, warmup_iters: int = 400,
-                 grad_accum_steps: int = 1):
+                 grad_accum_steps: int = 1, layer_decay: Optional[Tuple[float, int]] = None):
         self.lr = lr
         self.schedule = pix2pix_schedule(1.0, total_iters, warmup_iters)
         self.k = max(int(grad_accum_steps), 1)
+        self.layer_decay = layer_decay
 
-    def init(self, params: Sequence[torch.Tensor]) -> OptState:
+    def init(self, params: Sequence[torch.Tensor],
+             layer_scale: Optional[Sequence[float]] = None) -> OptState:
+        """Zero moments for ``params``; ``layer_scale`` holds one multiplier
+        a tensor (``layer_decay_multiplier``), needed with ``layer_decay``."""
+        if self.layer_decay is not None and layer_scale is None:
+            raise ValueError("a chain with layer decay needs each tensor's multiplier")
         zeros = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         return OptState(adam_count=0, mu=zeros, nu=[z.clone() for z in zeros], schedule_count=0,
-                        acc=[z.clone() for z in zeros] if self.k > 1 else None)
+                        acc=[z.clone() for z in zeros] if self.k > 1 else None,
+                        layer_scale=None if self.layer_decay is None else list(layer_scale))
 
     @torch.no_grad()
     def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
@@ -127,6 +179,8 @@ class AdamChain:
         scaled = torch._foreach_mul(torch._foreach_div(grads, norm), self.max_norm)
         below = norm < self.max_norm
         grads = [torch.where(below, g, s) for g, s in zip(grads, scaled)]
+        if state.layer_scale is not None:
+            torch._foreach_mul_(grads, state.layer_scale)
         # scale_by_adam: m = (1 - b1) g + b1 m, v = (1 - b2) g^2 + b2 v
         b1, b2 = self.b1, self.b2
         mu = torch._foreach_mul(grads, 1 - b1)
@@ -147,8 +201,14 @@ class AdamChain:
 
 
 def build_generator_optimizer(lr: float, total_iters: int, warmup_iters: int = 400,
-                              grad_accum_steps: int = 1) -> AdamChain:
+                              grad_accum_steps: int = 1, vit_lr_decay: bool = False,
+                              num_layers: int = 40) -> AdamChain:
+    """The generator's chain; ``vit_lr_decay`` adds the 0.65 layer decay
+    over ``num_layers`` (the JAX ``build_generator_optimizer``)."""
+    return AdamChain(lr, total_iters, warmup_iters, grad_accum_steps,
+                     layer_decay=(0.65, num_layers) if vit_lr_decay else None)
+
+
+def build_discriminator_optimizer(lr: float, total_iters: int, warmup_iters: int = 400,
+                                  grad_accum_steps: int = 1) -> AdamChain:
     return AdamChain(lr, total_iters, warmup_iters, grad_accum_steps)
-
-
-build_discriminator_optimizer = build_generator_optimizer

@@ -34,8 +34,10 @@ import torch
 
 from .._device import resolve_device
 from ..metrics.pixel import PixelMetrics
-from .losses import adversarial_loss
-from .optim import AdamChain, OptState, set_trainable
+from ..models.layers import use_generator
+from ..models.vit import VisionTransformer
+from .losses import adversarial_loss, focal_bce_loss
+from .optim import AdamChain, OptState, layer_decay_multiplier, set_trainable
 
 
 @dataclasses.dataclass
@@ -52,12 +54,14 @@ class TrainState:
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """The JAX ``StepConfig`` without the foreground head, which is not
-    ported yet, and without ``freeze_model_name``: the trainable partition
-    is the state's (``create_train_state``)."""
+    """The JAX ``StepConfig`` without ``freeze_model_name`` (the trainable
+    partition is the state's, ``create_train_state``) and
+    ``cell_capacity`` (the port's pooling needs none). With
+    ``foreground_head`` the generator returns ``(masks, fg_logits)``."""
 
     gan_train: bool = False
     lsgan: bool = False
+    foreground_head: bool = False
     use_cell_loss: bool = False
     data_range: tuple = (-0.9, 0.9)
 
@@ -72,14 +76,23 @@ def create_train_state(model: torch.nn.Module, gen_optimizer: AdamChain, disc=No
     ``optim.is_trainable`` rule; None: all of them), store the frozen
     ones in ``frozen_dtype`` when given (the JAX package's ``frozen_dtype``:
     bit-identical in the step, half the memory in bf16), and initialise the
-    optimizer states for the trainable parameters only.
-    ``grad_checkpointing`` recomputes each encoder block in the backward."""
+    optimizer states for the trainable parameters only (with the layer
+    decay's multipliers when the chain has one).
+    ``grad_checkpointing`` recomputes each ViT block in the backward. The
+    state's ``rng`` drives the label noise and, in the step, every
+    ``Dropout``."""
     device = resolve_device(device)
     model.to(device).train()
     gen_params = set_trainable(model, freeze_model_name or "", frozen_dtype)
-    model.encoder.vit.grad_checkpointing = grad_checkpointing
+    for m in model.modules():
+        if isinstance(m, VisionTransformer):
+            m.grad_checkpointing = grad_checkpointing
+    scale = None
+    if gen_optimizer.layer_decay is not None:
+        rate, n_layers = gen_optimizer.layer_decay
+        scale = [layer_decay_multiplier(model, n, rate, n_layers) for n, _ in gen_params]
     state = TrainState(step=0, generator=model, gen_params=gen_params,
-                       gen_opt_state=gen_optimizer.init([p for _, p in gen_params]),
+                       gen_opt_state=gen_optimizer.init([p for _, p in gen_params], scale),
                        rng=torch.Generator(device=device).manual_seed(seed), device=device)
     if disc is not None:
         disc.to(device).train()
@@ -106,13 +119,16 @@ def make_train_step(model, loss_reconstruct: Callable, gen_optimizer: AdamChain,
     the cell loss on, ``"nuclei": [B, H, W]`` (numpy or torch; moved to the
     state's device). With ``cfg.use_cell_loss`` and a ``cell_loss_fn``,
     ``cell_loss_fn(fake, target, nuclei)`` joins the generator loss. ``log``
-    holds the losses as 0-d tensors (the JAX step's keys;
-    ``gen_foreground_loss`` is 0, its term not being ported), the NaN flag,
+    holds the losses as 0-d tensors (the JAX step's keys), the NaN flag,
     and ``grads``: this microbatch's gradients of the trainable parameters
-    by name (before clipping)."""
+    by name (before clipping). With ``cfg.foreground_head`` the focal loss
+    (alpha 0.75, gamma 2) of the fg logits against ``y > data_range[0]``
+    joins the generator loss as ``gen_foreground_loss``. Dropout draws from
+    the state's ``rng``."""
     if cfg.gan_train and (disc is None or disc_optimizer is None):
         raise ValueError("gan_train needs a discriminator and its optimizer")
     use_cell = cfg.use_cell_loss and cell_loss_fn is not None
+    fg_loss = focal_bce_loss(alpha=0.75, gamma=2.0)
 
     def train_step(state: TrainState, batch, metrics: PixelMetrics):
         batch = _on_device(batch, state.device)
@@ -121,7 +137,9 @@ def make_train_step(model, loss_reconstruct: Callable, gen_optimizer: AdamChain,
         params = [p for _, p in state.gen_params]
 
         model.train()
-        fake = model(x)
+        use_generator(model, state.rng)
+        out = model(x)
+        fake, fg_logits = out if cfg.foreground_head else (out, None)
         loss_sim = loss_reconstruct(y, fake)
         loss = loss_sim
         adv = torch.zeros((), device=state.device)
@@ -136,6 +154,10 @@ def make_train_step(model, loss_reconstruct: Callable, gen_optimizer: AdamChain,
         if use_cell:
             cell = cell_loss_fn(fake, y, batch["nuclei"])
             loss = loss + cell
+        fg = zero
+        if cfg.foreground_head:
+            fg = fg_loss(fg_logits, (y > cfg.data_range[0]).to(y.dtype))
+            loss = loss + fg
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
         gen_optimizer.step(params, grads, state.gen_opt_state)
@@ -143,7 +165,7 @@ def make_train_step(model, loss_reconstruct: Callable, gen_optimizer: AdamChain,
         fake = fake.detach()
         log = {"gen_loss": loss.detach(), "gen_loss_sim": loss_sim.detach(),
                "gen_adv_loss": adv.detach(), "loss_cell": cell.detach(),
-               "gen_foreground_loss": zero,    # the unported foreground term
+               "gen_foreground_loss": fg.detach(),
                "nan": torch.isnan(fake).any(), "grads": dict(zip(names, grads))}
         if cfg.gan_train:
             d_params = list(disc.parameters())
@@ -168,7 +190,8 @@ def make_train_step(model, loss_reconstruct: Callable, gen_optimizer: AdamChain,
 
 def make_eval_step(model, loss_reconstruct: Callable, cfg: StepConfig = StepConfig()):
     """``(state, batch, metrics) -> (metrics, {"gen_loss_sim", "pred"})`` with
-    BatchNorm on its running statistics; the model's mode is restored."""
+    BatchNorm on its running statistics and dropout off; the model's mode is
+    restored. Of a foreground-head generator only the masks count."""
 
     def eval_step(state: TrainState, batch, metrics: PixelMetrics):
         batch = _on_device(batch, state.device)
@@ -180,6 +203,8 @@ def make_eval_step(model, loss_reconstruct: Callable, cfg: StepConfig = StepConf
                 fake = model(x)
         finally:
             model.train(was_training)
+        if cfg.foreground_head:
+            fake = fake[0]
         loss_sim = loss_reconstruct(y, fake)
         metrics = metrics.update(torch.clamp(fake, *cfg.data_range), y, cfg.data_range,
                                  mask=batch.get("mask"))
@@ -188,15 +213,19 @@ def make_eval_step(model, loss_reconstruct: Callable, cfg: StepConfig = StepConf
     return eval_step
 
 
-def make_predict_step(model):
+def make_predict_step(model, foreground_head: bool = False):
+    """``(state, batch) -> masks`` in eval mode (the masks alone of a
+    foreground-head generator)."""
+
     def predict_step(state: TrainState, batch):
         x = torch.as_tensor(batch["image"], device=state.device)
         was_training = model.training
         model.eval()
         try:
             with torch.no_grad():
-                return model(x)
+                out = model(x)
         finally:
             model.train(was_training)
+        return out[0] if foreground_head else out
 
     return predict_step

@@ -31,7 +31,7 @@ from ..metrics.cell import METRIC_KEYS, CellMetrics
 from ..utils import MetricsLogger
 from .losses import build_reconstruction_loss
 from .steps import StepConfig, TrainState, make_eval_step
-from .trainer import get_width_height, refuse_unported, uses_cell_metrics
+from .trainer import check_foreground_head, get_width_height, refuse_unported, uses_cell_metrics
 
 log = logging.getLogger(__name__)
 
@@ -43,6 +43,7 @@ def test_model(cfg, checkpoint_dir: str, run_name: str, dtype: Optional[str] = N
     "test_...": ...}``, and with cell metrics ``{split}_cell_{auc,
     auc_logreg, balanced_acc, f1}``."""
     refuse_unported(cfg)
+    check_foreground_head(cfg)
     device = resolve_device(device)
     if dtype is None:
         dtype = "bfloat16" if device.type == "cuda" else "float32"

@@ -22,10 +22,18 @@ per-marker keys, which ``monitor: val_cell_auc`` reads. With
 ``train.losses.cell_loss.use_loss`` the step adds the cell loss
 (``train.cell_loss``) on the training batch's nuclei.
 
+Every generator family the port builds trains here: the flagship, the
+UNETR on a ViT or on ResNet-50 and the SMP U-Net (with
+``train.foreground_head``, its foreground term). As in the JAX trainer, a
+fully trainable ``unet`` encoder takes the 0.65 layer-wise LR decay, and
+``model.dropout`` reaches the generators that have dropout. The export is
+the port's own state dict, the reference layout, for every family (the JAX
+trainer writes a flattened flax layout for the non-flagship ones).
+
 Runs on the card unless ``device="cpu"`` is given (without a card it
-raises), with the frozen foundation encoder stored and run in bf16 on the
-card and f32 on the CPU. Not ported yet, and refused before any work: the
-foreground head (ROADMAP.md queue 1, item 15: only the SMP U-Net has one),
+raises), computing in bf16 on the card with the frozen weights stored in
+bf16 (the flagship's foundation encoder) and the trainable ones in f32, and
+in f32 on the CPU. Not ported yet, and refused before any work:
 ``model.attn_impl=seq_shard`` (items 13-14) and more than one process
 (item 13).
 """
@@ -54,6 +62,7 @@ from ..metrics import PixelMetrics
 from ..metrics.cell import METRIC_KEYS, CellMetrics
 from ..models import get_generator
 from ..models.discriminator import DiscriminatorPatch
+from ..models.layers import set_compute_dtype
 from ..utils import MetricsLogger, save_image_grid
 from .cell_loss import build_cell_loss
 from .checkpoints import latest_checkpoint, restore_train_state, save_generator, save_train_state
@@ -77,10 +86,6 @@ def _n_processes() -> int:
 
 def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for what the port cannot train yet."""
-    if cfg.select("train.foreground_head"):
-        raise NotImplementedError(
-            "the foreground head is not ported to PyTorch yet (ROADMAP.md queue 1, item 15: "
-            "only the SMP U-Net generator of the JAX package has one)")
     if cfg.select("model.attn_impl", "auto") == "seq_shard":
         raise NotImplementedError(
             "model.attn_impl=seq_shard is not ported to PyTorch yet (ROADMAP.md queue 1, "
@@ -96,6 +101,17 @@ def uses_cell_metrics(cfg: Config) -> bool:
     (its nuclei CSVs), as in the JAX trainer."""
     return bool(cfg.select("train.use_cell_metrics")) and bool(
         cfg.select("data.slide_dataframe_path"))
+
+
+def check_foreground_head(cfg: Config) -> None:
+    """``train.foreground_head`` needs a generator with a foreground head,
+    which only the SMP U-Net has: raise ``ValueError`` before any work
+    otherwise (the JAX train step would unpack the masks' batch axis as
+    ``(masks, fg_logits)``)."""
+    name = cfg.model.model_name
+    if cfg.select("train.foreground_head") and not name.startswith("smp_unet"):
+        raise ValueError(f"train.foreground_head needs a generator with a foreground head "
+                         f"(smp_unet), not {name!r}")
 
 
 def check_cell_loss(cfg: Config) -> None:
@@ -150,10 +166,11 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
                    resume: bool = False, device=None) -> Dict:
     """Train the generator of ``cfg`` into ``logdir``; returns
     ``{"history", "best", "state"}`` (and ``"preempted": True`` after a
-    SIGTERM). ``dtype`` is the frozen encoder's ("bfloat16" by default on
-    the card, "float32" on the CPU); ``resume`` continues from the newest
-    snapshot in ``<logdir>/snapshots``."""
+    SIGTERM). ``dtype`` is the compute dtype and the frozen weights'
+    ("bfloat16" by default on the card, "float32" on the CPU); ``resume``
+    continues from the newest snapshot in ``<logdir>/snapshots``."""
     refuse_unported(cfg)
+    check_foreground_head(cfg)
     check_cell_loss(cfg)
     device = resolve_device(device)
     logdir = Path(logdir)
@@ -200,14 +217,21 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
     dm.setup()
 
     torch.manual_seed(cfg.train.seed)    # fresh generator weights and the discriminator's
+    dropout = float(cfg.select("model.dropout", 0.0) or 0.0)
+    foreground_head = bool(cfg.select("train.foreground_head", False))
     if cfg.model.checkpoint_path:
         model = load_generator(
             cfg.model.model_name, encoder_name, Path(cfg.model.checkpoint_path).parent,
             (height, width), nc_out, dtype=torch.float32, device=device,
-            encoder_ckpt_path=cfg.select("model.encoder.encoder_weights"), fast_heads=False)
+            encoder_ckpt_path=cfg.select("model.encoder.encoder_weights"), fast_heads=False,
+            dropout=dropout)
     else:
         model = get_generator(cfg.model.model_name, width, nc_out, encoder_name,
-                              dtype=torch.float32, device=device)
+                              dtype=torch.float32, device=device, dropout=dropout,
+                              foreground_head=foreground_head)
+    # f32 parameters, bf16 compute on the card (the JAX trainer's
+    # get_generator(dtype=...)); the frozen ones are stored in bf16 below
+    set_compute_dtype(model, torch.bfloat16 if dtype == "bfloat16" else None)
 
     loss_reconstruct = build_reconstruction_loss(
         cfg, channel_names, channel_stats,
@@ -243,7 +267,13 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
     # src/train.py:163-164 at the optimizer-step granularity)
     lr_g = scaled_lr(cfg.train.learning_rate_g, batch_size * accum)
     lr_d = scaled_lr(cfg.train.learning_rate_d, batch_size * accum)
-    gen_opt = build_generator_optimizer(lr_g, total_iters, grad_accum_steps=accum)
+    # the layer decay of fully trainable ViT encoders, over 40 layers whatever
+    # the depth, as the JAX trainer builds it (trainer.py:197-201)
+    model_name = cfg.model.model_name
+    vit_lr_decay = (model_name.startswith("unet") and "lora" not in model_name
+                    and "frozen" not in model_name)
+    gen_opt = build_generator_optimizer(lr_g, total_iters, grad_accum_steps=accum,
+                                        vit_lr_decay=vit_lr_decay)
     disc_opt = build_discriminator_optimizer(lr_d, total_iters,
                                              grad_accum_steps=accum) if gan_train else None
 
@@ -251,6 +281,7 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
 
     step_cfg = StepConfig(gan_train=gan_train,
                           lsgan=cfg.select("train.losses.adversarial_loss") == "lsgan",
+                          foreground_head=foreground_head,
                           use_cell_loss=cell_loss_fn is not None)
     state = create_train_state(
         model, gen_opt, disc, disc_opt, freeze_model_name=cfg.model.model_name,

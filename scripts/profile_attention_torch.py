@@ -70,20 +70,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 
-def device_ms(fn, reps: int = 10) -> float:
-    """Device time of ``fn``'s kernels per call, from a profiler trace of
-    ``reps`` calls after one warm-up call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return us / reps / 1e3
+device_ms = cs.device_ms
 
 
 def k4_rows(dev):

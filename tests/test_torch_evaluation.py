@@ -131,7 +131,7 @@ def tiny(eval_setup, monkeypatch):
         return JaxMipheiViT(vit_cfg=vit_cfg.replace(img_size=size), out_chans=nc_out)
 
     def port_builder(model_name, img_size, nc_out, encoder_name="hoptimus0",
-                     dtype=torch.float32, device="cpu"):
+                     dtype=torch.float32, device="cpu", **family_options):
         size = tuple(img_size) if not isinstance(img_size, int) else (img_size, img_size)
         with torch.device(device):
             return MipheiViT(ViTConfig(**dict(syn.TINY, img_size=size, lora_rank=8)),

@@ -22,6 +22,10 @@ CHIP_PATH = [
     "mipheivit_tpu_torch.models.vit",
     "mipheivit_tpu_torch.models.foundation",
     "mipheivit_tpu_torch.models.mipheivit",
+    "mipheivit_tpu_torch.models.layers",
+    "mipheivit_tpu_torch.models.cnn",
+    "mipheivit_tpu_torch.models.unetr",
+    "mipheivit_tpu_torch.models.smp_unet",
     "mipheivit_tpu_torch.models.convert",
     "mipheivit_tpu_torch.io.safetensors",
     "mipheivit_tpu_torch.infer",

@@ -49,7 +49,7 @@ def jax_generator():
 
 
 def _tiny_port(model_name, img_size, nc_out, encoder_name="hoptimus0",
-               dtype=torch.float32, device="cpu"):
+               dtype=torch.float32, device="cpu", **family_options):
     with torch.device(device):
         return MipheiViT(ViTConfig(**GEOM, lora_rank=8), nc_out).to(dtype).eval()
 

@@ -310,7 +310,7 @@ def test_serving_fn_matches_jax(monkeypatch):
 
 
 def _tiny_generator(model_name, img_size, nc_out, encoder_name="hoptimus0",
-                    dtype=torch.float32, device=None):
+                    dtype=torch.float32, device=None, **family_options):
     from mipheivit_tpu_torch.models import MipheiViT, ViTConfig
 
     assert tuple(img_size) == (32, 32) and device == torch.device("cpu")

@@ -98,7 +98,7 @@ def test_run_inference_cli_writes_tiles(tmp_path, monkeypatch):
     save_config(cfg, ckpt / "config.yaml")
 
     def tiny(model_name, img_size, nc_out, encoder_name="hoptimus0",
-             dtype=torch.float32, device="cpu"):
+             dtype=torch.float32, device="cpu", **family_options):
         assert tuple(img_size) == (32, 32)     # 40x36 tiles snap to 32x32
         return MipheiViT(ViTConfig(**GEOM, lora_rank=8), nc_out).eval()
 
@@ -157,7 +157,7 @@ def test_slide_mode_inference_matches_jax(tmp_path, monkeypatch):
     cfg.train.batch_size = 2
 
     def tiny(model_name, img_size, nc_out, encoder_name="hoptimus0",
-             dtype=torch.float32, device="cpu"):
+             dtype=torch.float32, device="cpu", **family_options):
         assert tuple(img_size) == (32, 32)     # 40x36 windows snap to 32x32
         return MipheiViT(ViTConfig(**GEOM, lora_rank=8), nc_out).eval()
 

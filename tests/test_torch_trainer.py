@@ -504,6 +504,10 @@ def test_run_and_run_test_entry_points(workspace, tiny_port, tmp_path, monkeypat
 
 @pytest.mark.parametrize("case", ["foreground_head", "seq_shard", "processes"])
 def test_unported_options_raise_before_any_work(workspace, tmp_path, monkeypatch, case):
+    """What the port cannot train raises ``NotImplementedError`` naming its
+    ROADMAP item, before any work; the foreground head, ported with the SMP
+    U-Net, raises ``ValueError`` on a generator without one (the flagship
+    here)."""
     from mipheivit_tpu_torch.train.test_driver import test_model
     from mipheivit_tpu_torch.train.trainer import train_patchgan
 
@@ -513,13 +517,14 @@ def test_unported_options_raise_before_any_work(workspace, tmp_path, monkeypatch
                  "processes": {}}[case]
     if case == "processes":
         monkeypatch.setenv("WORLD_SIZE", "2")
-    item = {"foreground_head": "item 15", "seq_shard": "items 13-14",
-            "processes": "item 13"}[case]
+    error, match = {"foreground_head": (ValueError, "foreground head.*smp_unet"),
+                    "seq_shard": (NotImplementedError, "items 13-14"),
+                    "processes": (NotImplementedError, "item 13")}[case]
     cfg = _port_cfg(values, **overrides)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         train_patchgan(cfg, str(tmp_path / "run"), use_wandb=False, device="cpu")
     assert not (tmp_path / "run").exists()
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         test_model(cfg, str(tmp_path / "ckpt"), "ckpt", device="cpu")
 
 

@@ -255,7 +255,7 @@ def _checkpoint(tmp_path, tile):
 
 
 def _tiny_generator(model_name, img_size, nc_out, encoder_name="hoptimus0",
-                    dtype=torch.float32, device="cpu"):
+                    dtype=torch.float32, device="cpu", **family_options):
     assert tuple(img_size) == (32, 32)      # loaded at (tile_size, tile_size)
     with torch.device(device):
         return MipheiViT(ViTConfig(img_size=tuple(img_size), **GEOM, lora_rank=8),

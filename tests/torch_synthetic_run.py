@@ -105,8 +105,9 @@ def write_mlp(path: Path, seed: int = 0) -> str:
 
 
 def tiny_generator(model_name, img_size, nc_out, encoder_name="hoptimus0",
-                   dtype=torch.float32, device="cpu"):
-    """Stands in for ``models.get_generator``: the tiny ViT's MipheiViT."""
+                   dtype=torch.float32, device="cpu", **family_options):
+    """Stands in for ``models.get_generator``: the tiny ViT's MipheiViT
+    (which takes no ``dropout`` or ``foreground_head``)."""
     from mipheivit_tpu_torch.models import MipheiViT, ViTConfig
 
     assert img_size in (32, (32, 32)), img_size
