@@ -95,9 +95,10 @@ foundation-stripped beside the flagship's H-Optimus-0 encoder file):
                the bf16 forward's tiles/s, f32 card vs CPU (TF32 off), no
                kernel of the port;
   [unet resnet50] the ResNet-50 UNETR, the same checks;
-  [train unetr], [train convnext fg] two optimizer steps of the presets'
-               microbatches (8 and 16; f32 parameters, bf16 compute), the
-               second with the foreground term: every trainable tensor with a
+  [train unetr], [train convnext fg] two warm-up optimizer steps of the
+               presets' microbatches (8 and 16; f32 parameters, bf16
+               compute), the second with the foreground term, then 4 steps
+               timed with CUDA events (median): every trainable tensor with a
                gradient moves, the trainable count is the JAX rule's, K1 = K2
                = K2's backward terms = 40 a microbatch on the UNETR;
   [trainer unetr] train_patchgan on the unetr preset as it ships (cell
@@ -105,8 +106,22 @@ foundation-stripped beside the flagship's H-Optimus-0 encoder file):
                its export loaded back through load_generator;
   [k2 backward need_w] swiglu_fc1's backward with fc1 trainable (the
                UNETR's route) beside the frozen flagship's: device time from
-               the profiler, CUDA events beside it (last, after every timed
-               phase).
+               the profiler, CUDA events beside it (last of the baselines).
+Then the Swin models, with no kernel of the port on their paths (K1-K8 = 0):
+  [unetr ctranspath], [hemit] unet_lora on ctranspath's Swin (batch 64,
+               heads through contrast_head) and the HEMIT dual-branch
+               generator (batch 16): the bf16 forward's tiles/s and peak
+               memory, f32 card vs CPU, bf16 vs f32 Pearson, and for HEMIT
+               the top-k sets of each fusion, card vs CPU and bf16 vs f32;
+  [hemit zoo]  resnet_9blocks, unet_256, swinT, swinT_old and SwinTUnet, f32
+               card vs CPU each;
+  [train ctranspath], [train hemit] the presets' steps as [train unetr];
+  [trainer hemit] train_patchgan on the hemit preset as it ships (cell
+               metrics), then test_model on its export;
+  [train_hemit] the HEMIT reproduction's trainer for one epoch on .npy
+               pairs, its best snapshot reloaded;
+  [eval orion|immucan|hemit hemit pipeline] each HEMIT-pipeline script on a
+               HEMIT-codebase checkpoint written as latest_net_G.pth.
 
 Before the paths, [head dims] runs the four attention entry points at head
 dims 12, 32, 36 and 40 through their kernels (K1, K4, K5, K6; zero-padded
@@ -249,6 +264,16 @@ F32_MIN_PEARSON, F32_SPREAD_RTOL = 0.9999, 1e-2
 # the UNETR's bf16 forward against f32, each stage's relative error in norm
 # (bf16 rounding through 40 blocks, measured 0.3-1.6 % on an H100)
 BF16_STAGE_RTOL = 5e-2
+# the Swin models: the ctranspath UNETR's forward batch (64, as the other
+# UNETRs), the HEMIT generator's (16: its presets train at 4), the zoo's f32
+# card-vs-CPU batch, the zoo's netGs (the dual branch is [hemit]'s), the
+# train_hemit pairs and the HEMIT-pipeline evaluations' 256-px tiles
+CTRANSPATH_BATCH, HEMIT_BATCH, ZOO_BATCH = 64, 16, 2
+# the train phases' steady steps, timed with CUDA events after their warm-up steps
+TRAIN_TIMED_STEPS = 4
+ZOO_NETGS = ("resnet_9blocks", "unet_256", "swinT", "swinT_old", "SwinTUnet")
+HEMIT_PAIRS = {"train": 8, "val": 4}
+HEMIT_EVAL_TILES = {"train": 8, "val": 8, "test": 8}
 
 
 def preset_with(base: dict, changes: dict, drop=()) -> dict:
@@ -275,6 +300,20 @@ def preset_with(base: dict, changes: dict, drop=()) -> dict:
 UNETR_PRESET = preset_with(FLAGSHIP_PRESET, {
     "train.grad_accum_steps": 1, "train.wandb_note": "foundation_model_hoptimus",
     "model.model_name": "unet_lora"}, drop=("model.remat_policy",))
+
+
+# the Swin presets as ``config.compose`` resolves ``+default_configs=hemit``
+# and ``+experiments/foundation_models=ctranspath``
+# (tests/test_torch_trainer_families.py holds them equal)
+HEMIT_PRESET = preset_with(FLAGSHIP_PRESET, {
+    "train.epochs": 20, "train.batch_size": 4, "train.grad_accum_steps": 1,
+    "train.wandb_note": "model_hemit", "model.model_name": "hemit",
+    "model.encoder.encoder_name": "mobilenet_v2", "model.encoder.encoder_weights": "imagenet",
+    "model.encoder_weights": None}, drop=("model.remat_policy",))
+CTRANSPATH_PRESET = preset_with(FLAGSHIP_PRESET, {
+    "train.batch_size": 16, "train.grad_accum_steps": 1,
+    "train.wandb_note": "foundation_model_ctranspath", "model.model_name": "unet_lora",
+    "model.encoder.encoder_name": "ctranspath"}, drop=("model.remat_policy",))
 
 
 def bound_ms(n_bytes: float, flops: float, dt: str):
@@ -2436,14 +2475,16 @@ def k2_need_w_ms(dev, m=MICRO * 329):
 
 def train_family_phase(tag, model, model_name, n_micro, micro, dev, foreground_head=False,
                        counted=0):
-    """[train unetr] / [train convnext fg]: ``n_micro`` microbatches of
-    ``micro`` 256-px tiles through the preset's step (no accumulation, so
-    one optimizer step each, the first a zero update; f32 parameters, bf16
-    compute, weighted MSE, the foreground term where the head is on).
-    Checks finite losses, every trainable tensor with a gradient moved, the
-    trainable count against the JAX rule's, and the launches (``counted``
-    K1/K2 blocks a microbatch). Returns the counts and the last step's
-    rate."""
+    """[train unetr] / [train convnext fg] / [train ctranspath] / [train
+    hemit]: ``n_micro`` warm-up microbatches of ``micro`` 256-px tiles
+    through the preset's step (no accumulation, so one optimizer step each,
+    the first a zero update; f32 parameters, bf16 compute, weighted MSE, the
+    foreground term where the head is on), then ``TRAIN_TIMED_STEPS`` more
+    on the same microbatches, each timed with CUDA events (the host clock
+    beside them). Checks finite losses, every trainable tensor with a
+    gradient moved, the trainable count against the JAX rule's, and the
+    launches (``counted`` K1/K2 blocks a microbatch). Returns the counts and
+    the rate at the timed steps' median."""
     from mipheivit_tpu_torch.metrics import PixelMetrics
     from mipheivit_tpu_torch.models.layers import set_compute_dtype
     from mipheivit_tpu_torch.train import (StepConfig, build_generator_optimizer,
@@ -2467,14 +2508,19 @@ def train_family_phase(tag, model, model_name, n_micro, micro, dev, foreground_h
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     probe, undo = dtype_probe()
-    losses, step_s, no_grad = [], [], set()
+    n_steps = n_micro + TRAIN_TIMED_STEPS
+    losses, step_s, event_ms, no_grad = [], [], [], set()
     try:
         reset_counts()
-        for i in range(n_micro):
+        for i in range(n_steps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
-            state, metrics, log = step(state, data[i], metrics)
+            start.record()
+            state, metrics, log = step(state, data[i % n_micro], metrics)
+            end.record()
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
+            event_ms.append(start.elapsed_time(end))
             losses.append({k: float(log[k]) for k in ("gen_loss", "gen_foreground_loss")})
             no_grad |= {n for n, g in log["grads"].items() if not bool(g.any())}
         counts = read_counts()
@@ -2483,16 +2529,19 @@ def train_family_phase(tag, model, model_name, n_micro, micro, dev, foreground_h
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     moved = {n for n, p in state.gen_params if not torch.equal(p.detach(), train0[n])}
     still = sorted(set(train0) - moved - no_grad)
-    steady = step_s[-1]
+    steady = float(np.median(event_ms[n_micro:])) / 1e3
     n_params = sum(p.numel() for _, p in state.gen_params)
-    print(f"[{tag}] {model_name}, {n_micro} microbatches of {micro} x {IMG} px, one optimizer "
-          f"step each: {1e3 * steady:.1f} ms a step (steps "
-          f"{', '.join(f'{1e3 * s:.1f}' for s in step_s)} ms; the first includes warm-up) = "
+    print(f"[{tag}] {model_name}, {n_steps} microbatches of {micro} x {IMG} px, one optimizer "
+          f"step each: {1e3 * steady:.1f} ms a step (CUDA events, median of the "
+          f"{TRAIN_TIMED_STEPS} after {n_micro} warm-up steps: "
+          f"{', '.join(f'{v:.1f}' for v in event_ms)} ms; host clock "
+          f"{', '.join(f'{1e3 * v:.1f}' for v in step_s)} ms) = "
           f"{micro / steady:.2f} images/s; peak memory {peak:.2f} GiB; losses "
           f"{', '.join(f'{v['gen_loss']:.4f}' for v in losses)}, gen_foreground_loss "
           f"{', '.join(f'{v['gen_foreground_loss']:.4f}' for v in losses)}; trainable tensors "
           f"{len(train0)} ({n_params / 1e6:.1f} M values; the JAX rule's count {n_rule} of "
-          f"{n_all}), moved {len(moved)}, no gradient {len(no_grad)} {sorted(no_grad)}; launch "
+          f"{n_all}), moved {len(moved)}, no gradient {len(no_grad)} "
+          f"{sorted({'.'.join(n.split('.')[:3]) for n in no_grad})}; launch "
           f"dtypes {dict((k, sorted(v)) for k, v in probe.items())}; {counts_line(counts)} "
           f"({time.perf_counter() - t_all:.1f} s)", flush=True)
     check(all(np.isfinite(list(v.values())).all() for v in losses), f"[{tag}] non-finite loss")
@@ -2502,8 +2551,8 @@ def train_family_phase(tag, model, model_name, n_micro, micro, dev, foreground_h
     check(not still and len(moved) > 0, f"[{tag}] trainable tensors did not move: {still[:5]}")
     if counted:
         check(all(v <= {"bfloat16"} for v in probe.values()), f"[{tag}] launch dtypes {probe}")
-    check_counts(f"[{tag}]", counts, k1=counted * n_micro, k2=counted * n_micro,
-                 k2b=counted * n_micro)
+    check_counts(f"[{tag}]", counts, k1=counted * n_steps, k2=counted * n_steps,
+                 k2b=counted * n_steps)
     return counts, micro / steady
 
 
@@ -2603,6 +2652,337 @@ def baseline_phases(tmp: Path, enc: Path, tiles: np.ndarray, dev):
           f"(profiler, 20 calls) [CUDA events, median of 10]: fc1 trainable (dx, dW, db; the "
           f"UNETR's route) {need_w['device']:.4f} ms [{need_w['events']:.3f}], fc1 frozen (dx; "
           f"the flagship's) {frozen_w['device']:.4f} ms [{frozen_w['events']:.3f}]", flush=True)
+    return counts, numbers
+
+
+# ---------------------------------------------------------------------------
+# the Swin models: the ctranspath UNETR, the HEMIT dual-branch generator and
+# its zoo, their training, the HEMIT reproduction and the HEMIT-pipeline
+# evaluations (no kernel of the port: window attention has a relative-position
+# bias, the fusions attend a gathered top-k set)
+
+
+def topk_agreement(a, b) -> float:
+    """Mean share, over the rows, of ``a``'s top-k index set that ``b``'s
+    holds (``[B, k]`` each)."""
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    return float(np.mean([len(set(u.tolist()) & set(w.tolist())) / len(u) for u, w in zip(a, b)]))
+
+
+def swin_forward_phase(tag, model_name, encoder_name, batch, dev, seed, contrast=False):
+    """[unetr ctranspath] / [hemit]: a preset's generator at full width
+    (seeded weights; the UNETR's heads through ``contrast_head``): f32 on
+    the card against the CPU (TF32 off) on one tile, the f32 forward of 4
+    tiles on the card, then bf16: its forward at ``batch`` (tiles/s, CUDA
+    events, median of 10), peak memory, per-marker Pearson against f32 on
+    the 4 tiles; for the HEMIT generator the top-k sets of each fusion, f32
+    card vs CPU and bf16 vs f32. No kernel launches."""
+    from mipheivit_tpu_torch.infer import cast_params
+    from mipheivit_tpu_torch.models import get_generator
+
+    t0 = time.perf_counter()
+    model = fresh_generator(model_name, encoder_name, dev, seed)
+    if contrast:
+        contrast_heads(model)
+    cpu = get_generator(model_name, IMG, MARKERS, encoder_name, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (batch, IMG, IMG, 3), dtype=np.float32)).to(dev)
+    atts = getattr(model, "cross_atts", [])
+    f32 = card_vs_cpu(model, cpu, x[:1])
+    sets = [topk_agreement(a.last_indices, c.last_indices) for a, c in zip(atts, cpu.cross_atts)
+            ] if atts else []
+    del cpu
+    with torch.inference_mode():
+        ref = model(x[:4]).cpu().numpy()
+    ref_idx = [a.last_indices for a in atts]
+    cast_params(model, torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        reset_counts()
+        out = model(x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        fwd_ms = cuda_ms(lambda: model(x), reps=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bf16_sets = [topk_agreement(r, a.last_indices[:4]) for r, a in zip(ref_idx, atts)]
+    finite = bool(torch.isfinite(out).all())
+    r = pearson(out[:4].float().cpu().numpy(), ref)
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, out
+    torch.cuda.empty_cache()
+    rate = batch * 1000 / fwd_ms
+    sets_txt = "" if not sets else (
+        f"; top-k sets (k {', '.join(str(int(i.shape[1])) for i in ref_idx)}) f32 card vs CPU "
+        f"{', '.join(f'{v:.4f}' for v in sets)}, bf16 vs f32 {', '.join(f'{v:.4f}' for v in bf16_sets)}")
+    print(f"[{tag}] {model_name}{'' if encoder_name is None else ' / ' + encoder_name} "
+          f"({n_params / 1e6:.1f} M params): bf16 forward at batch {batch} {fwd_ms:.2f} ms = "
+          f"{rate:.1f} tiles/s (CUDA events, median of 10), peak memory {peak:.2f} GiB; f32 card "
+          f"vs CPU (TF32 off) {card_vs_cpu_text(f32)}; bf16 vs f32 per-marker Pearson min "
+          f"{r.min():.5f} (target >= {MIN_PEARSON}){sets_txt}; {counts_line(counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(finite, f"[{tag}] non-finite bf16 output")
+    check_card_vs_cpu(f"[{tag}]", f32)
+    check(bool((r >= MIN_PEARSON).all()), f"[{tag}] bf16 output does not track f32")
+    check_counts(f"[{tag}]", counts)
+    return counts, {"tiles/s": rate, "peak GiB": peak}
+
+
+def hemit_zoo_phase(dev):
+    """[hemit zoo]: each other netG of ``build_hemit_netG`` at 256 px and
+    full width, seeded weights: f32 on the card against the CPU (TF32 off)
+    at batch ``ZOO_BATCH``, each held as the other phases are
+    (``check_card_vs_cpu``: max |diff|, the worst marker's spread and
+    per-marker Pearson). No kernel launches."""
+    from mipheivit_tpu_torch.models.hemit import build_hemit_netG
+
+    t0 = time.perf_counter()
+    x = torch.from_numpy(np.random.default_rng(SEED + 91).standard_normal(
+        (ZOO_BATCH, IMG, IMG, 3), dtype=np.float32)).to(dev)
+    lines, results, total = [], {}, {k: 0 for k in read_counts()}
+    for i, net in enumerate(ZOO_NETGS):
+        with torch.device(dev):
+            model = seeded_fill(build_hemit_netG(net, IMG, 3, MARKERS), SEED + 92 + i).eval()
+        cpu = build_hemit_netG(net, IMG, 3, MARKERS).eval()
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        reset_counts()
+        c = card_vs_cpu(model, cpu, x)
+        counts = read_counts()
+        total = {k: total[k] + counts[k] for k in total}
+        lines.append(f"{net} ({type(model).__name__}, "
+                     f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M) "
+                     f"{card_vs_cpu_text(c)}")
+        results[net] = c
+        del model, cpu
+        torch.cuda.empty_cache()
+    print(f"[hemit zoo] f32 card vs CPU (TF32 off) at batch {ZOO_BATCH}, {IMG} px, {MARKERS} "
+          f"outputs: {'; '.join(lines)}; {counts_line(total)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    for net, c in results.items():
+        check_card_vs_cpu(f"[hemit zoo {net}]", c)
+    check_counts("[hemit zoo]", total)
+    return total
+
+
+def trainer_hemit_phase(tmp: Path, dev):
+    """[trainer hemit]: ``train_patchgan`` on ``default_configs/hemit.yaml``
+    as it ships (cell metrics on a slide dataframe, monitor val_cell_auc,
+    batch 4) on the [cell trainer]'s kind of data: 1 epoch of
+    ``TRAINER_STEPS`` microbatches, then ``test_model`` on the export
+    (loaded as the trainer wrote it). Checks finite losses and
+    val_cell_auc, every tensor trainable, finite test metrics, no launch."""
+    import mipheivit_tpu_torch.train.trainer as trainer
+    from mipheivit_tpu_torch.config import Config
+    from mipheivit_tpu_torch.train.test_driver import test_model
+
+    t_all = time.perf_counter()
+    data = write_cell_data(tmp / "hemit_trainer_data", SEED + 84)
+    logdir = tmp / "hemit_run"
+    cfg = Config.create(HEMIT_PRESET)
+    for key, value in {**data, "train.epochs": 1}.items():
+        cfg.set_dotted(key, value)
+    rec, undo = instrument_trainer(trainer)
+    try:
+        reset_counts()
+        out = trainer.train_patchgan(cfg, str(logdir), max_steps_per_epoch=TRAINER_STEPS,
+                                     use_wandb=False)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        undo()
+    state = out["state"]
+    n_trainable, n_all = len(state.gen_params), sum(1 for _ in state.generator.parameters())
+    del out, state
+    torch.cuda.empty_cache()
+    lines = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
+    epoch = next(line for line in lines if "epoch" in line)
+    ev = rec["events"][0]
+    b = HEMIT_PRESET["train"]["batch_size"]
+    rate = 2 * b * 1000.0 / ev[1].elapsed_time(ev[3])
+    reset_counts()
+    t0 = time.perf_counter()
+    res = test_model(cfg, str(logdir), logdir.name)
+    torch.cuda.synchronize()
+    test_counts = read_counts()
+    t_test = time.perf_counter() - t0
+    total = {k: counts[k] + test_counts[k] for k in counts}
+    print(f"[trainer hemit] train_patchgan, hemit preset as it ships (ResnetGeneratorSwinT, cell "
+          f"metrics, monitor val_cell_auc/max), {TRAINER_STEPS} microbatches of {b} at {IMG} px: "
+          f"steady {rate:.2f} images/s (CUDA events, two steps); trainable tensors {n_trainable} "
+          f"of {n_all}; gen_loss {epoch['gen_loss']:.5f} val_gen_loss_sim "
+          f"{epoch['val_gen_loss_sim']:.5f} val_cell_auc {epoch['val_cell_auc']:.4f}; then "
+          f"test_model on the export in {t_test:.1f} s: "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in res.items() if not k.startswith('val_cell_'))}; "
+          f"{counts_line(total)} ({time.perf_counter() - t_all:.1f} s)", flush=True)
+    check(all(np.isfinite(epoch[k]) for k in ("gen_loss", "val_gen_loss_sim", "val_cell_auc")),
+          "[trainer hemit] non-finite losses or val_cell_auc")
+    check((logdir / "model.safetensors").exists() and n_trainable == n_all,
+          "[trainer hemit] export, or the JAX rule's trainable set")
+    check(all(np.isfinite(v) for v in res.values()) and "test_cell_auc" in res,
+          "[trainer hemit] test_model")
+    check_counts("[trainer hemit]", total)
+    return total, rate
+
+
+def train_hemit_phase(tmp: Path, dev):
+    """[train_hemit]: ``python -m mipheivit_tpu_torch.hemit.train_hemit``'s
+    ``main`` for 1 epoch (GAN + L1 x 100) on ``HEMIT_PAIRS`` seeded ``.npy``
+    pairs of 256 px in HEMIT's folder layout, batch 4; its best-val_psnr
+    snapshot reloaded into a fresh train state. No kernel launches."""
+    from mipheivit_tpu_torch.hemit import train_hemit
+    from mipheivit_tpu_torch.models.discriminator import DiscriminatorPatch
+    from mipheivit_tpu_torch.models.hemit import build_hemit
+    from mipheivit_tpu_torch.train import (build_discriminator_optimizer,
+                                           build_generator_optimizer, create_train_state)
+    from mipheivit_tpu_torch.train.checkpoints import restore_train_state
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 88)
+    root = tmp / "hemit_pairs"
+    for split, n in HEMIT_PAIRS.items():
+        for sub in ("input", "label"):
+            (root / split / sub).mkdir(parents=True)
+            for i in range(n):
+                np.save(root / split / sub / f"{split}{i}.npy",
+                        rng.integers(0, 256, (IMG, IMG, 3), dtype=np.uint8))
+    reset_counts()
+    t_run = time.perf_counter()
+    out = train_hemit.main(["--data_root", str(root), "--out_dir", str(tmp / "train_hemit"),
+                            "--epochs", "1", "--batch_size", "4", "--crop", str(IMG)])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    t_run = time.perf_counter() - t_run
+    state = out["state"]
+    with torch.device(dev):
+        fresh = create_train_state(build_hemit(IMG, 3, 3), build_generator_optimizer(2e-4, 2),
+                                   DiscriminatorPatch(6), build_discriminator_optimizer(2e-4, 2),
+                                   device=dev)
+    restore_train_state(out["best_path"], fresh)
+    same = all(torch.equal(p, q) for p, q in zip(fresh.generator.state_dict().values(),
+                                                 state.generator.state_dict().values()))
+    vm = out["history"][0]
+    del out, state, fresh
+    torch.cuda.empty_cache()
+    print(f"[train_hemit] train_hemit.main, 1 epoch of {HEMIT_PAIRS['train']} pairs at batch 4 "
+          f"(GAN + L1 x 100) and {HEMIT_PAIRS['val']} validation pairs in {t_run:.1f} s: "
+          f"val_psnr {vm['val_psnr']:.4f} val_ssim {vm['val_ssim']:.4f}; the snapshot in best/ "
+          f"reloaded into a fresh state, generator equal {same}; {counts_line(counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(np.isfinite(vm["val_psnr"]) and same, "[train_hemit] metrics or the snapshot")
+    check_counts("[train_hemit]", counts)
+    return counts
+
+
+def hemit_checkpoint(root: Path, dev, seed: int) -> Path:
+    """A HEMIT-codebase ``latest_net_G.pth`` of the dual-branch generator at
+    256 px (seeded weights; the Swin branch in the older timm layout, each
+    stage's downsample at the end of the stage before, with its index
+    buffers, under Lightning's ``generator.`` prefix)."""
+    state = fresh_generator("hemit", None, dev, seed).state_dict()
+    out = {}
+    for k, v in state.items():
+        if k.startswith("swinT.layers.") and ".downsample." in k:
+            parts = k.split(".")
+            parts[2] = str(int(parts[2]) - 1)
+            k = ".".join(parts)
+        if k.endswith("relative_position_bias_table"):
+            out["generator." + k.replace("bias_table", "index")] = torch.zeros(1, dtype=torch.long)
+        out["generator." + k] = v.cpu()
+    root.mkdir()
+    torch.save(out, root / "latest_net_G.pth")
+    torch.cuda.empty_cache()
+    return root
+
+
+def hemit_pipeline_phases(tmp: Path, dev):
+    """[eval orion|immucan|hemit hemit pipeline]: each HEMIT-pipeline
+    script's ``run`` on a HEMIT-codebase checkpoint (``hemit_checkpoint``),
+    the hemit preset's config over seeded cell data: ORION on 256-px val and
+    test tiles, IMMUCAN (after ORION: its ``logreg.npz``) on the test tiles
+    with per-tile counts, HEMIT on 512-px tiles with the generator built at
+    256. Checks the CSVs and no launch. Returns each one's counts."""
+    import copy
+
+    from mipheivit_tpu_torch.config import Config
+    from mipheivit_tpu_torch.data.table import Table
+    from mipheivit_tpu_torch.evaluation import (eval_hemit_hemit_pipeline,
+                                                eval_immucan_hemit_pipeline,
+                                                eval_orion_hemit_pipeline)
+
+    ckpt = hemit_checkpoint(tmp / "hemit_ckpt", dev, SEED + 86)
+    data = write_cell_data(tmp / "hemit_eval_data", SEED + 87, IMG, HEMIT_EVAL_TILES)
+    cfg = Config.create(HEMIT_PRESET)
+    for key, value in data.items():
+        cfg.set_dotted(key, value)
+    counts, lines, ok = {}, [], True
+
+    out, counts["eval orion hemit pipeline"], secs, missing = eval_phase(
+        eval_orion_hemit_pipeline, cfg, ckpt,
+        ["results_logreg.csv", "cell_dataframe.csv", "logreg.npz"])
+    results = out["results"]
+    lines.append(f"[eval orion hemit pipeline] {len(out['cell_dataframe'])} cells, mean AUC "
+                 f"{np.mean(results['ROC AUC']):.4f} over {len(results)} markers, missing "
+                 f"{missing}, {secs:.1f} s")
+    ok = ok and not missing and len(results) == CELL_MARKERS
+
+    test = Table.read_csv(data["data.test_dataframe_path"])
+    rng = np.random.default_rng(SEED + 204)
+    for marker in ("CD3e", "CD8a", "CD4", "FOXP3", "Pan-CK"):
+        test = test.replace(f"{marker}_count", rng.integers(0, 60, len(test)))
+    test.to_csv(tmp / "hemit_immucan.csv")
+    imm_cfg = copy.deepcopy(cfg)
+    imm_cfg.data.test_dataframe_path = str(tmp / "hemit_immucan.csv")
+    out, counts["eval immucan hemit pipeline"], secs, missing = eval_phase(
+        eval_immucan_hemit_pipeline, imm_cfg, ckpt, ["immucan_corr.csv", "immucan_tile_sums.csv"])
+    lines.append(f"[eval immucan hemit pipeline] Pearson over {len(out['tile_sums'])} tiles "
+                 f"{dict(zip(out['corr']['Marker'].tolist(), np.round(out['corr']['Pearson'], 4).tolist()))}, "
+                 f"missing {missing}, {secs:.1f} s")
+    ok = ok and not missing and len(out["corr"]) == 5
+
+    hemit = write_cell_data(tmp / "hemit_eval_512", SEED + 89, HEMIT_IMG, HEMIT_TILES)
+    hemit_cfg = copy.deepcopy(cfg)
+    for key, value in hemit.items():
+        hemit_cfg.set_dotted(key, value)
+    out, counts["eval hemit hemit pipeline"], secs, missing = eval_phase(
+        eval_hemit_hemit_pipeline, hemit_cfg, ckpt,
+        ["hemit_results_logreg_val.csv", "hemit_results_logreg_test.csv"])
+    lines.append(f"[eval hemit hemit pipeline] {len(out['cell_dataframe'])} cells of "
+                 f"{sum(HEMIT_TILES.values())} tiles of {HEMIT_IMG} px (the generator at "
+                 f"{HEMIT_IMG // 2} px), mean AUC val {np.nanmean(out['val']['ROC AUC']):.4f} "
+                 f"test {np.nanmean(out['test']['ROC AUC']):.4f}, missing {missing}, "
+                 f"{secs:.1f} s")
+    ok = ok and not missing and len(out["val"]) == len(out["test"]) == CELL_MARKERS
+    for line, (name, c) in zip(lines, counts.items()):
+        print(f"{line}; {counts_line(c)}", flush=True)
+        check_counts(f"[{name}]", c)
+    check(ok, "[eval * hemit pipeline] results")
+    return counts
+
+
+def swin_phases(tmp: Path, dev):
+    """The Swin models' phases, in order; returns each one's launch counts
+    and the numbers the summary reports."""
+    counts, numbers = {}, {}
+    counts["unetr ctranspath"], n = swin_forward_phase(
+        "unetr ctranspath", "unet_lora", "ctranspath", CTRANSPATH_BATCH, dev, SEED + 70,
+        contrast=True)
+    numbers.update({f"unetr ctranspath {k}": v for k, v in n.items()})
+    counts["hemit"], n = swin_forward_phase("hemit", "hemit", None, HEMIT_BATCH, dev, SEED + 80)
+    numbers.update({f"hemit {k}": v for k, v in n.items()})
+    counts["hemit zoo"] = hemit_zoo_phase(dev)
+    for tag, name, enc, micro, seed in (("train ctranspath", "unet_lora", "ctranspath",
+                                         CTRANSPATH_PRESET["train"]["batch_size"], SEED + 72),
+                                        ("train hemit", "hemit", None,
+                                         HEMIT_PRESET["train"]["batch_size"], SEED + 82)):
+        model = fresh_generator(name, enc, dev, seed)
+        counts[tag], numbers[f"{tag} images/s"] = train_family_phase(tag, model, name, 2, micro,
+                                                                     dev)
+        del model
+        torch.cuda.empty_cache()
+    counts["trainer hemit"], numbers["trainer hemit images/s"] = trainer_hemit_phase(tmp, dev)
+    counts["train_hemit"] = train_hemit_phase(tmp, dev)
+    counts.update(hemit_pipeline_phases(tmp, dev))
     return counts, numbers
 
 
@@ -2992,18 +3372,25 @@ def main() -> None:
         #     (K1, K2), Prov-GigaPath's UNETR, the SMP U-Net on ConvNeXt-L
         #     with its foreground head and the ResNet-50 UNETR (no kernel)
         baseline_counts, baseline = baseline_phases(Path(tmp), enc, tiles, dev)
+        torch.cuda.empty_cache()
 
-    # 14. summary lines
+        # 14. the Swin models: the ctranspath UNETR and the HEMIT generator
+        #     served, the HEMIT zoo, both presets trained, the HEMIT
+        #     reproduction and the HEMIT-pipeline evaluations (no kernel)
+        swin_counts, swin = swin_phases(Path(tmp), dev)
+
+    # 15. summary lines
     k1 = kernel_rows["bf16_fused"]
     paths = {"slice": slice_counts, "attn sublayer": sublayer, "serve": serve_counts,
              "wsi 256": wsi256, "wsi 1024": wsi1024, "train 256": train256,
              "train 1024": train1024, "train 1024 ckpt": train1024c, "train ops": train_ops,
              "trainer": trainer_counts, "test driver": test_driver_counts,
              "cell trainer": cell_counts, "cell test driver": cell_test_counts, **eval_counts,
-             **baseline_counts}
+             **baseline_counts, **swin_counts}
     print(f"[cell path] nucleus_pool {pool_ms[8]:.3f} ms at 8 tiles, {pool_ms[64]:.3f} ms at 64; "
           f"cell loss forward + backward {cell_loss_ms:.3f} ms at microbatch 8", flush=True)
     print(f"[baselines] {'; '.join(f'{k} {v:.3f}' for k, v in baseline.items())}", flush=True)
+    print(f"[swin models] {'; '.join(f'{k} {v:.3f}' for k, v in swin.items())}", flush=True)
 
     def launches(key):
         by_path = {path: c[key] for path, c in paths.items() if c[key]}

@@ -29,10 +29,14 @@ from .common import (DATA_CONFIGS, build_forward, load_eval_config, print_result
 DATASET_CONFIG_PATH = str(DATA_CONFIGS / "hemit.yaml")
 
 
-def run(cfg: Config, checkpoint_dir: str, batch_size: int = 4, device=None) -> dict:
+def run(cfg: Config, checkpoint_dir: str, batch_size: int = 4, device=None,
+        forward_builder=build_forward, he_norm=None) -> dict:
     """Evaluate ``checkpoint_dir``'s generator on ``cfg``'s train, val and
     test tiles at half resolution; writes the CSVs there and returns
-    ``{"val": results, "test": results, "cell_dataframe"}``."""
+    ``{"val": results, "test": results, "cell_dataframe"}``.
+    ``forward_builder(cfg, checkpoint_dir, width, height, nc_out, device)``
+    makes the forward (``common.build_forward``; the HEMIT-pipeline scripts
+    pass theirs), ``he_norm`` overrides the input normalisation."""
     slide_df = Table.read_csv(cfg.data.slide_dataframe_path)
     frames = {split: Table.read_csv(cfg.data[f"{split}_dataframe_path"])
               for split in ("train", "val", "test")}
@@ -42,10 +46,11 @@ def run(cfg: Config, checkpoint_dir: str, batch_size: int = 4, device=None) -> d
     width, height = get_effective_width_height(*read_tile_size(dataframe), train=True)
     nc_out = len(cfg.data.targ_channel_names)
     # the model runs at half resolution (20x)
-    fwd = build_forward(cfg, checkpoint_dir, width // 2, height // 2, nc_out, device)
+    fwd = forward_builder(cfg, checkpoint_dir, width // 2, height // 2, nc_out, device)
 
     cell_metrics = run_cell_accumulation(cfg, fwd, dataframe, slide_df, crop=width,
-                                         batch_size=batch_size, scale_factor=0.5, device=device)
+                                         batch_size=batch_size, scale_factor=0.5,
+                                         he_norm=he_norm, device=device)
     cell_dataframe = cell_metrics.get_dataframe_cell_pred_target()
     cell_metrics.reset()
 

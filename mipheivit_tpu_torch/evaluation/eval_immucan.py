@@ -43,10 +43,14 @@ def load_logreg(checkpoint_dir: str) -> LogRegHead:
     raise FileNotFoundError(f"no logreg.npz/logreg.pth in {checkpoint_dir}; run eval_orion first")
 
 
-def run(cfg: Config, checkpoint_dir: str, batch_size: int = 4, device=None) -> dict:
+def run(cfg: Config, checkpoint_dir: str, batch_size: int = 4, device=None,
+        forward_builder=build_forward, he_norm=None) -> dict:
     """Pool ``cfg``'s test tiles per tile, gate the cells and correlate the
     positive counts with the tiles' ground truth; writes the two CSVs to
-    ``checkpoint_dir`` and returns ``{"corr", "tile_sums"}``."""
+    ``checkpoint_dir`` and returns ``{"corr", "tile_sums"}``.
+    ``forward_builder(cfg, checkpoint_dir, width, height, nc_out, device)``
+    makes the forward (``common.build_forward``; the HEMIT-pipeline scripts
+    pass theirs), ``he_norm`` overrides the input normalisation."""
     from scipy.stats import pearsonr
 
     dataframe = Table.read_csv(cfg.data.test_dataframe_path)
@@ -60,12 +64,12 @@ def run(cfg: Config, checkpoint_dir: str, batch_size: int = 4, device=None) -> d
 
     width, height = get_effective_width_height(*read_tile_size(dataframe), train=True)
     nc_out = len(cfg.data.targ_channel_names)
-    fwd = build_forward(cfg, checkpoint_dir, width, height, nc_out, device)
+    fwd = forward_builder(cfg, checkpoint_dir, width, height, nc_out, device)
     logreg = load_logreg(checkpoint_dir)
 
     cell_metrics = run_cell_accumulation(cfg, fwd, dataframe, slide_df, crop=min(256, width),
                                          batch_size=batch_size, slide_key="tile_name",
-                                         device=device)
+                                         he_norm=he_norm, device=device)
     cell_dataframe = cell_metrics.get_dataframe_cell_pred().rename({"slide_name": "tile_name"})
     cell_metrics.reset()
 

@@ -32,10 +32,14 @@ from .common import (DATA_CONFIGS, build_forward, load_eval_config, print_result
 DATASET_CONFIG_PATH = str(DATA_CONFIGS / "orion.yaml")
 
 
-def run(cfg: Config, checkpoint_dir: str, batch_size: int = 4, device=None) -> dict:
+def run(cfg: Config, checkpoint_dir: str, batch_size: int = 4, device=None,
+        forward_builder=build_forward, he_norm=None) -> dict:
     """Evaluate ``checkpoint_dir``'s generator on ``cfg``'s val and test
     tiles and write the artefacts there; returns ``{"results", "logreg",
-    "cell_dataframe"}``."""
+    "cell_dataframe"}``.
+    ``forward_builder(cfg, checkpoint_dir, width, height, nc_out, device)``
+    makes the forward (``common.build_forward``; the HEMIT-pipeline scripts
+    pass theirs), ``he_norm`` overrides the input normalisation."""
     slide_df = Table.read_csv(cfg.data.slide_dataframe_path)
     val_df = Table.read_csv(cfg.data.val_dataframe_path)
     test_df = Table.read_csv(cfg.data.test_dataframe_path)
@@ -46,10 +50,11 @@ def run(cfg: Config, checkpoint_dir: str, batch_size: int = 4, device=None) -> d
 
     width, height = get_effective_width_height(*read_tile_size(dataframe), train=True)
     nc_out = len(cfg.data.targ_channel_names)
-    fwd = build_forward(cfg, checkpoint_dir, width, height, nc_out, device)
+    fwd = forward_builder(cfg, checkpoint_dir, width, height, nc_out, device)
 
     cell_metrics = run_cell_accumulation(cfg, fwd, dataframe, slide_df, crop=min(256, width),
-                                         batch_size=batch_size, device=device)
+                                         batch_size=batch_size, he_norm=he_norm,
+                                         device=device)
     cell_dataframe = cell_metrics.get_dataframe_cell_pred_target()
     cell_metrics.reset()
 

@@ -136,25 +136,33 @@ def cast_params(model: torch.nn.Module, dtype) -> torch.nn.Module:
     return model
 
 
-def load_generator(model_name: str, encoder_name: str, checkpoint_dir,
-                   img_size, nc_out: int, dtype=torch.float32, device=None,
-                   encoder_ckpt_path: Optional[str] = None,
-                   fast_heads: bool = True, dropout: float = 0.0) -> torch.nn.Module:
-    """Build the generator on ``device``, load a reference-layout checkpoint
-    dir, and return it in eval mode with parameters in ``dtype``. ``device``
-    defaults to the card and raises without one (``device="cpu"`` for the
-    CPU).
+def load_strict(model: torch.nn.Module, state: Dict) -> torch.nn.Module:
+    """``load_state_dict`` that tolerates only BatchNorm's
+    ``num_batches_tracked`` missing; returns the model."""
+    tensors = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v
+               for k, v in state.items()}
+    missing, unexpected = model.load_state_dict(tensors, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise ValueError(f"checkpoint does not fit {type(model).__name__}: missing {missing[:8]}, "
+                         f"unexpected {list(unexpected)[:8]}")
+    return model
 
-    As the JAX ``load_generator`` (infer/loading.py:207-235): the flagship
-    (foundation ViT under ``encoder.vit.``) and the UNETR on a ViT
-    (``encoder.model.``) load, each whole or foundation-stripped with the
-    encoder file grafted in; the SMP U-Net and the ResNet-50 UNETR raise
-    ``NotImplementedError``. ``fast_heads`` applies to the flagship alone
-    (K3 is on no other family's path). ``dropout`` is the config's
-    ``model.dropout`` (it acts only in training)."""
+
+def imports_reference_checkpoint(model: torch.nn.Module) -> bool:
+    """Whether ``load_generator`` imports a reference-layout checkpoint into
+    ``model``'s family: the flagship and the UNETR on a ViT, as the JAX
+    ``load_generator`` (infer/loading.py:207-235)."""
     from ..models.unetr import UnetrViT
 
-    device = resolve_device(device)
+    return isinstance(model, (MipheiViT, UnetrViT))
+
+
+def _import_reference(model: torch.nn.Module, checkpoint_dir,
+                      encoder_ckpt_path: Optional[str]) -> torch.nn.Module:
+    """Load a reference-layout checkpoint dir into ``model`` (one that
+    ``imports_reference_checkpoint``), whole or foundation-stripped with the
+    encoder file grafted in."""
     ckpt_dir = Path(checkpoint_dir)
     st_path = ckpt_dir / "model.safetensors"
     ckpt_path = ckpt_dir / "model.weights.ckpt"
@@ -167,16 +175,10 @@ def load_generator(model_name: str, encoder_name: str, checkpoint_dir,
             f"no model.safetensors or model.weights.ckpt in {checkpoint_dir}")
     state = generator_state_dict(state)
 
-    model = get_generator(model_name, img_size, nc_out, encoder_name,
-                          dtype=torch.float32, device=device, dropout=dropout)
     if isinstance(model, MipheiViT):
         prefix, vit = "encoder.vit.", model.encoder.vit
-    elif isinstance(model, UnetrViT):
-        prefix, vit = "encoder.model.", model.encoder.model
     else:
-        raise NotImplementedError(
-            f"checkpoint import not implemented for {model_name!r} ({encoder_name}), as in "
-            "the JAX package")
+        prefix, vit = "encoder.model.", model.encoder.model
     cfg = vit.cfg
     enc_present = any(k.startswith(prefix) and ".lora" not in k for k in state)
     if not enc_present:
@@ -196,6 +198,54 @@ def load_generator(model_name: str, encoder_name: str, checkpoint_dir,
 
     missing, unexpected = model.load_state_dict(state, strict=False)
     validate_load(missing, unexpected)
+    return model
+
+
+def load_generator(model_name: str, encoder_name: str, checkpoint_dir,
+                   img_size, nc_out: int, dtype=torch.float32, device=None,
+                   encoder_ckpt_path: Optional[str] = None,
+                   fast_heads: bool = True, dropout: float = 0.0) -> torch.nn.Module:
+    """Build the generator on ``device``, load a reference-layout checkpoint
+    dir, and return it in eval mode with parameters in ``dtype``. ``device``
+    defaults to the card and raises without one (``device="cpu"`` for the
+    CPU).
+
+    As the JAX ``load_generator`` (infer/loading.py:207-235): the flagship
+    (foundation ViT under ``encoder.vit.``) and the UNETR on a ViT
+    (``encoder.model.``) load, each whole or foundation-stripped with the
+    encoder file grafted in; every other family (the SMP U-Net, the Swin
+    and ResNet-50 UNETRs, HEMIT) raises ``NotImplementedError``.
+    ``fast_heads`` applies to the flagship alone (K3 is on no other
+    family's path). ``dropout`` is the config's ``model.dropout`` (it acts
+    only in training)."""
+    device = resolve_device(device)
+    model = get_generator(model_name, img_size, nc_out, encoder_name,
+                          dtype=torch.float32, device=device, dropout=dropout)
+    if not imports_reference_checkpoint(model):
+        raise NotImplementedError(
+            f"checkpoint import not implemented for {model_name!r} ({encoder_name}), as in "
+            "the JAX package")
+    _import_reference(model, checkpoint_dir, encoder_ckpt_path)
     if fast_heads and isinstance(model, MipheiViT):
         to_fast_heads(model)
     return cast_params(model, dtype)
+
+
+def load_trainer_export(model_name: str, encoder_name: str, checkpoint_dir, img_size,
+                        nc_out: int, dtype=torch.float32, device=None,
+                        encoder_ckpt_path: Optional[str] = None,
+                        foreground_head: bool = False) -> torch.nn.Module:
+    """The generator of a trainer's checkpoint dir in eval mode with
+    parameters in ``dtype``: the families ``load_generator`` imports load
+    as it loads them (unfused heads); every other family loads from the
+    trainer's own export, ``model.safetensors`` in the model's layout,
+    strictly (the JAX ``load_generator`` refuses them, so its
+    ``test_model`` cannot evaluate them)."""
+    device = resolve_device(device)
+    model = get_generator(model_name, img_size, nc_out, encoder_name, dtype=torch.float32,
+                          device=device, foreground_head=foreground_head)
+    if imports_reference_checkpoint(model):
+        _import_reference(model, checkpoint_dir, encoder_ckpt_path)
+    else:
+        load_strict(model, load_state_dict(Path(checkpoint_dir) / "model.safetensors"))
+    return cast_params(model.eval(), dtype)

@@ -22,7 +22,8 @@ def get_generator(model_name: str, img_size, nc_out: int,
     Dispatched as the JAX ``get_generator`` (mipheivit_tpu/models/__init__.py:21-61):
     ``myvitmatte`` (always LoRA rank 8, alpha 1.0; reference:
     mipheivit.py:224-233), then ``smp_unet``, then ``unet*`` (``unet_lora``
-    with LoRA rank 8), then ``hemit``, which is not ported yet. ``dropout``
+    with LoRA rank 8, on a ViT, ctranspath's Swin or ResNet-50), then
+    ``hemit`` (``hemit.build_hemit``, the dual-branch generator). ``dropout``
     is the config's ``model.dropout`` and ``foreground_head`` its
     ``train.foreground_head`` (read by the SMP U-Net only), as the JAX
     builders read them."""
@@ -46,9 +47,9 @@ def get_generator(model_name: str, img_size, nc_out: int,
 
             model = build_unetr(model_name, img_size, nc_out, encoder_name, dropout)
         elif model_name.startswith("hemit"):
-            raise NotImplementedError(
-                "the HEMIT generator is not ported to PyTorch yet (ROADMAP.md queue 1, "
-                "item 15: hemit.py / hemit_hybrid.py)")
+            from .hemit import build_hemit
+
+            model = build_hemit(img_size, 3, nc_out)
         else:
             raise NotImplementedError(f"Unknown model_name {model_name!r}")
     from ..infer.loading import cast_params

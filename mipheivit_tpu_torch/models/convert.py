@@ -13,8 +13,10 @@ It also maps part of a tree: the trainable sub-tree of a JAX ``TrainState``
 ``batch_stats``, or a gradient tree of the same shape. Entries the tree does
 not hold are left out of the state dict. ``discriminator_state_dict_from_jax``
 maps ``DiscriminatorPatch`` variables, spectral-norm ``u`` included.
-``unetr_state_dict_from_jax``, ``unet_resnet50_state_dict_from_jax`` and
-``smp_unet_state_dict_from_jax`` map the baseline generators the same way:
+``unetr_state_dict_from_jax``, ``unetr_swin_state_dict_from_jax``,
+``unet_resnet50_state_dict_from_jax``, ``smp_unet_state_dict_from_jax``,
+``swin_state_dict_from_jax``, ``hemit_state_dict_from_jax`` (the HEMIT zoo's
+generators and discriminators) map the baseline generators the same way:
 flax ``ConvTranspose`` kernels are flipped into torch's layout, ``Dense``
 kernels transposed, LayerNorm ``scale`` becomes ``weight`` and BatchNorm
 ``mean`` / ``var`` the running buffers.
@@ -25,6 +27,7 @@ from __future__ import annotations
 from typing import Dict, Iterable
 
 import numpy as np
+import torch
 
 from .vit import ViTConfig
 
@@ -283,6 +286,47 @@ class _Emitter:
             self.conv(f"{base}downsample.0", _get(bp, "downsample_conv"))
             self.norm(f"{base}downsample.1", _get(bp, "downsample_bn"), _get(bs, "downsample_bn"))
 
+    def swin(self, prefix, p, s, cfg):
+        """The JAX ``SwinTransformer`` (``patch_embed`` / ``patch_norm``,
+        ``downsample{s}``, ``layers{s}_blocks{b}``, ``norm``) in timm's
+        names; ``cfg`` is its ``SwinConfig`` (either package's)."""
+        if cfg.conv_stem:
+            pe, ps = _get(p, "patch_embed"), _get(s, "patch_embed")
+            for i, slot in enumerate((0, 3)):
+                self.conv(f"{prefix}patch_embed.proj.{slot}", _get(pe, f"conv{i}"))
+                self.norm(f"{prefix}patch_embed.proj.{slot + 1}", _get(pe, f"bn{i}"),
+                          _get(ps, f"bn{i}"))
+            self.conv(f"{prefix}patch_embed.proj.6", _get(pe, "proj"))
+            self.norm(f"{prefix}patch_embed.norm", _get(pe, "norm"))
+        else:
+            self.conv(f"{prefix}patch_embed.proj", _get(p, "patch_embed"))
+            self.norm(f"{prefix}patch_embed.norm", _get(p, "patch_norm"))
+        qkv = "attn.qkv.qkv" if cfg.lora_rank > 0 else "attn.qkv"
+        for si, depth in enumerate(cfg.depths):
+            if si > 0:
+                d = _get(p, f"downsample{si}")
+                self.norm(f"{prefix}layers.{si}.downsample.norm", _get(d, "norm"))
+                self.conv(f"{prefix}layers.{si}.downsample.reduction", _get(d, "reduction"), _t)
+            for bi in range(depth):
+                b = _get(p, f"layers{si}_blocks{bi}")
+                base = f"{prefix}layers.{si}.blocks.{bi}."
+                self.norm(base + "norm1", _get(b, "norm1"))
+                self.norm(base + "norm2", _get(b, "norm2"))
+                self.conv(base + qkv, _get(b, "attn", "qkv"), _t)
+                self.conv(base + "attn.proj", _get(b, "attn", "proj"), _t)
+                self.put(base + "attn.relative_position_bias_table",
+                         _get(b, "attn", "relative_position_bias_table"))
+                for lq in ("lora_q", "lora_v"):
+                    self.put(base + f"attn.qkv.{lq}.A", _get(b, "attn", lq, "A"))
+                    self.put(base + f"attn.qkv.{lq}.B", _get(b, "attn", lq, "B"))
+                self.conv(base + "mlp.fc1", _get(b, "mlp_fc1"), _t)
+                self.conv(base + "mlp.fc2", _get(b, "mlp_fc2"), _t)
+        self.norm(prefix + "norm", _get(p, "norm"))
+
+    def wrapped_norm(self, key, p, s, name):
+        """A JAX ``hemit._Norm`` (its BatchNorm one scope down, ``norm``)."""
+        self.norm(key, _get(p, name, "norm"), _get(s, name, "norm"))
+
     def convnext(self, prefix, p):
         """The JAX ``ConvNeXt`` (``stem_conv``, ``stem_norm``,
         ``down{s}_*``, ``stage{s}_{b}``) in the FeatureListNet-flattened timm
@@ -370,6 +414,179 @@ def smp_unet_state_dict_from_jax(variables: Dict) -> Dict[str, np.ndarray]:
                    _get(stats, name, conv, "bn"))
     e.heads(params, stats, _head_names(tree) + (["foreground_head"] if "foreground_head" in tree
                                                 else []))
+    return e.out
+
+
+def swin_state_dict_from_jax(variables: Dict, cfg) -> Dict[str, np.ndarray]:
+    """JAX ``SwinTransformer`` variables -> the port's ``swin.SwinTransformer``
+    state dict (timm's names); ``cfg`` its ``SwinConfig``."""
+    e = _Emitter()
+    e.swin("", variables.get("params", {}), variables.get("batch_stats", {}), cfg)
+    return e.out
+
+
+def unetr_swin_state_dict_from_jax(variables: Dict, cfg) -> Dict[str, np.ndarray]:
+    """JAX ``UnetrSwin`` variables (``model``, ``convsteam_{i}``,
+    ``upsampler{j}_0``, ``decoder``, the heads) -> the port's
+    ``unetr.UnetrSwin`` state dict; ``cfg`` is its ``SwinConfig``."""
+    params = variables.get("params", {})
+    stats = variables.get("batch_stats", {})
+    e = _Emitter()
+    e.swin("encoder.model.", params.get("model", {}), stats.get("model", {}), cfg)
+    fu = "encoder.feature_upsampler"
+    for i in range(2):
+        e.conv_block(f"{fu}.convsteam.{i}", _get(params, f"convsteam_{i}"),
+                     _get(stats, f"convsteam_{i}"))
+    for j in range(4):
+        e.deconv_block(f"{fu}.upsampler{j}", _get(params, f"upsampler{j}_0"),
+                       _get(stats, f"upsampler{j}_0"))
+    e.cellvit_decoder(params.get("decoder", {}), stats.get("decoder", {}))
+    e.heads(params, stats, _head_names({**stats, **params}))
+    return e.out
+
+
+def _count(tree: Dict, prefix: str, suffix: str = "") -> int:
+    return sum(1 for k in tree if k.startswith(prefix) and k.endswith(suffix)
+               and k[len(prefix):len(k) - len(suffix)].isdigit())
+
+
+def _hemit_swint(e: _Emitter, p: Dict, s: Dict, model) -> None:
+    tree = {**s, **p}
+    e.conv("initial_layers.1", _get(p, "initial_conv"))
+    e.wrapped_norm("initial_layers.2", p, s, "initial_norm")
+    for i in range(3):
+        e.conv(f"downsampling_layers.{i}.0", _get(p, f"down{i}_conv"))
+        e.wrapped_norm(f"downsampling_layers.{i}.1", p, s, f"down{i}_norm")
+    for i in range(_count(tree, "res")):
+        base = f"resnet_blocks.{i}.conv_block"
+        e.conv(f"{base}.1", _get(p, f"res{i}", "conv1"))
+        e.wrapped_norm(f"{base}.2", _get(p, f"res{i}"), _get(s, f"res{i}"), "n1")
+        e.conv(f"{base}.5", _get(p, f"res{i}", "conv2"))
+        e.wrapped_norm(f"{base}.6", _get(p, f"res{i}"), _get(s, f"res{i}"), "n2")
+    e.swin("swinT.", _get(p, "swinT"), _get(s, "swinT"), model.swin_cfg)
+    for i in range(3):
+        g, base = _get(p, f"cross_att{i}"), f"cross_atts.{i}"
+        e.conv(f"{base}.swinT_transform", _get(g, "swinT_transform"))
+        qkv = [_get(g, f"attn_{n}") for n in "qkv"]
+        if all(t is not None for t in qkv):
+            e.put(f"{base}.attention.in_proj_weight",
+                  np.concatenate([_t(t["kernel"]) for t in qkv]))
+            e.put(f"{base}.attention.in_proj_bias", np.concatenate([t["bias"] for t in qkv]))
+        e.conv(f"{base}.attention.out_proj", _get(g, "attn_out"), _t)
+        e.conv(f"{base}.gate.0", _get(g, "gate"))
+        for j in range(_count(g or {}, "up", "_deconv")):
+            e.conv(f"{base}.upsample_blocks.{j}.0", _get(g, f"up{j}_deconv"), _convT)
+            e.conv(f"{base}.upsample_blocks.{j}.2", _get(g, f"up{j}_conv"))
+    for i in range(3):
+        e.conv(f"upsampling_layers.{i}.0", _get(p, f"up{i}_deconv"), _convT)
+        e.wrapped_norm(f"upsampling_layers.{i}.1", p, s, f"up{i}_norm")
+    e.conv("final_layers.1", _get(p, "final_conv"))
+
+
+def _resnet_generator(e: _Emitter, p: Dict, s: Dict, model) -> None:
+    """pix2pix's ``model.{i}`` from the JAX names (``stem``, ``down{i}``,
+    ``res{i}``, ``up{i}``, ``head``)."""
+    e.conv("model.1", _get(p, "stem"))
+    e.wrapped_norm("model.2", p, s, "stem_norm")
+    for i, slot in enumerate((4, 7)):
+        e.conv(f"model.{slot}", _get(p, f"down{i}"))
+        e.wrapped_norm(f"model.{slot + 1}", p, s, f"down{i}_norm")
+    n_blocks = sum(type(m).__name__ == "HemitResnetBlock" for m in model.model)
+    for i in range(n_blocks):
+        base = f"model.{10 + i}.conv_block"
+        bp, bs = _get(p, f"res{i}"), _get(s, f"res{i}")
+        e.conv(f"{base}.1", _get(bp, "conv1"))
+        e.wrapped_norm(f"{base}.2", bp, bs, "n1")
+        e.conv(f"{base}.5", _get(bp, "conv2"))
+        e.wrapped_norm(f"{base}.6", bp, bs, "n2")
+    up = 10 + n_blocks
+    for i in range(2):
+        e.conv(f"model.{up + 3 * i}", _get(p, f"up{i}"), _convT)
+        e.wrapped_norm(f"model.{up + 3 * i + 1}", p, s, f"up{i}_norm")
+    e.conv(f"model.{up + 7}", _get(p, "head"))
+
+
+def _unet_generator(e: _Emitter, p: Dict, s: Dict, model) -> None:
+    for i in range(model.num_downs):
+        e.conv(f"down{i}", _get(p, f"down{i}"))
+        e.wrapped_norm(f"down{i}_norm", p, s, f"down{i}_norm")
+    for i in range(model.num_downs - 1):
+        e.conv(f"up{i}", _get(p, f"up{i}"), _convT)
+        e.wrapped_norm(f"up{i}_norm", p, s, f"up{i}_norm")
+    e.conv("up_final", _get(p, "up_final"), _convT)
+
+
+def _hybrid_swint(e: _Emitter, p: Dict, s: Dict, model) -> None:
+    for i in range(len(model.cnn_block) // 4):
+        e.conv(f"cnn_block.{4 * i}", _get(p, f"cnn{i}", "conv"))
+        e.norm(f"cnn_block.{4 * i + 1}", _get(p, f"cnn{i}", "bn"), _get(s, f"cnn{i}", "bn"))
+    e.swin("model.", _get(p, "swinT"), _get(s, "swinT"), model.model.cfg)
+    for name in dict(model.decoder.named_children()):
+        if name.startswith("upsample_and_conv"):
+            e.conv(f"decoder.{name}.1", _get(p, name, "conv"))
+        elif name.startswith("conv") or name.startswith("upsample"):
+            e.conv(f"decoder.{name}", _get(p, name),
+                   _convT if name.startswith("upsample") else _conv)
+    for i in range(len(getattr(model.decoder, "final_upsample_layers", ()))):
+        e.conv(f"decoder.final_upsample_layers.{i}", _get(p, f"final_up{i}"), _convT)
+
+
+def _swin_unet(e: _Emitter, p: Dict, s: Dict, model) -> None:
+    for i in range(model.num_downs):
+        e.conv(f"down_layers.{i}.0", _get(p, f"down{i}"))
+        e.norm(f"down_layers.{i}.2", _get(p, f"down{i}_norm"), _get(s, f"down{i}_norm"))
+    e.swin("swinT.", _get(p, "swinT"), _get(s, "swinT"), model.swinT.cfg)
+    for j in range(3):
+        g, base = _get(p, f"cross_att{j}"), f"cross_atts.{j}"
+        t, tb = _get(g, "transformer_unet"), f"{base}.transformer_unet.layers.0"
+        e.conv(f"{base}.gate.0", _get(g, "gate"))
+        e.norm(f"{base}.norm_swinT", _get(g, "norm_swinT"))
+        e.conv(f"{base}.linear_swinT", _get(g, "linear_swinT"), _t)
+        e.norm(f"{tb}.0.norm", _get(t, "attn_norm"))
+        e.conv(f"{tb}.0.fn.to_qkv", _get(t, "to_qkv"), _t)
+        e.conv(f"{tb}.0.fn.to_out.0", _get(t, "to_out"), _t)
+        e.norm(f"{tb}.1.norm", _get(t, "ff_norm"))
+        e.conv(f"{tb}.1.fn.net.0", _get(t, "ff_fc1"), _t)
+        e.conv(f"{tb}.1.fn.net.3", _get(t, "ff_fc2"), _t)
+    for i in range(model.num_downs - 1):
+        e.conv(f"up_layers.{i}.0", _get(p, f"up{i}"), _convT)
+        e.norm(f"up_layers.{i}.2", _get(p, f"up{i}_norm"), _get(s, f"up{i}_norm"))
+    e.conv("final_layer.0", _get(p, "up_final"), _convT)
+
+
+def _nlayer_discriminator(e: _Emitter, p: Dict, s: Dict, model) -> None:
+    convs = [i for i, m in enumerate(model.model) if isinstance(m, torch.nn.Conv2d)]
+    names = [f"conv{i}" for i in range(len(convs) - 1)] + ["conv_out"]
+    for slot, name in zip(convs, names):
+        e.conv(f"model.{slot}", _get(p, name))
+    for i, slot in enumerate(convs[1:-1], 1):
+        name = f"norm{i}" if i < len(convs) - 2 else "norm_last"
+        e.wrapped_norm(f"model.{slot + 1}", p, s, name)
+
+
+def _pixel_discriminator(e: _Emitter, p: Dict, s: Dict, model) -> None:
+    e.conv("net.0", _get(p, "conv0"))
+    e.conv("net.2", _get(p, "conv1"))
+    e.wrapped_norm("net.3", p, s, "norm1")
+    e.conv("net.5", _get(p, "conv_out"))
+
+
+_HEMIT_MAPS = {"ResnetGeneratorSwinT": _hemit_swint, "ResnetGenerator": _resnet_generator,
+               "UnetGenerator": _unet_generator, "HybridSwinT": _hybrid_swint,
+               "HybridSwinT_2": _hybrid_swint, "SwinUnetGenerator": _swin_unet,
+               "NLayerDiscriminator": _nlayer_discriminator,
+               "PixelDiscriminator": _pixel_discriminator}
+
+
+def hemit_state_dict_from_jax(variables: Dict, model) -> Dict[str, np.ndarray]:
+    """JAX variables of a HEMIT-zoo module (``hemit.py``: the dual-branch
+    generator, the pix2pix generators and discriminators;
+    ``hemit_hybrid.py``: the three hybrids), whole or a sub-tree -> the
+    state dict of ``model``, the port's module of the same class (its
+    structure: block counts, the Swin's ``SwinConfig``)."""
+    e = _Emitter()
+    _HEMIT_MAPS[type(model).__name__](e, variables.get("params", {}),
+                                      variables.get("batch_stats", {}), model)
     return e.out
 
 

@@ -1,10 +1,10 @@
 """Foundation-encoder registry: ViTConfig presets for the pathology models.
 
 Counterpart of ``mipheivit_tpu/models/foundation.py``: its five ViT
-encoders (all head dim 64, so every one runs on K1) and the ResNet-50 of
+encoders (all head dim 64, so every one runs on K1), the ResNet-50 of
 the UNETR baseline (``restnet50_lunit_swav``, family "resnet", built by
-``models.cnn.UnetResnet50``). The Swin encoder (``ctranspath``) is not
-ported yet (ROADMAP.md queue 1, item 15: ``swin.py``).
+``models.cnn.UnetResnet50``) and ctranspath (family "swin": Swin-tiny with
+a conv stem, ``models.swin``, built by ``models.unetr.UnetrSwin``).
 """
 
 from __future__ import annotations
@@ -12,15 +12,17 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+from .swin import SwinConfig
 from .vit import ViTConfig
 
 
 @dataclasses.dataclass(frozen=True)
 class EncoderSpec:
     name: str
-    family: str                     # "vit" | "resnet"
+    family: str                     # "vit" | "swin" | "resnet"
     vit_cfg: Optional[ViTConfig] = None
     hf_repo: Optional[str] = None   # provenance only; no net access assumed
+    swin_cfg: Optional[SwinConfig] = None
 
 
 _VIT_SPECS = {
@@ -53,8 +55,7 @@ _VIT_SPECS = {
         "MountSinaiCompPath/SP85M"),
 }
 
-NOT_PORTED = ("ctranspath",)
-FOUNDATION_MODEL_NAMES = tuple(_VIT_SPECS) + ("restnet50_lunit_swav",) + NOT_PORTED
+FOUNDATION_MODEL_NAMES = tuple(_VIT_SPECS) + ("restnet50_lunit_swav", "ctranspath")
 
 
 def get_encoder_spec(name: str, img_size) -> EncoderSpec:
@@ -65,8 +66,11 @@ def get_encoder_spec(name: str, img_size) -> EncoderSpec:
         return EncoderSpec(name, "vit", ViTConfig(img_size=tuple(img_size), **kw), repo)
     if name == "restnet50_lunit_swav":
         return EncoderSpec(name, "resnet", None, "1aurent/resnet50.lunit_swav")
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"encoder {name!r} (Swin) is not ported to PyTorch yet "
-                                  "(ROADMAP.md queue 1, item 15: swin.py)")
+    if name == "ctranspath":
+        # timm swin_tiny_patch4_window7 with a conv stem
+        # (reference: foundation_models.py:161-184, 321-367)
+        return EncoderSpec(name, "swin", None, "jamesdolezal/CTransPath", swin_cfg=SwinConfig(
+            img_size=tuple(img_size), patch_size=4, embed_dim=96, depths=(2, 2, 6, 2),
+            num_heads=(3, 6, 12, 24), window_size=7, conv_stem=True))
     raise KeyError(f"Unknown encoder {name!r}; known: "
                    f"{', '.join(FOUNDATION_MODEL_NAMES)}")

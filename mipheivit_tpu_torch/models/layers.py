@@ -66,11 +66,13 @@ class Conv2d(nn.Conv2d):
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
-    """``nn.ConvTranspose2d`` (no output padding) casting like ``Conv2d``."""
+    """``nn.ConvTranspose2d`` casting like ``Conv2d``, with its
+    ``output_padding`` (the JAX package's ``ops/deconv.py``
+    ``TorchConvTranspose``: the HEMIT generators' k3 s2 p1 op1 upsamples)."""
 
     def forward(self, x):
         return F.conv_transpose2d(x, self.weight.to(x.dtype), _cast(self.bias, x), self.stride,
-                                  self.padding, 0, self.groups, self.dilation)
+                                  self.padding, self.output_padding, self.groups, self.dilation)
 
 
 class Linear(nn.Linear):
@@ -94,6 +96,31 @@ class LayerNorm2d(LayerNorm):
 
     def forward(self, x):
         return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+class FrozenBatchNorm2d(BatchNorm2d):
+    """``BatchNorm2d`` on its running statistics in training too (flax
+    ``nn.BatchNorm(use_running_average=True)``: the Swin conv stem's), in
+    f32 (f64 for f64 input), returning x's dtype."""
+
+    def forward(self, x):
+        ct = torch.promote_types(x.dtype, torch.float32)
+        return F.batch_norm(x.to(ct), self.running_mean.to(ct), self.running_var.to(ct),
+                            self.weight.to(ct), self.bias.to(ct), False, 0.0,
+                            self.eps).to(x.dtype)
+
+
+class InstanceNorm2d(nn.Module):
+    """Instance norm without affine parameters: per image and channel,
+    ``(x - mean) / sqrt(var + 1e-5)`` with the biased variance, in f32 (the
+    JAX package's ``hemit._Norm("instance")``, pix2pix's
+    ``InstanceNorm2d(affine=False)``)."""
+
+    def forward(self, x):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        var = xf.var(dim=(2, 3), keepdim=True, unbiased=False)
+        return ((xf - mean) * torch.rsqrt(var + 1e-5)).to(x.dtype)
 
 
 class Dropout(nn.Module):

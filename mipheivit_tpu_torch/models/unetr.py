@@ -1,4 +1,4 @@
-"""UNETR-style U-Net on a foundation-ViT pyramid (PyTorch).
+"""UNETR-style U-Net on a foundation-ViT or Swin pyramid (PyTorch).
 
 Counterpart of ``mipheivit_tpu/models/unetr.py`` (reference:
 src/generators/unet.py): the ViT's un-normed tokens after 4 blocks
@@ -19,7 +19,8 @@ and ``segmentation_head_{k}.{0,1}``; a reference checkpoint loads with
 
 The encoder blocks run K1 and K2 on the card, as the flagship's do; the
 convolutions run on cuDNN (XLA in the JAX package). NCHW inside, NHWC at
-the call.
+the call. ``UnetrSwin`` is the same decoder on ctranspath's Swin (one
+deconvolution block per stage), whose window attention is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from torch import nn
 from .foundation import get_encoder_spec
 from .layers import BatchNorm2d, Conv2d, ConvTranspose2d, Dropout, pix2pix_init
 from .mipheivit import SegmentationHead
+from .swin import SwinConfig, SwinTransformer
 from .vit import ViTConfig, VisionTransformer
 
 # the CellViT decoder's output width, which every marker head reads
@@ -197,19 +199,87 @@ class UnetrViT(nn.Module):
         return out.permute(0, 2, 3, 1).float()
 
 
+class SwinFeatureUpsampler(nn.Module):
+    """One deconvolution block per Swin stage beside the RGB conv-stem skip
+    (reference: unet.py:238-285, ``SwinViTFeatureUpsampler``): the 5
+    decoder inputs at strides 1, 2, 4, 8, 16."""
+
+    def __init__(self, dims: Sequence[int], drop_rate: float = 0.0):
+        super().__init__()
+        bottleneck = 312 if dims[-1] < 512 else 512
+        self.convsteam = nn.Sequential(Conv2DBlock(3, 32, 3, drop_rate),
+                                       Conv2DBlock(32, 64, 3, drop_rate))
+        outs = (128, 256, bottleneck, dims[3])
+        for j in range(4):
+            self.add_module(f"upsampler{j}", Deconv2DBlock(dims[j], outs[j], 3, drop_rate))
+        self.channels = (64,) + outs
+
+    def forward(self, x_rgb, features: Sequence[torch.Tensor]):
+        return [self.convsteam(x_rgb)] + [getattr(self, f"upsampler{j}")(f)
+                                          for j, f in enumerate(features)]
+
+
+class UnetrSwin(nn.Module):
+    """The UNETR generator on a Swin encoder (ctranspath; the JAX
+    ``UnetrSwin``, unetr.py:223-253): the four stages' un-normed outputs
+    (strides 4-32) each through one deconvolution block, the CellViT
+    decoder, one attention-gated head per marker. Input NHWC ``[B, H, W,
+    3]``, output NHWC f32. Names: ``encoder.model.*`` (timm's Swin),
+    ``encoder.feature_upsampler.{convsteam.{0,1},upsampler{0..3}}``,
+    ``decoder.*``, ``segmentation_head_{k}``. No kernel of the port is on
+    its path: window attention has a relative-position bias
+    (``models.swin``)."""
+
+    # the JAX module names: the Swin is ``model``, the upsampler's blocks sit
+    # at the top level (so no path starts with ``encoder/``)
+    JAX_SCOPES = {"encoder.model.": "model.", "encoder.feature_upsampler.": "feature_upsampler."}
+
+    def __init__(self, swin_cfg: SwinConfig, out_chans: int = 16, drop_rate: float = 0.0):
+        super().__init__()
+        self.out_chans = out_chans
+        self.encoder = nn.Module()
+        self.encoder.model = SwinTransformer(swin_cfg)
+        dims = [swin_cfg.stage_dim(i) for i in range(4)]
+        self.encoder.feature_upsampler = SwinFeatureUpsampler(dims, drop_rate)
+        self.decoder = CellViTDecoder(self.encoder.feature_upsampler.channels, drop_rate)
+        for k in range(out_chans):
+            self.add_module(f"segmentation_head_{k}", SegmentationHead(DECODER_OUT_CHANNELS))
+        for m in [self.encoder.feature_upsampler, self.decoder] + [
+                getattr(self, f"segmentation_head_{k}") for k in range(out_chans)]:
+            pix2pix_init(m)
+
+    @property
+    def swin_cfg(self) -> SwinConfig:
+        return self.encoder.model.cfg
+
+    def forward(self, x):
+        swin = self.encoder.model
+        dtype = swin.compute_dtype or next(swin.patch_embed.parameters()).dtype
+        x = x.to(dtype).permute(0, 3, 1, 2)
+        _, feats = swin(x)
+        feats = self.encoder.feature_upsampler(x, [f.permute(0, 3, 1, 2) for f in feats])
+        h = self.decoder(feats)
+        out = torch.cat([getattr(self, f"segmentation_head_{k}")(h)
+                         for k in range(self.out_chans)], dim=1)
+        return out.permute(0, 2, 3, 1).float()
+
+
 def build_unetr(model_name: str, img_size, nc_out: int, encoder_name: str = "hoptimus0",
                 dropout: float = 0.0) -> nn.Module:
-    """The JAX ``build_unetr``: a ViT encoder gives ``UnetrViT`` (LoRA rank
-    8, alpha 1 when ``"lora"`` is in the name), ``restnet50_lunit_swav``
-    gives ``UnetResnet50``; the Swin encoder (ctranspath) is not ported."""
+    """The JAX ``build_unetr``: a ViT encoder gives ``UnetrViT``, a Swin
+    encoder (ctranspath) ``UnetrSwin`` (each with LoRA rank 8, alpha 1 when
+    ``"lora"`` is in the name), ``restnet50_lunit_swav`` gives
+    ``UnetResnet50``."""
     spec = get_encoder_spec(encoder_name, img_size)
+    rank = 8 if "lora" in model_name else 0
     if spec.family == "vit":
-        use_lora = "lora" in model_name
-        vit_cfg = spec.vit_cfg.replace(lora_rank=8 if use_lora else 0, lora_alpha=1.0)
+        vit_cfg = spec.vit_cfg.replace(lora_rank=rank, lora_alpha=1.0)
         return UnetrViT(vit_cfg, out_chans=nc_out, drop_rate=dropout)
+    if spec.family == "swin":
+        return UnetrSwin(spec.swin_cfg.replace(lora_rank=rank), out_chans=nc_out,
+                         drop_rate=dropout)
     if spec.family == "resnet":
         from .cnn import UnetResnet50
 
         return UnetResnet50(out_chans=nc_out, drop_rate=dropout)
-    raise NotImplementedError(
-        f"unetr encoder family {spec.family!r} ({encoder_name}) is not ported to PyTorch yet")
+    raise NotImplementedError(f"unetr encoder family {spec.family!r} ({encoder_name})")

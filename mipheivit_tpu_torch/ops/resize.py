@@ -54,9 +54,11 @@ def resize_bilinear(x, out_hw: Tuple[int, int]):
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False)
 
 
-def upsample2x_bilinear(x):
-    """x2 bilinear upsample, ``align_corners=False`` (the fusion blocks)."""
-    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+def upsample2x_bilinear(x, align_corners: bool = False):
+    """x2 bilinear upsample: ``align_corners=False`` for the fusion blocks,
+    ``True`` for the HEMIT hybrids' ``nn.Upsample`` (the JAX package's
+    ``resize_bilinear_nhwc(align_corners=True)``)."""
+    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=align_corners)
 
 
 def resample_pos_embed(pos, new_grid: Tuple[int, int], num_prefix_tokens: int = 0,

@@ -41,7 +41,7 @@ def generator_state_dict(model: torch.nn.Module,
     """Reference-layout state dict of numpy arrays (floating values as f32);
     ``strip_foundation`` leaves out the foundation ViT but its LoRA
     adapters."""
-    if getattr(model.decoder, "fast_heads", False):
+    if getattr(getattr(model, "decoder", None), "fast_heads", False):
         raise ValueError("export takes the per-head decoder (fast_heads=False), "
                          "the reference layout")
     # the foundation ViT's own names (``encoder.vit.``, ``encoder.model.``)

@@ -21,8 +21,8 @@ the JAX chain's ``masked_updates`` has nothing to mask. The rule is the JAX
 package's ``is_trainable``, applied to each parameter's JAX module path
 (``jax_path``), so the port trains exactly the tensors the JAX package does.
 That includes its quirk: ``unet_lora`` and ``unet_frozen`` freeze nothing,
-because the JAX ``UnetrViT`` has no module named ``encoder``
-(ROADMAP.md queue 3).
+because the JAX ``UnetrViT`` and ``UnetrSwin`` have no module named
+``encoder`` (ROADMAP.md queue 3).
 
 The generator's chain takes the layer-wise LR decay of fully trainable
 ``unet`` encoders (``layer_decay_multiplier``) between the clip and Adam,
@@ -62,8 +62,9 @@ def is_trainable(name: str, model_name: str) -> bool:
 def jax_path(model: torch.nn.Module, name: str) -> str:
     """A parameter's name with its top-level scope renamed to the JAX
     module's (the model's ``JAX_SCOPES``; ``UnetrViT``'s
-    ``encoder.model.`` is the JAX ``encoder_vit``, for one). The flagship's
-    and the SMP U-Net's scopes are the JAX ones already."""
+    ``encoder.model.`` is the JAX ``encoder_vit``, ``UnetrSwin``'s the JAX
+    ``model``, for two). The flagship's, the SMP U-Net's and the HEMIT
+    generators' scopes are the JAX ones already (none is ``encoder``)."""
     for port, jax in getattr(model, "JAX_SCOPES", {}).items():
         if name.startswith(port):
             return jax + name[len(port):]

@@ -25,7 +25,7 @@ from ..data.pipeline import device_prefetch
 from ..data.stats import (Normalizer, get_effective_width_height, get_input_mean_std,
                           load_channel_stats)
 from ..data.table import Table
-from ..infer.loading import load_generator
+from ..infer.loading import load_trainer_export
 from ..metrics import PixelMetrics
 from ..metrics.cell import METRIC_KEYS, CellMetrics
 from ..utils import MetricsLogger
@@ -72,15 +72,17 @@ def test_model(cfg, checkpoint_dir: str, run_name: str, dtype: Optional[str] = N
         preprocess_target_fn=Normalizer(mode="if"))
     dm.setup()
 
-    model = load_generator(
+    model = load_trainer_export(
         cfg.model.model_name, encoder_name, checkpoint_dir, (height, width), nc_out,
         dtype=torch.bfloat16 if dtype == "bfloat16" else torch.float32, device=device,
-        encoder_ckpt_path=cfg.select("model.encoder.encoder_weights"), fast_heads=False)
+        encoder_ckpt_path=cfg.select("model.encoder.encoder_weights"),
+        foreground_head=bool(cfg.select("train.foreground_head", False)))
     state = TrainState(step=0, generator=model, gen_params=[], gen_opt_state=None,
                        device=device)
     loss_fn = build_reconstruction_loss(cfg, channel_names, channel_stats,
                                         train_dataframe=val_df)
-    eval_step = make_eval_step(model, loss_fn, StepConfig())
+    eval_step = make_eval_step(model, loss_fn, StepConfig(
+        foreground_head=bool(cfg.select("train.foreground_head", False))))
 
     cell_metrics = CellMetrics(slide_df, channel_names) if use_cell_metrics else None
     logger = MetricsLogger(checkpoint_dir, run_name=run_name, use_wandb=False)

@@ -355,3 +355,131 @@ def test_table_concat_isin_rename_sample_to_csv_match_pandas(tmp_path):
                                                                       "False"]
     back = pd.read_csv(tmp_path / "got.csv")
     pd.testing.assert_frame_equal(back, pd.read_csv(io.StringIO(buf.getvalue())))
+
+
+# -- the HEMIT-pipeline scripts: a HEMIT-codebase checkpoint ----------------
+
+HEMIT_SWIN = dict(patch_size=2, embed_dim=16, depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8),
+                  window_size=4)
+
+
+@pytest.fixture
+def hemit_tiny(eval_setup, monkeypatch):
+    """Both packages build a tiny dual-branch generator wherever the
+    pipeline scripts build ``build_hemit`` / ``build_hemit_netG`` (ngf 8,
+    one ResNet block, a Swin of patch 2: the fixture's 32-px tiles and the
+    16 px of eval_hemit's half resolution keep four stages). The JAX
+    script's imported tree is handed over as device arrays (ROADMAP.md
+    queue 3: as numpy arrays its jitted forward raises)."""
+    from mipheivit_tpu.models.hemit import ResnetGeneratorSwinT as JG
+    from mipheivit_tpu.models.swin import SwinConfig as JC
+    from mipheivit_tpu_torch.evaluation import eval_orion_hemit_pipeline as port_pipeline
+    from mipheivit_tpu_torch.models.hemit import ResnetGeneratorSwinT
+    from mipheivit_tpu_torch.models.swin import SwinConfig
+
+    monkeypatch.syspath_prepend(str(EVAL_DIR))
+    import eval_orion_hemit_pipeline as jax_pipeline
+
+    def jax_builder(img_size, nc_in, nc_out, cfg=None, dtype="float32"):
+        return JG(out_channels=nc_out, ngf=8, n_blocks=1,
+                  swin_cfg=JC(img_size=(img_size, img_size), **HEMIT_SWIN))
+
+    def port_builder(netG, img_size, nc_in=3, nc_out=3, **kw):
+        assert netG == "SwinTResnet"
+        return ResnetGeneratorSwinT(nc_out, img_size, ngf=8, n_blocks=1,
+                                    swin_cfg=SwinConfig(img_size=(img_size, img_size),
+                                                        **HEMIT_SWIN))
+
+    def jax_import(*args, **kw):
+        # the JAX script jits a closure over the importer's numpy arrays, and
+        # a numpy bias table indexed by a traced index raises
+        # (TracerArrayConversionError); as device arrays they run
+        import jax
+        import jax.numpy as jnp
+
+        return jax.tree.map(jnp.asarray, import_hemit(*args, **kw))
+
+    import_hemit = jax_pipeline.hemit_swint_from_torch
+    monkeypatch.setattr(jax_pipeline, "build_hemit", jax_builder)
+    monkeypatch.setattr(jax_pipeline, "hemit_swint_from_torch", jax_import)
+    monkeypatch.setattr(port_pipeline, "build_hemit_netG", port_builder)
+    return jax_builder, port_builder
+
+
+def _hemit_dirs(eval_setup, tmp_path, hemit_tiny, train_csv=None):
+    """``_dirs`` with a HEMIT-codebase ``latest_net_G.pth`` (the older timm
+    layout, written from seeded JAX variables of the tiny generator at the
+    tiles' 32 px) in each."""
+    from test_torch_hemit_import import _reference_layout
+    from torch_family_helpers import init_jax
+
+    jax_builder, port_builder = hemit_tiny
+    v = init_jax(jax_builder(32, 3, len(MARKERS)), np.zeros((1, 32, 32, 3), np.float32), 8,
+                 train=False)
+    sd = _reference_layout(v, port_builder("SwinTResnet", 32, 3, len(MARKERS)), "swinT.",
+                           old_timm_layout=True)
+    dirs = _dirs(eval_setup, tmp_path, train_csv)
+    for d in dirs.values():
+        torch.save({k: torch.from_numpy(np.array(a)) for k, a in sd.items()},
+                   d / "latest_net_G.pth")
+    return dirs
+
+
+def test_eval_orion_hemit_pipeline_matches_jax(eval_setup, hemit_tiny, tmp_path, monkeypatch):
+    from mipheivit_tpu_torch.evaluation import eval_orion_hemit_pipeline
+
+    dirs = _hemit_dirs(eval_setup, tmp_path, hemit_tiny)
+    _run_jax("eval_orion_hemit_pipeline", dirs["jax"], monkeypatch)
+    out = _run_port(eval_orion_hemit_pipeline, dirs["port"])
+    for name in ("results_logreg.csv", "cell_dataframe.csv"):
+        assert_csvs_match(dirs["port"] / name, dirs["jax"] / name)
+    assert np.isfinite(out["results"]["ROC AUC"]).all()
+
+
+def test_eval_immucan_hemit_pipeline_matches_jax(eval_setup, hemit_tiny, tmp_path, monkeypatch):
+    """After the ORION pipeline's logreg (each package its own), the
+    pix2pix-normalised per-tile pooling and the Pearson correlations."""
+    from mipheivit_tpu_torch.evaluation import (eval_immucan_hemit_pipeline,
+                                                eval_orion_hemit_pipeline)
+
+    _, base, _ = eval_setup
+    dirs = _hemit_dirs(eval_setup, tmp_path, hemit_tiny)
+    _run_jax("eval_orion_hemit_pipeline", dirs["jax"], monkeypatch)
+    _run_port(eval_orion_hemit_pipeline, dirs["port"])
+    for side in dirs:
+        cfg = load_yaml(dirs[side] / "config.yaml")
+        cfg.data.test_dataframe_path = str(base / "immucan.csv")
+        save_config(cfg, dirs[side] / "config.yaml")
+    _run_jax("eval_immucan_hemit_pipeline", dirs["jax"], monkeypatch)
+    out = _run_port(eval_immucan_hemit_pipeline, dirs["port"])
+    for name in ("immucan_corr.csv", "immucan_tile_sums.csv"):
+        assert_csvs_match(dirs["port"] / name, dirs["jax"] / name)
+    assert "CD3e" in out["corr"]["Marker"].tolist()
+
+
+def test_eval_hemit_hemit_pipeline_matches_jax(eval_setup, hemit_tiny, tmp_path, monkeypatch,
+                                               capsys):
+    """The generator built at half the tile width (its bias tables resampled
+    on import), through ``main()`` with ``--device cpu``."""
+    from mipheivit_tpu_torch.evaluation import eval_hemit_hemit_pipeline
+
+    _, base, _ = eval_setup
+    dirs = _hemit_dirs(eval_setup, tmp_path, hemit_tiny, train_csv=base / "val.csv")
+    _run_jax("eval_hemit_hemit_pipeline", dirs["jax"], monkeypatch)
+    out = eval_hemit_hemit_pipeline.main(
+        ["--checkpoint_dir", str(dirs["port"]), "--dataset_config_path", "/nonexistent.yaml",
+         "--batch_size", "2", "--device", "cpu"])
+    for name in ("hemit_results_logreg_val.csv", "hemit_results_logreg_test.csv"):
+        assert_csvs_match(dirs["port"] / name, dirs["jax"] / name)
+    assert np.isfinite(out["test"]["ROC AUC"]).all()
+    assert "ROC AUC" in capsys.readouterr().out
+
+
+def test_hemit_pipeline_finds_the_checkpoint_or_raises(tmp_path):
+    from mipheivit_tpu_torch.evaluation.eval_orion_hemit_pipeline import build_hemit_forward
+
+    with pytest.raises(FileNotFoundError, match="HEMIT generator checkpoint"):
+        build_hemit_forward(str(tmp_path), 32, 3, device="cpu")
+    torch.save({}, tmp_path / "net_G.pth")
+    with pytest.raises(NotImplementedError, match="resnet_9blocks"):
+        build_hemit_forward(str(tmp_path), 32, 3, netG="resnet_9blocks", device="cpu")

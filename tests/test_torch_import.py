@@ -27,6 +27,10 @@ CHIP_PATH = [
     "mipheivit_tpu_torch.models.unetr",
     "mipheivit_tpu_torch.models.smp_unet",
     "mipheivit_tpu_torch.models.convert",
+    "mipheivit_tpu_torch.models.swin",
+    "mipheivit_tpu_torch.models.hemit",
+    "mipheivit_tpu_torch.models.hemit_hybrid",
+    "mipheivit_tpu_torch.models.import_hemit",
     "mipheivit_tpu_torch.io.safetensors",
     "mipheivit_tpu_torch.infer",
     "mipheivit_tpu_torch.infer.loading",
@@ -54,6 +58,10 @@ CHIP_PATH = [
     "mipheivit_tpu_torch.evaluation.eval_orion",
     "mipheivit_tpu_torch.evaluation.eval_immucan",
     "mipheivit_tpu_torch.evaluation.eval_hemit",
+    "mipheivit_tpu_torch.evaluation.eval_orion_hemit_pipeline",
+    "mipheivit_tpu_torch.evaluation.eval_immucan_hemit_pipeline",
+    "mipheivit_tpu_torch.evaluation.eval_hemit_hemit_pipeline",
+    "mipheivit_tpu_torch.hemit.train_hemit",
     "mipheivit_tpu_torch.slideio",
 ]
 

@@ -196,3 +196,21 @@ def test_generator_state_dict_strips_prefixes():
     state = {"generator._orig_mod.decoder.w": 1, "discriminator.w": 2}
     assert generator_state_dict(state) == {"decoder.w": 1}
     assert generator_state_dict({"_orig_mod.a": 3}) == {"a": 3}
+
+
+@pytest.mark.parametrize("model_name,encoder_name,imports", [
+    ("myvitmatte", "hoptimus0", True), ("unet_lora", "hoptimus0", True),
+    ("unet_lora", "ctranspath", False), ("hemit", "hoptimus0", False),
+    ("smp_unet", "tu-convnext_large", False), ("unet", "restnet50_lunit_swav", False)])
+def test_imports_reference_checkpoint_follows_load_generator(model_name, encoder_name, imports):
+    """One predicate says which families ``load_generator`` imports (the
+    flagship and the UNETR on a ViT, as the JAX one); the rest it refuses,
+    and ``load_trainer_export`` reads the trainer's own export for them."""
+    from mipheivit_tpu_torch.models import get_generator
+
+    model = get_generator(model_name, 256, NC, encoder_name, device="meta")
+    assert port_loading.imports_reference_checkpoint(model) is imports
+    if not imports:
+        with pytest.raises(NotImplementedError, match="checkpoint import not implemented"):
+            port_loading.load_generator(model_name, encoder_name, "no-such-dir", 256, NC,
+                                        device="meta")

@@ -40,18 +40,20 @@ STAT_ATOL, STAT_RTOL = 1e-5, 1e-5
 
 
 @pytest.mark.parametrize("model_name", ["unet_lora", "unet_frozen", "unet", "smp_unet",
-                                        "unet_resnet50"])
+                                        "unet_resnet50", "unet_lora@ctranspath",
+                                        "unet_frozen@ctranspath", "hemit"])
 def test_trainable_partition_matches_jax(model_name):
     """``set_trainable`` trains the tensors ``partition_params`` trains:
-    every one of the UNETR and the SMP U-Net, ``unet_lora`` and
-    ``unet_frozen`` included (the JAX ``UnetrViT`` has no module named
+    every one of the UNETR (on a ViT and on ctranspath's Swin), the SMP
+    U-Net and the HEMIT generator, ``unet_lora`` and ``unet_frozen``
+    included (the JAX ``UnetrViT`` and ``UnetrSwin`` have no module named
     ``encoder``, which the rule freezes)."""
     from mipheivit_tpu.train.optim import partition_params
     from mipheivit_tpu_torch.train.optim import set_trainable
 
     jmodel, model, to_port = family(model_name)
     v = family_variables(jmodel)
-    name = "unet" if model_name == "unet_resnet50" else model_name
+    name = "unet" if model_name == "unet_resnet50" else model_name.split("@")[0]
     trainable, frozen = partition_params(v["params"], name)
     want_t = {k for k in to_port({"params": trainable}) if "running_" not in k}
     want_f = {k for k in to_port({"params": frozen}) if "running_" not in k} if frozen else set()
@@ -131,9 +133,10 @@ def test_dropout_draws_from_the_state_generator():
 
 
 def test_chip_smoke_unetr_preset_is_the_composed_preset():
-    """``chip_smoke.py`` trains the UNETR preset from a dict (the card has no
-    PyYAML): it equals the port's ``compose`` of ``+default_configs=unetr``,
-    which holds the JAX package's tree byte for byte."""
+    """``chip_smoke.py`` trains the UNETR preset (and the hemit and
+    ctranspath ones) from a dict (the card has no PyYAML): each equals the
+    port's ``compose`` of its preset, which holds the JAX package's tree
+    byte for byte."""
     import sys
 
     from mipheivit_tpu_torch.config import compose
@@ -143,6 +146,9 @@ def test_chip_smoke_unetr_preset_is_the_composed_preset():
 
     assert chip_smoke.UNETR_PRESET == compose(["+default_configs=unetr"]).to_dict()
     assert chip_smoke.UNETR_PRESET["model"]["model_name"] == "unet_lora"
+    assert chip_smoke.HEMIT_PRESET == compose(["+default_configs=hemit"]).to_dict()
+    assert chip_smoke.CTRANSPATH_PRESET == compose(
+        ["+experiments/foundation_models=ctranspath"]).to_dict()
 
 
 # ---------------------------------------------------------------------------
@@ -302,3 +308,66 @@ def _assert_moved_like(got, want, before, step, name):
     assert diff.max() <= STEP_SLACK * step, (name, diff.max(), step)
     assert np.mean(diff > close) <= MAX_FAR_SHARE, (name, np.mean(diff > close))
     assert np.abs(want - before).max() > 0, name
+
+
+# ---------------------------------------------------------------------------
+# the HEMIT preset and the ctranspath experiment through the port's trainer
+
+
+def _tiny_swin_family(model_name, img_size, nc_out, encoder_name="hoptimus0",
+                      dtype=torch.float32, device="cpu", dropout=0.0, foreground_head=False):
+    """Stands in for the port's ``get_generator``: the tiny generators of
+    ``torch_family_helpers.family`` at the synthetic run's 32 px."""
+    from mipheivit_tpu_torch.models.hemit import ResnetGeneratorSwinT
+    from mipheivit_tpu_torch.models.swin import SwinConfig
+    from mipheivit_tpu_torch.models.unetr import UnetrSwin
+    from torch_family_helpers import SWIN_TINY
+
+    size = (img_size, img_size) if isinstance(img_size, int) else tuple(img_size)
+    swin = dict(SWIN_TINY, patch_size=2, img_size=size)
+    with torch.device(device):
+        if model_name == "hemit":
+            return ResnetGeneratorSwinT(nc_out, size, ngf=8, n_blocks=1,
+                                        swin_cfg=SwinConfig(**swin)).eval()
+        assert encoder_name == "ctranspath"
+        return UnetrSwin(SwinConfig(conv_stem=True, lora_rank=8 if "lora" in model_name else 0,
+                                    **dict(swin, patch_size=4)),
+                         nc_out).eval()
+
+
+@pytest.mark.parametrize("preset", ["+default_configs=hemit",
+                                    "+experiments/foundation_models=ctranspath"])
+def test_train_patchgan_and_test_model_run_the_swin_presets(preset, tmp_path, monkeypatch):
+    """The ``hemit`` preset (cell metrics, monitor ``val_cell_auc``) and the
+    ctranspath experiment file (``unet_lora``: every tensor trains, as in
+    JAX) as they ship, on the synthetic run with tiny generators: two epochs
+    of ``train_patchgan``, then ``test_model`` on the export, which
+    ``load_generator`` refuses for these families (as in JAX) and
+    ``load_trainer_export`` loads as the trainer wrote it."""
+    import mipheivit_tpu_torch.train.test_driver as port_driver
+    from mipheivit_tpu_torch.config import compose
+
+    values = syn.write_run(tmp_path / "run", cells=True)
+    cfg = syn.configure(compose([preset]), values, cells="hemit" in preset)
+    if "ctranspath" in preset:
+        cfg.set_dotted("train.use_cell_metrics", False)
+    monkeypatch.setattr(port_trainer, "get_generator", _tiny_swin_family)
+    monkeypatch.setattr(port_loading, "get_generator", _tiny_swin_family)
+    out = port_trainer.train_patchgan(cfg, str(tmp_path / "logs"), use_wandb=False,
+                                      device="cpu")
+    state = out["state"]
+    assert len(state.gen_params) == sum(1 for _ in state.generator.parameters())
+    lines = _lines_of(tmp_path / "logs")
+    assert [line["epoch"] for line in lines if "epoch" in line] == [0, 1]
+    with pytest.raises(NotImplementedError, match="checkpoint import not implemented"):
+        port_loading.load_generator(cfg.model.model_name,
+                                    cfg.select("model.encoder.encoder_name"),
+                                    tmp_path / "logs", (32, 32), 2, device="cpu")
+    res = port_driver.test_model(cfg, str(tmp_path / "logs"), "swin", device="cpu")
+    assert np.isfinite(res["test_psnr"]) and np.isfinite(res["val_gen_loss_sim"])
+    if "hemit" in preset:
+        assert np.isfinite(res["val_cell_auc"])
+
+
+def _lines_of(logdir):
+    return [json.loads(x) for x in (Path(logdir) / "metrics.jsonl").read_text().splitlines()]

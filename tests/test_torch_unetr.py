@@ -222,8 +222,9 @@ def test_golden_fixture_through_load_generator(tmp_path, monkeypatch):
 
 def test_unported_and_unknown_encoders_raise_as_in_jax():
     """``unet`` on ``resnet50`` (experiments/models/resnet.yaml) is a
-    ``KeyError`` in both packages; the Swin encoder and HEMIT are not
-    ported and say where they are queued."""
+    ``KeyError`` in both packages and ``cellvit`` is no generator of
+    either; the Swin encoder (ctranspath) and HEMIT build as in JAX."""
+    from mipheivit_tpu.config import compose
     from mipheivit_tpu.models import get_generator as jax_get_generator
     from mipheivit_tpu.models.foundation import get_encoder_spec as jax_spec
 
@@ -231,12 +232,15 @@ def test_unported_and_unknown_encoders_raise_as_in_jax():
         jax_spec("resnet50", 256)
     with pytest.raises(KeyError):
         get_generator("unet", 256, 16, "resnet50", device="meta")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        get_generator("unet_lora", 256, 16, "ctranspath", device="meta")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        get_generator("hemit", 256, 16, device="meta")
+    swin_cfg = compose(["model.encoder.encoder_name=ctranspath"])
+    assert type(get_generator("unet_lora", 256, 16, "ctranspath", device="meta")).__name__ == \
+        type(jax_get_generator("unet_lora", 256, 3, 16, swin_cfg)).__name__ == "UnetrSwin"
+    assert type(get_generator("hemit", 256, 16, device="meta")).__name__ == \
+        type(jax_get_generator("hemit", 256, 3, 16)).__name__ == "ResnetGeneratorSwinT"
     with pytest.raises(NotImplementedError):
         get_generator("cellvit", 256, 16, device="meta")
+    with pytest.raises(NotImplementedError):
+        jax_get_generator("cellvit", 256, 3, 16)
     assert type(jax_get_generator("unet", 256, 3, 16)).__name__ == "UnetrViT"
 
 

@@ -124,17 +124,43 @@ def vit_cfgs(lora_rank, img=64, dtype="float32"):
     return JC(attn_impl="xla", remat=False, dtype=dtype, **kw), ViTConfig(**kw)
 
 
+SWIN_TINY = dict(patch_size=4, embed_dim=16, depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 8),
+                 window_size=4)
+
+
 def family(model_name, fg=False, img=64, dtype="float32"):
     """(JAX module, port module, JAX-to-port state-dict map) of a tiny
-    generator of ``model_name``; ``dtype`` is the JAX module's compute
+    generator of ``model_name`` (``name@ctranspath`` for the UNETR on the
+    Swin with the conv stem); ``dtype`` is the JAX module's compute
     dtype."""
-    from mipheivit_tpu_torch.models.convert import (smp_unet_state_dict_from_jax,
+    from mipheivit_tpu_torch.models.convert import (hemit_state_dict_from_jax,
+                                                    smp_unet_state_dict_from_jax,
                                                     unet_resnet50_state_dict_from_jax,
-                                                    unetr_state_dict_from_jax)
+                                                    unetr_state_dict_from_jax,
+                                                    unetr_swin_state_dict_from_jax)
     from mipheivit_tpu_torch.models.smp_unet import UnetMultiHeads
-    from mipheivit_tpu_torch.models.unetr import UnetrViT
-    from mipheivit_tpu_torch.models.vit import ViTConfig
+    from mipheivit_tpu_torch.models.swin import SwinConfig
+    from mipheivit_tpu_torch.models.unetr import UnetrSwin, UnetrViT
 
+    if model_name == "hemit":
+        from mipheivit_tpu.models.hemit import ResnetGeneratorSwinT as JG
+        from mipheivit_tpu.models.swin import SwinConfig as JC
+        from mipheivit_tpu_torch.models.hemit import ResnetGeneratorSwinT
+
+        kw = dict(ngf=8, n_blocks=1, top_k=100)
+        model = ResnetGeneratorSwinT(OUT, img, swin_cfg=SwinConfig(img_size=(img, img),
+                                                                   **SWIN_TINY), **kw)
+        return (JG(out_channels=OUT, swin_cfg=JC(img_size=(img, img), dtype=dtype, **SWIN_TINY),
+                   **kw), model, lambda v: hemit_state_dict_from_jax(v, model))
+    if model_name.endswith("@ctranspath"):
+        from mipheivit_tpu.models.swin import SwinConfig as JC
+        from mipheivit_tpu.models.unetr import UnetrSwin as JU
+
+        kw = dict(img_size=(img, img), conv_stem=True, lora_rank=8 if "lora" in model_name else 0,
+                  **SWIN_TINY)
+        pcfg = SwinConfig(**kw)
+        return (JU(swin_cfg=JC(dtype=dtype, **kw), out_chans=OUT), UnetrSwin(pcfg, out_chans=OUT),
+                lambda v: unetr_swin_state_dict_from_jax(v, pcfg))
     if model_name.startswith("smp_unet"):
         from mipheivit_tpu.models.smp_unet import UnetMultiHeads as JU
 
@@ -157,12 +183,16 @@ def family_variables(jmodel, img=64, seed=0):
     """Seeded JAX variables of ``jmodel`` (``perturbed``), LoRA B non-zero."""
     x = np.zeros((2, img, img, 3), np.float32)
     v = init_jax(jmodel, x, seed, train=False)
-    vit = v["params"].get("encoder_vit")
-    if vit is not None and "lora_q" in vit["blocks"]["attn"]:
-        g = np.random.default_rng(seed + 9)
-        for lq in ("lora_q", "lora_v"):
-            b = vit["blocks"]["attn"][lq]["B"]
-            vit["blocks"]["attn"][lq]["B"] = (g.standard_normal(b.shape) * 0.05).astype(np.float32)
+    g = np.random.default_rng(seed + 9)
+
+    def lora_b(tree):
+        for key, sub in tree.items():
+            if key in ("lora_q", "lora_v"):
+                sub["B"] = (g.standard_normal(sub["B"].shape) * 0.05).astype(np.float32)
+            elif isinstance(sub, dict):
+                lora_b(sub)
+
+    lora_b(v["params"])
     return v
 
 
@@ -197,7 +227,8 @@ def _t(a):
 
 
 def train_step_matches_jax(model_name, gan, fg, monkeypatch):
-    """One train step of the tiny ``model_name`` generator (with the GAN,
+    """One train step of the tiny ``model_name`` generator (``family``'s
+    names; with the GAN,
     with the foreground head) against JAX's ``make_train_step`` from the
     same weights with dropout 0: two microbatches (two optimizer steps, the
     first a zero update), every loss of each, BatchNorm running statistics
@@ -232,6 +263,7 @@ def _train_step(model_name, gan, fg, monkeypatch):
 
     jmodel, model, to_port = family(model_name, fg, dtype="float64")
     v = family_variables(family(model_name, fg)[0])
+    model_name = model_name.split("@")[0]
     v64 = jax.tree.map(lambda a: np.asarray(a, np.float64), v)
     batches = [{k: a.astype(np.float64) for k, a in b.items()} for b in _batches(2)]
     weights = np.random.default_rng(7).uniform(1.0, 2.0, OUT).astype(np.float32)
