@@ -123,6 +123,29 @@ Then the Swin models, with no kernel of the port on their paths (K1-K8 = 0):
   [eval orion|immucan|hemit hemit pipeline] each HEMIT-pipeline script on a
                HEMIT-codebase checkpoint written as latest_net_G.pth.
 
+Several cards (the machine shows one: the ranks are 2 processes spawned on
+it, joined over gloo, which carries CUDA tensors through the host; NCCL
+refuses a duplicate GPU), at full width and depth:
+  [collectives] all_gather_into_tensor, reduce_scatter_tensor and
+               all_reduce of the k|v of a 1024-px block between the ranks,
+               timed, and whether NCCL carries them;
+  [seq shard wsi 1024] wsi_inference(seq_shard_mesh) over the 2048^2 slide
+               in 1024-px windows, each window's 5334 tokens sharded over
+               the ranks (K4 on 2667 query rows over the gathered keys),
+               within 1 uint8 step of [wsi 1024]; K4's rectangle beside
+               the square call;
+  [seq shard 2048] one 2048-px region (21 321 tokens) sharded, each rank's
+               peak memory, against the unsharded forward (Pearson);
+  [train seq shard 1024] the generator step at 1024 px sharded (K4, K5),
+               LoRA gradients against one rank's step, the reduced LoRA and
+               decoder gradient norms against its, replicas identical;
+  [trainer ddp] train_patchgan over the ranks at [trainer]'s global batch:
+               its loss and first step's reduced gradient norms against
+               [trainer]'s, replicas identical, rank 0 alone writes;
+  [serve dp], [wsi dp] build_serving_fn and wsi_inference with each batch
+               split over two replicas on the card (make_data_mesh),
+               against one replica's answer.
+
 Before the paths, [head dims] runs the four attention entry points at head
 dims 12, 32, 36 and 40 through their kernels (K1, K4, K5, K6; zero-padded
 to 64), ln_matmul at N 200 and K 192 and at K 100 (zero-padded to 104)
@@ -1315,7 +1338,7 @@ def train_model(ckpt, enc, img, device, depth=None):
     return model
 
 
-def train_setup(model, device, frozen_dtype, grad_checkpointing=False):
+def train_setup(model, device, frozen_dtype, grad_checkpointing=False, mesh=None):
     from mipheivit_tpu_torch.train import (build_generator_optimizer, create_train_state,
                                            make_train_step, scaled_lr, weighted_mse_loss)
     from mipheivit_tpu_torch.train.losses import marker_weights_from_stds
@@ -1324,7 +1347,7 @@ def train_setup(model, device, frozen_dtype, grad_checkpointing=False):
                                     grad_accum_steps=ACCUM)
     state = create_train_state(model, opt, freeze_model_name="myvitmatte",
                                frozen_dtype=frozen_dtype, seed=SEED, device=device,
-                               grad_checkpointing=grad_checkpointing)
+                               grad_checkpointing=grad_checkpointing, mesh=mesh)
     stds = np.random.default_rng(SEED + 5).uniform(0.1, 0.3, MARKERS)
     loss = weighted_mse_loss(LAMBDA, marker_weights_from_stds(stds))
     return state, make_train_step(model, loss, opt)
@@ -1461,8 +1484,8 @@ def serial_stitch(model, image, tile, overlap, batch, device):
 
 def wsi_phase(name, model, image, tile, overlap, batch, device):
     """Drive wsi_inference once with the launch counts at 0, read them, and
-    hold the stitched slide against the serial stitch. Returns the counts
-    and the pipeline's stats."""
+    hold the stitched slide against the serial stitch. Returns the counts,
+    the pipeline's stats and the stitched slide."""
     from mipheivit_tpu_torch.infer import ArraySlide, wsi_inference
     from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE
 
@@ -1493,7 +1516,7 @@ def wsi_phase(name, model, image, tile, overlap, batch, device):
           f"{time.perf_counter() - t1:.1f} s)", flush=True)
     check(out.shape == (MARKERS,) + image.shape[:2], f"{name} output shape {out.shape}")
     check(diff <= 1, f"{name}: the stitched slide differs from the serial stitch by {diff}")
-    return counts, stats
+    return counts, stats, out
 
 
 def write_trainer_data(root: Path, seed: int, img: int = IMG, tiles=TRAINER_TILES,
@@ -1560,14 +1583,31 @@ def trainer_config(overrides: dict):
     return cfg
 
 
-def instrument_trainer(trainer):
+def grad_norms(grads: dict) -> dict:
+    """The global norms of a step's LoRA and decoder gradients (the other
+    trainable tensors with the decoder), in f64."""
+    parts = {"lora": [], "decoder": []}
+    for name, g in grads.items():
+        parts["lora" if ".lora_" in name else "decoder"].append(g.detach().double().norm())
+    return {k: float(torch.stack(v).norm()) for k, v in parts.items()}
+
+
+def norm_ratio(got: dict, want: dict) -> dict:
+    """``got``'s gradient norms over ``want``'s, by part."""
+    return {k: got[k] / want[k] for k in want}
+
+
+def instrument_trainer(trainer, norms: bool = False):
     """Time what the [trainer] phase reports without changing the path:
     wrap the trainer module's ``create_train_state`` (keep copies of the
     frozen and trainable weights as built), ``make_train_step`` (a CUDA event
     behind each step; no sync), ``device_prefetch`` (the host wall time of
     each loop and its loader's statistics), ``save_train_state`` and
-    ``restore_train_state`` (seconds). Returns the records and an undo."""
-    rec = {"states": [], "events": [], "loops": [], "save_s": [], "restore_s": []}
+    ``restore_train_state`` (seconds), and with ``norms`` each run's first
+    step's gradient norms (``grad_norms``, a sync). Returns the records and
+    an undo."""
+    rec = {"states": [], "events": [], "loops": [], "save_s": [], "restore_s": [],
+           "grad_norms": []}
     names = ("create_train_state", "make_train_step", "device_prefetch", "save_train_state",
              "restore_train_state")
     real = {name: getattr(trainer, name) for name in names}
@@ -1586,6 +1626,8 @@ def instrument_trainer(trainer):
 
         def timed(*args):
             out = step(*args)
+            if norms and not rec["events"][-1]:
+                rec["grad_norms"].append(grad_norms(out[2]["grads"]))
             event = torch.cuda.Event(enable_timing=True)
             event.record()
             rec["events"][-1].append(event)
@@ -1627,14 +1669,16 @@ def trainer_phase(tmp: Path, ckpt: Path, enc: Path, depth: int, train256_rate: f
     backward terms). Checks finite losses, frozen weights bit-identical,
     LoRA and decoder weights moved, the resumed step, ``status.txt``, the
     step-1 PNG and the exact launch counts. Returns the counts, the config,
-    the run's directory and the slower of its two steady rates (images/s)."""
+    the run's directory, the slower of its two steady rates (images/s) and
+    the reference [trainer ddp] is held to (the data's config values, the
+    first epoch's mean loss, that rate, the first step's gradient norms)."""
     import mipheivit_tpu_torch.train.trainer as trainer
 
     t_all = time.perf_counter()
     data = write_trainer_data(tmp / "trainer_data", SEED + 7)
     t_data = time.perf_counter() - t_all
     logdir = tmp / "trainer_run"
-    rec, undo = instrument_trainer(trainer)
+    rec, undo = instrument_trainer(trainer, norms=True)
     runs, t_runs = [], []
     try:
         reset_counts()
@@ -1699,7 +1743,9 @@ def trainer_phase(tmp: Path, ckpt: Path, enc: Path, depth: int, train256_rate: f
     n_fwd = 2 * TRAINER_STEPS + 1 + n_val
     check_counts("[trainer]", counts, k1=depth * n_fwd, k2=depth * n_fwd,
                  k2b=depth * 2 * TRAINER_STEPS)
-    return counts, cfg, logdir, min(rates)
+    reference = {"data": data, "loss": runs[0]["history"][0]["gen_loss"], "rate": min(rates),
+                 "grad_norms": rec["grad_norms"][0]}
+    return counts, cfg, logdir, min(rates), reference
 
 
 def test_driver_phase(cfg, logdir: Path, depth: int):
@@ -2994,6 +3040,501 @@ def pearson(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return (a * b).sum(0) / np.sqrt((a * a).sum(0) * (b * b).sum(0))
 
 
+# ---- multi-card paths: ranks spawned on the one card ----------------------
+
+# two ranks share the one card (gloo: NCCL refuses a duplicate GPU); each
+# phase drives the path a user of several cards runs, one process a card
+PAR_RANKS = 2
+SEQ_WSI_BATCH = 1                # [seq shard wsi 1024]: one window a forward
+SEQ_REGION = 2048                # [seq shard 2048]: 146 x 146 + 5 = 21 321 tokens
+SEQ_TOKENS = (SEQ_REGION // 14) ** 2 + 5
+SEQ_PEARSON = 0.999              # sharded against unsharded forward, bf16, per marker
+SEQ_LORA_COS = 0.999             # [train seq shard 1024] against the one-rank step
+# the reduced gradient's norm over the one-process step's, LoRA and decoder
+# apart: a gradient scaled by the shard count is off by 2x here (Adam hides
+# such a scale from the losses); the rest is room for bf16 rounding
+GRAD_NORM_TOL = 1e-2
+DDP_BATCH = MICRO // PAR_RANKS   # [trainer ddp]: 4 a rank, [trainer]'s global 8
+DDP_LOSS_RTOL = 1e-4             # its epoch's mean loss against [trainer]'s (bf16)
+COLLECTIVE_REPS = 5
+
+
+def _sync_ms(fn, group, reps=COLLECTIVE_REPS):
+    """Median wall ms of ``fn()`` on every rank at once (a barrier before
+    each call, the card synchronized around it), after one warm-up call."""
+    import torch.distributed as dist
+
+    fn()
+    times = []
+    for _ in range(reps):
+        dist.barrier(group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def collectives_rank(dev):
+    """[collectives]: the three collectives of the port, on CUDA tensors at
+    the k | v size of a 1024-px block: all_gather_into_tensor of each
+    rank's [1, 2667, 3072] bf16 shard (16.4 MB in, 32.8 MB out),
+    reduce_scatter_tensor of [1, 5334, 3072] (32.8 MB in) and all_reduce of
+    it, each through the port's helpers."""
+    import torch.distributed as dist
+
+    from mipheivit_tpu_torch.parallel import make_mesh
+    from mipheivit_tpu_torch.parallel.seq import _all_gather_tokens, _reduce_scatter_tokens
+
+    group = make_mesh(1, PAR_RANKS).model_group
+    g = torch.Generator(device=dev).manual_seed(SEED + 80 + dist.get_rank())
+    rows = -(-REGION_S // PAR_RANKS)
+    whole = torch.randn(1, rows * PAR_RANKS, 2 * HD, device=dev, generator=g).to(torch.bfloat16)
+    half = whole[:, :rows].contiguous()
+    gathered = _all_gather_tokens(half, group)
+    ok = gathered.shape == whole.shape and torch.equal(
+        gathered[:, dist.get_rank() * half.shape[1]:][:, :half.shape[1]], half)
+    return {"backend": dist.get_backend(group), "gather_ok": bool(ok),
+            "all_gather_ms": _sync_ms(lambda: _all_gather_tokens(half, group), group),
+            "reduce_scatter_ms": _sync_ms(lambda: _reduce_scatter_tokens(whole, group), group),
+            "all_reduce_ms": _sync_ms(lambda: dist.all_reduce(whole, group=group), group),
+            "bytes": whole.numel() * whole.element_size()}
+
+
+def nccl_probe(dev):
+    """Whether NCCL carries a collective between the ranks on this one card
+    (it is expected to refuse a duplicate GPU); the error's first line."""
+    import torch.distributed as dist
+
+    group = dist.new_group(list(range(PAR_RANKS)), backend="nccl")
+    try:
+        dist.all_reduce(torch.ones(1, device=dev), group=group)
+        torch.cuda.synchronize()
+        return "carried"
+    except Exception as e:              # the refusal is the expected answer
+        text = str(e)
+        match = re.search(r"Duplicate GPU detected[^\n]*", text)
+        return "refused: " + (match.group(0) if match else text.splitlines()[0])[:160]
+
+
+def seq_wsi_rank(ckpt, enc, ref_path, dev):
+    """[seq shard wsi 1024]: wsi_inference over the 2048^2 slide in 1024-px
+    windows with each window's tokens sharded over the ranks (rank 0
+    stitches); then, on rank 0, K4's query shard rectangle (2667 x 5334)
+    beside the square call (5334 x 5334)."""
+    import torch.distributed as dist
+
+    from mipheivit_tpu_torch.infer import ArraySlide, wsi_inference
+    from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE
+    from mipheivit_tpu_torch.models.vit import set_attn_impl
+    from mipheivit_tpu_torch.ops import attention as attn
+    from mipheivit_tpu_torch.parallel import make_mesh
+
+    rank = dist.get_rank()
+    mesh = make_mesh(1, PAR_RANKS)
+    model = set_attn_impl(load(ckpt, enc, dev, torch.bfloat16, REGION), "seq_shard")
+    slide = np.random.default_rng(SEED + 2).integers(0, 256, (SLIDE, SLIDE, 3), dtype=np.uint8)
+    out = np.zeros((MARKERS, SLIDE, SLIDE), np.uint8) if rank == 0 else None
+    stats = {}
+    dist.barrier()
+    reset_counts()
+    t0 = time.perf_counter()
+    wsi_inference(model, ArraySlide(slide), out, [f"m{i}" for i in range(MARKERS)], HOPTIMUS_HE,
+                  tile_size=REGION, overlap=128, batch_size=SEQ_WSI_BATCH, tissue_only=False,
+                  stats=stats, seq_shard_mesh=mesh)
+    torch.cuda.synchronize()
+    res = {"counts": read_counts(), "wall_s": time.perf_counter() - t0,
+           "windows": stats["n_tiles"]}
+    del model
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        ref = np.load(ref_path)
+        res["diff"] = int(np.abs(out.astype(np.int16) - ref.astype(np.int16)).max())
+        t = torch.from_numpy(np.random.default_rng(SEED + 81).standard_normal(
+            (1, REGION_S, 3 * HD), dtype=np.float32)).to(dev, torch.bfloat16)
+        q, k, v = t[..., :HD], t[..., HD:2 * HD], t[..., 2 * HD:]
+        rows = -(-REGION_S // PAR_RANKS)
+        with torch.inference_mode():
+            res["rect_ms"] = cuda_ms(lambda: attn.flash_attention(q[:, :rows], k, v, HEADS,
+                                                                  REGION_S))
+            res["square_ms"] = cuda_ms(lambda: attn.flash_attention(q, k, v, HEADS))
+        res["rect_bound"] = bound_ms(2 * (2 * rows + 2 * REGION_S) * HD,
+                                     4.0 * HEADS * rows * REGION_S * 64, "bf16")
+    dist.barrier()
+    return res
+
+
+def seq_2048_rank(ckpt, enc, dev):
+    """[seq shard 2048]: one 2048-px region (21 321 tokens) through the
+    generator with its tokens sharded over the ranks, each rank's peak
+    memory; then on rank 0 the unsharded forward and the per-marker
+    Pearson of the two."""
+    import torch.distributed as dist
+
+    from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE
+    from mipheivit_tpu_torch.models.vit import set_attn_impl
+    from mipheivit_tpu_torch.parallel import make_mesh, seq_shard_scope
+
+    rank = dist.get_rank()
+    mesh = make_mesh(1, PAR_RANKS)
+    model = set_attn_impl(load(ckpt, enc, dev, torch.bfloat16, SEQ_REGION), "seq_shard")
+    slide = np.random.default_rng(SEED + 2).integers(0, 256, (SLIDE, SLIDE, 3), dtype=np.uint8)
+    mean = torch.as_tensor(HOPTIMUS_HE.mean, device=dev)
+    std = torch.as_tensor(HOPTIMUS_HE.std, device=dev)
+    x = (torch.from_numpy(slide[None, :SEQ_REGION, :SEQ_REGION]).to(dev).float() - mean) / std
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode(), seq_shard_scope(mesh):
+        y = model(x)
+    torch.cuda.synchronize()
+    res = {"counts": read_counts(), "s": time.perf_counter() - t0,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "finite": bool(torch.isfinite(y).all()), "tokens": model.vit_cfg.num_patches + 5}
+    y = y.float().cpu().numpy()
+    dist.barrier()
+    if rank == 0:
+        set_attn_impl(model, "auto")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            y0 = model(x).float().cpu().numpy()
+        torch.cuda.synchronize()
+        res.update(solo_s=time.perf_counter() - t0,
+                   solo_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   pearson=pearson(y, y0))
+    del model
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def train_seq_rank(ckpt, enc, dev):
+    """[train seq shard 1024]: the flagship's generator step at 1024 px
+    (microbatch 1, accumulation 2, 2 optimizer steps on [train 1024]'s
+    regions) with the encoder's tokens sharded over the ranks; the
+    trainable weights' digest after the 2 updates; on rank 0, the first
+    microbatch's reduced gradients against the one-rank step's: the LoRA
+    q/v cosine, and the LoRA and decoder norms' ratios."""
+    import torch.distributed as dist
+
+    from mipheivit_tpu_torch.metrics import PixelMetrics
+    from mipheivit_tpu_torch.models.vit import set_attn_impl
+    from mipheivit_tpu_torch.parallel import make_mesh, seq_shard_scope
+    from mipheivit_tpu_torch.parallel.workers import digest
+
+    rank = dist.get_rank()
+    mesh = make_mesh(1, PAR_RANKS)
+    model = set_attn_impl(train_model(ckpt, enc, REGION, dev), "seq_shard")
+    data = train_batches(2 * ACCUM, REGION_MICRO, REGION, dev, SEED + 4)
+    state, step = train_setup(model, dev, torch.bfloat16, mesh=mesh)
+    metrics = PixelMetrics.zeros(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    reset_counts()
+    losses, step_s = [], []
+    with seq_shard_scope(mesh):
+        for s in range(2):
+            t0 = time.perf_counter()
+            for a in range(ACCUM):
+                state, metrics, log = step(state, data[s * ACCUM + a], metrics)
+                losses.append(float(log["gen_loss"]))
+                if s == a == 0:
+                    grads0 = {n: g.detach().float().cpu() for n, g in log["grads"].items()}
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+    res = {"counts": read_counts(), "losses": losses, "step_s": step_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "digest": digest({n: p for n, p in state.gen_params})}
+    del state, step, model, log
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        ref = one_step_grads(train_model(ckpt, enc, REGION, dev), data[0], dev, torch.bfloat16)
+        res["cos"] = lora_cos((losses[0], grads0), ref)
+        res["norm_ratio"] = norm_ratio(grad_norms(grads0), grad_norms(ref[1]))
+        res["solo_loss"] = ref[0]
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def trainer_ddp_rank(tmp, ckpt, enc, data_values):
+    """[trainer ddp]: train_patchgan on the flagship preset over the ranks,
+    4 rows a rank (the global batch of [trainer]), 1 epoch of
+    TRAINER_STEPS microbatches on [trainer]'s tiles; every rank but 0
+    raises on a write. The preset's own monitor, val_cell_auc, is absent
+    without a slide dataframe, so no best export is written: the smoke's
+    disk writes stay near the card machine's limit without the ~4.6 GB of
+    a snapshot and an export (the CPU tests hold the ranks' snapshots and
+    exports). The steady images/s from CUDA events behind the steps, as
+    [trainer] takes them."""
+    import torch.distributed as dist
+
+    import mipheivit_tpu_torch.train.trainer as trainer
+    from mipheivit_tpu_torch.parallel.workers import digest
+
+    rank = dist.get_rank()
+    cfg = trainer_config(trainer_overrides(data_values, Path(ckpt), Path(enc), 1))
+    cfg.set_dotted("train.batch_size", DDP_BATCH)
+    for key in ("monitor", "mode"):
+        cfg.set_dotted(f"train.callbacks.modelcheckpoint.{key}",
+                       FLAGSHIP_PRESET["train"]["callbacks"]["modelcheckpoint"][key])
+    logdir = Path(tmp) / "trainer_ddp_run"
+    rec, undo = instrument_trainer(trainer, norms=True)
+    writers = ("MetricsLogger", "save_config", "save_train_state", "save_generator")
+    real = {name: getattr(trainer, name) for name in writers}
+    if rank != 0:
+        def refuse(*a, **kw):
+            raise AssertionError(f"rank {rank} tried to write")
+
+        for name in writers:
+            setattr(trainer, name, refuse)
+    dist.barrier()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out = trainer.train_patchgan(cfg, str(logdir), max_steps_per_epoch=TRAINER_STEPS,
+                                     use_wandb=False)
+    finally:
+        for name, fn in real.items():
+            setattr(trainer, name, fn)
+        undo()
+    torch.cuda.synchronize()
+    ev = rec["events"][-1]
+    res = {"counts": read_counts(), "s": time.perf_counter() - t0, "step": out["state"].step,
+           "digest": digest(out["state"].generator.state_dict()),
+           "loss": out["history"][0]["gen_loss"],
+           "val": out["history"][0]["val_gen_loss_sim"],
+           # steps 3-4: one optimizer step of the global batch
+           "rate": 2 * DDP_BATCH * PAR_RANKS * 1000.0 / ev[1].elapsed_time(ev[3]),
+           "grad_norms": rec["grad_norms"][-1]}
+    dist.barrier()
+    if rank == 0:
+        res["metric_lines"] = len((logdir / "metrics.jsonl").read_text().splitlines())
+        res["status"] = (logdir / "status.txt").read_text()
+        res["files"] = sorted(p.name for p in logdir.iterdir())
+    return res
+
+
+def parallel_rank_phases(tmp, ckpt, enc, ref_path, data_values):
+    """Every multi-card phase on one rank, in order (each rank of the
+    spawn runs this): [collectives], [seq shard wsi 1024], [seq shard
+    2048], [train seq shard 1024], [trainer ddp], then the NCCL probe."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mipheivit_tpu_torch.parallel.mesh import process_device
+
+    dev = process_device()
+    res = {"collectives": collectives_rank(dev)}
+    res["seq wsi"] = seq_wsi_rank(ckpt, enc, ref_path, dev)
+    res["seq 2048"] = seq_2048_rank(ckpt, enc, dev)
+    res["train seq"] = train_seq_rank(ckpt, enc, dev)
+    res["trainer ddp"] = trainer_ddp_rank(tmp, ckpt, enc, data_values)
+    res["nccl"] = nccl_probe(dev)
+    return res
+
+
+def parallel_phases(tmp: Path, ckpt: Path, enc: Path, wsi1024_out, data_values: dict,
+                    trainer_ref: dict, depth: int) -> dict:
+    """The multi-card paths over PAR_RANKS ranks spawned on cuda:0 (gloo),
+    printed and checked here from every rank's results; returns the launch
+    counts by path and rank."""
+    from mipheivit_tpu_torch.parallel.spawn import spawn
+
+    t_all = time.perf_counter()
+    ref_path = tmp / "wsi1024.npy"
+    np.save(ref_path, wsi1024_out)
+    ranks = spawn(parallel_rank_phases, PAR_RANKS,
+                  (str(tmp), str(ckpt), str(enc), str(ref_path), data_values),
+                  device="cuda:0", backend="gloo", timeout=720, threads=None)
+    r0 = ranks[0]
+    counts = {}
+
+    def per_rank(phase, tag):
+        for r, res in enumerate(ranks):
+            counts[f"{tag} r{r}"] = res[phase]["counts"]
+        return "; ".join(f"rank {r} {counts_line(res[phase]['counts'])}"
+                         for r, res in enumerate(ranks))
+
+    c = r0["collectives"]
+    print(f"[collectives] {PAR_RANKS} ranks on one card, backend {c['backend']} (NCCL "
+          f"{r0['nccl']}): CUDA tensors of the k|v of a 1024-px block, {c['bytes'] / 1e6:.1f} MB "
+          f"whole: all_gather_into_tensor {c['all_gather_ms']:.2f} ms, reduce_scatter_tensor "
+          f"{c['reduce_scatter_ms']:.2f} ms, all_reduce {c['all_reduce_ms']:.2f} ms (median "
+          f"of {COLLECTIVE_REPS}, wall, rank 0); gathered shards in place {c['gather_ok']}",
+          flush=True)
+    check(c["gather_ok"], "[collectives] the gathered shards are out of place")
+    check(c["backend"] == "gloo", f"[collectives] backend {c['backend']}")
+
+    w = r0["seq wsi"]
+    windows, rows = w["windows"], -(-REGION_S // PAR_RANKS)
+    print(f"[seq shard wsi 1024] wsi_inference(seq_shard_mesh) over the {SLIDE}^2 slide: "
+          f"{windows} windows of {REGION} px, {SEQ_WSI_BATCH} a forward, tokens "
+          f"{REGION_S} over {PAR_RANKS} ranks ({rows} a rank), wall "
+          f"{w['wall_s']:.2f} s = {windows / w['wall_s']:.3f} windows/s; against [wsi 1024]'s "
+          f"unsharded stitch max diff {w['diff']} uint8 step(s) (target <= 1); K4 query shard "
+          f"{rows} x {REGION_S} {w['rect_ms']:.3f} ms vs square {REGION_S} x "
+          f"{REGION_S} {w['square_ms']:.3f} ms (bound {w['rect_bound'][0]:.3f} ms, "
+          f"{w['rect_bound'][1]}); {per_rank('seq wsi', 'seq shard wsi 1024')}", flush=True)
+    check(w["diff"] <= 1, "[seq shard wsi 1024] differs from the unsharded stitch")
+    for r, res in enumerate(ranks):
+        check_counts(f"[seq shard wsi 1024] rank {r}", res["seq wsi"]["counts"],
+                     k4=depth * windows, k2=depth * windows, k3=windows)
+
+    s = r0["seq 2048"]
+    peaks = ", ".join(f"{res['seq 2048']['peak_gib']:.2f}" for res in ranks)
+    print(f"[seq shard 2048] one {SEQ_REGION}-px region, {s['tokens']} tokens over "
+          f"{PAR_RANKS} ranks, bf16 forward: sharded {s['s']:.2f} s, peak {peaks} GiB by rank; "
+          f"unsharded on rank 0 {s['solo_s']:.2f} s, peak {s['solo_peak_gib']:.2f} GiB; "
+          f"per-marker Pearson sharded vs unsharded min {s['pearson'].min():.6f} (target >= "
+          f"{SEQ_PEARSON}); {per_rank('seq 2048', 'seq shard 2048')}", flush=True)
+    check(all(res["seq 2048"]["finite"] for res in ranks), "[seq shard 2048] non-finite output")
+    check(bool((s["pearson"] >= SEQ_PEARSON).all()), "[seq shard 2048] sharded != unsharded")
+    for r, res in enumerate(ranks):
+        check_counts(f"[seq shard 2048] rank {r}", res["seq 2048"]["counts"], k4=depth,
+                     k2=depth, k3=1)
+
+    t = r0["train seq"]
+    cos, least, worst = t["cos"]
+    n_micro = 2 * ACCUM
+    peaks = ", ".join(f"{res['train seq']['peak_gib']:.2f}" for res in ranks)
+    print(f"[train seq shard 1024] {n_micro} microbatches of {REGION_MICRO} x {REGION} px over "
+          f"{PAR_RANKS} ranks, 2 optimizer steps: steps "
+          f"{', '.join(f'{1e3 * v:.1f}' for v in t['step_s'])} ms (first includes warm-up) = "
+          f"{ACCUM * REGION_MICRO / t['step_s'][-1]:.3f} regions/s; peak {peaks} GiB by rank; "
+          f"loss {', '.join(f'{v:.4f}' for v in t['losses'])} (one rank {t['solo_loss']:.4f}); "
+          f"LoRA q/v grad cosine against the one-rank step {cos:.6f}, least one {least:.6f} "
+          f"({worst}; target >= {SEQ_LORA_COS}); reduced gradient norm over the one-rank "
+          f"step's: LoRA {t['norm_ratio']['lora']:.6f}, decoder "
+          f"{t['norm_ratio']['decoder']:.6f} (target within {GRAD_NORM_TOL:g} of 1); "
+          f"replicas identical "
+          f"{len({res['train seq']['digest'] for res in ranks}) == 1}; "
+          f"{per_rank('train seq', 'train seq shard 1024')}", flush=True)
+    check(all(np.isfinite(t["losses"])), "[train seq shard 1024] non-finite loss")
+    check(cos >= SEQ_LORA_COS, "[train seq shard 1024] gradients differ from one rank's")
+    check(all(abs(v - 1) <= GRAD_NORM_TOL for v in t["norm_ratio"].values()),
+          "[train seq shard 1024] the reduced gradient is scaled")
+    check(len({res["train seq"]["digest"] for res in ranks}) == 1,
+          "[train seq shard 1024] the replicas differ")
+    for r, res in enumerate(ranks):
+        check_counts(f"[train seq shard 1024] rank {r}", res["train seq"]["counts"],
+                     k4=depth * n_micro, k5=depth * n_micro, k2=depth * n_micro,
+                     k2b=depth * n_micro)
+
+    d = r0["trainer ddp"]
+    rel = abs(d["loss"] - trainer_ref["loss"]) / abs(trainer_ref["loss"])
+    ratios = [norm_ratio(res["trainer ddp"]["grad_norms"], trainer_ref["grad_norms"])
+              for res in ranks]
+    ratio_text = "; ".join(f"rank {r} LoRA {q['lora']:.6f}, decoder {q['decoder']:.6f}"
+                           for r, q in enumerate(ratios))
+    rates = ", ".join(f"{res['trainer ddp']['rate']:.2f}" for res in ranks)
+    print(f"[trainer ddp] train_patchgan, flagship preset at {IMG} px, {depth} blocks, "
+          f"{PAR_RANKS} ranks x {DDP_BATCH} rows (global {DDP_BATCH * PAR_RANKS}) x "
+          f"accumulation 2, {TRAINER_STEPS} microbatches: {d['s']:.1f} s; steady "
+          f"{rates} images/s by rank's events (global batch) vs [trainer] {trainer_ref['rate']:.2f} images/s (both ranks "
+          f"share the card); epoch loss {d['loss']:.6f} vs [trainer] {trainer_ref['loss']:.6f} "
+          f"(rel {rel:.2e}, tol {DDP_LOSS_RTOL:g}); first step's reduced gradient norm over "
+          f"[trainer]'s: {ratio_text} "
+          f"(target within {GRAD_NORM_TOL:g} of 1); val_gen_loss_sim {d['val']:.4f}; replicas "
+          f"identical {len({res['trainer ddp']['digest'] for res in ranks}) == 1}; rank 0 "
+          f"wrote {d['metric_lines']} metrics lines, status {d['status']!r}, files "
+          f"{d['files']}; {per_rank('trainer ddp', 'trainer ddp')} "
+          f"({time.perf_counter() - t_all:.1f} s for the spawned phases)", flush=True)
+    check(len({res["trainer ddp"]["digest"] for res in ranks}) == 1,
+          "[trainer ddp] the replicas differ")
+    check(rel <= DDP_LOSS_RTOL, "[trainer ddp] the loss differs from one process's")
+    check(all(abs(v - 1) <= GRAD_NORM_TOL for q in ratios for v in q.values()),
+          "[trainer ddp] the reduced gradient is scaled")
+    check(d["status"] == "finished" and d["metric_lines"] == 2
+          and d["files"] == ["config.yaml", "metrics.jsonl", "status.txt"],
+          "[trainer ddp] rank 0's files")
+    check(all(res["trainer ddp"]["step"] == TRAINER_STEPS for res in ranks),
+          "[trainer ddp] steps")
+    # 4 microbatches; val and test: 16 tiles each over 2 ranks, 2 batches of 4
+    n_fwd = TRAINER_STEPS + 2 * (TRAINER_TILES["val"] // (PAR_RANKS * DDP_BATCH))
+    for r, res in enumerate(ranks):
+        check_counts(f"[trainer ddp] rank {r}", res["trainer ddp"]["counts"], k1=depth * n_fwd,
+                     k2=depth * n_fwd, k2b=depth * TRAINER_STEPS)
+    return counts
+
+
+def serve_dp_phase(model, tiles, dev, depth):
+    """[serve dp]: build_serving_fn with its batch split over two replicas
+    on the one card (make_data_mesh(SERVE_BATCH, [cuda:0] * 2)) against one
+    replica's answer on the same tiles."""
+    from mipheivit_tpu_torch.infer.serve import build_serving_fn
+    from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE
+    from mipheivit_tpu_torch.parallel import make_data_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_data_mesh(SERVE_BATCH, [dev] * PAR_RANKS)
+    x = tiles[:SERVE_BATCH]
+    solo_fn = build_serving_fn(model, HOPTIMUS_HE, IMG, SERVE_BATCH, dev)
+    dp_fn = build_serving_fn(model, HOPTIMUS_HE, IMG, SERVE_BATCH, mesh=mesh)
+    solo = solo_fn(x)
+    reset_counts()
+    got = dp_fn(x)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    diff = np.abs(got.astype(np.int16) - solo.astype(np.int16))
+    ms = {name: 1e3 * float(np.median([_timed(fn, x) for _ in range(5)]))
+          for name, fn in (("dp", dp_fn), ("solo", solo_fn))}
+    print(f"[serve dp] build_serving_fn over {mesh.size} replicas on {dev} at batch "
+          f"{SERVE_BATCH}: {ms['dp']:.1f} ms a batch vs one replica {ms['solo']:.1f} ms "
+          f"(wall, median of 5; the replicas share the card); against one replica max diff "
+          f"{int(diff.max())} uint8 step(s) on {int((diff > 0).sum())} of {diff.size} values "
+          f"(target <= 1); {counts_line(counts)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    check(got.shape == solo.shape and int(diff.max()) <= 1, "[serve dp] differs from one replica")
+    check_counts("[serve dp]", counts, k1=depth * mesh.size, k2=depth * mesh.size, k3=mesh.size)
+    del dp_fn, solo_fn
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _timed(fn, x):
+    t0 = time.perf_counter()
+    fn(x)
+    return time.perf_counter() - t0
+
+
+def wsi_dp_phase(model, slide, want, dev, depth):
+    """[wsi dp]: wsi_inference with each batch of 256-px windows split over
+    two replicas on the one card, against [wsi 256]'s stitch."""
+    from mipheivit_tpu_torch.infer import ArraySlide, wsi_inference
+    from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE
+    from mipheivit_tpu_torch.parallel import make_data_mesh
+
+    mesh = make_data_mesh(BATCH, [dev] * PAR_RANKS)
+    out = np.zeros_like(want)
+    stats = {}
+    t0 = time.perf_counter()
+    reset_counts()
+    wsi_inference(model, ArraySlide(slide), out, [f"m{i}" for i in range(MARKERS)],
+                  HOPTIMUS_HE, tile_size=IMG, overlap=64, batch_size=BATCH, tissue_only=False,
+                  stats=stats, mesh=mesh)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    diff = int(np.abs(out.astype(np.int16) - want.astype(np.int16)).max())
+    n_batches = stats["n_batches"]
+    print(f"[wsi dp] wsi_inference(mesh) over {mesh.size} replicas on {dev}: "
+          f"{stats['n_tiles']} windows of {IMG} px in {n_batches} batches of {BATCH}, wall "
+          f"{stats['wall_s']:.3f} s = {stats['n_tiles'] / stats['wall_s']:.2f} windows/s; "
+          f"against [wsi 256]'s stitch max diff {diff} uint8 step(s) (target <= 1); "
+          f"{counts_line(counts)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(diff <= 1, "[wsi dp] differs from the one-replica stitch")
+    n = n_batches * mesh.size
+    check_counts("[wsi dp]", counts, k1=depth * n, k2=depth * n, k3=n)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     # 1. device
     check(torch.cuda.is_available(), "no CUDA device; this script runs only on the card")
@@ -3074,7 +3615,18 @@ def main() -> None:
     kp[:, :REGION_S], vp[:, :REGION_S] = k, v
     kp[:, REGION_S:], vp[:, REGION_S:] = float("nan"), float("inf")
     k4_phase("bf16_cross_padded_nan", q[:, :1334], kp, vp, REGION_S)
+    # the sequence-sharded paths' rectangles: a 1024-px region's query shard
+    # at 2 ranks (2667 x 5334), and a 2048-px region's (21 321 tokens
+    # padded to 21 322: 10 661 query rows over 21 322 keys, the one padding
+    # key NaN and its value Inf, masked by seq_len_k)
+    seq_rows = -(-REGION_S // PAR_RANKS)
+    k4_phase("bf16_seq_shard_1024", q[:1, :seq_rows], k[:1], v[:1])
     del q, k, v, kp, vp
+    s2048 = SEQ_TOKENS + (-SEQ_TOKENS) % PAR_RANKS
+    q, k, v = fused(1, s2048, torch.bfloat16, SEED + 15)
+    k[:, SEQ_TOKENS:], v[:, SEQ_TOKENS:] = float("nan"), float("inf")
+    k4_phase("bf16_seq_shard_2048", q[:, :s2048 // PAR_RANKS], k, v, SEQ_TOKENS)
+    del q, k, v
     k4_phase("f32", *fused(1, 1029, torch.float32, SEED + 12))
     for s_ in (513, 1301, 2049):
         k4_phase(f"ragged_{s_}", *fused(2, s_, torch.bfloat16, SEED + s_))
@@ -3089,6 +3641,8 @@ def main() -> None:
     _, kp, vp = fused(1, 5376, torch.bfloat16, SEED + 22)
     kp[:, :REGION_S], vp[:, :REGION_S] = k, v
     k5_phase("bf16_cross_padded", q[:, :1334], kp, vp, REGION_S, seed=SEED + 23)
+    # the backward of [train seq shard 1024]'s query shard
+    k5_phase("bf16_seq_shard_1024", q[:, :-(-REGION_S // PAR_RANKS)], k, v, seed=SEED + 26)
     del q, k, v, kp, vp
     k5_phase("f32", *fused(1, 1029, torch.float32, SEED + 24), seed=SEED + 25)
     torch.cuda.empty_cache()
@@ -3210,10 +3764,15 @@ def main() -> None:
         # 4c. stitched whole-slide inference at 256-px windows (K1)
         slide = np.random.default_rng(SEED + 2).integers(0, 256, (SLIDE, SLIDE, 3),
                                                          dtype=np.uint8)
-        wsi256, _ = wsi_phase("wsi 256", model, slide, IMG, 64, BATCH, dev)
+        wsi256, _, wsi256_out = wsi_phase("wsi 256", model, slide, IMG, 64, BATCH, dev)
         n_wsi = -(-len(range(0, SLIDE - 64, IMG - 64)) ** 2 // BATCH)   # 11 x 11 windows
         check_counts("[wsi 256]", wsi256, k1=depth * n_wsi, k2=depth * n_wsi, k3=n_wsi)
-        del model
+
+        # 4d. data parallelism in one process: each batch split over two
+        #     replicas of the generator (both on the one card)
+        wsi_dp = wsi_dp_phase(model, slide, wsi256_out, dev, depth)
+        serve_dp = serve_dp_phase(model, tiles, dev, depth)
+        del model, wsi256_out
         torch.cuda.empty_cache()
 
         # 5. full-width numerics: f32 on the card (K1) against f32 on the CPU
@@ -3238,7 +3797,7 @@ def main() -> None:
         torch.cuda.synchronize()
         print(f"[load] at {REGION} px: load_generator + merge_lora + cast_params(bf16) "
               f"in {time.perf_counter() - t0:.1f} s", flush=True)
-        wsi1024, _ = wsi_phase("wsi 1024", model, slide, REGION, 128, 4, dev)
+        wsi1024, _, wsi1024_out = wsi_phase("wsi 1024", model, slide, REGION, 128, 4, dev)
         n_wsi = -(-len(range(0, SLIDE - 128, REGION - 128)) ** 2 // 4)   # 3 x 3 windows
         check_counts("[wsi 1024]", wsi1024, k4=depth * n_wsi, k2=depth * n_wsi, k3=n_wsi)
 
@@ -3354,8 +3913,8 @@ def main() -> None:
         #     resume to 2) and the eval-only driver on its checkpoint dir
         del data, region_data
         torch.cuda.empty_cache()
-        trainer_counts, cfg, logdir, trainer_rate = trainer_phase(Path(tmp), ckpt, enc, depth,
-                                                                  train256_rate)
+        trainer_counts, cfg, logdir, trainer_rate, trainer_ref = trainer_phase(
+            Path(tmp), ckpt, enc, depth, train256_rate)
         test_driver_counts = test_driver_phase(cfg, logdir, depth)
         torch.cuda.empty_cache()
 
@@ -3378,15 +3937,24 @@ def main() -> None:
         #     served, the HEMIT zoo, both presets trained, the HEMIT
         #     reproduction and the HEMIT-pipeline evaluations (no kernel)
         swin_counts, swin = swin_phases(Path(tmp), dev)
+        torch.cuda.empty_cache()
 
-    # 15. summary lines
+        # 15. the multi-card paths over 2 ranks spawned on the one card:
+        #     [collectives], [seq shard wsi 1024], [seq shard 2048], [train
+        #     seq shard 1024] (K4 on the query shard over the gathered keys,
+        #     K5 in the backward, K1 = 0), [trainer ddp]
+        parallel_counts = parallel_phases(Path(tmp), ckpt, enc, wsi1024_out, trainer_ref["data"],
+                                          trainer_ref, depth)
+
+    # 16. summary lines
     k1 = kernel_rows["bf16_fused"]
     paths = {"slice": slice_counts, "attn sublayer": sublayer, "serve": serve_counts,
-             "wsi 256": wsi256, "wsi 1024": wsi1024, "train 256": train256,
+             "wsi 256": wsi256, "wsi dp": wsi_dp, "serve dp": serve_dp, "wsi 1024": wsi1024,
+             "train 256": train256,
              "train 1024": train1024, "train 1024 ckpt": train1024c, "train ops": train_ops,
              "trainer": trainer_counts, "test driver": test_driver_counts,
              "cell trainer": cell_counts, "cell test driver": cell_test_counts, **eval_counts,
-             **baseline_counts, **swin_counts}
+             **baseline_counts, **swin_counts, **parallel_counts}
     print(f"[cell path] nucleus_pool {pool_ms[8]:.3f} ms at 8 tiles, {pool_ms[64]:.3f} ms at 64; "
           f"cell loss forward + backward {cell_loss_ms:.3f} ms at microbatch 8", flush=True)
     print(f"[baselines] {'; '.join(f'{k} {v:.3f}' for k, v in baseline.items())}", flush=True)

@@ -7,9 +7,14 @@ engine releases the GIL) feeding a bounded queue; ``device_prefetch`` keeps
 the next batches in flight: pinned host buffers copied on a side CUDA
 stream while the current batch computes.
 
-The JAX package's per-host sharding of the epoch (``Loader.shard``) and
-its mesh placement come with training over several processes (ROADMAP.md
-queue 1, item 13).
+Over several ranks, ``Loader.shard(index, n)`` walks ``idx[index::n]`` of
+the epoch's order, as the JAX package's per-host sharding does; ``index``
+is the rank's coordinate on the data axis, so the ranks of one model group
+read the same rows. Each sample's augmentation seed is drawn for its place
+in the whole epoch, so that the rows of one global batch see the same
+augmentations on any number of ranks. The trainer truncates every rank to
+the smallest shard's batch count; ``device_prefetch`` then places a rank's
+rows on its own card.
 """
 
 from __future__ import annotations
@@ -70,7 +75,15 @@ class Loader:
         self.seed = seed
         self.prefetch_batches = prefetch_batches
         self.pad_to_batch = pad_to_batch
+        self.shard_index = 0
+        self.num_shards = 1
         self.stats = PipelineStats()
+
+    def shard(self, shard_index: int, num_shards: int) -> "Loader":
+        """Walk ``idx[shard_index::num_shards]`` of every epoch's order."""
+        self.shard_index = shard_index
+        self.num_shards = num_shards
+        return self
 
     def _indices(self, rng) -> np.ndarray:
         if self.sampler is not None:
@@ -82,7 +95,7 @@ class Loader:
         return idx
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self.dataset) // self.num_shards
         if self.drop_last:
             return n // self.batch_size
         return -(-n // self.batch_size)
@@ -90,6 +103,12 @@ class Loader:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         rng = np.random.default_rng(self.seed)
         idx = self._indices(rng)
+        seeds = None
+        if self.num_shards > 1:
+            # one seed per place in the whole epoch (the same draws as the
+            # batches of one process take in turn), then this shard's
+            seeds = rng.integers(0, 2 ** 31, size=len(idx))[self.shard_index::self.num_shards]
+            idx = idx[self.shard_index::self.num_shards]
         n_batches = len(idx) // self.batch_size if self.drop_last \
             else -(-len(idx) // self.batch_size)
 
@@ -108,10 +127,13 @@ class Loader:
                     if stop.is_set():
                         break
                     batch_idx = idx[b * self.batch_size:(b + 1) * self.batch_size]
-                    seeds = rng.integers(0, 2 ** 31, size=len(batch_idx))
+                    if seeds is None:
+                        batch_seeds = rng.integers(0, 2 ** 31, size=len(batch_idx))
+                    else:
+                        batch_seeds = seeds[b * self.batch_size:(b + 1) * self.batch_size]
                     t0 = time.monotonic()
                     futs = [pool.submit(fetch_one, i, s)
-                            for i, s in zip(batch_idx, seeds)]
+                            for i, s in zip(batch_idx, batch_seeds)]
                     batch = collate([f.result() for f in futs])
                     self.stats.decode_s += time.monotonic() - t0
                     n = len(batch_idx)

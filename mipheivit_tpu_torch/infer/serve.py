@@ -188,27 +188,44 @@ def _to_uint8_rint(pred: torch.Tensor) -> torch.Tensor:
 
 
 def build_serving_fn(model, normalizer, tile_size: int, batch_size: int,
-                     device=None, warmup: bool = True) -> Callable[[np.ndarray], np.ndarray]:
+                     device=None, warmup: bool = True,
+                     mesh=None) -> Callable[[np.ndarray], np.ndarray]:
     """uint8 -> uint8 forward for ``MicroBatcher``: the H&E affine
     ``(x - mean) / std`` of ``normalizer`` (three values each, in pixel
     units) and the serving codec run on ``device`` (default: the model's).
     The returned function enters ``torch.inference_mode`` and the device on
     the thread that calls it (the batcher's worker). With ``warmup`` one
     full batch runs before it is returned, so kernel builds and library
-    set-up happen before ``/healthz`` answers."""
-    device = next(model.parameters()).device if device is None else torch.device(device)
-    on_card = device.type == "cuda"
-    if on_card and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    mean = torch.as_tensor(np.asarray(normalizer.mean, np.float32).reshape(-1), device=device)
-    std = torch.as_tensor(np.asarray(normalizer.std, np.float32).reshape(-1), device=device)
+    set-up happen before ``/healthz`` answers. With ``mesh``
+    (``parallel.make_data_mesh``) the batch is split over one replica of the
+    model per device of the mesh (``batch_size`` must divide by its size;
+    ``device`` is ignored) and the parts are gathered into one uint8
+    answer."""
+    if mesh is not None:
+        from ..parallel.mesh import replicate
+
+        if batch_size % mesh.size:
+            raise ValueError(f"batch_size {batch_size} does not split over {mesh.size} replicas")
+        models, devices = replicate(model, mesh), list(mesh.devices)
+    else:
+        models = [model]
+        devices = [next(model.parameters()).device if device is None else torch.device(device)]
+    devices = [torch.device("cuda", torch.cuda.current_device())
+               if d.type == "cuda" and d.index is None else d for d in devices]
+    on_card = devices[0].type == "cuda"
+    stats = [(torch.as_tensor(np.asarray(normalizer.mean, np.float32).reshape(-1), device=d),
+              torch.as_tensor(np.asarray(normalizer.std, np.float32).reshape(-1), device=d))
+             for d in devices]
 
     def fwd_np(x: np.ndarray) -> np.ndarray:
-        with torch.cuda.device(device) if on_card else contextlib.nullcontext(), \
+        with torch.cuda.device(devices[0]) if on_card else contextlib.nullcontext(), \
                 torch.inference_mode():
-            xt = torch.from_numpy(np.ascontiguousarray(x)).to(device)
-            y = model((xt.float() - mean) / std)
-            return _to_uint8_rint(y).cpu().numpy()
+            xt = torch.from_numpy(np.ascontiguousarray(x))
+            # every replica's forward is queued before the first answer is read
+            ys = [_to_uint8_rint(m((part.to(d).float() - mean) / std))
+                  for m, d, (mean, std), part in zip(models, devices, stats,
+                                                     xt.chunk(len(models)))]
+            return torch.cat([y.cpu() for y in ys]).numpy()
 
     if warmup:
         t0 = time.perf_counter()
@@ -241,22 +258,25 @@ class TileServer:
     def from_checkpoint(cls, checkpoint_dir: str, tile_size: int = 256,
                         batch_size: int = 32, max_delay_ms: float = 5.0,
                         host: str = "0.0.0.0", port: int = 8000,
-                        dtype: Optional[str] = None, device=None) -> "TileServer":
+                        dtype: Optional[str] = None, device=None,
+                        mesh=None) -> "TileServer":
         """The generator of ``checkpoint_dir`` (its ``config.yaml`` beside
         the weights) at ``tile_size``, LoRA merged, warmed up and served.
         ``device`` defaults to the card and raises without one; ``dtype``
         (a torch dtype name) defaults to bfloat16 on the card and float32 on
-        the CPU."""
+        the CPU. With ``mesh`` (``parallel.make_data_mesh``) the generator is
+        loaded on its first device and replicated over the others, each
+        taking its slice of every batch."""
         from ..config import load_yaml
         from .tiles import load_serving_model
 
-        device = resolve_device(device)
+        device = resolve_device(device if mesh is None else mesh.devices[0])
         cfg = load_yaml(f"{checkpoint_dir}/config.yaml")
         names = list(cfg.data.targ_channel_names)
         model, he_norm = load_serving_model(
             cfg, checkpoint_dir, (tile_size, tile_size), len(names), device,
             dtype=None if dtype is None else getattr(torch, dtype))
-        fwd_np = build_serving_fn(model, he_norm, tile_size, batch_size, device)
+        fwd_np = build_serving_fn(model, he_norm, tile_size, batch_size, device, mesh=mesh)
         return cls(fwd_np, tile_size, batch_size, channel_names=names,
                    max_delay_ms=max_delay_ms, host=host, port=port)
 

@@ -1,6 +1,6 @@
 """Sliding-window whole-slide inference with overlap stitching (PyTorch).
 
-Counterpart of ``mipheivit_tpu/infer/wsi.py::wsi_inference`` on one card.
+Counterpart of ``mipheivit_tpu/infer/wsi.py::wsi_inference``.
 The slide is cut into overlapping windows in raster order; each batch of
 uint8 windows goes to the device, where H&E normalization, the generator
 forward, the output codec and the blend window run; predictions come back
@@ -25,10 +25,22 @@ The slide IO (``SlideReader``, ``PyramidWriter``, ``get_locs_otsu``) is
 the port's ``slideio`` (native code, cv2 for tissue masks), imported only when a
 path or ``tissue_only`` asks for it; ``ArraySlide`` and an array sink need
 none of it.
+
+Two kinds of parallelism, as in the JAX function:
+
+- ``mesh`` (``parallel.make_data_mesh``): each batch of windows is split
+  over one replica of the model per local device, and the parts come back
+  into one host buffer;
+- ``seq_shard_mesh`` (``parallel.make_mesh(1, n)`` under torchrun, the
+  model's ``attn_impl`` set to ``"seq_shard"``): every rank of the model
+  group walks the same region windows in lockstep, each forward's tokens
+  sharded over the group (``parallel/seq.py``); rank 0 alone fetches,
+  stitches and writes, and the other ranks return None.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import queue
@@ -123,6 +135,8 @@ def wsi_inference(
     fetch_workers: int = 4,
     stats: Optional[dict] = None,
     fetch_uint8: bool = False,
+    mesh=None,
+    seq_shard_mesh=None,
 ):
     """Stitched sliding-window inference over one slide.
 
@@ -139,9 +153,38 @@ def wsi_inference(
     applied on the device. ``fetch_uint8`` rounds the unwindowed prediction
     to uint8 on the device and applies the window on the host (half the
     fetch of f16, within half an output step). ``stats`` receives the
-    pipeline's timers, with the keys of the JAX function's."""
+    pipeline's timers, with the keys of the JAX function's. ``mesh`` and
+    ``seq_shard_mesh``: the module docstring; on ranks other than 0 of a
+    ``seq_shard_mesh`` nothing is written and None is returned."""
     device = next(model.parameters()).device
     cuda = device.type == "cuda"
+    if mesh is not None and seq_shard_mesh is not None:
+        raise ValueError("wsi_inference takes mesh or seq_shard_mesh, not both")
+    replicas = None
+    if mesh is not None:
+        from ..parallel.mesh import replicate
+
+        if batch_size % mesh.size:
+            raise ValueError(f"batch_size {batch_size} does not split over {mesh.size} replicas")
+        replicas = replicate(model, mesh)
+    writes = True
+    scope = contextlib.nullcontext()
+    if seq_shard_mesh is not None:
+        import torch.distributed as dist
+
+        from ..parallel.seq import seq_shard_scope
+
+        if seq_shard_mesh.n_data != 1:
+            raise ValueError("seq_shard_mesh shards one stream of windows: its data axis "
+                             f"must be 1, not {seq_shard_mesh.n_data}")
+        from ..models.vit import VisionTransformer
+
+        if not any(isinstance(m, VisionTransformer) and m.cfg.attn_impl == "seq_shard"
+                   for m in model.modules()):
+            raise ValueError('seq_shard_mesh needs a model whose ViT has attn_impl="seq_shard" '
+                             "(models.vit.set_attn_impl)")
+        writes = dist.get_rank() == 0
+        scope = seq_shard_scope(seq_shard_mesh)
     stride = tile_size - overlap
     if stride <= 0:
         raise ValueError(f"overlap {overlap} must be below tile_size {tile_size}")
@@ -164,7 +207,9 @@ def wsi_inference(
     log.info("WSI %s: %dx%d, %d windows", slide if own_reader else "array", w, h, len(locs))
 
     writer = xml = None
-    if isinstance(out, np.ndarray):
+    if not writes:
+        sink = None
+    elif isinstance(out, np.ndarray):
         if out.shape != (n_ch, h, w) or out.dtype != np.uint8:
             raise ValueError(f"array sink must be [{n_ch}, {h}, {w}] uint8, got "
                              f"{out.shape} {out.dtype}")
@@ -181,13 +226,19 @@ def wsi_inference(
                 n_levels=n_pyramid_levels, tile_size=min(512, tile_size),
                 mpp=mpp or 0.0, ome_xml=xml)
             sink = BandSink(writer)
-    rolling = RollingAccumulator(sink, tile_size, stride)
+    rolling = RollingAccumulator(sink, tile_size, stride) if writes else None
     window = blend_window(tile_size, overlap)
 
-    norm_mean = torch.as_tensor(np.asarray(mean, np.float32).reshape(-1), device=device)
-    norm_std = torch.as_tensor(np.asarray(he_normalizer.std, np.float32).reshape(-1),
-                               device=device)
-    win_dev = None if fetch_uint8 else torch.from_numpy(window).to(device)[None, :, :, None]
+    def consts(dev):
+        return (torch.as_tensor(np.asarray(mean, np.float32).reshape(-1), device=dev),
+                torch.as_tensor(np.asarray(he_normalizer.std, np.float32).reshape(-1),
+                                device=dev),
+                None if fetch_uint8 else torch.from_numpy(window).to(dev)[None, :, :, None])
+
+    if replicas is None:
+        parts = [(model, device, *consts(device))]
+    else:
+        parts = [(rep, torch.device(d), *consts(d)) for rep, d in zip(replicas, mesh.devices)]
 
     # ---- stage 1: reader threads fill a bounded queue of ready batches ----
     batch_q: queue.Queue = queue.Queue(maxsize=queue_depth)
@@ -236,8 +287,8 @@ def wsi_inference(
     timers = {"device_wait_s": 0.0, "stitch_s": 0.0, "t_first_drain": None,
               "tiles_drained": 0}
 
-    def _fetch(event, host, n):
-        if event is not None:
+    def _fetch(events, host, n):
+        for event in events:
             event.synchronize()
         # widen at once: numpy f16 arithmetic is scalar-emulated and would
         # move the bottleneck into the accumulator
@@ -286,7 +337,7 @@ def wsi_inference(
 
     try:
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), scope:
                 while True:
                     t0 = time.perf_counter()
                     item = batch_q.get()
@@ -294,19 +345,24 @@ def wsi_inference(
                     if item is None or stitch_err:
                         break
                     buf, coords, n = item
-                    y = _window_forward(model, buf.to(device, non_blocking=True),
-                                        norm_mean, norm_std, win_dev)
-                    event = None
-                    if cuda:
-                        host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-                        host.copy_(y, non_blocking=True)
-                        event = torch.cuda.Event()
-                        event.record()
-                    else:
-                        host = y
-                    pending.append((event, host, coords, n))
+                    ys = [_window_forward(rep, x.to(dev, non_blocking=True), m, sd, win)
+                          for (rep, dev, m, sd, win), x in zip(parts, buf.chunk(len(parts)))]
                     n_batches += 1
                     n_tiles_seen += n
+                    if not writes:
+                        continue
+                    events = []
+                    if cuda:
+                        host = torch.empty((batch_size,) + ys[0].shape[1:], dtype=ys[0].dtype,
+                                           pin_memory=True)
+                        for y, part in zip(ys, host.chunk(len(ys))):
+                            part.copy_(y, non_blocking=True)
+                            event = torch.cuda.Event()
+                            event.record(torch.cuda.current_stream(y.device))
+                            events.append(event)
+                    else:
+                        host = torch.cat(ys)
+                    pending.append((events, host, coords, n))
                     if n_batches % 4 == 0:
                         log.info("WSI progress: %d/%d windows", n_tiles_seen, len(locs))
                     while len(pending) > dispatch_depth:
@@ -329,7 +385,8 @@ def wsi_inference(
         raise
 
     t_drained = time.perf_counter()
-    rolling.finalize()
+    if writes:
+        rolling.finalize()
     finalize_s = time.perf_counter() - t_drained
     t_first = timers["t_first_drain"]
     if n_batches:
@@ -349,6 +406,8 @@ def wsi_inference(
             "read_wait_s": read_wait_s, "device_wait_s": timers["device_wait_s"],
             "stitch_s": timers["stitch_s"], "finalize_s": finalize_s,
         })
+    if not writes:
+        return None
     if writer is not None:
         writer.close()
     elif xml is not None:

@@ -32,7 +32,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     and the running statistics move by momentum 0.1 toward them. The running
     variance takes the biased batch variance, as flax and the JAX package's
     ``BatchedSegHeads`` do (torch's own update takes the unbiased one,
-    n/(n-1) larger)."""
+    n/(n-1) larger).
+
+    With ``sync_group`` set (``sync_batch_norm``), training statistics are
+    those of the global batch: the per-channel sums of x and x^2 and the
+    count are summed over the group's ranks (one all-reduce, whose backward
+    sums too), as flax's BatchNorm averages over a batch axis that GSPMD
+    shards."""
+
+    sync_group = None
 
     def forward(self, x):
         if not self.training:
@@ -40,8 +48,18 @@ class BatchNorm2d(nn.BatchNorm2d):
                                 self.bias.float(), False, 0.0, self.eps)
         ct = torch.promote_types(x.dtype, torch.float32)    # f32, or f64 in f64 checks
         xf = x.to(ct)
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if self.sync_group is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        else:
+            from ..parallel.mesh import all_reduce_sum
+
+            count = torch.full((1,), x.numel() / x.shape[1], dtype=ct, device=x.device)
+            sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                                             count]), self.sync_group)
+            c = x.shape[1]
+            mean = sums[:c] / sums[-1]
+            var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
         with torch.no_grad():
             keep = 1.0 - self.momentum
             self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
@@ -151,6 +169,16 @@ def use_generator(model: nn.Module, generator: Optional[torch.Generator]) -> Non
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+def sync_batch_norm(model: nn.Module, group) -> nn.Module:
+    """Compute the training statistics of every ``BatchNorm2d`` of
+    ``model`` over the global batch of ``group``'s ranks (None: each rank's
+    own batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.sync_group = group
+    return model
 
 
 def set_compute_dtype(model: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:

@@ -21,6 +21,16 @@ encoder that trains keeps f32 weights and may compute in bf16, and
 backward (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
 activations. The JAX package's remat-policy menu is TPU machinery and has no
 counterpart here.
+
+Sequence sharding. With ``ViTConfig.attn_impl="seq_shard"`` (the other
+values of the JAX package's knob name its TPU routes; the port dispatches
+by device and length whatever they say) the forward runs inside a
+``parallel.seq.seq_shard_scope`` over a model group of ranks: every rank
+embeds the whole region, keeps its token shard through the blocks (the
+LayerNorms, K2 and the projections on the shard alone, attention through
+``parallel.seq.sharded_attention``: K4 on the local query rows over the
+gathered keys, K5 in the backward), and the shards are gathered after the
+final norm. Outside a scope it raises ``RuntimeError``.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import attention_bshd, attention_qkv
+from ..parallel import seq
 from ..ops.mlp import swiglu_fc1
 from .layers import Conv2d, LayerNorm, Linear
 
@@ -55,6 +66,7 @@ class ViTConfig:
     norm_eps: float = 1e-6
     lora_rank: int = 0
     lora_alpha: float = 1.0
+    attn_impl: str = "auto"           # "seq_shard": tokens sharded over a model group
 
     @property
     def grid_size(self) -> Tuple[int, int]:
@@ -119,8 +131,18 @@ class Attention(nn.Module):
             self.qkv = Linear(d, 3 * d, bias=cfg.qkv_bias)
         self.proj = Linear(d, d)
 
-    def forward(self, x):
-        if isinstance(self.qkv, LoRAQKV):
+    def forward(self, x, shard=None):
+        """``shard``: ``(group, S)`` when x holds this rank's token shard of
+        a sequence of S tokens sharded over ``group``."""
+        if shard is not None:
+            if isinstance(self.qkv, LoRAQKV):
+                q, k, v = self.qkv(x)
+            else:
+                qkv = self.qkv(x)
+                hd = qkv.shape[-1] // 3
+                q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
+            out = seq.sharded_attention(q, k, v, self.num_heads, *shard)
+        elif isinstance(self.qkv, LoRAQKV):
             # LoRA live: q and v differ from the fused buffer's sections
             out = attention_bshd(*self.qkv(x), self.num_heads)
         else:
@@ -174,8 +196,8 @@ class Block(nn.Module):
             self.ls1 = LayerScale(d, cfg.init_values)
             self.ls2 = LayerScale(d, cfg.init_values)
 
-    def forward(self, x):
-        x = x + self.ls1(self.attn(self.norm1(x)))
+    def forward(self, x, shard=None):
+        x = x + self.ls1(self.attn(self.norm1(x), shard))
         return x + self.ls2(self.mlp(self.norm2(x)))
 
 
@@ -224,13 +246,34 @@ class VisionTransformer(nn.Module):
             x = torch.cat(prefix + [x + pos], dim=1)
         else:
             x = torch.cat(prefix + [x], dim=1) + pos
+        shard = None
+        if cfg.attn_impl == "seq_shard":
+            # the group rides along with each block call, so that a
+            # checkpointed block's recompute in the backward needs no scope
+            shard = (seq.current_seq_scope(), x.shape[1])
+            x = seq.shard_tokens(x, shard[0])
         taps = []
         ckpt = self.grad_checkpointing and torch.is_grad_enabled()
+        args = () if shard is None else (shard,)
         for i, blk in enumerate(self.blocks):
-            x = torch.utils.checkpoint.checkpoint(blk, x, use_reentrant=False) if ckpt else blk(x)
+            if ckpt:
+                x = torch.utils.checkpoint.checkpoint(blk, x, *args, use_reentrant=False)
+            else:
+                x = blk(x, *args)
             if i in intermediates:
                 taps.append(x)
         x = self.norm(x)
+        if shard is not None:
+            x = seq.gather_tokens(x, *shard)
+            taps = [seq.gather_tokens(t, *shard) for t in taps]
         if intermediates:
             return x, taps
         return x
+
+
+def set_attn_impl(model: nn.Module, impl: str) -> nn.Module:
+    """Set ``attn_impl`` (e.g. ``"seq_shard"``) on every ViT of ``model``."""
+    for m in model.modules():
+        if isinstance(m, VisionTransformer):
+            m.cfg = m.cfg.replace(attn_impl=impl)
+    return model

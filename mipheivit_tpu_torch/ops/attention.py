@@ -12,6 +12,9 @@ The counterparts of the JAX package's ``mipheivit_tpu/ops/attention.py``:
 - ``flash_attention`` (with ``seq_len_k`` and a rectangular q) is
   ``flash_cross_attention``, here in the ``[B, S, H*D]`` layout.
 
+The plain versions' f32 arithmetic is f64 for f64 operands (the f64
+checks of the training step).
+
 Dispatch is by device and length. A CPU tensor runs the plain versions:
 ``attention_reference`` for S <= 512, ``flash_reference`` above, and
 ``short_attention_reference`` for ``dot_product_attention`` up to 512. A
@@ -103,6 +106,12 @@ def unpad_heads(t, num_heads: int, d: int):
     return t.view(b, s, num_heads, HEAD_DIM)[..., :d].reshape(b, s, num_heads * d)
 
 
+def _acc(t) -> torch.dtype:
+    """The plain versions' arithmetic dtype for t: f32, or f64 for f64
+    input (the f64 checks)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def _scaled(logits, d: int, scale: float | None):
     """The plain versions' logits: divided by ``sqrt(d)``, or times an
     explicit ``scale`` (a head zero-padded to 64 keeps its own D's)."""
@@ -118,10 +127,10 @@ def attention_reference(q, k, v, num_heads: int, scale: float | None = None):
     d = hd // num_heads
 
     def heads(t):
-        return t.reshape(b, s, num_heads, d).float()
+        return t.reshape(b, s, num_heads, d).to(_acc(q))
 
     logits = _scaled(torch.einsum("bqhd,bkhd->bhqk", heads(q), heads(k)), d, scale)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype).float()
+    probs = torch.softmax(logits, dim=-1).to(v.dtype).to(_acc(q))
     out = torch.einsum("bhqk,bkhd->bqhd", probs, heads(v))
     return out.reshape(b, s, hd).to(v.dtype)
 
@@ -132,10 +141,11 @@ def short_attention_reference(q, k, v, scale: float | None = None):
     given), ``p = exp(s - max)`` and its row sum in f32, p divided by the
     sum in f32 and only then cast to v's dtype, f32 accumulation of
     ``p . v``, output in q's dtype ``[B, H, S, D]``."""
-    logits = _scaled(torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()), q.shape[-1], scale)
+    ct = _acc(q)
+    logits = _scaled(torch.einsum("bhqd,bhkd->bhqk", q.to(ct), k.to(ct)), q.shape[-1], scale)
     p = torch.exp(logits - logits.amax(-1, keepdim=True))
     p = (p / p.sum(-1, keepdim=True)).to(v.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", p.float(), v.float()).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(ct), v.to(ct)).to(q.dtype)
 
 
 def flash_reference(q, k, v, num_heads: int, seq_len_k: int | None = None,
@@ -152,7 +162,7 @@ def flash_reference(q, k, v, num_heads: int, seq_len_k: int | None = None,
     seq_len_k = sk if seq_len_k is None else seq_len_k
 
     def heads(t, h0, h1):
-        return t[..., h0 * d:h1 * d].reshape(b, t.shape[1], h1 - h0, d).float()
+        return t[..., h0 * d:h1 * d].reshape(b, t.shape[1], h1 - h0, d).to(_acc(q))
 
     step = max(1, _PLAIN_CHUNK_ELEMENTS // max(1, b * sq * sk))
     outs, lses = [], []
@@ -192,7 +202,7 @@ def flash_backward_reference(q, k, v, out, lse, dout, num_heads: int,
     delta = _delta(out, dout, num_heads)
 
     def heads(t, h0, h1):
-        return t[..., h0 * d:h1 * d].reshape(b, t.shape[1], h1 - h0, d).float()
+        return t[..., h0 * d:h1 * d].reshape(b, t.shape[1], h1 - h0, d).to(_acc(q))
 
     step = max(1, _PLAIN_CHUNK_ELEMENTS // max(1, b * sq * sk))
     dqs, dks, dvs = [], [], []
@@ -281,7 +291,7 @@ def _delta(out, dout, num_heads: int):
     """``rowsum(dO * O)`` per head in f32 -> ``[B, H, S]`` (the JAX package
     computes it in XLA, outside its kernels)."""
     b, s, hd = out.shape
-    prod = dout.float() * out.float()
+    prod = dout.to(_acc(out)) * out.to(_acc(out))
     return prod.reshape(b, s, num_heads, hd // num_heads).sum(-1).transpose(1, 2).contiguous()
 
 

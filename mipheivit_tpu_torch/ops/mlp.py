@@ -47,6 +47,9 @@ card K7 (the third entry point of ``csrc/swiglu.cu``, K2's kernel with the
 LayerNorm and a plain epilogue), on the CPU ``ln_matmul_reference``. Its
 backward is the vjp of the plain chain, the counterpart of
 ``_ln_matmul_bwd_rule``.
+
+The plain versions' f32 arithmetic is f64 for f64 operands (the f64 checks
+of the training step).
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .attention import _acc
 
 # K2 launches since the last reset (the forward, and the backward's
 # elementwise terms) and K7's ("ln_matmul"), counted where each is launched
@@ -70,12 +74,12 @@ def ln_rows(x, scale, bias, eps: float, width: int | None = None):
     With ``width`` the statistics run over each row's first ``width`` values
     only: the rest is zero padding (with zero scale and bias it normalises
     to exactly 0)."""
-    xf = x.float()
+    xf = x.to(_acc(x))
     xs = xf if width is None else xf[..., :width]
     mean = xs.mean(-1, keepdim=True)
     var = (xs - mean).square().mean(-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
+    return (y * scale.to(xf.dtype) + bias.to(xf.dtype)).to(x.dtype)
 
 
 def padded_width(n: int) -> int:
@@ -129,7 +133,8 @@ def swiglu_reference(x, w, b, ln=None, eps: float = 1e-6, width: int | None = No
     h = w.shape[0] // 2
     if ln is not None:
         x = ln_rows(x, ln[0], ln[1], eps, width)
-    xf, wf, bf = x.float(), w.float(), b.float()
+    ct = _acc(x)
+    xf, wf, bf = x.to(ct), w.to(ct), b.to(ct)
     a = F.linear(xf, wf[:h], bf[:h])
     g = F.linear(xf, wf[h:], bf[h:])
     return (a * torch.sigmoid(a) * g).to(x.dtype)
@@ -184,7 +189,7 @@ class _SwiGLU(torch.autograd.Function):
         if need_w:
             dw = (dc.t() @ xn.detach()).to(w.dtype)
         if need_b:
-            db = dc.sum(0, dtype=torch.float32).to(b.dtype)
+            db = dc.sum(0, dtype=_acc(dc)).to(b.dtype)
         if lns is None:
             if need_x:
                 dx = dc @ w
@@ -204,10 +209,11 @@ def swiglu_bwd_reference(ag, dh):
     dh*silu`` with ``s = sigmoid(a)``, rounded once into ``da | dg [M, 2H]``
     in ag's dtype."""
     h = dh.shape[-1]
-    a, g = ag[:, :h].float(), ag[:, h:].float()
+    ct = _acc(ag)
+    a, g = ag[:, :h].to(ct), ag[:, h:].to(ct)
     sig = torch.sigmoid(a)
     silu = a * sig
-    dhf = dh.float()
+    dhf = dh.to(ct)
     return torch.cat([dhf * g * (sig + silu * (1.0 - sig)), dhf * silu], dim=-1).to(ag.dtype)
 
 
@@ -219,7 +225,8 @@ def ln_matmul_reference(x, lns, lnb, w, b, eps: float = 1e-6, width: int | None 
     ``width``: the statistics over the first ``width`` columns, for
     operands padded by ``pad_ln_matmul``."""
     xn = ln_rows(x, lns, lnb, eps, width)
-    return F.linear(xn.float(), w.float(), b.float()).to(x.dtype)
+    ct = _acc(x)
+    return F.linear(xn.to(ct), w.to(ct), b.to(ct)).to(x.dtype)
 
 
 def ln_matmul(x, lns, lnb, w, b, eps: float = 1e-6):

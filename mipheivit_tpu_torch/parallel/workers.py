@@ -1,0 +1,176 @@
+"""Rank workers: what one rank runs under ``parallel.spawn`` in the tests,
+the dry run and the chip smoke. Inputs and outputs are numpy arrays and
+plain dicts (they cross process boundaries by pickle); each worker runs
+inside a started process group and builds what it needs from its
+arguments.
+
+- ``seq_attention``: ``seq_sharded_attention`` forward and gradients;
+- ``forward``: a ViT or a MipheiViT with ``attn_impl="seq_shard"``;
+- ``wsi``: ``wsi_inference`` with a ``seq_shard_mesh`` over every rank;
+- ``train_steps``: the train step on each rank's rows of global batches;
+- ``tasks``: several workers in one process group, in turn.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from .mesh import make_mesh, process_device, shard_batch
+
+
+def _t(a, device=None, requires_grad=False):
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(process_device() if device is None
+                                                       else device)
+    return t.requires_grad_(requires_grad)
+
+
+def _np(t):
+    return t.detach().float().cpu().numpy()
+
+
+def digest(tensors: Dict[str, torch.Tensor]) -> str:
+    """sha256 over the bytes of ``tensors`` in name order: replicas compare
+    by it."""
+    h = hashlib.sha256()
+    for name in sorted(tensors):
+        h.update(name.encode())
+        h.update(tensors[name].detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def seq_attention(q, k, v, num_heads: int):
+    """``seq_sharded_attention`` over every rank on whole inputs (``k`` None:
+    ``q`` is the fused qkv): the output and the gradients of ``sum(out**2)``
+    (summed over the ranks: each holds its shard's rows)."""
+    from .seq import seq_sharded_attention
+
+    mesh = make_mesh(1, dist.get_world_size())
+    ins = [_t(a, requires_grad=True) for a in ((q,) if k is None else (q, k, v))]
+    out = seq_sharded_attention(*ins, num_heads=num_heads, group=mesh.model_group)
+    (out.float() ** 2).sum().backward()
+    grads = []
+    for t in ins:
+        g = t.grad.clone()
+        dist.all_reduce(g)
+        grads.append(_np(g))
+    return _np(out), grads
+
+
+def build_generator(vit_kwargs: dict, out_chans: Optional[int], state=None, device=None):
+    """A ViT (``out_chans`` None) or a MipheiViT of ``vit_kwargs`` on the
+    rank's device, with ``state`` (numpy) loaded when given."""
+    from ..models.mipheivit import MipheiViT
+    from ..models.vit import ViTConfig, VisionTransformer
+
+    cfg = ViTConfig(**vit_kwargs)
+    with torch.device(process_device() if device is None else device):
+        model = VisionTransformer(cfg) if out_chans is None else MipheiViT(cfg, out_chans)
+    if state is not None:
+        model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in state.items()})
+    return model
+
+
+def forward(vit_kwargs: dict, out_chans: Optional[int], state, x, n_model: Optional[int] = None):
+    """The eval forward of ``build_generator(...)`` with its tokens sharded
+    over ``n_model`` ranks (default: all), the rows of ``x`` split over the
+    data axis; returns this rank's output rows."""
+    from .seq import seq_shard_scope
+
+    n = dist.get_world_size()
+    mesh = make_mesh(n // (n_model or n), n_model or n)
+    model = build_generator({**vit_kwargs, "attn_impl": "seq_shard"}, out_chans, state).eval()
+    with torch.no_grad(), seq_shard_scope(mesh):
+        return _np(model(_t(shard_batch(x, mesh))))
+
+
+def wsi(vit_kwargs: dict, out_chans: int, state, image, names, mean, std, wsi_kwargs: dict):
+    """``wsi_inference`` of a MipheiViT over an ``ArraySlide`` of ``image``
+    with its tokens sharded over every rank; rank 0 returns the stitched
+    ``[C, H, W]`` uint8 array, the others None."""
+    from ..data.stats import Normalizer
+    from ..infer.wsi import ArraySlide, wsi_inference
+
+    mesh = make_mesh(1, dist.get_world_size())
+    model = build_generator({**vit_kwargs, "attn_impl": "seq_shard"}, out_chans, state).eval()
+    h, w = image.shape[:2]
+    out = np.zeros((out_chans, h, w), np.uint8) if dist.get_rank() == 0 else None
+    norm = Normalizer({"mean": list(mean), "std": list(std)}, "he")
+    return wsi_inference(model, ArraySlide(image), out, list(names), norm,
+                         seq_shard_mesh=mesh, **wsi_kwargs)
+
+
+def train_steps(spec: dict) -> dict:
+    """``make_train_step`` on this rank's rows of ``spec["batches"]`` (global
+    batches) over an ``n_data x n_model`` mesh (``spec["n_model"]``, default
+    1; with 2 or more the ViT is sequence-sharded): a MipheiViT of
+    ``spec["vit"]`` with ``spec["state"]`` loaded, LoRA and decoder
+    trainable, the weighted-MSE loss of ``spec["weights"]``, the pix2pix
+    Adam chains (``lr``, ``total_iters``, ``warmup``, ``accum``), in
+    ``spec["dtype"]`` (default float32) and, with ``spec["disc_state"]``,
+    the discriminator. Returns the step losses
+    (means over the ranks), the first microbatch's reduced gradients, the
+    final state dicts and their digests, and the BatchNorms' modes."""
+    from ..metrics.pixel import PixelMetrics
+    from ..models.discriminator import DiscriminatorPatch
+    from .seq import seq_shard_scope
+    from ..train import losses, optim, steps
+
+    n_model = spec.get("n_model", 1)
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = make_mesh(n // n_model, n_model)
+    device = process_device() or torch.device("cpu")
+    vit = dict(spec["vit"], attn_impl="seq_shard" if n_model > 1 else "auto")
+    dtype = getattr(torch, spec.get("dtype", "float32"))
+    model = build_generator(vit, spec["out_chans"], spec["state"], device).to(dtype)
+    gan = spec.get("disc_state") is not None
+    disc = None
+    if gan:
+        disc = DiscriminatorPatch(3 + spec["out_chans"], ndf=8, n_layers=2)
+        disc.load_state_dict({k: torch.from_numpy(np.array(v))
+                              for k, v in spec["disc_state"].items()})
+    gen_opt = optim.build_generator_optimizer(spec["lr"], spec["total_iters"],
+                                              warmup_iters=spec["warmup"],
+                                              grad_accum_steps=spec["accum"])
+    disc_opt = optim.build_discriminator_optimizer(
+        spec["lr"], spec["total_iters"], warmup_iters=spec["warmup"],
+        grad_accum_steps=spec["accum"]) if gan else None
+    state = steps.create_train_state(model, gen_opt, disc, disc_opt,
+                                     freeze_model_name="myvitmatte", device=device, mesh=mesh,
+                                     grad_checkpointing=spec.get("grad_checkpointing", False))
+    step = steps.make_train_step(model, losses.weighted_mse_loss(50.0, spec["weights"]),
+                                 gen_opt, disc, disc_opt, steps.StepConfig(gan_train=gan))
+    metrics = PixelMetrics.zeros(device)
+    losses_out, grads0 = [], None
+    bn_training = []
+    with seq_shard_scope(mesh):
+        for i, batch in enumerate(spec["batches"]):
+            batch = {k: v.astype(spec.get("dtype", "float32")) for k, v in batch.items()}
+            state, metrics, log = step(state, shard_batch(batch, mesh), metrics)
+            if i == 0:
+                grads0 = {k: _np(v) for k, v in log["grads"].items()}
+                bn_training = sorted({m.training for m in model.modules()
+                                      if type(m).__name__ == "BatchNorm2d"})
+            keys = ["gen_loss", "gen_loss_sim"] + (["disc_adv_loss"] if gan else [])
+            vals = torch.stack([log[k].double() for k in keys])
+            if n > 1:
+                dist.all_reduce(vals)
+                vals /= n
+            losses_out.append(dict(zip(keys, vals.tolist())))
+    gen_sd = {k: v for k, v in model.state_dict().items()}
+    out = {"losses": losses_out, "grads0": grads0, "bn_training": bn_training,
+           "step": state.step, "digest": digest(gen_sd),
+           "disc_digest": digest(disc.state_dict()) if gan else None}
+    if spec.get("return_state", True):
+        out["state"] = {k: _np(v) for k, v in gen_sd.items() if v.is_floating_point()}
+    return out
+
+
+def tasks(*calls):
+    """``[fn(*args) for fn, args in calls]``: several workers in one process
+    group (every rank runs the same calls in the same order)."""
+    return [fn(*args) for fn, args in calls]

@@ -13,6 +13,16 @@ ends (``finished``, or ``preempted`` after a SIGTERM), and a
 ``logs/multirun_<timestamp>/``; ``--resume=LOGDIR`` continues a run from
 its newest snapshot. Trains on the card unless ``--device=cpu`` is given;
 without a card it raises. Composing needs PyYAML (this entry point only).
+
+Over several cards, launch it through torchrun, one process a card:
+
+  python -m torch.distributed.run --nproc_per_node N -m mipheivit_tpu_torch.run ...
+         [++model.attn_impl=seq_shard ++train.mesh.num_model_shards=M]
+
+Each rank starts the process group (``parallel.init_distributed``: NCCL,
+``cuda:{LOCAL_RANK}``; gloo with ``--device=cpu``), rank 0 names the log
+directory and writes its files, and ``train_patchgan`` trains the
+``N/M x M`` mesh.
 """
 
 import logging
@@ -53,13 +63,22 @@ def main(argv=None) -> Path:
         elif arg in ("-m", "--multirun"):
             multirun = True
             args.remove(arg)
+    from .parallel.mesh import init_distributed, world_size
+
+    main_rank = True
+    if world_size() > 1:
+        import torch.distributed as dist
+
+        init_distributed(device)
+        main_rank = dist.get_rank() == 0
     if resume_dir:
         logdir = Path(resume_dir)
         train_patchgan(load_yaml(logdir / "config.yaml"), str(logdir), resume=True,
                        device=device)
         return logdir
-    timestamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
-    Path("logs").mkdir(exist_ok=True)
+    timestamp = _agreed(datetime.now().strftime("%Y-%m-%d_%H-%M-%S"))
+    if main_rank:
+        Path("logs").mkdir(exist_ok=True)
     if multirun:
         # Hydra's -m basic sweeper: sequential jobs, one logdir per job
         # (reference: README.md:193-197)
@@ -67,20 +86,33 @@ def main(argv=None) -> Path:
         sweep_dir = Path("logs") / f"multirun_{timestamp}"
         for i, (name, cfg) in enumerate(jobs):
             logdir = sweep_dir / f"{i}_{name}"
-            logdir.mkdir(parents=True)
-            (logdir / "status.txt").write_text("not finished")
-            write_github_logs(logdir)
+            if main_rank:
+                logdir.mkdir(parents=True)
+                (logdir / "status.txt").write_text("not finished")
+                write_github_logs(logdir)
             logging.info("multirun job %d/%d: %s", i + 1, len(jobs), name)
             train_patchgan(cfg, str(logdir), device=device)
         return sweep_dir
     cfg = compose(args)
     markers = "_".join(map(str, cfg.data.targ_channel_names))
     logdir = Path("logs") / f"patchgan_{markers}_{timestamp}"
-    logdir.mkdir(parents=True)
-    (logdir / "status.txt").write_text("not finished")
-    write_github_logs(logdir)
+    if main_rank:
+        logdir.mkdir(parents=True)
+        (logdir / "status.txt").write_text("not finished")
+        write_github_logs(logdir)
     train_patchgan(cfg, str(logdir), device=device)
     return logdir
+
+
+def _agreed(value: str) -> str:
+    """Rank 0's ``value`` on every rank (the log directory's timestamp)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 if __name__ == "__main__":

@@ -14,6 +14,17 @@ sliding-window inference over a whole slide into a pyramidal OME-TIFF
 card unless ``--device cpu`` is given; without a card it raises. Config
 parsing (``config.py``) and slide/TIFF IO (``slideio``) are the port's own
 host modules, imported here only.
+
+Whole-region windows sharded over several cards, one process a card:
+
+  python -m torch.distributed.run --nproc_per_node N -m mipheivit_tpu_torch.run_inference
+         --checkpoint_dir D --wsi SLIDE --tile_size 2048 --overlap 128 --seq_shard
+
+Every rank starts the process group (``parallel.init_distributed``: NCCL on
+``cuda:{LOCAL_RANK}``, gloo with ``--device cpu``), the ranks form a ``1 x
+N`` mesh whose model group shards each window's tokens (``parallel/seq.py``),
+and rank 0 writes the slide. ``--seq_shard`` needs 2 ranks or more; without
+it the CLI runs in one process.
 """
 
 import argparse
@@ -41,15 +52,29 @@ def main(argv=None) -> str:
     parser.add_argument("--int8", action="store_true",
                         help="not ported yet (ROADMAP.md queue 1, item 16)")
     parser.add_argument("--seq_shard", action="store_true",
-                        help="not ported yet (ROADMAP.md queue 1, items 13-14)")
+                        help="whole-region serving: shard each window's tokens over the "
+                             "ranks of torchrun (2 or more; use with --wsi and a large "
+                             "--tile_size, e.g. 1024/2048)")
     args = parser.parse_args(argv)
     if args.int8:
         raise NotImplementedError("--int8 serving is not ported to PyTorch yet "
                                   "(ROADMAP.md queue 1, item 16: int8 serving)")
+    from .parallel.mesh import init_distributed, make_mesh, world_size
+
+    seq_mesh = None
     if args.seq_shard:
-        raise NotImplementedError("--seq_shard is not ported to PyTorch yet "
-                                  "(ROADMAP.md queue 1, items 13-14: parallel/seq.py, "
-                                  "whole-region encoding over several cards)")
+        if not args.wsi:
+            raise ValueError("--seq_shard shards whole-slide windows: use it with --wsi")
+        if world_size() < 2:
+            raise ValueError(
+                "--seq_shard shards each window's tokens over the ranks of torchrun: launch 2 "
+                "or more (python -m torch.distributed.run --nproc_per_node N -m "
+                "mipheivit_tpu_torch.run_inference ... --seq_shard)")
+        init_distributed(args.device)
+        seq_mesh = make_mesh(n_data=1, n_model=world_size())
+    elif world_size() > 1:
+        raise ValueError("run_inference runs in one process unless --seq_shard shards its "
+                         "windows over the ranks")
 
     cfg = load_yaml(str(Path(args.checkpoint_dir) / "config.yaml"))
     if args.dataset_config_path:
@@ -65,7 +90,7 @@ def main(argv=None) -> str:
                 cfg.data[key] = ds_data[key]
 
     if args.wsi:
-        return _run_wsi(cfg, args)
+        return _run_wsi(cfg, args, seq_mesh)
     dataset_name = Path(args.dataset_config_path).stem \
         if args.dataset_config_path else "default"
     run_name = Path(args.checkpoint_dir).stem
@@ -74,19 +99,26 @@ def main(argv=None) -> str:
                            batch_size=args.batch_size, device=args.device)
 
 
-def _run_wsi(cfg, args) -> str:
+def _run_wsi(cfg, args, seq_mesh=None):
     """The generator at ``(tile_size, tile_size)`` (position embedding
-    re-gridded), LoRA merged, bf16 on the card; then ``wsi_inference``."""
+    re-gridded), LoRA merged, bf16 on the card; then ``wsi_inference``
+    (with ``seq_mesh``, its ViT sequence-sharded over the ranks; ranks
+    other than 0 return None)."""
     from .infer import load_serving_model, resolve_device, wsi_inference
+    from .models.vit import set_attn_impl
+    from .parallel.mesh import process_device
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device if seq_mesh is None else process_device())
     names = list(cfg.data.targ_channel_names)
     model, he_norm = load_serving_model(cfg, args.checkpoint_dir,
                                         (args.tile_size, args.tile_size), len(names), device)
+    if seq_mesh is not None:
+        set_attn_impl(model, "seq_shard")
     out = args.out or str(Path(args.wsi).with_suffix(".pred.ome.tiff"))
     return wsi_inference(model, args.wsi, out, names, he_norm,
                          tile_size=args.tile_size, overlap=args.overlap,
-                         batch_size=args.batch_size or cfg.train.batch_size)
+                         batch_size=args.batch_size or cfg.train.batch_size,
+                         seq_shard_mesh=seq_mesh)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,10 @@ unnormalised per-cell means, with a focal loss pulling the predicted cells'
 soft labels toward the target cells' pseudo-labels. The target branch is
 detached. The per-nucleus means come from ``ops.segment_pool``, whose
 pooling makes no host sync, so the loss runs inside the training step
-without stalling it.
+without stalling it. Over data-parallel ranks (``group``), the sums and
+counts behind each mean are summed over the group first, so that every
+rank's loss is the global batch's, as the JAX step computes it over a
+sharded batch.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 from torch import nn
 
 from ..ops.segment_pool import segment_mean_pool
+from ..parallel.mesh import all_reduce_sum
 
 
 class Normalization(nn.Module):
@@ -66,10 +70,11 @@ def load_cluster_mlp(mlp_path: str, n_channels: int, device=None) -> ClusterMLP:
 
 def build_cell_loss(mlp_path: Optional[str], n_channels: int, use_mse: bool = True,
                     use_clustering: bool = True, lambda_factor: float = 50.0,
-                    capacity: int = 1024, device=None) -> Callable:
+                    capacity: int = 1024, device=None, group=None) -> Callable:
     """Returns ``loss(pred [B,H,W,C], target [B,H,W,C], nuclei [B,H,W]) ->
     0-d f32 tensor``; the MLP is moved to ``device`` when given, else to
-    the predictions' device at the first call."""
+    the predictions' device at the first call. With ``group`` (the data
+    ranks) the means are over the nuclei of every rank's rows."""
     mlp = None
     if use_clustering:
         if mlp_path is None:
@@ -84,11 +89,11 @@ def build_cell_loss(mlp_path: Optional[str], n_channels: int, use_mse: bool = Tr
         _, pred_means, valid = segment_mean_pool(pred, nuclei, capacity)
         _, targ_means, _ = segment_mean_pool(target.detach(), nuclei, capacity)
         w = valid.float()
-        denom = torch.clamp(w.sum(), min=1.0)
-        total = zero
+        # numerators and counts of the MSE and the focal term, summed over
+        # the data ranks when there are several
+        parts = [zero, zero, zero, zero]
         if use_mse:
-            mse = torch.sum(((pred_means - targ_means) ** 2).mean(-1) * w) / denom
-            total = total + mse * lambda_factor
+            parts[:2] = torch.sum(((pred_means - targ_means) ** 2).mean(-1) * w), w.sum()
         if use_clustering:
             if next(mlp.parameters()).device != pred.device:
                 mlp.to(pred.device)
@@ -105,7 +110,13 @@ def build_cell_loss(mlp_path: Optional[str], n_channels: int, use_mse: bool = Tr
             pt = torch.exp(-bce)
             fl = 0.5 * (1 - pt) ** 2 * bce
             mask = w[..., None]
-            total = total + torch.sum(fl * mask) / torch.clamp(mask.sum() * fl.shape[-1], min=1.0)
+            parts[2:] = torch.sum(fl * mask), mask.sum() * fl.shape[-1]
+        sums = all_reduce_sum(torch.stack(parts), group)
+        total = zero
+        if use_mse:
+            total = total + sums[0] / torch.clamp(sums[1], min=1.0) * lambda_factor
+        if use_clustering:
+            total = total + sums[2] / torch.clamp(sums[3], min=1.0)
         return total
 
     return loss

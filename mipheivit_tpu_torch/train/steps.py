@@ -23,6 +23,21 @@ state's ``torch.Generator``.
 
 Everything runs on the card unless the caller passes ``device="cpu"``;
 without a card and without that, ``create_train_state`` raises.
+
+Over several ranks (``create_train_state(..., mesh=...)``), each rank takes
+its own rows of the global batch: the BatchNorm statistics are those of the
+global batch (``layers.sync_batch_norm`` over the data group), and every
+microbatch's gradients are averaged over the data group and summed over
+the model group before the optimizer sees them. One bucketed ``all_reduce``
+over every rank does both: the gradients of the parameters of a
+sequence-sharded ViT, partial sums over the rank's token shard
+(``parallel/seq.py``), are multiplied by the model group's size first; the
+others (the decoder's, the same on every rank of a model group) are not.
+``DistributedDataParallel`` cannot do this here: its reducer fires on
+``.grad`` hooks, which ``torch.autograd.grad`` bypasses. The
+discriminator's gradients are averaged the same way. Dropout and the label
+noise draw from the state's ``rng``, seeded by (seed, data rank), so that
+the ranks of one model group draw alike.
 """
 
 from __future__ import annotations
@@ -34,8 +49,9 @@ import torch
 
 from .._device import resolve_device
 from ..metrics.pixel import PixelMetrics
-from ..models.layers import use_generator
+from ..models.layers import sync_batch_norm, use_generator
 from ..models.vit import VisionTransformer
+from ..parallel.mesh import Mesh, average_gradients
 from .losses import adversarial_loss, focal_bce_loss
 from .optim import AdamChain, OptState, layer_decay_multiplier, set_trainable
 
@@ -50,6 +66,8 @@ class TrainState:
     disc_opt_state: Optional[OptState] = None
     rng: Optional[torch.Generator] = None
     device: torch.device = torch.device("cpu")
+    mesh: Optional[Mesh] = None                       # the ranks' layout (None: one process)
+    grad_scales: Optional[List[float]] = None         # per trainable parameter, before the mean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +88,8 @@ def create_train_state(model: torch.nn.Module, gen_optimizer: AdamChain, disc=No
                        disc_optimizer: Optional[AdamChain] = None,
                        freeze_model_name: Optional[str] = None,
                        frozen_dtype: Optional[torch.dtype] = None, seed: int = 0,
-                       device=None, grad_checkpointing: bool = False) -> TrainState:
+                       device=None, grad_checkpointing: bool = False,
+                       mesh: Optional[Mesh] = None) -> TrainState:
     """Move the generator (and discriminator) to ``device`` in training mode,
     mark the trainable parameters (``freeze_model_name``, the JAX package's
     ``optim.is_trainable`` rule; None: all of them), store the frozen
@@ -80,7 +99,9 @@ def create_train_state(model: torch.nn.Module, gen_optimizer: AdamChain, disc=No
     decay's multipliers when the chain has one).
     ``grad_checkpointing`` recomputes each ViT block in the backward. The
     state's ``rng`` drives the label noise and, in the step, every
-    ``Dropout``."""
+    ``Dropout``. With a ``mesh`` of several ranks the BatchNorms are synced
+    over its data group, the rng is seeded by (seed, data rank) and the step
+    reduces the gradients over every rank (the module docstring)."""
     device = resolve_device(device)
     model.to(device).train()
     gen_params = set_trainable(model, freeze_model_name or "", frozen_dtype)
@@ -91,9 +112,20 @@ def create_train_state(model: torch.nn.Module, gen_optimizer: AdamChain, disc=No
     if gen_optimizer.layer_decay is not None:
         rate, n_layers = gen_optimizer.layer_decay
         scale = [layer_decay_multiplier(model, n, rate, n_layers) for n, _ in gen_params]
+    grad_scales = None
+    if mesh is not None and mesh.size > 1:
+        sync_batch_norm(model, mesh.data_group)
+        sharded = {id(p) for m in model.modules()
+                   if isinstance(m, VisionTransformer) and m.cfg.attn_impl == "seq_shard"
+                   for p in m.parameters()}
+        grad_scales = [float(mesh.n_model) if id(p) in sharded else 1.0 for _, p in gen_params]
+        # rank 0 draws as one process does; the ranks of a model group alike
+        seed = seed + 1_000_003 * mesh.data_rank
     state = TrainState(step=0, generator=model, gen_params=gen_params,
                        gen_opt_state=gen_optimizer.init([p for _, p in gen_params], scale),
-                       rng=torch.Generator(device=device).manual_seed(seed), device=device)
+                       rng=torch.Generator(device=device).manual_seed(seed), device=device,
+                       mesh=mesh if mesh is not None and mesh.size > 1 else None,
+                       grad_scales=grad_scales)
     if disc is not None:
         disc.to(device).train()
         state.disc = disc
@@ -160,6 +192,8 @@ def make_train_step(model, loss_reconstruct: Callable, gen_optimizer: AdamChain,
             loss = loss + fg
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        if state.mesh is not None:
+            average_gradients(grads, state.grad_scales)
         gen_optimizer.step(params, grads, state.gen_opt_state)
 
         fake = fake.detach()
@@ -178,6 +212,8 @@ def make_train_step(model, loss_reconstruct: Callable, gen_optimizer: AdamChain,
             d_loss = (adversarial_loss(logits_fake, fake_labels, cfg.lsgan)
                       + adversarial_loss(logits_real, real_labels, cfg.lsgan)) / 2.0
             d_grads = torch.autograd.grad(d_loss, d_params)
+            if state.mesh is not None:
+                average_gradients(d_grads)
             disc_optimizer.step(d_params, d_grads, state.disc_opt_state)
             log["disc_adv_loss"] = d_loss.detach()
 

@@ -31,7 +31,8 @@ from ..metrics.cell import METRIC_KEYS, CellMetrics
 from ..utils import MetricsLogger
 from .losses import build_reconstruction_loss
 from .steps import StepConfig, TrainState, make_eval_step
-from .trainer import check_foreground_head, get_width_height, refuse_unported, uses_cell_metrics
+from ..parallel.mesh import require_process_group
+from .trainer import check_foreground_head, get_width_height, uses_cell_metrics
 
 log = logging.getLogger(__name__)
 
@@ -41,8 +42,13 @@ def test_model(cfg, checkpoint_dir: str, run_name: str, dtype: Optional[str] = N
     """Pixel metrics of ``checkpoint_dir``'s generator on the val and test
     splits of ``cfg``: ``{"val_psnr", "val_ssim", "val_gen_loss_sim",
     "test_...": ...}``, and with cell metrics ``{split}_cell_{auc,
-    auc_logreg, balanced_acc, f1}``."""
-    refuse_unported(cfg)
+    auc_logreg, balanced_acc, f1}``. One process: it raises under
+    ``WORLD_SIZE > 1``. A run trained with ``model.attn_impl=seq_shard`` is
+    evaluated unsharded (the weights are the same; the sharding was the
+    training's layout)."""
+    if require_process_group() > 1:
+        raise NotImplementedError("test_model runs in one process; launch it without "
+                                  "torchrun")
     check_foreground_head(cfg)
     device = resolve_device(device)
     if dtype is None:

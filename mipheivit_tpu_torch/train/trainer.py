@@ -33,21 +33,40 @@ trainer writes a flattened flax layout for the non-flagship ones).
 Runs on the card unless ``device="cpu"`` is given (without a card it
 raises), computing in bf16 on the card with the frozen weights stored in
 bf16 (the flagship's foundation encoder) and the trainable ones in f32, and
-in f32 on the CPU. Not ported yet, and refused before any work:
-``model.attn_impl=seq_shard`` (items 13-14) and more than one process
-(item 13).
+in f32 on the CPU.
+
+Over several processes (torchrun; ``parallel.init_distributed`` has started
+the group, and ``WORLD_SIZE > 1`` without one raises), the ranks form an
+``n_data x n_model`` mesh: ``n_model`` is ``train.mesh.num_model_shards``
+with ``model.attn_impl=seq_shard`` (the flagship's ViT tokens sharded over
+a model group, ``parallel/seq.py``), else 1. Each rank loads
+``train.batch_size`` rows of its data coordinate's shard of the epoch, so
+the global batch, the steps per epoch, the sqrt-batch learning rate and
+the resume arithmetic count ``batch_size x n_data``, as the JAX trainer's
+multi-host units do; every rank runs the smallest shard's batch count. The
+step reduces the gradients and the BatchNorm statistics (``train/steps.py``).
+The step scalars, the NaN flag and the preemption flag are reduced at the
+fetch points (every ``LOG_EVERY`` steps and at the epoch's end), so a
+SIGTERM on one rank makes every rank snapshot at the same step boundary.
+Validation and test shard their tiles over the data ranks too; the pixel
+sums are summed over them and the cell tables gathered to rank 0, so the
+logged metrics are those of the whole split. Rank 0 alone writes: the
+config, metrics, images (one process only, as in the JAX trainer),
+snapshots, the export and ``status.txt``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
-import os
 import signal
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+import torch.distributed as dist
 
 from .._device import resolve_device
 from ..config import Config, save_config
@@ -63,6 +82,9 @@ from ..metrics.cell import METRIC_KEYS, CellMetrics
 from ..models import get_generator
 from ..models.discriminator import DiscriminatorPatch
 from ..models.layers import set_compute_dtype
+from ..models.vit import set_attn_impl
+from ..parallel.mesh import Mesh, make_mesh, process_device, require_process_group
+from ..parallel.seq import seq_shard_scope
 from ..utils import MetricsLogger, save_image_grid
 from .cell_loss import build_cell_loss
 from .checkpoints import latest_checkpoint, restore_train_state, save_generator, save_train_state
@@ -77,23 +99,74 @@ LOG_EVERY = 50          # steps between fetches of the step scalars
 _NO_NAN = np.iinfo(np.int32).max
 
 
-def _n_processes() -> int:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
+def model_shards(cfg: Config, n_proc: int) -> int:
+    """The model group's size: ``train.mesh.num_model_shards`` with
+    ``model.attn_impl=seq_shard``, else 1. Raises ``ValueError`` before any
+    work where the JAX trainer's check would (fewer than 2 shards, more than
+    the ranks), where the shards do not divide the ranks, and for a
+    generator without the flagship's ViT encoder. Tensor parallelism
+    (``train.mesh.model_axis``) raises ``NotImplementedError``: the JAX
+    package's ``parallel/sharding.py`` is not ported yet."""
+    if cfg.select("train.mesh.model_axis"):
+        raise NotImplementedError(
+            "tensor parallelism (train.mesh.model_axis) is not ported to PyTorch yet "
+            "(ROADMAP.md queue 1, item 19: parallel/sharding.py)")
+    if cfg.select("model.attn_impl", "auto") != "seq_shard":
+        return 1
+    n_model = int(cfg.select("train.mesh.num_model_shards", 1) or 1)
+    if n_model < 2 or n_model > n_proc:
+        raise ValueError(
+            f"model.attn_impl=seq_shard needs train.mesh.num_model_shards in [2, {n_proc}] "
+            f"(sequence shards must span >= 2 ranks and fit the {n_proc} ranks); got "
+            f"{n_model}. Launch {n_model} or more ranks through torchrun and set "
+            "train.mesh.num_model_shards explicitly, or use attn_impl=auto for one rank's "
+            "attention.")
+    if n_proc % n_model:
+        raise ValueError(f"train.mesh.num_model_shards={n_model} does not divide the "
+                         f"{n_proc} ranks")
+    if not cfg.model.model_name.startswith("myvitmatte"):
+        raise ValueError(f"model.attn_impl=seq_shard shards the flagship's ViT encoder "
+                         f"(myvitmatte), not {cfg.model.model_name!r}")
+    return n_model
 
 
-def refuse_unported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot train yet."""
-    if cfg.select("model.attn_impl", "auto") == "seq_shard":
-        raise NotImplementedError(
-            "model.attn_impl=seq_shard is not ported to PyTorch yet (ROADMAP.md queue 1, "
-            "items 13-14: parallel/seq.py, whole-region encoding over several cards)")
-    if _n_processes() > 1:
-        raise NotImplementedError(
-            "training over several processes is not ported to PyTorch yet (ROADMAP.md "
-            "queue 1, item 13: DDP over NCCL)")
+class _NullLogger:
+    """The logger of every rank but 0."""
+
+    def log(self, metrics: Dict, step: Optional[int] = None):
+        pass
+
+    def finish(self):
+        pass
+
+
+def _reduce(values: torch.Tensor, op=None, group=None) -> torch.Tensor:
+    """``values`` reduced over ``group`` (sum unless ``op``), a copy."""
+    values = values.clone()
+    dist.all_reduce(values, op=op or dist.ReduceOp.SUM, group=group)
+    return values
+
+
+def _reduce_pixel_metrics(metrics: PixelMetrics, mesh: Optional[Mesh]) -> PixelMetrics:
+    """The pixel sums of every data rank's rows (a model group's ranks hold
+    the same rows and count once)."""
+    if mesh is None or mesh.n_data == 1:
+        return metrics
+    sums = _reduce(torch.stack([metrics.sse, metrics.count, metrics.ssim_sum, metrics.images]),
+                   group=mesh.data_group)
+    return PixelMetrics(*sums.unbind())
+
+
+def _gather_cell_tables(cell_metrics: CellMetrics, mesh: Optional[Mesh]) -> None:
+    """Rank 0's cell tables extended by those of every data rank (a model
+    group's ranks hold the same cells: its rank 0 alone sends)."""
+    if mesh is None or mesh.n_data == 1 or mesh.model_rank != 0:
+        return
+    gathered = [None] * mesh.n_data if dist.get_rank() == 0 else None
+    dist.gather_object(cell_metrics._acc, gathered, dst=0, group=mesh.data_group)
+    if gathered is not None:
+        cell_metrics._acc = {name: [t for acc in gathered for t in acc[name]]
+                             for name in cell_metrics._acc}
 
 
 def uses_cell_metrics(cfg: Config) -> bool:
@@ -168,13 +241,21 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
     ``{"history", "best", "state"}`` (and ``"preempted": True`` after a
     SIGTERM). ``dtype`` is the compute dtype and the frozen weights'
     ("bfloat16" by default on the card, "float32" on the CPU); ``resume``
-    continues from the newest snapshot in ``<logdir>/snapshots``."""
-    refuse_unported(cfg)
+    continues from the newest snapshot in ``<logdir>/snapshots``. Under a
+    process group the device defaults to the rank's
+    (``parallel.init_distributed``'s)."""
     check_foreground_head(cfg)
     check_cell_loss(cfg)
-    device = resolve_device(device)
+    n_proc = require_process_group()
+    n_model = model_shards(cfg, n_proc)
+    seq_shard = cfg.select("model.attn_impl", "auto") == "seq_shard"
+    device = resolve_device(device if device is not None else process_device())
+    mesh = make_mesh(n_proc // n_model, n_model) if n_proc > 1 else None
+    n_data = mesh.n_data if mesh is not None else 1
+    is_main = mesh is None or dist.get_rank() == 0
     logdir = Path(logdir)
-    logdir.mkdir(parents=True, exist_ok=True)
+    if is_main:
+        logdir.mkdir(parents=True, exist_ok=True)
     if dtype is None:
         dtype = "bfloat16" if device.type == "cuda" else "float32"
 
@@ -232,6 +313,8 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
     # f32 parameters, bf16 compute on the card (the JAX trainer's
     # get_generator(dtype=...)); the frozen ones are stored in bf16 below
     set_compute_dtype(model, torch.bfloat16 if dtype == "bfloat16" else None)
+    if seq_shard:
+        set_attn_impl(model, "seq_shard")
 
     loss_reconstruct = build_reconstruction_loss(
         cfg, channel_names, channel_stats,
@@ -243,7 +326,8 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
         cell_loss_fn = build_cell_loss(
             cell_loss_cfg.mlp_path, nc_out, use_mse=cell_loss_cfg.use_mse,
             use_clustering=cell_loss_cfg.use_clustering,
-            lambda_factor=cfg.train.losses.lambda_factor, device=device)
+            lambda_factor=cfg.train.losses.lambda_factor, device=device,
+            group=mesh.data_group if n_data > 1 else None)
 
     gan_train = bool(cfg.train.gan_train)
     disc = None
@@ -255,8 +339,12 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
         disc = DiscriminatorPatch(3 + (nc_out if selected is None else len(selected)),
                                   selected_channels=selected)
 
+    # each rank loads batch_size rows of its data shard: every step consumes
+    # batch_size x n_data samples, and the schedule, the sqrt-batch LR and
+    # the resume epoch count in those units (the JAX trainer's global_bs)
     batch_size = cfg.train.batch_size
-    steps_per_epoch = len(train_df) // batch_size
+    global_bs = batch_size * n_data
+    steps_per_epoch = len(train_df) // global_bs
     if max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, max_steps_per_epoch)
     accum = max(int(cfg.select("train.grad_accum_steps", 1) or 1), 1)
@@ -265,8 +353,8 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
     total_iters = max(steps_per_epoch * cfg.train.epochs // accum, 1)
     # sqrt-batch LR scaling on the effective batch (reference
     # src/train.py:163-164 at the optimizer-step granularity)
-    lr_g = scaled_lr(cfg.train.learning_rate_g, batch_size * accum)
-    lr_d = scaled_lr(cfg.train.learning_rate_d, batch_size * accum)
+    lr_g = scaled_lr(cfg.train.learning_rate_g, global_bs * accum)
+    lr_d = scaled_lr(cfg.train.learning_rate_d, global_bs * accum)
     # the layer decay of fully trainable ViT encoders, over 40 layers whatever
     # the depth, as the JAX trainer builds it (trainer.py:197-201)
     model_name = cfg.model.model_name
@@ -286,7 +374,7 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
     state = create_train_state(
         model, gen_opt, disc, disc_opt, freeze_model_name=cfg.model.model_name,
         frozen_dtype=torch.bfloat16 if dtype == "bfloat16" else None, seed=cfg.train.seed,
-        device=device)
+        device=device, mesh=mesh)
 
     snapshots = logdir / "snapshots"
     start_epoch = 0
@@ -301,9 +389,12 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
                                  cell_loss_fn=cell_loss_fn)
     eval_step = make_eval_step(model, loss_reconstruct, step_cfg)
 
-    save_config(cfg, logdir / "config.yaml")
-    logger = MetricsLogger(str(logdir), project=cfg.train.wandb_project, run_name=logdir.name,
-                           config=cfg.to_dict(), use_wandb=use_wandb)
+    if is_main:
+        save_config(cfg, logdir / "config.yaml")
+        logger = MetricsLogger(str(logdir), project=cfg.train.wandb_project,
+                               run_name=logdir.name, config=cfg.to_dict(), use_wandb=use_wandb)
+    else:
+        logger = _NullLogger()
 
     monitor = cfg.train.callbacks.modelcheckpoint.monitor
     mode = cfg.train.callbacks.modelcheckpoint.mode
@@ -328,6 +419,19 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
     except ValueError:
         pass    # not the main thread (e.g. driven from a test harness)
 
+    def preempt_agreed() -> bool:
+        """Ranks leave the step loop together: a rank that broke alone would
+        leave the others waiting in a collective. The flag is reduced at the
+        fetch points only."""
+        local = preempt["sig"] is not None
+        if mesh is None:
+            return local
+        return bool(_reduce(torch.tensor([float(local)], device=device),
+                            dist.ReduceOp.MAX).item())
+
+    # every forward of the run shards its ViT tokens over the model group
+    scope = seq_shard_scope(mesh) if seq_shard else contextlib.nullcontext()
+    scope.__enter__()
     try:
 
         def run_eval(split: str, epoch: int) -> Dict:
@@ -336,6 +440,8 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
             losses = []
             loader = dm.loader(split, epoch=epoch)
             loader.pad_to_batch = True    # fixed shapes; the mask keeps the metrics exact
+            if n_data > 1:
+                loader.shard(mesh.data_rank, n_data)
             for batch in device_prefetch(loader, size=2, device=device):
                 b = {"image": batch["image"], "target": batch["target"], "mask": batch["mask"]}
                 metrics, elog = eval_step(state, b, metrics)
@@ -344,19 +450,32 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
                     n_valid = int(batch["mask"].sum())
                     cell_metrics.update(elog["pred"][:n_valid], batch["nuclei"][:n_valid],
                                         batch["slide_name"][:n_valid])
+            metrics = _reduce_pixel_metrics(metrics, mesh)
             out = {f"{split}_{k}": float(v) for k, v in metrics.compute().items()}
-            out[f"{split}_gen_loss_sim"] = (float(np.mean([float(v) for v in losses]))
-                                            if losses else np.nan)
+            # the mean over every data rank's batches
+            loss_sum = torch.stack([torch.stack(losses).float().sum() if losses
+                                    else torch.zeros((), device=device),
+                                    torch.tensor(float(len(losses)), device=device)])
+            if n_data > 1:
+                loss_sum = _reduce(loss_sum, group=mesh.data_group)
+            total, n_batches = loss_sum.tolist()
+            out[f"{split}_gen_loss_sim"] = total / n_batches if n_batches else np.nan
             if cell_metrics is not None:
-                cm = cell_metrics.compute(logreg_head=logreg_head if split == "test" else None)
-                if split == "val":
-                    logreg_head = cm["logreg_head"]
-                out.update(cell_metric_keys(split, cm, cell_metrics.marker_cols))
+                _gather_cell_tables(cell_metrics, mesh)
+                if is_main:
+                    cm = cell_metrics.compute(
+                        logreg_head=logreg_head if split == "test" else None)
+                    if split == "val":
+                        logreg_head = cm["logreg_head"]
+                    out.update(cell_metric_keys(split, cm, cell_metrics.marker_cols))
+                else:
+                    cell_metrics.reset()
             return out
 
         def export_checkpoint(tag: str):
-            save_train_state(state, snapshots)
-            save_generator(model, logdir / f"{tag}.safetensors")
+            if is_main:
+                save_train_state(state, snapshots)
+                save_generator(model, logdir / f"{tag}.safetensors")
 
         global_step = state.step
         for epoch in range(start_epoch, cfg.train.epochs):
@@ -366,6 +485,13 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
                 dm.setup()
             train_metrics = PixelMetrics.zeros(device)
             loader = dm.loader("train", epoch=epoch)
+            rank_cap = None
+            if n_data > 1:
+                # each data rank walks its shard of the epoch; shards can
+                # differ by a sample, so every rank runs the smallest one's
+                # batch count (the ranks must take the same steps)
+                loader.shard(mesh.data_rank, n_data)
+                rank_cap = (len(train_df) // n_data) // batch_size
             # the step scalars and NaN flags stay on the card; one fetch
             # every LOG_EVERY steps and at the epoch's end
             sums: Optional[Dict] = None
@@ -374,22 +500,30 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
             count = 0
 
             def sync_and_check_nan() -> Dict:
-                """One fetch: the latest scalars and the first NaN step
-                since the epoch began; dumps and raises on a NaN."""
+                """One fetch: the latest scalars (their mean over the
+                ranks) and the first NaN step since the epoch began (over
+                every rank); dumps and raises on a NaN."""
                 if last is None:
                     return {}
-                first, *values = torch.stack(
-                    [nan_step.double()] + [v.double() for v in last.values()]).tolist()
+                packed = torch.stack([v.double() for v in last.values()])
+                first = nan_step.double()
+                if mesh is not None:
+                    packed = _reduce(packed) / mesh.size
+                    first = _reduce(first, dist.ReduceOp.MIN)
+                first, *values = torch.cat([first.reshape(1), packed]).tolist()
                 if first != _NO_NAN:
                     export_checkpoint("weights_nan")
-                    (logdir / "weights_nan.step").write_text(f"{int(first)}\n")
+                    if is_main:
+                        (logdir / "weights_nan.step").write_text(f"{int(first)}\n")
                     raise ValueError(f"Nan found (first at step {int(first)})")  # models.py:105
                 return dict(zip(last, values))
 
             for i, batch in enumerate(device_prefetch(loader, size=2, device=device)):
                 if max_steps_per_epoch and i >= max_steps_per_epoch:
                     break
-                if preempt["sig"] is not None:
+                if rank_cap is not None and i >= rank_cap:
+                    break
+                if mesh is None and preempt["sig"] is not None:
                     break
                 b = {"image": batch["image"], "target": batch["target"]}
                 if step_cfg.use_cell_loss:
@@ -407,22 +541,31 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
                     nan_step = torch.minimum(nan_step, step_if_nan)
                 if global_step % LOG_EVERY == 0:
                     logger.log(sync_and_check_nan(), step=global_step)
-                if global_step % 1000 == 1:
+                    if mesh is not None and preempt_agreed():
+                        break
+                if global_step % 1000 == 1 and mesh is None:
+                    # the debug grid: one process only (a sequence-sharded
+                    # forward needs its whole model group)
                     pred = eval_step(state, b, PixelMetrics.zeros(device))[1]["pred"]
                     save_image_grid(str(logdir / "logs_img" / f"step{global_step}.png"),
                                     he_norm.unormalize(b["image"].cpu().numpy()),
                                     pred.float().cpu().numpy(), b["target"].cpu().numpy())
             sync_and_check_nan()    # the epoch's NaN check and drain
-            if preempt["sig"] is not None:
-                save_train_state(state, snapshots)
-                (logdir / "status.txt").write_text("preempted")
+            if preempt_agreed():
+                if is_main:
+                    save_train_state(state, snapshots)
+                    (logdir / "status.txt").write_text("preempted")
                 log.warning("preempted at step %d: resume with run --resume=%s",
                             state.step, logdir)
                 logger.finish()
                 return {"history": history, "best": best, "state": state, "preempted": True}
+            train_metrics = _reduce_pixel_metrics(train_metrics, mesh)
             epoch_metrics = {f"train_{k}": float(v) for k, v in train_metrics.compute().items()}
             if sums is not None:
-                epoch_metrics.update({k: float(v) / count for k, v in sums.items()})
+                means = torch.stack([v.double() for v in sums.values()]) / count
+                if mesh is not None:
+                    means = _reduce(means) / mesh.size
+                epoch_metrics.update(dict(zip(sums, means.tolist())))
             epoch_metrics.update(loader.stats.snapshot())
             epoch_metrics.update(run_eval("val", epoch))
             epoch_metrics["epoch"] = epoch
@@ -441,9 +584,11 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
         test_metrics = run_eval("test", cfg.train.epochs)
         logger.log(test_metrics, step=global_step)
         history.append(test_metrics)
-        (logdir / "status.txt").write_text("finished")   # reference: run.py:38-45
+        if is_main:
+            (logdir / "status.txt").write_text("finished")   # reference: run.py:38-45
         logger.finish()
         return {"history": history, "best": best, "state": state}
     finally:
+        scope.__exit__(None, None, None)
         for sig, handler in prev_handlers.items():
             signal.signal(sig, handler)

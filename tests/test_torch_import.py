@@ -63,6 +63,12 @@ CHIP_PATH = [
     "mipheivit_tpu_torch.evaluation.eval_hemit_hemit_pipeline",
     "mipheivit_tpu_torch.hemit.train_hemit",
     "mipheivit_tpu_torch.slideio",
+    "mipheivit_tpu_torch.parallel",
+    "mipheivit_tpu_torch.parallel.mesh",
+    "mipheivit_tpu_torch.parallel.seq",
+    "mipheivit_tpu_torch.parallel.spawn",
+    "mipheivit_tpu_torch.parallel.workers",
+    "mipheivit_tpu_torch.parallel.dryrun",
 ]
 
 

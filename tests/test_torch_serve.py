@@ -309,6 +309,61 @@ def test_serving_fn_matches_jax(monkeypatch):
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
 
+
+class _NHWCConv(torch.nn.Module):
+    """The JAX test's ``Tiny``: ``tanh(conv3x3(x)) * 0.9`` on NHWC."""
+
+    def __init__(self, kernel, bias):
+        super().__init__()
+        self.conv = torch.nn.Conv2d(3, 2, 3, padding=1)
+        with torch.no_grad():
+            self.conv.weight.copy_(torch.from_numpy(np.array(kernel)).permute(3, 2, 0, 1))
+            self.conv.bias.copy_(torch.from_numpy(np.array(bias)))
+
+    def forward(self, x):
+        return torch.tanh(self.conv(x.permute(0, 3, 1, 2))).permute(0, 2, 3, 1) * 0.9
+
+
+def test_serving_fn_data_mesh_matches_jax():
+    """The batch split over 8 replicas (``make_data_mesh(8, [cpu] * 8)``)
+    against the JAX serving function on its 8-device data mesh
+    (``tests/test_serve.py``'s tiny conv): within one uint8 step, and equal
+    to the port's one-replica answer."""
+    import flax.linen as nn
+    import jax
+    import jax.numpy as jnp
+
+    from mipheivit_tpu.data.stats import Normalizer as JaxNormalizer
+    from mipheivit_tpu.infer.serve import build_serving_fn as jax_serving_fn
+    from mipheivit_tpu.parallel import make_data_mesh as jax_data_mesh
+    from mipheivit_tpu_torch.data.stats import Normalizer
+    from mipheivit_tpu_torch.parallel import make_data_mesh
+
+    class Tiny(nn.Module):
+        @nn.compact
+        def __call__(self, x, train=False):
+            return nn.tanh(nn.Conv(2, (3, 3))(x)) * 0.9
+
+    jmodel = Tiny()
+    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, TILE, TILE, 3)))
+    conv = params["params"]["Conv_0"]
+    model = _NHWCConv(conv["kernel"], conv["bias"]).eval()
+    norm = {"mean": [180.0, 120.0, 160.0], "std": [50.0, 40.0, 45.0]}
+    x = np.random.default_rng(4).integers(0, 256, (8, TILE, TILE, 3), np.uint8)
+    want = jax_serving_fn(jmodel, params, JaxNormalizer(norm, mode="he"), TILE, batch_size=8,
+                          mesh=jax_data_mesh(8))(x)
+    mesh = make_data_mesh(8, ["cpu"] * 8)
+    assert mesh.size == 8
+    got = build_serving_fn(model, Normalizer(norm, mode="he"), TILE, batch_size=8,
+                           mesh=mesh)(x)
+    assert got.dtype == np.uint8 and got.shape == want.shape == (8, TILE, TILE, 2)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    solo = build_serving_fn(model, Normalizer(norm, mode="he"), TILE, batch_size=8,
+                            device="cpu")(x)
+    np.testing.assert_array_equal(got, solo)
+    with pytest.raises(ValueError, match="split"):
+        build_serving_fn(model, Normalizer(norm, mode="he"), TILE, batch_size=6, mesh=mesh)
+
 def _tiny_generator(model_name, img_size, nc_out, encoder_name="hoptimus0",
                     dtype=torch.float32, device=None, **family_options):
     from mipheivit_tpu_torch.models import MipheiViT, ViTConfig
@@ -354,6 +409,25 @@ def test_from_checkpoint_on_cpu_answers_a_request(tmp_path, monkeypatch):
         srv.stop()
     assert pred.shape == (32, 32, 3) and pred.dtype == np.uint8
     assert srv.batcher.stats()["n_batches"] == 1      # the warm-up is not counted
+
+
+def test_from_checkpoint_over_a_data_mesh_answers_as_one_replica(tmp_path, monkeypatch):
+    """``from_checkpoint(mesh=make_data_mesh(2, [cpu] * 2))``: the generator
+    loaded on the mesh's first device, replicated, each replica taking half
+    of every batch; the answers equal one replica's."""
+    from mipheivit_tpu_torch.parallel import make_data_mesh
+
+    ckpt, _ = _checkpoint(tmp_path)
+    monkeypatch.setattr(port_loading, "get_generator", _tiny_generator)
+    tiles = np.random.default_rng(3).integers(0, 256, (2, 32, 32, 3), np.uint8)
+    preds = []
+    for mesh in (make_data_mesh(2, ["cpu"] * 2), None):
+        srv = TileServer.from_checkpoint(str(ckpt), tile_size=32, batch_size=2,
+                                         host="127.0.0.1", port=0, device="cpu", mesh=mesh)
+        preds.append(srv.batcher.fwd_np(tiles))
+        srv.stop()
+    assert preds[0].shape == (2, 32, 32, 3)
+    np.testing.assert_array_equal(preds[0], preds[1])
 
 
 @pytest.mark.parametrize("entry", ["from_checkpoint", "run_serve"])

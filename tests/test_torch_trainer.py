@@ -502,30 +502,40 @@ def test_run_and_run_test_entry_points(workspace, tiny_port, tmp_path, monkeypat
     assert (logdir / "status.txt").read_text() == "finished"
 
 
-@pytest.mark.parametrize("case", ["foreground_head", "seq_shard", "processes"])
+@pytest.mark.parametrize("case", ["foreground_head", "seq_shard", "processes",
+                                  "tensor_parallel"])
 def test_unported_options_raise_before_any_work(workspace, tmp_path, monkeypatch, case):
-    """What the port cannot train raises ``NotImplementedError`` naming its
-    ROADMAP item, before any work; the foreground head, ported with the SMP
-    U-Net, raises ``ValueError`` on a generator without one (the flagship
-    here)."""
+    """What the port cannot run raises before any work: the foreground head,
+    ported with the SMP U-Net, raises ``ValueError`` on a generator without
+    one (the flagship here); ``model.attn_impl=seq_shard`` in one process (no
+    ranks to shard the tokens over) raises ``ValueError`` naming
+    ``train.mesh.num_model_shards``; ``WORLD_SIZE=2`` without a process group
+    raises ``RuntimeError`` in the trainer and in ``test_model``; tensor
+    parallelism (``train.mesh.model_axis``) raises ``NotImplementedError``
+    naming its ROADMAP item. Both ported layouts train over ranks in
+    ``tests/test_torch_parallel_*.py``; ``test_model`` evaluates a
+    sequence-sharded run unsharded."""
     from mipheivit_tpu_torch.train.test_driver import test_model
     from mipheivit_tpu_torch.train.trainer import train_patchgan
 
     _, values = workspace
     overrides = {"foreground_head": {"train__foreground_head": True},
                  "seq_shard": {"model__attn_impl": "seq_shard"},
-                 "processes": {}}[case]
+                 "processes": {},
+                 "tensor_parallel": {"train__mesh__model_axis": "model"}}[case]
     if case == "processes":
         monkeypatch.setenv("WORLD_SIZE", "2")
     error, match = {"foreground_head": (ValueError, "foreground head.*smp_unet"),
-                    "seq_shard": (NotImplementedError, "items 13-14"),
-                    "processes": (NotImplementedError, "item 13")}[case]
+                    "seq_shard": (ValueError, "num_model_shards in \\[2, 1\\]"),
+                    "processes": (RuntimeError, "WORLD_SIZE=2 but no process group"),
+                    "tensor_parallel": (NotImplementedError, "item 19")}[case]
     cfg = _port_cfg(values, **overrides)
     with pytest.raises(error, match=match):
         train_patchgan(cfg, str(tmp_path / "run"), use_wandb=False, device="cpu")
     assert not (tmp_path / "run").exists()
-    with pytest.raises(error, match=match):
-        test_model(cfg, str(tmp_path / "ckpt"), "ckpt", device="cpu")
+    if case in ("foreground_head", "processes"):
+        with pytest.raises(error, match=match):
+            test_model(cfg, str(tmp_path / "ckpt"), "ckpt", device="cpu")
 
 
 @pytest.mark.parametrize("case", ["no_cell_metrics", "no_slide_dataframe"])

@@ -283,10 +283,60 @@ def test_run_inference_cli_wsi(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", ["--int8", "--seq_shard"])
 def test_run_inference_cli_refuses_unported_flags(tmp_path, flag):
+    """``--int8`` is not ported (its ROADMAP item); ``--seq_shard`` in one
+    process, with no ranks to shard over, raises naming torchrun (over
+    ranks: ``test_run_inference_cli_seq_shard_over_two_ranks``)."""
     from mipheivit_tpu_torch import run_inference
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    error, match = {"--int8": (NotImplementedError, "ROADMAP.*item 16"),
+                    "--seq_shard": (ValueError, "torchrun")}[flag]
+    with pytest.raises(error, match=match):
         run_inference.main(["--checkpoint_dir", str(tmp_path), "--wsi", "s.tiff", flag])
+
+
+def test_run_inference_cli_seq_shard_over_two_ranks(tmp_path, monkeypatch):
+    """``--wsi --seq_shard`` on 2 gloo ranks (the torchrun layout, each rank
+    running the CLI): rank 0 writes the slide, the other returns None, and
+    the stitch is within one uint8 step of the one-process CLI's."""
+    import torch_synthetic_run as syn
+    from mipheivit_tpu_torch import run_inference
+    from mipheivit_tpu_torch.parallel.spawn import spawn
+
+    ckpt, _ = _checkpoint(tmp_path, 32)
+    path, _ = _slide(tmp_path, (88, 104))
+    argv = ["--checkpoint_dir", str(ckpt), "--wsi", path, "--tile_size", "32",
+            "--overlap", "8", "--device", "cpu"]
+    out = spawn(syn.cli, 2, ("run_inference",
+                                 argv + ["--out", str(tmp_path / "sharded.ome.tiff"), "--seq_shard"],
+                                 dict(img_size=(32, 32), **GEOM, lora_rank=8)),
+                device="cpu", timeout=240)
+    assert out == [str(tmp_path / "sharded.ome.tiff"), None]
+    monkeypatch.setattr(port_loading, "get_generator", _tiny_generator)
+    solo = run_inference.main(argv + ["--out", str(tmp_path / "solo.ome.tiff")])
+    got, want = _read(out[0]), _read(solo)
+    assert got.shape == want.shape == (88, 104, 3)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def test_wsi_inference_data_mesh_matches_jax(models, tmp_path):
+    """Each batch of windows split over one replica per device of
+    ``make_data_mesh(batch, [cpu] * batch)``: within one uint8 step of the
+    JAX function's stitch, and equal to the one-replica stitch."""
+    from mipheivit_tpu.infer import wsi_inference as jax_wsi_inference
+    from mipheivit_tpu_torch.parallel import make_data_mesh
+
+    path, _ = _slide(tmp_path, models["shape"])
+    jmodel, variables = models["jax"]
+    want = _read(jax_wsi_inference(jmodel, variables, path, str(tmp_path / "jax.ome.tiff"),
+                                   NAMES, _normalizer(), **_kwargs(models)))
+    mesh = make_data_mesh(models["batch"], ["cpu"] * models["batch"])
+    assert mesh.size == models["batch"]
+    got = _read(wsi_inference(models["port"], path, str(tmp_path / "mesh.ome.tiff"), NAMES,
+                              _normalizer(), mesh=mesh, **_kwargs(models)))
+    solo = _read(wsi_inference(models["port"], path, str(tmp_path / "solo.ome.tiff"), NAMES,
+                               _normalizer(), **_kwargs(models)))
+    assert np.abs(got.astype(np.int16) - want.astype(np.int16)).max() <= 1
+    np.testing.assert_array_equal(got, solo)
 
 
 @pytest.mark.parametrize("entry", ["inference_model", "cli_tiles", "cli_wsi",

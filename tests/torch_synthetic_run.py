@@ -8,6 +8,11 @@ tile tree of ``tests/test_trainer_e2e.py`` written as TIFF; with ``cells``
 also int32 nuclei tiles (4 nuclei of 36 px a tile, ids unique to the
 tile), the slide's nuclei CSV with their ground truth and the slide
 dataframe, and a seeded cluster-MLP checkpoint for the cell loss.
+
+Also the rank workers of the multi-rank trainer and CLI tests (``train``,
+``cli``): the trainer or a CLI with a tiny generator patched in, and, for
+the trainer, a write guard on every rank but 0 and a SIGTERM injected on
+one rank.
 """
 
 import csv
@@ -163,3 +168,113 @@ def configure(cfg, values: dict, cells: bool = False, **overrides):
     for key, value in settings.items():
         cfg.set_dotted(key, value)
     return cfg
+
+
+# ---- rank workers of the multi-rank trainer and CLI tests -----------------
+# (module-level, so that ``parallel.spawn`` children import them by name: a
+# spawned process inherits ``sys.path``)
+
+def _tiny_builder(vit_kwargs: dict):
+    """``get_generator``'s signature over a MipheiViT of ``vit_kwargs``."""
+    def build(model_name, img_size, nc_out, encoder_name="hoptimus0", dtype=torch.float32,
+              device="cpu", **family_options):
+        from mipheivit_tpu_torch.infer.loading import cast_params
+        from mipheivit_tpu_torch.parallel.workers import build_generator
+
+        return cast_params(build_generator(vit_kwargs, nc_out, device=device).eval(), dtype)
+
+    return build
+
+
+def _patched(module, **attrs):
+    """Set ``attrs`` on ``module``; returns the undo."""
+    old = {name: getattr(module, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(module, name, value)
+    return lambda: [setattr(module, name, value) for name, value in old.items()]
+
+
+def _tiny_generators(vit_kwargs):
+    """``get_generator`` of the trainer and the loaders replaced by
+    ``_tiny_builder(vit_kwargs)``; the undo."""
+    from mipheivit_tpu_torch.infer import loading
+    from mipheivit_tpu_torch.train import trainer
+
+    undo = [_patched(m, get_generator=_tiny_builder(vit_kwargs)) for m in (trainer, loading)]
+    return lambda: [u() for u in undo]
+
+
+def train(cfg_dict: dict, logdir: str, options: dict) -> dict:
+    """``train_patchgan`` of ``Config.create(cfg_dict)`` into ``logdir`` on
+    this rank, with the generator of ``options["tiny"]`` (ViT kwargs) in
+    place of the preset's. Other ``options``: ``resume``, ``device``
+    (default: the rank's), ``sigterm`` (``(rank, step)``: that rank sends
+    itself SIGTERM after that many train steps), ``guard_writes`` (every
+    rank but 0 raises on a write of the config, metrics, snapshots or the
+    export) and ``return_params``. Returns the step, the preemption flag,
+    the history, the generator's and the discriminator's digests (and
+    parameters). The trainer module is restored afterwards."""
+    import os
+    import signal
+
+    import torch.distributed as dist
+
+    from mipheivit_tpu_torch.config import Config
+    from mipheivit_tpu_torch.parallel.workers import digest
+    from mipheivit_tpu_torch.train import trainer
+
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    undo = [_tiny_generators(options["tiny"])]
+    if options.get("guard_writes") and rank != 0:
+        def refuse(*a, **kw):
+            raise AssertionError(f"rank {rank} tried to write")
+
+        undo.append(_patched(trainer, MetricsLogger=refuse, save_config=refuse,
+                             save_train_state=refuse, save_generator=refuse))
+    target = options.get("sigterm")
+    if target is not None and target[0] == rank:
+        real = trainer.make_train_step
+
+        def make_train_step(*a, **kw):
+            step_fn = real(*a, **kw)
+            taken = [0]
+
+            def run(*args):
+                out = step_fn(*args)
+                taken[0] += 1
+                if taken[0] == target[1]:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return out
+
+            return run
+
+        undo.append(_patched(trainer, make_train_step=make_train_step))
+    try:
+        out = trainer.train_patchgan(Config.create(cfg_dict), logdir, use_wandb=False,
+                                     resume=options.get("resume", False),
+                                     device=options.get("device"))
+    finally:
+        for u in reversed(undo):
+            u()
+    state = out["state"]
+    res = {"step": state.step, "preempted": bool(out.get("preempted", False)),
+           "history": out["history"], "digest": digest(state.generator.state_dict()),
+           "disc_digest": digest(state.disc.state_dict()) if state.disc is not None else None}
+    if options.get("return_params"):
+        res["params"] = {k: v.detach().float().cpu().numpy()
+                         for k, v in state.generator.state_dict().items() if v.is_floating_point()}
+    return res
+
+
+def cli(module: str, argv, tiny: dict):
+    """``main(argv)`` of the port's CLI ``module`` (``"run"``,
+    ``"run_inference"``) on this rank, with the generator of ``tiny`` (ViT
+    kwargs) in place of the preset's or the checkpoint's."""
+    import importlib
+
+    main = importlib.import_module(f"mipheivit_tpu_torch.{module}").main
+    undo = _tiny_generators(tiny)
+    try:
+        return main(list(argv))
+    finally:
+        undo()
