@@ -29,6 +29,30 @@ forward ends in K3:
                attention_qkv (K7 + K1) and ln_qkv_attention (K8), each held
                against the f32 plain chain.
 
+int8 W8A8 serving (ops/quant.py: torch._int_mm, cuBLASLt's int8 product, a
+library call; quantise and dequantise passes in PyTorch; fc1 is an int8
+product, so K2 does not run):
+
+  [int8 ops]   int8_matmul at the flagship's four GEMMs at 64 tiles (M 21 056:
+               qkv, proj, fc1, fc2) and at M 9, int8_conv3x3 at the four
+               fusion blocks of 64 tiles, each against its plain version on
+               the CPU (weight and activation codes identical, the output
+               within one bf16 step), timed beside F.linear / cuDNN conv2d in
+               bf16 and _int_mm alone;
+  [throughput int8] the flagship loaded as run_inference --int8 loads it
+               (load_serving_model -> quantize_encoder -> quantize_decoder):
+               tiles/s of the forward at batch 64 beside [throughput]'s, peak
+               memory beside bf16's, the device time by op family (profiler),
+               per-marker Pearson against the bf16 forward (K1, K3);
+  [wsi 256 int8], [wsi 1024 int8] wsi_inference over the 2048^2 slide with
+               the int8 generator (K1; K4 at 1024 px), against the serial
+               stitch and, by per-marker Pearson, the bf16 slide;
+  [seq shard int8] (with the multi-card phases) [seq shard wsi 1024]'s
+               sharded generator in int8 over the slide's top-left 1920^2
+               (2 x 2 windows of 1024 px), against the float sharded serial
+               stitch and the same int8 generator's unsharded serial stitch
+               (K4 on every rank).
+
 Training: load_generator(fast_heads=False) with LoRA live ->
 train.create_train_state(frozen encoder stored bf16) -> make_train_step
 (weighted MSE, lambda 50; Adam chain with clip 1.0; microbatches of
@@ -210,7 +234,7 @@ HEAD_C = 32                      # the decoder's last fusion width (K3's input)
 SERVE_BATCH, SERVE_CLIENTS, SERVE_REQUESTS = 32, 16, 256
 # the H100's published dense peaks and memory rate (NVIDIA data sheet, SXM,
 # 700 W), for the least time a kernel's work could take
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 # training: the flagship preset (configs: microbatch 8 x accumulation 2,
 # lr_g 2e-4 scaled by sqrt(16), lambda 50, warmup 400)
@@ -1449,11 +1473,13 @@ def compare_grads(card, cpu):
     return loss_rel, worst
 
 
-def serial_stitch(model, image, tile, overlap, batch, device):
+def serial_stitch(model, image, tile, overlap, batch, device, dtype=np.uint8):
     """The stitched slide without the pipeline: windows in raster order, the
     same batches padded as the pipeline pads them, the forward and the f32
     codec on the card, then the blend window and the port's
-    RollingAccumulator on the host, with no threads."""
+    RollingAccumulator on the host, with no threads. With ``dtype``
+    float32 the blended codec values (0-255) before the uint8 cast, which
+    truncates them."""
     from mipheivit_tpu_torch.infer.stitch import RollingAccumulator, blend_window
     from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE
 
@@ -1461,7 +1487,7 @@ def serial_stitch(model, image, tile, overlap, batch, device):
     stride = tile - overlap
     locs = [(x, y) for y in range(0, max(h - overlap, 1), stride)
             for x in range(0, max(w - overlap, 1), stride)]
-    out = np.zeros((MARKERS, h, w), np.uint8)
+    out = np.zeros((MARKERS, h, w), dtype)
     rolling = RollingAccumulator(out, tile, stride)
     window = blend_window(tile, overlap)
     mean = torch.as_tensor(HOPTIMUS_HE.mean, device=device)
@@ -1485,7 +1511,8 @@ def serial_stitch(model, image, tile, overlap, batch, device):
 def wsi_phase(name, model, image, tile, overlap, batch, device):
     """Drive wsi_inference once with the launch counts at 0, read them, and
     hold the stitched slide against the serial stitch. Returns the counts,
-    the pipeline's stats and the stitched slide."""
+    the pipeline's stats (with the serial stitch before its uint8 cast,
+    ``stitch_f32``) and the stitched slide."""
     from mipheivit_tpu_torch.infer import ArraySlide, wsi_inference
     from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE
 
@@ -1500,7 +1527,8 @@ def wsi_phase(name, model, image, tile, overlap, batch, device):
     counts = read_counts()
     e2e_s = time.perf_counter() - t0
     t1 = time.perf_counter()
-    want = serial_stitch(model, image, tile, overlap, batch, device)
+    stats["stitch_f32"] = serial_stitch(model, image, tile, overlap, batch, device, np.float32)
+    want = stats["stitch_f32"].astype(np.uint8)
     diff = int(np.abs(out.astype(np.int16) - want.astype(np.int16)).max())
     n, steady = stats["n_tiles"], stats["steady_tiles"]
     steady_rate = steady / stats["steady_s"] if stats["steady_s"] > 0 else float("nan")
@@ -3146,6 +3174,7 @@ def seq_wsi_rank(ckpt, enc, ref_path, dev):
     torch.cuda.synchronize()
     res = {"counts": read_counts(), "wall_s": time.perf_counter() - t0,
            "windows": stats["n_tiles"]}
+    res["int8"] = seq_wsi_int8(model, slide, mesh, dev)
     del model
     torch.cuda.empty_cache()
     dist.barrier()
@@ -3162,6 +3191,63 @@ def seq_wsi_rank(ckpt, enc, ref_path, dev):
             res["square_ms"] = cuda_ms(lambda: attn.flash_attention(q, k, v, HEADS))
         res["rect_bound"] = bound_ms(2 * (2 * rows + 2 * REGION_S) * HD,
                                      4.0 * HEADS * rows * REGION_S * 64, "bf16")
+    dist.barrier()
+    return res
+
+
+def seq_wsi_int8(model, slide, mesh, dev):
+    """[seq shard int8]: the sharded float generator of [seq shard wsi 1024]
+    quantised (quantize_encoder -> quantize_decoder) and driven through
+    wsi_inference(seq_shard_mesh) over the top-left INT8_SEQ_SLIDE^2 of the
+    slide with the launch counts at 0; the serial stitch, sharded too, of
+    the float generator before and of the int8 one after; on rank 0 the
+    per-marker Pearson of the int8 serial stitch against the float one
+    before the uint8 cast, of the int8 pipeline's slide against the float
+    serial stitch cast after it, and the pipeline against its serial
+    stitch; then, on rank 0 with its attention unsharded, the same int8
+    generator's serial stitch: the sharded int8 serial stitch against it
+    (per-marker Pearson before the uint8 cast) and the pipeline's slide
+    against it cast (max uint8 step)."""
+    import torch.distributed as dist
+
+    from mipheivit_tpu_torch.infer import (ArraySlide, quantize_decoder, quantize_encoder,
+                                           wsi_inference)
+    from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE
+    from mipheivit_tpu_torch.models.vit import set_attn_impl
+    from mipheivit_tpu_torch.parallel import seq_shard_scope
+
+    image = np.ascontiguousarray(slide[:INT8_SEQ_SLIDE, :INT8_SEQ_SLIDE])
+
+    def serial():
+        with seq_shard_scope(mesh):
+            return serial_stitch(model, image, REGION, 128, SEQ_WSI_BATCH, dev, np.float32)
+
+    float_f32 = serial()
+    quantize_decoder(quantize_encoder(model))
+    out = np.zeros_like(float_f32, np.uint8) if dist.get_rank() == 0 else None
+    stats = {}
+    dist.barrier()
+    reset_counts()
+    t0 = time.perf_counter()
+    wsi_inference(model, ArraySlide(image), out, [f"m{i}" for i in range(MARKERS)], HOPTIMUS_HE,
+                  tile_size=REGION, overlap=128, batch_size=SEQ_WSI_BATCH, tissue_only=False,
+                  stats=stats, seq_shard_mesh=mesh)
+    torch.cuda.synchronize()
+    res = {"counts": read_counts(), "wall_s": time.perf_counter() - t0,
+           "windows": stats["n_tiles"]}
+    int8_f32 = serial()
+    if out is not None:
+        res["pearson"] = pearson(np.moveaxis(int8_f32, 0, -1), np.moveaxis(float_f32, 0, -1))
+        res["pearson_uint8"] = pearson(np.moveaxis(out, 0, -1),
+                                       np.moveaxis(float_f32.astype(np.uint8), 0, -1))
+        res["serial_diff"] = int(np.abs(out.astype(np.int16)
+                                        - int8_f32.astype(np.uint8).astype(np.int16)).max())
+        set_attn_impl(model, "auto")
+        solo = serial_stitch(model, image, REGION, 128, SEQ_WSI_BATCH, dev, np.float32)
+        set_attn_impl(model, "seq_shard")
+        res["solo_pearson"] = pearson(np.moveaxis(int8_f32, 0, -1), np.moveaxis(solo, 0, -1))
+        res["solo_diff"] = int(np.abs(out.astype(np.int16)
+                                      - solo.astype(np.uint8).astype(np.int16)).max())
     dist.barrier()
     return res
 
@@ -3387,6 +3473,31 @@ def parallel_phases(tmp: Path, ckpt: Path, enc: Path, wsi1024_out, data_values: 
         check_counts(f"[seq shard wsi 1024] rank {r}", res["seq wsi"]["counts"],
                      k4=depth * windows, k2=depth * windows, k3=windows)
 
+    q = w["int8"]
+    for r, res in enumerate(ranks):
+        counts[f"seq shard int8 r{r}"] = res["seq wsi"]["int8"]["counts"]
+    print(f"[seq shard int8] the same sharded generator in int8 W8A8 over the slide's top-left "
+          f"{INT8_SEQ_SLIDE}^2: {q['windows']} windows of {REGION} px, wall {q['wall_s']:.2f} s = "
+          f"{q['windows'] / q['wall_s']:.3f} windows/s vs float sharded "
+          f"{windows / w['wall_s']:.3f} ([seq shard wsi 1024]); per-marker Pearson vs the float "
+          f"sharded serial stitch before the uint8 cast min {q['pearson'].min():.5f} (target >= "
+          f"{INT8_SEQ_PEARSON}), after it min {q['pearson_uint8'].min():.5f}; the pipeline vs its "
+          f"serial stitch max "
+          f"diff {q['serial_diff']} uint8 step(s) (target <= 1); against the same int8 "
+          f"generator's unsharded serial stitch: per-marker Pearson before the uint8 cast min "
+          f"{q['solo_pearson'].min():.6f} (target >= {INT8_SOLO_PEARSON}), the pipeline's slide "
+          f"max diff {q['solo_diff']} uint8 step(s) (target <= 1); "
+          + "; ".join(f"rank {r} {counts_line(res['seq wsi']['int8']['counts'])}"
+                      for r, res in enumerate(ranks)), flush=True)
+    check(bool((q["pearson"] >= INT8_SEQ_PEARSON).all()),
+          "[seq shard int8] the int8 stitch does not track the float one")
+    check(q["serial_diff"] <= 1, "[seq shard int8] the pipeline differs from its serial stitch")
+    check(bool((q["solo_pearson"] >= INT8_SOLO_PEARSON).all()) and q["solo_diff"] <= 1,
+          "[seq shard int8] the sharded int8 stitch differs from the unsharded int8 one")
+    for r, res in enumerate(ranks):
+        check_counts(f"[seq shard int8] rank {r}", res["seq wsi"]["int8"]["counts"],
+                     k4=depth * q["windows"], k3=q["windows"])
+
     s = r0["seq 2048"]
     peaks = ", ".join(f"{res['seq 2048']['peak_gib']:.2f}" for res in ranks)
     print(f"[seq shard 2048] one {SEQ_REGION}-px region, {s['tokens']} tokens over "
@@ -3503,6 +3614,293 @@ def _timed(fn, x):
     fn(x)
     return time.perf_counter() - t0
 
+
+# ---- int8 W8A8 serving (ops/quant.py: torch._int_mm, a library call) -------
+
+# the flagship's four encoder GEMMs at a batch of 64 tiles (M 21 056): (name,
+# K, N), and one M of at most 16 rows (torch._int_mm's CUDA path takes M > 16)
+INT8_GEMMS = (("qkv", 1536, 4608), ("proj", 1536, 1536), ("fc1", 1536, 8192),
+              ("fc2", 4096, 1536))
+INT8_RAGGED_M = 9
+# the four fusion blocks' convs at a batch of 64 256-px tiles: (C in, K out,
+# H = W); the last one's 9C = 603 is not a multiple of 8
+INT8_CONVS = ((1536 + 192, 256, 32), (256 + 96, 128, 64), (128 + 48, 64, 128),
+              (64 + 3, 32, 256))
+INT8_CHECK_ROWS = 256            # GEMM rows held against the CPU (first and last 128)
+INT8_CHECK_TILES = 2             # a conv's tiles held against the CPU
+# per-marker Pearson of the int8 forward against the bf16 forward of the same
+# weights (tests/test_quant.py's gate), and of the sharded int8 stitch
+# against the sharded float one (its test_int8_with_seq_shard_serving bound)
+INT8_PEARSON, INT8_SEQ_PEARSON = 0.995, 0.99
+# [seq shard int8]: the sharded int8 stitch against the same int8 model's
+# unsharded one (per-marker Pearson before the uint8 cast; and <= 1 uint8 step)
+INT8_SOLO_PEARSON = 0.9999
+INT8_FAMILIES = {"quantize_rows": "quantize rows", "quantize_patches": "quantize patches",
+                 "dequantize": "dequantize", "int_mm": "_int_mm"}
+# [seq shard int8]: the top-left 1920^2 of the slide, 2 x 2 windows of 1024 px
+INT8_SEQ_SLIDE = 1920
+
+
+def bf16_steps(got, want) -> float:
+    """The largest |got - want| in units of want's bf16 step (2**(e - 7) for
+    |want| in [2**e, 2**(e + 1))): <= 1 is within one step."""
+    w = want.float()
+    step = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    return float(((got.float() - w).abs() / step).max())
+
+
+def int8_gemm_case(name, m, k, n, seed, dev):
+    """One int8_matmul on the card against its plain version on the CPU:
+    weight and activation codes, the output on up to INT8_CHECK_ROWS rows,
+    and the times of the op, of its _int_mm product alone (the weight as a
+    column-major view, and row-major where _int_mm takes it), and of
+    F.linear in bf16."""
+    import torch.nn.functional as F
+
+    from mipheivit_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
+    w = (torch.randn(n, k, device=dev, generator=g) * 0.02).to(torch.bfloat16)
+    b = (torch.randn(n, device=dev, generator=g) * 0.02).to(torch.bfloat16)
+    half = INT8_CHECK_ROWS // 2
+    sel = torch.unique(torch.cat([torch.arange(min(m, half)), torch.arange(max(m - half, 0), m)]))
+    with torch.inference_mode():
+        w_i8, scale = quant.quantize_weight(w, axis=-1)
+        w_cpu, s_cpu = quant.quantize_weight(w.cpu(), axis=-1)
+        codes, _ = quant.quantize_rows(x)
+        codes_ok = (torch.equal(w_i8.cpu(), w_cpu) and torch.equal(scale.cpu(), s_cpu)
+                    and torch.equal(codes.cpu(), quant.quantize_rows(x.cpu())[0]))
+        got = quant.int8_matmul(x, w_i8, scale, b)
+        want = quant.int8_matmul_reference(x[sel.to(dev)].cpu(), w_cpu, s_cpu, b.cpu())
+        steps = bf16_steps(got[sel.to(dev)].cpu(), want)
+        ms = cuda_ms(lambda: quant.int8_matmul(x, w_i8, scale, b))
+        mm_ms = cuda_ms(lambda: quant.int_mm(codes, w_i8))
+        row_ms = None
+        if m >= 17:
+            w_rows = w_i8.t().contiguous()
+            try:
+                row_ms = cuda_ms(lambda: torch._int_mm(codes, w_rows))
+            except RuntimeError as e:     # a layout _int_mm refuses
+                row_ms = "refused: " + str(e).splitlines()[0][:80]
+        library_ms = cuda_ms(lambda: F.linear(x, w, b))
+    bnd, by = bound_ms(2 * m * k + n * k + 6 * n + 2 * m * n, 2.0 * m * n * k, "int8")
+    row = f"{row_ms:.3f}" if isinstance(row_ms, float) else row_ms or "not timed (M <= 16)"
+    print(f"[int8 ops] int8_matmul {name} M {m} K {k} N {n} bf16: weight and activation codes "
+          f"card = CPU {codes_ok}; output vs the plain version on the CPU ({len(sel)} rows) "
+          f"max {steps:.2f} bf16 steps (target <= 1); int8_matmul {ms:.3f} ms (its _int_mm "
+          f"alone {mm_ms:.3f} ms with the weight column-major, row-major {row}), F.linear "
+          f"bf16 {library_ms:.3f} ms, bound {bnd:.3f} ms ({by})", flush=True)
+    check(codes_ok, f"[int8 ops] {name}: the card's int8 codes differ from the CPU's")
+    check(steps <= 1.0, f"[int8 ops] {name}: int8_matmul differs from its plain version")
+    return {"ms": ms, "int_mm_ms": mm_ms, "library_ms": library_ms, "bound_ms": bnd,
+            "bound_by": by}
+
+
+def int8_conv_case(c, k, hw, seed, dev):
+    """One int8_conv3x3 at a fusion block's shape (BATCH tiles) on the card
+    against its plain version on the CPU on INT8_CHECK_TILES tiles (each
+    pixel's scale comes from its own tile): patch codes and output; the
+    times of the op, its _int_mm product alone and cuDNN's conv2d in bf16."""
+    import torch.nn.functional as F
+
+    from mipheivit_tpu_torch.models.mipheivit import Int8Conv3x3
+    from mipheivit_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(BATCH, c, hw, hw, device=dev, generator=g).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    w = (torch.randn(k, c, 3, 3, device=dev, generator=g) * 0.02).to(torch.bfloat16)
+    t = INT8_CHECK_TILES
+    with torch.inference_mode():
+        conv = torch.nn.Conv2d(c, k, 3, padding=1, bias=False, device="meta")
+        conv.weight = torch.nn.Parameter(w, requires_grad=False)
+        twin = Int8Conv3x3.from_conv(conv)          # the model's [K, 9C'] layout
+        w_i8, scale = twin.weight, twin.scale
+        w_cpu, s_cpu = w_i8.cpu(), scale.cpu()
+        patches, _ = quant.quantize_patches(x, quant.patch_width(c))
+        want_codes, _ = quant.quantize_patches(x[:t].cpu())
+        codes_ok = torch.equal(patches[:t * hw * hw, :9 * c].cpu(), want_codes)
+        del want_codes
+        got = quant.int8_conv3x3(x, w_i8, scale)
+        want = quant.int8_conv3x3_reference(x[:t].cpu(), w_cpu, s_cpu)
+        steps = bf16_steps(got[:t].cpu(), want)
+        del got
+        ms = cuda_ms(lambda: quant.int8_conv3x3(x, w_i8, scale))
+        mm_ms = cuda_ms(lambda: quant.int_mm(patches, w_i8))
+        del patches
+        library_ms = cuda_ms(lambda: F.conv2d(x, w, padding=1))
+    m = BATCH * hw * hw
+    bnd, by = bound_ms(2 * m * c + 9 * c * k + 4 * k + 2 * m * k, 2.0 * m * k * 9 * c, "int8")
+    print(f"[int8 ops] int8_conv3x3 [{BATCH}, {c}, {hw}, {hw}] -> {k} bf16 (9C {9 * c}): patch "
+          f"codes card = CPU {codes_ok} ({t} tiles); output vs the plain version on the CPU max "
+          f"{steps:.2f} bf16 steps (target <= 1); int8_conv3x3 {ms:.3f} ms (its _int_mm alone "
+          f"{mm_ms:.3f} ms), cuDNN conv2d bf16 {library_ms:.3f} ms, bound {bnd:.3f} ms ({by})",
+          flush=True)
+    check(codes_ok, f"[int8 ops] conv C {c}: the card's patch codes differ from the CPU's")
+    check(steps <= 1.0, f"[int8 ops] conv C {c}: int8_conv3x3 differs from its plain version")
+    torch.cuda.empty_cache()
+    return {"ms": ms, "int_mm_ms": mm_ms, "library_ms": library_ms, "bound_ms": bnd,
+            "bound_by": by}
+
+
+def int8_ops_phase(dev):
+    """[int8 ops]: int8_matmul at the flagship's four GEMMs at 64 tiles and at
+    a ragged M, int8_conv3x3 at the four fusion shapes of 64 tiles."""
+    t0 = time.perf_counter()
+    rows = {}
+    for i, (name, k, n) in enumerate(INT8_GEMMS):
+        rows[name] = int8_gemm_case(name, BATCH * 329, k, n, SEED + 130 + i, dev)
+    rows["qkv ragged"] = int8_gemm_case("qkv ragged", INT8_RAGGED_M, 1536, 4608, SEED + 135, dev)
+    torch.cuda.empty_cache()
+    for i, (c, k, hw) in enumerate(INT8_CONVS):
+        rows[f"fusion{i}"] = int8_conv_case(c, k, hw, SEED + 140 + i, dev)
+    print(f"[int8 ops] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
+def int8_device_split(fn, reps: int = 3) -> dict:
+    """Device ms of one ``fn()`` by op family, from a profiler trace of
+    ``reps`` calls: the int8 quantise passes, ``_int_mm``, the dequantise
+    passes (the kernels inside the device-side ranges of record_function
+    ranges wrapped around ``ops.quant``'s helpers for the trace only), K1,
+    K3 (by kernel name) and the rest; None for the three int8 families if
+    the trace holds no device-side range."""
+    import bisect
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mipheivit_tpu_torch.ops import quant
+
+    def wrap(label, f):
+        def annotated(*args, **kwargs):
+            with record_function(f"int8.{label}"):
+                return f(*args, **kwargs)
+        return annotated
+
+    fn()
+    torch.cuda.synchronize()
+    saved = {name: getattr(quant, name) for name in INT8_FAMILIES}
+    try:
+        for name, label in INT8_FAMILIES.items():
+            setattr(quant, name, wrap(label, saved[name]))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        for name, f in saved.items():
+            setattr(quant, name, f)
+    device = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    ranges = sorted((ev.time_range.start, ev.time_range.end, ev.name[len("int8."):])
+                    for ev in device if ev.name.startswith("int8."))
+    starts = [r[0] for r in ranges]
+    split = {label: 0.0 for label in INT8_FAMILIES.values()}
+    split.update({"K1": 0.0, "K3": 0.0, "rest": 0.0, "total": 0.0})
+    for ev in device:
+        if ev.name.startswith("int8."):
+            continue
+        t0, t1, us = ev.time_range.start, ev.time_range.end, ev.time_range.elapsed_us()
+        split["total"] += us
+        i = bisect.bisect_right(starts, t0) - 1
+        if i >= 0 and t1 <= ranges[i][1]:
+            split[ranges[i][2]] += us
+        elif "attn_bf16_kernel" in ev.name:
+            split["K1"] += us
+        elif "heads_ws_kernel" in ev.name:
+            split["K3"] += us
+        else:
+            split["rest"] += us
+    out = {key: v / reps / 1e3 for key, v in split.items()}
+    if not ranges:
+        out.update({label: None for label in INT8_FAMILIES.values()})
+    return out
+
+def serving_config(tmp: Path, ckpt: Path, enc: Path):
+    """The flagship preset's run config for ``load_serving_model``: the
+    smoke's checkpoint dir and encoder file, a channel-statistics file."""
+    stats = tmp / "serving_channel_stats.json"
+    stats.write_text(json.dumps({"RGB": {"mean": [180.0, 140.0, 170.0],
+                                         "std": [40.0, 45.0, 35.0]}}))
+    return trainer_config({"data.channel_stats_path": str(stats),
+                           "model.encoder.encoder_weights": str(enc)})
+
+
+def model_gib(model) -> float:
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers())) / 2 ** 30
+
+
+def throughput_int8_phase(tmp: Path, ckpt: Path, enc: Path, x, pred_bf16, bf16: dict, dev):
+    """[throughput int8]: the flagship loaded as the CLI's --int8 loads it
+    (load_serving_model -> quantize_encoder -> quantize_decoder), one forward
+    of the 64 tiles with the launch counts at 0 and the peak memory, per-marker
+    Pearson against the bf16 forward of the same weights, the steady
+    tiles/s and the device time by op family. Returns the model and the
+    counts."""
+    from mipheivit_tpu_torch.infer import load_serving_model, quantize_decoder, quantize_encoder
+
+    t0 = time.perf_counter()
+    model, _ = load_serving_model(serving_config(tmp, ckpt, enc), str(ckpt), (IMG, IMG),
+                                  MARKERS, dev)
+    quantize_decoder(quantize_encoder(model))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    depth = model.vit_cfg.depth
+    with torch.inference_mode():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        pred = model(x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        fwd_ms = cuda_ms(lambda: model(x), reps=10, warmup=2)
+        split = int8_device_split(lambda: model(x))
+    pred = pred.cpu().numpy()
+    r = pearson(pred, pred_bf16)
+    parts = ", ".join(f"{key} " + ("not measured" if split[key] is None else f"{split[key]:.2f}")
+                      for key in ("_int_mm", "quantize rows", "quantize patches", "dequantize",
+                                  "K1", "K3", "rest"))
+    print(f"[throughput int8] load_serving_model -> quantize_encoder -> quantize_decoder in "
+          f"{load_s:.1f} s ({model_gib(model):.2f} GiB of weights, bf16 {bf16['weights_gib']:.2f}); "
+          f"{BATCH * 1000 / fwd_ms:.1f} tiles/s steady int8 forward at batch {BATCH} "
+          f"({fwd_ms:.2f} ms/batch, CUDA events, median of 10) vs [throughput] bf16 "
+          f"{BATCH * 1000 / bf16['ms']:.1f} ({bf16['ms']:.2f} ms); peak {peak:.2f} GiB vs bf16 "
+          f"{bf16['peak_gib']:.2f}; device ms a batch by family (profiler): {parts} of "
+          f"{split['total']:.2f}; per-marker Pearson vs the bf16 forward min {r.min():.5f} "
+          f"(target >= {INT8_PEARSON}); {counts_line(counts)} on {card_line()}", flush=True)
+    check(bool(np.isfinite(pred).all()), "[throughput int8] non-finite output")
+    check(bool((r >= INT8_PEARSON).all()), "[throughput int8] int8 does not track bf16")
+    check_counts("[throughput int8]", counts, k1=depth, k3=1)
+    return model, counts
+
+
+def wsi_int8_phase(name, model, image, tile, overlap, batch, device, float_out, float_stats):
+    """``wsi_phase`` on the int8 model (the pipeline against its serial
+    stitch), then per-marker Pearson of its stitch against the bf16 one's,
+    before the uint8 cast (gated) and after it (printed). The smoke's
+    random-weight maps span a few uint8 steps, so a one-step flip of the
+    cast weighs on the uint8 Pearson; the spread is printed beside it."""
+    counts, stats, out = wsi_phase(name, model, image, tile, overlap, batch, device)
+    ref = np.moveaxis(float_stats["stitch_f32"], 0, -1)
+    r = pearson(np.moveaxis(stats.pop("stitch_f32"), 0, -1), ref)
+    r8 = pearson(np.moveaxis(out, 0, -1), np.moveaxis(float_out, 0, -1))
+    spread = ref.reshape(-1, MARKERS).std(0)
+    steps = np.abs(out.astype(np.int16) - float_out.astype(np.int16))
+
+    def rates(st):
+        steady = st["steady_tiles"] / st["steady_s"] if st["steady_s"] > 0 else float("nan")
+        return f"{st['n_tiles'] / st['wall_s']:.2f} wall, {steady:.2f} steady"
+
+    print(f"[{name}] windows/s {rates(stats)} vs bf16 {rates(float_stats)}; per-marker "
+          f"Pearson vs the bf16 stitch before the uint8 cast min {r.min():.5f} (target >= "
+          f"{INT8_PEARSON}), after it min {r8.min():.5f} (the bf16 maps' std "
+          f"{spread.min():.2f}-{spread.max():.2f} uint8 steps); uint8 |int8 - bf16| median "
+          f"{np.median(steps):.0f}, within 1 step {np.mean(steps <= 1):.4f}, max "
+          f"{int(steps.max())}", flush=True)
+    check(bool((r >= INT8_PEARSON).all()), f"[{name}] the int8 slide does not track bf16")
+    return counts
 
 def wsi_dp_phase(model, slide, want, dev, depth):
     """[wsi dp]: wsi_inference with each batch of 256-px windows split over
@@ -3712,6 +4110,12 @@ def main() -> None:
         pool_ms, cell_loss_ms = segment_pool_phase(dev, Path(tmp))
     torch.cuda.empty_cache()
 
+    # 3i. int8 W8A8 serving's ops (torch._int_mm, a library call, and PyTorch
+    #     passes: XLA ops in the JAX package) against their plain versions
+    #     on the CPU, at the flagship's GEMMs and fusion convs of 64 tiles
+    int8_ops_phase(dev)
+    torch.cuda.empty_cache()
+
     # 4. the slice at full width
     tiles = np.random.default_rng(SEED + 1).integers(0, 256, (N_TILES, IMG, IMG, 3),
                                                     dtype=np.uint8)
@@ -3746,13 +4150,19 @@ def main() -> None:
         std = torch.as_tensor(HOPTIMUS_HE.std, device=dev)
         x = (torch.from_numpy(tiles[:BATCH]).to(dev).float() - mean) / std
         with torch.inference_mode():
+            torch.cuda.reset_peak_memory_stats()
             pred_bf16 = model(x)
+            torch.cuda.synchronize()
+            bf16 = {"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "weights_gib": model_gib(model)}
             check(bool(torch.isfinite(pred_bf16).all()), "non-finite output in a batch")
             fwd_ms = cuda_ms(lambda: model(x), reps=10, warmup=2)
+            bf16["ms"] = fwd_ms
         print(f"[throughput] {BATCH * 1000 / fwd_ms:.1f} tiles/s steady bf16 forward "
-              f"at batch {BATCH} ({fwd_ms:.2f} ms/batch, CUDA events, median of 10) "
-              f"on {card}", flush=True)
-        pred_bf16 = pred_bf16[:1].cpu().numpy()
+              f"at batch {BATCH} ({fwd_ms:.2f} ms/batch, CUDA events, median of 10; peak "
+              f"{bf16['peak_gib']:.2f} GiB) on {card}", flush=True)
+        pred_bf16_batch = pred_bf16.cpu().numpy()
+        pred_bf16 = pred_bf16_batch[:1]
 
         # 4a. block 0's attention sublayer three ways (K1, K7 + K1, K8) on
         #     the loaded generator's weights and the tokens of 64 tiles
@@ -3764,7 +4174,8 @@ def main() -> None:
         # 4c. stitched whole-slide inference at 256-px windows (K1)
         slide = np.random.default_rng(SEED + 2).integers(0, 256, (SLIDE, SLIDE, 3),
                                                          dtype=np.uint8)
-        wsi256, _, wsi256_out = wsi_phase("wsi 256", model, slide, IMG, 64, BATCH, dev)
+        wsi256, wsi256_stats, wsi256_out = wsi_phase("wsi 256", model, slide, IMG, 64, BATCH,
+                                                     dev)
         n_wsi = -(-len(range(0, SLIDE - 64, IMG - 64)) ** 2 // BATCH)   # 11 x 11 windows
         check_counts("[wsi 256]", wsi256, k1=depth * n_wsi, k2=depth * n_wsi, k3=n_wsi)
 
@@ -3772,7 +4183,19 @@ def main() -> None:
         #     replicas of the generator (both on the one card)
         wsi_dp = wsi_dp_phase(model, slide, wsi256_out, dev, depth)
         serve_dp = serve_dp_phase(model, tiles, dev, depth)
-        del model, wsi256_out
+        del model
+        torch.cuda.empty_cache()
+
+        # 4e. int8 W8A8 serving, as run_inference --int8 loads the generator:
+        #     the forward (K1, K3; fc1 is an int8 product, so K2 = 0) and the
+        #     slide at 256-px windows, each against bf16
+        model, throughput_int8 = throughput_int8_phase(Path(tmp), ckpt, enc, x, pred_bf16_batch,
+                                                       bf16, dev)
+        del pred_bf16_batch
+        wsi256_int8 = wsi_int8_phase("wsi 256 int8", model, slide, IMG, 64, BATCH, dev,
+                                     wsi256_out, wsi256_stats)
+        check_counts("[wsi 256 int8]", wsi256_int8, k1=depth * n_wsi, k3=n_wsi)
+        del model, wsi256_out, wsi256_stats
         torch.cuda.empty_cache()
 
         # 5. full-width numerics: f32 on the card (K1) against f32 on the CPU
@@ -3797,19 +4220,32 @@ def main() -> None:
         torch.cuda.synchronize()
         print(f"[load] at {REGION} px: load_generator + merge_lora + cast_params(bf16) "
               f"in {time.perf_counter() - t0:.1f} s", flush=True)
-        wsi1024, _, wsi1024_out = wsi_phase("wsi 1024", model, slide, REGION, 128, 4, dev)
+        wsi1024, wsi1024_stats, wsi1024_out = wsi_phase("wsi 1024", model, slide, REGION, 128,
+                                                        4, dev)
         n_wsi = -(-len(range(0, SLIDE - 128, REGION - 128)) ** 2 // 4)   # 3 x 3 windows
         check_counts("[wsi 1024]", wsi1024, k4=depth * n_wsi, k2=depth * n_wsi, k3=n_wsi)
-
-        # 7. region numerics: bf16 against f32 on the card at full depth, and
-        #    f32 on the card (K4) against f32 on the CPU (plain) with the
-        #    encoder cut to its first 2 blocks at full width
         t0 = time.perf_counter()
         xr = (torch.from_numpy(slide[None, :REGION, :REGION]).to(dev).float() - mean) / std
         with torch.inference_mode():
             region_bf16 = model(xr).cpu().numpy()
-            del model
-            torch.cuda.empty_cache()
+        region_s = time.perf_counter() - t0
+
+        # 6b. the same generator in int8 W8A8 (K4, K3; K2 = 0), the slide
+        #     against the bf16 one
+        from mipheivit_tpu_torch.infer import quantize_decoder, quantize_encoder
+
+        quantize_decoder(quantize_encoder(model))
+        wsi1024_int8 = wsi_int8_phase("wsi 1024 int8", model, slide, REGION, 128, 4, dev,
+                                      wsi1024_out, wsi1024_stats)
+        check_counts("[wsi 1024 int8]", wsi1024_int8, k4=depth * n_wsi, k3=n_wsi)
+        del model, wsi1024_stats
+        torch.cuda.empty_cache()
+
+        # 7. region numerics: bf16 against f32 on the card at full depth, and
+        #    f32 on the card (K4) against f32 on the CPU (plain) with the
+        #    encoder cut to its first 2 blocks at full width
+        t0 = time.perf_counter() - region_s
+        with torch.inference_mode():
             model = load(ckpt, enc, dev, torch.float32, REGION)
             region_f32 = model(xr).cpu().numpy()
             model.encoder.vit.blocks = model.encoder.vit.blocks[:2]
@@ -3950,6 +4386,8 @@ def main() -> None:
     k1 = kernel_rows["bf16_fused"]
     paths = {"slice": slice_counts, "attn sublayer": sublayer, "serve": serve_counts,
              "wsi 256": wsi256, "wsi dp": wsi_dp, "serve dp": serve_dp, "wsi 1024": wsi1024,
+             "throughput int8": throughput_int8, "wsi 256 int8": wsi256_int8,
+             "wsi 1024 int8": wsi1024_int8,
              "train 256": train256,
              "train 1024": train1024, "train 1024 ckpt": train1024c, "train ops": train_ops,
              "trainer": trainer_counts, "test driver": test_driver_counts,

@@ -6,8 +6,9 @@ prefer ``model.safetensors`` (strict=False
 with ``validate_load`` rules, foundation encoder possibly stripped and then
 grafted from the encoder checkpoint), fall back to the Lightning
 ``model.weights.ckpt`` (``generator.`` prefix). The serving transforms
-(``to_fast_heads``, ``merge_lora``, ``cast_params``) change the model in
-place and return it.
+(``to_fast_heads``, ``merge_lora``, ``cast_params``, and the opt-in int8
+``quantize_encoder`` / ``quantize_decoder``) change the model in place and
+return it.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ from .._device import resolve_device
 from ..io.safetensors import load_file
 from ..models import get_generator
 from ..models.convert import generator_state_dict, validate_load
-from ..models.mipheivit import BatchedSegHeads, MipheiViT
-from ..models.vit import Attention, LoRAQKV, VisionTransformer
+from ..models.layers import Conv2d, Linear
+from ..models.mipheivit import BatchedSegHeads, Int8Conv3x3, MipheiViT
+from ..models.vit import Attention, Int8Linear, LoRAQKV, VisionTransformer
 from ..ops.resize import resample_pos_embed
 
 
@@ -133,6 +135,52 @@ def cast_params(model: torch.nn.Module, dtype) -> torch.nn.Module:
     for p in model.parameters():
         if p.is_floating_point():
             p.data = p.data.to(dtype)
+    return model
+
+
+def quantize_encoder(model: torch.nn.Module) -> torch.nn.Module:
+    """Opt-in W8A8 serving transform of the ViT encoder (the JAX
+    ``quantize_encoder``, infer/loading.py:91): every block's qkv, proj, fc1
+    and fc2 becomes an ``Int8Linear`` (per-output-channel int8 weight, f32
+    scale, the bias kept) and the float weight it replaces is freed.
+    LayerNorms, layerscale, the patch
+    embedding, attention and the decoder keep the compute dtype.
+
+    Apply it after ``merge_lora`` and after ``cast_params``: the weights are
+    quantised from the values they hold (bf16 weights from their bf16
+    values, as the JAX transform quantises what ``load_generator`` returns).
+    Raises ``ValueError`` on a model without a ViT encoder (``encoder.vit``,
+    as JAX's :103) and on live LoRA adapters."""
+    vit = getattr(getattr(model, "encoder", None), "vit", None)
+    if not isinstance(vit, VisionTransformer):
+        raise ValueError("quantize_encoder requires a ViT-encoder model")
+    if any(isinstance(m, LoRAQKV) for m in vit.modules()):
+        raise ValueError("quantize_encoder quantises the merged qkv: call merge_lora first")
+    with torch.no_grad():
+        for blk in vit.blocks:
+            for parent, name in ((blk.attn, "qkv"), (blk.attn, "proj"),
+                                 (blk.mlp, "fc1"), (blk.mlp, "fc2")):
+                lin = getattr(parent, name)
+                if isinstance(lin, Linear):
+                    setattr(parent, name, Int8Linear.from_linear(lin))
+    return model
+
+
+def quantize_decoder(model: torch.nn.Module) -> torch.nn.Module:
+    """Opt-in W8A8 for the decoder's fusion convs (the JAX
+    ``quantize_decoder``, infer/loading.py:125): each fusion block's 3x3
+    conv becomes an ``Int8Conv3x3``, quantised in the flattened im2col
+    layout so that each output channel's scale spans its contraction; the
+    float weight is freed. The detail stream and the heads keep the compute
+    dtype (their gates multiply the output directly). Compose after
+    ``quantize_encoder`` for the full serving mode. Raises ``ValueError``
+    on a model that is not the flagship."""
+    if not isinstance(model, MipheiViT):
+        raise ValueError("quantize_decoder quantises MipheiViT's fusion blocks")
+    with torch.no_grad():
+        for blk in model.decoder.fusion_blks:
+            if isinstance(blk.conv.conv, Conv2d):
+                blk.conv.conv = Int8Conv3x3.from_conv(blk.conv.conv)
     return model
 
 

@@ -20,6 +20,13 @@ generators and discriminators) map the baseline generators the same way:
 flax ``ConvTranspose`` kernels are flipped into torch's layout, ``Dense``
 kernels transposed, LayerNorm ``scale`` becomes ``weight`` and BatchNorm
 ``mean`` / ``var`` the running buffers.
+
+The int8 serving trees of the JAX transforms (``quantize_encoder``,
+``quantize_decoder``) map onto a ``MipheiViT`` after the port's own
+transforms (``infer.loading.quantize_encoder`` / ``quantize_decoder``): an
+int8 Dense ``kernel`` becomes the int8 ``weight`` of ``Int8Linear``
+(transposed like a float one), an int8 fusion conv ``kernel`` the flattened,
+zero-padded ``weight`` of ``Int8Conv3x3``, each beside its f32 ``scale``.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Dict, Iterable
 import numpy as np
 import torch
 
+from ..ops.quant import patch_width
 from .vit import ViTConfig
 
 
@@ -40,6 +48,16 @@ def _t(w) -> np.ndarray:
 def _conv(k) -> np.ndarray:
     """flax conv kernel HWIO -> torch OIHW."""
     return np.ascontiguousarray(np.asarray(k).transpose(3, 2, 0, 1))
+
+
+def _int8_conv(k) -> np.ndarray:
+    """JAX int8 conv kernel ``(3, 3, C, K)`` -> ``Int8Conv3x3.weight``
+    ``[K, patch_width(C)]``: flattened in ``(dy, dx, c)`` order, transposed,
+    zero columns past 9C."""
+    k = np.asarray(k)
+    c = k.shape[2]
+    w = k.reshape(9 * c, -1).T
+    return np.ascontiguousarray(np.pad(w, ((0, 0), (0, patch_width(c) - 9 * c))))
 
 
 def _index(tree, i):
@@ -91,7 +109,12 @@ def _vit_state_dict(params: Dict, cfg: ViTConfig, prefix: str) -> Dict[str, np.n
                 ("mlp.fc1.weight", ("mlp", "fc1", "kernel"), _t),
                 ("mlp.fc1.bias", ("mlp", "fc1", "bias"), np.asarray),
                 ("mlp.fc2.weight", ("mlp", "fc2", "kernel"), _t),
-                ("mlp.fc2.bias", ("mlp", "fc2", "bias"), np.asarray)):
+                ("mlp.fc2.bias", ("mlp", "fc2", "bias"), np.asarray),
+                # int8 serving trees: the per-output-channel scales
+                (f"{qkv}.scale", ("attn", "qkv", "scale"), np.asarray),
+                ("attn.proj.scale", ("attn", "proj", "scale"), np.asarray),
+                ("mlp.fc1.scale", ("mlp", "fc1", "scale"), np.asarray),
+                ("mlp.fc2.scale", ("mlp", "fc2", "scale"), np.asarray)):
             put(base + name, _get(layer, *path), fn)
         if cfg.init_values is not None:
             put(base + "ls1.gamma", _get(layer, "ls1"))
@@ -166,7 +189,10 @@ def _decoder_state_dict(params: Dict, stats: Dict, out_chans: int,
     for i in range(n_fusion):
         p = _get(params, f"fusion_blks_{i}", "conv")
         s = _get(stats, f"fusion_blks_{i}", "conv", "bn")
-        put_conv(f"{prefix}fusion_blks.{i}.conv.conv", _get(p, "conv"), bias=False)
+        scale = _get(p, "conv", "scale")
+        put(f"{prefix}fusion_blks.{i}.conv.conv.weight", _get(p, "conv", "kernel"),
+            _conv if scale is None else _int8_conv)
+        put(f"{prefix}fusion_blks.{i}.conv.conv.scale", scale)
         put_bn(f"{prefix}fusion_blks.{i}.conv.bn", _get(p, "bn"), s)
     for k, (p, s) in enumerate(_per_head(params, stats, out_chans)):
         base = f"{prefix}segmentation_head_{k}"

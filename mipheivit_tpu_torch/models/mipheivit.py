@@ -13,6 +13,11 @@ with f32 running statistics work; in training it follows flax's BatchNorm
 (see ``layers.BatchNorm2d``). Convolutions cast their weights to the activation
 dtype at use, as the flax modules do, so a decoder trained in f32 runs in
 bf16 beside a bf16 encoder.
+
+int8 serving: ``infer.loading.quantize_decoder`` swaps the four fusion
+blocks' convolutions for ``Int8Conv3x3`` (the JAX ``_Int8Im2ColConv``:
+``ops.quant.int8_conv3x3``); the detail stream and the heads keep the
+compute dtype, as in JAX.
 """
 
 from __future__ import annotations
@@ -23,10 +28,48 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.quant import int8_conv3x3, patch_width, quantize_weight
 from ..ops.resize import resize_bicubic, upsample2x_bilinear
 from ..ops.seg_heads import fold_heads, fused_seg_heads
 from .layers import BatchNorm2d, Conv2d
 from .vit import ViTConfig, VisionTransformer
+
+
+def flatten_conv3x3_weight(w: torch.Tensor) -> torch.Tensor:
+    """A 3x3 conv weight ``[K, C, 3, 3]`` -> ``[K, 9C]`` in the ``(dy, dx, c)``
+    order of ``ops.quant``'s im2col patches (the JAX
+    ``flatten_conv3x3_kernel``, transposed)."""
+    return w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)
+
+
+class Int8Conv3x3(nn.Module):
+    """Serving-only W8A8 3x3 / stride-1 conv without bias (the JAX
+    ``_Int8Im2ColConv``). Its buffers: the int8 ``weight`` ``[K, 9C']``,
+    flattened in the ``(dy, dx, c)`` order of the im2col patches and
+    zero-padded to ``9C' = ops.quant.patch_width(C)`` once, so that a call
+    neither reorders nor pads it; and the per-output-channel f32 ``scale``,
+    quantised in the flattened layout so that each scale spans the im2col
+    contraction (``from_conv``). ``ops.quant.int8_conv3x3`` quantises the
+    patches per output pixel at each call."""
+
+    def __init__(self, in_chans: int, out_chans: int):
+        super().__init__()
+        self.register_buffer("weight", torch.zeros(out_chans, patch_width(in_chans),
+                                                   dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(out_chans))
+
+    @classmethod
+    def from_conv(cls, conv: nn.Conv2d) -> "Int8Conv3x3":
+        """``conv``'s weight quantised as it stands, on its device."""
+        k, c = conv.weight.shape[:2]
+        with torch.device("meta"):
+            q = cls(c, k)
+        w_i8, q.scale = quantize_weight(flatten_conv3x3_weight(conv.weight.detach()), axis=-1)
+        q.weight = F.pad(w_i8, (0, patch_width(c) - 9 * c))
+        return q
+
+    def forward(self, x):
+        return int8_conv3x3(x, self.weight, self.scale)
 
 
 class BasicConv3x3(nn.Module):

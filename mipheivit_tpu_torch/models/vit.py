@@ -14,6 +14,12 @@ for K1, K5 for K4). The SwiGLU MLP's fc1 and gate run through
 ``ops.mlp.swiglu_fc1``: K2 on the card, its plain version on the CPU, with
 a recompute backward.
 
+int8 serving. ``infer.loading.quantize_encoder`` swaps every block's qkv,
+proj, fc1 and fc2 for an ``Int8Linear`` (the JAX ``Int8Dense``):
+``ops.quant.int8_matmul``, W8A8 with ``torch._int_mm`` on the card. The
+SwiGLU fc1 is then the int8 product, a split and ``silu(a) * g``, so K2 does
+not run; attention is unchanged (K1, K4, or the sharded route).
+
 Training. LoRA stays live (``attn.qkv.lora_q`` / ``lora_v`` trainable), every
 weight is cast to the activation dtype at use (``models.layers``), so an
 encoder that trains keeps f32 weights and may compute in bf16, and
@@ -46,6 +52,7 @@ from torch import nn
 from ..ops.attention import attention_bshd, attention_qkv
 from ..parallel import seq
 from ..ops.mlp import swiglu_fc1
+from ..ops.quant import int8_matmul, quantize_weight
 from .layers import Conv2d, LayerNorm, Linear
 
 
@@ -120,6 +127,38 @@ class LoRAQKV(nn.Module):
         return q + self.lora_q(x), k, v + self.lora_v(x)
 
 
+class Int8Linear(nn.Module):
+    """Serving-only W8A8 linear (the JAX ``Int8Dense``): an int8 ``weight``
+    ``[out, in]``, its per-output-channel f32 ``scale`` and the ``bias`` in
+    the compute dtype, all buffers. ``from_linear`` quantises a ``Linear``
+    (``infer.loading.quantize_encoder``); ``ops.quant.int8_matmul``
+    quantises the activations per row at each call."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("weight", torch.zeros(out_features, in_features, dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(out_features))
+        self.register_buffer("bias", torch.zeros(out_features) if bias else None)
+
+    @classmethod
+    def from_linear(cls, lin: nn.Linear) -> "Int8Linear":
+        """``lin``'s weight quantised as it stands (its dtype's values), on
+        its device; the bias kept as it is."""
+        with torch.device("meta"):
+            q = cls(lin.in_features, lin.out_features, lin.bias is not None)
+        q.weight, q.scale = quantize_weight(lin.weight.detach(), axis=-1)
+        q.bias = None if lin.bias is None else lin.bias.detach()
+        return q
+
+    def forward(self, x):
+        return int8_matmul(x, self.weight, self.scale, self.bias)
+
+    def extra_repr(self) -> str:
+        return (f"in_features={self.in_features}, out_features={self.out_features}, "
+                f"bias={self.bias is not None}")
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -154,7 +193,8 @@ class Attention(nn.Module):
 class Mlp(nn.Module):
     """Packed SwiGLU (timm SwiGLUPacked: ``silu(first half) * second half``)
     or GELU MLP. The SwiGLU fc1 and gate run as one ``ops.mlp.swiglu_fc1``
-    (K2 on the card) on fc1's packed weight, whose layout is unchanged."""
+    (K2 on the card) on fc1's packed weight, whose layout is unchanged; an
+    int8 fc1 runs the int8 product, then the gate (the JAX int8 route)."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -166,7 +206,10 @@ class Mlp(nn.Module):
         self.fc2 = Linear(h, cfg.embed_dim)
 
     def forward(self, x):
-        if self.swiglu:
+        if self.swiglu and isinstance(self.fc1, Int8Linear):
+            a, g = self.fc1(x).chunk(2, dim=-1)
+            h = F.silu(a) * g
+        elif self.swiglu:
             h = swiglu_fc1(x, self.fc1.weight, self.fc1.bias)
         else:
             h = F.gelu(self.fc1(x))

@@ -3,7 +3,7 @@
 Usage:
   python -m mipheivit_tpu_torch.run_inference --checkpoint_dir D
          [--dataset_config_path C] [--batch_size N] [--device cuda]
-         [--wsi SLIDE [--out OUT.ome.tiff] [--tile_size 256] [--overlap 64]]
+         [--wsi SLIDE [--out OUT.ome.tiff] [--tile_size 256] [--overlap 64] [--int8]]
 
 Reads ``D/config.yaml`` (the resolved run config saved beside the
 checkpoint), optionally overrides the dataframe paths from a dataset config
@@ -11,7 +11,13 @@ file, and writes per-tile prediction TIFFs to
 ``D/inference_<dataset>_<run>/`` -- or, with ``--wsi``, runs stitched
 sliding-window inference over a whole slide into a pyramidal OME-TIFF
 (``--tile_size 1024 --overlap 128`` for whole-region windows). Runs on the
-card unless ``--device cpu`` is given; without a card it raises. Config
+card unless ``--device cpu`` is given; without a card it raises.
+
+``--int8`` serves the slide in W8A8 (``infer.loading.quantize_encoder`` then
+``quantize_decoder`` after the load: the encoder's linears and the
+decoder's fusion convs in int8, ``ops/quant.py``), with or without
+``--seq_shard``. Tile mode ignores it, as the JAX CLI does (its tile path
+never reads the flag), and says so in the log. Config
 parsing (``config.py``) and slide/TIFF IO (``slideio``) are the port's own
 host modules, imported here only.
 
@@ -28,7 +34,10 @@ it the CLI runs in one process.
 """
 
 import argparse
+import logging
 from pathlib import Path
+
+log = logging.getLogger(__name__)
 
 
 def main(argv=None) -> str:
@@ -50,15 +59,13 @@ def main(argv=None) -> str:
     parser.add_argument("--tile_size", default=256, type=int)
     parser.add_argument("--overlap", default=64, type=int)
     parser.add_argument("--int8", action="store_true",
-                        help="not ported yet (ROADMAP.md queue 1, item 16)")
+                        help="W8A8 serving for --wsi: the encoder's linears and the decoder's "
+                             "fusion convs in int8 (tile mode ignores it, as the JAX CLI does)")
     parser.add_argument("--seq_shard", action="store_true",
                         help="whole-region serving: shard each window's tokens over the "
                              "ranks of torchrun (2 or more; use with --wsi and a large "
                              "--tile_size, e.g. 1024/2048)")
     args = parser.parse_args(argv)
-    if args.int8:
-        raise NotImplementedError("--int8 serving is not ported to PyTorch yet "
-                                  "(ROADMAP.md queue 1, item 16: int8 serving)")
     from .parallel.mesh import init_distributed, make_mesh, world_size
 
     seq_mesh = None
@@ -91,6 +98,8 @@ def main(argv=None) -> str:
 
     if args.wsi:
         return _run_wsi(cfg, args, seq_mesh)
+    if args.int8:
+        log.warning("--int8 applies to --wsi; tile mode runs in the compute dtype")
     dataset_name = Path(args.dataset_config_path).stem \
         if args.dataset_config_path else "default"
     run_name = Path(args.checkpoint_dir).stem
@@ -101,10 +110,11 @@ def main(argv=None) -> str:
 
 def _run_wsi(cfg, args, seq_mesh=None):
     """The generator at ``(tile_size, tile_size)`` (position embedding
-    re-gridded), LoRA merged, bf16 on the card; then ``wsi_inference``
-    (with ``seq_mesh``, its ViT sequence-sharded over the ranks; ranks
-    other than 0 return None)."""
+    re-gridded), LoRA merged, bf16 on the card, with ``--int8`` quantised;
+    then ``wsi_inference`` (with ``seq_mesh``, its ViT sequence-sharded over
+    the ranks; ranks other than 0 return None)."""
     from .infer import load_serving_model, resolve_device, wsi_inference
+    from .infer import loading
     from .models.vit import set_attn_impl
     from .parallel.mesh import process_device
 
@@ -112,6 +122,8 @@ def _run_wsi(cfg, args, seq_mesh=None):
     names = list(cfg.data.targ_channel_names)
     model, he_norm = load_serving_model(cfg, args.checkpoint_dir,
                                         (args.tile_size, args.tile_size), len(names), device)
+    if args.int8:
+        loading.quantize_decoder(loading.quantize_encoder(model))
     if seq_mesh is not None:
         set_attn_impl(model, "seq_shard")
     out = args.out or str(Path(args.wsi).with_suffix(".pred.ome.tiff"))

@@ -104,13 +104,14 @@ def model_shards(cfg: Config, n_proc: int) -> int:
     ``model.attn_impl=seq_shard``, else 1. Raises ``ValueError`` before any
     work where the JAX trainer's check would (fewer than 2 shards, more than
     the ranks), where the shards do not divide the ranks, and for a
-    generator without the flagship's ViT encoder. Tensor parallelism
-    (``train.mesh.model_axis``) raises ``NotImplementedError``: the JAX
-    package's ``parallel/sharding.py`` is not ported yet."""
+    generator without the flagship's ViT encoder. ``train.mesh.model_axis``
+    (tensor parallelism) has no effect on the trainer, whose run is the
+    one without it, as in the JAX trainer, which never reads the key; a log
+    line says so."""
     if cfg.select("train.mesh.model_axis"):
-        raise NotImplementedError(
-            "tensor parallelism (train.mesh.model_axis) is not ported to PyTorch yet "
-            "(ROADMAP.md queue 1, item 19: parallel/sharding.py)")
+        log.warning("train.mesh.model_axis=%r has no effect on the trainer (it does not "
+                    "tensor-shard the encoder, as the JAX trainer does not)",
+                    cfg.select("train.mesh.model_axis"))
     if cfg.select("model.attn_impl", "auto") != "seq_shard":
         return 1
     n_model = int(cfg.select("train.mesh.num_model_shards", 1) or 1)

@@ -10,6 +10,8 @@ f32, its gradients 1e-4 of their norm; the ViT and the generator 5e-4 (the
 setup of ``tests/test_seq_shard.py``); the stitched WSI one uint8 step.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,11 @@ from mipheivit_tpu_torch.parallel import workers
 from mipheivit_tpu_torch.parallel.spawn import spawn
 
 torch.set_num_threads(2)
+
+
+def _threads() -> int:
+    """A rank's intra-op thread count, reported when an output is off."""
+    return torch.get_num_threads()
 
 HEADS = 2                    # heads of 32: H*D = 64
 OUT_ATOL = 1e-5
@@ -103,6 +110,7 @@ def cases(tmp_path_factory):
     out["jax"][True] = (np.asarray(o), [grad])
     out["jax"][False] = (np.asarray(o), list(np.split(grad, 3, axis=-1)))
     for n in (2, 4):
+        calls[n].append((("threads",), n, (_threads, ())))
         calls[n].append((("attn", True), n, (workers.seq_attention, (qkv, None, None, HEADS))))
         calls[n].append((("attn", False), n, (workers.seq_attention,
                                                (*np.split(qkv, 3, axis=-1), HEADS))))
@@ -152,7 +160,14 @@ def test_seq_sharded_attention_matches_jax(cases, n, fused):
     per_rank = cases["port"]["attn", fused, n]
     assert len(per_rank) == n
     got_out, got_grads = per_rank[0]
-    np.testing.assert_allclose(got_out, want_out, atol=OUT_ATOL, rtol=0)
+    err = np.abs(got_out - want_out)
+    worst = tuple(int(i) for i in np.unravel_index(np.argmax(err), err.shape))
+    np.testing.assert_allclose(got_out, want_out, atol=OUT_ATOL, rtol=0, err_msg=(
+        f"worst element {worst}: port {float(got_out[worst])!r}, "
+        f"JAX {float(want_out[worst])!r}; "
+        f"{int((err > OUT_ATOL).sum())} of {err.size} off; intra-op threads by rank "
+        f"{cases['port']['threads', n]}, this process {torch.get_num_threads()}; "
+        f"{len(os.sched_getaffinity(0))} cores, load {os.getloadavg()}"))
     for other_out, _ in per_rank[1:]:
         np.testing.assert_array_equal(other_out, got_out)
     assert len(got_grads) == len(want_grads)

@@ -15,6 +15,7 @@ table tolerances.
 """
 
 import json
+import logging
 import os
 import signal
 from pathlib import Path
@@ -504,31 +505,47 @@ def test_run_and_run_test_entry_points(workspace, tiny_port, tmp_path, monkeypat
 
 @pytest.mark.parametrize("case", ["foreground_head", "seq_shard", "processes",
                                   "tensor_parallel"])
-def test_unported_options_raise_before_any_work(workspace, tmp_path, monkeypatch, case):
+def test_unported_options_raise_before_any_work(workspace, tmp_path, monkeypatch, caplog, case):
     """What the port cannot run raises before any work: the foreground head,
     ported with the SMP U-Net, raises ``ValueError`` on a generator without
     one (the flagship here); ``model.attn_impl=seq_shard`` in one process (no
     ranks to shard the tokens over) raises ``ValueError`` naming
     ``train.mesh.num_model_shards``; ``WORLD_SIZE=2`` without a process group
-    raises ``RuntimeError`` in the trainer and in ``test_model``; tensor
-    parallelism (``train.mesh.model_axis``) raises ``NotImplementedError``
-    naming its ROADMAP item. Both ported layouts train over ranks in
-    ``tests/test_torch_parallel_*.py``; ``test_model`` evaluates a
+    raises ``RuntimeError`` in the trainer and in ``test_model``. The
+    ``tensor_parallel`` case holds what the trainer does with
+    ``train.mesh.model_axis`` set: as the JAX trainer, which never reads the
+    key, it trains one step to the losses of the same run without the key,
+    and logs that the key has no effect. Both ported layouts train over
+    ranks in ``tests/test_torch_parallel_*.py``; ``test_model`` evaluates a
     sequence-sharded run unsharded."""
     from mipheivit_tpu_torch.train.test_driver import test_model
     from mipheivit_tpu_torch.train.trainer import train_patchgan
 
     _, values = workspace
+    if case == "tensor_parallel":
+        monkeypatch.setattr(port_loading, "get_generator", syn.tiny_generator)
+        monkeypatch.setattr(port_trainer, "get_generator", syn.tiny_generator)
+        lines = {}
+        for axis in (None, "model"):
+            cfg = _port_cfg(values, train__epochs=1, train__mesh__model_axis=axis)
+            with caplog.at_level(logging.WARNING, logger=port_trainer.__name__):
+                out = train_patchgan(cfg, str(tmp_path / f"run_{axis}"), max_steps_per_epoch=1,
+                                     use_wandb=False, device="cpu")
+            assert out["state"].step == 1
+            lines[axis] = [{k: v for k, v in line.items() if k not in CLOCK_KEYS}
+                           for line in _lines(tmp_path / f"run_{axis}")]
+        assert lines["model"] == lines[None] and np.isfinite(lines[None][0]["gen_loss"])
+        said = [r.getMessage() for r in caplog.records if "model_axis" in r.getMessage()]
+        assert len(said) == 1 and "no effect" in said[0]
+        return
     overrides = {"foreground_head": {"train__foreground_head": True},
                  "seq_shard": {"model__attn_impl": "seq_shard"},
-                 "processes": {},
-                 "tensor_parallel": {"train__mesh__model_axis": "model"}}[case]
+                 "processes": {}}[case]
     if case == "processes":
         monkeypatch.setenv("WORLD_SIZE", "2")
     error, match = {"foreground_head": (ValueError, "foreground head.*smp_unet"),
                     "seq_shard": (ValueError, "num_model_shards in \\[2, 1\\]"),
-                    "processes": (RuntimeError, "WORLD_SIZE=2 but no process group"),
-                    "tensor_parallel": (NotImplementedError, "item 19")}[case]
+                    "processes": (RuntimeError, "WORLD_SIZE=2 but no process group")}[case]
     cfg = _port_cfg(values, **overrides)
     with pytest.raises(error, match=match):
         train_patchgan(cfg, str(tmp_path / "run"), use_wandb=False, device="cpu")

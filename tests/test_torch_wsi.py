@@ -282,15 +282,31 @@ def test_run_inference_cli_wsi(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", ["--int8", "--seq_shard"])
-def test_run_inference_cli_refuses_unported_flags(tmp_path, flag):
-    """``--int8`` is not ported (its ROADMAP item); ``--seq_shard`` in one
-    process, with no ranks to shard over, raises naming torchrun (over
-    ranks: ``test_run_inference_cli_seq_shard_over_two_ranks``)."""
+def test_run_inference_cli_refuses_unported_flags(tmp_path, monkeypatch, flag):
+    """A flag the CLI cannot apply raises before any window runs.
+    ``--seq_shard`` in one process, with no ranks to shard over, raises
+    naming torchrun (over ranks:
+    ``test_run_inference_cli_seq_shard_over_two_ranks``). ``--int8`` is
+    ported for the flagship (``tests/test_torch_quant.py``), and refused for
+    a UNETR on a ViT, which ``--wsi`` serves but the int8 transforms do not
+    take (JAX's ``quantize_encoder`` fails on its tree too): ``ValueError``
+    naming the ViT encoder it needs, and no slide written."""
     from mipheivit_tpu_torch import run_inference
+    from mipheivit_tpu_torch.infer import tiles as port_tiles
+    from mipheivit_tpu_torch.models.unetr import UnetrViT
 
-    error, match = {"--int8": (NotImplementedError, "ROADMAP.*item 16"),
-                    "--seq_shard": (ValueError, "torchrun")}[flag]
-    with pytest.raises(error, match=match):
+    if flag == "--int8":
+        ckpt, _ = _checkpoint(tmp_path, 32)
+        path, _ = _slide(tmp_path, (88, 104))
+        unetr = UnetrViT(ViTConfig(img_size=(32, 32), **GEOM), 3).eval()
+        monkeypatch.setattr(port_tiles, "load_generator", lambda *a, **kw: unetr)
+        out = tmp_path / "int8.ome.tiff"
+        with pytest.raises(ValueError, match="ViT-encoder"):
+            run_inference.main(["--checkpoint_dir", str(ckpt), "--wsi", path, "--out", str(out),
+                                "--tile_size", "32", "--overlap", "8", "--device", "cpu", flag])
+        assert not out.exists()
+        return
+    with pytest.raises(ValueError, match="torchrun"):
         run_inference.main(["--checkpoint_dir", str(tmp_path), "--wsi", "s.tiff", flag])
 
 

@@ -9,10 +9,11 @@ also int32 nuclei tiles (4 nuclei of 36 px a tile, ids unique to the
 tile), the slide's nuclei CSV with their ground truth and the slide
 dataframe, and a seeded cluster-MLP checkpoint for the cell loss.
 
-Also the rank workers of the multi-rank trainer and CLI tests (``train``,
-``cli``): the trainer or a CLI with a tiny generator patched in, and, for
-the trainer, a write guard on every rank but 0 and a SIGTERM injected on
-one rank.
+Also the rank workers of the multi-rank trainer, CLI and int8 tests
+(``train``, ``cli``, ``int8_forward``): the trainer or a CLI with a tiny
+generator patched in, and, for the trainer, a write guard on every rank but
+0 and a SIGTERM injected on one rank; the sequence-sharded forward of a
+generator put through the int8 serving transforms.
 """
 
 import csv
@@ -278,3 +279,26 @@ def cli(module: str, argv, tiny: dict):
         return main(list(argv))
     finally:
         undo()
+
+
+def int8_forward(vit_kwargs: dict, out_chans: int, state, x, int8_state=None):
+    """The eval forward of a MipheiViT of ``vit_kwargs`` with its tokens
+    sharded over every rank, after ``infer.loading.quantize_encoder`` and
+    ``quantize_decoder``: quantised from the float ``state``, or with
+    ``int8_state`` (JAX's int8 tree through ``state_dict_from_jax``) loaded
+    over the quantised modules. Returns the output ``[B, H, W, C]``."""
+    import torch.distributed as dist
+
+    from mipheivit_tpu_torch.infer.loading import (load_strict, quantize_decoder,
+                                                   quantize_encoder)
+    from mipheivit_tpu_torch.parallel.mesh import make_mesh
+    from mipheivit_tpu_torch.parallel.seq import seq_shard_scope
+    from mipheivit_tpu_torch.parallel.workers import build_generator
+
+    model = build_generator({**vit_kwargs, "attn_impl": "seq_shard"}, out_chans,
+                            None if int8_state is not None else state).eval()
+    quantize_decoder(quantize_encoder(model))
+    if int8_state is not None:
+        load_strict(model, {k: torch.from_numpy(np.array(v)) for k, v in int8_state.items()})
+    with torch.no_grad(), seq_shard_scope(make_mesh(1, dist.get_world_size())):
+        return model(torch.from_numpy(x)).numpy()
