@@ -147,6 +147,29 @@ Then the Swin models, with no kernel of the port on their paths (K1-K8 = 0):
   [eval orion|immucan|hemit hemit pipeline] each HEMIT-pipeline script on a
                HEMIT-codebase checkpoint written as latest_net_G.pth.
 
+The preprocessing that makes the training data (no kernel of the port:
+convolutions and host code, K1-K8 = 0), after the Swin models:
+  [tiff]       pyramids at write_pyramid's dtypes written and read back bit
+               for bit by the native TIFF engine (on the system's libtiff or
+               Pillow's bundled copy, which it names), level 0 also through
+               Pillow's decoder;
+  [cellpose]   Cellpose's CPnet at full width (2, 32, 64, 128, 256) on 64
+               tiles of 224^2 in f32, channels_last: ms a batch, tiles/s,
+               peak memory, held against the CPU forward on 2 tiles;
+  [nuclei wsi] the CPnet fitted on the card to blob tiles (300 Adam steps),
+               then wsi_nuclei_inference --backend torch --flow_averaging on
+               a 2048^2 blob-DAPI TIFF at tile 1024: nuclei against the
+               discs painted, wall seconds, the card's flow pass against the
+               host's compute_masks;
+  [he nuclei]  he_nuclei_inference on a 2048^2 H&E TIFF, rgb2hed on the card,
+               against the same run on the CPU;
+  [cycle gan]  the CycleGAN stain normaliser ResnetGenerator(64, 9) from a
+               pix2pix checkpoint, batch 4 x 512^2 in f32, against the CPU on
+               1 tile, then cycle_gan_wsi_inference on a 1536 x 1024 TIFF;
+  [trainer profile] train_patchgan(profile_steps=2) on the [trainer]
+               configuration: the trace's path, size and five longest device
+               ops (K1, K2 and K2's backward terms, counted).
+
 Several cards (the machine shows one: the ranks are 2 processes spawned on
 it, joined over gloo, which carries CUDA tensors through the host; NCCL
 refuses a duplicate GPU), at full width and depth:
@@ -3060,6 +3083,450 @@ def swin_phases(tmp: Path, dev):
     return counts, numbers
 
 
+# ---------------------------------------------------------------------------
+# preprocessing: Cellpose nuclei segmentation, H&E nuclei, the CycleGAN stain
+# normaliser, the trainer's profiler hook and the TIFF engine (no kernel of
+# the port on these paths: K1-K8 = 0, except [trainer profile], the flagship
+# trainer)
+
+CELLPOSE_NBASE = (2, 32, 64, 128, 256)   # cellpose's nuclei model, full width
+CELLPOSE_BATCH = 64
+CELLPOSE_TILE = 224
+CELLPOSE_TOL = 1e-4              # max |card - CPU| / max |CPU|, f32, TF32 off
+NUCLEI_SLIDE = 2048              # [nuclei wsi]: a blob-DAPI slide of 2048^2 at 0.325 mpp
+NUCLEI_TILE = 1024
+NUCLEI_HALO = 128
+NUCLEI_BLOBS = 4000              # discs of radius 6-9 px on the slide: ~17 % of it
+NUCLEI_DENSITY = NUCLEI_BLOBS / NUCLEI_SLIDE ** 2
+NUCLEI_FIT_STEPS = 300           # the CPnet fitted to masks_to_flows of blob tiles first
+NUCLEI_FIT_BATCH = 8
+NUCLEI_FIT_TILES = 32
+NUCLEI_FIT_LR = 1e-3
+HE_SLIDE = 2048
+CYCLE_BATCH = 4
+CYCLE_IMG = 512
+CYCLE_TOL = 1e-3                 # max |card - CPU| of the tanh output, f32, TF32 off
+CYCLE_SLIDE = (1536, 1024)       # [cycle gan] slide (w, h): 6 tiles of 512, 2 batches
+PROFILE_STEPS = 2
+
+
+def cellpose_state(seed: int) -> dict:
+    """A cellpose CPnet state dict at full width from a numpy seed: convs
+    and linears N(0, 2 / fan_in), BN weights near 1, running variances in
+    [0.7, 1.2], diameters 30 and 17 (a rescale of 30/17)."""
+    from mipheivit_tpu_torch.models.cellpose_net import CPnet
+
+    g = np.random.default_rng(seed)
+    out = {}
+    for k, v in CPnet(CELLPOSE_NBASE).state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            out[k] = np.zeros((), np.int64)
+        elif k in ("diam_mean", "diam_labels"):
+            out[k] = np.full((1,), 30.0 if k == "diam_mean" else 17.0, np.float32)
+        elif k.endswith("running_var"):
+            out[k] = g.uniform(0.7, 1.2, v.shape).astype(np.float32)
+        elif v.dim() > 1:
+            fan_in = int(np.prod(v.shape[1:]))
+            out[k] = (g.standard_normal(v.shape) * np.sqrt(2.0 / fan_in)).astype(np.float32)
+        elif k.endswith(".0.weight"):          # the BatchNorms' scales
+            out[k] = (1.0 + 0.1 * g.standard_normal(v.shape)).astype(np.float32)
+        else:
+            out[k] = (0.1 * g.standard_normal(v.shape)).astype(np.float32)
+    return out
+
+
+def cellpose_phase(dev):
+    """[cellpose]: CPnet at (2, 32, 64, 128, 256) on a batch of 64 tiles of
+    224^2 in f32 (channels_last), held against the plain CPU forward of the
+    same module on 2 tiles."""
+    from mipheivit_tpu_torch.models.cellpose_net import build_cpnet
+
+    t0 = time.perf_counter()
+    state = cellpose_state(SEED + 200)
+    model = build_cpnet(state, device=dev)
+    g = np.random.default_rng(SEED + 201)
+    x = np.zeros((CELLPOSE_BATCH, 2, CELLPOSE_TILE, CELLPOSE_TILE), np.float32)
+    x[:, 0] = g.random((CELLPOSE_BATCH, CELLPOSE_TILE, CELLPOSE_TILE))
+    xd = torch.from_numpy(x).to(dev).contiguous(memory_format=torch.channels_last)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        y, style = model(xd)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: model(xd), reps=10, warmup=2)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.inference_mode():
+        yc, sc = build_cpnet(state, device="cpu")(torch.from_numpy(x[:2]))
+    rel = float((y[:2].cpu() - yc).abs().max() / yc.abs().max())
+    rel_style = float((style[:2].cpu() - sc).abs().max() / sc.abs().max())
+    print(f"[cellpose] CPnet {CELLPOSE_NBASE} f32 channels_last, batch {CELLPOSE_BATCH} x "
+          f"{CELLPOSE_TILE}^2: {ms:.2f} ms/batch ({CELLPOSE_BATCH * 1000 / ms:.1f} tiles/s, CUDA "
+          f"events, median of 10), peak {peak:.2f} GiB; card vs CPU on 2 tiles: y {rel:.2e}, "
+          f"style {rel_style:.2e} of max|CPU| (tol {CELLPOSE_TOL:g}); {counts_line(counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(bool(torch.isfinite(y).all()) and y.shape == (CELLPOSE_BATCH, 3, CELLPOSE_TILE,
+                                                        CELLPOSE_TILE), "[cellpose] output")
+    check(rel <= CELLPOSE_TOL and rel_style <= CELLPOSE_TOL,
+          "[cellpose] the card's CPnet differs from the CPU's")
+    check_counts("[cellpose]", counts)
+    del model
+    return counts, state
+
+
+def blob_slide(rng, side: int, n: int, background, blob, labels: bool = False):
+    """``[C, side, side]`` uint8: ``background`` with ``n`` discs of radius
+    6-9 px in ``blob`` colour, plus noise of 8 levels; with ``labels``, also
+    the ``[side, side]`` int32 plane of the discs (a later disc over an
+    earlier one, as painted)."""
+    img = np.empty((len(background), side, side), np.uint8)
+    for c, v in enumerate(background):
+        img[c] = v
+    lab = np.zeros((side, side), np.int32)
+    yy, xx = np.ogrid[:side, :side]
+    for i, (cy, cx, r) in enumerate(zip(rng.integers(10, side - 10, n),
+                                        rng.integers(10, side - 10, n),
+                                        rng.integers(6, 10, n))):
+        y0, y1, x0, x1 = cy - r, cy + r + 1, cx - r, cx + r + 1
+        disc = (yy[y0:y1] - cy) ** 2 + (xx[:, x0:x1] - cx) ** 2 <= r * r
+        for c, v in enumerate(blob):
+            img[c, y0:y1, x0:x1][disc] = v
+        lab[y0:y1, x0:x1][disc] = i + 1
+    noise = rng.integers(0, 8, img.shape, dtype=np.uint8)
+    img = np.where(img > 247, img, img + noise).astype(np.uint8)
+    return (img, lab) if labels else img
+
+
+def fit_cpnet_to_blobs(model, rng, steps: int, batch: int, n_tiles: int, tile: int = 224):
+    """Fit ``model`` (train mode, Adam) to Cellpose's training target on
+    blob tiles made as the [nuclei wsi] slide is (NUCLEI_DENSITY discs per
+    px^2), seen as ``cellpose_torch_flow_factory``'s flow_fn sees them:
+    DAPI/255 over the (0, 0.65) window, resized by the model's rescale
+    (linear; the labels nearest). The target is ``masks_to_flows``: unit
+    flows to each disc's centre (MSE) and its foreground (BCE on the
+    cellprob logit). Returns the first and last losses."""
+    import cv2
+
+    from mipheivit_tpu_torch.preprocessings.nuclei_segmentation.flow_dynamics import (
+        masks_to_flows)
+
+    dev = next(model.parameters()).device
+    side = int(np.ceil(tile / model.rescale)) + 1
+    size = (int(round(side * model.rescale)),) * 2
+    xs, dps, fgs = [], [], []
+    for _ in range(n_tiles):
+        img, lab = blob_slide(rng, side, int(round(NUCLEI_DENSITY * side * side)), (10,),
+                              (200,), labels=True)
+        x = cv2.resize(img[0].astype(np.float32) / 255.0 / 0.65, size,
+                       interpolation=cv2.INTER_LINEAR)[:tile, :tile]
+        lab = cv2.resize(lab, size, interpolation=cv2.INTER_NEAREST)[:tile, :tile]
+        dp, _ = masks_to_flows(lab)
+        xs.append(np.stack([x, np.zeros_like(x)]))
+        dps.append(dp)
+        fgs.append((lab > 0).astype(np.float32))
+    xs, dps, fgs = (torch.from_numpy(np.stack(a)).to(dev) for a in (xs, dps, fgs))
+    opt = torch.optim.Adam(model.parameters(), lr=NUCLEI_FIT_LR)
+    model.train()
+    losses = []
+    for step in range(steps):
+        idx = torch.from_numpy(rng.choice(n_tiles, batch, replace=False)).to(dev)
+        y, _ = model(xs[idx].contiguous(memory_format=torch.channels_last))
+        loss = (torch.nn.functional.mse_loss(y[:, :2], dps[idx])
+                + torch.nn.functional.binary_cross_entropy_with_logits(y[:, 2], fgs[idx]))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        if step in (0, steps - 1):
+            losses.append(float(loss.detach()))
+    model.eval()
+    return losses
+
+
+def nuclei_wsi_phase(tmp: Path, state: dict, dev):
+    """[nuclei wsi]: wsi_nuclei_inference --backend torch --flow_averaging
+    on a 2048^2 blob-DAPI TIFF at tile 1024, halo 128, native mpp, writing
+    the labels pyramid TIFF; wall seconds split into the card's flow pass
+    and the host's compute_masks. The full-width CPnet is first fitted on
+    the card to blob tiles (``fit_cpnet_to_blobs``), so that its flows lead
+    to the discs' centres as a trained nuclei model's do: the nuclei found
+    are held against the discs painted, and the foreground against theirs."""
+    from scipy import ndimage
+
+    from mipheivit_tpu_torch.models.cellpose_net import build_cpnet
+    from mipheivit_tpu_torch.preprocessings.nuclei_segmentation import flow_wsi as fw
+    from mipheivit_tpu_torch.preprocessings.nuclei_segmentation import wsi_nuclei_inference as wni
+    from mipheivit_tpu_torch.slideio import TiffSlide, write_pyramid
+
+    root = tmp / "nuclei"
+    root.mkdir()
+    rng = np.random.default_rng(SEED + 210)
+    dapi = blob_slide(rng, NUCLEI_SLIDE, NUCLEI_BLOBS, (10,), (200,))
+    slide = root / "dapi.tiff"
+    write_pyramid(str(slide), dapi, n_levels=2, tile_size=512, mpp=0.325)
+    blobs = dapi[0] > 100
+    blob_parts = int(ndimage.label(blobs)[1])
+    # the CLI writes its labels expanded by --expansion_px (3 px by default)
+    blob_fg = float((ndimage.distance_transform_edt(~blobs) <= 3.0).mean())
+    model = build_cpnet(state, device=dev)
+    t0 = time.perf_counter()
+    losses = fit_cpnet_to_blobs(model, np.random.default_rng(SEED + 211), NUCLEI_FIT_STEPS,
+                                NUCLEI_FIT_BATCH, NUCLEI_FIT_TILES)
+    fit_s = time.perf_counter() - t0
+    ckpt = root / "cp_nuclei.pth"
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+    del model
+    stats = {}
+    real = fw.cellpose_torch_flow_factory
+    fw.cellpose_torch_flow_factory = lambda *a, **k: real(*a, stats=stats, **k)
+    out = root / "nuclei.ome.tiff"
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        n = wni.main(["--slide_path", str(slide), "--out_path", str(out), "--backend", "torch",
+                      "--cellpose_ckpt", str(ckpt), "--flow_averaging", "--tile_size",
+                      str(NUCLEI_TILE), "--halo", str(NUCLEI_HALO), "--target_mpp", "0"])
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        fw.cellpose_torch_flow_factory = real
+    res = TiffSlide(str(out))
+    labels = res.read_region((0, 0), 0, res.dimensions)
+    dims, n_levels = res.dimensions, res.n_levels
+    res.close()
+    ids = np.unique(labels[..., 0])
+    fg = float((labels[..., 0] > 0).mean())
+    print(f"[nuclei wsi] CPnet fitted to blob tiles on the card: {NUCLEI_FIT_STEPS} steps of "
+          f"{NUCLEI_FIT_BATCH} x 224^2 in {fit_s:.2f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}",
+          flush=True)
+    print(f"[nuclei wsi] wsi_nuclei_inference --backend torch --flow_averaging on a "
+          f"{NUCLEI_SLIDE}^2 DAPI TIFF, tile {NUCLEI_TILE}, halo {NUCLEI_HALO}: {n} nuclei "
+          f"({NUCLEI_BLOBS} discs painted, {blob_parts} connected) in {wall:.2f} s wall; flow "
+          f"pass {stats['flow_s']:.2f} s ({stats['flow_s'] / wall:.3f} of the wall; CPnet "
+          f"{stats['net_s']:.2f} s on {stats['tiles']} tiles of 224), compute_masks "
+          f"{stats['masks_s']:.2f} s ({stats['masks_s'] / wall:.3f}) in {stats['masks']} chunks; "
+          f"labels pyramid {dims} x {n_levels} levels, foreground {fg:.3f} (the discs grown "
+          f"by the CLI's 3-px expansion {blob_fg:.3f}); {counts_line(counts)}", flush=True)
+    check(n > 0 and dims == (NUCLEI_SLIDE, NUCLEI_SLIDE) and labels.shape[-1] == 2,
+          "[nuclei wsi] no nuclei or a wrong pyramid")
+    check(len(ids) == n + 1 and ids[-1] == n, "[nuclei wsi] labels are not 0..n")
+    check(0.8 * blob_parts <= n <= 1.2 * NUCLEI_BLOBS and abs(fg - blob_fg) <= 0.25 * blob_fg,
+          "[nuclei wsi] the nuclei found do not match the discs painted")
+    check_counts("[nuclei wsi]", counts)
+    return counts
+
+
+def he_nuclei_phase(tmp: Path, dev):
+    """[he nuclei]: he_nuclei_inference on a 2048^2 H&E TIFF (the
+    haematoxylin channel through rgb2hed on the card), against the same
+    script with --device cpu."""
+    from mipheivit_tpu_torch.preprocessings.nuclei_segmentation import he_nuclei_inference as hni
+    from mipheivit_tpu_torch.slideio import TiffSlide, write_pyramid
+
+    root = tmp / "he_nuclei"
+    root.mkdir()
+    he = blob_slide(np.random.default_rng(SEED + 220), HE_SLIDE, 3000, (235, 225, 232),
+                    (60, 50, 130))
+    slide = root / "he.tiff"
+    write_pyramid(str(slide), he, n_levels=2, tile_size=512, mpp=0.5)
+    planes, walls, counts = {}, {}, None
+    for device in (str(dev), "cpu"):
+        out = root / f"{device.replace(':', '')}.ome.tiff"
+        reset_counts()
+        t0 = time.perf_counter()
+        n = hni.main(["--slide_path", str(slide), "--out_path", str(out), "--tile_size", "1024",
+                      "--halo", "64", "--device", device])
+        walls[device] = time.perf_counter() - t0
+        if device == str(dev):
+            counts = read_counts()
+        res = TiffSlide(str(out))
+        planes[device] = (res.read_region((0, 0), 0, res.dimensions), n)
+        res.close()
+    (card, n), (cpu, n_cpu) = planes[str(dev)], planes["cpu"]
+    same = bool(np.array_equal(card, cpu))
+    print(f"[he nuclei] he_nuclei_inference on a {HE_SLIDE}^2 H&E TIFF, tile 1024: {n} nuclei in "
+          f"{walls[str(dev)]:.2f} s (rgb2hed on the card) vs {n_cpu} in {walls['cpu']:.2f} s on "
+          f"the CPU; pyramids equal {same}; {counts_line(counts)}", flush=True)
+    check(n > 0 and same, "[he nuclei] the card's segmentation differs from the CPU's")
+    check_counts("[he nuclei]", counts)
+    return counts
+
+
+def pix2pix_state(seed: int, ngf: int = 64, n_blocks: int = 9) -> dict:
+    """A pix2pix ResnetGenerator state dict (``model.N`` keys) from a numpy
+    seed: weights N(0, 0.02) (pix2pix's init), biases 0."""
+    g = np.random.default_rng(seed)
+    shapes = {1: (ngf, 3, 7, 7), 4: (2 * ngf, ngf, 3, 3), 7: (4 * ngf, 2 * ngf, 3, 3)}
+    for i in range(n_blocks):
+        for j in (1, 5):
+            shapes[f"{10 + i}.conv_block.{j}"] = (4 * ngf, 4 * ngf, 3, 3)
+    up0 = 10 + n_blocks
+    shapes.update({up0: (4 * ngf, 2 * ngf, 3, 3), up0 + 3: (2 * ngf, ngf, 3, 3),
+                   up0 + 7: (3, ngf, 7, 7)})
+    out = {}
+    for key, shape in shapes.items():
+        out[f"model.{key}.weight"] = torch.from_numpy(
+            (0.02 * g.standard_normal(shape)).astype(np.float32))
+        out[f"model.{key}.bias"] = torch.zeros(shape[1] if key in (up0, up0 + 3) else shape[0])
+    return out
+
+
+def cycle_gan_phase(tmp: Path, dev):
+    """[cycle gan]: the stain normaliser ResnetGenerator(64, 9) from a pix2pix
+    checkpoint on a batch of 4 tiles of 512^2 in f32, held against the CPU
+    on 1 tile; then cycle_gan_wsi_inference on a 1536 x 1024 H&E TIFF."""
+    from mipheivit_tpu_torch.infer.loading import load_state_dict
+    from mipheivit_tpu_torch.preprocessings.cycle_gan import cycle_gan_wsi_inference as cgw
+    from mipheivit_tpu_torch.preprocessings.cycle_gan.resnet_generator import (
+        build_generator, params_from_torch)
+    from mipheivit_tpu_torch.slideio import TiffSlide, write_pyramid
+
+    root = tmp / "cycle_gan"
+    root.mkdir()
+    ckpt = root / "latest_net_G.pth"
+    torch.save(pix2pix_state(SEED + 230), ckpt)
+    state = params_from_torch(load_state_dict(str(ckpt)))
+    model = build_generator(state, device=dev)
+    g = np.random.default_rng(SEED + 231)
+    w, h = CYCLE_SLIDE
+    he = g.integers(0, 256, (3, h, w), dtype=np.uint8)
+    # the slide script's first batch: its tiles in raster order
+    coords = [(x0, y0) for y0 in range(0, h, CYCLE_IMG) for x0 in range(0, w, CYCLE_IMG)]
+    tiles = np.stack([he[:, y0:y0 + CYCLE_IMG, x0:x0 + CYCLE_IMG].transpose(1, 2, 0)
+                      for x0, y0 in coords[:CYCLE_BATCH]])
+    x = torch.from_numpy(tiles).to(dev).float() / 127.5 - 1.0
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        pred = model(x)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: model(x), reps=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.inference_mode():
+        cpu = build_generator(state, device="cpu")(x[:1].cpu())
+    diff = float((pred[:1].cpu() - cpu).abs().max())
+    slide, out = root / "he.tiff", root / "he_normalized.tiff"
+    write_pyramid(str(slide), he, n_levels=2, tile_size=512, mpp=0.5)
+    t0 = time.perf_counter()
+    cgw.main(["--slide_path", str(slide), "--checkpoint", str(ckpt), "--out_path", str(out),
+              "--tile_size", str(CYCLE_IMG), "--batch_size", str(CYCLE_BATCH)])
+    wsi_s = time.perf_counter() - t0
+    counts = read_counts()
+    res = TiffSlide(str(out))
+    norm = res.read_region((0, 0), 0, res.dimensions)
+    dims, n_levels = res.dimensions, res.n_levels
+    res.close()
+    steps = int(np.abs(norm[:CYCLE_IMG, :CYCLE_IMG].astype(int)
+                       - cgw.to_uint8(pred[0].cpu().numpy()).astype(int)).max())
+    print(f"[cycle gan] ResnetGenerator(64, 9) f32, batch {CYCLE_BATCH} x {CYCLE_IMG}^2: "
+          f"{ms:.2f} ms/batch ({CYCLE_BATCH * 1000 / ms:.1f} tiles/s, CUDA events, median of "
+          f"10), peak {peak:.2f} GiB; card vs CPU on 1 tile: max_abs_diff {diff:.3e} (tol "
+          f"{CYCLE_TOL:g}); cycle_gan_wsi_inference {w} x {h} TIFF in {wsi_s:.2f} s -> {dims} x "
+          f"{n_levels} levels, tile (0, 0) within {steps} uint8 step(s) of the batch's; "
+          f"{counts_line(counts)}", flush=True)
+    check(bool(torch.isfinite(pred).all()) and diff <= CYCLE_TOL,
+          "[cycle gan] the card's generator differs from the CPU's")
+    check(dims == (w, h) and n_levels == 4 and steps <= 1 and norm.std() > 0,
+          "[cycle gan] the normalised slide")
+    check_counts("[cycle gan]", counts)
+    return counts
+
+
+def trainer_profile_phase(tmp: Path, ckpt: Path, enc: Path, data_values: dict, depth: int):
+    """[trainer profile]: train_patchgan(profile_steps=2) on the [trainer]
+    configuration for 1 epoch of TRAINER_STEPS microbatches: the trace's
+    path, size and five longest device ops. The run's snapshot and export
+    are not written ([trainer] writes them; the machine caps a run's disk
+    writes at 45 GiB)."""
+    import gzip
+
+    import mipheivit_tpu_torch.train.trainer as trainer
+
+    cfg = trainer_config(trainer_overrides(data_values, ckpt, enc, 1))
+    logdir = tmp / "trainer_profile"
+    real = {name: getattr(trainer, name) for name in ("save_train_state", "save_generator")}
+    for name in real:
+        setattr(trainer, name, lambda *a, **k: None)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = trainer.train_patchgan(cfg, str(logdir), max_steps_per_epoch=TRAINER_STEPS,
+                                     use_wandb=False, profile_steps=PROFILE_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        for name, fn in real.items():
+            setattr(trainer, name, fn)
+    path = Path(out.get("profile", ""))
+    check(path.is_file() and path.parent == logdir / "profile", "[trainer profile] no trace")
+    events = json.loads(gzip.decompress(path.read_bytes()))["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: -float(e.get("dur", 0)))
+    top = "; ".join(f"{e['name'][:70]} {float(e['dur']):.0f} us" for e in kernels[:5])
+    busy = sum(float(e.get("dur", 0)) for e in kernels) / 1e3
+    print(f"[trainer profile] train_patchgan(profile_steps={PROFILE_STEPS}), flagship preset, "
+          f"{depth} blocks, 1 epoch of {TRAINER_STEPS} microbatches in {wall:.1f} s: trace "
+          f"{path.relative_to(tmp)} {path.stat().st_size / 2 ** 20:.2f} MiB, {len(kernels)} "
+          f"kernels, {busy:.1f} ms of kernel time; five longest: {top}; {counts_line(counts)}",
+          flush=True)
+    check(len(kernels) > 0, "[trainer profile] the trace holds no device kernel")
+    n_fwd = TRAINER_STEPS + 1 + TRAINER_TILES["val"] // 8 + TRAINER_TILES["test"] // 8
+    check_counts("[trainer profile]", counts, k1=depth * n_fwd, k2=depth * n_fwd,
+                 k2b=depth * TRAINER_STEPS)
+    path.unlink()
+    return counts
+
+
+def tiff_phase(tmp: Path):
+    """[tiff]: pyramids at write_pyramid's dtypes written and read back bit
+    for bit by the native engine (slidetiff.cpp, built here against the
+    libtiff it names), level 0 also as Pillow decodes each channel's page."""
+    from PIL import Image
+
+    from mipheivit_tpu_torch.slideio import TiffSlide, write_pyramid
+    from mipheivit_tpu_torch.slideio.native.build import find_libtiff
+
+    t0 = time.perf_counter()
+    g = np.random.default_rng(SEED + 240)
+    cases = {"uint8 x 3": g.integers(0, 256, (3, 1000, 1300), dtype=np.uint8),
+             "uint16": g.integers(0, 65536, (1, 1000, 1300), dtype=np.uint16),
+             "int32 x 2": g.integers(0, 2 ** 31 - 1, (2, 1000, 1300), dtype=np.int32),
+             "float32": g.standard_normal((1, 1000, 1300)).astype(np.float32)}
+    ok = True
+    for name, data in cases.items():
+        path = tmp / f"tiff_{name.split()[0]}.tiff"
+        write_pyramid(str(path), data, n_levels=3, tile_size=512, mpp=0.5)
+        slide = TiffSlide(str(path))
+        levels = [slide.read_region((0, 0), lvl, slide.level_dimensions[lvl])
+                  for lvl in range(slide.n_levels)]
+        slide.close()
+        ok = ok and len(levels) == 3 and np.array_equal(levels[0], data.transpose(1, 2, 0))
+        with Image.open(path) as im:
+            for ch in range(len(data)):
+                im.seek(ch)
+                ok = ok and np.array_equal(np.asarray(im).astype(data.dtype), data[ch])
+        path.unlink()
+    print(f"[tiff] native engine on {find_libtiff()}; {', '.join(cases)} 1300 x 1000, 3 levels: "
+          f"read back bit for bit, level 0 also through Pillow: {ok} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(ok, "[tiff] a pyramid did not read back bit for bit")
+
+
+def preprocessing_phases(tmp: Path, ckpt: Path, enc: Path, data_values: dict, depth: int, dev):
+    """The preprocessing phases, in order; returns each path's launch
+    counts."""
+    tiff_phase(tmp)
+    counts = {}
+    counts["cellpose"], state = cellpose_phase(dev)
+    torch.cuda.empty_cache()
+    counts["nuclei wsi"] = nuclei_wsi_phase(tmp, state, dev)
+    counts["he nuclei"] = he_nuclei_phase(tmp, dev)
+    counts["cycle gan"] = cycle_gan_phase(tmp, dev)
+    torch.cuda.empty_cache()
+    counts["trainer profile"] = trainer_profile_phase(tmp, ckpt, enc, data_values, depth)
+    return counts
+
+
 def pearson(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Per-marker Pearson correlation of two ``[..., C]`` arrays."""
     a = a.reshape(-1, a.shape[-1]).astype(np.float64)
@@ -4375,6 +4842,12 @@ def main() -> None:
         swin_counts, swin = swin_phases(Path(tmp), dev)
         torch.cuda.empty_cache()
 
+        # 14b. preprocessing: the TIFF engine, Cellpose on the card, DAPI and
+        #      H&E nuclei segmentation, the CycleGAN stain normaliser (no
+        #      kernel), and the trainer's profiler hook (the [trainer] run)
+        prep_counts = preprocessing_phases(Path(tmp), ckpt, enc, trainer_ref["data"], depth, dev)
+        torch.cuda.empty_cache()
+
         # 15. the multi-card paths over 2 ranks spawned on the one card:
         #     [collectives], [seq shard wsi 1024], [seq shard 2048], [train
         #     seq shard 1024] (K4 on the query shard over the gathered keys,
@@ -4392,7 +4865,7 @@ def main() -> None:
              "train 1024": train1024, "train 1024 ckpt": train1024c, "train ops": train_ops,
              "trainer": trainer_counts, "test driver": test_driver_counts,
              "cell trainer": cell_counts, "cell test driver": cell_test_counts, **eval_counts,
-             **baseline_counts, **swin_counts, **parallel_counts}
+             **baseline_counts, **swin_counts, **prep_counts, **parallel_counts}
     print(f"[cell path] nucleus_pool {pool_ms[8]:.3f} ms at 8 tiles, {pool_ms[64]:.3f} ms at 64; "
           f"cell loss forward + backward {cell_loss_ms:.3f} ms at microbatch 8", flush=True)
     print(f"[baselines] {'; '.join(f'{k} {v:.3f}' for k, v in baseline.items())}", flush=True)

@@ -16,7 +16,9 @@ maps ``DiscriminatorPatch`` variables, spectral-norm ``u`` included.
 ``unetr_state_dict_from_jax``, ``unetr_swin_state_dict_from_jax``,
 ``unet_resnet50_state_dict_from_jax``, ``smp_unet_state_dict_from_jax``,
 ``swin_state_dict_from_jax``, ``hemit_state_dict_from_jax`` (the HEMIT zoo's
-generators and discriminators) map the baseline generators the same way:
+generators and discriminators) map the baseline generators the same way,
+``cellpose_state_dict_from_jax`` the CPnet tree with its folded
+BatchNorms, ``cycle_gan_state_dict_from_jax`` the CycleGAN normaliser:
 flax ``ConvTranspose`` kernels are flipped into torch's layout, ``Dense``
 kernels transposed, LayerNorm ``scale`` becomes ``weight`` and BatchNorm
 ``mean`` / ``var`` the running buffers.
@@ -629,6 +631,72 @@ def discriminator_state_dict_from_jax(variables: Dict) -> Dict[str, np.ndarray]:
         if "bias" in params[name]:
             out[f"convs.{i}.bias"] = np.asarray(params[name]["bias"])
         out[f"convs.{i}.u"] = np.asarray(spectral[name]["u"])
+    return out
+
+
+def _cellpose_bc(out: Dict, base: str, p: Dict, conv_idx: int = 2) -> None:
+    """A folded ``batchconv`` (``scale``/``bias``, HWIO ``kernel``,
+    ``conv_bias``) as cellpose's BN at ``.0`` and conv at ``.{conv_idx}``:
+    weight = scale, bias = bias, running mean 0 and variance 1 - eps, so
+    that eval-mode BatchNorm computes ``x * scale + bias``."""
+    from .cellpose_net import BN_EPS
+
+    scale = np.asarray(p["scale"], np.float32)
+    out[f"{base}.0.weight"] = scale
+    out[f"{base}.0.bias"] = np.asarray(p["bias"], np.float32)
+    out[f"{base}.0.running_mean"] = np.zeros_like(scale)
+    out[f"{base}.0.running_var"] = np.full_like(scale, 1.0 - BN_EPS)
+    out[f"{base}.0.num_batches_tracked"] = np.zeros((), np.int64)
+    out[f"{base}.{conv_idx}.weight"] = _conv(p["kernel"])
+    out[f"{base}.{conv_idx}.bias"] = np.asarray(p["conv_bias"], np.float32)
+
+
+def cellpose_state_dict_from_jax(params: Dict) -> Dict[str, np.ndarray]:
+    """The JAX package's CPnet tree (``cellpose_params_from_torch``: BatchNorm
+    folded into ``scale``/``bias``, HWIO kernels, ``full_w`` ``[in, out]``)
+    -> a cellpose state dict that ``models.cellpose_net.CPnet`` loads
+    strictly. Both packages then compute the same function."""
+    out: Dict[str, np.ndarray] = {}
+    for n, lvl in enumerate(params["down"]):
+        base = f"downsample.down.res_down_{n}"
+        _cellpose_bc(out, base + ".proj", lvl["proj"], conv_idx=1)
+        for t, p in enumerate(lvl["conv"]):
+            _cellpose_bc(out, f"{base}.conv.conv_{t}", p)
+    for n, lvl in enumerate(params["up"]):
+        base = f"upsample.up.res_up_{n}"
+        _cellpose_bc(out, base + ".proj", lvl["proj"], conv_idx=1)
+        _cellpose_bc(out, base + ".conv.conv_0", lvl["conv0"])
+        for t in (1, 2, 3):
+            p = lvl[f"conv{t}"]
+            _cellpose_bc(out, f"{base}.conv.conv_{t}.conv", p["bc"])
+            out[f"{base}.conv.conv_{t}.full.weight"] = _t(p["full_w"])
+            out[f"{base}.conv.conv_{t}.full.bias"] = np.asarray(p["full_b"], np.float32)
+    _cellpose_bc(out, "output", params["output"])
+    diam_mean = float(params.get("diam_mean") or 30.0)
+    out["diam_mean"] = np.full((1,), diam_mean, np.float32)
+    out["diam_labels"] = np.full((1,), float(params.get("diam_labels") or diam_mean), np.float32)
+    return out
+
+
+def cycle_gan_state_dict_from_jax(params: Dict) -> Dict[str, np.ndarray]:
+    """The flax params of the CycleGAN stain normaliser
+    (``preprocessings/cycle_gan/resnet_generator.py``) -> the state dict of
+    the port's ``preprocessings.cycle_gan.resnet_generator.ResnetGenerator``:
+    conv kernels HWIO -> OIHW; the ``ConvTranspose`` kernels ``[kh, kw, in,
+    out]`` back to the ``[in, out, kh, kw]`` storage the importer read them
+    from, unflipped (the port's ``FlaxConvTranspose2d`` reads them as flax
+    does)."""
+    out = {}
+    for name, p in params.items():
+        if "kernel" not in p:      # a ResNet block: conv1, conv2
+            for sub, q in p.items():
+                out[f"{name}.{sub}.weight"] = _conv(q["kernel"])
+                out[f"{name}.{sub}.bias"] = np.asarray(q["bias"])
+            continue
+        k = np.asarray(p["kernel"])
+        out[f"{name}.weight"] = (np.ascontiguousarray(k.transpose(2, 3, 0, 1))
+                                 if name.startswith("up") else _conv(k))
+        out[f"{name}.bias"] = np.asarray(p["bias"])
     return out
 
 

@@ -3,8 +3,9 @@
 The reference's stain jitter converts to HED via ``skimage.color.rgb2hed``
 (reference: src/augmentations.py:237,261). skimage is not available here,
 so the Ruifrok-Johnston matrices and skimage's exact log-space convention
-are reproduced (works on numpy or jax arrays; pure 3x3 matmuls, so it also
-fuses nicely on device if augmentation is moved on-TPU).
+are reproduced. ``rgb2hed`` takes a numpy array (the host augmentation) or a
+tensor, which it converts on the tensor's device (the H&E nuclei
+segmentation runs it on the card); ``hed2rgb`` takes numpy arrays.
 """
 
 from __future__ import annotations
@@ -23,8 +24,10 @@ _LOG_ADJUST = np.log(1e-6)
 
 def rgb2hed(rgb):
     """rgb in [0,1] float (or uint8, auto-scaled) -> HED stain concentrations.
-    skimage ``separate_stains`` semantics."""
-    xp = np
+    skimage ``separate_stains`` semantics. A tensor stays a tensor, on its
+    device, in its float dtype (f64 for uint8)."""
+    if not isinstance(rgb, np.ndarray) and hasattr(rgb, "device"):
+        return _rgb2hed_tensor(rgb)
     rgb = np.asarray(rgb)
     if rgb.dtype == np.uint8:
         rgb = rgb.astype(np.float64) / 255.0
@@ -39,3 +42,13 @@ def hed2rgb(hed):
     log_rgb = -(hed * (-_LOG_ADJUST)) @ RGB_FROM_HED
     rgb = np.exp(log_rgb)
     return np.clip(rgb, 0.0, 1.0)
+
+
+def _rgb2hed_tensor(rgb):
+    import torch
+
+    if rgb.dtype == torch.uint8:
+        rgb = rgb.to(torch.float64) / 255.0
+    rgb = torch.clamp_min(rgb, 1e-6)
+    m = torch.as_tensor(HED_FROM_RGB, dtype=rgb.dtype, device=rgb.device)
+    return torch.clamp_min((torch.log(rgb) / _LOG_ADJUST) @ m, 0)

@@ -50,13 +50,20 @@ def _rank_main(fn, rank: int, n: int, port: int, device, backend, threads, args,
 
 def spawn(fn: Callable, n: int, args: Sequence[Any] = (), device=None,
           backend: Optional[str] = None, timeout: float = 300.0,
-          threads: Optional[int] = 2) -> List[Any]:
+          threads: Optional[int] = 1) -> List[Any]:
     """``[fn(*args) on rank 0, ..., on rank n-1]``, each rank in its own
     process with the process group started on ``device`` (default: each
     rank's own card, ``cuda:{rank}``) over ``backend`` (default: NCCL on
-    cards, gloo on the CPU). ``threads`` caps each rank's intra-op threads
-    (None: torch's default). Raises ``RuntimeError`` with the failing
-    rank's traceback, or ``TimeoutError``, after killing every rank."""
+    cards, gloo on the CPU). ``threads`` sets each rank's intra-op threads
+    (None: torch's default). One thread a rank by default: in any fresh
+    process on a two-thread team under CPU load, spawned or not, the first
+    multi-threaded ``torch.logsumexp`` sometimes returns the rows of one
+    thread's half about 4e-5 off (the matmul before it is bit-identical,
+    the same call repeated at once matches the f64 reference to 4e-7, and a
+    first exp or log pass over a large tensor removes it), so the ranks'
+    results were not reproducible from run to run. Raises ``RuntimeError``
+    with the failing rank's traceback, or ``TimeoutError``, after killing
+    every rank."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")

@@ -141,6 +141,47 @@ class _NullLogger:
         pass
 
 
+class _StepTrace:
+    """``train_patchgan(profile_steps=n)``: a ``torch.profiler`` trace of the
+    train steps from global step 2 to 2 + n, exported as a gzipped Chrome
+    trace into ``out_dir`` (``path`` once written)."""
+
+    START = 2
+
+    def __init__(self, steps: int, out_dir: Path, device: torch.device):
+        self.steps, self.out_dir, self.device = int(steps), out_dir, device
+        self.prof, self.first, self.path = None, None, None
+
+    def before(self, global_step: int) -> None:
+        if self.steps > 0 and self.prof is None and self.path is None \
+                and global_step == self.START:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self.prof, self.first = profile(activities=acts), global_step
+            self.prof.start()
+
+    def after(self, global_step: int) -> None:
+        if self.prof is not None and global_step == self.START + self.steps:
+            self.stop(global_step)
+
+    def stop(self, global_step: int) -> None:
+        """Ends the trace (at its last step, or when training ends first)."""
+        if self.prof is None:
+            return
+        prof, self.prof = self.prof, None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        self.out_dir.mkdir(parents=True, exist_ok=True)
+        path = self.out_dir / f"trace_steps{self.first}-{global_step}.json.gz"
+        prof.export_chrome_trace(str(path))
+        self.path = str(path)
+        log.info("profiler trace -> %s", path)
+
+
 def _reduce(values: torch.Tensor, op=None, group=None) -> torch.Tensor:
     """``values`` reduced over ``group`` (sum unless ``op``), a copy."""
     values = values.clone()
@@ -237,14 +278,21 @@ def swap_augmentation_replicas(dataframe: Table, augmentation_dir: str, prob: fl
 
 def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
                    max_steps_per_epoch: Optional[int] = None, use_wandb: bool = True,
-                   resume: bool = False, device=None) -> Dict:
+                   resume: bool = False, device=None, profile_steps: int = 0) -> Dict:
     """Train the generator of ``cfg`` into ``logdir``; returns
     ``{"history", "best", "state"}`` (and ``"preempted": True`` after a
-    SIGTERM). ``dtype`` is the compute dtype and the frozen weights'
-    ("bfloat16" by default on the card, "float32" on the CPU); ``resume``
-    continues from the newest snapshot in ``<logdir>/snapshots``. Under a
-    process group the device defaults to the rank's
-    (``parallel.init_distributed``'s)."""
+    SIGTERM; ``"profile"``, the trace's path, after a profiled run).
+    ``dtype`` is the compute dtype and the frozen weights' ("bfloat16" by
+    default on the card, "float32" on the CPU); ``resume`` continues from
+    the newest snapshot in ``<logdir>/snapshots``. Under a process group the
+    device defaults to the rank's (``parallel.init_distributed``'s).
+
+    ``profile_steps`` > 0 traces that many train steps from global step 2
+    (the counterpart of the JAX trainer's ``jax.profiler`` trace) with
+    ``torch.profiler`` (CPU and, on the card, CUDA activities) into
+    ``<logdir>/profile/trace_steps{a}-{b}.json.gz``, on rank 0 only under a
+    process group; the device is synchronised before the trace stops.
+    Training is otherwise unchanged."""
     check_foreground_head(cfg)
     check_cell_loss(cfg)
     n_proc = require_process_group()
@@ -432,6 +480,8 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
 
     # every forward of the run shards its ViT tokens over the model group
     scope = seq_shard_scope(mesh) if seq_shard else contextlib.nullcontext()
+    trace = _StepTrace(profile_steps if is_main else 0, logdir / "profile", device)
+    global_step = state.step
     scope.__enter__()
     try:
 
@@ -478,7 +528,6 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
                 save_train_state(state, snapshots)
                 save_generator(model, logdir / f"{tag}.safetensors")
 
-        global_step = state.step
         for epoch in range(start_epoch, cfg.train.epochs):
             if cfg.data.augmentation_dir and not from_slide:
                 dm.frames["train"] = swap_augmentation_replicas(
@@ -529,8 +578,10 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
                 b = {"image": batch["image"], "target": batch["target"]}
                 if step_cfg.use_cell_loss:
                     b["nuclei"] = batch["nuclei"]
+                trace.before(global_step)
                 state, train_metrics, slog = train_step(state, b, train_metrics)
                 global_step += 1
+                trace.after(global_step)
                 scalars = {k: v for k, v in slog.items() if k not in ("nan", "grads")}
                 step_if_nan = torch.where(slog["nan"], global_step, _NO_NAN)
                 last = scalars
@@ -588,8 +639,12 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
         if is_main:
             (logdir / "status.txt").write_text("finished")   # reference: run.py:38-45
         logger.finish()
-        return {"history": history, "best": best, "state": state}
+        out = {"history": history, "best": best, "state": state}
+        if trace.path is not None:
+            out["profile"] = trace.path
+        return out
     finally:
+        trace.stop(global_step)
         scope.__exit__(None, None, None)
         for sig, handler in prev_handlers.items():
             signal.signal(sig, handler)

@@ -69,6 +69,20 @@ CHIP_PATH = [
     "mipheivit_tpu_torch.parallel.spawn",
     "mipheivit_tpu_torch.parallel.workers",
     "mipheivit_tpu_torch.parallel.dryrun",
+    "mipheivit_tpu_torch.models.cellpose_net",
+]
+
+# the preprocessing scripts: cv2, scipy and pandas only inside their functions
+PREPROCESSING = [
+    "mipheivit_tpu_torch.preprocessings",
+    "mipheivit_tpu_torch.preprocessings.nuclei_segmentation.flow_dynamics",
+    "mipheivit_tpu_torch.preprocessings.nuclei_segmentation.backends",
+    "mipheivit_tpu_torch.preprocessings.nuclei_segmentation.wsi_nuclei_inference",
+    "mipheivit_tpu_torch.preprocessings.nuclei_segmentation.flow_wsi",
+    "mipheivit_tpu_torch.preprocessings.nuclei_segmentation.he_nuclei_inference",
+    "mipheivit_tpu_torch.preprocessings.cycle_gan.resnet_generator",
+    "mipheivit_tpu_torch.preprocessings.cycle_gan.cycle_gan_wsi_inference",
+    "mipheivit_tpu_torch.preprocessings.cycle_gan.normalize_tiles",
 ]
 
 
@@ -88,6 +102,29 @@ def test_chip_path_imports_without_jax():
         "             and m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yaml', 'cv2',\n"
         "                                     'safetensors', 'mipheivit_tpu', 'pandas',\n"
         "                                     'sklearn'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=PKG.parent, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_preprocessing_imports_without_jax_cv2_scipy_or_pandas():
+    """The preprocessing modules import with jax, cv2, scipy and pandas
+    unimportable (each is imported inside the functions that use it), and
+    pull in nothing of the JAX package nor of the repo's
+    ``preprocessings/`` scripts."""
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'cv2', 'scipy', 'pandas', 'yaml'):\n"
+        "    sys.modules[name] = None\n"
+        f"for name in {PREPROCESSING!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
+        "             and m.split('.')[0] in ('jax', 'cv2', 'scipy', 'pandas', 'mipheivit_tpu',\n"
+        "                                     'backends', 'flow_wsi', 'flow_dynamics',\n"
+        "                                     'resnet_generator', 'preprocessings'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -187,9 +224,10 @@ def _imported_modules(path: Path):
 
 
 def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
-    """No module of the port, and not chip_smoke.py, imports jax or any
-    ``mipheivit_tpu`` module (the port keeps its own copies of the host
-    modules it needs). Relative imports stay inside the port."""
+    """No module of the port, and not chip_smoke.py, imports jax, any
+    ``mipheivit_tpu`` module or the repo's ``preprocessings`` scripts (the
+    port keeps its own copies of the host modules it needs). Relative
+    imports stay inside the port."""
     files = [p for p in sorted(PKG.rglob("*.py"))
              if "build" not in p.relative_to(PKG).parts]
     files.append(PKG.parent / "chip_smoke.py")
@@ -198,7 +236,7 @@ def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "flax", "optax", "mipheivit_tpu"):
+            if top in ("jax", "jaxlib", "flax", "optax", "mipheivit_tpu", "preprocessings"):
                 bad.append((str(path.relative_to(PKG.parent)), name))
     assert not bad, bad
 

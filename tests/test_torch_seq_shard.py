@@ -176,6 +176,18 @@ def test_seq_sharded_attention_matches_jax(cases, n, fused):
 
 
 @pytest.mark.parametrize("n", [2, 4])
+def test_fused_and_qkv_routes_are_bit_identical(cases, n):
+    """The fused qkv route and the separate q, k, v route feed the same
+    operands to the same plain attention in the same ranks: their outputs
+    and gradients are equal bit for bit (the fused route runs first in each
+    spawn)."""
+    fused_out, fused_grads = cases["port"]["attn", True, n][0]
+    qkv_out, qkv_grads = cases["port"]["attn", False, n][0]
+    np.testing.assert_array_equal(fused_out, qkv_out)
+    np.testing.assert_array_equal(fused_grads[0], np.concatenate(qkv_grads, axis=-1))
+
+
+@pytest.mark.parametrize("n", [2, 4])
 def test_vit_seq_shard_matches_jax_xla(cases, n):
     """The 2-block ViT (LoRA live, register tokens; 260 tokens), sharded
     over n ranks, equals the JAX ``attn_impl="xla"`` forward on the same

@@ -253,6 +253,32 @@ def test_resume_after_one_epoch_equals_two_straight(workspace, tiny_port, tmp_pa
     assert got == want    # epoch 1 and the test epoch
 
 
+def test_profile_steps_traces_without_changing_the_losses(workspace, tiny_port, tmp_path):
+    """``profile_steps=2`` writes a torch.profiler trace of global steps 2-4
+    under ``<logdir>/profile`` and leaves every logged value as the same
+    run without profiling logs it, bit for bit."""
+    import gzip
+
+    from mipheivit_tpu_torch.train.trainer import train_patchgan
+
+    _, values = workspace
+    plain = train_patchgan(_port_cfg(values), str(tmp_path / "plain"), use_wandb=False,
+                           device="cpu")
+    traced = train_patchgan(_port_cfg(values), str(tmp_path / "traced"), use_wandb=False,
+                            device="cpu", profile_steps=2)
+    assert "profile" not in plain and not (tmp_path / "plain" / "profile").exists()
+    path = Path(traced["profile"])
+    assert path == tmp_path / "traced" / "profile" / "trace_steps2-4.json.gz"
+    events = json.loads(gzip.decompress(path.read_bytes()))["traceEvents"]
+    assert any(str(e.get("name", "")).startswith("aten::") for e in events)
+    got, want = ([{k: v for k, v in line.items() if k not in CLOCK_KEYS} for line in lines]
+                 for lines in (_lines(tmp_path / "traced"), _lines(tmp_path / "plain")))
+    assert got == want
+    traced_state = _state_tensors(traced["state"])
+    for name, value in _state_tensors(plain["state"]).items():
+        assert torch.equal(traced_state[name], value), name
+
+
 def _small_state(device, seed):
     from mipheivit_tpu_torch.metrics import PixelMetrics
     from mipheivit_tpu_torch.models.discriminator import DiscriminatorPatch
