@@ -730,32 +730,33 @@ def k2b_phase(name, m, dtype, seed=0):
             "library_ms": None}
 
 
-def head_flops_per_px(k):
-    """K3's operations per pixel at k heads: gate 32 x 16k, psi-conv2 16k,
-    taps 32 x 9k (2 per multiply-add) and the 9k-term stencil."""
-    return 2 * (HEAD_C * 16 * k + 16 * k + HEAD_C * 9 * k + 9 * k)
+def head_flops_per_px(k, c=HEAD_C):
+    """K3's operations per pixel at k heads of c channels (C2 = c / 2 gate
+    features a head): gate c x k c / 2, psi-conv2 k c / 2, taps c x 9k (2
+    per multiply-add) and the 9k-term stencil."""
+    return 2 * (c * (c // 2) * k + (c // 2) * k + c * 9 * k + 9 * k)
 
 
-def seeded_heads(seed, device, k=MARKERS):
-    """A BatchedSegHeads (32 channels, k markers) in eval mode with weights,
+def seeded_heads(seed, device, k=MARKERS, c=HEAD_C):
+    """A BatchedSegHeads (c channels, k markers) in eval mode with weights,
     biases and BN statistics from a numpy seed."""
     from mipheivit_tpu_torch.models.mipheivit import BatchedSegHeads
 
     rng = np.random.default_rng(seed)
-    heads = BatchedSegHeads(HEAD_C, k)
+    heads = BatchedSegHeads(c, k)
     with torch.no_grad():
         for p in heads.parameters():
             p.copy_(torch.from_numpy(rng.standard_normal(tuple(p.shape), dtype=np.float32)
                                      * np.float32(0.1)))
         heads.psi_bn.running_mean.copy_(torch.from_numpy(
-            rng.standard_normal(16 * k, dtype=np.float32) * np.float32(0.1)))
+            rng.standard_normal(c // 2 * k, dtype=np.float32) * np.float32(0.1)))
         heads.psi_bn.running_var.copy_(torch.from_numpy(
-            rng.uniform(0.5, 1.5, 16 * k).astype(np.float32)))
+            rng.uniform(0.5, 1.5, c // 2 * k).astype(np.float32)))
     return heads.to(device).eval()
 
 
-def k3_phase(name, b, h, w, dtype, seed=0, k=MARKERS):
-    """K3 against its plain version on one decoder feature map [b, 32, h, w]
+def k3_phase(name, b, h, w, dtype, seed=0, k=MARKERS, c=HEAD_C, tag="k3"):
+    """K3 against its plain version on one decoder feature map [b, c, h, w]
     (channels_last) with k seeded heads; prints and checks the scaled errors
     and times the kernel, the plain version and the module's plain eval
     chain (cuDNN 1x1 convs, the running-statistics BatchNorm, nine addcmul_;
@@ -765,12 +766,15 @@ def k3_phase(name, b, h, w, dtype, seed=0, k=MARKERS):
     dt = "bf16" if dtype == torch.bfloat16 else "f32"
     dev = torch.device("cuda:0")
     t0 = time.perf_counter()
-    heads = seeded_heads(seed, dev, k)
+    heads = seeded_heads(seed, dev, k, c)
     weights = seg_heads.fold_heads(heads, dtype)
     x = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
-        (b, h, w, HEAD_C), dtype=np.float32)).to(dev, dtype).permute(0, 3, 1, 2)
+        (b, h, w, c), dtype=np.float32)).to(dev, dtype).permute(0, 3, 1, 2)
+    reset_counts()
     with torch.inference_mode():
         got = seg_heads.fused_seg_heads(x, *weights)
+        torch.cuda.synchronize()
+        check_counts(f"[{tag} {name}]", read_counts(), k3=1)
         want = seg_heads.seg_heads_reference(x, *weights)
         torch.cuda.synchronize()
         err, rel, fro = scaled_err(got, want)
@@ -780,12 +784,12 @@ def k3_phase(name, b, h, w, dtype, seed=0, k=MARKERS):
         plain_ms = cuda_ms(lambda: seg_heads.seg_heads_reference(x, *weights), reps=3, warmup=1)
         library_ms = cuda_ms(lambda: heads.chain(x), reps=5, warmup=1)
     n_px = b * h * w
-    bnd, by = bound_ms(n_px * (HEAD_C + k) * x.element_size(), 1.0 * n_px * head_flops_per_px(k),
+    bnd, by = bound_ms(n_px * (c + k) * x.element_size(), 1.0 * n_px * head_flops_per_px(k, c),
                        dt)
-    print(f"[k3 {name}] x [{b}, {HEAD_C}, {h}, {w}] -> [{b}, {k}, {h}, {w}]: max_abs_err "
+    print(f"[{tag} {name}] x [{b}, {c}, {h}, {w}] -> [{b}, {k}, {h}, {w}]: max_abs_err "
           f"{err:.3e} = {rel:.2e} of max|ref|, norm-rel {fro:.2e} (tol {SCALED_TOL[dt][0]:g}, "
-          f"{SCALED_TOL[dt][1]:g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms library (cuDNN "
-          f"eval chain) {library_ms:.3f} ms bound {bnd:.3f} ms ({by}) "
+          f"{SCALED_TOL[dt][1]:g}), launches K3 1; kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+          f"library (cuDNN eval chain) {library_ms:.3f} ms bound {bnd:.3f} ms ({by}) "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     check(rel <= SCALED_TOL[dt][0] and fro <= SCALED_TOL[dt][1],
           f"K3 {name} disagrees with the plain version")
@@ -1013,6 +1017,168 @@ def head_dims_phase():
           f"{SCALED_TOL['bf16'][1]:g}) ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+WIDE_HEAD_DIMS = (80, 128)        # [head dims 128]: through K4's and K5's 128-wide instances
+WIDE_REGION = (1, REGION_S, 12)   # a 1024-px region at 12 heads of 128 (ViT width 1536)
+
+
+def wide_rows(d, q, k, v, g, heads):
+    """Times of K4's and K5's instance for head dim d on q, k, v [B, S, H*d]
+    (bf16) and the output gradient g: the kernel, its plain version, the
+    library's attention (its backward alone for K5) on the same heads, and
+    the bound. Returns ``{"k4": row, "k5": row}``."""
+    import torch.nn.functional as F
+
+    from mipheivit_tpu_torch.ops import attention as attn
+
+    b, s, hd = q.shape
+
+    def view(t, grad=False):
+        t = t.detach().view(b, s, heads, d).transpose(1, 2)
+        return t.detach().requires_grad_() if grad else t
+
+    rows = {}
+    with torch.inference_mode():
+        out, lse = attn.flash_attention(q, k, v, heads)
+        rows["k4"] = {"ms": cuda_ms(lambda: attn.flash_attention(q, k, v, heads), reps=10),
+                      "plain_ms": cuda_ms(lambda: attn.flash_reference(q, k, v, heads), reps=2,
+                                          warmup=1),
+                      "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                          view(q), view(k), view(v)), reps=10)}
+        rows["k5"] = {"ms": cuda_ms(lambda: attn.flash_backward(q, k, v, out, lse, g, heads),
+                                    reps=10),
+                      "plain_ms": cuda_ms(lambda: attn.flash_backward_reference(
+                          q, k, v, out, lse, g, heads), reps=2, warmup=1)}
+    ql, kl, vl = (view(t, True) for t in (q, k, v))
+    with torch.enable_grad():
+        o = F.scaled_dot_product_attention(ql, kl, vl)
+        rows["k5"]["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            o, (ql, kl, vl), view(g), retain_graph=True), reps=10)
+        del o
+    n = b * s * hd * q.element_size()
+    rows["k4"]["bound_ms"], rows["k4"]["bound_by"] = bound_ms(
+        4 * n + b * heads * s * 4, 4.0 * b * heads * s * s * d, "bf16")
+    rows["k5"]["bound_ms"], rows["k5"]["bound_by"] = bound_ms(
+        8 * n + b * heads * s * 4, 10.0 * b * heads * s * s * d, "bf16")
+    return rows
+
+
+def wide_heads_phase():
+    """[head dims 128]: the five attention entry points and flash_backward
+    at head dims 80 and 128, through K4's and K5's 128-wide instances (80
+    zero-padded to 128, the scale of its own D): attention_qkv at [2, 329,
+    24 x D] and dot_product_attention at [2, 24, 329, D] (up to 512 tokens,
+    K4 where K1 and K6 take heads up to 64), attention_bshd at [1, 600, 24 x
+    D], flash_attention over its keys from 300 queries with 580 live keys,
+    flash_backward there (K5), ln_qkv_attention at [2, 329, 1536] with 2
+    heads of 80 or 12 of 128 (K7, then K4), and attention_bshd and
+    flash_backward in f32; each held against its plain version at that D
+    with its exact launches. Then K4's and K5's 128-wide times at [1, 600,
+    24 x 128] and at a 1024-px region of 12 heads of 128, beside the
+    library's attention and the bound. Returns the K4 and K5 rows at the
+    region."""
+    from mipheivit_tpu_torch.ops import attention as attn
+    from mipheivit_tpu_torch.ops import attn_block
+
+    t0 = time.perf_counter()
+    bf16, f32 = torch.bfloat16, torch.float32
+    lines = []
+    for d in WIDE_HEAD_DIMS:
+        seed = SEED + 170 + d
+        qkv = seeded((2, 329, 3 * HEADS * d), seed, bf16)
+        lq, lk, lv = seeded((1, 600, 3 * HEADS * d), seed + 1, bf16).chunk(3, -1)
+        g = seeded((1, 600, HEADS * d), seed + 2, bf16)
+        lout, llse = attn.flash_reference(lq, lk, lv, HEADS)
+        heads = [seeded((2, HEADS, 329, d), seed + 3 + i, bf16) for i in range(3)]
+        fq, fk, fv = seeded((1, 600, 3 * 2 * d), seed + 6, f32).chunk(3, -1)
+        fg = seeded((1, 600, 2 * d), seed + 7, f32)
+        fout, flse = attn.flash_reference(fq, fk, fv, 2)
+        nh = 1536 // d if 1536 % d == 0 else 2
+        x = seeded((2, 329, HD), seed + 8, bf16)
+        lns, lnb = ln_params(HD, seed + 9)
+        w, bias = seeded((3 * nh * d, HD), seed + 10, bf16, HD ** -0.5), seeded(
+            3 * nh * d, seed + 11, bf16, 0.1)
+        cases = {
+            f"attention_qkv [2, 329, 24x{d}]": (
+                {"k4": 1}, lambda: attn.attention_qkv(qkv, HEADS),
+                lambda: attn.flash_reference(*qkv.chunk(3, -1), HEADS)[0]),
+            f"attention_bshd [1, 600, 24x{d}]": (
+                {"k4": 1}, lambda: attn.attention_bshd(lq, lk, lv, HEADS),
+                lambda: attn.flash_reference(lq, lk, lv, HEADS)[0]),
+            f"flash_attention [1, 300] over [1, 600] (580 live), 24x{d}": (
+                {"k4": 1}, lambda: attn.flash_attention(lq[:, :300], lk, lv, HEADS, 580)[0],
+                lambda: attn.flash_reference(lq[:, :300], lk[:, :580], lv[:, :580], HEADS)[0]),
+            f"flash_backward [1, 600, 24x{d}]": (
+                {"k5": 1}, lambda: torch.cat(attn.flash_backward(
+                    lq, lk, lv, lout, llse, g, HEADS), -1),
+                lambda: torch.cat(attn.flash_backward_reference(
+                    lq, lk, lv, lout, llse, g, HEADS), -1)),
+            f"dot_product_attention [2, 24, 329, {d}]": (
+                {"k4": 1}, lambda: attn.dot_product_attention(*heads),
+                lambda: attn.short_attention_reference(*heads)),
+            f"ln_qkv_attention [2, 329, 1536], {nh} heads of {d}": (
+                {"k7": 1, "k4": 1}, lambda: attn_block.ln_qkv_attention(x, lns, lnb, w, bias, nh),
+                lambda: attn_block.chain_reference(x, lns, lnb, w, bias, nh)),
+            f"attention_bshd f32 [1, 600, 2x{d}]": (
+                {"k4": 1}, lambda: attn.attention_bshd(fq, fk, fv, 2),
+                lambda: attn.flash_reference(fq, fk, fv, 2)[0]),
+            f"flash_backward f32 [1, 600, 2x{d}]": (
+                {"k5": 1}, lambda: torch.cat(attn.flash_backward(fq, fk, fv, fout, flse, fg, 2), -1),
+                lambda: torch.cat(attn.flash_backward_reference(
+                    fq, fk, fv, fout, flse, fg, 2), -1)),
+        }
+        for name, (want, op, plain) in cases.items():
+            reset_counts()
+            with torch.inference_mode():
+                got = op()
+                torch.cuda.synchronize()
+                counts = read_counts()
+                ref = plain()
+            dt = "f32" if got.dtype == f32 else "bf16"
+            _, rel, fro = scaled_err(got, ref)
+            lines.append(f"{name}: {rel:.2e} of max|ref|, norm-rel {fro:.2e} (tol "
+                         f"{SCALED_TOL[dt][0]:g}, {SCALED_TOL[dt][1]:g}), {counts_line(counts)}")
+            check(got.shape == ref.shape and bool(torch.isfinite(got).all())
+                  and rel <= SCALED_TOL[dt][0] and fro <= SCALED_TOL[dt][1],
+                  f"[head dims 128] {name} disagrees with its plain version: {rel:.2e}, {fro:.2e}")
+            check_counts(f"[head dims 128] {name}", counts, **want)
+        del qkv, lq, lk, lv, g, lout, llse, heads, x, w
+    reset_counts()
+    print(f"[head dims 128] {'; '.join(lines)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    torch.cuda.empty_cache()
+    rows = {}
+    for tag, (b, s_, nh) in (("[1, 600, 24x128]", (1, 600, HEADS)), ("region", WIDE_REGION)):
+        t0 = time.perf_counter()
+        q, k, v = seeded((b, s_, 3 * nh * 128), SEED + 190 + s_, bf16).chunk(3, -1)
+        g = seeded((b, s_, nh * 128), SEED + 191 + s_, bf16)
+        rows = wide_rows(128, q, k, v, g, nh)
+        for kern, r in rows.items():
+            print(f"[head dims 128 {kern}] D 128 at {tag} [{b}, {s_}, {nh}x128] kernel "
+                  f"{r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms library "
+                  f"(scaled_dot_product_attention{' backward' if kern == 'k5' else ''}) "
+                  f"{r['library_ms']:.3f} ms bound {r['bound_ms']:.3f} ms ({r['bound_by']}) "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        del q, k, v, g
+    torch.cuda.empty_cache()
+    return rows
+
+
+def k3_widths_phase():
+    """[k3 widths]: K3 at decoder widths other than 32 channels (C2 = C /
+    2), against its plain version with one launch each and its times:
+    C 16 and 64 on 64 tiles of 256 px, C 48 (zero-padded to 64 channels and
+    32 features) and C 64 at 19 markers (two passes, pixel stores) on 8
+    tiles, and C 64 in f32. Returns the rows of C 16 and 64."""
+    bf16 = torch.bfloat16
+    rows = {c: k3_phase(f"bf16_c{c}", BATCH, IMG, IMG, bf16, seed=SEED + 200 + c, c=c,
+                        tag="k3 widths") for c in (16, 64)}
+    k3_phase("bf16_c48", 8, IMG, IMG, bf16, seed=SEED + 248, c=48, tag="k3 widths")
+    k3_phase("bf16_c64_panel19", 8, IMG, IMG, bf16, seed=SEED + 264, k=19, c=64,
+             tag="k3 widths")
+    k3_phase("f32_c64", 2, IMG, IMG, torch.float32, seed=SEED + 265, c=64, tag="k3 widths")
+    torch.cuda.empty_cache()
+    return rows
+
+
 def ln_qkv_routes_phase():
     """ln_qkv_attention on the card beyond ViT-g's shape, each route held
     against the plain chain under the bf16 rule with its exact launch
@@ -1057,38 +1223,44 @@ def ln_qkv_routes_phase():
 
 def rejects_phase():
     """Each op entry point on the card at a shape no kernel takes: the
-    attention entry points at head dims above 64 (attention_qkv at 24 heads
-    of 80 and S 329, K1's; attention_bshd at 24 heads of 128 and S 600,
-    K4's; flash_backward there, K5's; dot_product_attention at D 80, K6's)
-    and ln_qkv_attention at 2 heads of 80 (K8's). Each must raise ValueError
-    with no kernel launch: on the card an entry point launches its kernels
-    or raises. (Head dims below 64 that are not multiples of 8, such as 36,
-    reach the kernels padded to 64; widths that are not multiples of 8, as
-    ln_matmul at K 100 and ln_qkv_attention at D 100, reach K7, K2 and K8
-    zero-padded: both moved to [head dims] and [ln_qkv routes], as the JAX
-    entry points serve them.)"""
+    attention entry points at head dim 136, above the 128 of K4's and K5's
+    wide instance (attention_qkv at 24 heads and S 329; attention_bshd at S
+    600; flash_backward there, K5's; dot_product_attention), ln_qkv_attention
+    at 2 heads of 136, and K3 at a decoder width of 80 channels, above its
+    64. Each must raise ValueError with no kernel launch: on the card an
+    entry point launches its kernels or raises. (Head dims up to 128 reach
+    the kernels zero-padded to 64 or 128 ([head dims], [head dims 128]);
+    widths that are not multiples of 8, as ln_matmul at K 100 and
+    ln_qkv_attention at D 100, reach K7, K2 and K8 zero-padded ([head dims],
+    [ln_qkv routes]); K3 takes 16 to 64 channels zero-padded ([k3 widths]),
+    as the JAX entry points serve them.)"""
     from mipheivit_tpu_torch.ops import attention as attn
-    from mipheivit_tpu_torch.ops import attn_block
+    from mipheivit_tpu_torch.ops import attn_block, seg_heads
 
     t0 = time.perf_counter()
     bf16 = torch.bfloat16
-    qkv80 = seeded((2, 329, 3 * HEADS * 80), SEED + 120, bf16)
-    long_q, long_k, long_v = seeded((1, 600, 3 * HEADS * 128), SEED + 121, bf16).chunk(3, -1)
-    g = seeded((1, 600, HEADS * 128), SEED + 122, bf16)
+    d = 136
+    qkv = seeded((2, 329, 3 * HEADS * d), SEED + 120, bf16)
+    long_q, long_k, long_v = seeded((1, 600, 3 * HEADS * d), SEED + 121, bf16).chunk(3, -1)
+    g = seeded((1, 600, HEADS * d), SEED + 122, bf16)
     out, lse = attn.flash_reference(long_q, long_k, long_v, HEADS)
-    heads = [seeded((2, HEADS, 329, 80), SEED + 123 + i, bf16) for i in range(3)]
-    x80 = seeded((2, 329, HD), SEED + 130, bf16)
-    lns80, lnb80 = ln_params(HD, SEED + 131)
-    w80, b80 = seeded((3 * 2 * 80, HD), SEED + 132, bf16, HD ** -0.5), seeded(480, SEED + 133, bf16)
+    heads = [seeded((2, HEADS, 329, d), SEED + 123 + i, bf16) for i in range(3)]
+    x = seeded((2, 329, HD), SEED + 130, bf16)
+    lns, lnb = ln_params(HD, SEED + 131)
+    w, b = seeded((3 * 2 * d, HD), SEED + 132, bf16, HD ** -0.5), seeded(6 * d, SEED + 133, bf16)
+    k3_heads = seeded_heads(SEED + 134, torch.device("cuda:0"), MARKERS, 80)
+    k3_x = seeded((2, 64, 64, 80), SEED + 135, bf16).permute(0, 3, 1, 2)
     cases = {
-        "attention_qkv [2, 329, 24x80]": lambda: attn.attention_qkv(qkv80, HEADS),
-        "attention_bshd [1, 600, 24x128]": lambda: attn.attention_bshd(long_q, long_k, long_v,
-                                                                       HEADS),
-        "flash_backward [1, 600, 24x128]": lambda: attn.flash_backward(
+        f"attention_qkv [2, 329, 24x{d}]": lambda: attn.attention_qkv(qkv, HEADS),
+        f"attention_bshd [1, 600, 24x{d}]": lambda: attn.attention_bshd(long_q, long_k, long_v,
+                                                                        HEADS),
+        f"flash_backward [1, 600, 24x{d}]": lambda: attn.flash_backward(
             long_q, long_k, long_v, out, lse, g, HEADS),
-        "dot_product_attention [2, 24, 329, 80]": lambda: attn.dot_product_attention(*heads),
-        "ln_qkv_attention [2, 329, 1536], 2 heads of 80": lambda: attn_block.ln_qkv_attention(
-            x80, lns80, lnb80, w80, b80, 2),
+        f"dot_product_attention [2, 24, 329, {d}]": lambda: attn.dot_product_attention(*heads),
+        f"ln_qkv_attention [2, 329, 1536], 2 heads of {d}": lambda: attn_block.ln_qkv_attention(
+            x, lns, lnb, w, b, 2),
+        "fused_seg_heads [2, 80, 64, 64]": lambda: seg_heads.fused_seg_heads(
+            k3_x, *seg_heads.fold_heads(k3_heads, bf16)),
     }
     lines, ok = [], True
     for name, op in cases.items():
@@ -4400,6 +4572,340 @@ def wsi_dp_phase(model, slide, want, dev, depth):
     return counts
 
 
+CONSUMER_TILES = 64              # [embeddings]: two batches of 32 at 224 px
+CONSUMER_MAP_TILES = 8           # [embedding map]: tiles per split
+CONSUMER_HEMIT_TILES = 8         # [inference hemit]: 256-px pairs, batches of 4
+# a uint8 output's per-marker Pearson against the CPU's f32 prediction, at
+# most this far below that of the CPU's own uint8 of it (the quantisation
+# alone costs up to ~1e-2 where a map's spatial spread is a few steps; bf16
+# against f32 costs 2.4e-4 at the float level, [numerics])
+UINT8_PEARSON_SLACK = 5e-3
+
+
+def cosine(a, b) -> float:
+    a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def write_npy_table(path: Path, rows) -> str:
+    """A dataframe CSV of ``rows`` (dicts of one set of keys)."""
+    import csv
+
+    with open(path, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+    return str(path)
+
+
+def consumer_phases(tmp: Path, ckpt: Path, enc: Path, tiles: np.ndarray, cpu32: np.ndarray,
+                    pred_bf16: np.ndarray, depth: int):
+    """The port's copies of the five scripts outside the JAX package that
+    run a model, each through its CLI ``main`` on the card at full width on
+    synthetic data, one output of each checked against the CPU's f32 run:
+
+    - [embeddings]: ``extract_embeddings`` over 64 tiles (center-cropped to
+      224 px, ViT-g/14 H-Optimus-0 in bf16, two batches: K1 and K2 2 x 40);
+      tile 0's class token against the f32 encoder on the CPU (cosine);
+    - [embedding map]: ``datasets_umap`` over 8 tiles a split at 224 px
+      (the encoder in f32 on the card: K1 and K2 3 x 40); the first train
+      tile's class token against the CPU's; ``reduce_2d`` and
+      ``plot_embedding`` only where umap-learn or scikit-learn and
+      matplotlib are installed (the phase names the steps it ran);
+    - [roi]: ``roi_inference`` on tile 0 through the flagship (its
+      checkpoint and encoder files, a config.yaml and a logreg.npz; K1, K2
+      40, K3 1): the written mIF (uint8) against the CPU's f32 prediction
+      of that tile (``cpu32``: per-marker Pearson within
+      ``UINT8_PEARSON_SLACK`` of the CPU's own uint8 of it; the steps from
+      the card's own bf16 prediction of it in a batch of 64, ``pred_bf16``,
+      printed), the cell table's means against the CPU prediction pooled
+      over the same nuclei;
+    - [panels]: ``prediction_panels`` on 2 test tiles (K1, K2 80, K3 2):
+      tile 0's prediction, as [roi]'s; the PNGs where matplotlib is
+      installed;
+    - [inference hemit]: ``inference_hemit`` over 8 HEMIT pairs through the
+      ConvNeXt-L U-Net (``synth_value`` weights, heads through
+      ``contrast_head``, bf16 compute; no kernel): tile 0's ``_fake_B``
+      against the CPU's f32 run of the same checkpoint (Pearson, as
+      [roi]'s).
+
+    Writes no generator snapshot (the U-Net's checkpoint in f16, 0.4 GB).
+    Returns each path's launch counts."""
+    import importlib.util
+
+    import cv2
+
+    from mipheivit_tpu_torch.config import save_config
+    from mipheivit_tpu_torch.data.stats import HOPTIMUS_MEAN, HOPTIMUS_STD
+    from mipheivit_tpu_torch.data.table import Table
+    from mipheivit_tpu_torch.examples import roi_inference
+    from mipheivit_tpu_torch.figures import datasets_umap, prediction_panels
+    from mipheivit_tpu_torch.infer.loading import load_state_dict, load_vit_encoder
+    from mipheivit_tpu_torch.infer.tiles import predictions_to_uint8
+    from mipheivit_tpu_torch.io.safetensors import save_file
+    from mipheivit_tpu_torch.metrics.cell import CellMetrics
+    from mipheivit_tpu_torch.models.foundation import get_encoder_spec
+    from mipheivit_tpu_torch.preprocessings.artifacts_detection import extract_embeddings
+    from mipheivit_tpu_torch.preprocessings.nuclei_segmentation.backends import get_backend
+    from mipheivit_tpu_torch.scripts import inference_hemit
+    from mipheivit_tpu_torch.slideio import TiffSlide, write_pyramid
+
+    root = tmp / "consumers"
+    root.mkdir()
+    counts = {}
+    crops = tiles[:CONSUMER_TILES, 16:240, 16:240]          # 256 -> 224, as the CLI crops
+    rows = []
+    for i, t in enumerate(tiles[:CONSUMER_TILES]):
+        np.save(root / f"t{i}.npy", t)
+        rows.append({"image_path": str(root / f"t{i}.npy")})
+    t0 = time.perf_counter()
+    cpu_enc = load_vit_encoder(get_encoder_spec("hoptimus0", 224).vit_cfg,
+                               load_state_dict(enc), "cpu")
+
+    def cpu_cls(crop):
+        x = (crop.astype(np.float32) - HOPTIMUS_MEAN) / HOPTIMUS_STD
+        with torch.inference_mode():
+            return cpu_enc(torch.from_numpy(x[None]))[0, 0].numpy()
+
+    # [embeddings]
+    reset_counts()
+    extract_embeddings.main(["--tile_dataframe", write_npy_table(root / "tiles.csv", rows),
+                             "--out_dir", str(root / "emb"), "--encoder_weights", str(enc),
+                             "--img_size", "224", "--batch_size", "32",
+                             "--shard_size", str(CONSUMER_TILES)])
+    torch.cuda.synchronize()
+    counts["embeddings"] = read_counts()
+    emb = np.load(root / "emb" / "embeddings_0000.npy")
+    names = (root / "emb" / "names_0000.csv").read_text().split()
+    cos = cosine(emb[0], cpu_cls(crops[0]))
+    print(f"[embeddings] extract_embeddings: {emb.shape} {emb.dtype} embeddings, "
+          f"{len(names) - 1} names; tile 0's class token (bf16 card) vs f32 CPU cosine "
+          f"{cos:.6f} (target >= {MIN_PEARSON}); {counts_line(counts['embeddings'])} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(emb.shape == (CONSUMER_TILES, HD) and emb.dtype == np.float16
+          and bool(np.isfinite(emb).all()), "[embeddings] output")
+    check(names == ["0"] + [f"t{i}" for i in range(CONSUMER_TILES)], "[embeddings] names")
+    check(cos >= MIN_PEARSON, "[embeddings] the class tokens do not track the CPU's")
+    n_b = -(-CONSUMER_TILES // 32)
+    check_counts("[embeddings]", counts["embeddings"], k1=depth * n_b, k2=depth * n_b)
+
+    # [embedding map]
+    t0 = time.perf_counter()
+    split_csv = {}
+    for s_i, split in enumerate(("train", "val", "test")):
+        split_rows = []
+        for j in range(CONSUMER_MAP_TILES):
+            i = s_i * CONSUMER_MAP_TILES + j
+            np.save(root / f"m{i}.npy", crops[i])
+            split_rows.append({"image_path": str(root / f"m{i}.npy")})
+        split_csv[split] = write_npy_table(root / f"{split}.csv", split_rows)
+    have = {m: importlib.util.find_spec(m) is not None for m in ("umap", "sklearn", "matplotlib")}
+    reducer = have["umap"] or have["sklearn"]
+    args = ["--train_csv", split_csv["train"], "--val_csv", split_csv["val"],
+            "--test_csv", split_csv["test"], "--out_path", str(root / "map.png"),
+            "--encoder_ckpt", str(enc), "--n_per_split", str(CONSUMER_MAP_TILES), "--seed", "0",
+            "--device", "cuda"]
+    seen = {}
+    reset_counts()
+    if reducer and have["matplotlib"]:
+        real = datasets_umap.reduce_2d
+        datasets_umap.reduce_2d = lambda e, seed=0: (seen.setdefault("embs", e), real(e, seed))[1]
+        try:
+            datasets_umap.main(args)
+        finally:
+            datasets_umap.reduce_2d = real
+        ran = "main: sample_splits, build_encoder, embed_splits, reduce_2d, plot_embedding"
+    else:
+        dfs = datasets_umap.sample_splits(split_csv["train"], split_csv["val"],
+                                          split_csv["test"], CONSUMER_MAP_TILES, 0)
+        apply, norm = datasets_umap.build_encoder("hoptimus0", 224, str(enc), 0, "cuda")
+        seen["embs"], _ = datasets_umap.embed_splits(dfs, apply, norm)
+        ran, skipped = "sample_splits, build_encoder, embed_splits", []
+        if reducer:
+            datasets_umap.reduce_2d(seen["embs"], 0)
+            ran += ", reduce_2d"
+        else:
+            skipped.append("reduce_2d (neither umap-learn nor scikit-learn is installed)")
+        skipped.append("plot_embedding (" + ("no matplotlib" if not have["matplotlib"]
+                                             else "no 2-D coordinates") + ")")
+        ran += f"; not run: {', '.join(skipped)}"
+    torch.cuda.synchronize()
+    counts["embedding map"] = read_counts()
+    first = datasets_umap.sample_splits(split_csv["train"], split_csv["val"], split_csv["test"],
+                                        CONSUMER_MAP_TILES, 0)["train"].row(0)["image_path"]
+    want = cpu_cls(np.load(first))
+    got = seen["embs"][0]
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"[embedding map] datasets_umap ({ran}): {seen['embs'].shape} f32 class tokens; "
+          f"{Path(first).name}'s (f32 card) vs f32 CPU max |err| {err:.2e} of max|ref| "
+          f"(target <= {F32_CARD_VS_CPU_TOL:g}); {counts_line(counts['embedding map'])} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(seen["embs"].shape == (3 * CONSUMER_MAP_TILES, HD), "[embedding map] output")
+    check(err <= F32_CARD_VS_CPU_TOL, "[embedding map] the f32 class tokens differ from the CPU's")
+    n_b = -(-CONSUMER_MAP_TILES // 16) * 3
+    check_counts("[embedding map]", counts["embedding map"], k1=depth * n_b, k2=depth * n_b)
+    if have["matplotlib"] and reducer:
+        check((root / "map.png").exists(), "[embedding map] no PNG")
+    del cpu_enc
+
+    # [roi] and [panels]: a checkpoint dir of the flagship's files
+    t0 = time.perf_counter()
+    run_dir = root / "run"
+    run_dir.mkdir()
+    (run_dir / "model.safetensors").symlink_to(ckpt / "model.safetensors")
+    names = FLAGSHIP_PRESET["data"]["targ_channel_names"]
+    stats = {"RGB": {"mean": [180.0, 140.0, 170.0], "std": [40.0, 45.0, 35.0]},
+             **{m: {"idx_channel": i, "std": 30.0, "min": 0} for i, m in enumerate(names)}}
+    (root / "channel_stats.json").write_text(json.dumps(stats))
+    test_rows = []
+    for i in range(2):
+        target = root / f"target{i}.tiff"
+        write_pyramid(str(target), np.moveaxis(predictions_to_uint8(cpu32[0]), -1, 0)
+                      if i == 0 else np.zeros((MARKERS, IMG, IMG), np.uint8), n_levels=1,
+                      tile_size=IMG)
+        test_rows.append({"image_path": rows[i]["image_path"], "target_path": str(target)})
+    save_config(trainer_config({"model.encoder.encoder_weights": str(enc),
+                                "data.channel_stats_path": str(root / "channel_stats.json"),
+                                "data.test_dataframe_path": write_npy_table(root / "test_df.csv",
+                                                                            test_rows)}),
+                run_dir / "config.yaml")
+    n_gate = len(CellMetrics(roi_slide_table(), names).marker_names)
+    rng = np.random.default_rng(SEED + 300)
+    np.savez(run_dir / "logreg.npz", weight=rng.standard_normal((n_gate, n_gate)).astype(
+        np.float32) * 0.05, bias=np.zeros(n_gate, np.float32))
+    ref_u8 = predictions_to_uint8(cpu32[0])
+    card_u8 = predictions_to_uint8(pred_bf16[0]).astype(np.int32)
+
+    own = pearson(ref_u8.astype(np.float32), cpu32[0])
+
+    def against_refs(u8):
+        """(per-marker Pearson against cpu32 less the CPU's own uint8's,
+        max |step| from the card's batched bf16 prediction)."""
+        return (pearson(u8.astype(np.float32), cpu32[0]) - own,
+                int(np.abs(u8.astype(np.int32) - card_u8).max()))
+
+    reset_counts()
+    roi_inference.main(["--checkpoint_dir", str(run_dir), "--input", rows[0]["image_path"],
+                        "--size", str(IMG), "--out_prefix", str(root / "roi"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts["roi"] = read_counts()
+    ts = TiffSlide(str(root / "roi_mif.ome.tiff"))
+    mif = ts.read_region((0, 0), 0, (IMG, IMG))
+    ts.close()
+    r, steps = against_refs(mif)
+    cells = Table.read_csv(str(root / "roi_cells.csv"))
+    labels = get_backend("auto")(mif[..., 0])
+    cm = CellMetrics(roi_slide_table(), names, min_area=20)
+    cm.update(torch.from_numpy(cpu32), torch.from_numpy(np.asarray(labels))[None], ["roi"])
+    want = cm.get_dataframe_cell_pred()
+    pred_cols = cm.marker_pred_cols
+    same_cells = list(cells["cell_id"]) == list(want["cell_id"])
+    got_m = np.stack([np.asarray(cells[c], np.float64) for c in pred_cols], 1)
+    want_m = np.stack([np.asarray(want[c], np.float64) for c in pred_cols], 1)
+    mean_r = cosine(got_m - got_m.mean(), want_m - want_m.mean()) if len(want) > 1 else 1.0
+    print(f"[roi] roi_inference at {IMG} px: mIF {mif.shape} vs the CPU's f32 prediction: "
+          f"per-marker Pearson {r.min():+.2e} at worst from that of the CPU's own uint8 (min "
+          f"{own.min():.5f}; target >= -{UINT8_PEARSON_SLACK:g}), max {steps} step(s) "
+          f"from the card's batched bf16 prediction; {len(cells)} cells "
+          f"(the CPU prediction over the same nuclei: same cells {same_cells}, marker means' "
+          f"correlation {mean_r:.5f}, target >= {MIN_PEARSON}), logreg columns "
+          f"{sum(c.endswith('_logreg') for c in cells.columns)}; "
+          f"{counts_line(counts['roi'])} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(bool((r >= -UINT8_PEARSON_SLACK).all()),
+          "[roi] the mIF does not track the CPU's prediction")
+    check(same_cells and mean_r >= MIN_PEARSON, "[roi] the cell table differs from the CPU's")
+    check_counts("[roi]", counts["roi"], k1=depth, k2=depth, k3=1)
+
+    t0 = time.perf_counter()
+    drawn = []
+    reset_counts()
+    if have["matplotlib"]:
+        real = prediction_panels.render_panel
+        prediction_panels.render_panel = lambda he, gt, pred, nm, out: (
+            drawn.append((he, gt, pred)), real(he, gt, pred, nm, out))
+        try:
+            prediction_panels.main(["--checkpoint_dir", str(run_dir), "--out_dir",
+                                    str(root / "panels"), "--n_tiles", "2", "--device", "cuda"])
+        finally:
+            prediction_panels.render_panel = real
+        ran = "main: predict_panels, render_panel"
+    else:
+        drawn = prediction_panels.predict_panels(str(run_dir), 2, 0, "cuda")[1]
+        ran = "predict_panels; not run: render_panel (no matplotlib)"
+    torch.cuda.synchronize()
+    counts["panels"] = read_counts()
+    mine = [d for d in drawn if np.array_equal(d[0], tiles[0])]
+    r, steps = against_refs(mine[0][2]) if mine else (np.full(1, -1.0), -1)
+    print(f"[panels] prediction_panels ({ran}): {len(drawn)} panels; tile 0's prediction vs the "
+          f"CPU's f32: per-marker Pearson {r.min():+.2e} at worst from that of the CPU's own "
+          f"uint8 (target >= -{UINT8_PEARSON_SLACK:g}), max "
+          f"{steps} step(s) from the card's batched bf16 prediction; "
+          f"{counts_line(counts['panels'])} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(len(drawn) == 2 and len(mine) == 1 and bool((r >= -UINT8_PEARSON_SLACK).all()),
+          "[panels] the prediction does not track the CPU's")
+    check(np.array_equal(mine[0][1], ref_u8), "[panels] the target read back differs")
+    if have["matplotlib"]:
+        check(sorted(p.name for p in (root / "panels").iterdir()) == ["panel_0.png",
+                                                                      "panel_1.png"],
+              "[panels] PNGs")
+    check_counts("[panels]", counts["panels"], k1=2 * depth, k2=2 * depth, k3=2)
+
+    # [inference hemit]
+    t0 = time.perf_counter()
+    from mipheivit_tpu_torch.models.smp_unet import UnetMultiHeads
+
+    unet = contrast_heads(seeded_fill(UnetMultiHeads(encoder_name="convnext", out_chans=1),
+                                      SEED + 310)).half()
+    save_file({f"generator.{k}": v.numpy() for k, v in unet.state_dict().items()},
+              root / "unet.safetensors")
+    del unet
+    rng = np.random.default_rng(SEED + 311)
+    for sub in ("input", "label"):
+        (root / "hemit" / "test" / sub).mkdir(parents=True)
+    for i in range(CONSUMER_HEMIT_TILES):
+        for sub in ("input", "label"):
+            cv2.imwrite(str(root / "hemit" / "test" / sub / f"p{i}.png"),
+                        tiles[i] if sub == "input" else rng.integers(0, 256, (IMG, IMG, 3),
+                                                                     dtype=np.uint8))
+    reset_counts()
+    inference_hemit.main(["--dataset_dir", str(root / "hemit"), "--checkpoint_path",
+                          str(root / "unet.safetensors"), "--output_dir", str(root / "hemit_out"),
+                          "--batch_size", "4", "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts["inference hemit"] = read_counts()
+    fake = cv2.imread(str(root / "hemit_out" / "images" / "0_fake_B.png"), cv2.IMREAD_UNCHANGED)
+    cpu_unet = inference_hemit.load_model(str(root / "unet.safetensors"), "convnext", "cpu")
+    norm = inference_hemit.Normalizer({"mean": [127.5] * 3, "std": [127.5] * 3}, mode="he")
+    bgr = cv2.imread(str(root / "hemit" / "test" / "input" / "p0.png"))[..., ::-1]
+    with torch.inference_mode():
+        out = cpu_unet(torch.from_numpy(np.ascontiguousarray(norm(bgr[None].astype(np.float32)))))
+    want_f = np.clip((out.numpy()[0] + 0.9) * 255.0 / 1.8, 0.0, 255.0)
+    want = want_f[..., 0].astype(np.uint8)
+    diff = np.abs(fake.astype(np.int32) - want.astype(np.int32))
+    own = pearson(want[..., None].astype(np.float32), want_f)
+    r = pearson(fake[..., None].astype(np.float32), want_f) - own
+    n_out = len(list((root / "hemit_out" / "images").iterdir()))
+    print(f"[inference hemit] inference_hemit over {CONSUMER_HEMIT_TILES} pairs: {n_out} PNGs; "
+          f"tile 0's _fake_B (bf16 card) vs f32 CPU: Pearson {r.min():+.2e} from that of the "
+          f"CPU's own uint8 ({own.min():.5f}; target >= -{UINT8_PEARSON_SLACK:g}), max |diff| "
+          f"{diff.max()} steps, mean {diff.mean():.3f}; output "
+          f"std {want.std():.2f} steps; {counts_line(counts['inference hemit'])} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(n_out == 3 * CONSUMER_HEMIT_TILES and fake.shape == (IMG, IMG), "[inference hemit] PNGs")
+    check(bool((r >= -UINT8_PEARSON_SLACK).all()),
+          "[inference hemit] _fake_B does not track the CPU's")
+    check_counts("[inference hemit]", counts["inference hemit"])
+    torch.cuda.empty_cache()
+    return counts
+
+
+def roi_slide_table():
+    """roi_inference's one-slide dataframe."""
+    from mipheivit_tpu_torch.data.table import Table
+
+    return Table({"in_slide_name": ["roi"], "nuclei_csv_path": [None]})
+
+
 def main() -> None:
     # 1. device
     check(torch.cuda.is_available(), "no CUDA device; this script runs only on the card")
@@ -4564,10 +5070,13 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 3g. head dims below 64 through the attention kernels, K7 and K2 off
-    #     their kernels' widths (zero-padded), ln_qkv_attention's routes
-    #     beyond ViT-g's shape; what no kernel takes raises on the card,
-    #     before any launch
+    #     their kernels' widths (zero-padded), head dims 80 and 128 through
+    #     K4's and K5's 128-wide instances, K3 at 16, 48 and 64 channels,
+    #     ln_qkv_attention's routes beyond ViT-g's shape; what no kernel
+    #     takes raises on the card, before any launch
     head_dims_phase()
+    wide = wide_heads_phase()
+    k3_widths = k3_widths_phase()
     ln_qkv_routes_phase()
     rejects_phase()
 
@@ -4679,6 +5188,13 @@ def main() -> None:
         print(f"[numerics] bf16 card vs f32 CPU per-marker Pearson: min {r.min():.5f} "
               f"(target >= {MIN_PEARSON}) all {np.round(r, 5).tolist()}", flush=True)
         check(bool((r >= MIN_PEARSON).all()), "bf16 output does not track the f32 output")
+
+        # 5b. the port's copies of the five scripts outside the JAX package
+        #     that run a model, through their CLIs on the card: [embeddings],
+        #     [embedding map], [roi], [panels] (tile 0 against cpu32),
+        #     [inference hemit]
+        consumer_counts = consumer_phases(Path(tmp), ckpt, enc, tiles, cpu32, pred_bf16, depth)
+        torch.cuda.empty_cache()
 
         # 6. stitched whole-region inference at 1024-px windows (K4): the
         #    generator loaded at 1024 px, its position embedding re-gridded
@@ -4865,7 +5381,8 @@ def main() -> None:
              "train 1024": train1024, "train 1024 ckpt": train1024c, "train ops": train_ops,
              "trainer": trainer_counts, "test driver": test_driver_counts,
              "cell trainer": cell_counts, "cell test driver": cell_test_counts, **eval_counts,
-             **baseline_counts, **swin_counts, **prep_counts, **parallel_counts}
+             **consumer_counts, **baseline_counts, **swin_counts, **prep_counts,
+             **parallel_counts}
     print(f"[cell path] nucleus_pool {pool_ms[8]:.3f} ms at 8 tiles, {pool_ms[64]:.3f} ms at 64; "
           f"cell loss forward + backward {cell_loss_ms:.3f} ms at microbatch 8", flush=True)
     print(f"[baselines] {'; '.join(f'{k} {v:.3f}' for k, v in baseline.items())}", flush=True)
@@ -4882,10 +5399,11 @@ def main() -> None:
          "replaces": "mipheivit_tpu/ops/attention.py:563", **k1, **launches("attention")},
         {"name": "k4_flash_attention", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "mipheivit_tpu/ops/attention.py:59", **k4_region, **launches("flash")},
+         "replaces": "mipheivit_tpu/ops/attention.py:59", **k4_region, "d128": wide["k4"],
+         **launches("flash")},
         {"name": "k5_flash_attention_bwd", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/flash_attention_bwd.cu",
-         "replaces": "mipheivit_tpu/ops/attention.py:317", **k5_region,
+         "replaces": "mipheivit_tpu/ops/attention.py:317", **k5_region, "d128": wide["k5"],
          **launches("flash_bwd")},
         {"name": "k2_swiglu", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/swiglu.cu",
@@ -4896,7 +5414,7 @@ def main() -> None:
         {"name": "k3_seg_heads", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/seg_heads.cu",
          "replaces": "mipheivit_tpu/ops/seg_heads.py:38", **k3_flagship,
-         **launches("seg_heads")},
+         **{f"c{c}": row for c, row in k3_widths.items()}, **launches("seg_heads")},
         {"name": "k6_short_attention", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/attention.cu",
          "replaces": "mipheivit_tpu/ops/attention.py:109", **k6_flagship, **launches("short")},

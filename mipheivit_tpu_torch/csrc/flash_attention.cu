@@ -1,5 +1,5 @@
-// K4: long-sequence flash attention forward (any S, D = 64), with the row
-// log-sum-exp.
+// K4: long-sequence flash attention forward (any S, head dim 64 or 128),
+// with the row log-sum-exp.
 //
 // Replaces the TPU kernel mipheivit_tpu/ops/attention.py::_flash_kernel,
 // launched there by _long_forward (square, S > 512) and _cross_forward
@@ -11,8 +11,9 @@
 //   out    = (sum_k p_k v_k) / l                in q's dtype
 //   lse    = m + ln(l)                          natural-log units, f32
 //
-// The scale is an argument: a head dim below 64 reaches the kernel zero-
-// padded to 64 with the scale of its own D (ops/attention.py).
+// The scale is an argument: a head dim below 64 reaches the 64-wide instance
+// zero-padded to 64, one from 65 to 127 the 128-wide instance zero-padded
+// to 128, each with the scale of its own D (ops/attention.py).
 //
 // Layout. q is [B, Sq, H*D], k and v are [B, Sk, H*D]; each has a base
 // pointer, a batch stride and a row stride, so the q | k | v sections of one
@@ -29,21 +30,31 @@
 // softmax costs about as much as the products: a 64 x 128 tile of logits is
 // 8192 exponentials on the special-function unit (16 a clock per SM), the
 // same number of clocks as the tile's two products on the tensor cores, so
-// the design's work is to run the one under the other.
+// the design's work is to run the one under the other. At D = 128 the
+// products take twice the clocks of the exponentials.
 //
-// bf16 design (flash_bf16_kernel, FA3's shape on hopper.cuh): one block per
-// (128-row q tile, head, batch item), 2016 blocks at a region pair, three
-// warpgroups. One thread of the producer warpgroup (24 registers, given up
-// by setmaxnreg) loads the q tile once and streams the K and V tiles of
-// 128 keys by TMA (cp.async.bulk.tensor on 3-D maps: head columns, rows,
-// batch) into a ring of four stages, each with a full mbarrier for K, one
+// bf16 design (flash_bf16_kernel<D>, FA3's shape on hopper.cuh): one block
+// per (128-row q tile, head, batch item), 2016 blocks at a region pair,
+// three warpgroups. One thread of the producer warpgroup (24 registers,
+// given up by setmaxnreg) loads the q tile once and streams the K and V
+// tiles of 128 keys by TMA (cp.async.bulk.tensor on 3-D maps: head columns,
+// rows, batch) into a ring of stages, each with a full mbarrier for K, one
 // for V and an empty one; the 128-byte swizzle TMA writes is the layout
-// wgmma reads. Two consumer warpgroups (240 registers) own 64 q rows each:
+// wgmma reads. A row of D = 128 bf16 values is 256 bytes, two 128-byte
+// swizzle spans: each tile is then two column halves, one TMA box each, and
+// a product over the head dim walks the halves. Two consumer warpgroups
+// (240 registers) own 64 q rows each:
 //
 //   S = Q . K_j^T        wgmma m64n128k16, both operands in shared memory
 //   m, l, p = exp2(...)  online softmax in registers, log2 units
-//   O += P . V_j         wgmma m64n64k16, p rounded to bf16 as the register
-//                        A operand, V MN-major
+//   O += P . V_j         wgmma m64n64k16 per column half of V, p rounded to
+//                        bf16 as the register A operand, V MN-major
+//
+// Shared memory per instance: D = 64, q 16 KB and four stages of K and V
+// (128 KB); D = 128, q 32 KB and two stages (128 KB): the O accumulator of
+// 64 x 128 f32 a warpgroup (64 registers a thread) takes the registers a
+// deeper ring's bookkeeping would not need, and two stages of 64 KB keep
+// the block within 227 KB.
 //
 // Step j issues S_j and, behind it, P_{j-1} . V_{j-1}, waits for S_j only,
 // takes the row max and the exponentials while the product of the previous
@@ -55,7 +66,7 @@
 // run while the other's products hold the tensor cores (at a region pair
 // on the H100 a few percent faster than the same kernel without the
 // turns). The output is divided by l, written into the warpgroup's q tile
-// (done with) and stored by TMA.
+// (done with) and stored by TMA, one box per column half.
 //
 // Masking. Keys at or past seq_len_k are a suffix: key tiles that hold none
 // below seq_len_k are never visited, and the K/V tensor maps end at
@@ -73,7 +84,7 @@
 // the plain version (f32 p) that stays within 2e-2 of unit-scale outputs
 // and 1e-3 of the lse. The f32 path keeps p in f32 throughout.
 //
-// Two paths:
+// Two paths, each at D = 64 and D = 128:
 //   bf16  the serving and training path, as above.
 //   f32   scalar FMAs with logits and p in shared memory (tests, numerics).
 //
@@ -90,11 +101,9 @@ namespace {
 
 using namespace hopper;
 
-constexpr int D = 64;        // head dim
 constexpr int BQ = 64;       // query rows per block of the f32 path
 constexpr int BK = 64;       // keys per K/V tile of the f32 path
 constexpr int THREADS = 128; // f32 path
-constexpr int LDF = D + 1;   // f32 tile row stride: conflict-free column reads
 constexpr float LN2 = 0.6931471805599453f;
 
 static_assert(BK == 64, "the f32 softmax reads two keys per lane");
@@ -114,21 +123,32 @@ struct Args {
 
 constexpr int QT = 128;                     // q rows per block, 64 per consumer warpgroup
 constexpr int KT = 128;                     // keys per K / V tile
-constexpr int STAGES = 4;                   // the K / V ring
 constexpr int WS_THREADS = 384;             // producer warpgroup + two consumer warpgroups
 constexpr int CONSUMERS = 256;
 // registers: 168 a thread at launch; the producer keeps 24, the consumers take 240
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 static_assert(128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <= 65536, "register file");
-constexpr int Q_BYTES = QT * D * 2;         // 16 KB, 128-byte swizzled rows
-constexpr int KV_BYTES = KT * D * 2;        // 16 KB each of K and V
-constexpr int WG_ROWS_BYTES = 64 * D * 2;   // one consumer's 64 rows of q (later of out)
+constexpr int WG_ROWS_BYTES = 64 * 128;     // one consumer's 64 rows of a column half
 // named barriers (0 is __syncthreads): each consumer's turn to issue
 // products, each consumer's epilogue
 constexpr int BAR_TURN = 1, BAR_EPI = 3;
-// alignment, q, the ring, the mbarriers (q; full K, full V and empty per stage)
-constexpr size_t WS_SMEM = 1024 + (size_t)Q_BYTES + (size_t)STAGES * 2 * KV_BYTES +
-                           8 * (1 + 3 * STAGES);
+
+// The shared memory of the instance for head dim D: every tile is D / 64
+// column halves of 64 values (one TMA box, 128-byte swizzled rows each)
+template <int D>
+struct Ws {
+  static_assert(D == 64 || D == 128, "head dim");
+  static constexpr int HALVES = D / 64;
+  static constexpr int Q_HALF = QT * 128;            // 16 KB
+  static constexpr int KV_HALF = KT * 128;           // 16 KB
+  static constexpr int Q_BYTES = HALVES * Q_HALF;
+  static constexpr int KV_BYTES = HALVES * KV_HALF;  // each of K and V
+  static constexpr int STAGES = D == 64 ? 4 : 2;     // the K / V ring
+  // alignment, q, the ring, the mbarriers (q; full K, full V and empty per stage)
+  static constexpr size_t SMEM =
+      1024 + (size_t)Q_BYTES + (size_t)STAGES * 2 * KV_BYTES + 8 * (1 + 3 * STAGES);
+  static_assert(SMEM <= 232448, "shared memory");
+};
 
 // keeps the compiler from reusing a register operand's registers before
 // the products that read it are done
@@ -188,34 +208,51 @@ __device__ __forceinline__ void pack_p(unsigned (&pa)[KT / 16][4], const float (
     for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
 }
 
-// S = Q . K^T for the warpgroup's 64 rows over one tile of 128 keys (issued)
-__device__ __forceinline__ void issue_qk(float (&s)[64], unsigned q_s, unsigned k_s) {
+// S = Q . K^T for the warpgroup's 64 rows (q_w: their first column half)
+// over one tile of 128 keys (issued); the head dim in steps of 16, half by half
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[64], unsigned q_w, unsigned k_s) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss_n128<0, 0>(s, smem_desc(q_s + kk * 32), smem_desc(k_s + kk * 32), kk);
+    wgmma_ss_n128<0, 0>(s, smem_desc(q_w + (kk / 4) * Ws<D>::Q_HALF + (kk % 4) * 32),
+                        smem_desc(k_s + (kk / 4) * Ws<D>::KV_HALF + (kk % 4) * 32), kk);
 }
 
-// O += P . V over one tile of 128 keys (issued), p as the register operand
-__device__ __forceinline__ void issue_pv(float (&o)[32], const unsigned (&pa)[KT / 16][4],
-                                        unsigned v_s) {
+// O += P . V over one tile of 128 keys (issued), p as the register operand,
+// one m64n64 product per column half of V
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 64][32],
+                                        const unsigned (&pa)[KT / 16][4], unsigned v_s) {
 #pragma unroll
-  for (int kk = 0; kk < KT / 16; ++kk) wgmma_rs_n64<1>(o, pa[kk], smem_desc(v_s + kk * 2048), 1);
+  for (int hh = 0; hh < D / 64; ++hh)
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk)
+      wgmma_rs_n64<1>(o[hh], pa[kk], smem_desc(v_s + hh * Ws<D>::KV_HALF + kk * 2048), 1);
 }
 
+template <int D>
+__device__ __forceinline__ void fence_out(float (&o)[D / 64][32]) {
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh) fence_acc(o[hh]);
+}
+
+template <int D>
 __global__ void __launch_bounds__(WS_THREADS, 1)
     flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
                       const __grid_constant__ CUtensorMap omap, float* __restrict__ lse, int Sq,
                       int L, int H, float scale) {
+  using S = Ws<D>;
+  constexpr int STAGES = S::STAGES, HALVES = S::HALVES;
   extern __shared__ unsigned char smem_raw[];
   const unsigned raw = smem_addr(smem_raw);
   const unsigned base = (raw + 1023u) & ~1023u;
   unsigned char* base_ptr = smem_raw + (base - raw);
-  const unsigned q_s = base, ring = base + Q_BYTES;
-  const unsigned q_bar = ring + STAGES * 2 * KV_BYTES;
-  auto k_slot = [&](int st) { return ring + st * 2 * KV_BYTES; };
-  auto v_slot = [&](int st) { return ring + st * 2 * KV_BYTES + KV_BYTES; };
+  const unsigned q_s = base, ring = base + S::Q_BYTES;
+  const unsigned q_bar = ring + STAGES * 2 * S::KV_BYTES;
+  auto k_slot = [&](int st) { return ring + st * 2 * S::KV_BYTES; };
+  auto v_slot = [&](int st) { return ring + st * 2 * S::KV_BYTES + S::KV_BYTES; };
   auto full_k = [&](int st) { return q_bar + 8 * (1 + st); };
   auto full_v = [&](int st) { return q_bar + 8 * (1 + STAGES + st); };
   auto empty = [&](int st) { return q_bar + 8 * (1 + 2 * STAGES + st); };
@@ -236,18 +273,23 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   __syncthreads();
 
   const int wg = warpgroup();
-  if (wg == 0) {  // the producer: one thread issues every copy
+  if (wg == 0) {  // the producer: one thread issues every copy, a box per column half
     setmaxnreg_dec<PRODUCER_REGS>();
     if (tid == 0) {
-      mbar_expect_tx(q_bar, Q_BYTES);
-      tma_load_3d(q_s, &qmap, q_bar, h * D, q0, b);
+      mbar_expect_tx(q_bar, S::Q_BYTES);
+      for (int hh = 0; hh < HALVES; ++hh)
+        tma_load_3d(q_s + hh * S::Q_HALF, &qmap, q_bar, h * D + 64 * hh, q0, b);
       for (int j = 0; j < n_kv; ++j) {
         const int st = j % STAGES;
         mbar_wait(empty(st), ((j / STAGES) & 1) ^ 1);  // the first round passes
-        mbar_expect_tx(full_k(st), KV_BYTES);
-        tma_load_3d(k_slot(st), &kmap, full_k(st), h * D, j * KT, b);
-        mbar_expect_tx(full_v(st), KV_BYTES);
-        tma_load_3d(v_slot(st), &vmap, full_v(st), h * D, j * KT, b);
+        mbar_expect_tx(full_k(st), S::KV_BYTES);
+        for (int hh = 0; hh < HALVES; ++hh)
+          tma_load_3d(k_slot(st) + hh * S::KV_HALF, &kmap, full_k(st), h * D + 64 * hh, j * KT,
+                      b);
+        mbar_expect_tx(full_v(st), S::KV_BYTES);
+        for (int hh = 0; hh < HALVES; ++hh)
+          tma_load_3d(v_slot(st) + hh * S::KV_HALF, &vmap, full_v(st), h * D + 64 * hh, j * KT,
+                      b);
       }
     }
     return;
@@ -256,7 +298,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   setmaxnreg_inc<CONSUMER_REGS>();
   const int c = wg - 1;  // this consumer's rows: q0 + 64 c ..
   const int lt = tid % 128, warp = lt / 32, lane = tid % 32, g = lane >> 2, tig = lane & 3;
-  const unsigned qw = q_s + c * WG_ROWS_BYTES;
+  const unsigned qw = q_s + c * WG_ROWS_BYTES;  // in the first column half
   const int tail = L - (n_kv - 1) * KT;  // live keys of the last tile, 1 .. 128
   const bool ragged = tail < KT;
   // consumer c issues when it holds the turn BAR_TURN + c; the other
@@ -268,9 +310,11 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   };
   if (c == 1) named_arrive(BAR_TURN, CONSUMERS);
 
-  float o[32], s[64];
+  float o[HALVES][32], s[64];
 #pragma unroll
-  for (int e = 0; e < 32; ++e) o[e] = 0.f;
+  for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[hh][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
   unsigned pa[KT / 16][4];
   mbar_wait(q_bar, 0);
@@ -279,7 +323,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   mbar_wait(full_k(0), 0);
   take_turn();
   wgmma_fence();
-  issue_qk(s, qw, k_slot(0));
+  issue_qk<D>(s, qw, k_slot(0));
   wgmma_commit();
   pass_turn(0);
   wgmma_wait<0>();
@@ -295,40 +339,43 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     mbar_wait(full_v(prev), ((j - 1) / STAGES) & 1);
     take_turn();
     wgmma_fence();
-    issue_qk(s, qw, k_slot(st));
+    issue_qk<D>(s, qw, k_slot(st));
     wgmma_commit();
-    issue_pv(o, pa, v_slot(prev));
+    issue_pv<D>(o, pa, v_slot(prev));
     wgmma_commit();
     pass_turn(j);
     wgmma_wait<1>();  // S_j
     fence_acc(s);
     softmax_tile(s, m, l, alpha, ragged && j == n_kv - 1, tail, scale);
     wgmma_wait<0>();  // P_{j-1} . V_{j-1}
-    fence_acc(o);
+    fence_out<D>(o);
     fence_frags(pa);
     mbar_arrive(empty(prev));  // K_{j-1} and V_{j-1} are done with
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      o[4 * e] *= alpha[0];
-      o[4 * e + 1] *= alpha[0];
-      o[4 * e + 2] *= alpha[1];
-      o[4 * e + 3] *= alpha[1];
-    }
+    for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        o[hh][4 * e] *= alpha[0];
+        o[hh][4 * e + 1] *= alpha[0];
+        o[hh][4 * e + 2] *= alpha[1];
+        o[hh][4 * e + 3] *= alpha[1];
+      }
     pack_p(pa, s);
   }
   {  // the last tile's P . V
     const int last = (n_kv - 1) % STAGES;
     mbar_wait(full_v(last), ((n_kv - 1) / STAGES) & 1);
     wgmma_fence();
-    issue_pv(o, pa, v_slot(last));
+    issue_pv<D>(o, pa, v_slot(last));
     wgmma_commit();
     wgmma_wait<0>();
-    fence_acc(o);
+    fence_out<D>(o);
     fence_frags(pa);
   }
 
   // O / l, rounded to bf16, into this consumer's q rows (its products are
-  // done with them), then one TMA store; rows past Sq are dropped by it
+  // done with them), then one TMA store per column half; rows past Sq are
+  // dropped by it
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -338,17 +385,20 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   unsigned char* out_ptr = base_ptr + (qw - base);
   named_sync(BAR_EPI + c, 128);  // every warp's products are done with q
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int hh = 0; hh < HALVES; ++hh)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = warp * 16 + g + 8 * r;
-      *reinterpret_cast<unsigned*>(out_ptr + swz(row, j) + tig * 4) =
-          pack_bf16(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
-    }
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + g + 8 * r;
+        *reinterpret_cast<unsigned*>(out_ptr + hh * S::Q_HALF + swz(row, j) + tig * 4) =
+            pack_bf16(o[hh][4 * j + 2 * r] * inv[r], o[hh][4 * j + 2 * r + 1] * inv[r]);
+      }
   fence_proxy_async();
   named_sync(BAR_EPI + c, 128);
   if (lt == 0) {
-    tma_store_3d(&omap, qw, h * D, q0 + 64 * c, b);
+    for (int hh = 0; hh < HALVES; ++hh)
+      tma_store_3d(&omap, qw + hh * S::Q_HALF, h * D + 64 * hh, q0 + 64 * c, b);
     bulk_commit();
   }
   float* lg = lse + ((long long)b * H + h) * Sq;
@@ -364,22 +414,26 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 
 // ---- f32: scalar FMAs, logits and p in shared memory --------------------------
 
-// 64 rows of D f32 values from global rows r0.. into a padded shared tile;
-// rows >= n are zero-filled.
+// 64 rows of D f32 values from global rows r0.. into a padded shared tile
+// (row stride D + 1: conflict-free column reads); rows >= n are zero-filled.
+template <int D>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, long long rs, int r0,
                                               int n) {
   for (int i = threadIdx.x; i < BQ * D; i += THREADS) {
     const int r = i / D, c = i % D;
-    dst[r * LDF + c] = (r0 + r < n) ? src[(long long)(r0 + r) * rs + c] : 0.f;
+    dst[r * (D + 1) + c] = (r0 + r < n) ? src[(long long)(r0 + r) * rs + c] : 0.f;
   }
 }
 
-constexpr size_t F32_SMEM = (3 * (size_t)BQ * LDF + 3 * BQ) * sizeof(float);
+template <int D>
+constexpr size_t F32_SMEM = (3 * (size_t)BQ * (D + 1) + 3 * BQ) * sizeof(float);
 
-// Thread -> column c (a key in q . k^T, a head-dim lane in p . v) and rows
-// rg + 2*i. Each warp runs the online softmax of 16 rows, a lane holding
-// two keys of the tile.
+// Thread -> column c (a key in q . k^T; head-dim lanes c + 64 i in p . v)
+// and rows rg + 2*i. Each warp runs the online softmax of 16 rows, a lane
+// holding two keys of the tile.
+template <int D>
 __global__ void __launch_bounds__(THREADS) flash_f32_kernel(Args a) {
+  constexpr int LDF = D + 1, DC = D / 64;  // tile row stride; head-dim lanes per thread
   extern __shared__ __align__(128) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);
   float* sKV = sQ + BQ * LDF;   // K, then V, of the current tile
@@ -398,19 +452,21 @@ __global__ void __launch_bounds__(THREADS) flash_f32_kernel(Args a) {
   constexpr int RPT = BQ / (THREADS / 64);  // rows per thread
   const int n_kv = (L + BK - 1) / BK;
 
-  load_tile_f32(sQ, qg, a.q_rs, q0, a.Sq);
+  load_tile_f32<D>(sQ, qg, a.q_rs, q0, a.Sq);
   if (threadIdx.x < BQ) {
     s_m[threadIdx.x] = -INFINITY;
     s_l[threadIdx.x] = 0.f;
   }
-  float acc[RPT];
+  float acc[RPT][DC];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int cc = 0; cc < DC; ++cc) acc[i][cc] = 0.f;
 
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * BK;
     __syncthreads();  // the previous tile's p . v is done with sKV and sP
-    load_tile_f32(sKV, kg, a.k_rs, k0, L);
+    load_tile_f32<D>(sKV, kg, a.k_rs, k0, L);
     __syncthreads();
     {
       float dot[RPT];
@@ -450,15 +506,20 @@ __global__ void __launch_bounds__(THREADS) flash_f32_kernel(Args a) {
       }
       __syncwarp();
     }
-    load_tile_f32(sKV, vg, a.v_rs, k0, L);  // q . k^T is done with K
+    load_tile_f32<D>(sKV, vg, a.v_rs, k0, L);  // q . k^T is done with K
     __syncthreads();
     const int n = min(BK, L - k0);
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) acc[i] *= s_alpha[rg + 2 * i];
-    for (int jj = 0; jj < n; ++jj) {
-      const float vv = sKV[jj * LDF + c];
+    for (int i = 0; i < RPT; ++i)
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) acc[i] = fmaf(sP[(rg + 2 * i) * LDF + jj], vv, acc[i]);
+      for (int cc = 0; cc < DC; ++cc) acc[i][cc] *= s_alpha[rg + 2 * i];
+    for (int jj = 0; jj < n; ++jj) {
+#pragma unroll
+      for (int cc = 0; cc < DC; ++cc) {
+        const float vv = sKV[jj * LDF + c + 64 * cc];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) acc[i][cc] = fmaf(sP[(rg + 2 * i) * LDF + jj], vv, acc[i][cc]);
+      }
     }
   }
   __syncthreads();
@@ -470,13 +531,15 @@ __global__ void __launch_bounds__(THREADS) flash_f32_kernel(Args a) {
   for (int i = 0; i < RPT; ++i) {
     const int r = rg + 2 * i, row = q0 + r;
     if (row >= a.Sq) continue;
-    og[row * hd + c] = acc[i] / s_l[r];
+#pragma unroll
+    for (int cc = 0; cc < DC; ++cc) og[row * hd + c + 64 * cc] = acc[i][cc] / s_l[r];
     if (c == 0) lg[row] = s_m[r] * LN2 + logf(s_l[r]);
   }
 }
 
 // bf16: the tensor maps (q and out over Sq rows, k and v over the L live
 // keys), then one block per (128-row q tile, head, batch item)
+template <int D>
 int launch_bf16(const Args& a, int B, cudaStream_t st) {
   const long long cols = (long long)a.H * D;
   CUtensorMap qm, km, vm, om;
@@ -486,49 +549,56 @@ int launch_bf16(const Args& a, int B, cudaStream_t st) {
   if (!err) err = encode_rows_bf16(&om, a.out, cols, a.Sq, B, cols, (long long)a.Sq * cols, 64);
   if (err) return err;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WS_SMEM);
+      flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Ws<D>::SMEM);
   if (e != cudaSuccess) return (int)e;
-  flash_bf16_kernel<<<dim3((a.Sq + QT - 1) / QT, a.H, B), WS_THREADS, WS_SMEM, st>>>(
+  flash_bf16_kernel<D><<<dim3((a.Sq + QT - 1) / QT, a.H, B), WS_THREADS, Ws<D>::SMEM, st>>>(
       qm, km, vm, om, a.lse, a.Sq, a.L, a.H, a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_f32(const Args& a, int B, cudaStream_t st) {
+  // Q, K/V and logit tiles + row state: above 48 KB, so opt in
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM<D>);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, B);
+  flash_f32_kernel<D><<<grid, THREADS, F32_SMEM<D>, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 int launch(bool bf16, const void* q, const void* k, const void* v, void* out, float* lse,
            long long q_bs, long long q_rs, long long k_bs, long long k_rs,
-           long long v_bs, long long v_rs, int B, int Sq, int Sk, int L, int H, float scale,
-           void* stream) {
-  if (B < 1 || H < 1 || Sq < 1 || L < 1 || L > Sk || B > 65535 || H > 65535)
+           long long v_bs, long long v_rs, int B, int Sq, int Sk, int L, int H, int D,
+           float scale, void* stream) {
+  if (B < 1 || H < 1 || Sq < 1 || L < 1 || L > Sk || B > 65535 || H > 65535 ||
+      (D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, out, lse, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, Sq, L, H, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch_bf16(a, B, st);
-  // Q, K/V and logit tiles + row state: above 48 KB, so opt in
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_f32_kernel<<<grid, THREADS, F32_SMEM, st>>>(a);
-  return (int)cudaGetLastError();
+  if (bf16) return D == 64 ? launch_bf16<64>(a, B, st) : launch_bf16<128>(a, B, st);
+  return D == 64 ? launch_f32<64>(a, B, st) : launch_f32<128>(a, B, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each returns the cudaError_t of the launch (0 on success).
+// Each returns the cudaError_t of the launch (0 on success). D is the
+// kernel's head dim, 64 or 128 (the operands' heads, zero-padded to it).
 int k4_flash_bf16(const void* q, const void* k, const void* v, void* out, float* lse,
                   long long q_bs, long long q_rs, long long k_bs, long long k_rs,
-                  long long v_bs, long long v_rs, int B, int Sq, int Sk, int L, int H,
+                  long long v_bs, long long v_rs, int B, int Sq, int Sk, int L, int H, int D,
                   float scale, void* stream) {
-  return launch(true, q, k, v, out, lse, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, B, Sq, Sk, L, H,
+  return launch(true, q, k, v, out, lse, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, B, Sq, Sk, L, H, D,
                 scale, stream);
 }
 
 int k4_flash_f32(const void* q, const void* k, const void* v, void* out, float* lse,
                  long long q_bs, long long q_rs, long long k_bs, long long k_rs,
-                 long long v_bs, long long v_rs, int B, int Sq, int Sk, int L, int H,
+                 long long v_bs, long long v_rs, int B, int Sq, int Sk, int L, int H, int D,
                  float scale, void* stream) {
-  return launch(false, q, k, v, out, lse, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, B, Sq, Sk, L, H,
+  return launch(false, q, k, v, out, lse, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, B, Sq, Sk, L, H, D,
                 scale, stream);
 }
 

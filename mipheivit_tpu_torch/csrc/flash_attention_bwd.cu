@@ -1,5 +1,5 @@
-// K5: flash-attention backward (any S, D = 64) from K4's saved row
-// log-sum-exp.
+// K5: flash-attention backward (any S, head dim 64 or 128) from K4's saved
+// row log-sum-exp.
 //
 // Replaces the TPU kernels mipheivit_tpu/ops/attention.py::_bwd_dkdv_kernel
 // and ::_bwd_dq_kernel, launched there by _long_backward. Same contract, per
@@ -26,9 +26,10 @@
 // ~0.1 GB of operands: far above the card's ~295 FLOP/byte, so the floor is
 // the bf16 tensor-core time, 0.44 ms at the dense peak.
 //
-// bf16 design (bwd_bf16_kernel): one kernel, one block per (128-key tile,
-// head, batch item), 1008 blocks at a region, four warpgroups. The block's
-// K and V tiles stay in shared memory (32 KB). A producer warpgroup (one
+// bf16 design (bwd_bf16_kernel<D>): one kernel, one block per (128-key tile,
+// head, batch item), 1008 blocks at a region, four warpgroups (at D = 64;
+// the 128-wide instance below). The block's K and V tiles stay in shared
+// memory (32 KB). A producer warpgroup (one
 // thread) keeps a ring of three stages of 64-row q and dO tiles, with
 // their lse and delta rows, in flight by TMA (cp.async.bulk.tensor on 3-D
 // tensor maps: head columns, rows, batch; rows past Sq and keys past
@@ -67,6 +68,17 @@
 // and delta 0 past Sq, so those rows get p = 0 and dS = 0), and a last one
 // (dq_cast_kernel) scales dQ by 1/sqrt(D) and casts it to bf16.
 //
+// The 128-wide instance (head dims 65 to 128, zero-padded to 128 by the
+// wrapper). A row of 128 bf16 values is two 128-byte swizzle spans, so each
+// tile is two column halves, one TMA box each, and a product over the head
+// dim walks them. The dK and dV accumulators of 64 keys double to 64 x 128
+// f32 each (128 registers a thread): one dK / dV warpgroup (240 registers)
+// owns the block's 64 keys, beside the dQ warpgroup (160: its dQ tile is
+// 64 x 128 f32 too) and the producer, 384 threads; the ring has two stages
+// of q and dO (32 KB each), and the dQ tile four f32 boxes of 32 columns.
+// 183 KB of shared memory a block; twice the blocks of the 64-wide
+// instance, each streaming every q and dO tile once.
+//
 // f32 path: two kernels of scalar FMAs with every tile in shared memory,
 // p and dS kept f32 (tests, numerics): dK/dV per 64-key tile, dQ per
 // 64-row query tile, query rows past Sq given lse = +inf and delta = 0.
@@ -84,11 +96,9 @@ namespace {
 
 using namespace hopper;
 
-constexpr int D = 64;        // head dim
 constexpr int BQ = 64;       // query rows per tile
 constexpr int BK = 64;       // keys per tile of the f32 path
 constexpr int THREADS = 128; // f32 path
-constexpr int LDF = D + 1;   // f32 tile row stride: conflict-free column reads
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct Args {
@@ -107,31 +117,47 @@ struct Args {
   float scale;       // 1 / sqrt(D)
 };
 
-// ---- bf16: one kernel per 128-key tile on wgmma, q / dO tiles by TMA --------
+// ---- bf16: one kernel per key tile on wgmma, q / dO tiles by TMA -----------
 
-constexpr int KB = 128;                          // keys per block, 64 per warpgroup
-constexpr int STAGES = 3;                        // the q / dO ring
-constexpr int CONSUMERS = 256;                   // two warpgroups of dK / dV
-constexpr int DQ_WG = 2, PRODUCER_WG = 3;        // a warpgroup for dQ, one for the copies
-constexpr int BWD_THREADS = 512;
-// registers: 128 a thread at launch; the producer keeps 24, the dQ
-// warpgroup 80, the dK / dV warpgroups take the rest
-constexpr int PRODUCER_REGS = 24, DQ_REGS = 80, CONSUMER_REGS = 200;
-static_assert(128 * (PRODUCER_REGS + DQ_REGS) + CONSUMERS * CONSUMER_REGS <= 65536,
-              "register file");
+// The instance for head dim D. Every 64-row tile is D / 64 column halves of
+// 64 values (one TMA box, 128-byte swizzled rows each).
+template <int D>
+struct Bwd {
+  static_assert(D == 64 || D == 128, "head dim");
+  static constexpr int HALVES = D / 64;
+  static constexpr int NCW = D == 64 ? 2 : 1;         // dK / dV warpgroups, 64 keys each
+  static constexpr int KB = 64 * NCW;                 // keys per block
+  static constexpr int CONSUMERS = 128 * NCW;
+  static constexpr int DQ_WG = NCW, PRODUCER_WG = NCW + 1;  // dQ; the copies
+  static constexpr int THREADS = 128 * (NCW + 2);
+  // registers: 168 (D = 128) or 128 (D = 64) a thread at launch; the
+  // producer keeps 24, the dQ warpgroup 80 or 160, the dK / dV warpgroups
+  // take the rest
+  static constexpr int PRODUCER_REGS = 24, DQ_REGS = D == 64 ? 80 : 160;
+  static constexpr int CONSUMER_REGS = D == 64 ? 200 : 240;
+  static_assert(128 * (PRODUCER_REGS + DQ_REGS) + CONSUMERS * CONSUMER_REGS <=
+                    ((65536 / THREADS) & ~7) * THREADS,
+                "register file");
+  static constexpr int BAR_COUNT = CONSUMERS + 128;
+  static constexpr int STAGES = D == 64 ? 3 : 2;      // the q / dO ring
+  static constexpr int HALF = BQ * 128;               // a column half of a 64-row tile
+  static constexpr int TILE_BYTES = HALVES * HALF;    // 64 rows of D bf16
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES + 2 * BQ * 4;  // q, dO, lse, delta
+  static constexpr int STAGE_STRIDE = (STAGE_BYTES + 1023) / 1024 * 1024;
+  static constexpr int DS_BYTES = KB * BQ * 2;        // dS^T [KB keys][64 queries] bf16
+  static constexpr int DQ_BOX = BQ * 128;             // 32 f32 columns of a dQ tile
+  static constexpr int DQ_BYTES = BQ * D * 4;         // a dQ tile, D / 32 boxes
+  // alignment, K and V, the ring, dS^T twice, dQ twice, the mbarriers
+  static constexpr size_t SMEM = 1024 + 2 * NCW * (size_t)TILE_BYTES +
+                                 (size_t)STAGES * STAGE_STRIDE + 2 * (size_t)DS_BYTES +
+                                 2 * (size_t)DQ_BYTES + 8 * (1 + 2 * STAGES);
+  static_assert(SMEM <= 232448, "shared memory");
+};
 // named barriers (0 is __syncthreads): dS^T of an even / odd step written
 // (the dK / dV warpgroups arrive, the dQ warpgroup waits), and read (the
 // other way round)
-constexpr int BAR_DS_READY = 1, BAR_DS_FREE = 3, BAR_COUNT = CONSUMERS + 128;
+constexpr int BAR_DS_READY = 1, BAR_DS_FREE = 3;
 constexpr int BAR_DQ = 5;                        // the dQ warpgroup alone
-constexpr int TILE_BYTES = BQ * D * 2;           // 64 rows of D bf16, 128-byte swizzled
-constexpr int STAGE_BYTES = 2 * TILE_BYTES + 2 * BQ * 4;  // q, dO, lse, delta
-constexpr int STAGE_STRIDE = (STAGE_BYTES + 1023) / 1024 * 1024;
-constexpr int DS_BYTES = KB * BQ * 2;            // dS^T [128 keys][64 queries] bf16
-constexpr int DQ_BYTES = BQ * D * 4;             // a dQ tile, two boxes of 32 f32 columns
-// alignment, K and V, the ring, dS^T twice, dQ twice, the mbarriers
-constexpr size_t BWD_SMEM = 1024 + 4 * (size_t)TILE_BYTES + (size_t)STAGES * STAGE_STRIDE +
-                            2 * (size_t)DS_BYTES + 2 * (size_t)DQ_BYTES + 8 * (1 + 2 * STAGES);
 
 struct BwdArgs {
   const float* lse;    // [B, H, Sq_pad], log2 units, +inf past Sq (bwd_prep_kernel)
@@ -152,20 +178,25 @@ __device__ __forceinline__ void fence_frags(unsigned (&a)[4][4]) {
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
 }
 
-__global__ void __launch_bounds__(BWD_THREADS, 1)
+template <int D>
+__global__ void __launch_bounds__(Bwd<D>::THREADS, 1)
     bwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
                     const __grid_constant__ CUtensorMap omap,
                     const __grid_constant__ CUtensorMap dqmap, BwdArgs a) {
+  using P = Bwd<D>;
+  constexpr int KB = P::KB, STAGES = P::STAGES, HALVES = P::HALVES, HALF = P::HALF;
+  constexpr int TILE_BYTES = P::TILE_BYTES, BAR_COUNT = P::BAR_COUNT;
   extern __shared__ unsigned char smem_raw[];
   const unsigned raw = smem_addr(smem_raw);
   const unsigned base = (raw + 1023u) & ~1023u;
   unsigned char* base_ptr = smem_raw + (base - raw);
-  const unsigned k_s = base, v_s = base + 2 * TILE_BYTES, ring = base + 4 * TILE_BYTES;
-  const unsigned ds_s = ring + STAGES * STAGE_STRIDE;
-  const unsigned dq_s = ds_s + 2 * DS_BYTES;
-  const unsigned kv_bar = dq_s + 2 * DQ_BYTES;
+  const unsigned k_s = base, v_s = base + P::NCW * TILE_BYTES;
+  const unsigned ring = base + 2 * P::NCW * TILE_BYTES;
+  const unsigned ds_s = ring + STAGES * P::STAGE_STRIDE;
+  const unsigned dq_s = ds_s + 2 * P::DS_BYTES;
+  const unsigned kv_bar = dq_s + 2 * P::DQ_BYTES;
   auto full = [&](int st) { return kv_bar + 8 * (1 + st); };
   auto empty = [&](int st) { return kv_bar + 8 * (1 + STAGES + st); };
 
@@ -177,7 +208,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(a.dv) + (long long)b * a.Sk * hd + h * D;
 
   if (k0 >= a.L) {  // no live key: dK = dV = 0, no term of dQ
-    for (int i = tid; i < KB * D / 8; i += BWD_THREADS) {
+    for (int i = tid; i < KB * D / 8; i += P::THREADS) {
       const int row = k0 + i / (D / 8), c = (i % (D / 8)) * 8;
       if (row >= a.Sk) continue;
       *reinterpret_cast<uint4*>(dkg + row * hd + c) = make_uint4(0, 0, 0, 0);
@@ -189,29 +220,34 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
     mbar_init(kv_bar, 1);
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(full(st), 1);
-      mbar_init(empty(st), CONSUMERS);
+      mbar_init(empty(st), P::CONSUMERS);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
   const int wg = warpgroup();
-  if (wg == PRODUCER_WG) {  // one thread issues every copy
-    setmaxnreg_dec<PRODUCER_REGS>();
-    if (tid == PRODUCER_WG * 128) {
-      mbar_expect_tx(kv_bar, 4 * TILE_BYTES);
-      for (int i = 0; i < 2; ++i) {
-        tma_load_3d(k_s + i * TILE_BYTES, &kmap, kv_bar, h * D, k0 + 64 * i, b);
-        tma_load_3d(v_s + i * TILE_BYTES, &vmap, kv_bar, h * D, k0 + 64 * i, b);
-      }
+  if (wg == P::PRODUCER_WG) {  // one thread issues every copy, a box per column half
+    setmaxnreg_dec<P::PRODUCER_REGS>();
+    if (tid == P::PRODUCER_WG * 128) {
+      mbar_expect_tx(kv_bar, 2 * P::NCW * TILE_BYTES);
+      for (int i = 0; i < P::NCW; ++i)
+        for (int hh = 0; hh < HALVES; ++hh) {
+          tma_load_3d(k_s + i * TILE_BYTES + hh * HALF, &kmap, kv_bar, h * D + 64 * hh,
+                      k0 + 64 * i, b);
+          tma_load_3d(v_s + i * TILE_BYTES + hh * HALF, &vmap, kv_bar, h * D + 64 * hh,
+                      k0 + 64 * i, b);
+        }
       const long long row0 = ((long long)b * a.H + h) * a.Sq_pad;
       for (int i = 0; i < n_q; ++i) {
         const int st = i % STAGES;
         mbar_wait(empty(st), ((i / STAGES) & 1) ^ 1);  // the first round passes
-        const unsigned sb = ring + st * STAGE_STRIDE;
-        mbar_expect_tx(full(st), STAGE_BYTES);
-        tma_load_3d(sb, &qmap, full(st), h * D, i * BQ, b);
-        tma_load_3d(sb + TILE_BYTES, &omap, full(st), h * D, i * BQ, b);
+        const unsigned sb = ring + st * P::STAGE_STRIDE;
+        mbar_expect_tx(full(st), P::STAGE_BYTES);
+        for (int hh = 0; hh < HALVES; ++hh) {
+          tma_load_3d(sb + hh * HALF, &qmap, full(st), h * D + 64 * hh, i * BQ, b);
+          tma_load_3d(sb + TILE_BYTES + hh * HALF, &omap, full(st), h * D + 64 * hh, i * BQ, b);
+        }
         bulk_load(sb + 2 * TILE_BYTES, a.lse + row0 + i * BQ, BQ * 4, full(st));
         bulk_load(sb + 2 * TILE_BYTES + BQ * 4, a.delta + row0 + i * BQ, BQ * 4, full(st));
       }
@@ -221,28 +257,33 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
 
   const int warp = (tid % 128) / 32, lane = tid % 32;
   const int g = lane >> 2, tig = lane & 3;
-  if (wg == DQ_WG) {  // dQ = dS . K over the block's 128 keys, step by step
-    setmaxnreg_dec<DQ_REGS>();
+  if (wg == P::DQ_WG) {  // dQ = dS . K over the block's keys, step by step
+    setmaxnreg_dec<P::DQ_REGS>();
     const int lt = tid % 128;
     mbar_wait(kv_bar, 0);
     for (int i = 0; i < n_q; ++i) {
-      const unsigned dsb = ds_s + (i & 1) * DS_BYTES;
+      const unsigned dsb = ds_s + (i & 1) * P::DS_BYTES;
       named_sync(BAR_DS_READY + (i & 1), BAR_COUNT);
-      float dq[32];
+      float dq[HALVES][32];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < KB / 16; ++kk)
-        wgmma_ss_n64<1, 1>(dq, smem_desc(dsb + kk * 2048), smem_desc(k_s + kk * 2048), kk);
+      for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+        for (int kk = 0; kk < KB / 16; ++kk)  // 16 keys a step: key tile kk / 4
+          wgmma_ss_n64<1, 1>(dq[hh], smem_desc(dsb + kk * 2048),
+                             smem_desc(k_s + (kk / 4) * TILE_BYTES + hh * HALF + (kk % 4) * 2048),
+                             kk);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_acc(dq);
+#pragma unroll
+      for (int hh = 0; hh < HALVES; ++hh) fence_acc(dq[hh]);
       if (i + 2 < n_q) named_arrive(BAR_DS_FREE + (i & 1), BAR_COUNT);
-      // the tile into shared memory (two 128-byte swizzled boxes of 32
+      // the tile into shared memory (128-byte swizzled boxes of 32
       // columns), once the reduction of two steps back has read it; then
       // one thread adds it into dq_acc by TMA
       if (lt == 0) bulk_wait_read<1>();
       named_sync(BAR_DQ, 128);
-      const unsigned buf = dq_s + (i & 1) * DQ_BYTES;
+      const unsigned buf = dq_s + (i & 1) * P::DQ_BYTES;
       unsigned char* buf_ptr = base_ptr + (buf - base);
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
@@ -250,15 +291,15 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
         for (int r = 0; r < 2; ++r) {
           const int row = warp * 16 + g + 8 * r;
           const int c = 2 * (j & 3) + (tig >> 1);  // 16-byte chunk within the box's row
-          *reinterpret_cast<float2*>(buf_ptr + (j >> 2) * (DQ_BYTES / 2) + swz(row, c) +
+          *reinterpret_cast<float2*>(buf_ptr + (j >> 2) * P::DQ_BOX + swz(row, c) +
                                      (tig & 1) * 8) =
-              make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+              make_float2(dq[j >> 3][4 * (j & 7) + 2 * r], dq[j >> 3][4 * (j & 7) + 2 * r + 1]);
         }
       fence_proxy_async();
       named_sync(BAR_DQ, 128);
       if (lt == 0) {
-        tma_reduce_add_3d(&dqmap, buf, h * D, i * BQ, b);
-        tma_reduce_add_3d(&dqmap, buf + DQ_BYTES / 2, h * D + 32, i * BQ, b);
+        for (int bx = 0; bx < D / 32; ++bx)
+          tma_reduce_add_3d(&dqmap, buf + bx * P::DQ_BOX, h * D + 32 * bx, i * BQ, b);
         bulk_commit();
       }
     }
@@ -269,31 +310,36 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   // the dK / dV warpgroups: wg owns keys k0 + 64 wg .. + 63. (Letting a
   // step's dV and dK products finish behind the next step's S^T made ptxas
   // serialize every wgmma, C7515: each step waits for its own.)
-  setmaxnreg_inc<CONSUMER_REGS>();
+  setmaxnreg_inc<P::CONSUMER_REGS>();
   const unsigned kw = k_s + wg * TILE_BYTES, vw = v_s + wg * TILE_BYTES;
-  float dk[32], dv[32];
+  float dk[HALVES][32], dv[HALVES][32];
 #pragma unroll
-  for (int e = 0; e < 32; ++e) dk[e] = dv[e] = 0.f;
+  for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dk[hh][e] = dv[hh][e] = 0.f;
   mbar_wait(kv_bar, 0);
 
   for (int i = 0; i < n_q; ++i) {
     const int st = i % STAGES;
     mbar_wait(full(st), (i / STAGES) & 1);
-    const unsigned q_t = ring + st * STAGE_STRIDE, o_t = q_t + TILE_BYTES;
+    const unsigned q_t = ring + st * P::STAGE_STRIDE, o_t = q_t + TILE_BYTES;
     const float* ls = reinterpret_cast<const float*>(base_ptr + (q_t - base) + 2 * TILE_BYTES);
     const float* dls = ls + BQ;
 
     // S^T = K . Q^T and dP^T = V . dO^T: 64 keys x 64 queries each, in two
-    // groups, so that p forms while dP^T is still in flight
+    // groups, so that p forms while dP^T is still in flight; the head dim
+    // in steps of 16, half by half
     float s[32], dp[32];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64<0, 0>(s, smem_desc(kw + kk * 32), smem_desc(q_t + kk * 32), kk);
+      wgmma_ss_n64<0, 0>(s, smem_desc(kw + (kk / 4) * HALF + (kk % 4) * 32),
+                         smem_desc(q_t + (kk / 4) * HALF + (kk % 4) * 32), kk);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64<0, 0>(dp, smem_desc(vw + kk * 32), smem_desc(o_t + kk * 32), kk);
+      wgmma_ss_n64<0, 0>(dp, smem_desc(vw + (kk / 4) * HALF + (kk % 4) * 32),
+                         smem_desc(o_t + (kk / 4) * HALF + (kk % 4) * 32), kk);
     wgmma_commit();
     wgmma_wait<1>();  // S^T
     fence_acc(s);
@@ -325,23 +371,33 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
         da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
       }
 
-    // dV += P^T . dO and dK += dS^T . Q, the query rows as the depth
+    // dV += P^T . dO and dK += dS^T . Q, the query rows as the depth, one
+    // m64n64 product per column half
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64<1>(dv, pa[kk], smem_desc(o_t + kk * 2048), 1);
+    for (int hh = 0; hh < HALVES; ++hh)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64<1>(dk, da[kk], smem_desc(q_t + kk * 2048), 1);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_n64<1>(dv[hh], pa[kk], smem_desc(o_t + hh * HALF + kk * 2048), 1);
+#pragma unroll
+    for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_n64<1>(dk[hh], da[kk], smem_desc(q_t + hh * HALF + kk * 2048), 1);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_acc(dk);
-    fence_acc(dv);
+#pragma unroll
+    for (int hh = 0; hh < HALVES; ++hh) {
+      fence_acc(dk[hh]);
+      fence_acc(dv[hh]);
+    }
     fence_frags(pa);
     fence_frags(da);
     mbar_arrive(empty(st));  // the stage's q and dO tiles are done with
 
     // dS^T into this step's buffer (rows = the block's keys, 128-byte
     // swizzled) once the dQ warpgroup is done with it from two steps back
-    const unsigned dsb = ds_s + (i & 1) * DS_BYTES;
+    const unsigned dsb = ds_s + (i & 1) * P::DS_BYTES;
     unsigned char* dsb_ptr = base_ptr + (dsb - base);
     if (i >= 2) named_sync(BAR_DS_FREE + (i & 1), BAR_COUNT);
 #pragma unroll
@@ -363,18 +419,20 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int c = j * 8 + tig * 2;
+      const int e = 4 * (j & 7) + 2 * r;
       *reinterpret_cast<unsigned*>(dkg + row * hd + c) =
-          pack_bf16(dk[4 * j + 2 * r] * a.scale, dk[4 * j + 2 * r + 1] * a.scale);
+          pack_bf16(dk[j >> 3][e] * a.scale, dk[j >> 3][e + 1] * a.scale);
       *reinterpret_cast<unsigned*>(dvg + row * hd + c) =
-          pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+          pack_bf16(dv[j >> 3][e], dv[j >> 3][e + 1]);
     }
   }
 }
 
 // The backward's inputs by whole 64-row tiles: lse2 = lse in log2 units and
-// delta2 = rowsum(dO * O) over each head's 64 values (f32), both [B, H,
+// delta2 = rowsum(dO * O) over each head's D values (f32), both [B, H,
 // Sq_pad], lse2 = +inf and delta2 = 0 past Sq (p = 0 and dS = 0 there). One
 // thread per (batch item, head, row), 16-byte loads of O and dO.
+template <int D>
 __global__ void __launch_bounds__(256)
     bwd_prep_kernel(const __nv_bfloat16* __restrict__ out, long long out_bs, long long out_rs,
                     const __nv_bfloat16* __restrict__ dout, long long do_bs, long long do_rs,
@@ -418,21 +476,27 @@ __global__ void __launch_bounds__(256) dq_cast_kernel(const float* __restrict__ 
 
 // ---- f32: scalar FMAs, every tile in shared memory ----------------------------
 
-// 64 rows of D f32 values from global rows r0.. into a padded shared tile;
-// rows >= n are zero-filled.
+// 64 rows of D f32 values from global rows r0.. into a padded shared tile
+// (row stride D + 1: conflict-free column reads); rows >= n are zero-filled.
+template <int D>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, long long rs, int r0,
                                               int n) {
   for (int i = threadIdx.x; i < BQ * D; i += THREADS) {
     const int r = i / D, c = i % D;
-    dst[r * LDF + c] = (r0 + r < n) ? src[(long long)(r0 + r) * rs + c] : 0.f;
+    dst[r * (D + 1) + c] = (r0 + r < n) ? src[(long long)(r0 + r) * rs + c] : 0.f;
   }
 }
 
-constexpr int RPT = BQ / (THREADS / 64);  // rows per thread: thread -> column c, rows rg + 2i
-constexpr size_t F32_DKDV_SMEM = (6 * (size_t)BQ * LDF + 2 * BQ) * sizeof(float);
-constexpr size_t F32_DQ_SMEM = (5 * (size_t)BQ * LDF + 2 * BQ) * sizeof(float);
+// rows per thread: thread -> column c (and head-dim lanes c + 64 i), rows rg + 2i
+constexpr int RPT = BQ / (THREADS / 64);
+template <int D>
+constexpr size_t F32_DKDV_SMEM = (6 * (size_t)BQ * (D + 1) + 2 * BQ) * sizeof(float);
+template <int D>
+constexpr size_t F32_DQ_SMEM = (5 * (size_t)BQ * (D + 1) + 2 * BQ) * sizeof(float);
 
+template <int D>
 __global__ void __launch_bounds__(THREADS) dkdv_f32_kernel(Args a) {
+  constexpr int LDF = D + 1, DC = D / 64;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sK = reinterpret_cast<float*>(smem);
   float* sV = sK + BQ * LDF;
@@ -453,16 +517,18 @@ __global__ void __launch_bounds__(THREADS) dkdv_f32_kernel(Args a) {
   const float* dg = a.delta + ((long long)b * a.H + h) * Sq;
   const int c = threadIdx.x % 64, rg = threadIdx.x / 64;
 
-  float acc_dk[RPT], acc_dv[RPT];  // key rows rg + 2i, dim c
+  float acc_dk[RPT][DC], acc_dv[RPT][DC];  // key rows rg + 2i, dims c + 64 cc
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int cc = 0; cc < DC; ++cc) acc_dk[i][cc] = acc_dv[i][cc] = 0.f;
   if (k0 < L) {
-    load_tile_f32(sK, kg, a.k_rs, k0, L);
-    load_tile_f32(sV, vg, a.v_rs, k0, L);
+    load_tile_f32<D>(sK, kg, a.k_rs, k0, L);
+    load_tile_f32<D>(sV, vg, a.v_rs, k0, L);
     for (int q0 = 0; q0 < Sq; q0 += BQ) {
       __syncthreads();  // the previous tile's products are done with sQ, sO, sP, sS
-      load_tile_f32(sQ, qg, a.q_rs, q0, Sq);
-      load_tile_f32(sO, og, a.o_rs, q0, Sq);
+      load_tile_f32<D>(sQ, qg, a.q_rs, q0, Sq);
+      load_tile_f32<D>(sO, og, a.o_rs, q0, Sq);
       if (threadIdx.x < BQ) {
         const int r = q0 + threadIdx.x;
         sL[threadIdx.x] = r < Sq ? lg[r] * LOG2E : INFINITY;
@@ -490,13 +556,16 @@ __global__ void __launch_bounds__(THREADS) dkdv_f32_kernel(Args a) {
         }
       }
       __syncthreads();
-      // thread -> dim column c, key rows rg + 2i
+      // thread -> dim columns c + 64 cc, key rows rg + 2i
       for (int qq = 0; qq < BQ; ++qq) {
-        const float ov = sO[qq * LDF + c], qv = sQ[qq * LDF + c];
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          acc_dv[i] = fmaf(sP[(rg + 2 * i) * LDF + qq], ov, acc_dv[i]);
-          acc_dk[i] = fmaf(sS[(rg + 2 * i) * LDF + qq], qv, acc_dk[i]);
+        for (int cc = 0; cc < DC; ++cc) {
+          const float ov = sO[qq * LDF + c + 64 * cc], qv = sQ[qq * LDF + c + 64 * cc];
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            acc_dv[i][cc] = fmaf(sP[(rg + 2 * i) * LDF + qq], ov, acc_dv[i][cc]);
+            acc_dk[i][cc] = fmaf(sS[(rg + 2 * i) * LDF + qq], qv, acc_dk[i][cc]);
+          }
         }
       }
     }
@@ -508,12 +577,17 @@ __global__ void __launch_bounds__(THREADS) dkdv_f32_kernel(Args a) {
   for (int i = 0; i < RPT; ++i) {
     const int row = k0 + rg + 2 * i;
     if (row >= a.Sk) continue;
-    dkg[row * hd + c] = acc_dk[i] * a.scale;
-    dvg[row * hd + c] = acc_dv[i];
+#pragma unroll
+    for (int cc = 0; cc < DC; ++cc) {
+      dkg[row * hd + c + 64 * cc] = acc_dk[i][cc] * a.scale;
+      dvg[row * hd + c + 64 * cc] = acc_dv[i][cc];
+    }
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(THREADS) dq_f32_kernel(Args a) {
+  constexpr int LDF = D + 1, DC = D / 64;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);
   float* sO = sQ + BQ * LDF;
@@ -533,21 +607,23 @@ __global__ void __launch_bounds__(THREADS) dq_f32_kernel(Args a) {
   const float* dg = a.delta + ((long long)b * a.H + h) * Sq;
   const int c = threadIdx.x % 64, rg = threadIdx.x / 64;
 
-  load_tile_f32(sQ, qg, a.q_rs, q0, Sq);
-  load_tile_f32(sO, og, a.o_rs, q0, Sq);
+  load_tile_f32<D>(sQ, qg, a.q_rs, q0, Sq);
+  load_tile_f32<D>(sO, og, a.o_rs, q0, Sq);
   if (threadIdx.x < BQ) {
     const int r = q0 + threadIdx.x;
     sL[threadIdx.x] = r < Sq ? lg[r] * LOG2E : 0.f;
     sD[threadIdx.x] = r < Sq ? dg[r] : 0.f;
   }
-  float acc[RPT];  // query rows rg + 2i, dim c
+  float acc[RPT][DC];  // query rows rg + 2i, dims c + 64 cc
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int cc = 0; cc < DC; ++cc) acc[i][cc] = 0.f;
 
   for (int k0 = 0; k0 < L; k0 += BK) {
     __syncthreads();  // the previous tile's dS . k is done with sK, sS
-    load_tile_f32(sK, kg, a.k_rs, k0, L);
-    load_tile_f32(sV, vg, a.v_rs, k0, L);
+    load_tile_f32<D>(sK, kg, a.k_rs, k0, L);
+    load_tile_f32<D>(sV, vg, a.v_rs, k0, L);
     __syncthreads();
     {  // thread -> key column c, query rows rg + 2i
       float s[RPT], dp[RPT];
@@ -572,9 +648,13 @@ __global__ void __launch_bounds__(THREADS) dq_f32_kernel(Args a) {
     __syncthreads();
     const int n = min(BK, L - k0);
     for (int kk = 0; kk < n; ++kk) {
-      const float kv = sK[kk * LDF + c];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) acc[i] = fmaf(sS[(rg + 2 * i) * LDF + kk], kv, acc[i]);
+      for (int cc = 0; cc < DC; ++cc) {
+        const float kv = sK[kk * LDF + c + 64 * cc];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+          acc[i][cc] = fmaf(sS[(rg + 2 * i) * LDF + kk], kv, acc[i][cc]);
+      }
     }
   }
   const long long hd = (long long)a.H * D;
@@ -582,7 +662,9 @@ __global__ void __launch_bounds__(THREADS) dq_f32_kernel(Args a) {
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int row = q0 + rg + 2 * i;
-    if (row < Sq) dqg[row * hd + c] = acc[i] * a.scale;
+    if (row >= Sq) continue;
+#pragma unroll
+    for (int cc = 0; cc < DC; ++cc) dqg[row * hd + c + 64 * cc] = acc[i][cc] * a.scale;
   }
 }
 
@@ -596,24 +678,28 @@ cudaError_t launch_one(K kernel, dim3 grid, size_t smem, cudaStream_t st, const 
   return cudaGetLastError();
 }
 
-bool bad_dims(int B, int Sq, int Sk, int L, int H) {
-  return B < 1 || H < 1 || Sq < 1 || L < 1 || L > Sk || B > 65535 || H > 65535;
+bool bad_dims(int B, int Sq, int Sk, int L, int H, int D) {
+  return B < 1 || H < 1 || Sq < 1 || L < 1 || L > Sk || B > 65535 || H > 65535 ||
+         (D != 64 && D != 128);
 }
 
+template <int D>
 int launch_f32(const Args& a, int B, cudaStream_t st) {
   const dim3 grid_kv((a.Sk + BK - 1) / BK, a.H, B), grid_q((a.Sq + BQ - 1) / BQ, a.H, B);
-  cudaError_t err = launch_one(dkdv_f32_kernel, grid_kv, F32_DKDV_SMEM, st, a);
-  if (err == cudaSuccess) err = launch_one(dq_f32_kernel, grid_q, F32_DQ_SMEM, st, a);
+  cudaError_t err = launch_one(dkdv_f32_kernel<D>, grid_kv, F32_DKDV_SMEM<D>, st, a);
+  if (err == cudaSuccess) err = launch_one(dq_f32_kernel<D>, grid_q, F32_DQ_SMEM<D>, st, a);
   return (int)err;
 }
 
 // bf16: the four tensor maps (q and dO over Sq rows, k and v over the L
 // live keys); dq_acc zeroed, lse2 and delta2 prepared (bwd_prep_kernel);
 // the backward kernel; the cast of dq
+template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, const void* out, const void* dout,
                 const float* lse, const BwdArgs& a, void* dq, long long q_bs, long long q_rs,
                 long long k_bs, long long k_rs, long long v_bs, long long v_rs, long long out_bs,
                 long long out_rs, long long o_bs, long long o_rs, int B, cudaStream_t st) {
+  using P = Bwd<D>;
   const long long cols = (long long)a.H * D;
   CUtensorMap qm, km, vm, om, dqm;
   int err = encode_rows_bf16(&qm, q, cols, a.Sq, B, q_rs, q_bs, BQ);
@@ -628,14 +714,14 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out, co
   cudaError_t e = cudaMemsetAsync(a.dq_acc, 0, n * sizeof(float), st);
   if (e != cudaSuccess) return (int)e;
   const long long rows = (long long)B * a.H * a.Sq_pad;
-  bwd_prep_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(
+  bwd_prep_kernel<D><<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(
       static_cast<const __nv_bfloat16*>(out), out_bs, out_rs,
       static_cast<const __nv_bfloat16*>(dout), o_bs, o_rs, lse, const_cast<float*>(a.lse),
       const_cast<float*>(a.delta), B, a.H, a.Sq, a.Sq_pad);
-  e = cudaFuncSetAttribute(bwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)BWD_SMEM);
+  e = cudaFuncSetAttribute(bwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)P::SMEM);
   if (e != cudaSuccess) return (int)e;
-  bwd_bf16_kernel<<<dim3((a.Sk + KB - 1) / KB, a.H, B), BWD_THREADS, BWD_SMEM, st>>>(
+  bwd_bf16_kernel<D><<<dim3((a.Sk + P::KB - 1) / P::KB, a.H, B), P::THREADS, P::SMEM, st>>>(
       qm, km, vm, om, dqm, a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -648,22 +734,26 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out, co
 
 extern "C" {
 
-// Each returns the cudaError_t of the launches (0 on success). bf16: out
-// (K4's output) with its batch and row strides, lse [B, H, Sq] (natural
-// log, contiguous), ws [2, B, H, Sq_pad] f32 scratch (Sq_pad = Sq rounded up
-// to 64), dq_acc [B, Sq, H*D] f32 scratch.
+// Each returns the cudaError_t of the launches (0 on success). D is the
+// kernel's head dim, 64 or 128 (the operands' heads, zero-padded to it).
+// bf16: out (K4's output) with its batch and row strides, lse [B, H, Sq]
+// (natural log, contiguous), ws [2, B, H, Sq_pad] f32 scratch (Sq_pad = Sq
+// rounded up to 64), dq_acc [B, Sq, H*D] f32 scratch.
 int k5_flash_bwd_bf16(const void* q, const void* k, const void* v, const void* out,
                       const void* dout, const float* lse, float* ws, float* dq_acc, void* dq,
                       void* dk, void* dv, long long q_bs, long long q_rs, long long k_bs,
                       long long k_rs, long long v_bs, long long v_rs, long long out_bs,
                       long long out_rs, long long o_bs, long long o_rs, int B, int Sq, int Sk,
-                      int L, int H, float scale_log2, float scale, void* stream) {
-  if (bad_dims(B, Sq, Sk, L, H)) return (int)cudaErrorInvalidValue;
+                      int L, int H, int D, float scale_log2, float scale, void* stream) {
+  if (bad_dims(B, Sq, Sk, L, H, D)) return (int)cudaErrorInvalidValue;
   const int sq_pad = (Sq + BQ - 1) / BQ * BQ;
   const long long plane = (long long)B * H * sq_pad;
   const BwdArgs a{ws, ws + plane, dq_acc, dk, dv, Sq, sq_pad, Sk, L, H, scale_log2, scale};
-  return launch_bf16(q, k, v, out, dout, lse, a, dq, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, out_bs,
-                     out_rs, o_bs, o_rs, B, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return D == 64 ? launch_bf16<64>(q, k, v, out, dout, lse, a, dq, q_bs, q_rs, k_bs, k_rs, v_bs,
+                                   v_rs, out_bs, out_rs, o_bs, o_rs, B, st)
+                 : launch_bf16<128>(q, k, v, out, dout, lse, a, dq, q_bs, q_rs, k_bs, k_rs,
+                                    v_bs, v_rs, out_bs, out_rs, o_bs, o_rs, B, st);
 }
 
 // f32: lse (natural log) and delta [B, H, Sq]
@@ -671,11 +761,13 @@ int k5_flash_bwd_f32(const void* q, const void* k, const void* v, const void* do
                      const float* lse, const float* delta, void* dq, void* dk, void* dv,
                      long long q_bs, long long q_rs, long long k_bs, long long k_rs,
                      long long v_bs, long long v_rs, long long o_bs, long long o_rs, int B,
-                     int Sq, int Sk, int L, int H, float scale_log2, float scale, void* stream) {
-  if (bad_dims(B, Sq, Sk, L, H)) return (int)cudaErrorInvalidValue;
+                     int Sq, int Sk, int L, int H, int D, float scale_log2, float scale,
+                     void* stream) {
+  if (bad_dims(B, Sq, Sk, L, H, D)) return (int)cudaErrorInvalidValue;
   const Args a{q,    k,    v,    dout, lse,  delta, dq, dk, dv, q_bs, q_rs, k_bs,
                k_rs, v_bs, v_rs, o_bs, o_rs, Sq,    Sk, L,  H,  scale_log2, scale};
-  return launch_f32(a, B, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return D == 64 ? launch_f32<64>(a, B, st) : launch_f32<128>(a, B, st);
 }
 
 const char* k5_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

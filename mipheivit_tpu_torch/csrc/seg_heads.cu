@@ -78,11 +78,28 @@
 // which run out of registers (ptxas serialises every wgmma: C7512); and
 // psi-conv2 on the CUDA cores (a reduce-scatter over each row's quad).
 
+// Widths (heads_ws_kernel<PG, CW, NC2>). The decoder's last fusion width C
+// is a config field (32 in every shipped preset), and C2 = C / 2. The
+// kernel takes CW = 16, 32 or 64 channels and C2 in NC2 = 1 or 2 groups of
+// 16 features; ops/seg_heads.py zero-pads C and C2 up to them, which is
+// exact (a zero channel of x against a zero row of w1 and wm adds nothing;
+// a padded feature of g1 is relu(0 + 0) = 0 against a zero entry of w2). A
+// halo row of CW channels is one TMA box under the swizzle of its width (32,
+// 64 or 128 bytes: a 64-channel pixel is the widest 128-byte swizzle span),
+// the products over the channels run CW / 16 wgmma k-steps, and the gate's
+// psi-conv2 sums NC2 groups of 16 features, each a g1 product of its own
+// (m64n128: 8 heads x 16 features) and eight m64n8k16. So the largest C is
+// 64 (C2 up to 32): a wider pixel needs two boxes a row, and at C = 64 and
+// C2 = 32 a pass's weights (w1 64 KB, the taps 18 KB, w2 16 KB) and three
+// consumers' rings of two stages already take 225 KB of the 227 KB a block
+// has. Widths other than C = 32, C2 = 16 run passes of 16 heads, and at CW
+// = 64 a ring of two stages (six at 16 and 32 channels).
+//
 // Two paths:
 //   bf16  the main path (wgmma and TMA, as above);
 //   f32   scalar FMAs on 8 x 8 output tiles with the tap products of the
-//         10 x 10 halo in shared memory, 16 heads a block (tests and f32
-//         numerics).
+//         10 x 10 halo in shared memory, 16 heads a block (8 at C = 64 with
+//         C2 = 32) (tests and f32 numerics).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC; bound with ctypes (plain C interface below).
@@ -98,9 +115,6 @@ namespace {
 
 using namespace hopper;
 
-constexpr int C = 32;          // input channels (the decoder's last fusion width)
-constexpr int C2 = 16;         // gate features per head
-
 struct Args {
   const void* x;     // [B, H, W, C]
   const void* w1t;   // [KP*C2, C]: psi-conv1 with BN folded, output-major
@@ -112,6 +126,7 @@ struct Args {
   void* out;         // [B, H, W, K]
   int B, H, W, K;    // K heads, zero-padded to KP = K rounded up to 8 in the weights
   int act;           // 0 none, 1 tanh, 2 sigmoid
+  int C, C2;         // channels (16, 32 or 64) and gate features a head (16 or 32)
 };
 
 __host__ __device__ __forceinline__ int padded_heads(int k) { return (k + 7) & ~7; }
@@ -130,10 +145,7 @@ constexpr int TW = 64;                    // output columns per item: wgmma's M
 constexpr int TH = 30;                    // output rows per item
 constexpr int HR = TH + 2;                // halo rows per item
 constexpr int ROW_PX = TW + 2;            // pixels of a halo-row box: x0 - 1 .. x0 + 64
-constexpr int ROW_BYTES = ROW_PX * C * 2;       // 4224
-constexpr int EDGE_BYTES = 2 * HR * C * 2;      // the two side columns: 4096
-constexpr int STAGES = 6;                 // ring stages per consumer
-constexpr int STAGE_STRIDE = 4608;        // 512-byte aligned stages
+constexpr int C2G = 16;                   // gate features a group of psi-conv2: one k-step
 // gate-buffer pitch in floats: a pass's 16 or 24 heads; rows 24 floats apart
 // make the float2 accesses of a half warp (4 rows x 4 lanes) conflict-free
 constexpr int GP = 24;
@@ -149,29 +161,56 @@ constexpr int CONSUMER_REGS = CONSUMER_REGS_FIT < 240 ? CONSUMER_REGS_FIT : 240;
 static_assert(128 * PRODUCER_REGS + 128 * NCONS * CONSUMER_REGS <= LAUNCH_REGS * THREADS,
               "register file");
 static_assert(2 * HR <= TW, "one edge pass covers both side columns");
-static_assert(ROW_BYTES <= STAGE_STRIDE && EDGE_BYTES <= STAGE_STRIDE && STAGE_STRIDE % 512 == 0,
-              "stages");
-constexpr int W1_TILE = 128 * 64;         // [128 gate features][32 channels], 64-byte swizzle
-constexpr int W2_TILE = 8 * 64;           // [8 heads][16 features (+16 unused)]
+constexpr int W2_TILE = 8 * 64;           // [8 heads][16 features (+16 unused)], 64-byte swizzle
 constexpr int BAR_PASS = 1;               // every consumer
 constexpr int BAR_ROW = 2;                // + consumer index: one consumer (128 threads)
 
+// Tiles of CW-channel rows (a pixel of x, a row of w1 or of the taps) in the
+// swizzled layout of their width: 32, 64 or 128 bytes, the span of one
+// TMA box and of one wgmma descriptor. Byte offset of 16-byte chunk c of row
+// r, and the descriptor of a tile (8-row groups 8 * 2 CW bytes apart).
+template <int CW>
+__device__ __forceinline__ unsigned swz_cw(int r, int c) {
+  static_assert(CW == 16 || CW == 32 || CW == 64, "channels");
+  if constexpr (CW == 64) return swz(r, c);
+  else if constexpr (CW == 32) return swz64(r, c);
+  else return (unsigned)(r * 32 + ((c ^ ((r >> 2) & 1)) << 4));
+}
+template <int CW>
+__device__ __forceinline__ unsigned long long desc_cw(unsigned addr) {
+  if constexpr (CW == 64) return smem_desc(addr);
+  else if constexpr (CW == 32) return smem_desc64(addr);
+  else
+    return (unsigned long long)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (16ull << 32) |
+           (3ull << 62);
+}
+
 // Shared memory of a kernel whose passes take PG groups (PH = 16 or 24
-// heads), from a 1024-byte aligned base: the weights of a pass, then one
-// region per consumer: its ring, two output staging rows, two gate row
-// buffers ([66][GP] f32 each: the left side column, the 64 pixels, the right
-// one), the side columns' gates ([2 * HR][GP]), the ring's mbarriers
-template <int PG>
+// heads) over CW channels and NC2 groups of 16 gate features, from a
+// 1024-byte aligned base: the weights of a pass (w1 as PG x NC2 tiles of
+// [8 heads x 16 features][CW]), then one region per consumer: its ring, two
+// output staging rows, two gate row buffers ([66][GP] f32 each: the left
+// side column, the 64 pixels, the right one), the side columns' gates ([2 *
+// HR][GP]), the ring's mbarriers
+template <int PG, int CW, int NC2>
 struct Layout {
   static constexpr int PH = HG * PG;                  // heads per pass
-  static constexpr int WM_TILE = 3 * PH * 64;         // one dx: [3 dy x PH heads][32 channels]
+  static constexpr int C2 = C2G * NC2;                // gate features a head
+  static constexpr int KSTEPS = CW / 16;              // wgmma k-steps over the channels
+  static constexpr int ALIGN = CW == 64 ? 1024 : 512; // the swizzle's repeat (and 512)
+  static constexpr int ROW_BYTES = ROW_PX * CW * 2;   // a halo row: 4224 at 32 channels
+  static constexpr int EDGE_BYTES = 2 * HR * CW * 2;  // the two side columns: 4096 at 32
+  static constexpr int STAGES = CW == 64 ? 2 : 6;     // ring stages per consumer
+  static constexpr int STAGE_STRIDE = (ROW_BYTES + ALIGN - 1) / ALIGN * ALIGN;  // 4608 at 32
+  static constexpr int W1_TILE = 128 * CW * 2;        // [128 gate features][CW channels]
+  static constexpr int WM_TILE = 3 * PH * CW * 2;     // one dx: [3 dy x PH heads][CW channels]
   static constexpr int W1_OFF = 0;
-  static constexpr int WM_OFF = W1_OFF + PG * W1_TILE;
+  static constexpr int WM_OFF = W1_OFF + PG * NC2 * W1_TILE;
   static constexpr int W2_OFF = WM_OFF + 3 * WM_TILE;
-  static constexpr int B1_OFF = W2_OFF + PH * W2_TILE;  // f32 [PH * C2]
+  static constexpr int B1_OFF = W2_OFF + PH * NC2 * W2_TILE;  // f32 [PH * C2]
   static constexpr int B2_OFF = B1_OFF + PH * C2 * 4;   // f32 [PH]
   static constexpr int BF_OFF = B2_OFF + PH * 4;        // f32 [PH]
-  static constexpr int CONS_OFF = (BF_OFF + PH * 4 + 511) & ~511;
+  static constexpr int CONS_OFF = (BF_OFF + PH * 4 + ALIGN - 1) / ALIGN * ALIGN;
   // 64 px x PH heads bf16 + 16 B of slack
   static constexpr int STG_BYTES = ((TW * PH + 8) * 2 + 127) & ~127;
   static constexpr int R_RING = 0;
@@ -179,12 +218,14 @@ struct Layout {
   static constexpr int R_ROWG = R_STG + 2 * STG_BYTES;
   static constexpr int R_EDGEG = R_ROWG + 2 * ROW_PX * GP * 4;
   static constexpr int R_BARS = R_EDGEG + 2 * HR * GP * 4;
-  static constexpr int CONS_BYTES = (R_BARS + 2 * STAGES * 8 + 511) & ~511;
+  static constexpr int CONS_BYTES = (R_BARS + 2 * STAGES * 8 + ALIGN - 1) / ALIGN * ALIGN;
   static constexpr size_t SMEM = 1024 + CONS_OFF + NCONS * (size_t)CONS_BYTES;
   static_assert(PH <= GP, "gate rows");
   static_assert(SMEM <= 232448, "shared memory");
-  static_assert(WM_TILE % 512 == 0 && W2_OFF % 512 == 0 && R_STG % 128 == 0 &&
-                    STG_BYTES % 128 == 0 && CONS_OFF % 512 == 0,
+  static_assert(EDGE_BYTES <= STAGE_STRIDE, "stages");
+  static_assert(WM_TILE % ALIGN == 0 && W1_TILE % ALIGN == 0 && W2_OFF % 512 == 0 &&
+                    R_STG % 128 == 0 && STG_BYTES % 128 == 0 && CONS_OFF % ALIGN == 0 &&
+                    CONS_BYTES % ALIGN == 0,
                 "alignment");
 };
 
@@ -219,48 +260,57 @@ __device__ __forceinline__ void keep_frags(unsigned (&a)[N][4]) {
 }
 
 // The gates of the pass's np (<= PG) groups of 8 heads for the warpgroup's
-// 64 pixels, whose x is the A fragments a (channels 0-15, 16-31), into the
-// gate rows d0 (pixel i0) and d1 (pixel i0 + 8) at this thread's heads. Per
-// group: g1 = x . w1 + b1 on wgmma m64n128 (the accumulator starts at b1),
-// ReLU and bf16 in one conversion, psi-conv2 as one m64n8k16 per head (g1's
-// accumulator layout is the A layout of the next product), sigmoid(. + b2).
-template <int PG>
-__device__ __forceinline__ void pass_gates(unsigned (&a)[2][4], int np, unsigned w1_s,
+// 64 pixels, whose x is the A fragments a (channels 16 kk .. 16 kk + 15),
+// into the gate rows d0 (pixel i0) and d1 (pixel i0 + 8) at this thread's
+// heads. Per group and group of 16 gate features: g1 = x . w1 + b1 on wgmma
+// m64n128 (the accumulator starts at b1), ReLU and bf16 in one conversion,
+// psi-conv2 as one m64n8k16 per head (g1's accumulator layout is the A
+// layout of the next product), summed over the feature groups;
+// sigmoid(. + b2).
+template <int PG, int CW, int NC2>
+__device__ __forceinline__ void pass_gates(unsigned (&a)[CW / 16][4], int np, unsigned w1_s,
                                            unsigned w2_s, const float* b1s, const float* b2s,
                                            int tig, float* d0, float* d1) {
+  using L = Layout<PG, CW, NC2>;
   float acc[64];
   unsigned pa[HG][4];
 #pragma unroll
   for (int p = 0; p < PG; ++p) {
     if (p >= np) break;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float2 bb = *reinterpret_cast<const float2*>(b1s + p * HG * C2 + 8 * j + 2 * tig);
-      acc[4 * j] = bb.x;
-      acc[4 * j + 1] = bb.y;
-      acc[4 * j + 2] = bb.x;
-      acc[4 * j + 3] = bb.y;
-    }
-    wgmma_fence();
-    wgmma_rs_n128<0>(acc, a[0], smem_desc64(w1_s + p * W1_TILE), 1);
-    wgmma_rs_n128<0>(acc, a[1], smem_desc64(w1_s + p * W1_TILE + 32), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(acc);
-#pragma unroll
-    for (int k = 0; k < HG; ++k)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) pa[k][e] = relu_bf16x2(acc[8 * k + 2 * e], acc[8 * k + 2 * e + 1]);
     const float2 b2v = *reinterpret_cast<const float2*>(b2s + p * HG + 2 * tig);
     float gp[4] = {b2v.x, b2v.y, b2v.x, b2v.y};
-    wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < HG; ++k)
-      wgmma_rs_n8<0>(gp, pa[k], smem_desc64(w2_s + (p * HG + k) * W2_TILE), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(gp);
-    keep_frags(pa);
+    for (int jc = 0; jc < NC2; ++jc) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {  // column 8 j + 2 tig: head j / 2, feature 8 (j % 2) + 2 tig
+        const float2 bb = *reinterpret_cast<const float2*>(
+            b1s + (p * HG + j / 2) * L::C2 + C2G * jc + 8 * (j % 2) + 2 * tig);
+        acc[4 * j] = bb.x;
+        acc[4 * j + 1] = bb.y;
+        acc[4 * j + 2] = bb.x;
+        acc[4 * j + 3] = bb.y;
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < L::KSTEPS; ++kk)
+        wgmma_rs_n128<0>(acc, a[kk], desc_cw<CW>(w1_s + (p * NC2 + jc) * L::W1_TILE + 32 * kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+#pragma unroll
+      for (int k = 0; k < HG; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pa[k][e] = relu_bf16x2(acc[8 * k + 2 * e], acc[8 * k + 2 * e + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < HG; ++k)
+        wgmma_rs_n8<0>(gp, pa[k], smem_desc64(w2_s + ((p * HG + k) * NC2 + jc) * W2_TILE), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(gp);
+      keep_frags(pa);
+    }
     *reinterpret_cast<float2*>(d0 + p * HG + 2 * tig) =
         make_float2(sigmoid_fast(gp[0]), sigmoid_fast(gp[1]));
     *reinterpret_cast<float2*>(d1 + p * HG + 2 * tig) =
@@ -283,11 +333,12 @@ __device__ __forceinline__ void taps_mma(float (&d)[36], const unsigned (&a)[4],
 // (not waited for): the x rows shifted by dx - 1 (a) times the pass's [3 dy
 // x PH heads] taps of that dx (wm_s), into tm (rows g, g + 8 x column
 // dy * PH + head)
-template <int N>
-__device__ __forceinline__ void taps_issue(float (&tm)[N], unsigned (&a)[2][4], unsigned wm_s) {
+template <int CW, int N>
+__device__ __forceinline__ void taps_issue(float (&tm)[N], unsigned (&a)[CW / 16][4],
+                                           unsigned wm_s) {
   wgmma_fence();
-  taps_mma(tm, a[0], smem_desc64(wm_s), 0);
-  taps_mma(tm, a[1], smem_desc64(wm_s + 32), 1);
+#pragma unroll
+  for (int kk = 0; kk < CW / 16; ++kk) taps_mma(tm, a[kk], desc_cw<CW>(wm_s + 32 * kk), kk > 0);
   wgmma_commit();
 }
 
@@ -340,16 +391,16 @@ __device__ __forceinline__ Item item_of(int t, int H, int W) {
 // gates (into one of two row buffers), after the row's barrier the tap
 // products and their sums dx by dx, and the output row that completes,
 // staged in shared memory and stored after the next barrier.
-// xrow / xcol: x [B, H, W, 32] in boxes of [1, 1, 66, 32] and [1, 32, 1,
-// 32]; omap: out [B, H, W, K] in boxes of [1, 1, 64, min(K, PH)] where K %
+// xrow / xcol: x [B, H, W, CW] in boxes of [1, 1, 66, CW] and [1, 32, 1,
+// CW]; omap: out [B, H, W, K] in boxes of [1, 1, 64, min(K, PH)] where K %
 // 8 == 0 (else unused: the rows of a single pass leave by 16-byte vector
 // stores of their span, those of several passes pixel by pixel).
-template <int PG>
+template <int PG, int CW, int NC2>
 __global__ void __launch_bounds__(THREADS, 1)
     heads_ws_kernel(const __grid_constant__ CUtensorMap xrow, const __grid_constant__ CUtensorMap xcol,
                     const __grid_constant__ CUtensorMap omap, const Args a, const int tma_out) {
-  using L = Layout<PG>;
-  constexpr int PH = L::PH;
+  using L = Layout<PG, CW, NC2>;
+  constexpr int PH = L::PH, STAGES = L::STAGES, KSTEPS = L::KSTEPS, C2 = L::C2;
   extern __shared__ unsigned char smem_raw[];
   const unsigned raw = smem_addr(smem_raw);
   const unsigned base = (raw + 1023u) & ~1023u;
@@ -384,20 +435,20 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_wait(empty(c, st), ((it / STAGES) & 1) ^ 1);  // the first round passes
         mbar_expect_tx(full(c, st), bytes);
         ++it;
-        return cons(c) + L::R_RING + st * STAGE_STRIDE;
+        return cons(c) + L::R_RING + st * L::STAGE_STRIDE;
       };
       for (int q = 0; q < n_pass; ++q)
         for (int t = NCONS * blockIdx.x + c; t < items; t += NCONS * gridDim.x) {
           const Item w = item_of(t, H, W);
-          unsigned sb = stage(EDGE_BYTES);
+          unsigned sb = stage(L::EDGE_BYTES);
           const unsigned bar = full(c, (it - 1) % STAGES);
           tma_load_4d(sb, &xcol, bar, 0, w.x0 - 1, w.y0 - 1, w.b);
-          tma_load_4d(sb + HR * 64, &xcol, bar, 0, w.x0 + TW, w.y0 - 1, w.b);
+          tma_load_4d(sb + HR * CW * 2, &xcol, bar, 0, w.x0 + TW, w.y0 - 1, w.b);
           const int n_out = min(TH, H - w.y0);
           for (int r = 0; r <= n_out + 1; ++r) {
             const int y = w.y0 - 1 + r;
             if (y < 0 || y >= H) continue;
-            sb = stage(ROW_BYTES);
+            sb = stage(L::ROW_BYTES);
             tma_load_4d(sb, &xrow, full(c, (it - 1) % STAGES), 0, w.x0 - 1, y, w.b);
           }
         }
@@ -472,12 +523,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   };
 
   // wait for a stage and take the A fragments of its rows shifted by ``shift``
-  auto take = [&](unsigned (&f)[2][4], int shift) {
+  auto take = [&](unsigned (&f)[KSTEPS][4], int shift) {
     const int st = it % STAGES;
     mbar_wait(full(c, st), (it / STAGES) & 1);
-    const unsigned sb = ring + st * STAGE_STRIDE;
+    const unsigned sb = ring + st * L::STAGE_STRIDE;
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) ldmatrix_x4(f[kk], sb + swz64(lrow + shift, 2 * kk + lchunk));
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      ldmatrix_x4(f[kk], sb + swz_cw<CW>(lrow + shift, 2 * kk + lchunk));
     return st;
   };
 
@@ -493,26 +545,31 @@ __global__ void __launch_bounds__(THREADS, 1)
       const __nv_bfloat16* b1 = static_cast<const __nv_bfloat16*>(a.b1);
       const __nv_bfloat16* b2 = static_cast<const __nv_bfloat16*>(a.b2);
       const __nv_bfloat16* bf = static_cast<const __nv_bfloat16*>(a.bf);
-      for (int i = ct; i < np * 128 * 4; i += 128 * NCONS) {  // w1: tile p, row = feature of the group
-        const int ch = i % 4, n = (i / 4) % 128, p = i / 512;
+      constexpr int CH = CW / 8;  // 16-byte chunks of a CW-channel row
+      // w1: tile (p, jc), row n = head n / 16 of group p, feature 16 jc + n % 16
+      for (int i = ct; i < np * NC2 * 128 * CH; i += 128 * NCONS) {
+        const int ch = i % CH, n = (i / CH) % 128, pj = i / (128 * CH);
+        const int p = pj / NC2, jc = pj % NC2;
         const uint4 v = *reinterpret_cast<const uint4*>(
-            w1t + ((long long)(PH * q + HG * p) * C2 + n) * C + ch * 8);
-        st_shared_v4(base + L::W1_OFF + p * W1_TILE + swz64(n, ch), v);
+            w1t + ((long long)(PH * q + HG * p + n / 16) * C2 + C2G * jc + n % 16) * CW + ch * 8);
+        st_shared_v4(base + L::W1_OFF + pj * L::W1_TILE + swz_cw<CW>(n, ch), v);
       }
-      for (int i = ct; i < 3 * 3 * PH * 4; i += 128 * NCONS) {  // wm: tile dx, row dy * PH + head
-        const int ch = i % 4, n = (i / 4) % (3 * PH), dx = i / (12 * PH), k = n % PH;
+      for (int i = ct; i < 3 * 3 * PH * CH; i += 128 * NCONS) {  // wm: tile dx, row dy * PH + head
+        const int ch = i % CH, n = (i / CH) % (3 * PH), dx = i / (3 * PH * CH), k = n % PH;
         uint4 v = make_uint4(0u, 0u, 0u, 0u);  // heads past the pass's groups: zero taps
         if (k < np * HG)
           v = *reinterpret_cast<const uint4*>(
-              wmt + ((long long)((n / PH) * 3 + dx) * KP + PH * q + k) * C + ch * 8);
-        st_shared_v4(base + L::WM_OFF + dx * L::WM_TILE + swz64(n, ch), v);
+              wmt + ((long long)((n / PH) * 3 + dx) * KP + PH * q + k) * CW + ch * 8);
+        st_shared_v4(base + L::WM_OFF + dx * L::WM_TILE + swz_cw<CW>(n, ch), v);
       }
-      for (int i = ct; i < np * HG * 8 * 4; i += 128 * NCONS) {  // w2: tile (p, h) holds head h's row h
-        const int ch = i % 4, n = (i / 4) % 8, ph = i / 32;
+      // w2: tile (h, jc) holds features 16 jc .. of head h in its row h % 8
+      for (int i = ct; i < np * HG * NC2 * 8 * 4; i += 128 * NCONS) {
+        const int ch = i % 4, n = (i / 4) % 8, t = i / 32, ph = t / NC2, jc = t % NC2;
         uint4 v = make_uint4(0u, 0u, 0u, 0u);
         if (n == ph % HG && ch < 2)
-          v = *reinterpret_cast<const uint4*>(w2 + (long long)(PH * q + ph) * C2 + ch * 8);
-        st_shared_v4(base + L::W2_OFF + ph * W2_TILE + swz64(n, ch), v);
+          v = *reinterpret_cast<const uint4*>(w2 + (long long)(PH * q + ph) * C2 + C2G * jc +
+                                              ch * 8);
+        st_shared_v4(base + L::W2_OFF + t * W2_TILE + swz64(n, ch), v);
       }
       float* b1w = reinterpret_cast<float*>(base_ptr + L::B1_OFF);
       float* b2w = reinterpret_cast<float*>(base_ptr + L::B2_OFF);
@@ -536,12 +593,18 @@ __global__ void __launch_bounds__(THREADS, 1)
 
       {  // the gates of the two side columns: edge-stage row i is halo row i of
          // column x0 - 1 (i < HR) or halo row i - HR of column x0 + 64
-        unsigned ae[2][4];
+        // A stage is released only once the products that read its
+        // fragments are done: an ldmatrix's shared-memory read can still be
+        // in flight at the instructions after it, and the producer's TMA
+        // refills a released stage at once (with the two stages of 64
+        // channels it overwrote the first rows under the loads: an item's
+        // top-left outputs then differed from run to run on an H100)
+        unsigned ae[KSTEPS][4];
         const int st = take(ae, 0);
-        mbar_arrive(empty(c, st));
         ++it;
-        pass_gates<PG>(ae, np, base + L::W1_OFF, base + L::W2_OFF, b1s, b2s, tig,
+        pass_gates<PG, CW, NC2>(ae, np, base + L::W1_OFF, base + L::W2_OFF, b1s, b2s, tig,
                        edgeg + i0 * GP, edgeg + (i0 + 8) * GP);
+        mbar_arrive(empty(c, st));
       }
 
       // the running output rows: the one above the halo row (prv), its own
@@ -557,22 +620,21 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int y = w.y0 - 1 + r;
         const bool in = y >= 0 && y < H;  // rows outside the image contribute 0
         float* rg = rowg + (r & 1) * ROW_PX * GP;
-        unsigned af[3][2][4];             // x of the pixels one to the left, own, one to the right
+        unsigned af[3][KSTEPS][4];        // x of the pixels one to the left, own, one to the right
         int st = 0;                       // the halo row's stage, held until its taps
         if (in) {
           st = take(af[1], 1);
-          pass_gates<PG>(af[1], np, base + L::W1_OFF, base + L::W2_OFF, b1s, b2s, tig,
+          pass_gates<PG, CW, NC2>(af[1], np, base + L::W1_OFF, base + L::W2_OFF, b1s, b2s, tig,
                          rg + (i0 + 1) * GP, rg + (i0 + 9) * GP);
         }
         sync_store();  // the row's gates are in rg; the last output row leaves
         if (in) {
-          const unsigned sb = ring + st * STAGE_STRIDE;
+          const unsigned sb = ring + st * L::STAGE_STRIDE;
 #pragma unroll
           for (int dx = 0; dx < 3; dx += 2)
 #pragma unroll
-            for (int kk = 0; kk < 2; ++kk)
-              ldmatrix_x4(af[dx][kk], sb + swz64(lrow + dx, 2 * kk + lchunk));
-          mbar_arrive(empty(c, st));
+            for (int kk = 0; kk < KSTEPS; ++kk)
+              ldmatrix_x4(af[dx][kk], sb + swz_cw<CW>(lrow + dx, 2 * kk + lchunk));
           ++it;
           // neighbour (pixel i + dx - 1)'s gate row: rg's row i + dx, where
           // rows 0 and 65 are the side columns
@@ -589,17 +651,18 @@ __global__ void __launch_bounds__(THREADS, 1)
             }
           // dx by dx, the next dx's products running while this one's are summed
           float tm[2][12 * PG];
-          taps_issue(tm[0], af[0], base + L::WM_OFF);
-          taps_issue(tm[1], af[1], base + L::WM_OFF + L::WM_TILE);
+          taps_issue<CW>(tm[0], af[0], base + L::WM_OFF);
+          taps_issue<CW>(tm[1], af[1], base + L::WM_OFF + L::WM_TILE);
           wgmma_wait<1>();
           taps_sum(tm[0], gsrc[0], np, nxt, cur, prv);
-          taps_issue(tm[0], af[2], base + L::WM_OFF + 2 * L::WM_TILE);
+          taps_issue<CW>(tm[0], af[2], base + L::WM_OFF + 2 * L::WM_TILE);
           wgmma_wait<1>();
           taps_sum(tm[1], gsrc[1], np, nxt, cur, prv);
           wgmma_wait<0>();
           taps_sum(tm[0], gsrc[2], np, nxt, cur, prv);
 #pragma unroll
           for (int dx = 0; dx < 3; ++dx) keep_frags(af[dx]);
+          mbar_arrive(empty(c, st));  // every product of its fragments is done
         }
 
         if (r >= 2) {  // output row y - 1 is complete: bias, activation, one rounding, staged
@@ -655,14 +718,18 @@ int sm_count() {
   return n;
 }
 
-template <int PG>
+template <int PG, int CW, int NC2>
 int launch_ws(const Args& a, cudaStream_t st) {
-  constexpr int PH = Layout<PG>::PH;
+  using L = Layout<PG, CW, NC2>;
+  constexpr int PH = L::PH;
+  constexpr CUtensorMapSwizzle SW = CW == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : CW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
   CUtensorMap xrow, xcol, om;
-  const long long xd[4] = {C, a.W, a.H, a.B};
-  const long long xs[3] = {C, (long long)C * a.W, (long long)C * a.W * a.H};
-  int err = encode_4d_bf16(&xrow, a.x, xd, xs, {C, ROW_PX, 1, 1}, CU_TENSOR_MAP_SWIZZLE_64B);
-  if (!err) err = encode_4d_bf16(&xcol, a.x, xd, xs, {C, 1, HR, 1}, CU_TENSOR_MAP_SWIZZLE_64B);
+  const long long xd[4] = {CW, a.W, a.H, a.B};
+  const long long xs[3] = {CW, (long long)CW * a.W, (long long)CW * a.W * a.H};
+  int err = encode_4d_bf16(&xrow, a.x, xd, xs, {CW, ROW_PX, 1, 1}, SW);
+  if (!err) err = encode_4d_bf16(&xcol, a.x, xd, xs, {CW, 1, HR, 1}, SW);
   const int tma_out = a.K % 8 == 0;
   memset(&om, 0, sizeof om);
   if (!err && tma_out) {
@@ -673,39 +740,54 @@ int launch_ws(const Args& a, cudaStream_t st) {
   }
   if (err) return err;
   const cudaError_t e = cudaFuncSetAttribute(
-      heads_ws_kernel<PG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Layout<PG>::SMEM);
+      heads_ws_kernel<PG, CW, NC2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
   if (e != cudaSuccess) return (int)e;
   const long long items = (long long)a.B * ((a.H + TH - 1) / TH) * ((a.W + TW - 1) / TW);
   if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const long long want = (items + NCONS - 1) / NCONS;
   const int grid = (int)(want < sm_count() ? want : sm_count());
-  heads_ws_kernel<PG><<<grid, THREADS, Layout<PG>::SMEM, st>>>(xrow, xcol, om, a, tma_out);
+  heads_ws_kernel<PG, CW, NC2><<<grid, THREADS, L::SMEM, st>>>(xrow, xcol, om, a, tma_out);
   return (int)cudaGetLastError();
 }
 
-// Passes of 24 heads where they take fewer passes over the image than passes
-// of 16 (19 markers: one pass, not two), else of 16 (the fewer registers)
+// At 32 channels and 16 gate features, passes of 24 heads where they take
+// fewer passes over the image than passes of 16 (19 markers: one pass, not
+// two), else of 16 (the fewer registers); other widths in passes of 16
 int launch_bf16(const Args& a, cudaStream_t st) {
   const int kp = padded_heads(a.K);
-  return (kp + 23) / 24 < (kp + 15) / 16 ? launch_ws<3>(a, st) : launch_ws<2>(a, st);
+  const int nc2 = a.C2 / C2G;
+  if (a.C == 32 && nc2 == 1)
+    return (kp + 23) / 24 < (kp + 15) / 16 ? launch_ws<3, 32, 1>(a, st)
+                                           : launch_ws<2, 32, 1>(a, st);
+  if (a.C == 16) return nc2 == 1 ? launch_ws<2, 16, 1>(a, st) : launch_ws<2, 16, 2>(a, st);
+  if (a.C == 32) return launch_ws<2, 32, 2>(a, st);
+  return nc2 == 1 ? launch_ws<2, 64, 1>(a, st) : launch_ws<2, 64, 2>(a, st);
 }
 
 // ---- f32 (tests): scalar FMAs on 8 x 8 output tiles -------------------------
 
-constexpr int FG = 16;                  // heads per block
-constexpr int NG = FG * C2;             // 256 gate features
-constexpr int NM = 9 * FG;              // 144 tap columns, t*FG + k
 constexpr int FT = 8;                   // output tile side
 constexpr int FH = FT + 2;              // halo tile side
 constexpr int FTHREADS = 256;
-constexpr int LDX = C + 1;              // f32 x row stride: conflict-free column reads
 
-constexpr size_t SMEM_F32 =
-    ((size_t)FH * FH * LDX + (size_t)(NG + NM) * C + FG * C2 + NG + 2 * FG + (size_t)FH * FH * NM) *
-    sizeof(float);
+// The f32 kernel at C channels and C2 gate features a head: FG heads a
+// block (8 at 64 channels with 32 features, so that the weights fit)
+template <int C, int C2>
+struct F32 {
+  static constexpr int FG = C * C2 >= 64 * 32 ? 8 : 16;  // heads per block
+  static constexpr int NG = FG * C2;                      // gate features: 256 at 32 / 16
+  static constexpr int NM = 9 * FG;                       // tap columns, t*FG + k
+  static constexpr int LDX = C + 1;                       // f32 x row stride: conflict-free reads
+  static constexpr size_t SMEM = ((size_t)FH * FH * LDX + (size_t)(NG + NM) * C + FG * C2 + NG +
+                                  2 * FG + (size_t)FH * FH * NM) * sizeof(float);
+  static_assert(SMEM <= 232448, "shared memory");
+};
 
-// blockIdx.x: the output tile; blockIdx.y: heads 16 y .. of the padded KP
+// blockIdx.x: the output tile; blockIdx.y: heads FG y .. of the padded KP
+template <int C, int C2>
 __global__ void __launch_bounds__(FTHREADS) heads_f32_kernel(Args a) {
+  using F = F32<C, C2>;
+  constexpr int FG = F::FG, NG = F::NG, NM = F::NM, LDX = F::LDX;
   extern __shared__ __align__(128) unsigned char smem[];
   float* xs = reinterpret_cast<float*>(smem);  // [FH*FH][LDX]
   float* w1s = xs + FH * FH * LDX;             // [NG][C]
@@ -792,39 +874,49 @@ __global__ void __launch_bounds__(FTHREADS) heads_f32_kernel(Args a) {
   }
 }
 
+template <int C, int C2>
+int launch_f32(const Args& a, cudaStream_t st) {
+  using F = F32<C, C2>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      heads_f32_kernel<C, C2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)a.B * ((a.H + FT - 1) / FT) * ((a.W + FT - 1) / FT);
+  const int groups = ((a.K + 7) / 8 * 8 + F::FG - 1) / F::FG;
+  if (tiles > 0x7fffffffLL || groups > 65535) return (int)cudaErrorInvalidValue;
+  heads_f32_kernel<C, C2><<<dim3((unsigned)tiles, (unsigned)groups), FTHREADS, F::SMEM, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
 int launch(bool bf16, const Args& a, void* stream) {
-  if (a.B < 1 || a.H < 1 || a.W < 1 || a.K < 1 || a.act < 0 || a.act > 2)
+  if (a.B < 1 || a.H < 1 || a.W < 1 || a.K < 1 || a.act < 0 || a.act > 2 ||
+      (a.C != 16 && a.C != 32 && a.C != 64) || (a.C2 != 16 && a.C2 != 32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) return launch_bf16(a, st);
-  const cudaError_t err = cudaFuncSetAttribute(
-      heads_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_F32);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = (long long)a.B * ((a.H + FT - 1) / FT) * ((a.W + FT - 1) / FT);
-  const int groups = ((a.K + 7) / 8 * 8 + FG - 1) / FG;
-  if (tiles > 0x7fffffffLL || groups > 65535) return (int)cudaErrorInvalidValue;
-  heads_f32_kernel<<<dim3((unsigned)tiles, (unsigned)groups), FTHREADS, SMEM_F32, st>>>(a);
-  return (int)cudaGetLastError();
+  if (a.C == 16) return a.C2 == 16 ? launch_f32<16, 16>(a, st) : launch_f32<16, 32>(a, st);
+  if (a.C == 32) return a.C2 == 16 ? launch_f32<32, 16>(a, st) : launch_f32<32, 32>(a, st);
+  return a.C2 == 16 ? launch_f32<64, 16>(a, st) : launch_f32<64, 32>(a, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each returns the cudaError_t of the launch (0 on success). x [B, H, W, 32]
-// and out [B, H, W, K] (any K >= 1) are contiguous and 16-byte aligned; the
-// weights are the padded (K rounded up to 8 heads), output-major, contiguous
-// tensors of ops/seg_heads.py::_padded_weights, 16-byte aligned.
+// Each returns the cudaError_t of the launch (0 on success). x [B, H, W, C]
+// (C = 16, 32 or 64) and out [B, H, W, K] (any K >= 1) are contiguous and
+// 16-byte aligned; the weights are the padded (K rounded up to 8 heads, C2 =
+// 16 or 32 gate features a head), output-major, contiguous tensors of
+// ops/seg_heads.py::_padded_weights, 16-byte aligned.
 int k3_seg_heads_bf16(const void* x, const void* w1t, const void* b1, const void* w2,
                       const void* b2, const void* wmt, const void* bf, void* out, int B, int H,
-                      int W, int K, int act, void* stream) {
-  return launch(true, {x, w1t, b1, w2, b2, wmt, bf, out, B, H, W, K, act}, stream);
+                      int W, int K, int act, int C, int C2, void* stream) {
+  return launch(true, {x, w1t, b1, w2, b2, wmt, bf, out, B, H, W, K, act, C, C2}, stream);
 }
 
 int k3_seg_heads_f32(const void* x, const void* w1t, const void* b1, const void* w2,
                      const void* b2, const void* wmt, const void* bf, void* out, int B, int H,
-                     int W, int K, int act, void* stream) {
-  return launch(false, {x, w1t, b1, w2, b2, wmt, bf, out, B, H, W, K, act}, stream);
+                     int W, int K, int act, int C, int C2, void* stream) {
+  return launch(false, {x, w1t, b1, w2, b2, wmt, bf, out, B, H, W, K, act, C, C2}, stream);
 }
 
 const char* k3_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -197,6 +197,25 @@ def load_strict(model: torch.nn.Module, state: Dict) -> torch.nn.Module:
     return model
 
 
+def load_vit_encoder(cfg, state: Dict, device=None, dtype=torch.float32) -> VisionTransformer:
+    """A foundation ``VisionTransformer`` of ``cfg`` from a timm-layout
+    state dict (the JAX package's ``vit_params_from_torch``), loaded
+    strictly: the position embedding re-gridded to ``cfg``'s grid, plain
+    ``attn.qkv`` names wrapped where the model has LoRA (fresh adapters
+    where the state has none). In eval mode on ``device`` (the card unless
+    the caller asks for the CPU), parameters in ``dtype``."""
+    device = resolve_device(device)
+    model = VisionTransformer(cfg)
+    state = _wrap_qkv_names(dict(state), set(model.state_dict()))
+    if "pos_embed" in state and state["pos_embed"].shape != model.pos_embed.shape:
+        n_prefix = 0 if cfg.no_embed_class else cfg.num_prefix_tokens
+        state["pos_embed"] = resample_pos_embed(state["pos_embed"].float(), cfg.grid_size,
+                                                n_prefix)
+    _init_missing_lora(state, cfg, "")
+    load_strict(model, state)
+    return cast_params(model.to(device).eval(), dtype)
+
+
 def imports_reference_checkpoint(model: torch.nn.Module) -> bool:
     """Whether ``load_generator`` imports a reference-layout checkpoint into
     ``model``'s family: the flagship and the UNETR on a ViT, as the JAX

@@ -15,15 +15,18 @@ The counterparts of the JAX package's ``mipheivit_tpu/ops/attention.py``:
 The plain versions' f32 arithmetic is f64 for f64 operands (the f64
 checks of the training step).
 
-Dispatch is by device and length. A CPU tensor runs the plain versions:
-``attention_reference`` for S <= 512, ``flash_reference`` above, and
-``short_attention_reference`` for ``dot_product_attention`` up to 512. A
-CUDA tensor launches K1 (``csrc/attention.cu``) for S <= 512 and K4
-(``csrc/flash_attention.cu``) above; ``dot_product_attention`` launches K6
-(``csrc/attention.cu``'s second entry point) up to 512 and K4 above; or
-raises. There is no fallback from a kernel to a plain version. (The JAX
-package sends 512 < S <= 2048 to XLA on the TPU after a TPU measurement; on
-the card the kernels serve every length.)
+Dispatch is by shape, then by device. Up to 512 tokens at a head dim up
+to 64, a CUDA tensor launches K1 (``csrc/attention.cu``), and
+``dot_product_attention`` launches K6 (``csrc/attention.cu``'s second entry
+point); above 512 tokens, or at a head dim from 65 to 128 at any length,
+both launch K4 (``csrc/flash_attention.cu``), whose backward is K5. A CPU
+tensor runs the same routes' plain versions: ``attention_reference``,
+``short_attention_reference``, ``flash_reference``. There is no fallback
+from a kernel to a plain version: a CUDA tensor launches or raises. (The
+JAX package sends 512 < S <= 2048 to XLA on the TPU after a TPU
+measurement; on the card the kernels serve every length. K1 and K6 hold
+the whole sequence's K and V in shared memory, which at S = 512 and a head
+dim of 128 would be 256 KB in bf16: those heads take K4 instead.)
 
 K1 and K6 compute the softmax in two different orders, as the TPU kernels
 do: K1 rounds ``exp(s - max)`` to v's dtype and divides the output by the
@@ -41,20 +44,23 @@ called with grad enabled on tensors that require it outside these
 Functions, and on any shape or dtype they do not take (any dtype but bf16
 and f32), so the entry points raise there on the card.
 
-Head dims. The kernels compute heads of 64. Any head dim from 1 to 63
-(the JAX entry points serve every one: their kernels those that are
-multiples of 8, XLA the rest) reaches them zero-padded to 64
-(``pad_heads``), with the scale ``1/sqrt(D)`` of its own D, and the output
-(the gradients) sliced back (``unpad_heads``). This is exact: the zero
-columns add nothing to ``q . k^T``, the padded columns of out, dq, dk and
-dv come out 0, and the lse and ``rowsum(dO * O)`` do not change. It costs a
-padded copy of each operand. Head dims above 64 raise on the card before
-any launch; on the CPU the plain versions take any head dim.
+Head dims. K1 and K6 compute heads of 64; K4 and K5 have an instance for
+heads of 64 and one for heads of 128. Any head dim from 1 to 63 (the JAX
+entry points serve every one: their kernels those that are multiples of 8,
+XLA the rest) reaches a 64-wide kernel zero-padded to 64, and any from 65
+to 127 the 128-wide instance zero-padded to 128 (``pad_heads``), with the
+scale ``1/sqrt(D)`` of its own D, and the output (the gradients) sliced back
+(``unpad_heads``). This is exact: the zero columns add nothing to ``q .
+k^T``, the padded columns of out, dq, dk and dv come out 0, and the lse and
+``rowsum(dO * O)`` do not change. It costs a padded copy of each operand.
+Head dims above 128 raise on the card before any launch; on the CPU the
+plain versions take any head dim.
 
 Strides. K6's bf16 kernel reads q, k and v through TMA, which needs 16-byte
 aligned bases and batch, head and row strides: an operand without them is
 copied contiguous first (``_tma_ready``). K1, K4 and K5 raise on such
-operands at head dim 64 (below it the padded copy is aligned).
+operands at head dim 64 and 128 (at other head dims the padded copy is
+aligned).
 """
 
 from __future__ import annotations
@@ -69,7 +75,8 @@ import torch.nn.functional as F
 from .. import _build
 
 MAX_SEQ = 512   # K1's whole-sequence limit, as the TPU kernel's (_MAX_BLOCK)
-HEAD_DIM = 64   # the kernels' head dim; smaller head dims are padded to it
+HEAD_DIM = 64   # K1's and K6's head dim; smaller head dims are padded to it
+MAX_HEAD_DIM = 128  # K4's and K5's wide instance; 65 to 127 are padded to it
 
 # Kernel launches since the last reset, counted where each kernel is launched:
 # "attention" is K1, "flash" is K4, "flash_bwd" is K5 (its kernels, one
@@ -86,24 +93,31 @@ def _scale_log2(d: int) -> float:
     return math.log2(math.e) / math.sqrt(d)
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head dim of the kernel instance that takes heads of d: 64 up to
+    64, 128 from 65 to 128 (larger ones raise on the card)."""
+    return HEAD_DIM if d <= HEAD_DIM else MAX_HEAD_DIM
+
+
 def pad_heads(t, num_heads: int):
-    """``[B, S, H*D]`` -> ``[B, S, H*64]``: each head's D values, then zeros
-    (a new tensor; ``t`` itself at D = 64)."""
+    """``[B, S, H*D]`` -> ``[B, S, H*W]`` with W = ``kernel_head_dim(D)``:
+    each head's D values, then zeros (a new tensor; ``t`` itself at D = W)."""
     b, s, hd = t.shape
     d = hd // num_heads
-    if d == HEAD_DIM:
+    w = kernel_head_dim(d)
+    if d == w:
         return t
-    return F.pad(t.reshape(b, s, num_heads, d), (0, HEAD_DIM - d)).reshape(
-        b, s, num_heads * HEAD_DIM)
+    return F.pad(t.reshape(b, s, num_heads, d), (0, w - d)).reshape(b, s, num_heads * w)
 
 
 def unpad_heads(t, num_heads: int, d: int):
-    """``[B, S, H*64]`` -> ``[B, S, H*D]``: the first d values of each head
-    (``pad_heads`` undone; ``t`` itself at D = 64)."""
-    if d == HEAD_DIM:
+    """``[B, S, H*W]`` -> ``[B, S, H*D]``: the first d values of each head
+    (``pad_heads`` undone; ``t`` itself at D = W)."""
+    w = kernel_head_dim(d)
+    if d == w:
         return t
     b, s, _ = t.shape
-    return t.view(b, s, num_heads, HEAD_DIM)[..., :d].reshape(b, s, num_heads * d)
+    return t.view(b, s, num_heads, w)[..., :d].reshape(b, s, num_heads * d)
 
 
 def _acc(t) -> torch.dtype:
@@ -254,9 +268,9 @@ def attention_qkv(qkv, num_heads: int):
 
 def attention_bshd(q, k, v, num_heads: int):
     """Attention over q/k/v ``[B, S, H*D]`` (any row stride) -> ``[B, S, H*D]``:
-    K1 (or its plain version) up to 512 tokens, K4 (or its plain version)
-    above."""
-    if q.shape[1] > MAX_SEQ:
+    K1 (or its plain version) up to 512 tokens at a head dim up to 64, K4
+    (or its plain version) above 512 tokens or at a head dim above 64."""
+    if q.shape[1] > MAX_SEQ or q.shape[-1] > HEAD_DIM * num_heads:
         return flash_attention(q, k, v, num_heads)[0]
     _device_type(q, k, v)
     return _Attention.apply(q, k, v, num_heads)
@@ -265,16 +279,17 @@ def attention_bshd(q, k, v, num_heads: int):
 def dot_product_attention(q, k, v):
     """Softmax attention over q, k, v ``[B, H, S, D]`` (any strides) ->
     ``[B, H, S, D]``, the counterpart of ``dot_product_attention(impl=
-    "flash")``. Up to 512 tokens: K6 on the card (``short_attention_reference``
-    on the CPU), with the plain f32 recompute backward. Above: K4 with K5 as
-    its backward (their plain versions on the CPU), after the change of
-    layout to ``[B, S, H*D]``. Differentiable in q, k and v."""
+    "flash")``. Up to 512 tokens at a head dim up to 64: K6 on the card
+    (``short_attention_reference`` on the CPU), with the plain f32 recompute
+    backward. Above 512 tokens or 64: K4 with K5 as its backward (their
+    plain versions on the CPU), after the change of layout to ``[B, S,
+    H*D]``. Differentiable in q, k and v."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"dot_product_attention takes q, k, v [B, H, S, D] of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     _device_type(q, k, v)
     b, h, s, d = q.shape
-    if s <= MAX_SEQ:
+    if s <= MAX_SEQ and d <= HEAD_DIM:
         return _ShortAttention.apply(q, k, v)
     out = flash_attention(_token_major(q), _token_major(k), _token_major(v), h)[0]
     return out.view(b, s, h, d).transpose(1, 2)
@@ -386,7 +401,7 @@ def _flash_library():
     lib = _build.load("flash_attention")
     for fn in (lib.k4_flash_bf16, lib.k4_flash_f32):
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 6
-                       + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.k4_error_string.argtypes = [ctypes.c_int]
     lib.k4_error_string.restype = ctypes.c_char_p
@@ -397,10 +412,10 @@ def _flash_library():
 def _flash_bwd_library():
     lib = _build.load("flash_attention_bwd")
     lib.k5_flash_bwd_bf16.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 10
-                                      + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                                      + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
                                       + [ctypes.c_void_p])
     lib.k5_flash_bwd_f32.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 8
-                                     + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                                     + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
                                      + [ctypes.c_void_p])
     for fn in (lib.k5_flash_bwd_bf16, lib.k5_flash_bwd_f32):
         fn.restype = ctypes.c_int
@@ -409,10 +424,11 @@ def _flash_bwd_library():
     return lib
 
 
-def _check_operands(name: str, q, k, v, num_heads: int, *more) -> int:
+def _check_operands(name: str, q, k, v, num_heads: int, *more,
+                    max_head_dim: int = HEAD_DIM) -> int:
     """What K1, K4 and K5 need of q/k/v (and K5 of dO) ``[B, S, H*D]``, and
-    K6 of q/k/v ``[B, H, S, D]`` (``num_heads`` 1: the last dim is D).
-    Returns the head dim D."""
+    K6 of q/k/v ``[B, H, S, D]`` (``num_heads`` 1: the last dim is D): head
+    dims up to ``max_head_dim``. Returns the head dim D."""
     ts = (q, k, v) + more
     if len({t.device for t in ts}) != 1:
         raise ValueError("q, k and v lie on different devices")
@@ -422,9 +438,9 @@ def _check_operands(name: str, q, k, v, num_heads: int, *more) -> int:
                          f"{', '.join(str(t.dtype) for t in ts)}")
     hd = q.shape[-1]
     d = hd // num_heads
-    if hd % num_heads or not 1 <= d <= HEAD_DIM:
-        raise ValueError(f"{name} takes a head dim from 1 to {HEAD_DIM} (below {HEAD_DIM} "
-                         f"zero-padded to it), got {hd}/{num_heads}")
+    if hd % num_heads or not 1 <= d <= max_head_dim:
+        raise ValueError(f"{name} takes a head dim from 1 to {max_head_dim} (zero-padded to "
+                         f"{HEAD_DIM} or {MAX_HEAD_DIM}), got {hd}/{num_heads}")
     if any(t.stride(-1) != 1 for t in ts):
         raise ValueError(f"{name} needs a unit stride on the last dimension")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
@@ -522,19 +538,20 @@ def _flash_cuda(q, k, v, num_heads: int, seq_len_k: int | None):
     if sq < 1 or not 1 <= seq_len_k <= sk:
         raise ValueError(f"K4 takes Sq >= 1 and 1 <= seq_len_k <= Sk, got "
                          f"Sq={sq}, seq_len_k={seq_len_k}, Sk={sk}")
-    d = _check_operands("K4", q, k, v, num_heads)
+    d = _check_operands("K4", q, k, v, num_heads, max_head_dim=MAX_HEAD_DIM)
     q, k, v = (pad_heads(t, num_heads) for t in (q, k, v))
     _check_aligned("K4", q, k, v)
+    kd = kernel_head_dim(d)
 
     lib = _flash_library()
     fn = lib.k4_flash_bf16 if q.dtype == torch.bfloat16 else lib.k4_flash_f32
-    out = torch.empty((b, sq, num_heads * HEAD_DIM), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, num_heads * kd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, num_heads, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                  q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                 v.stride(0), v.stride(1), b, sq, sk, seq_len_k, num_heads,
+                 v.stride(0), v.stride(1), b, sq, sk, seq_len_k, num_heads, kd,
                  _scale_log2(d), stream)
     if err != 0:
         raise RuntimeError(f"K4 flash attention launch failed: "
@@ -558,13 +575,14 @@ def _flash_bwd_cuda(q, k, v, out, lse, dout, num_heads: int, seq_len_k: int | No
         raise ValueError(f"K5 takes 1 <= seq_len_k <= Sk, got {seq_len_k}, Sk={sk}")
     if dout.stride(-1) != 1 or dout.stride(1) != hd or dout.data_ptr() % 16:
         dout = dout.contiguous()
-    d = _check_operands("K5", q, k, v, num_heads, dout)
+    d = _check_operands("K5", q, k, v, num_heads, dout, max_head_dim=MAX_HEAD_DIM)
     if out.dtype != q.dtype:
         raise ValueError(f"K5 takes K4's output in q's dtype, got {out.dtype} and {q.dtype}")
     lse = lse.contiguous()
     q, k, v, out, dout = (pad_heads(t, num_heads) for t in (q, k, v, out, dout))
     _check_aligned("K5", q, k, v, dout)
-    hd = num_heads * HEAD_DIM
+    kd = kernel_head_dim(d)
+    hd = num_heads * kd
 
     lib = _flash_bwd_library()
     dq = torch.empty((b, sq, hd), dtype=q.dtype, device=q.device)
@@ -587,13 +605,13 @@ def _flash_bwd_cuda(q, k, v, out, lse, dout, num_heads: int, seq_len_k: int | No
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                 lse.data_ptr(), ws.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), *strides[:6], out.stride(0), out.stride(1), *strides[6:], b, sq,
-                sk, seq_len_k, num_heads, *scales, stream)
+                sk, seq_len_k, num_heads, kd, *scales, stream)
         else:
             delta = _delta(out, dout, num_heads)
             err = lib.k5_flash_bwd_f32(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                *strides, b, sq, sk, seq_len_k, num_heads, *scales, stream)
+                *strides, b, sq, sk, seq_len_k, num_heads, kd, *scales, stream)
     if err != 0:
         raise RuntimeError(f"K5 flash attention backward launch failed: "
                            f"{lib.k5_error_string(err).decode()} ({err})")

@@ -15,10 +15,11 @@ answers (through its kernel or its chain): K8 (``csrc/attn_block.cu``) for
 zero bias of each head (exact; the scale stays that of the head's own Dh),
 and D not a multiple of 8 zero-padded to one (zero columns of x and w, zero
 LayerNorm scale and bias there, the row statistics over the true D: exact);
-above 1024 tokens K7 -> K4, ``ln_matmul`` then ``attention_qkv``, the
-structure of the JAX chain with every launch a kernel. Head dims above 64
-and empty shapes raise on the card before any launch. K8 computes the TPU
-kernel's function:
+above 1024 tokens, and at head dims from 65 to 128 at any length, K7 ->
+K4, ``ln_matmul`` then ``attention_qkv`` (K4's 128-wide instance for those
+heads), the structure of the JAX chain with every launch a kernel. Head
+dims above 128 and empty shapes raise on the card before any launch. K8
+computes the TPU kernel's function:
 the LN rows rounded to x's dtype, ``q|k|v`` with the f32 bias inside the f32
 accumulation and one rounding, ``exp2`` of the log2-scaled logits, the exact
 row max, the f32 row sum, ``p`` rounded to v's dtype and the division after
@@ -26,7 +27,7 @@ row max, the f32 row sum, ``p`` rounded to v's dtype and the division after
 memory. On CPU tensors the same routes run the plain versions:
 ``chain_reference``, the counterpart of ``_chain_reference``, which rounds
 the bias into qkv in x's dtype and normalises p before ``p . v`` (in bf16
-the two differ by about one rounding), and above 1024 tokens
+the two differ by about one rounding), and on the K7 -> K4 route
 ``ln_matmul`` and ``attention_qkv`` on the CPU.
 
 Training. K8's backward is the vjp of ``chain_reference`` from the saved
@@ -44,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .attention import attention_qkv
+from .attention import MAX_HEAD_DIM, attention_qkv
 from .mlp import kernel_ln_params, ln_matmul, ln_rows, pad_ln_matmul
 
 HEAD_DIM = 64   # K8's head dim; smaller head dims are padded to it
@@ -96,18 +97,23 @@ def pad_head_rows(w, b, num_heads: int):
 
 def route(b: int, s: int, d: int, heads: int, head_dim: int) -> str:
     """The kernels ``ln_qkv_attention`` launches on the card for x ``[b, s,
-    d]`` and ``heads`` heads of ``head_dim``: ``"k8"`` up to 1024 tokens,
-    ``"k7+attention_qkv"`` above (``ln_matmul``, then ``attention_qkv``,
-    which is K4 there), at any D (padded to a multiple of 8). Raises
-    ValueError where no kernel takes the shape: a head dim above 64, an
-    empty shape."""
+    d]`` and ``heads`` heads of ``head_dim``: ``"k8"`` up to 1024 tokens at
+    a head dim up to 64, ``"k7+attention_qkv"`` above 1024 tokens or 64
+    (``ln_matmul``, then ``attention_qkv``, which is K4 there), at any D
+    (padded to a multiple of 8). Raises ValueError where no kernel takes the
+    shape: a head dim above 128, an empty shape. The plain versions on the
+    CPU take the same routes, at any head dim."""
     if min(b, s, d, heads) < 1:
         raise ValueError(f"ln_qkv_attention takes a non-empty x [B, S, D] and H >= 1, got "
                          f"B={b}, S={s}, D={d}, H={heads}")
-    if not 1 <= head_dim <= HEAD_DIM:
-        raise ValueError(f"ln_qkv_attention takes a head dim from 1 to {HEAD_DIM} on the card "
-                         f"(below {HEAD_DIM} padded to it), got {head_dim}")
-    return "k8" if s <= MAX_SEQ else "k7+attention_qkv"
+    if not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"ln_qkv_attention takes a head dim from 1 to {MAX_HEAD_DIM} on the "
+                         f"card (zero-padded to 64 or 128), got {head_dim}")
+    return _route(s, head_dim)
+
+
+def _route(s: int, head_dim: int) -> str:
+    return "k8" if s <= MAX_SEQ and head_dim <= HEAD_DIM else "k7+attention_qkv"
 
 
 def ln_qkv_attention(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float = 1e-6):
@@ -130,7 +136,7 @@ def ln_qkv_attention(x, ln_scale, ln_bias, w, b, num_heads: int, eps: float = 1e
     if devices == {"cuda"}:
         which = route(bsz, s, d, num_heads, head_dim)
     else:  # the plain versions take any D and head dim
-        which = "k8" if s <= MAX_SEQ else "k7+attention_qkv"
+        which = _route(s, head_dim)
     w, b = w.to(x.dtype), b.to(x.dtype)
     if which == "k7+attention_qkv":
         return attention_qkv(ln_matmul(x, ln_scale, ln_bias, w, b, eps), num_heads)

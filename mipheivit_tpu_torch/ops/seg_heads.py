@@ -17,8 +17,18 @@ the activation are f32, and the output is rounded once to x's dtype.
 x is ``[B, C, H, W]`` in channels_last memory (the decoder's layout) and the
 output ``[B, K, H, W]`` channels_last in x's dtype. A CPU tensor runs
 ``seg_heads_reference``; a CUDA tensor launches K3 (``csrc/seg_heads.cu``,
-C = 32 channels, any number of heads, in groups of 8 inside the one launch)
-or raises. K3 has no backward: training
+any number of heads, in groups of 8 inside the one launch) or raises.
+
+Widths. K3 takes C = 16, 32 or 64 channels and C2 = 16 or 32 gate features
+a head; ``pad_seg_heads`` zero-pads any C up to 64 and any C2 up to 32 to
+the next of them (exact: a zero channel of x against zero rows of w1eff
+and wm adds nothing, and a padded feature of g1 is ``relu(0 + 0) = 0``
+against a zero entry of w2). C = 64 is the largest: a 64-channel bf16
+pixel is the widest row one TMA box takes under the 128-byte swizzle, and
+at C = 64, C2 = 32 a pass's weights and the three consumers' rings fill
+the block's 227 KB of shared memory. Above it the entry point raises on
+the card. The decoder's width is ``DetailCapture.fusion_out[-1]`` (32 in
+every shipped preset; C2 = C / 2). K3 has no backward: training
 runs the batch-statistics chain of ``models.mipheivit.BatchedSegHeads``, and
 the raw launcher refuses tensors that need grad while grad is enabled.
 """
@@ -37,7 +47,9 @@ from .. import _build
 launch_counts = {"seg_heads": 0}
 
 _ACTIVATIONS = {None: 0, "tanh": 1, "sigmoid": 2}
-_KERNEL_C, _KERNEL_C2 = 32, 16
+_KERNEL_C = (16, 32, 64)    # the channel widths K3 has instances for
+_KERNEL_C2 = (16, 32)       # its gate features a head, in groups of 16
+MAX_C, MAX_C2 = _KERNEL_C[-1], _KERNEL_C2[-1]
 _HEAD_GROUP = 8     # K3 runs heads in groups of 8: the weights are zero-padded to whole groups
 
 
@@ -110,11 +122,39 @@ def fused_seg_heads(x, w1eff, b1eff, w2, b2, wm, bf, activation="tanh"):
     return _seg_heads_cuda(x, w1eff, b1eff, w2, b2, wm, bf, activation)
 
 
+def _kernel_width(n: int, widths) -> int:
+    return next(w for w in widths if n <= w)
+
+
+def pad_seg_heads(x, w1eff, b1eff, w2, b2, wm, bf):
+    """The operands at K3's widths: x ``[B, C, H, W]`` with its channels
+    zero-padded to the next of 16, 32 and 64 (a new channels_last tensor),
+    and the weights (``fold_heads``'s layout) with C and the C2 gate
+    features of each head zero-padded to the next of 16 and 32. At C = 32,
+    C2 = 16 (every shipped preset) the operands themselves are returned.
+    Raises ValueError above C = 64 or C2 = 32."""
+    c, kc2 = w1eff.shape
+    k = b2.shape[0]
+    c2 = kc2 // k
+    if not 1 <= c <= MAX_C or not 1 <= c2 <= MAX_C2:
+        raise ValueError(f"K3 takes C <= {MAX_C} channels and C2 <= {MAX_C2} gate features a "
+                         f"head (zero-padded to {_KERNEL_C} and {_KERNEL_C2}), got C = {c}, "
+                         f"C2 = {c2}")
+    cp, c2p = _kernel_width(c, _KERNEL_C), _kernel_width(c2, _KERNEL_C2)
+    if (cp, c2p) == (c, c2):
+        return x, w1eff, b1eff, w2, b2, wm, bf
+    dc, dc2 = cp - c, c2p - c2
+    x = F.pad(x.permute(0, 2, 3, 1), (0, dc)).permute(0, 3, 1, 2)  # channels_last memory
+    w1eff = F.pad(w1eff.reshape(c, k, c2), (0, dc2, 0, 0, 0, dc)).reshape(cp, k * c2p)
+    b1eff = F.pad(b1eff.reshape(k, c2), (0, dc2)).reshape(k * c2p)
+    return x, w1eff, b1eff, F.pad(w2, (0, dc2)), b2, F.pad(wm, (0, 0, 0, dc)), bf
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = _build.load("seg_heads")
     for fn in (lib.k3_seg_heads_bf16, lib.k3_seg_heads_f32):
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.k3_error_string.argtypes = [ctypes.c_int]
     lib.k3_error_string.restype = ctypes.c_char_p
@@ -154,13 +194,12 @@ def _seg_heads_cuda(x, w1eff, b1eff, w2, b2, wm, bf, activation):
     if x.dtype not in (torch.bfloat16, torch.float32) or any(t.dtype != x.dtype for t in ts):
         raise ValueError(f"K3 takes bf16 or f32 x and weights of one dtype, got "
                          f"{', '.join(str(t.dtype) for t in ts)}")
-    if c != _KERNEL_C or k < 1:
-        raise ValueError(f"K3 takes C = {_KERNEL_C} channels and at least one head, "
-                         f"got C = {c}, K = {k}")
-    if (w1eff.shape != (c, k * _KERNEL_C2) or b1eff.shape != (k * _KERNEL_C2,)
-            or w2.shape != (k, _KERNEL_C2) or b2.shape != (k,) or wm.shape != (c, 9 * k)
-            or bf.shape != (k,)):
-        raise ValueError(f"K3 takes w1eff [C, K*16], b1eff [K*16], w2 [K, 16], b2 [K], "
+    if k < 1:
+        raise ValueError(f"K3 takes at least one head, got K = {k}")
+    c2 = w2.shape[-1]
+    if (w1eff.shape != (c, k * c2) or b1eff.shape != (k * c2,) or w2.shape != (k, c2)
+            or b2.shape != (k,) or wm.shape != (c, 9 * k) or bf.shape != (k,)):
+        raise ValueError(f"K3 takes w1eff [C, K*C2], b1eff [K*C2], w2 [K, C2], b2 [K], "
                          f"wm [C, 9K], bf [K], got {[tuple(t.shape) for t in ts[1:]]}")
     if activation not in _ACTIVATIONS:
         raise ValueError(f"K3 takes activation in {sorted(map(str, _ACTIVATIONS))}, "
@@ -168,6 +207,7 @@ def _seg_heads_cuda(x, w1eff, b1eff, w2, b2, wm, bf, activation):
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise ValueError("K3 has no backward; it runs with grad disabled or on tensors that "
                          "need none (training runs BatchedSegHeads' batch-statistics chain)")
+    x, w1eff, b1eff, w2, b2, wm, bf = pad_seg_heads(x, w1eff, b1eff, w2, b2, wm, bf)
     if x.data_ptr() % 16:
         raise ValueError("K3 needs a 16-byte aligned x")
     weights = _padded_weights(w1eff, b1eff, w2, b2, wm, bf)
@@ -179,7 +219,7 @@ def _seg_heads_cuda(x, w1eff, b1eff, w2, b2, wm, bf, activation):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), *(t.data_ptr() for t in weights), out.data_ptr(),
-                 b, h, w, k, _ACTIVATIONS[activation], stream)
+                 b, h, w, k, _ACTIVATIONS[activation], x.shape[1], w2.shape[-1], stream)
     if err != 0:
         raise RuntimeError(f"K3 seg heads launch failed: {lib.k3_error_string(err).decode()} "
                            f"({err})")

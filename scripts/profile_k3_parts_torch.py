@@ -43,18 +43,19 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from scripts.profile_attention_torch import device_ms  # noqa: E402
 
-PSI_MMA = """    wgmma_fence();
+PSI_MMA = """      wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < HG; ++k)
-      wgmma_rs_n8<0>(gp, pa[k], smem_desc64(w2_s + (p * HG + k) * W2_TILE), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
+      for (int k = 0; k < HG; ++k)
+        wgmma_rs_n8<0>(gp, pa[k], smem_desc64(w2_s + ((p * HG + k) * NC2 + jc) * W2_TILE), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
 """
-G1 = """    wgmma_rs_n128<0>(acc, a[0], smem_desc64(w1_s + p * W1_TILE), 1);
-    wgmma_rs_n128<0>(acc, a[1], smem_desc64(w1_s + p * W1_TILE + 32), 1);
+G1 = """#pragma unroll
+      for (int kk = 0; kk < L::KSTEPS; ++kk)
+        wgmma_rs_n128<0>(acc, a[kk], desc_cw<CW>(w1_s + (p * NC2 + jc) * L::W1_TILE + 32 * kk), 1);
 """
-TAPS = ("taps_issue(tm[", "taps_sum(tm[")
-GATES = ("pass_gates<PG>(af[1], ", "pass_gates<PG>(ae, ")
+TAPS = ("taps_issue<CW>(tm[", "taps_sum(tm[")
+GATES = ("pass_gates<PG, CW, NC2>(af[1], ", "pass_gates<PG, CW, NC2>(ae, ")
 
 
 def versions(src: str) -> dict:
@@ -99,11 +100,13 @@ def main():
             entry, notes = None, {}
             for ln in proc.stderr.splitlines():
                 if "Compiling entry function" in ln:
-                    entry = ln.split("heads_ws_kernelILi")[1][0] if "heads_ws_kernel" in ln else None
+                    # the template arguments <PG, CW, NC2>, e.g. "Li2ELi32ELi1E"
+                    entry = (ln.split("heads_ws_kernelI")[1].split("EEv")[0]
+                             if "heads_ws_kernel" in ln else None)
                 elif entry and ("Used" in ln or "spill" in ln or "C75" in ln):
                     notes.setdefault(entry, []).append(ln.split(":", 1)[-1].strip())
             print(f"[k3 parts ptxas] {name}: " + "; ".join(
-                f"PG {pg}: {' | '.join(ns)}" for pg, ns in sorted(notes.items())), flush=True)
+                f"<{args}>: {' | '.join(ns)}" for args, ns in sorted(notes.items())), flush=True)
         return name, so
 
     with ThreadPoolExecutor(len(srcs)) as pool:

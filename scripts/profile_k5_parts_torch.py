@@ -37,11 +37,12 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
-SUM = """        tma_reduce_add_3d(&dqmap, buf, h * D, i * BQ, b);
-        tma_reduce_add_3d(&dqmap, buf + DQ_BYTES / 2, h * D + 32, i * BQ, b);
+SUM = """        for (int bx = 0; bx < D / 32; ++bx)
+          tma_reduce_add_3d(&dqmap, buf + bx * P::DQ_BOX, h * D + 32 * bx, i * BQ, b);
 """
-PRODUCT = ("        wgmma_ss_n64<1, 1>(dq, smem_desc(dsb + kk * 2048), "
-           "smem_desc(k_s + kk * 2048), kk);")
+PRODUCT = """          wgmma_ss_n64<1, 1>(dq[hh], smem_desc(dsb + kk * 2048),
+                             smem_desc(k_s + (kk / 4) * TILE_BYTES + hh * HALF + (kk % 4) * 2048),
+                             kk);"""
 
 
 def versions(src: str) -> dict:
@@ -51,7 +52,7 @@ def versions(src: str) -> dict:
     no_sum = src.replace(SUM, "")
     return {"kernel": src, "no dQ sum": no_sum,
             "no dQ": no_sum.replace(
-                PRODUCT, "        for (int e = 0; e < 4; ++e) dq[4 * kk + e] = 0.f;")}
+                PRODUCT, "          for (int e = 0; e < 4; ++e) dq[hh][4 * (kk % 8) + e] = 0.f;")}
 
 
 def main():

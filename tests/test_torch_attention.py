@@ -288,15 +288,42 @@ def test_head_dims_below_64_on_card(cuda, d, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [80, 128])
+def test_head_dims_80_and_128_on_card(cuda, d, dtype):
+    """Head dims above 64 up to 512 tokens take K4's 128-wide instance (K1
+    holds heads up to 64; 80 zero-padded to 128, the scale of its own D),
+    held against K1's plain version at that D as above, with one K4
+    launch and no K1 launch."""
+    qkv = torch.from_numpy(_qkv(4, 329, 3, d=d, seed=d)).to(cuda, dtype)
+    with torch.inference_mode():
+        before = dict(port.launch_counts)
+        got = port.attention_qkv(qkv, 3)
+        torch.cuda.synchronize()
+        assert port.launch_counts["flash"] == before["flash"] + 1
+        assert port.launch_counts["attention"] == before["attention"]
+        want = port.attention_reference(*qkv.chunk(3, dim=-1), 3)
+    assert got.shape == (4, 329, 3 * d) and got.dtype == dtype
+    err = got.float() - want.float()
+    if dtype == torch.float32:
+        assert err.abs().max() <= 1e-4
+    else:
+        assert err.abs().max() <= 2e-2 * want.float().abs().max()
+        assert err.norm() <= 1e-2 * want.float().norm()
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
     qkv = torch.zeros((1, 40, 3 * 128), device=cuda)
     with pytest.raises(ValueError, match="S <= 512"):   # longer sequences are K4's
         port._attention_cuda(*torch.zeros((1, 513, 3 * 128), device=cuda).chunk(3, -1), 2)
+    with pytest.raises(ValueError, match="head dim"):   # 128: above K1's 64 (K4's route)
+        port._attention_cuda(*qkv.chunk(3, -1), 1)
     launches = dict(port.launch_counts)
-    with pytest.raises(ValueError, match="head dim"):   # 128: above 64
-        port.attention_qkv(qkv, 1)
-    with pytest.raises(ValueError, match="head dim"):   # 80: above 64
-        port.attention_qkv(torch.zeros((1, 40, 3 * 160), device=cuda), 2)
+    with pytest.raises(ValueError, match="head dim"):   # 136: above 128
+        port.attention_qkv(torch.zeros((1, 40, 3 * 136), device=cuda), 1)
+    with pytest.raises(ValueError, match="head dim"):   # 136: above 128
+        port.attention_qkv(torch.zeros((1, 40, 3 * 272), device=cuda), 2)
     assert port.launch_counts == launches
     with pytest.raises(ValueError, match="bf16 or f32"):
         port.attention_qkv(qkv.half(), 2)

@@ -137,16 +137,17 @@ def test_outside_the_gate_matches_jax_entry_point(s, d, heads):
     ((1, 329, 100, 2, 64), "k8"),                      # D not a multiple of 8: padded
     ((2, 37, 4, 1, 8), "k8"),                          # D below 8
     ((1, 1100, 100, 2, 32), "k7+attention_qkv"),
-    ((1, 329, 1536, 12, 128), ValueError),             # head dim above 64
-    ((1, 329, 1536, 24, 80), ValueError),
+    ((1, 329, 1536, 12, 128), "k7+attention_qkv"),     # head dim above 64: K4's 128-wide
+    ((1, 329, 1536, 24, 80), "k7+attention_qkv"),      # instance, padded to 128
     ((0, 329, 1536, 24, 64), ValueError),              # empty
     ((1, 0, 1536, 24, 64), ValueError),
+    ((1, 329, 1632, 12, 136), ValueError),             # head dim above 128
 ])
 def test_route_table(shape, want):
     """The kernels ln_qkv_attention launches on the card by shape: K8 up to
     1024 tokens at any D (padded to a multiple of 8) and any head dim up to
-    64; K7 -> attention_qkv (K4) above; a ValueError where no kernel takes
-    the shape."""
+    64; K7 -> attention_qkv (K4) above 1024 tokens or a head dim of 64, up
+    to 128; a ValueError where no kernel takes the shape."""
     if want is ValueError:
         with pytest.raises(ValueError):
             port.route(*shape)
@@ -507,14 +508,39 @@ def test_long_sequence_at_d_100_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dh", [80, 128])
+def test_head_dims_80_and_128_on_card(cuda, dh):
+    """Heads above 64 take K7, then K4's 128-wide instance (K8 holds heads
+    up to 64), held against the plain chain as above: one launch of each,
+    none of K8."""
+    from mipheivit_tpu_torch.ops import attention
+
+    args = _card_inputs(2, 40, 256, 2, torch.bfloat16, cuda, seed=13, dh=dh)
+    for counts in (port.launch_counts, attention.launch_counts, mlp.launch_counts):
+        for key in counts:
+            counts[key] = 0
+    with torch.inference_mode():
+        got = port.ln_qkv_attention(*args, 2)
+        want = port.chain_reference(*args, 2)
+        torch.cuda.synchronize()
+    assert got.shape == (2, 40, 2 * dh) and port.launch_counts["attn_block"] == 0
+    assert mlp.launch_counts["ln_matmul"] == 1 and attention.launch_counts["flash"] == 1
+    rel, fro = _scaled(got, want)
+    assert rel <= BF16_TOL[0] and fro <= BF16_TOL[1], (rel, fro)
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    """What still raises on the card: head dims above 64, other dtypes, a
-    raw launch with grad enabled (D not a multiple of 8 is served, padded:
-    test_kernel_matches_plain_on_card)."""
+    """What still raises on the card: head dims above 128 (and above 64 in
+    K8 itself), other dtypes, a raw launch with grad enabled (D not a
+    multiple of 8 is served, padded: test_kernel_matches_plain_on_card)."""
     x, lns, lnb, w, b = _card_inputs(1, 40, 256, 4, torch.bfloat16, cuda, seed=10)
+    wide = _card_inputs(1, 40, 256, 2, torch.bfloat16, cuda, seed=14, dh=136)
     launches = dict(port.launch_counts)
-    with pytest.raises(ValueError, match="head dim"):               # 2 heads of 128
-        port.ln_qkv_attention(x, lns, lnb, w, b, 2)
+    with pytest.raises(ValueError, match="head dim"):               # 2 heads of 136
+        port.ln_qkv_attention(*wide, 2)
+    with pytest.raises(ValueError, match="head dim"):               # K8 at 2 heads of 128
+        port._attn_block_cuda(x, lns, lnb, w, b, 2, 1e-6)
     assert port.launch_counts == launches
     with pytest.raises(ValueError, match="one dtype"):
         port._attn_block_cuda(x.half(), lns, lnb, w.half(), b.half(), 4, 1e-6)

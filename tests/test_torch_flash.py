@@ -267,10 +267,25 @@ def test_attention_dispatches_by_length_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [80, 128])
+def test_k4_head_dims_80_and_128_on_card(cuda, d, dtype):
+    """Head dims 80 and 128 through K4's 128-wide instance (80 zero-padded
+    to 128 with the scale of its own D), against the plain version at that
+    D (out and lse): a square region-length case and a rectangle over
+    ragged live keys."""
+    t = torch.from_numpy(_rand(2, 1301, 3 * 3 * d, seed=d)).to(cuda, dtype)
+    q, k, v = t.chunk(3, dim=-1)
+    _check(q, k, v, 3)
+    _check(q[:, :300], k, v, 3, 1250)
+
+
+@pytest.mark.gpu
 def test_k4_rejects_what_it_does_not_take(cuda):
     q, k, v = _fused(cuda, 1, 600, 2, torch.float32, 30)
-    with pytest.raises(ValueError, match="head dim"):   # 128: above 64
-        port.flash_attention(q, k, v, 1)
+    t = torch.zeros((1, 600, 3 * 136), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):   # 136: above 128
+        port.flash_attention(*t.chunk(3, dim=-1), 1)
     with pytest.raises(ValueError, match="bf16 or f32"):
         port.flash_attention(q.half(), k.half(), v.half(), 2)
     with pytest.raises(ValueError, match="launched raw with grad enabled"):

@@ -247,9 +247,23 @@ def test_autograd_launches_k4_then_k5_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [80, 128])
+def test_k5_head_dims_80_and_128_on_card(cuda, d, dtype):
+    """Head dims 80 and 128 through K5's 128-wide instance (80 zero-padded
+    to 128, the scale of its own D), against the plain version at that D:
+    a square ragged length and a rectangle over ragged live keys."""
+    t = torch.from_numpy(_rand(2, 1301, 3 * 3 * d, seed=70 + d)).to(cuda, dtype)
+    q, k, v = t.chunk(3, dim=-1)
+    g = torch.from_numpy(_rand(2, 1301, 3 * d, seed=71 + d)).to(cuda, dtype)
+    _check(q, k, v, g, 3)
+    _check(q[:, :300], k, v, g[:, :300], 3, 1250)
+
+
+@pytest.mark.gpu
 def test_head_dim_32_raises_on_card(cuda):
     """Head dim 32 runs through K4 and K5 (zero-padded to 64, the scale of
-    its own D), held against the plain version at D = 32; head dim 96,
+    its own D), held against the plain version at D = 32; head dim 136,
     above what the kernels take, raises on the card before any launch, in
     the forward and in K5's entry point (there is no plain route on the
     card)."""
@@ -257,6 +271,9 @@ def test_head_dim_32_raises_on_card(cuda):
     g = torch.from_numpy(_rand(1, 700, 96, seed=51)).to(cuda)
     q, k, v = qkv.chunk(3, dim=-1)
     _check(q, k, v, g, 3)
+    qkv = torch.from_numpy(_rand(1, 700, 3 * 136, seed=52)).to(cuda)
+    g = torch.from_numpy(_rand(1, 700, 136, seed=53)).to(cuda)
+    q, k, v = qkv.chunk(3, dim=-1)
     out, lse = port.flash_reference(q, k, v, 1)
     launches = dict(port.launch_counts)
     with pytest.raises(ValueError, match="head dim"):

@@ -86,6 +86,17 @@ PREPROCESSING = [
 ]
 
 
+# the copies of the repo's scripts that run a model: their CLIs' host
+# libraries (cv2, matplotlib, the 2-D reducers) only inside their functions
+CONSUMERS = [
+    "mipheivit_tpu_torch.preprocessings.artifacts_detection.extract_embeddings",
+    "mipheivit_tpu_torch.figures.datasets_umap",
+    "mipheivit_tpu_torch.figures.prediction_panels",
+    "mipheivit_tpu_torch.examples.roi_inference",
+    "mipheivit_tpu_torch.scripts.inference_hemit",
+]
+
+
 def test_chip_path_imports_without_jax():
     code = (
         "import importlib, sys\n"
@@ -125,6 +136,29 @@ def test_preprocessing_imports_without_jax_cv2_scipy_or_pandas():
         "             and m.split('.')[0] in ('jax', 'cv2', 'scipy', 'pandas', 'mipheivit_tpu',\n"
         "                                     'backends', 'flow_wsi', 'flow_dynamics',\n"
         "                                     'resnet_generator', 'preprocessings'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=PKG.parent, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_consumer_scripts_import_without_jax_cv2_pandas_or_matplotlib():
+    """The five consumer scripts import with jax, cv2, pandas, matplotlib,
+    scikit-learn and umap unimportable, and pull in nothing of the JAX
+    package nor of the repo's scripts they copy."""
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'cv2', 'pandas', 'matplotlib', 'sklearn', 'umap', 'yaml'):\n"
+        "    sys.modules[name] = None\n"
+        f"for name in {CONSUMERS!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
+        "             and m.split('.')[0] in ('jax', 'cv2', 'pandas', 'matplotlib', 'sklearn',\n"
+        "                                     'mipheivit_tpu', 'backends', 'roi_inference',\n"
+        "                                     'prediction_panels', 'datasets_umap',\n"
+        "                                     'extract_embeddings', 'inference_hemit'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

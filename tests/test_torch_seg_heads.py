@@ -236,16 +236,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def _card_heads(k, device, dtype, seed):
-    """A BatchedSegHeads at C = 32 with random weights, BN statistics and
-    biases, folded for the kernel."""
+def _card_heads(k, device, dtype, seed, c=32):
+    """A BatchedSegHeads at C = c (32 unless given) with random weights, BN
+    statistics and biases, folded for the kernel."""
     torch.manual_seed(seed)
-    heads = BatchedSegHeads(32, k)
+    heads = BatchedSegHeads(c, k)
     with torch.no_grad():
         for p in heads.parameters():
             p.copy_(torch.randn_like(p) * 0.3)
-        heads.psi_bn.running_mean.copy_(torch.randn(k * 16) * 0.3)
-        heads.psi_bn.running_var.copy_(torch.rand(k * 16) + 0.5)
+        heads.psi_bn.running_mean.copy_(torch.randn(k * (c // 2)) * 0.3)
+        heads.psi_bn.running_var.copy_(torch.rand(k * (c // 2)) + 0.5)
     return heads.to(device).eval(), port.fold_heads(heads.to(device), dtype)
 
 
@@ -327,5 +327,11 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="one dtype"):
         port._seg_heads_cuda(x.detach().bfloat16(), *weights, "tanh")
     x8 = torch.randn((1, 8, 16, 16), device=cuda).to(memory_format=torch.channels_last)
-    with pytest.raises(ValueError, match="C = 32"):
+    with pytest.raises(ValueError, match=r"w1eff \[C, K\*C2\]"):   # x's C is not the weights'
         port._seg_heads_cuda(x8, *weights, "tanh")
+    _, wide = _card_heads(16, cuda, torch.float32, seed=7, c=80)
+    x80 = torch.randn((1, 80, 16, 16), device=cuda).to(memory_format=torch.channels_last)
+    launches = port.launch_counts["seg_heads"]
+    with torch.no_grad(), pytest.raises(ValueError, match="C <= 64"):  # above K3's widest
+        port.fused_seg_heads(x80, *wide)
+    assert port.launch_counts["seg_heads"] == launches

@@ -296,10 +296,33 @@ def test_head_dims_below_64_on_card(cuda, d, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [80, 128])
+def test_head_dims_80_and_128_on_card(cuda, d, dtype):
+    """dot_product_attention at head dims above 64 up to 512 tokens takes
+    K4's 128-wide instance (K6 holds heads up to 64), held against K6's
+    plain version at that D, with one K4 launch and none of K6."""
+    q, k, v = (torch.from_numpy(np.random.default_rng(d + i).standard_normal(
+        (3, 4, 200, d)).astype(np.float32)).to(cuda, dtype) for i in range(3))
+    before = dict(port.launch_counts)
+    with torch.inference_mode():
+        got = port.dot_product_attention(q, k, v)
+        want = port.short_attention_reference(q, k, v)
+        torch.cuda.synchronize()
+    assert port.launch_counts["flash"] == before["flash"] + 1
+    assert port.launch_counts["short"] == before["short"]
+    assert got.shape == (3, 4, 200, d) and got.dtype == dtype
+    rel, fro = _card_scaled(got, want)
+    assert rel <= CARD_TOL[dtype][0] and fro <= CARD_TOL[dtype][1], (rel, fro)
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 2, 40, 64), device=cuda)
-    with pytest.raises(ValueError, match="head dim"):   # 80: above 64
-        port.dot_product_attention(*[torch.zeros((1, 2, 40, 80), device=cuda)] * 3)
+    with pytest.raises(ValueError, match="head dim"):   # 136: above 128
+        port.dot_product_attention(*[torch.zeros((1, 2, 40, 136), device=cuda)] * 3)
+    with pytest.raises(ValueError, match="head dim"):   # 80: above K6's 64 (K4's route)
+        port._short_cuda(*[torch.zeros((1, 2, 40, 80), device=cuda)] * 3)
     with pytest.raises(ValueError, match="S <= 512"):    # longer sequences are K4's
         port._short_cuda(*[torch.zeros((1, 2, 513, 64), device=cuda)] * 3)
     with pytest.raises(ValueError, match="bf16 or f32"):
