@@ -191,7 +191,20 @@ refuses a duplicate GPU), at full width and depth:
                [trainer]'s, replicas identical, rank 0 alone writes;
   [serve dp], [wsi dp] build_serving_fn and wsi_inference with each batch
                split over two replicas on the card (make_data_mesh),
-               against one replica's answer.
+               against one replica's answer;
+  [tp forward] the serving generator tensor-parallel over the ranks
+               (shard_params after merge_lora and cast_params: 12 heads
+               and SwiGLU hidden 2048 a rank, proj and fc2 all-reduced):
+               one batch of 16 tiles (K1) and one 1024-px region (K4), each
+               rank's output against the unsharded forward (per-marker
+               Pearson), f32 at 2 blocks against the CPU's plain chain; the
+               forwards' wall and one block's all-reduce timed;
+  [tp train 256] the flagship preset's step with its encoder sharded over
+               the ranks (K1, K2 and K2's backward terms at those widths):
+               the first loss and the LoRA q/v gradients against the
+               one-rank step, the replicated tensors identical. [k1
+               bf16_tp] and [k2 bf16_tp] hold K1 and K2 at these shapes
+               against their plain versions.
 
 Before the paths, [head dims] runs the four attention entry points at head
 dims 12, 32, 36 and 40 through their kernels (K1, K4, K5, K6; zero-padded
@@ -826,6 +839,37 @@ def kernel_row(tag, what, got, want, dt, ms, plain_ms, library_ms, library_what,
           and fro <= SCALED_TOL[dt][1], f"{tag} disagrees with the plain version")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
             "library_ms": library_ms}
+
+
+def k1_tp_phase():
+    """K1 at [tp forward]'s shape: one rank's HEADS / PAR_RANKS heads of a
+    batch of TP_TILES tiles, off the fused qkv [16, 329, 3 x 12 x 64] in
+    bf16 (the sharded qkv's output), against its plain version, with SDPA's
+    time and the bound. Returns the row's numbers."""
+    import torch.nn.functional as F
+
+    from mipheivit_tpu_torch.ops import attention as attn
+
+    t0 = time.perf_counter()
+    heads = HEADS // PAR_RANKS
+    hd = heads * 64
+    qkv = seeded((TP_TILES, 329, 3 * hd), SEED + 65, torch.bfloat16)
+    q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
+
+    def view(t):
+        return t.view(TP_TILES, 329, heads, 64).transpose(1, 2)
+
+    with torch.inference_mode():
+        got = attn.attention_qkv(qkv, heads)
+        want = attn.attention_reference(q, k, v, heads)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: attn.attention_qkv(qkv, heads))
+        plain_ms = cuda_ms(lambda: attn.attention_reference(q, k, v, heads), reps=5, warmup=1)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(view(q), view(k), view(v)))
+    return kernel_row("k1 bf16_tp", f"fused qkv {tuple(qkv.shape)} at {heads} heads", got, want,
+                      "bf16", ms, plain_ms, library_ms, "scaled_dot_product_attention",
+                      4 * TP_TILES * 329 * hd * qkv.element_size(),
+                      4.0 * TP_TILES * heads * 329 * 329 * 64, t0)
 
 
 def k6_phase(name, b, s, dtype, seed=0):
@@ -1623,12 +1667,13 @@ def train_phase(name, model, data, n_opt, device, grad_checkpointing=False):
     return counts, ACCUM * b / steady
 
 
-def one_step_grads(model, batch, device, frozen_dtype=None):
+def one_step_grads(model, batch, device, frozen_dtype=None, mesh=None):
     """Loss and trainable gradients of one microbatch on ``device``: f32, or
-    the frozen encoder stored and run in ``frozen_dtype``."""
+    the frozen encoder stored and run in ``frozen_dtype``; over ``mesh``'s
+    ranks for a sharded model (the reduced gradients)."""
     from mipheivit_tpu_torch.metrics import PixelMetrics
 
-    state, step = train_setup(model, device, frozen_dtype)
+    state, step = train_setup(model, device, frozen_dtype, mesh=mesh)
     _, _, log = step(state, batch, PixelMetrics.zeros(device))
     return float(log["gen_loss"]), {n: g.detach().float().cpu() for n, g in log["grads"].items()}
 
@@ -1639,11 +1684,11 @@ def lora_cos(a, b):
     import torch.nn.functional as F
 
     names = [n for n in a[1] if ".lora_" in n]
-    per = {n: float(F.cosine_similarity(a[1][n].flatten(), b[1][n].flatten(), 0))
-           for n in names}
+    per = {n: float(F.cosine_similarity(a[1][n].double().flatten(), b[1][n].double().flatten(),
+                                        0)) for n in names}
     worst = min(per, key=per.get)
-    every = F.cosine_similarity(torch.cat([a[1][n].flatten() for n in names]),
-                                torch.cat([b[1][n].flatten() for n in names]), 0)
+    every = F.cosine_similarity(torch.cat([a[1][n].double().flatten() for n in names]),
+                                torch.cat([b[1][n].double().flatten() for n in names]), 0)
     return float(every), per[worst], worst
 
 
@@ -3724,6 +3769,25 @@ GRAD_NORM_TOL = 1e-2
 DDP_BATCH = MICRO // PAR_RANKS   # [trainer ddp]: 4 a rank, [trainer]'s global 8
 DDP_LOSS_RTOL = 1e-4             # its epoch's mean loss against [trainer]'s (bf16)
 COLLECTIVE_REPS = 5
+# tensor parallelism over the ranks (shard_params): [tp forward] at one batch
+# of 16 tiles (K1 at 12 heads a rank) and one 1024-px region (K4 at 12
+# heads); each rank's output against the unsharded forward of the same
+# weights per marker, and f32 at 2 blocks against the CPU's plain chain,
+# scaled to max |ref|; [tp train 256] against the one-rank step: the bf16
+# first loss, and the first microbatch's LoRA q/v gradients in bf16 and in
+# f32. In bf16 at 40 blocks of these random weights any change of rounding
+# moves those gradients by about bf16's own noise (the bf16 step against
+# the f32 one: cosine 0.9947 in [numerics train] on an H100), and the sharded products
+# (other GEMM shapes, partial sums) round otherwise, so bf16 is held at the
+# bar of that comparison; f32 shows the sharded gradient itself
+TP_TILES = 16
+TP_PEARSON = 0.999
+TP_F32_TOL = 2e-3
+TP_LOSS_RTOL = 1e-3
+TP_BF16_LORA_COS = BF16_LORA_COS
+TP_F32_LOSS_RTOL = 1e-5
+TP_F32_LORA_COS = 0.9999
+TP_REPS = 3
 
 
 def _sync_ms(fn, group, reps=COLLECTIVE_REPS):
@@ -4047,10 +4111,146 @@ def trainer_ddp_rank(tmp, ckpt, enc, data_values):
     return res
 
 
+def tp_forward_rank(ckpt, enc, dev):
+    """[tp forward]: the serving generator (load_generator(fast_heads) ->
+    merge_lora -> cast_params(bf16)) at 256 and at 1024 px, each rank's
+    output of the unsharded forward first, then shard_params over the
+    ranks and, with the launch counts at 0, one batch of TP_TILES tiles and
+    one 1024-px region; then each forward's wall ms and the all-reduce of
+    one block's output, timed; the f32 generator cut to 2 blocks sharded on
+    one tile, and on rank 0 the same unsharded on the CPU (plain
+    versions)."""
+    import torch.distributed as dist
+
+    from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE
+    from mipheivit_tpu_torch.parallel import make_mesh, shard_params
+
+    rank = dist.get_rank()
+    mesh = make_mesh(1, PAR_RANKS)
+    group = mesh.model_group
+    mean = torch.as_tensor(HOPTIMUS_HE.mean, device=dev)
+    std = torch.as_tensor(HOPTIMUS_HE.std, device=dev)
+    tiles = np.random.default_rng(SEED + 1).integers(0, 256, (TP_TILES, IMG, IMG, 3),
+                                                     dtype=np.uint8)
+    slide = np.random.default_rng(SEED + 2).integers(0, 256, (REGION, REGION, 3), dtype=np.uint8)
+    x = (torch.from_numpy(tiles).to(dev).float() - mean) / std
+    xr = (torch.from_numpy(slide[None]).to(dev).float() - mean) / std
+    models = {"tiles": (load(ckpt, enc, dev, torch.bfloat16, IMG), x),
+              "region": (load(ckpt, enc, dev, torch.bfloat16, REGION), xr)}
+    with torch.inference_mode():
+        want = {k: m(v).float().cpu().numpy() for k, (m, v) in models.items()}
+    for m, _ in models.values():
+        shard_params(m, mesh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        got = {k: m(v) for k, (m, v) in models.items()}
+    torch.cuda.synchronize()
+    res = {"counts": read_counts(), "s": time.perf_counter() - t0,
+           "finite": all(bool(torch.isfinite(g).all()) for g in got.values()),
+           "pearson": {k: pearson(g.float().cpu().numpy(), want[k]) for k, g in got.items()}}
+    with torch.inference_mode():
+        for k, (m, v) in models.items():
+            res[f"{k}_ms"] = _sync_ms(lambda: m(v), group, reps=TP_REPS)
+            # one block's output: what each row-split proj and fc2 all-reduces
+            block = torch.zeros(v.shape[0], 329 if k == "tiles" else REGION_S, HD, device=dev,
+                                dtype=torch.bfloat16)
+            res[f"{k}_allreduce_ms"] = _sync_ms(lambda: dist.all_reduce(block, group=group),
+                                                group)
+            res[f"{k}_bytes"] = block.numel() * block.element_size()
+    del models, got
+    torch.cuda.empty_cache()
+    m32 = load(ckpt, enc, dev, torch.float32, IMG)
+    m32.encoder.vit.blocks = m32.encoder.vit.blocks[:2]
+    shard_params(m32, mesh)
+    with torch.inference_mode():
+        card2 = m32(x[:1]).cpu()
+    del m32
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        cpu = load(ckpt, enc, "cpu", torch.float32, IMG)
+        cpu.encoder.vit.blocks = cpu.encoder.vit.blocks[:2]
+        with torch.inference_mode():
+            ref = cpu(x[:1].cpu())
+        res["f32_rel"] = float((card2 - ref).abs().max() / ref.abs().max())
+        del cpu
+    dist.barrier()
+    return res
+
+
+def tp_train_rank(ckpt, enc, dev):
+    """[tp train 256]: the flagship preset's generator step (LoRA 8 on q and
+    v live, the frozen encoder stored bf16) with the encoder sharded over the
+    ranks (shard_params before create_train_state), microbatch MICRO x
+    accumulation ACCUM, 2 optimizer steps on [train 256]'s first
+    microbatches, with the launch counts at 0; the replicated tensors'
+    digest after the steps; on rank 0 the one-rank step's first microbatch:
+    the loss and the LoRA q/v gradients against the sharded step's."""
+    import torch.distributed as dist
+
+    from mipheivit_tpu_torch.metrics import PixelMetrics
+    from mipheivit_tpu_torch.parallel import make_mesh, shard_params
+    from mipheivit_tpu_torch.parallel.sharding import param_layouts
+    from mipheivit_tpu_torch.parallel.workers import digest
+
+    rank = dist.get_rank()
+    mesh = make_mesh(1, PAR_RANKS)
+    model = shard_params(train_model(ckpt, enc, IMG, dev), mesh)
+    data = train_batches(2 * ACCUM, MICRO, IMG, dev, SEED + 3)
+    state, step = train_setup(model, dev, torch.bfloat16, mesh=mesh)
+    metrics = PixelMetrics.zeros(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    reset_counts()
+    losses, step_s = [], []
+    for s in range(2):
+        t0 = time.perf_counter()
+        for a in range(ACCUM):
+            state, metrics, log = step(state, data[s * ACCUM + a], metrics)
+            losses.append(float(log["gen_loss"]))
+            if s == a == 0:
+                grads0 = {n: g.detach().float().cpu() for n, g in log["grads"].items()}
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    layouts = param_layouts(model)
+    res = {"counts": read_counts(), "losses": losses, "step_s": step_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "digest": digest({n: t for n, t in model.state_dict().items() if n not in layouts}),
+           "shards": len(layouts)}
+    del state, step, model, log
+    torch.cuda.empty_cache()
+    # the same first microbatch in f32, sharded, where rounding moves the
+    # gradients by ~1e-7 instead of bf16's ~4e-3 a product
+    got32 = one_step_grads(shard_params(train_model(ckpt, enc, IMG, dev), mesh), data[0], dev,
+                           mesh=mesh)
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        ref = one_step_grads(train_model(ckpt, enc, IMG, dev), data[0], dev, torch.bfloat16)
+        torch.cuda.empty_cache()
+        again = one_step_grads(train_model(ckpt, enc, IMG, dev), data[0], dev, torch.bfloat16)
+        torch.cuda.empty_cache()
+        ref32 = one_step_grads(train_model(ckpt, enc, IMG, dev), data[0], dev)
+        res.update(cos=lora_cos((losses[0], grads0), ref), solo_loss=ref[0],
+                   ratio=norm_ratio(grad_norms(grads0), grad_norms(ref[1])),
+                   again_cos=lora_cos(again, ref), again_loss=again[0],
+                   cos32=lora_cos(got32, ref32), ratio32=norm_ratio(grad_norms(got32[1]),
+                                                                    grad_norms(ref32[1])),
+                   loss32=(got32[0], ref32[0]))
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
 def parallel_rank_phases(tmp, ckpt, enc, ref_path, data_values):
     """Every multi-card phase on one rank, in order (each rank of the
     spawn runs this): [collectives], [seq shard wsi 1024], [seq shard
-    2048], [train seq shard 1024], [trainer ddp], then the NCCL probe."""
+    2048], [train seq shard 1024], [trainer ddp], [tp forward], [tp train
+    256], then the NCCL probe."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from mipheivit_tpu_torch.parallel.mesh import process_device
@@ -4061,6 +4261,8 @@ def parallel_rank_phases(tmp, ckpt, enc, ref_path, data_values):
     res["seq 2048"] = seq_2048_rank(ckpt, enc, dev)
     res["train seq"] = train_seq_rank(ckpt, enc, dev)
     res["trainer ddp"] = trainer_ddp_rank(tmp, ckpt, enc, data_values)
+    res["tp forward"] = tp_forward_rank(ckpt, enc, dev)
+    res["tp train"] = tp_train_rank(ckpt, enc, dev)
     res["nccl"] = nccl_probe(dev)
     return res
 
@@ -4194,8 +4396,7 @@ def parallel_phases(tmp: Path, ckpt: Path, enc: Path, wsi1024_out, data_values: 
           f"(target within {GRAD_NORM_TOL:g} of 1); val_gen_loss_sim {d['val']:.4f}; replicas "
           f"identical {len({res['trainer ddp']['digest'] for res in ranks}) == 1}; rank 0 "
           f"wrote {d['metric_lines']} metrics lines, status {d['status']!r}, files "
-          f"{d['files']}; {per_rank('trainer ddp', 'trainer ddp')} "
-          f"({time.perf_counter() - t_all:.1f} s for the spawned phases)", flush=True)
+          f"{d['files']}; {per_rank('trainer ddp', 'trainer ddp')}", flush=True)
     check(len({res["trainer ddp"]["digest"] for res in ranks}) == 1,
           "[trainer ddp] the replicas differ")
     check(rel <= DDP_LOSS_RTOL, "[trainer ddp] the loss differs from one process's")
@@ -4211,7 +4412,79 @@ def parallel_phases(tmp: Path, ckpt: Path, enc: Path, wsi1024_out, data_values: 
     for r, res in enumerate(ranks):
         check_counts(f"[trainer ddp] rank {r}", res["trainer ddp"]["counts"], k1=depth * n_fwd,
                      k2=depth * n_fwd, k2b=depth * TRAINER_STEPS)
+    tp_report(ranks, depth, per_rank, t_all)
     return counts
+
+
+def tp_report(ranks, depth: int, per_rank, t_all: float) -> None:
+    """Print and check [tp forward] and [tp train 256] from every rank's
+    results (``per_rank(phase, tag)`` records a phase's launch counts by
+    path and rank and returns their text)."""
+    r0 = ranks[0]
+
+    f = r0["tp forward"]
+    n_ar = 2 * depth                 # a row-split proj and fc2 a block
+    least = {k: min(float(res["tp forward"]["pearson"][k].min()) for res in ranks)
+             for k in ("tiles", "region")}
+    print(f"[tp forward] shard_params over {PAR_RANKS} ranks ({HEADS // PAR_RANKS} heads and "
+          f"SwiGLU hidden {FC1_H // PAR_RANKS} a rank), bf16: {TP_TILES} tiles of {IMG} px "
+          f"{f['tiles_ms']:.1f} ms a forward with {n_ar} all-reduces of "
+          f"{f['tiles_bytes'] / 1e6:.1f} MB, one alone {f['tiles_allreduce_ms']:.2f} ms (x "
+          f"{n_ar} = {n_ar * f['tiles_allreduce_ms']:.1f} ms); one {REGION}-px region "
+          f"({REGION_S} tokens) {f['region_ms']:.1f} ms with {n_ar} of "
+          f"{f['region_bytes'] / 1e6:.1f} MB, one alone {f['region_allreduce_ms']:.2f} ms (x "
+          f"{n_ar} = {n_ar * f['region_allreduce_ms']:.1f} ms) (wall, median of {TP_REPS} and "
+          f"{COLLECTIVE_REPS}, rank 0; both ranks share the card: not a multi-card rate); "
+          f"per-marker Pearson against the unsharded forward, least over ranks: "
+          f"tiles {least['tiles']:.6f}, region {least['region']:.6f} (target >= {TP_PEARSON}); "
+          f"f32 at 2 blocks against the CPU's plain chain {f['f32_rel']:.2e} of max|ref| "
+          f"(target <= {TP_F32_TOL:g}); {per_rank('tp forward', 'tp forward')}", flush=True)
+    check(all(res["tp forward"]["finite"] for res in ranks), "[tp forward] non-finite output")
+    check(min(least.values()) >= TP_PEARSON, "[tp forward] sharded != unsharded")
+    check(f["f32_rel"] <= TP_F32_TOL, "[tp forward] f32 sharded differs from the CPU")
+    for r, res in enumerate(ranks):
+        # one tile batch (K1, K2, K3) and one region (K4, K2, K3)
+        check_counts(f"[tp forward] rank {r}", res["tp forward"]["counts"], k1=depth,
+                     k2=2 * depth, k3=2, k4=depth)
+
+    t = r0["tp train"]
+    cos, least_cos, worst = t["cos"]
+    cos32, least32, worst32 = t["cos32"]
+    rel = abs(t["losses"][0] - t["solo_loss"]) / abs(t["solo_loss"])
+    rel32 = abs(t["loss32"][0] - t["loss32"][1]) / abs(t["loss32"][1])
+    n_micro = 2 * ACCUM
+    peaks = ", ".join(f"{res['tp train']['peak_gib']:.2f}" for res in ranks)
+    same = len({res["tp train"]["digest"] for res in ranks}) == 1
+    # a doubled or halved gradient shows in f32; bf16's ratio is printed
+    ratios = list(t["ratio32"].values())
+    print(f"[tp train 256] the flagship preset's step with its encoder sharded over "
+          f"{PAR_RANKS} ranks ({t['shards']} sharded tensors a rank): {n_micro} microbatches of "
+          f"{MICRO} x {IMG} px, 2 optimizer steps: steps "
+          f"{', '.join(f'{1e3 * v:.1f}' for v in t['step_s'])} ms (first includes warm-up); "
+          f"peak {peaks} GiB by rank; loss {', '.join(f'{v:.4f}' for v in t['losses'])}; first "
+          f"against one rank's {t['solo_loss']:.4f} (rel {rel:.2e}, tol {TP_LOSS_RTOL:g}); bf16 "
+          f"LoRA q/v grad cosine against the one-rank step {cos:.6f}, least one "
+          f"{least_cos:.6f} ({worst}; target >= {TP_BF16_LORA_COS}; the one-rank step against "
+          f"itself {t['again_cos'][0]:.6f}, loss {t['again_loss']:.6f}); f32, first microbatch: "
+          f"loss {t['loss32'][0]:.6f} vs {t['loss32'][1]:.6f} (rel {rel32:.2e}, tol "
+          f"{TP_F32_LOSS_RTOL:g}), LoRA q/v cosine {cos32:.7f}, least one {least32:.7f} "
+          f"({worst32}; target >= {TP_F32_LORA_COS}); reduced gradient norm over the one-rank "
+          f"step's: bf16 LoRA {t['ratio']['lora']:.6f}, decoder {t['ratio']['decoder']:.6f}, "
+          f"f32 LoRA {t['ratio32']['lora']:.6f}, decoder {t['ratio32']['decoder']:.6f} (f32 "
+          f"target within {GRAD_NORM_TOL:g} of 1); replicated tensors identical {same}; "
+          f"{per_rank('tp train', 'tp train 256')} ({time.perf_counter() - t_all:.1f} s for the "
+          f"spawned phases)", flush=True)
+    check(all(np.isfinite(t["losses"])), "[tp train 256] non-finite loss")
+    check(rel <= TP_LOSS_RTOL, "[tp train 256] the loss differs from one rank's")
+    check(cos >= TP_BF16_LORA_COS, "[tp train 256] bf16 gradients differ from one rank's")
+    check(rel32 <= TP_F32_LOSS_RTOL and cos32 >= TP_F32_LORA_COS,
+          "[tp train 256] f32 gradients differ from one rank's")
+    check(all(abs(v - 1) <= GRAD_NORM_TOL for v in ratios),
+          "[tp train 256] the reduced gradient is scaled")
+    check(same, "[tp train 256] the replicated tensors differ between the ranks")
+    for r, res in enumerate(ranks):
+        check_counts(f"[tp train 256] rank {r}", res["tp train"]["counts"], k1=depth * n_micro,
+                     k2=depth * n_micro, k2b=depth * n_micro)
 
 
 def serve_dp_phase(model, tiles, dev, depth):
@@ -4968,6 +5241,8 @@ def main() -> None:
             check(rel <= SCALED_TOL[kind_dt][0] and fro <= SCALED_TOL[kind_dt][1],
                   f"K1 {name} disagrees with the plain version")
     del big, small, cases
+    # K1 at one rank's heads of [tp forward]'s tile batch
+    k1_tp = k1_tp_phase()
 
     # 3b. K4 against the plain version: a 1024-px region (fused qkv layout),
     #     a sequence shard's rectangle, f32, and ragged lengths
@@ -5032,6 +5307,9 @@ def main() -> None:
     k2_phase("bf16_ragged", 658, torch.bfloat16, seed=SEED + 42)
     k2_phase("bf16_one_row", 1, torch.bfloat16, seed=SEED + 49)
     k2_phase("bf16_tails", 330, torch.bfloat16, seed=SEED + 63, k=200, h=520)
+    # one rank's half of the SwiGLU hidden width at [tp forward]'s tile batch
+    k2_tp = k2_phase("bf16_tp", TP_TILES * 329, torch.bfloat16, seed=SEED + 64,
+                     h=FC1_H // PAR_RANKS)
     k2_phase("f32", 658, torch.float32, seed=SEED + 43)
     k2_phase("bf16_ln", BATCH * 329, torch.bfloat16, ln=True, seed=SEED + 44)
     k2_phase("f32_ln", 658, torch.float32, ln=True, seed=SEED + 45)
@@ -5396,7 +5674,8 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": "k1_attention", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/attention.cu",
-         "replaces": "mipheivit_tpu/ops/attention.py:563", **k1, **launches("attention")},
+         "replaces": "mipheivit_tpu/ops/attention.py:563", **k1, "tp": k1_tp,
+         **launches("attention")},
         {"name": "k4_flash_attention", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/flash_attention.cu",
          "replaces": "mipheivit_tpu/ops/attention.py:59", **k4_region, "d128": wide["k4"],
@@ -5407,7 +5686,8 @@ def main() -> None:
          **launches("flash_bwd")},
         {"name": "k2_swiglu", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/swiglu.cu",
-         "replaces": "mipheivit_tpu/ops/mlp.py:51", **k2_flagship, **launches("swiglu")},
+         "replaces": "mipheivit_tpu/ops/mlp.py:51", **k2_flagship, "tp": k2_tp,
+         **launches("swiglu")},
         {"name": "k2_swiglu_bwd_gate", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/swiglu.cu",
          "replaces": "mipheivit_tpu/ops/mlp.py:159", **k2b_flagship, **launches("swiglu_bwd")},

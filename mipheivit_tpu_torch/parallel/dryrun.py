@@ -12,11 +12,15 @@ PatchGAN):
 - data-parallel whole-slide inference over N replicas in one process
   (``make_data_mesh``), equal to one replica's stitch;
 - the sequence-sharded ViT forward over a ``dp x sp`` mesh of the N ranks
-  (sp = 4 from 8 ranks on, else N / 2), equal to the unsharded forward.
+  (sp = 4 from 8 ranks on, else N / 2), equal to the unsharded forward;
+- the tensor-parallel half of the JAX dry run: the same training step with
+  the encoder sharded over a ``dp x tp`` mesh (tp = 2 from 4 ranks on, an
+  even count, the JAX ``n_model`` rule; skipped below): finite losses, the
+  first microbatch's loss equal to one process's at the same global batch,
+  the replicated tensors bit-identical on every rank and each shard
+  identical across the data replicas.
 
-The tensor-parallel half of the JAX dry run waits for the port of
-``parallel/sharding.py`` (ROADMAP.md). Exits 0 and prints one summary line
-when every check holds.
+Exits 0 and prints one summary line when every check holds.
 """
 
 from __future__ import annotations
@@ -44,28 +48,37 @@ def _state(kw, out_chans, seed):
     return {k: v.numpy() for k, v in model.state_dict().items()}
 
 
-def train_check(n: int, rng) -> str:
+def train_spec(n: int, rng) -> dict:
+    """The training step's inputs at a global batch of 2 n: the LoRA ViT
+    and decoder, the PatchGAN, four microbatches (two optimizer steps)."""
     from ..models.discriminator import DiscriminatorPatch
 
     torch.manual_seed(1)
     disc = DiscriminatorPatch(3 + OUT, ndf=8, n_layers=2)
     b = 2 * n
-    spec = dict(vit=VIT, out_chans=OUT, state=_state(VIT, OUT, 0),
+    return dict(vit=VIT, out_chans=OUT, state=_state(VIT, OUT, 0),
                 disc_state={k: v.numpy() for k, v in disc.state_dict().items()},
                 batches=[{"image": rng.standard_normal((b, 32, 32, 3)).astype(np.float32),
                           "target": rng.uniform(-0.9, 0.9, (b, 32, 32, OUT)).astype(np.float32)}
                          for _ in range(4)],
                 weights=np.ones(OUT, np.float32), lr=1e-3, total_iters=100, warmup=2, accum=2,
                 return_state=False)
-    ranks = spawn(workers.train_steps, n, (spec,), device="cpu", timeout=600)
-    solo = workers.train_steps(dict(spec, disc_state=None))
+
+
+def _first_loss_matches(ranks, solo) -> dict:
     first = ranks[0]["losses"][0]
     assert all(np.isfinite(v) for r in ranks for step in r["losses"] for v in step.values()), \
         "non-finite loss"
-    assert len({r["digest"] for r in ranks}) == 1, "generator replicas differ"
-    assert len({r["disc_digest"] for r in ranks}) == 1, "discriminator replicas differ"
     want = solo["losses"][0]["gen_loss_sim"]
     assert abs(first["gen_loss_sim"] - want) <= 1e-5 * abs(want), (first, want)
+    return first
+
+
+def train_check(n: int, spec: dict, solo: dict) -> str:
+    ranks = spawn(workers.train_steps, n, (spec,), device="cpu", timeout=600)
+    first = _first_loss_matches(ranks, solo)
+    assert len({r["digest"] for r in ranks}) == 1, "generator replicas differ"
+    assert len({r["disc_digest"] for r in ranks}) == 1, "discriminator replicas differ"
     return (f"train OK [dp={n}] gen_loss={first['gen_loss']:.4f} "
             f"disc_loss={first['disc_adv_loss']:.4f}, replicas identical after "
             f"{ranks[0]['step']} microbatches")
@@ -106,6 +119,25 @@ def seq_check(n: int, rng) -> str:
     return f"seq_shard OK [dp={n_dp} x sp={n_sp}] {(128 // 16) ** 2} tokens/region match"
 
 
+def tp_check(n: int, spec: dict, solo: dict) -> str:
+    n_tp = 2 if n >= 4 and n % 2 == 0 else 1
+    if n_tp == 1:
+        return "tp SKIPPED (needs an even count >= 4 ranks)"
+    ranks = spawn(workers.train_steps, n, (dict(spec, n_model=n_tp, tp=True),), device="cpu",
+                  timeout=600)
+    first = _first_loss_matches(ranks, solo)
+    assert len({r["digest"] for r in ranks}) == 1, "replicated tensors differ between ranks"
+    assert len({r["disc_digest"] for r in ranks}) == 1, "discriminator replicas differ"
+    for m in range(n_tp):
+        assert len({r["shard_digest"] for r in ranks[m::n_tp]}) == 1, \
+            f"model rank {m}'s shards differ between data replicas"
+    assert len({r["shard_digest"] for r in ranks[:n_tp]}) == n_tp, "the shards are not split"
+    return (f"tp OK [dp={n // n_tp} x tp={n_tp}] gen_loss={first['gen_loss']:.4f} "
+            f"disc_loss={first['disc_adv_loss']:.4f}, replicated tensors identical on {n} "
+            f"ranks and shards across {n // n_tp} data replicas after {ranks[0]['step']} "
+            "microbatches")
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ranks", type=int, default=8)
@@ -113,8 +145,10 @@ def main(argv=None) -> None:
     torch.set_num_threads(2)
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
-    parts = [train_check(args.ranks, rng), wsi_check(args.ranks, rng),
-             seq_check(args.ranks, rng)]
+    spec = train_spec(args.ranks, rng)
+    solo = workers.train_steps(dict(spec, disc_state=None))
+    parts = [train_check(args.ranks, spec, solo), wsi_check(args.ranks, rng),
+             seq_check(args.ranks, rng), tp_check(args.ranks, spec, solo)]
     print(f"dryrun({args.ranks} ranks) OK: {' / '.join(parts)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 

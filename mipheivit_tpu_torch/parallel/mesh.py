@@ -17,7 +17,9 @@ itself through ``torch.distributed``: NCCL between cards, gloo on the CPU
   package's ``make_data_mesh``: one replica of the model per local device,
   the batch split across them (``LocalMesh``);
 - ``average_gradients`` and ``all_reduce_sum`` are the collectives of the
-  training step and of the BatchNorm statistics.
+  training step and of the BatchNorm statistics;
+- ``copy_to_model`` and ``reduce_from_model`` are Megatron's pair around a
+  tensor-parallel block (``parallel/sharding.py``).
 
 Nothing falls back: ``WORLD_SIZE > 1`` without a process group raises
 (``require_process_group``), a rank whose card does not exist raises, and
@@ -223,11 +225,12 @@ _BUCKET_ELEMENTS = 1 << 24          # 64 MiB of f32 per all_reduce
 
 
 def average_gradients(grads: Sequence[torch.Tensor],
-                      scales: Optional[Sequence[float]] = None) -> None:
+                      scales: Optional[Sequence[float]] = None, group=None) -> None:
     """In place: each gradient multiplied by its ``scale`` (1 if None),
-    summed over every rank and divided by their count, in buckets of at
-    most 64 MiB a collective, one collective per dtype and bucket."""
-    n = dist.get_world_size()
+    summed over the ranks of ``group`` (None: every rank) and divided by
+    their count, in buckets of at most 64 MiB a collective, one collective
+    per dtype and bucket. A scale of the group's size makes it a sum."""
+    n = dist.get_world_size(group)
     if n == 1:
         return
     scales = [1.0] * len(grads) if scales is None else list(scales)
@@ -245,7 +248,7 @@ def average_gradients(grads: Sequence[torch.Tensor],
         buckets.append(current)
         for bucket in buckets:
             flat = torch.cat([(t * s if s != 1.0 else t).reshape(-1) for t, s in bucket])
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=group)
             flat.div_(n)
             offset = 0
             for t, _ in bucket:
@@ -277,3 +280,57 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     if group is None or dist.get_world_size(group) == 1:
         return x
     return _AllReduceSum.apply(x, group)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: the identity forward; the backward sums the incoming
+    gradients over the group (each rank's column shard contributes its
+    part of the input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: the forward sums the partial outputs of a row-split
+    layer over the group; the backward passes the gradient through (every
+    rank's partial output enters the sum once, so its gradient is the
+    sum's)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The input of a tensor-parallel block's column-split layers: ``x``
+    itself, its gradient summed over ``group`` (x itself for a group of one
+    rank)."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The output of a tensor-parallel block's row-split layer: the sum of
+    the ranks' partial ``x`` over ``group``, the gradient passed through
+    (x itself for a group of one rank). Not ``all_reduce_sum``, whose
+    backward sums too: here that would multiply every upstream gradient by
+    the group's size."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _ReduceFromModel.apply(x, group)

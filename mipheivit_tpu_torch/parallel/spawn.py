@@ -27,7 +27,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(fn, rank: int, n: int, port: int, device, backend, threads, args, results):
+def _rank_main(rank: int, n: int, port: int, device, backend, threads, inbox, results):
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(n), LOCAL_RANK=str(rank),
                       LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     try:
@@ -36,6 +36,7 @@ def _rank_main(fn, rank: int, n: int, port: int, device, backend, threads, args,
 
         from .mesh import init_distributed
 
+        fn, args = inbox.get()
         if threads:
             torch.set_num_threads(threads)
         init_distributed(device, backend)
@@ -67,13 +68,18 @@ def spawn(fn: Callable, n: int, args: Sequence[Any] = (), device=None,
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
-    results = ctx.Queue()
+    # fn and args go through a queue, not the processes' arguments: a start
+    # waits until the child has read its arguments, which it does after its
+    # imports, so large arguments started the ranks one after another
+    inbox, results = ctx.Queue(), ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(fn, r, n, port, device, backend, threads, tuple(args), results))
+                         args=(r, n, port, device, backend, threads, inbox, results))
              for r in range(n)]
     for p in procs:
         p.start()
+    for _ in procs:
+        inbox.put((fn, tuple(args)))
     out = {}
     deadline = time.monotonic() + timeout
     try:
@@ -106,4 +112,5 @@ def spawn(fn: Callable, n: int, args: Sequence[Any] = (), device=None,
             if p.is_alive():
                 p.kill()
                 p.join(5.0)
+        inbox.close()
         results.close()

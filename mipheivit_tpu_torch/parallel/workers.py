@@ -6,8 +6,11 @@ arguments.
 
 - ``seq_attention``: ``seq_sharded_attention`` forward and gradients;
 - ``forward``: a ViT or a MipheiViT with ``attn_impl="seq_shard"``;
+- ``tp_forward``: a ViT, a MipheiViT or a ViT UNETR tensor-parallel
+  (``shard_params``);
 - ``wsi``: ``wsi_inference`` with a ``seq_shard_mesh`` over every rank;
-- ``train_steps``: the train step on each rank's rows of global batches;
+- ``train_steps``: the train step on each rank's rows of global batches,
+  data-parallel, sequence-sharded or tensor-parallel;
 - ``tasks``: several workers in one process group, in turn.
 """
 
@@ -61,15 +64,21 @@ def seq_attention(q, k, v, num_heads: int):
     return _np(out), grads
 
 
-def build_generator(vit_kwargs: dict, out_chans: Optional[int], state=None, device=None):
-    """A ViT (``out_chans`` None) or a MipheiViT of ``vit_kwargs`` on the
-    rank's device, with ``state`` (numpy) loaded when given."""
+def build_generator(vit_kwargs: dict, out_chans: Optional[int], state=None, device=None,
+                    unetr: bool = False):
+    """A ViT (``out_chans`` None), a MipheiViT or (``unetr``) a ViT UNETR of
+    ``vit_kwargs`` on the rank's device, with ``state`` (numpy) loaded when
+    given."""
     from ..models.mipheivit import MipheiViT
+    from ..models.unetr import UnetrViT
     from ..models.vit import ViTConfig, VisionTransformer
 
     cfg = ViTConfig(**vit_kwargs)
     with torch.device(process_device() if device is None else device):
-        model = VisionTransformer(cfg) if out_chans is None else MipheiViT(cfg, out_chans)
+        if out_chans is None:
+            model = VisionTransformer(cfg)
+        else:
+            model = (UnetrViT if unetr else MipheiViT)(cfg, out_chans)
     if state is not None:
         model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in state.items()})
     return model
@@ -86,6 +95,34 @@ def forward(vit_kwargs: dict, out_chans: Optional[int], state, x, n_model: Optio
     model = build_generator({**vit_kwargs, "attn_impl": "seq_shard"}, out_chans, state).eval()
     with torch.no_grad(), seq_shard_scope(mesh):
         return _np(model(_t(shard_batch(x, mesh))))
+
+
+def tp_forward(vit_kwargs: dict, out_chans: Optional[int], state, x, n_model: int = 2,
+               unetr: bool = False):
+    """The eval forward of ``build_generator(...)`` with its encoder
+    tensor-parallel over ``n_model`` ranks (``shard_params``), the rows of
+    ``x`` split over the data axis; returns this rank's output rows."""
+    from .sharding import shard_params
+
+    mesh = make_mesh(dist.get_world_size() // n_model, n_model)
+    model = shard_params(build_generator(vit_kwargs, out_chans, state, unetr=unetr).eval(), mesh)
+    with torch.no_grad():
+        return _np(model(_t(shard_batch(x, mesh))))
+
+
+def _whole(tensors: Dict[str, torch.Tensor], layouts, mesh) -> Dict[str, np.ndarray]:
+    """``tensors`` as numpy, each shard of a split tensor (``layouts``)
+    gathered over the model group and put back whole."""
+    from .sharding import unshard
+
+    out = {}
+    for name, t in tensors.items():
+        if name in layouts:
+            parts = [torch.empty_like(t) for _ in range(mesh.n_model)]
+            dist.all_gather(parts, t.detach().contiguous(), group=mesh.model_group)
+            t = unshard(parts, layouts[name])
+        out[name] = _np(t)
+    return out
 
 
 def wsi(vit_kwargs: dict, out_chans: int, state, image, names, mean, std, wsi_kwargs: dict):
@@ -107,26 +144,41 @@ def wsi(vit_kwargs: dict, out_chans: int, state, image, names, mean, std, wsi_kw
 def train_steps(spec: dict) -> dict:
     """``make_train_step`` on this rank's rows of ``spec["batches"]`` (global
     batches) over an ``n_data x n_model`` mesh (``spec["n_model"]``, default
-    1; with 2 or more the ViT is sequence-sharded): a MipheiViT of
-    ``spec["vit"]`` with ``spec["state"]`` loaded, LoRA and decoder
-    trainable, the weighted-MSE loss of ``spec["weights"]``, the pix2pix
-    Adam chains (``lr``, ``total_iters``, ``warmup``, ``accum``), in
+    1; with 2 or more the ViT is sequence-sharded, or tensor-parallel with
+    ``spec["tp"]``): a MipheiViT of ``spec["vit"]`` (``spec["family"]``
+    ``"myvitmatte"``, the default: LoRA and decoder trainable) or a ViT
+    UNETR (``"unet_lora"``: everything trainable) with ``spec["state"]``
+    loaded, the weighted-MSE loss of ``spec["weights"]``, the pix2pix Adam
+    chains (``lr``, ``total_iters``, ``warmup``, ``accum``), in
     ``spec["dtype"]`` (default float32) and, with ``spec["disc_state"]``,
-    the discriminator. Returns the step losses
-    (means over the ranks), the first microbatch's reduced gradients, the
-    final state dicts and their digests, and the BatchNorms' modes."""
+    the discriminator. Returns the step losses (means over the ranks), the
+    first microbatch's reduced gradients and the final state dict (sharded
+    tensors gathered whole; with ``spec["return_state"]`` False on no rank,
+    ``"rank0"`` on rank 0 alone), the digest of the replicated tensors (all
+    of them unless tensor-parallel) and of this rank's shards, the Adam
+    moments by name (whole on one process; under ``tp`` this rank's shards
+    of the sharded tensors) and the BatchNorms' modes; under ``tp`` with
+    ``spec["opt_ref"]`` (one process's moments of the sharded tensors by
+    name) also those moments through ``shard_opt_state``."""
     from ..metrics.pixel import PixelMetrics
     from ..models.discriminator import DiscriminatorPatch
     from .seq import seq_shard_scope
+    from .sharding import param_layouts, shard_opt_state, shard_params
     from ..train import losses, optim, steps
 
     n_model = spec.get("n_model", 1)
+    tp = spec.get("tp", False)
+    family = spec.get("family", "myvitmatte")
     n = dist.get_world_size() if dist.is_initialized() else 1
     mesh = make_mesh(n // n_model, n_model)
     device = process_device() or torch.device("cpu")
-    vit = dict(spec["vit"], attn_impl="seq_shard" if n_model > 1 else "auto")
+    vit = dict(spec["vit"], attn_impl="seq_shard" if n_model > 1 and not tp else "auto")
     dtype = getattr(torch, spec.get("dtype", "float32"))
-    model = build_generator(vit, spec["out_chans"], spec["state"], device).to(dtype)
+    model = build_generator(vit, spec["out_chans"], spec["state"], device,
+                            unetr=family == "unet_lora").to(dtype)
+    if tp:
+        shard_params(model, mesh)
+    layouts = param_layouts(model)
     gan = spec.get("disc_state") is not None
     disc = None
     if gan:
@@ -140,7 +192,7 @@ def train_steps(spec: dict) -> dict:
         spec["lr"], spec["total_iters"], warmup_iters=spec["warmup"],
         grad_accum_steps=spec["accum"]) if gan else None
     state = steps.create_train_state(model, gen_opt, disc, disc_opt,
-                                     freeze_model_name="myvitmatte", device=device, mesh=mesh,
+                                     freeze_model_name=family, device=device, mesh=mesh,
                                      grad_checkpointing=spec.get("grad_checkpointing", False))
     step = steps.make_train_step(model, losses.weighted_mse_loss(50.0, spec["weights"]),
                                  gen_opt, disc, disc_opt, steps.StepConfig(gan_train=gan))
@@ -152,7 +204,7 @@ def train_steps(spec: dict) -> dict:
             batch = {k: v.astype(spec.get("dtype", "float32")) for k, v in batch.items()}
             state, metrics, log = step(state, shard_batch(batch, mesh), metrics)
             if i == 0:
-                grads0 = {k: _np(v) for k, v in log["grads"].items()}
+                grads0 = _whole(log["grads"], layouts, mesh)
                 bn_training = sorted({m.training for m in model.modules()
                                       if type(m).__name__ == "BatchNorm2d"})
             keys = ["gen_loss", "gen_loss_sim"] + (["disc_adv_loss"] if gan else [])
@@ -162,11 +214,33 @@ def train_steps(spec: dict) -> dict:
                 vals /= n
             losses_out.append(dict(zip(keys, vals.tolist())))
     gen_sd = {k: v for k, v in model.state_dict().items()}
+    names = [k for k, _ in state.gen_params]
+    opt = state.gen_opt_state
+    kept = [i for i, k in enumerate(names) if not tp or k in layouts]
     out = {"losses": losses_out, "grads0": grads0, "bn_training": bn_training,
-           "step": state.step, "digest": digest(gen_sd),
-           "disc_digest": digest(disc.state_dict()) if gan else None}
-    if spec.get("return_state", True):
-        out["state"] = {k: _np(v) for k, v in gen_sd.items() if v.is_floating_point()}
+           "step": state.step,
+           "digest": digest({k: v for k, v in gen_sd.items() if k not in layouts}),
+           "shard_digest": digest({k: v for k, v in gen_sd.items() if k in layouts}),
+           "disc_digest": digest(disc.state_dict()) if gan else None,
+           "opt": {names[i]: (_np(opt.mu[i]), _np(opt.nu[i])) for i in kept}}
+    if tp and spec.get("opt_ref") is not None:
+        # whole moments: one process's of the sharded tensors, this rank's
+        # (replicated) of the others
+        ref = spec["opt_ref"]
+        whole = optim.OptState(
+            adam_count=opt.adam_count, schedule_count=opt.schedule_count,
+            mu=[torch.from_numpy(ref[k][0]) if k in layouts else m for k, m in zip(names, opt.mu)],
+            nu=[torch.from_numpy(ref[k][1]) if k in layouts else v for k, v in zip(names, opt.nu)])
+        shard_opt_state(whole, model, mesh)
+        out["opt_sliced"] = {names[i]: (_np(whole.mu[i]), _np(whole.nu[i])) for i in kept}
+    keep_state = spec.get("return_state", True)
+    if keep_state == "rank0":
+        keep_state = dist.get_rank() == 0
+    whole_sd = _whole(gen_sd, layouts, mesh)       # every rank joins the gathers
+    if keep_state:
+        out["state"] = {k: v for k, v in whole_sd.items() if gen_sd[k].is_floating_point()}
+    else:
+        out["grads0"] = None
     return out
 
 

@@ -24,6 +24,10 @@ That includes its quirk: ``unet_lora`` and ``unet_frozen`` freeze nothing,
 because the JAX ``UnetrViT`` and ``UnetrSwin`` have no module named
 ``encoder`` (ROADMAP.md queue 3).
 
+Over a tensor-parallel generator the clip's global norm sums the squares of
+the sharded tensors over the model group (``AdamChain.step``), as the JAX
+chain's norm over the global arrays does.
+
 The generator's chain takes the layer-wise LR decay of fully trainable
 ``unet`` encoders (``layer_decay_multiplier``) between the clip and Adam,
 as the JAX chain does (mipheivit_tpu/train/optim.py:117-128).
@@ -39,6 +43,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.vit import VisionTransformer
 from .schedule import pix2pix_schedule
@@ -153,10 +158,16 @@ class AdamChain:
 
     @torch.no_grad()
     def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
-             state: OptState) -> bool:
+             state: OptState, sharded: Optional[Sequence[bool]] = None, group=None) -> bool:
         """One call of the chain on this microbatch's gradients; updates
         ``params`` in place when an update is emitted (every call without
-        accumulation, every k-th with it). Returns whether it was."""
+        accumulation, every k-th with it). Returns whether it was.
+
+        ``sharded`` (a flag a tensor) and ``group``: the tensors of a
+        tensor-parallel generator that are shards of a split weight, and its
+        model group. The clip's global norm then sums their squares over the
+        group and counts the replicated tensors once; without them, or with
+        no flag set, the arithmetic is the one-process chain's."""
         grads = [g.float() for g in grads]
         if self.k > 1:
             n = state.mini_step
@@ -168,15 +179,25 @@ class AdamChain:
                 return False
             grads, state.acc = state.acc, [torch.zeros_like(a) for a in state.acc]
             state.gradient_step += 1
-        updates = self._inner(grads, state)
+        updates = self._inner(grads, state, sharded, group)
         if any(p.dtype != torch.float32 for p in params):
             updates = [u.to(p.dtype) for u, p in zip(updates, params)]
         torch._foreach_add_(list(params), updates)
         return True
 
-    def _inner(self, grads: List[torch.Tensor], state: OptState) -> List[torch.Tensor]:
+    def _inner(self, grads: List[torch.Tensor], state: OptState, sharded=None,
+               group=None) -> List[torch.Tensor]:
         # clip_by_global_norm: g below the norm, (g / norm) * max_norm above it
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norms = torch.stack(torch._foreach_norm(grads))
+        if sharded is not None and any(sharded):
+            split = torch.tensor(list(sharded), device=norms.device)
+            squares = torch.stack([(norms[split] ** 2).sum(), (norms[~split] ** 2).sum()])
+            # every rank of the group holds other shards of the split tensors
+            shard_sq = squares[:1].clone()
+            dist.all_reduce(shard_sq, group=group)
+            norm = torch.sqrt(shard_sq[0] + squares[1])
+        else:
+            norm = torch.linalg.vector_norm(norms)
         scaled = torch._foreach_mul(torch._foreach_div(grads, norm), self.max_norm)
         below = norm < self.max_norm
         grads = [torch.where(below, g, s) for g, s in zip(grads, scaled)]

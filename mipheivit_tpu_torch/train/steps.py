@@ -28,16 +28,35 @@ Over several ranks (``create_train_state(..., mesh=...)``), each rank takes
 its own rows of the global batch: the BatchNorm statistics are those of the
 global batch (``layers.sync_batch_norm`` over the data group), and every
 microbatch's gradients are averaged over the data group and summed over
-the model group before the optimizer sees them. One bucketed ``all_reduce``
-over every rank does both: the gradients of the parameters of a
-sequence-sharded ViT, partial sums over the rank's token shard
+the model group before the optimizer sees them. With a sequence-sharded
+ViT one bucketed ``all_reduce`` over every rank does both: the gradients of
+the ViT's parameters, partial sums over the rank's token shard
 (``parallel/seq.py``), are multiplied by the model group's size first; the
 others (the decoder's, the same on every rank of a model group) are not.
+
+A tensor-parallel generator (``parallel.sharding.shard_params`` before
+``create_train_state``) cannot take that one collective: one rank's shard
+gradient must never be added to another rank's shard. Its rule:
+
+- the gradients of the sharded tensors (the qkv, proj, fc1 and fc2 weights
+  and the qkv and fc1 biases) are averaged over the data group only;
+- those of the replicated tensors inside a column branch (the live LoRA A
+  and B: each rank's are partial sums over its heads) are summed over the
+  model group, then averaged over the data group;
+- all other gradients, the same on every rank of a model group in exact
+  arithmetic, are averaged over every rank: on the card a non-deterministic
+  kernel (cuDNN's weight gradients of the decoder) leaves them a few bits
+  apart between the ranks of a model group, and the replicated tensors
+  would drift apart.
+
+The optimizer's clip then takes the squares of the sharded tensors summed
+over the model group (``AdamChain.step``), the replicated ones once.
+
 ``DistributedDataParallel`` cannot do this here: its reducer fires on
 ``.grad`` hooks, which ``torch.autograd.grad`` bypasses. The
-discriminator's gradients are averaged the same way. Dropout and the label
-noise draw from the state's ``rng``, seeded by (seed, data rank), so that
-the ranks of one model group draw alike.
+discriminator's gradients are averaged over every rank. Dropout and the
+label noise draw from the state's ``rng``, seeded by (seed, data rank), so
+that the ranks of one model group draw alike.
 """
 
 from __future__ import annotations
@@ -52,6 +71,7 @@ from ..metrics.pixel import PixelMetrics
 from ..models.layers import sync_batch_norm, use_generator
 from ..models.vit import VisionTransformer
 from ..parallel.mesh import Mesh, average_gradients
+from ..parallel.sharding import param_layouts, partial_params
 from .losses import adversarial_loss, focal_bce_loss
 from .optim import AdamChain, OptState, layer_decay_multiplier, set_trainable
 
@@ -68,6 +88,17 @@ class TrainState:
     device: torch.device = torch.device("cpu")
     mesh: Optional[Mesh] = None                       # the ranks' layout (None: one process)
     grad_scales: Optional[List[float]] = None         # per trainable parameter, before the mean
+    tp: Optional["TensorParallelGrads"] = None         # a tensor-parallel generator's rule
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallelGrads:
+    """Per trainable tensor of a tensor-parallel generator: a shard of a
+    split weight (``sharded``), or replicated in a column branch with a
+    partial gradient (``partial``: the LoRA adapters)."""
+
+    sharded: Tuple[bool, ...]
+    partial: Tuple[bool, ...]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,8 +132,12 @@ def create_train_state(model: torch.nn.Module, gen_optimizer: AdamChain, disc=No
     state's ``rng`` drives the label noise and, in the step, every
     ``Dropout``. With a ``mesh`` of several ranks the BatchNorms are synced
     over its data group, the rng is seeded by (seed, data rank) and the step
-    reduces the gradients over every rank (the module docstring)."""
+    reduces the gradients over every rank (the module docstring). A
+    tensor-parallel generator needs the mesh it was sharded over."""
     device = resolve_device(device)
+    layouts = param_layouts(model)
+    if layouts and (mesh is None or mesh.n_model == 1):
+        raise ValueError("a tensor-parallel generator trains over the mesh it was sharded over")
     model.to(device).train()
     gen_params = set_trainable(model, freeze_model_name or "", frozen_dtype)
     for m in model.modules():
@@ -112,20 +147,26 @@ def create_train_state(model: torch.nn.Module, gen_optimizer: AdamChain, disc=No
     if gen_optimizer.layer_decay is not None:
         rate, n_layers = gen_optimizer.layer_decay
         scale = [layer_decay_multiplier(model, n, rate, n_layers) for n, _ in gen_params]
-    grad_scales = None
+    grad_scales = tp = None
     if mesh is not None and mesh.size > 1:
         sync_batch_norm(model, mesh.data_group)
-        sharded = {id(p) for m in model.modules()
-                   if isinstance(m, VisionTransformer) and m.cfg.attn_impl == "seq_shard"
-                   for p in m.parameters()}
-        grad_scales = [float(mesh.n_model) if id(p) in sharded else 1.0 for _, p in gen_params]
+        if layouts:
+            partial = set(partial_params(model))
+            tp = TensorParallelGrads(tuple(n in layouts for n, _ in gen_params),
+                                     tuple(n in partial for n, _ in gen_params))
+        else:
+            sharded = {id(p) for m in model.modules()
+                       if isinstance(m, VisionTransformer) and m.cfg.attn_impl == "seq_shard"
+                       for p in m.parameters()}
+            grad_scales = [float(mesh.n_model) if id(p) in sharded else 1.0
+                           for _, p in gen_params]
         # rank 0 draws as one process does; the ranks of a model group alike
         seed = seed + 1_000_003 * mesh.data_rank
     state = TrainState(step=0, generator=model, gen_params=gen_params,
                        gen_opt_state=gen_optimizer.init([p for _, p in gen_params], scale),
                        rng=torch.Generator(device=device).manual_seed(seed), device=device,
                        mesh=mesh if mesh is not None and mesh.size > 1 else None,
-                       grad_scales=grad_scales)
+                       grad_scales=grad_scales, tp=tp)
     if disc is not None:
         disc.to(device).train()
         state.disc = disc
@@ -140,6 +181,19 @@ def _label_noise(shape, generator: torch.Generator) -> torch.Tensor:
 
 def _on_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _reduce_tensor_parallel(grads, state: TrainState) -> None:
+    """The tensor-parallel rule of the module docstring, in place."""
+    mesh, tp = state.mesh, state.tp
+    partial = [g for g, p in zip(grads, tp.partial) if p]
+    if partial:
+        # the mean of n_model times each rank's share: the model group's sum
+        average_gradients(partial, [float(mesh.n_model)] * len(partial), mesh.model_group)
+    split = [g for g, s, p in zip(grads, tp.sharded, tp.partial) if s or p]
+    if split and mesh.data_group is not None:
+        average_gradients(split, group=mesh.data_group)
+    average_gradients([g for g, s, p in zip(grads, tp.sharded, tp.partial) if not (s or p)])
 
 
 def make_train_step(model, loss_reconstruct: Callable, gen_optimizer: AdamChain,
@@ -192,9 +246,13 @@ def make_train_step(model, loss_reconstruct: Callable, gen_optimizer: AdamChain,
             loss = loss + fg
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-        if state.mesh is not None:
+        clip = {}
+        if state.tp is not None:
+            _reduce_tensor_parallel(grads, state)
+            clip = {"sharded": state.tp.sharded, "group": state.mesh.model_group}
+        elif state.mesh is not None:
             average_gradients(grads, state.grad_scales)
-        gen_optimizer.step(params, grads, state.gen_opt_state)
+        gen_optimizer.step(params, grads, state.gen_opt_state, **clip)
 
         fake = fake.detach()
         log = {"gen_loss": loss.detach(), "gen_loss_sim": loss_sim.detach(),

@@ -190,12 +190,28 @@ def test_loader_shard_walks_the_jax_indices():
 def test_dryrun_over_two_ranks(capsys):
     """``python -m mipheivit_tpu_torch.parallel.dryrun --ranks 2``: the
     data-parallel step with the GAN, the data-parallel WSI and the
-    sequence-sharded forward, each held by its own check."""
+    sequence-sharded forward, each held by its own check; the
+    tensor-parallel part needs 4 ranks (the JAX ``n_model`` rule) and says
+    so."""
     from mipheivit_tpu_torch.parallel import dryrun
 
     dryrun.main(["--ranks", "2"])
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.startswith("dryrun(2 ranks) OK: train OK [dp=2]") and "seq_shard OK" in line
+    assert "tp SKIPPED" in line
+
+
+def test_dryrun_over_four_ranks_shards_the_encoder(capsys):
+    """``--ranks 4``: the same step with the encoder tensor-parallel over a
+    dp 2 x tp 2 mesh: finite losses, the first loss one process's, the
+    replicated tensors bit-identical on every rank and each shard across
+    the data replicas (``dryrun.tp_check``)."""
+    from mipheivit_tpu_torch.parallel import dryrun
+
+    dryrun.main(["--ranks", "4"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("dryrun(4 ranks) OK: train OK [dp=4]")
+    assert "seq_shard OK [dp=2 x sp=2]" in line and "tp OK [dp=2 x tp=2]" in line
 
 
 def test_run_cli_under_two_ranks_trains_into_one_log_directory(tmp_path, monkeypatch):
