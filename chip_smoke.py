@@ -204,7 +204,30 @@ refuses a duplicate GPU), at full width and depth:
                the first loss and the LoRA q/v gradients against the
                one-rank step, the replicated tensors identical. [k1
                bf16_tp] and [k2 bf16_tp] hold K1 and K2 at these shapes
-               against their plain versions.
+               against their plain versions;
+  [tp int8 forward] the serving generator in int8 W8A8 (quantize_encoder
+               before shard_params: qkv and fc1 cut with their scales, proj
+               and fc2 row-split with the rows' amax max-reduced over the
+               ranks and the int32 partial products summed), one batch of
+               16 tiles and one 1024-px region against the unsharded int8
+               forward (per-marker Pearson, the share of uint8 codes equal),
+               the all-reduces tallied by dtype; launches a rank: K1 40
+               (tiles), K4 40 (region), K3 2, K2 0 (fc1 is an int8 product);
+  [tp swin]    unet_lora on ctranspath at full width sharded (stage 0's 3
+               heads split 2 + 1, the Swin MLP whole): the f32 forward of
+               16 tiles against the unsharded one (per-marker Pearson and
+               max error), the bf16 one against the unsharded f32 (the
+               bf16-vs-f32 bar: the outputs' spread is a few bf16 steps), then
+               two microbatches of the preset's step, the first loss
+               against the one-rank step's, the replicated tensors
+               identical; no kernel (K1-K8 = 0);
+  [tp train 1024] the flagship preset's step on 1024-px regions with its
+               encoder sharded: one optimizer step of 2 microbatches, the
+               first loss and the LoRA q/v gradients against the one-rank
+               step, the replicated tensors identical; launches a rank: K4
+               = K5 = K2 = K2's backward terms = 80 (12 heads, hidden 2048).
+               [k4 bf16_tp_region] and [k5 bf16_tp_region] hold K4 and K5
+               at [1, 5334, 12 x 64] against their plain versions.
 
 Before the paths, [head dims] runs the four attention entry points at head
 dims 12, 32, 36 and 40 through their kernels (K1, K4, K5, K6; zero-padded
@@ -233,6 +256,7 @@ Needs one CUDA card and nvcc; there is no CPU fallback.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import re
@@ -415,9 +439,9 @@ def scaled_err(got, want):
 
 
 def heads_view(t, requires_grad=False):
-    """``[B, S, H*D]`` -> a ``[B, H, S, D]`` view (the library call's layout)."""
+    """``[B, S, H*64]`` -> a ``[B, H, S, 64]`` view (the library call's layout)."""
     b, s, _ = t.shape
-    v = t.detach().view(b, s, HEADS, 64).transpose(1, 2)
+    v = t.detach().view(b, s, -1, 64).transpose(1, 2)
     return v.detach().requires_grad_() if requires_grad else v
 
 
@@ -517,12 +541,12 @@ def load(ckpt, enc, device, dtype, img=IMG):
     return cast_params(merge_lora(model), dtype)
 
 
-def k4_phase(name, q, k, v, seq_len_k=None):
-    """K4 against its plain version on one input (keys past ``seq_len_k``
-    may hold NaN or Inf: the plain version sees the live keys only); prints
-    and checks the errors and times the kernel, the plain version and the
-    library's attention on the live keys, with the bound. Returns the row's
-    numbers."""
+def k4_phase(name, q, k, v, seq_len_k=None, heads=HEADS):
+    """K4 against its plain version on one input of ``heads`` heads (keys
+    past ``seq_len_k`` may hold NaN or Inf: the plain version sees the live
+    keys only); prints and checks the errors and times the kernel, the plain
+    version and the library's attention on the live keys, with the bound.
+    Returns the row's numbers."""
     import torch.nn.functional as F
 
     from mipheivit_tpu_torch.ops import attention as attn
@@ -532,20 +556,20 @@ def k4_phase(name, q, k, v, seq_len_k=None):
     kl, vl = k[:, :live], v[:, :live]
     t0 = time.perf_counter()
     with torch.inference_mode():
-        out, lse = attn.flash_attention(q, k, v, HEADS, seq_len_k)
-        want_out, want_lse = attn.flash_reference(q, kl, vl, HEADS)
+        out, lse = attn.flash_attention(q, k, v, heads, seq_len_k)
+        want_out, want_lse = attn.flash_reference(q, kl, vl, heads)
         torch.cuda.synchronize()
         finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
         out_err, out_rel, out_fro = scaled_err(out, want_out)
         lse_err = (lse - want_lse).abs().max().item()
         del out, lse, want_out, want_lse
-        ms = cuda_ms(lambda: attn.flash_attention(q, k, v, HEADS, seq_len_k), reps=10)
-        plain_ms = cuda_ms(lambda: attn.flash_reference(q, kl, vl, HEADS), reps=3, warmup=1)
+        ms = cuda_ms(lambda: attn.flash_attention(q, k, v, heads, seq_len_k), reps=10)
+        plain_ms = cuda_ms(lambda: attn.flash_reference(q, kl, vl, heads), reps=3, warmup=1)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             heads_view(q), heads_view(kl), heads_view(vl)), reps=10)
     b, sq, hd = q.shape
-    n_bytes = (2 * b * sq * hd + 2 * b * live * hd) * q.element_size() + b * HEADS * sq * 4
-    bnd, by = bound_ms(n_bytes, 4.0 * b * HEADS * sq * live * 64, dt)
+    n_bytes = (2 * b * sq * hd + 2 * b * live * hd) * q.element_size() + b * heads * sq * 4
+    bnd, by = bound_ms(n_bytes, 4.0 * b * heads * sq * live * 64, dt)
     print(f"[k4 {name}] q {tuple(q.shape)} k {tuple(k.shape)} seq_len_k {live} out_err "
           f"{out_err:.3e} = {out_rel:.2e} of max|ref|, norm-rel {out_fro:.2e} (tol "
           f"{SCALED_TOL[dt][0]:g}, {SCALED_TOL[dt][1]:g}) lse_err {lse_err:.3e} (tol "
@@ -558,9 +582,9 @@ def k4_phase(name, q, k, v, seq_len_k=None):
             "bound_by": by, "library_ms": library_ms}
 
 
-def k5_phase(name, q, k, v, seq_len_k=None, seed=0):
-    """K5 against its plain version on K4's output for one input and a
-    random output gradient; prints and checks the dq/dk/dv errors and times
+def k5_phase(name, q, k, v, seq_len_k=None, seed=0, heads=HEADS):
+    """K5 against its plain version on K4's output for one input of
+    ``heads`` heads and a random output gradient; prints and checks the dq/dk/dv errors and times
     the kernel, the plain version, and the library's attention backward
     alone (the row's ``library_ms``) and its forward plus backward, on the
     same (live) keys. Returns the row's numbers."""
@@ -573,15 +597,15 @@ def k5_phase(name, q, k, v, seq_len_k=None, seed=0):
     g = torch.from_numpy(np.random.default_rng(seed).standard_normal(
         q.shape, dtype=np.float32)).to(q.device, q.dtype)
     with torch.no_grad():
-        out, lse = attn.flash_attention(q, k, v, HEADS, seq_len_k)
-        got = attn.flash_backward(q, k, v, out, lse, g, HEADS, seq_len_k)
-        want = attn.flash_backward_reference(q, k, v, out, lse, g, HEADS, seq_len_k)
+        out, lse = attn.flash_attention(q, k, v, heads, seq_len_k)
+        got = attn.flash_backward(q, k, v, out, lse, g, heads, seq_len_k)
+        want = attn.flash_backward_reference(q, k, v, out, lse, g, heads, seq_len_k)
         torch.cuda.synchronize()
         finite = all(bool(torch.isfinite(a).all()) for a in got)
         errs = [scaled_err(a, w) for a, w in zip(got, want)]
         del got, want
-        ms = cuda_ms(lambda: attn.flash_backward(q, k, v, out, lse, g, HEADS, seq_len_k), reps=10)
-        plain_ms = cuda_ms(lambda: attn.flash_backward_reference(q, k, v, out, lse, g, HEADS,
+        ms = cuda_ms(lambda: attn.flash_backward(q, k, v, out, lse, g, heads, seq_len_k), reps=10)
+        plain_ms = cuda_ms(lambda: attn.flash_backward_reference(q, k, v, out, lse, g, heads,
                                                                  seq_len_k), reps=3, warmup=1)
     live = seq_len_k or k.shape[1]
     ql, kl, vl = (heads_view(t, True) for t in (q, k[:, :live], v[:, :live]))
@@ -599,8 +623,8 @@ def k5_phase(name, q, k, v, seq_len_k=None, seed=0):
                              reps=10)
         del o
     b, sq, hd = q.shape
-    n_bytes = 4 * b * (sq + k.shape[1]) * hd * q.element_size() + b * HEADS * sq * 4
-    bnd, by = bound_ms(n_bytes, 10.0 * b * HEADS * sq * live * 64, dt)
+    n_bytes = 4 * b * (sq + k.shape[1]) * hd * q.element_size() + b * heads * sq * 4
+    bnd, by = bound_ms(n_bytes, 10.0 * b * heads * sq * live * 64, dt)
     print(f"[k5 {name}] q {tuple(q.shape)} k {tuple(k.shape)} seq_len_k {live} "
           f"dq/dk/dv err {'/'.join(f'{e[0]:.3e}' for e in errs)} = "
           f"{'/'.join(f'{e[1]:.2e}' for e in errs)} of max|ref|, norm-rel "
@@ -2787,6 +2811,26 @@ def k2_need_w_ms(dev, m=MICRO * 329):
     return out[True], out[False]
 
 
+def family_step(model, model_name, micro, dev, foreground_head=False, mesh=None):
+    """A baseline preset's train state and step (f32 parameters, bf16
+    compute, no accumulation, weighted MSE with the foreground term where
+    the head is on), over ``mesh``'s ranks when given."""
+    from mipheivit_tpu_torch.models.layers import set_compute_dtype
+    from mipheivit_tpu_torch.train import (StepConfig, build_generator_optimizer,
+                                           create_train_state, make_train_step, scaled_lr,
+                                           weighted_mse_loss)
+    from mipheivit_tpu_torch.train.losses import marker_weights_from_stds
+
+    set_compute_dtype(model, torch.bfloat16)
+    opt = build_generator_optimizer(scaled_lr(LR_G, micro), TOTAL_ITERS, warmup_iters=1)
+    state = create_train_state(model, opt, freeze_model_name=model_name, seed=SEED, device=dev,
+                               mesh=mesh)
+    stds = np.random.default_rng(SEED + 5).uniform(0.1, 0.3, MARKERS)
+    step = make_train_step(model, weighted_mse_loss(LAMBDA, marker_weights_from_stds(stds)),
+                           opt, cfg=StepConfig(foreground_head=foreground_head))
+    return state, step
+
+
 def train_family_phase(tag, model, model_name, n_micro, micro, dev, foreground_head=False,
                        counted=0):
     """[train unetr] / [train convnext fg] / [train ctranspath] / [train
@@ -2800,20 +2844,10 @@ def train_family_phase(tag, model, model_name, n_micro, micro, dev, foreground_h
     launches (``counted`` K1/K2 blocks a microbatch). Returns the counts and
     the rate at the timed steps' median."""
     from mipheivit_tpu_torch.metrics import PixelMetrics
-    from mipheivit_tpu_torch.models.layers import set_compute_dtype
-    from mipheivit_tpu_torch.train import (StepConfig, build_generator_optimizer,
-                                           create_train_state, make_train_step, scaled_lr,
-                                           weighted_mse_loss)
-    from mipheivit_tpu_torch.train.losses import marker_weights_from_stds
     from mipheivit_tpu_torch.train.optim import is_trainable, jax_path
 
     t_all = time.perf_counter()
-    set_compute_dtype(model, torch.bfloat16)
-    opt = build_generator_optimizer(scaled_lr(LR_G, micro), TOTAL_ITERS, warmup_iters=1)
-    state = create_train_state(model, opt, freeze_model_name=model_name, seed=SEED, device=dev)
-    stds = np.random.default_rng(SEED + 5).uniform(0.1, 0.3, MARKERS)
-    step = make_train_step(model, weighted_mse_loss(LAMBDA, marker_weights_from_stds(stds)),
-                           opt, cfg=StepConfig(foreground_head=foreground_head))
+    state, step = family_step(model, model_name, micro, dev, foreground_head=foreground_head)
     data = train_batches(n_micro, micro, IMG, dev, SEED + 33)
     n_rule = sum(is_trainable(jax_path(model, n), model_name) for n, _ in model.named_parameters())
     n_all = sum(1 for _ in model.parameters())
@@ -3788,6 +3822,7 @@ TP_BF16_LORA_COS = BF16_LORA_COS
 TP_F32_LOSS_RTOL = 1e-5
 TP_F32_LORA_COS = 0.9999
 TP_REPS = 3
+TP_SWIN_MICRO = CTRANSPATH_PRESET["train"]["batch_size"]     # [tp swin]'s microbatch
 
 
 def _sync_ms(fn, group, reps=COLLECTIVE_REPS):
@@ -4111,6 +4146,47 @@ def trainer_ddp_rank(tmp, ckpt, enc, data_values):
     return res
 
 
+def tp_inputs(dev):
+    """The tensor-parallel forwards' inputs, normalised on the card: a batch
+    of TP_TILES uint8 tiles of IMG px and one REGION-px region."""
+    from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE
+
+    mean = torch.as_tensor(HOPTIMUS_HE.mean, device=dev)
+    std = torch.as_tensor(HOPTIMUS_HE.std, device=dev)
+    tiles = np.random.default_rng(SEED + 1).integers(0, 256, (TP_TILES, IMG, IMG, 3),
+                                                     dtype=np.uint8)
+    slide = np.random.default_rng(SEED + 2).integers(0, 256, (REGION, REGION, 3), dtype=np.uint8)
+    return ((torch.from_numpy(tiles).to(dev).float() - mean) / std,
+            (torch.from_numpy(slide[None]).to(dev).float() - mean) / std)
+
+
+@contextlib.contextmanager
+def all_reduce_tally():
+    """Count ``torch.distributed.all_reduce`` calls and their bytes by dtype
+    while inside (the port's collectives call it through the module):
+    ``{dtype: [calls, bytes]}``."""
+    import torch.distributed as dist
+
+    tally = {}
+    real = dist.all_reduce
+
+    def counted(t, *args, **kw):
+        row = tally.setdefault(str(t.dtype).replace("torch.", ""), [0, 0])
+        row[0] += 1
+        row[1] += t.numel() * t.element_size()
+        return real(t, *args, **kw)
+
+    dist.all_reduce = counted
+    try:
+        yield tally
+    finally:
+        dist.all_reduce = real
+
+
+def tally_text(tally: dict) -> str:
+    return ", ".join(f"{n} of {dt} ({b / 1e6:.1f} MB)" for dt, (n, b) in sorted(tally.items()))
+
+
 def tp_forward_rank(ckpt, enc, dev):
     """[tp forward]: the serving generator (load_generator(fast_heads) ->
     merge_lora -> cast_params(bf16)) at 256 and at 1024 px, each rank's
@@ -4122,19 +4198,12 @@ def tp_forward_rank(ckpt, enc, dev):
     versions)."""
     import torch.distributed as dist
 
-    from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE
     from mipheivit_tpu_torch.parallel import make_mesh, shard_params
 
     rank = dist.get_rank()
     mesh = make_mesh(1, PAR_RANKS)
     group = mesh.model_group
-    mean = torch.as_tensor(HOPTIMUS_HE.mean, device=dev)
-    std = torch.as_tensor(HOPTIMUS_HE.std, device=dev)
-    tiles = np.random.default_rng(SEED + 1).integers(0, 256, (TP_TILES, IMG, IMG, 3),
-                                                     dtype=np.uint8)
-    slide = np.random.default_rng(SEED + 2).integers(0, 256, (REGION, REGION, 3), dtype=np.uint8)
-    x = (torch.from_numpy(tiles).to(dev).float() - mean) / std
-    xr = (torch.from_numpy(slide[None]).to(dev).float() - mean) / std
+    x, xr = tp_inputs(dev)
     models = {"tiles": (load(ckpt, enc, dev, torch.bfloat16, IMG), x),
               "region": (load(ckpt, enc, dev, torch.bfloat16, REGION), xr)}
     with torch.inference_mode():
@@ -4246,11 +4315,197 @@ def tp_train_rank(ckpt, enc, dev):
     return res
 
 
+def tp_int8_rank(ckpt, enc, dev):
+    """[tp int8 forward]: the serving generator in int8 W8A8 (load ->
+    quantize_encoder) at 256 and at 1024 px, each rank's unsharded int8
+    output first; then shard_params over the ranks (the int8 qkv and fc1
+    cut with their scales, the row-split proj and fc2 quantised at the
+    rows' amax max-reduced over the ranks, their int32 partial products
+    summed) and, with the launch counts at 0, one batch of TP_TILES tiles
+    and one 1024-px region, each timed with its all-reduces tallied; then
+    one block's int32 sum and row-scale max alone."""
+    import torch.distributed as dist
+
+    from mipheivit_tpu_torch.infer import quantize_encoder
+    from mipheivit_tpu_torch.infer.tiles import predictions_to_uint8
+    from mipheivit_tpu_torch.parallel import make_mesh, shard_params
+    from mipheivit_tpu_torch.parallel.mesh import max_over_model, sum_int_over_model
+
+    mesh = make_mesh(1, PAR_RANKS)
+    group = mesh.model_group
+    x, xr = tp_inputs(dev)
+    models = {"tiles": (quantize_encoder(load(ckpt, enc, dev, torch.bfloat16, IMG)), x),
+              "region": (quantize_encoder(load(ckpt, enc, dev, torch.bfloat16, REGION)), xr)}
+    with torch.inference_mode():
+        want = {k: m(v).float().cpu().numpy() for k, (m, v) in models.items()}
+    for m, _ in models.values():
+        shard_params(m, mesh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    res = {"s": {}, "tally": {}, "pearson": {}, "uint8_equal": {}, "finite": True}
+    for k, (m, v) in models.items():
+        dist.barrier(group=group)
+        t0 = time.perf_counter()
+        with torch.inference_mode(), all_reduce_tally() as tally:
+            got = m(v).float().cpu().numpy()
+        res["s"][k] = time.perf_counter() - t0
+        res["tally"][k] = tally
+        res["finite"] = res["finite"] and bool(np.isfinite(got).all())
+        res["pearson"][k] = pearson(got, want[k])
+        res["uint8_equal"][k] = float((predictions_to_uint8(got)
+                                       == predictions_to_uint8(want[k])).mean())
+    res["counts"] = read_counts()
+    del models
+    torch.cuda.empty_cache()
+    acc = torch.zeros(TP_TILES * 329, HD, dtype=torch.int32, device=dev)
+    amax = torch.zeros(TP_TILES * 329, 1, device=dev)
+    res["int32_ms"] = _sync_ms(lambda: sum_int_over_model(acc, group), group)
+    res["max_ms"] = _sync_ms(lambda: max_over_model(amax, group), group)
+    res["int32_bytes"], res["max_bytes"] = acc.numel() * 4, amax.numel() * 4
+    return res
+
+
+def tp_swin_rank(dev):
+    """[tp swin]: unet_lora on ctranspath (Swin-T with the conv stem and LoRA,
+    heads 3/6/12/24) at full width and IMG px, seeded weights, heads through
+    contrast_head: the f32 and the bf16 forward of TP_TILES tiles
+    unsharded, then shard_params over the ranks (stage 0's 3 heads split 2
+    + 1; the Swin MLP whole) and the same forwards, the bf16 one timed with
+    its all-reduces tallied;
+    then the preset's step sharded, two microbatches of TP_SWIN_MICRO tiles
+    with the counts at 0: the losses, the replicated tensors' digest; on
+    rank 0 the unsharded step's first loss."""
+    import torch.distributed as dist
+
+    from mipheivit_tpu_torch.infer import cast_params
+    from mipheivit_tpu_torch.metrics import PixelMetrics
+    from mipheivit_tpu_torch.parallel import make_mesh, shard_params
+    from mipheivit_tpu_torch.parallel.sharding import param_layouts
+    from mipheivit_tpu_torch.parallel.workers import digest
+
+    rank = dist.get_rank()
+    mesh = make_mesh(1, PAR_RANKS)
+    seed = SEED + 90
+    x = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (TP_TILES, IMG, IMG, 3), dtype=np.float32)).to(dev)
+    want, got = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        model = cast_params(contrast_heads(fresh_generator("unet_lora", "ctranspath", dev, seed)),
+                            dt).eval()
+        with torch.inference_mode():
+            want[dt] = model(x).float().cpu().numpy()
+        shard_params(model, mesh)
+        torch.cuda.synchronize()
+        dist.barrier()
+        if dt == torch.bfloat16:
+            reset_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode(), all_reduce_tally() as tally:
+            got[dt] = model(x).float().cpu().numpy()
+        secs = time.perf_counter() - t0
+    bf16, f32 = torch.bfloat16, torch.float32
+    res = {"s": secs, "tally": tally, "counts": read_counts(),
+           "finite": all(bool(np.isfinite(g).all()) for g in got.values()),
+           "pearson": pearson(got[bf16], want[bf16]), "pearson32": pearson(got[f32], want[f32]),
+           "f32_rel": float(np.abs(got[f32] - want[f32]).max() / np.abs(want[f32]).max()),
+           "bf16_vs_f32": pearson(got[bf16], want[f32]), "floor": pearson(want[bf16], want[f32]),
+           "heads": [blk.attn.num_heads for stage in model.encoder.model.layers
+                     for blk in stage.blocks]}
+    del model
+    torch.cuda.empty_cache()
+    data = train_batches(2, TP_SWIN_MICRO, IMG, dev, SEED + 33)
+    model = shard_params(fresh_generator("unet_lora", "ctranspath", dev, seed), mesh)
+    state, step = family_step(model, "unet_lora", TP_SWIN_MICRO, dev, mesh=mesh)
+    metrics = PixelMetrics.zeros(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    reset_counts()
+    losses, step_s = [], []
+    with all_reduce_tally() as tally:
+        for batch in data:
+            t0 = time.perf_counter()
+            state, metrics, log = step(state, batch, metrics)
+            losses.append(float(log["gen_loss"]))
+            step_s.append(time.perf_counter() - t0)
+    layouts = param_layouts(model)
+    res["train"] = {"counts": read_counts(), "losses": losses, "step_s": step_s, "tally": tally,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "digest": digest({n: t for n, t in model.state_dict().items()
+                                      if n not in layouts}),
+                    "shards": len(layouts), "trainable": len(state.gen_params)}
+    del state, step, model, log
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        state, step = family_step(fresh_generator("unet_lora", "ctranspath", dev, seed),
+                                  "unet_lora", TP_SWIN_MICRO, dev)
+        _, _, log = step(state, data[0], PixelMetrics.zeros(dev))
+        res["train"]["solo_loss"] = float(log["gen_loss"])
+        del state, step, log
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def tp_train_region_rank(ckpt, enc, dev):
+    """[tp train 1024]: the flagship preset's generator step (LoRA 8 live,
+    the frozen encoder stored bf16) on 1024-px regions (5334 tokens) with
+    the encoder sharded over the ranks: K4 and K5 at 12 heads a rank, K2 at
+    hidden 2048; one optimizer step of ACCUM microbatches of REGION_MICRO
+    ([train 1024]'s first) with the launch counts at 0 and the all-reduces
+    tallied; the replicated tensors' digest after it; on rank 0 the
+    one-rank step's first microbatch: the loss and the LoRA q/v gradients
+    against the sharded step's."""
+    import torch.distributed as dist
+
+    from mipheivit_tpu_torch.metrics import PixelMetrics
+    from mipheivit_tpu_torch.parallel import make_mesh, shard_params
+    from mipheivit_tpu_torch.parallel.sharding import param_layouts
+    from mipheivit_tpu_torch.parallel.workers import digest
+
+    rank = dist.get_rank()
+    mesh = make_mesh(1, PAR_RANKS)
+    model = shard_params(train_model(ckpt, enc, REGION, dev), mesh)
+    data = train_batches(ACCUM, REGION_MICRO, REGION, dev, SEED + 4)
+    state, step = train_setup(model, dev, torch.bfloat16, mesh=mesh)
+    metrics = PixelMetrics.zeros(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    reset_counts()
+    losses, step_s = [], []
+    with all_reduce_tally() as tally:
+        for a, batch in enumerate(data):
+            t0 = time.perf_counter()
+            state, metrics, log = step(state, batch, metrics)
+            losses.append(float(log["gen_loss"]))
+            step_s.append(time.perf_counter() - t0)
+            if a == 0:
+                grads0 = {n: g.detach().float().cpu() for n, g in log["grads"].items()}
+    layouts = param_layouts(model)
+    res = {"counts": read_counts(), "losses": losses, "step_s": step_s, "tally": tally,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "digest": digest({n: t for n, t in model.state_dict().items() if n not in layouts})}
+    del state, step, model, log
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        ref = one_step_grads(train_model(ckpt, enc, REGION, dev), data[0], dev, torch.bfloat16)
+        res.update(cos=lora_cos((losses[0], grads0), ref), solo_loss=ref[0],
+                   ratio=norm_ratio(grad_norms(grads0), grad_norms(ref[1])))
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
 def parallel_rank_phases(tmp, ckpt, enc, ref_path, data_values):
     """Every multi-card phase on one rank, in order (each rank of the
     spawn runs this): [collectives], [seq shard wsi 1024], [seq shard
     2048], [train seq shard 1024], [trainer ddp], [tp forward], [tp train
-    256], then the NCCL probe."""
+    256], [tp int8 forward], [tp swin], [tp train 1024], then the NCCL
+    probe."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from mipheivit_tpu_torch.parallel.mesh import process_device
@@ -4263,6 +4518,9 @@ def parallel_rank_phases(tmp, ckpt, enc, ref_path, data_values):
     res["trainer ddp"] = trainer_ddp_rank(tmp, ckpt, enc, data_values)
     res["tp forward"] = tp_forward_rank(ckpt, enc, dev)
     res["tp train"] = tp_train_rank(ckpt, enc, dev)
+    res["tp int8"] = tp_int8_rank(ckpt, enc, dev)
+    res["tp swin"] = tp_swin_rank(dev)
+    res["tp train 1024"] = tp_train_region_rank(ckpt, enc, dev)
     res["nccl"] = nccl_probe(dev)
     return res
 
@@ -4412,14 +4670,15 @@ def parallel_phases(tmp: Path, ckpt: Path, enc: Path, wsi1024_out, data_values: 
     for r, res in enumerate(ranks):
         check_counts(f"[trainer ddp] rank {r}", res["trainer ddp"]["counts"], k1=depth * n_fwd,
                      k2=depth * n_fwd, k2b=depth * TRAINER_STEPS)
-    tp_report(ranks, depth, per_rank, t_all)
+    tp_report(ranks, depth, per_rank, counts, t_all)
     return counts
 
 
-def tp_report(ranks, depth: int, per_rank, t_all: float) -> None:
-    """Print and check [tp forward] and [tp train 256] from every rank's
-    results (``per_rank(phase, tag)`` records a phase's launch counts by
-    path and rank and returns their text)."""
+def tp_report(ranks, depth: int, per_rank, counts: dict, t_all: float) -> None:
+    """Print and check [tp forward], [tp train 256], [tp int8 forward], [tp
+    swin] and [tp train 1024] from every rank's results (``per_rank(phase,
+    tag)`` records a phase's launch counts by path and rank into
+    ``counts`` and returns their text)."""
     r0 = ranks[0]
 
     f = r0["tp forward"]
@@ -4472,8 +4731,7 @@ def tp_report(ranks, depth: int, per_rank, t_all: float) -> None:
           f"step's: bf16 LoRA {t['ratio']['lora']:.6f}, decoder {t['ratio']['decoder']:.6f}, "
           f"f32 LoRA {t['ratio32']['lora']:.6f}, decoder {t['ratio32']['decoder']:.6f} (f32 "
           f"target within {GRAD_NORM_TOL:g} of 1); replicated tensors identical {same}; "
-          f"{per_rank('tp train', 'tp train 256')} ({time.perf_counter() - t_all:.1f} s for the "
-          f"spawned phases)", flush=True)
+          f"{per_rank('tp train', 'tp train 256')}", flush=True)
     check(all(np.isfinite(t["losses"])), "[tp train 256] non-finite loss")
     check(rel <= TP_LOSS_RTOL, "[tp train 256] the loss differs from one rank's")
     check(cos >= TP_BF16_LORA_COS, "[tp train 256] bf16 gradients differ from one rank's")
@@ -4485,6 +4743,97 @@ def tp_report(ranks, depth: int, per_rank, t_all: float) -> None:
     for r, res in enumerate(ranks):
         check_counts(f"[tp train 256] rank {r}", res["tp train"]["counts"], k1=depth * n_micro,
                      k2=depth * n_micro, k2b=depth * n_micro)
+
+    q = r0["tp int8"]
+    least = {k: min(float(res["tp int8"]["pearson"][k].min()) for res in ranks)
+             for k in ("tiles", "region")}
+    equal = {k: min(res["tp int8"]["uint8_equal"][k] for res in ranks) for k in least}
+    print(f"[tp int8 forward] quantize_encoder then shard_params over {PAR_RANKS} ranks (int8 "
+          f"qkv and fc1 cut with their scales; proj and fc2 row-split: the rows' amax "
+          f"max-reduced, the int32 partial products summed): {TP_TILES} tiles of {IMG} px "
+          f"{1e3 * q['s']['tiles']:.1f} ms with {tally_text(q['tally']['tiles'])}; one "
+          f"{REGION}-px region {1e3 * q['s']['region']:.1f} ms with "
+          f"{tally_text(q['tally']['region'])} (wall of the counted forward, rank 0); one "
+          f"block's int32 sum alone ({q['int32_bytes'] / 1e6:.1f} MB) {q['int32_ms']:.2f} ms, its "
+          f"row-scale max ({q['max_bytes'] / 1e3:.1f} kB) {q['max_ms']:.2f} ms; per-marker "
+          f"Pearson against the unsharded int8 forward, least over ranks: tiles "
+          f"{least['tiles']:.6f}, region {least['region']:.6f} (target >= {TP_PEARSON}); "
+          f"uint8 codes equal: tiles {equal['tiles']:.6f}, region {equal['region']:.6f}; "
+          f"{per_rank('tp int8', 'tp int8 forward')}", flush=True)
+    check(all(res["tp int8"]["finite"] for res in ranks), "[tp int8 forward] non-finite output")
+    check(min(least.values()) >= TP_PEARSON, "[tp int8 forward] sharded != unsharded")
+    for r, res in enumerate(ranks):
+        # one tile batch (K1, K3) and one region (K4, K3); fc1 is an int8 product
+        check_counts(f"[tp int8 forward] rank {r}", res["tp int8"]["counts"], k1=depth, k3=2,
+                     k4=depth)
+
+    w = r0["tp swin"]
+    t = w["train"]
+    least_w = {k: min(float(res["tp swin"][k].min()) for res in ranks)
+               for k in ("pearson32", "pearson", "bf16_vs_f32", "floor")}
+    f32_rel = max(res["tp swin"]["f32_rel"] for res in ranks)
+    rel = abs(t["losses"][0] - t["solo_loss"]) / abs(t["solo_loss"])
+    same = len({res["tp swin"]["train"]["digest"] for res in ranks}) == 1
+    heads = [res["tp swin"]["heads"] for res in ranks]
+    print(f"[tp swin] unet_lora on ctranspath sharded over {PAR_RANKS} ranks (heads a block, "
+          f"by rank: {'; '.join(','.join(map(str, h)) for h in heads)}; the Swin MLP whole): "
+          f"bf16 forward of {TP_TILES} tiles {1e3 * w['s']:.1f} ms with "
+          f"{tally_text(w['tally'])}; f32 against the unsharded f32 forward: per-marker Pearson, "
+          f"least over ranks, {least_w['pearson32']:.7f} (target >= {TP_PEARSON}), max |diff| "
+          f"{f32_rel:.2e} of max |ref| (target <= {TP_F32_TOL:g}); bf16 against the unsharded "
+          f"f32 forward {least_w['bf16_vs_f32']:.6f} (target >= {MIN_PEARSON}, the bf16-vs-f32 "
+          f"bar; the unsharded bf16 forward's {least_w['floor']:.6f}), against the unsharded "
+          f"bf16 forward {least_w['pearson']:.6f} (output spread ~0.01: bf16's step at the "
+          f"outputs is a large share of it); the preset's step, 2 microbatches "
+          f"of {TP_SWIN_MICRO} x {IMG} px ({t['shards']} sharded of {t['trainable']} trainable "
+          f"tensors a rank): {', '.join(f'{1e3 * v:.1f}' for v in t['step_s'])} ms (first "
+          f"includes warm-up), {tally_text(t['tally'])}, peak "
+          f"{', '.join(f'{res['tp swin']['train']['peak_gib']:.2f}' for res in ranks)} GiB by "
+          f"rank; loss {', '.join(f'{v:.4f}' for v in t['losses'])}, first against one rank's "
+          f"{t['solo_loss']:.4f} (rel {rel:.2e}, tol {TP_LOSS_RTOL:g}); replicated tensors "
+          f"identical {same}; {per_rank('tp swin', 'tp swin')}; "
+          + "; ".join(f"rank {r} step {counts_line(res['tp swin']['train']['counts'])}"
+                      for r, res in enumerate(ranks)), flush=True)
+    check(all(res["tp swin"]["finite"] for res in ranks), "[tp swin] non-finite output")
+    check(least_w["pearson32"] >= TP_PEARSON and f32_rel <= TP_F32_TOL,
+          "[tp swin] the f32 sharded forward differs from the unsharded one")
+    check(least_w["bf16_vs_f32"] >= MIN_PEARSON, "[tp swin] the bf16 sharded forward does not "
+          "track f32")
+    check(all(np.isfinite(t["losses"])), "[tp swin] non-finite loss")
+    check(rel <= TP_LOSS_RTOL, "[tp swin] the loss differs from one rank's")
+    check(same, "[tp swin] the replicated tensors differ between the ranks")
+    check(heads[0] != heads[1] and [a + b for a, b in zip(*heads)] == [3, 3, 6, 6] + [12] * 6
+          + [24, 24], f"[tp swin] heads by rank {heads}")
+    for r, res in enumerate(ranks):
+        counts[f"tp swin train r{r}"] = res["tp swin"]["train"]["counts"]
+        check_counts(f"[tp swin] rank {r}", res["tp swin"]["counts"])
+        check_counts(f"[tp swin] step, rank {r}", res["tp swin"]["train"]["counts"])
+
+    t = r0["tp train 1024"]
+    cos, least_cos, worst = t["cos"]
+    rel = abs(t["losses"][0] - t["solo_loss"]) / abs(t["solo_loss"])
+    same = len({res["tp train 1024"]["digest"] for res in ranks}) == 1
+    peaks = ", ".join(f"{res['tp train 1024']['peak_gib']:.2f}" for res in ranks)
+    print(f"[tp train 1024] the flagship preset's step on {REGION}-px regions ({REGION_S} "
+          f"tokens) with its encoder sharded over {PAR_RANKS} ranks (K4 and K5 at "
+          f"{HEADS // PAR_RANKS} heads, K2 at hidden {FC1_H // PAR_RANKS}): {ACCUM} "
+          f"microbatches of {REGION_MICRO}, one optimizer step: "
+          f"{', '.join(f'{1e3 * v:.1f}' for v in t['step_s'])} ms (first includes warm-up), "
+          f"{tally_text(t['tally'])}; peak {peaks} GiB by rank; loss "
+          f"{', '.join(f'{v:.4f}' for v in t['losses'])}, first against one rank's "
+          f"{t['solo_loss']:.4f} (rel {rel:.2e}, tol {TP_LOSS_RTOL:g}); bf16 LoRA q/v grad "
+          f"cosine against the one-rank step {cos:.6f}, least one {least_cos:.6f} ({worst}; "
+          f"target >= {TP_BF16_LORA_COS}); reduced gradient norm over the one-rank step's: "
+          f"LoRA {t['ratio']['lora']:.6f}, decoder {t['ratio']['decoder']:.6f}; replicated "
+          f"tensors identical {same}; {per_rank('tp train 1024', 'tp train 1024')} "
+          f"({time.perf_counter() - t_all:.1f} s for the spawned phases)", flush=True)
+    check(all(np.isfinite(t["losses"])), "[tp train 1024] non-finite loss")
+    check(rel <= TP_LOSS_RTOL, "[tp train 1024] the loss differs from one rank's")
+    check(cos >= TP_BF16_LORA_COS, "[tp train 1024] bf16 gradients differ from one rank's")
+    check(same, "[tp train 1024] the replicated tensors differ between the ranks")
+    for r, res in enumerate(ranks):
+        check_counts(f"[tp train 1024] rank {r}", res["tp train 1024"]["counts"],
+                     k4=depth * ACCUM, k5=depth * ACCUM, k2=depth * ACCUM, k2b=depth * ACCUM)
 
 
 def serve_dp_phase(model, tiles, dev, depth):
@@ -5246,10 +5595,10 @@ def main() -> None:
 
     # 3b. K4 against the plain version: a 1024-px region (fused qkv layout),
     #     a sequence shard's rectangle, f32, and ragged lengths
-    def fused(b, s, dtype, seed):
+    def fused(b, s, dtype, seed, hd=HD):
         t = torch.from_numpy(np.random.default_rng(seed).standard_normal(
-            (b, s, 3 * HD), dtype=np.float32)).to(dev, dtype)
-        return t[..., :HD], t[..., HD:2 * HD], t[..., 2 * HD:]
+            (b, s, 3 * hd), dtype=np.float32)).to(dev, dtype)
+        return t[..., :hd], t[..., hd:2 * hd], t[..., 2 * hd:]
 
     # (S = 5334 = 41 x 128 + 86: the last q tile and the last key tile ragged)
     q, k, v = fused(2, REGION_S, torch.bfloat16, SEED + 10)
@@ -5291,6 +5640,12 @@ def main() -> None:
     k5_phase("bf16_seq_shard_1024", q[:, :-(-REGION_S // PAR_RANKS)], k, v, seed=SEED + 26)
     del q, k, v, kp, vp
     k5_phase("f32", *fused(1, 1029, torch.float32, SEED + 24), seed=SEED + 25)
+    # K4 and K5 at [tp train 1024]'s shape: one rank's 12 heads of a 1024-px
+    # region ([tp int8 forward]'s region runs K4 there too)
+    q, k, v = fused(1, REGION_S, torch.bfloat16, SEED + 27, hd=HD // PAR_RANKS)
+    k4_tp = k4_phase("bf16_tp_region", q, k, v, heads=HEADS // PAR_RANKS)
+    k5_tp = k5_phase("bf16_tp_region", q, k, v, seed=SEED + 28, heads=HEADS // PAR_RANKS)
+    del q, k, v
     torch.cuda.empty_cache()
 
     # 3d. K2 against the plain version at every path's fc1: a batch of 64
@@ -5679,10 +6034,12 @@ def main() -> None:
         {"name": "k4_flash_attention", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/flash_attention.cu",
          "replaces": "mipheivit_tpu/ops/attention.py:59", **k4_region, "d128": wide["k4"],
+         "tp": k4_tp,
          **launches("flash")},
         {"name": "k5_flash_attention_bwd", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "mipheivit_tpu/ops/attention.py:317", **k5_region, "d128": wide["k5"],
+         "tp": k5_tp,
          **launches("flash_bwd")},
         {"name": "k2_swiglu", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/swiglu.cu",

@@ -150,10 +150,16 @@ def quantize_encoder(model: torch.nn.Module) -> torch.nn.Module:
     quantised from the values they hold (bf16 weights from their bf16
     values, as the JAX transform quantises what ``load_generator`` returns).
     Raises ``ValueError`` on a model without a ViT encoder (``encoder.vit``,
-    as JAX's :103) and on live LoRA adapters."""
+    as JAX's :103), on live LoRA adapters, and on a tensor-parallel encoder
+    (quantise before ``shard_params``: a row-split weight's per-output scale
+    spans the whole contraction)."""
+    from ..parallel.sharding import param_layouts
+
     vit = getattr(getattr(model, "encoder", None), "vit", None)
     if not isinstance(vit, VisionTransformer):
         raise ValueError("quantize_encoder requires a ViT-encoder model")
+    if param_layouts(vit):
+        raise ValueError("quantize_encoder quantises a whole encoder: call it before shard_params")
     if any(isinstance(m, LoRAQKV) for m in vit.modules()):
         raise ValueError("quantize_encoder quantises the merged qkv: call merge_lora first")
     with torch.no_grad():

@@ -134,7 +134,7 @@ class WindowAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: int, qkv_bias: bool = True,
                  lora_rank: int = 0, lora_alpha: float = 1.0):
         super().__init__()
-        self.num_heads, self.window = num_heads, window
+        self.num_heads, self.window, self.head_dim = num_heads, window, dim // num_heads
         if lora_rank > 0:
             self.qkv = LoRAQKV(dim, lora_rank, lora_alpha, qkv_bias)
         else:
@@ -144,23 +144,29 @@ class WindowAttention(nn.Module):
             torch.empty((2 * window - 1) ** 2, num_heads))
         nn.init.trunc_normal_(self.relative_position_bias_table, std=0.02)
 
+    def attend(self, q, k, v, table, mask: Optional[torch.Tensor] = None):
+        """The windows' attention of ``q, k, v [bw, n, heads * head_dim]`` at
+        ``self.num_heads`` heads, ``table`` their columns of the bias
+        table: ``[bw, n, heads * head_dim]`` before the projection."""
+        bw, n, _ = q.shape
+        h, hd = self.num_heads, self.head_dim
+        q, k, v = (t.reshape(bw, n, h, hd).transpose(1, 2) for t in (q, k, v))
+        table = table.to(torch.promote_types(q.dtype, torch.float32))
+        bias = table[_index_on(self.window, q.device)].reshape(n, n, -1).permute(2, 0, 1)
+        if mask is not None:
+            # windows as [images, nW]: the mask broadcasts over the images
+            nw = mask.shape[0]
+            q, k, v = (t.reshape(bw // nw, nw, h, n, hd) for t in (q, k, v))
+            bias = bias[None] + mask[:, None]
+        out = softmax_attention(q, k, v, bias).reshape(bw, h, n, hd)
+        return out.transpose(1, 2).reshape(bw, n, h * hd)
+
     def forward(self, x, mask: Optional[torch.Tensor] = None):
-        bw, n, c = x.shape
-        hd = c // self.num_heads
         if isinstance(self.qkv, LoRAQKV):
             q, k, v = self.qkv(x)
         else:
             q, k, v = self.qkv(x).chunk(3, dim=-1)
-        q, k, v = (t.reshape(bw, n, self.num_heads, hd).transpose(1, 2) for t in (q, k, v))
-        table = self.relative_position_bias_table.to(torch.promote_types(x.dtype, torch.float32))
-        bias = table[_index_on(self.window, x.device)].reshape(n, n, -1).permute(2, 0, 1)
-        if mask is not None:
-            # windows as [images, nW]: the mask broadcasts over the images
-            nw = mask.shape[0]
-            q, k, v = (t.reshape(bw // nw, nw, self.num_heads, n, hd) for t in (q, k, v))
-            bias = bias[None] + mask[:, None]
-        out = softmax_attention(q, k, v, bias).reshape(bw, self.num_heads, n, hd)
-        return self.proj(out.transpose(1, 2).reshape(bw, n, c))
+        return self.proj(self.attend(q, k, v, self.relative_position_bias_table, mask))
 
 
 class Mlp(nn.Module):

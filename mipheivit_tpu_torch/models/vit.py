@@ -205,15 +205,17 @@ class Mlp(nn.Module):
         self.fc1 = Linear(cfg.embed_dim, 2 * h if self.swiglu else h)
         self.fc2 = Linear(h, cfg.embed_dim)
 
-    def forward(self, x):
+    def hidden(self, x):
+        """fc1 and the activation: fc2's input."""
         if self.swiglu and isinstance(self.fc1, Int8Linear):
             a, g = self.fc1(x).chunk(2, dim=-1)
-            h = F.silu(a) * g
-        elif self.swiglu:
-            h = swiglu_fc1(x, self.fc1.weight, self.fc1.bias)
-        else:
-            h = F.gelu(self.fc1(x))
-        return self.fc2(h)
+            return F.silu(a) * g
+        if self.swiglu:
+            return swiglu_fc1(x, self.fc1.weight, self.fc1.bias)
+        return F.gelu(self.fc1(x))
+
+    def forward(self, x):
+        return self.fc2(self.hidden(x))
 
 
 class LayerScale(nn.Module):

@@ -77,10 +77,19 @@ def quantize_weight(w, axis: int = -2) -> Tuple[torch.Tensor, torch.Tensor]:
     return w_i8, scale.squeeze(axis)
 
 
-def quantize_rows(x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def row_amax(x2: torch.Tensor) -> torch.Tensor:
+    """``max |x|`` of each row of ``x2 [M, K]``: ``[M, 1]`` f32."""
+    return torch.linalg.vector_norm(x2, _INF, dim=-1, keepdim=True, dtype=torch.float32)
+
+
+def quantize_rows(x2: torch.Tensor, amax: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row dynamic int8 of ``x2 [M, K]``: ``(x_i8 [M, K], sx [M, 1] f32)``,
-    the codes ``clip(round(x / sx), -127, 127)`` computed in f32."""
-    sx = _scale(torch.linalg.vector_norm(x2, _INF, dim=-1, keepdim=True, dtype=torch.float32))
+    the codes ``clip(round(x / sx), -127, 127)`` computed in f32. ``amax``
+    (``[M, 1]`` f32, default ``row_amax(x2)``) gives the rows' scale: a
+    row-split layer passes the max over the whole row, of which ``x2``
+    holds a slice (``parallel/sharding.py``)."""
+    sx = _scale(row_amax(x2) if amax is None else amax)
     q = torch.div(x2, sx)                  # a bf16 input promotes to f32 exactly
     q.round_().clamp_(-QMAX, QMAX)
     return q.to(torch.int8), sx

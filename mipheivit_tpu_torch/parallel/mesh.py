@@ -19,7 +19,9 @@ itself through ``torch.distributed``: NCCL between cards, gloo on the CPU
 - ``average_gradients`` and ``all_reduce_sum`` are the collectives of the
   training step and of the BatchNorm statistics;
 - ``copy_to_model`` and ``reduce_from_model`` are Megatron's pair around a
-  tensor-parallel block (``parallel/sharding.py``).
+  tensor-parallel block (``parallel/sharding.py``); ``max_over_model`` and
+  ``sum_int_over_model`` are the two reductions of its int8 row-split
+  layers (the row scales' max, the int32 partial products' sum).
 
 Nothing falls back: ``WORLD_SIZE > 1`` without a process group raises
 (``require_process_group``), a rank whose card does not exist raises, and
@@ -334,3 +336,21 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     if group is None or dist.get_world_size(group) == 1:
         return x
     return _ReduceFromModel.apply(x, group)
+
+
+def max_over_model(x: torch.Tensor, group) -> torch.Tensor:
+    """In place and without autograd: the elementwise max of ``x`` (a small
+    f32 tensor: an int8 row-split layer's per-row ``amax``) over ``group``;
+    returns ``x`` (untouched for a group of one rank)."""
+    if group is not None and dist.get_world_size(group) > 1:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
+
+
+def sum_int_over_model(x: torch.Tensor, group) -> torch.Tensor:
+    """In place and without autograd: the sum of the int32 ``x`` (an int8
+    row-split layer's partial accumulator) over ``group``, exact as integer
+    addition is; returns ``x`` (untouched for a group of one rank)."""
+    if group is not None and dist.get_world_size(group) > 1:
+        dist.all_reduce(x, group=group)
+    return x

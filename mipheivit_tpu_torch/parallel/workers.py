@@ -6,8 +6,9 @@ arguments.
 
 - ``seq_attention``: ``seq_sharded_attention`` forward and gradients;
 - ``forward``: a ViT or a MipheiViT with ``attn_impl="seq_shard"``;
-- ``tp_forward``: a ViT, a MipheiViT or a ViT UNETR tensor-parallel
-  (``shard_params``);
+- ``tp_forward``: a ViT, a MipheiViT (float or int8), a ViT or Swin UNETR
+  or a HEMIT generator tensor-parallel (``shard_params``);
+- ``tp_int8_accumulator``: an int8 row-split layer's int32 accumulator;
 - ``wsi``: ``wsi_inference`` with a ``seq_shard_mesh`` over every rank;
 - ``train_steps``: the train step on each rank's rows of global batches,
   data-parallel, sequence-sharded or tensor-parallel;
@@ -64,23 +65,36 @@ def seq_attention(q, k, v, num_heads: int):
     return _np(out), grads
 
 
-def build_generator(vit_kwargs: dict, out_chans: Optional[int], state=None, device=None,
-                    unetr: bool = False):
-    """A ViT (``out_chans`` None), a MipheiViT or (``unetr``) a ViT UNETR of
-    ``vit_kwargs`` on the rank's device, with ``state`` (numpy) loaded when
-    given."""
+def build_generator(kwargs: dict, out_chans: Optional[int], state=None, device=None,
+                    family: str = "mipheivit"):
+    """A ViT (``out_chans`` None) or a generator of ``family`` on the rank's
+    device, with ``state`` (numpy) loaded when given: ``"mipheivit"`` and
+    ``"unetr"`` (a ViT UNETR) of ``ViTConfig(**kwargs)``, ``"unetr_swin"``
+    of ``SwinConfig(**kwargs)``, ``"hemit"`` (the dual-branch
+    ``ResnetGeneratorSwinT``) of ``kwargs["swin"]`` (``SwinConfig``
+    kwargs, its ``img_size`` the generator's) and the generator's other
+    arguments in ``kwargs``."""
+    from ..infer.loading import load_strict
+    from ..models.hemit import ResnetGeneratorSwinT
     from ..models.mipheivit import MipheiViT
-    from ..models.unetr import UnetrViT
+    from ..models.swin import SwinConfig
+    from ..models.unetr import UnetrSwin, UnetrViT
     from ..models.vit import ViTConfig, VisionTransformer
 
-    cfg = ViTConfig(**vit_kwargs)
     with torch.device(process_device() if device is None else device):
-        if out_chans is None:
-            model = VisionTransformer(cfg)
+        if family == "unetr_swin":
+            model = UnetrSwin(SwinConfig(**kwargs), out_chans)
+        elif family == "hemit":
+            rest = {k: v for k, v in kwargs.items() if k != "swin"}
+            swin = SwinConfig(**kwargs["swin"])
+            model = ResnetGeneratorSwinT(out_chans, swin.img_size, swin_cfg=swin, **rest)
+        elif out_chans is None:
+            model = VisionTransformer(ViTConfig(**kwargs))
         else:
-            model = (UnetrViT if unetr else MipheiViT)(cfg, out_chans)
+            model = {"mipheivit": MipheiViT, "unetr": UnetrViT}[family](ViTConfig(**kwargs),
+                                                                      out_chans)
     if state is not None:
-        model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in state.items()})
+        load_strict(model, {k: torch.from_numpy(np.array(v)) for k, v in state.items()})
     return model
 
 
@@ -97,32 +111,45 @@ def forward(vit_kwargs: dict, out_chans: Optional[int], state, x, n_model: Optio
         return _np(model(_t(shard_batch(x, mesh))))
 
 
-def tp_forward(vit_kwargs: dict, out_chans: Optional[int], state, x, n_model: int = 2,
-               unetr: bool = False):
+def tp_forward(kwargs: dict, out_chans: Optional[int], state, x, n_model: int = 2,
+               family: str = "mipheivit", int8: bool = False):
     """The eval forward of ``build_generator(...)`` with its encoder
-    tensor-parallel over ``n_model`` ranks (``shard_params``), the rows of
-    ``x`` split over the data axis; returns this rank's output rows."""
+    tensor-parallel over ``n_model`` ranks (``shard_params``; with ``int8``
+    after ``merge_lora`` and ``quantize_encoder``), the rows of ``x`` split
+    over the data axis; returns this rank's output rows."""
+    from ..infer.loading import merge_lora, quantize_encoder
     from .sharding import shard_params
 
     mesh = make_mesh(dist.get_world_size() // n_model, n_model)
-    model = shard_params(build_generator(vit_kwargs, out_chans, state, unetr=unetr).eval(), mesh)
+    model = build_generator(kwargs, out_chans, state, family=family).eval()
+    if int8:
+        quantize_encoder(merge_lora(model))
+    shard_params(model, mesh)
     with torch.no_grad():
         return _np(model(_t(shard_batch(x, mesh))))
+
+
+def tp_int8_accumulator(x, w_i8, n_model: int = 2):
+    """``sharding.int8_row_accumulator`` on this rank's input columns of
+    the whole ``x [M, K]`` and codes ``w_i8 [N, K]`` (K split evenly over
+    ``n_model`` ranks, each data row of the mesh alike): ``(acc, sx)`` as
+    numpy."""
+    from .sharding import int8_row_accumulator
+
+    mesh = make_mesh(dist.get_world_size() // n_model, n_model)
+    k = x.shape[1] // n_model
+    cols = slice(mesh.model_rank * k, (mesh.model_rank + 1) * k)
+    acc, sx = int8_row_accumulator(_t(x[:, cols]), _t(w_i8[:, cols]), mesh.model_group)
+    return acc.cpu().numpy(), sx.cpu().numpy()
 
 
 def _whole(tensors: Dict[str, torch.Tensor], layouts, mesh) -> Dict[str, np.ndarray]:
     """``tensors`` as numpy, each shard of a split tensor (``layouts``)
     gathered over the model group and put back whole."""
-    from .sharding import unshard
+    from .sharding import gather_whole
 
-    out = {}
-    for name, t in tensors.items():
-        if name in layouts:
-            parts = [torch.empty_like(t) for _ in range(mesh.n_model)]
-            dist.all_gather(parts, t.detach().contiguous(), group=mesh.model_group)
-            t = unshard(parts, layouts[name])
-        out[name] = _np(t)
-    return out
+    return {name: _np(gather_whole(t, layouts[name], mesh.model_group) if name in layouts else t)
+            for name, t in tensors.items()}
 
 
 def wsi(vit_kwargs: dict, out_chans: int, state, image, names, mean, std, wsi_kwargs: dict):
@@ -147,9 +174,10 @@ def train_steps(spec: dict) -> dict:
     1; with 2 or more the ViT is sequence-sharded, or tensor-parallel with
     ``spec["tp"]``): a MipheiViT of ``spec["vit"]`` (``spec["family"]``
     ``"myvitmatte"``, the default: LoRA and decoder trainable) or a ViT
-    UNETR (``"unet_lora"``: everything trainable) with ``spec["state"]``
-    loaded, the weighted-MSE loss of ``spec["weights"]``, the pix2pix Adam
-    chains (``lr``, ``total_iters``, ``warmup``, ``accum``), in
+    UNETR (``"unet_lora"``: everything trainable), or with ``spec["swin"]``
+    (``SwinConfig`` kwargs) a Swin UNETR of the family, with
+    ``spec["state"]`` loaded, the weighted-MSE loss of ``spec["weights"]``,
+    the pix2pix Adam chains (``lr``, ``total_iters``, ``warmup``, ``accum``), in
     ``spec["dtype"]`` (default float32) and, with ``spec["disc_state"]``,
     the discriminator. Returns the step losses (means over the ranks), the
     first microbatch's reduced gradients and the final state dict (sharded
@@ -172,10 +200,15 @@ def train_steps(spec: dict) -> dict:
     n = dist.get_world_size() if dist.is_initialized() else 1
     mesh = make_mesh(n // n_model, n_model)
     device = process_device() or torch.device("cpu")
-    vit = dict(spec["vit"], attn_impl="seq_shard" if n_model > 1 and not tp else "auto")
     dtype = getattr(torch, spec.get("dtype", "float32"))
-    model = build_generator(vit, spec["out_chans"], spec["state"], device,
-                            unetr=family == "unet_lora").to(dtype)
+    if "swin" in spec:
+        model = build_generator(spec["swin"], spec["out_chans"], spec["state"], device,
+                                family="unetr_swin")
+    else:
+        vit = dict(spec["vit"], attn_impl="seq_shard" if n_model > 1 and not tp else "auto")
+        model = build_generator(vit, spec["out_chans"], spec["state"], device,
+                                family="unetr" if family == "unet_lora" else "mipheivit")
+    model.to(dtype)
     if tp:
         shard_params(model, mesh)
     layouts = param_layouts(model)

@@ -39,11 +39,15 @@ A tensor-parallel generator (``parallel.sharding.shard_params`` before
 gradient must never be added to another rank's shard. Its rule:
 
 - the gradients of the sharded tensors (the qkv, proj, fc1 and fc2 weights
-  and the qkv and fc1 biases) are averaged over the data group only;
+  and the qkv and fc1 biases; a Swin block's qkv and proj) are averaged
+  over the data group only;
 - those of the replicated tensors inside a column branch (the live LoRA A
-  and B: each rank's are partial sums over its heads) are summed over the
-  model group, then averaged over the data group;
-- all other gradients, the same on every rank of a model group in exact
+  and B, and a Swin block's relative-position table: each rank's are
+  partial sums over its heads, a table's nonzero only in its heads'
+  columns) are summed over the model group, then averaged over the data
+  group;
+- all other gradients (a Swin block's MLP, the norms, the patch merging and
+  the decoder among them), the same on every rank of a model group in exact
   arithmetic, are averaged over every rank: on the card a non-deterministic
   kernel (cuDNN's weight gradients of the decoder) leaves them a few bits
   apart between the ranks of a model group, and the replicated tensors
@@ -95,7 +99,8 @@ class TrainState:
 class TensorParallelGrads:
     """Per trainable tensor of a tensor-parallel generator: a shard of a
     split weight (``sharded``), or replicated in a column branch with a
-    partial gradient (``partial``: the LoRA adapters)."""
+    partial gradient (``partial``: the LoRA adapters, the Swin bias
+    tables)."""
 
     sharded: Tuple[bool, ...]
     partial: Tuple[bool, ...]
