@@ -113,8 +113,15 @@ foundation-stripped beside the flagship's H-Optimus-0 encoder file):
   [unetr bf16 probe] one tile with the heads as drawn (before contrast_head):
                each stage's relative bf16 error, the output's spread beside
                bf16's spacing, the Pearson that the contrast heads avoid;
-  [unetr provgigapath] patch 16, S 257, the class token's position embedded:
-               the bf16 forward at batch 64 against f32 (K1, K2);
+  [unetr provgigapath], [unetr univ2], [unetr phikonv2], [unetr sp85m]
+               unet_lora on the other ViT encoders at full width and depth
+               (Prov-GigaPath: patch 16, S 257, the class token's position
+               embedded; univ2: 24 x 1536, 8 registers, S 333; phikonv2: 24 x
+               1024, 16 heads, GELU; sp85m: 12 x 768, 12 heads, GELU): f32
+               card vs CPU at 4 blocks, the bf16 forward at batch 64 (tiles/s,
+               peak memory) against f32 (K1; K2 on the SwiGLU encoders, none
+               on the GELU ones; [k1 bf16_univ2], [k1 bf16_phikonv2] and [k1
+               bf16_sp85m] hold K1 at their shapes at batch 64);
   [smp convnext] smp_unet on ConvNeXt-L with the foreground head, batch 16:
                the bf16 forward's tiles/s, f32 card vs CPU (TF32 off), no
                kernel of the port;
@@ -125,9 +132,28 @@ foundation-stripped beside the flagship's H-Optimus-0 encoder file):
                timed with CUDA events (median): every trainable tensor with a
                gradient moves, the trainable count is the JAX rule's, K1 = K2
                = K2's backward terms = 40 a microbatch on the UNETR;
+  [train gan structural], [train gan full] the GAN ablation's step
+               (experiments/gan/partial_gan.yaml and full_gan.yaml: unet_lora
+               on H-Optimus-0 at 8, the PatchGAN discriminator with spectral
+               norm on the structural markers or on all 16, its optimizer the
+               trainer's): ms a step, images/s, the three losses a step,
+               every generator and discriminator tensor and spectral u moved,
+               K1 = K2 = K2's backward terms = 40 a microbatch in bf16;
+  [numerics gan] that step f32 on the card against the CPU at 4 blocks
+               (the same label-noise draws): the losses, the generator's and
+               the discriminator's gradients and the spectral u; bf16 against
+               f32 at 40 blocks;
+  [train univ2], [train unet univ2], [train frozen], [train phikonv2],
+               [train sp85m] the foundation-model and fine-tuning ablations'
+               steps at their presets' microbatches (univ2.yaml: unet_lora on
+               univ2 at 16; full_finetuning.yaml: unet on univ2 at 8 with the
+               trainer's layer decay; frozen.yaml: unet_frozen on H-Optimus-0
+               at 16; unet_lora on phikonv2 and sp85m at 8), as [train unetr];
   [trainer unetr] train_patchgan on the unetr preset as it ships (cell
                metrics, val_cell_auc) for 4 microbatches of 8 on .npy tiles,
                its export loaded back through load_generator;
+  [trainer gan] the same on gan/partial_gan.yaml (no snapshot; the export
+               without the foundation encoder);
   [k2 backward need_w] swiglu_fc1's backward with fc1 trainable (the
                UNETR's route) beside the frozen flagship's: device time from
                the profiler, CUDA events beside it (last of the baselines).
@@ -224,8 +250,10 @@ refuses a duplicate GPU), at full width and depth:
   [tp train 1024] the flagship preset's step on 1024-px regions with its
                encoder sharded: one optimizer step of 2 microbatches, the
                first loss and the LoRA q/v gradients against the one-rank
-               step, the replicated tensors identical; launches a rank: K4
-               = K5 = K2 = K2's backward terms = 80 (12 heads, hidden 2048).
+               step, the replicated tensors identical, and the first
+               microbatch in f32 at 2 blocks against one rank's (loss, LoRA
+               q/v cosine, reduced norms); launches a rank: K4 = K5 = K2 =
+               K2's backward terms = 80 + 2 (12 heads, hidden 2048).
                [k4 bf16_tp_region] and [k5 bf16_tp_region] hold K4 and K5
                at [1, 5334, 12 x 64] against their plain versions.
 
@@ -299,7 +327,7 @@ HBM_BYTES_PER_S = 3.35e12
 # training: the flagship preset (configs: microbatch 8 x accumulation 2,
 # lr_g 2e-4 scaled by sqrt(16), lambda 50, warmup 400)
 MICRO, ACCUM, REGION_MICRO = 8, 2, 1
-LR_G, TOTAL_ITERS, LAMBDA = 2e-4, 1000, 50.0
+LR_G, LR_D, TOTAL_ITERS, LAMBDA = 2e-4, 2e-4, 1000, 50.0
 # f32 train step, card vs CPU at 2 blocks: loss relative; gradients in norm,
 # relative (a ReLU input within f32 rounding of 0 may take the other branch
 # on the other device and move every gradient upstream of it, ~2e-3 of the
@@ -360,9 +388,19 @@ POOL_SUM_RTOL = 1e-5
 CELL_LOSS_RTOL, CELL_GRAD_NORM_RTOL = 1e-4, 1e-3
 EVAL_BATCH = 8
 HEMIT_IMG, HEMIT_TILES = 512, {"train": 8, "val": 4, "test": 4}
-# the baseline generators: the SMP presets' batch (16), the depth of the
-# UNETR's f32 card-vs-CPU check (its taps need 4 blocks), Prov-GigaPath's
-UNETR_CUT, SMP_BATCH, GIGA_DEPTH = 4, 16, 40
+# the baseline generators: the depth of the UNETR's f32 card-vs-CPU check
+# (its taps need 4 blocks), the SMP presets' batch (16)
+UNETR_CUT, SMP_BATCH = 4, 16
+# the foundation-model ablation's ViT encoders besides H-Optimus-0 and
+# Prov-GigaPath: univ2 (24 x 1536, SwiGLU, 8 registers), phikonv2 (24 x 1024,
+# 16 heads, GELU), sp85m (12 x 768, 12 heads, GELU)
+ABLATION_ENCODERS = ("univ2", "phikonv2", "sp85m")
+# a ViT encoder's tokens at IMG px, its prefix tokens, heads and whether its
+# MLP is SwiGLU (K2) or GELU (no kernel of the port)
+ENCODER_GEOMETRY = {"provgigapath": (257, 1, 24, True), "univ2": (333, 9, 24, True),
+                    "phikonv2": (257, 1, 16, False), "sp85m": (257, 1, 12, False)}
+# [numerics gan]: the spectral u after the step, f32 card against the CPU
+GAN_U_TOL = 1e-5
 # the baseline generators' f32 card-vs-CPU checks, beside the absolute
 # limit: per-marker Pearson, and max |err| of each marker against its map's
 # spread max |ref - mean(ref)| (the UNETR's maps sit near a constant, so an
@@ -378,6 +416,9 @@ BF16_STAGE_RTOL = 5e-2
 CTRANSPATH_BATCH, HEMIT_BATCH, ZOO_BATCH = 64, 16, 2
 # the train phases' steady steps, timed with CUDA events after their warm-up steps
 TRAIN_TIMED_STEPS = 4
+# the GAN step's losses: the generator's total and adversarial terms, the
+# discriminator's
+GAN_LOSSES = ("gen_loss", "gen_adv_loss", "disc_adv_loss")
 ZOO_NETGS = ("resnet_9blocks", "unet_256", "swinT", "swinT_old", "SwinTUnet")
 HEMIT_PAIRS = {"train": 8, "val": 4}
 HEMIT_EVAL_TILES = {"train": 8, "val": 8, "test": 8}
@@ -417,10 +458,40 @@ HEMIT_PRESET = preset_with(FLAGSHIP_PRESET, {
     "train.wandb_note": "model_hemit", "model.model_name": "hemit",
     "model.encoder.encoder_name": "mobilenet_v2", "model.encoder.encoder_weights": "imagenet",
     "model.encoder_weights": None}, drop=("model.remat_policy",))
-CTRANSPATH_PRESET = preset_with(FLAGSHIP_PRESET, {
-    "train.batch_size": 16, "train.grad_accum_steps": 1,
-    "train.wandb_note": "foundation_model_ctranspath", "model.model_name": "unet_lora",
-    "model.encoder.encoder_name": "ctranspath"}, drop=("model.remat_policy",))
+
+
+def experiment_preset(changes: dict) -> dict:
+    """An experiment file's preset: ``+experiments/<group>=<name>`` over the
+    base config, which the flagship preset holds but for ``remat_policy``
+    and the changes every experiment makes (train: cell, accumulation 1)."""
+    return preset_with(FLAGSHIP_PRESET, {"train.grad_accum_steps": 1, **changes},
+                       drop=("model.remat_policy",))
+
+
+CTRANSPATH_PRESET = experiment_preset({
+    "train.batch_size": 16, "train.wandb_note": "foundation_model_ctranspath",
+    "model.model_name": "unet_lora", "model.encoder.encoder_name": "ctranspath"})
+
+
+# the paper's ablation presets as ``config.compose(["+experiments/<key>"])``
+# resolves them (tests/test_torch_ablation_presets.py holds them equal)
+ABLATION_PRESETS = {
+    "gan=partial_gan": experiment_preset({
+        "train.gan_train": True, "train.wandb_note": "partial_gan",
+        "model.model_name": "unet_lora"}),
+    "gan=full_gan": experiment_preset({
+        "train.gan_train": True, "train.gan_mode": "full", "train.wandb_note": "full_gan",
+        "model.model_name": "unet_lora"}),
+    "foundation_models=univ2": experiment_preset({
+        "train.batch_size": 16, "train.wandb_note": "foundation_model_univ2",
+        "model.model_name": "unet_lora", "model.encoder.encoder_name": "univ2"}),
+    "finetuning=full_finetuning": experiment_preset({
+        "train.wandb_note": "full_uni_finetuning", "model.model_name": "unet",
+        "model.encoder.encoder_name": "univ2"}),
+    "finetuning=frozen": experiment_preset({
+        "train.batch_size": 16, "train.wandb_note": "frozen",
+        "model.model_name": "unet_frozen"}),
+}
 
 
 def bound_ms(n_bytes: float, flops: float, dt: str):
@@ -865,23 +936,23 @@ def kernel_row(tag, what, got, want, dt, ms, plain_ms, library_ms, library_what,
             "library_ms": library_ms}
 
 
-def k1_tp_phase():
-    """K1 at [tp forward]'s shape: one rank's HEADS / PAR_RANKS heads of a
-    batch of TP_TILES tiles, off the fused qkv [16, 329, 3 x 12 x 64] in
-    bf16 (the sharded qkv's output), against its plain version, with SDPA's
-    time and the bound. Returns the row's numbers."""
+def k1_fused_phase(name, b, s, heads, seed):
+    """K1 off a fused qkv ``[b, s, 3 x heads x 64]`` in bf16 (a qkv
+    projection's output) against its plain version, with SDPA's time and
+    the bound: [tp forward]'s shape (one rank's HEADS / PAR_RANKS heads of
+    TP_TILES tiles) and the ablation encoders' at batch 64. Returns the
+    row's numbers."""
     import torch.nn.functional as F
 
     from mipheivit_tpu_torch.ops import attention as attn
 
     t0 = time.perf_counter()
-    heads = HEADS // PAR_RANKS
     hd = heads * 64
-    qkv = seeded((TP_TILES, 329, 3 * hd), SEED + 65, torch.bfloat16)
+    qkv = seeded((b, s, 3 * hd), seed, torch.bfloat16)
     q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
 
     def view(t):
-        return t.view(TP_TILES, 329, heads, 64).transpose(1, 2)
+        return t.view(b, s, heads, 64).transpose(1, 2)
 
     with torch.inference_mode():
         got = attn.attention_qkv(qkv, heads)
@@ -890,10 +961,9 @@ def k1_tp_phase():
         ms = cuda_ms(lambda: attn.attention_qkv(qkv, heads))
         plain_ms = cuda_ms(lambda: attn.attention_reference(q, k, v, heads), reps=5, warmup=1)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(view(q), view(k), view(v)))
-    return kernel_row("k1 bf16_tp", f"fused qkv {tuple(qkv.shape)} at {heads} heads", got, want,
+    return kernel_row(f"k1 {name}", f"fused qkv {tuple(qkv.shape)} at {heads} heads", got, want,
                       "bf16", ms, plain_ms, library_ms, "scaled_dot_product_attention",
-                      4 * TP_TILES * 329 * hd * qkv.element_size(),
-                      4.0 * TP_TILES * heads * 329 * 329 * 64, t0)
+                      4 * b * s * hd * qkv.element_size(), 4.0 * b * heads * s * s * 64, t0)
 
 
 def k6_phase(name, b, s, dtype, seed=0):
@@ -1729,12 +1799,16 @@ def plain_k5_grads(model, batch, device):
         attn._flash_bwd_cuda = kernel
 
 
+def grads_rel(got: dict, want: dict) -> float:
+    """The worst norm-relative difference of ``got``'s gradients from
+    ``want``'s, over the tensors whose gradient is not ~0."""
+    return max(float((got[n] - g).norm() / max(float(g.norm()), 1e-30))
+               for n, g in want.items() if float(g.norm()) > 1e-6 * g.numel() ** 0.5)
+
+
 def compare_grads(card, cpu):
     """(loss relative difference, worst norm-relative gradient difference)."""
-    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
-    worst = max(float((card[1][n] - g).norm() / max(float(g.norm()), 1e-30))
-                for n, g in cpu[1].items() if float(g.norm()) > 1e-6 * g.numel() ** 0.5)
-    return loss_rel, worst
+    return abs(card[0] - cpu[0]) / abs(cpu[0]), grads_rel(card[1], cpu[1])
 
 
 def serial_stitch(model, image, tile, overlap, batch, device, dtype=np.uint8):
@@ -2698,43 +2772,67 @@ def fresh_generator(model_name, encoder_name, dev, seed, **kw):
                        seed)
 
 
-def unetr_giga_phase(dev):
-    """[unetr provgigapath]: ``unet_lora`` on Prov-GigaPath (patch 16, no
-    re-grid, the class token's position embedded, S 257) at full width and
-    ``GIGA_DEPTH`` blocks, LoRA merged: the bf16 forward at batch 64 against
-    f32 on the card, per-marker Pearson; K1 and K2 once a block."""
+def unetr_encoder_phase(encoder_name, dev, seed):
+    """[unetr provgigapath], [unetr univ2], [unetr phikonv2], [unetr sp85m]:
+    ``unet_lora`` on a ViT encoder at full width and depth, its weights from
+    ``seeded_fill``, heads through ``contrast_head``, LoRA merged: f32 on the
+    card against the CPU at ``UNETR_CUT`` blocks (one tile, TF32 off), the
+    f32 forward on 4 tiles at full depth, then the bf16 forward at batch 64
+    (tiles/s, CUDA events, median of 10; peak memory) against it by
+    per-marker Pearson. Checks the geometry (tokens and prefix tokens) and
+    the launches: K1 once a block, K2 once a block on a SwiGLU encoder and
+    never on a GELU one, both in bf16. Returns the counts and the rate."""
+    import copy
+
     from mipheivit_tpu_torch.infer import cast_params, merge_lora
 
     t0 = time.perf_counter()
-    model = merge_lora(contrast_heads(fresh_generator("unet_lora", "provgigapath", dev,
-                                                      SEED + 30)))
-    cut_unetr(model, GIGA_DEPTH)
+    model = merge_lora(contrast_heads(fresh_generator("unet_lora", encoder_name, dev, seed)))
     cfg = model.vit_cfg
-    x = torch.from_numpy(np.random.default_rng(SEED + 31).standard_normal(
+    tokens, prefix, heads, swiglu = ENCODER_GEOMETRY[encoder_name]
+    x = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
         (BATCH, IMG, IMG, 3), dtype=np.float32)).to(dev)
+    cut = cut_unetr(copy.deepcopy(model), UNETR_CUT)
+    f32_cpu = card_vs_cpu(cut, copy.deepcopy(cut).cpu(), x[:1])
+    del cut
     with torch.inference_mode():
         f32 = model(x[:4]).cpu().numpy()
-        cast_params(model, torch.bfloat16)
-        reset_counts()
-        bf16 = model(x)
-        torch.cuda.synchronize()
-        counts = read_counts()
-        bf16 = bf16[:4].float().cpu().numpy()
-        fwd_ms = cuda_ms(lambda: model(x), reps=10, warmup=2)
+    cast_params(model, torch.bfloat16)
+    probe, undo = dtype_probe()
+    try:
+        with torch.inference_mode():
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            bf16 = model(x)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            bf16 = bf16[:4].float().cpu().numpy()
+            fwd_ms = cuda_ms(lambda: model(x), reps=10, warmup=2)
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del model
     torch.cuda.empty_cache()
     r = pearson(bf16, f32)
-    print(f"[unetr provgigapath] patch {cfg.patch_size}, S {cfg.num_prefix_tokens + cfg.num_patches}, "
-          f"{cfg.depth} blocks, no_embed_class {cfg.no_embed_class}: bf16 forward at batch "
-          f"{BATCH} {fwd_ms:.2f} ms = {BATCH * 1000 / fwd_ms:.1f} tiles/s; bf16 vs f32 per-marker "
-          f"Pearson min {r.min():.5f} (target >= {MIN_PEARSON}); {counts_line(counts)} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    check(cfg.num_prefix_tokens + cfg.num_patches == 257 and not cfg.no_embed_class,
-          "[unetr provgigapath] geometry")
+    tag = f"unetr {encoder_name}"
+    rate = BATCH * 1000 / fwd_ms
+    print(f"[{tag}] patch {cfg.patch_size}, S {cfg.num_prefix_tokens + cfg.num_patches} "
+          f"({cfg.num_prefix_tokens} prefix tokens), {cfg.depth} x {cfg.embed_dim}, "
+          f"{cfg.num_heads} heads, {cfg.mlp_type} MLP: bf16 forward at batch {BATCH} "
+          f"{fwd_ms:.2f} ms = {rate:.1f} tiles/s (CUDA events, median of 10), peak memory "
+          f"{peak:.2f} GiB; launch dtypes K1 {sorted(probe['k1'])} K2 {sorted(probe['k2'])}; f32 "
+          f"card vs CPU at {UNETR_CUT} blocks {card_vs_cpu_text(f32_cpu)}; bf16 vs f32 at "
+          f"{cfg.depth} blocks per-marker Pearson min {r.min():.5f} (target >= {MIN_PEARSON}); "
+          f"{counts_line(counts)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check((cfg.num_prefix_tokens + cfg.num_patches, cfg.num_prefix_tokens, cfg.num_heads,
+           cfg.mlp_type == "swiglu") == (tokens, prefix, heads, swiglu), f"[{tag}] geometry")
+    check_card_vs_cpu(f"[{tag}]", f32_cpu)
     check(bool(np.isfinite(bf16).all() and (r >= MIN_PEARSON).all()),
-          "[unetr provgigapath] bf16 output does not track f32")
-    check_counts("[unetr provgigapath]", counts, k1=cfg.depth, k2=cfg.depth)
-    return counts
+          f"[{tag}] bf16 output does not track f32")
+    check(probe["k1"] == {"bfloat16"} and probe["k2"] == ({"bfloat16"} if swiglu else set()),
+          f"[{tag}] K1/K2 launched in {probe}")
+    check_counts(f"[{tag}]", counts, k1=cfg.depth, k2=cfg.depth if swiglu else 0)
+    return counts, rate
 
 
 def cnn_phase(tag, model_name, encoder_name, dev, seed, foreground_head=False):
@@ -2811,52 +2909,92 @@ def k2_need_w_ms(dev, m=MICRO * 329):
     return out[True], out[False]
 
 
-def family_step(model, model_name, micro, dev, foreground_head=False, mesh=None):
-    """A baseline preset's train state and step (f32 parameters, bf16
-    compute, no accumulation, weighted MSE with the foreground term where
-    the head is on), over ``mesh``'s ranks when given."""
+def family_optimizer(micro: int, vit_lr_decay: bool = False):
+    """A baseline preset's generator optimizer at microbatch ``micro`` (no
+    accumulation; the schedule past its warm-up at the second step), with
+    the trainer's layer decay where ``vit_lr_decay``."""
+    from mipheivit_tpu_torch.train import build_generator_optimizer, scaled_lr
+
+    return build_generator_optimizer(scaled_lr(LR_G, micro), TOTAL_ITERS, warmup_iters=1,
+                                     vit_lr_decay=vit_lr_decay)
+
+
+def updates_round_away(state, chain) -> set:
+    """The trainable tensors whose last update, ``chain``'s Adam step
+    rebuilt from the state's moments, changes no element in f32."""
+    opt = state.gen_opt_state
+    c1 = float(np.float32(1.0) - np.float32(chain.b1) ** np.float32(opt.adam_count))
+    c2 = float(np.float32(1.0) - np.float32(chain.b2) ** np.float32(opt.adam_count))
+    size = chain.schedule(opt.schedule_count - 1)
+    out = set()
+    for (name, p), mu, nu in zip(state.gen_params, opt.mu, opt.nu):
+        update = (mu / c1) / ((nu / c2).sqrt() + chain.eps) * size * -chain.lr
+        if torch.equal(p.detach() + update, p.detach()):
+            out.add(name)
+    return out
+
+
+def family_step(model, model_name, micro, dev, foreground_head=False, mesh=None, disc=None,
+                vit_lr_decay=False, compute_dtype=torch.bfloat16):
+    """A baseline preset's train state and step (f32 parameters, compute in
+    ``compute_dtype``, no accumulation, weighted MSE with the foreground
+    term where the head is on), over ``mesh``'s ranks when given. With a
+    ``disc`` the GAN step: the PatchGAN discriminator's adversarial term in
+    the generator loss and the discriminator's own step, with the
+    trainer's discriminator optimizer; ``vit_lr_decay`` gives the generator
+    optimizer the trainer's layer decay (the ``unet`` preset's)."""
     from mipheivit_tpu_torch.models.layers import set_compute_dtype
-    from mipheivit_tpu_torch.train import (StepConfig, build_generator_optimizer,
+    from mipheivit_tpu_torch.train import (StepConfig, build_discriminator_optimizer,
                                            create_train_state, make_train_step, scaled_lr,
                                            weighted_mse_loss)
     from mipheivit_tpu_torch.train.losses import marker_weights_from_stds
 
-    set_compute_dtype(model, torch.bfloat16)
-    opt = build_generator_optimizer(scaled_lr(LR_G, micro), TOTAL_ITERS, warmup_iters=1)
-    state = create_train_state(model, opt, freeze_model_name=model_name, seed=SEED, device=dev,
-                               mesh=mesh)
+    set_compute_dtype(model, compute_dtype)
+    opt = family_optimizer(micro, vit_lr_decay)
+    disc_opt = None if disc is None else build_discriminator_optimizer(
+        scaled_lr(LR_D, micro), TOTAL_ITERS, warmup_iters=1)
+    state = create_train_state(model, opt, disc, disc_opt, freeze_model_name=model_name,
+                               seed=SEED, device=dev, mesh=mesh)
     stds = np.random.default_rng(SEED + 5).uniform(0.1, 0.3, MARKERS)
     step = make_train_step(model, weighted_mse_loss(LAMBDA, marker_weights_from_stds(stds)),
-                           opt, cfg=StepConfig(foreground_head=foreground_head))
+                           opt, disc, disc_opt, cfg=StepConfig(gan_train=disc is not None,
+                                                               foreground_head=foreground_head))
     return state, step
 
 
 def train_family_phase(tag, model, model_name, n_micro, micro, dev, foreground_head=False,
-                       counted=0):
+                       counted=0, disc=None, vit_lr_decay=False, timed=TRAIN_TIMED_STEPS):
     """[train unetr] / [train convnext fg] / [train ctranspath] / [train
-    hemit]: ``n_micro`` warm-up microbatches of ``micro`` 256-px tiles
-    through the preset's step (no accumulation, so one optimizer step each,
-    the first a zero update; f32 parameters, bf16 compute, weighted MSE, the
-    foreground term where the head is on), then ``TRAIN_TIMED_STEPS`` more
-    on the same microbatches, each timed with CUDA events (the host clock
-    beside them). Checks finite losses, every trainable tensor with a
-    gradient moved, the trainable count against the JAX rule's, and the
-    launches (``counted`` K1/K2 blocks a microbatch). Returns the counts and
-    the rate at the timed steps' median."""
+    hemit] and the ablation presets' steps ([train gan …], [train univ2],
+    [train unet univ2], [train frozen], [train phikonv2], [train sp85m]):
+    ``n_micro`` warm-up microbatches of ``micro`` 256-px tiles through the
+    preset's step (``family_step``: no accumulation, so one optimizer step
+    each, the first a zero update; f32 parameters, bf16 compute, weighted
+    MSE, the foreground term where the head is on, the GAN terms with a
+    ``disc``), then ``timed`` more on the same microbatches, each timed
+    with CUDA events (the host clock beside them). Checks finite losses,
+    every trainable tensor with a gradient moved (and with a ``disc`` every
+    discriminator tensor and every spectral ``u``), the trainable count
+    against the JAX rule's, and the launches: ``counted`` K1 blocks a
+    microbatch, K2 and its backward terms as many where the encoder's MLP is
+    SwiGLU. Returns the counts and the rate at the timed steps' median."""
     from mipheivit_tpu_torch.metrics import PixelMetrics
     from mipheivit_tpu_torch.train.optim import is_trainable, jax_path
 
     t_all = time.perf_counter()
-    state, step = family_step(model, model_name, micro, dev, foreground_head=foreground_head)
+    state, step = family_step(model, model_name, micro, dev, foreground_head=foreground_head,
+                              disc=disc, vit_lr_decay=vit_lr_decay)
     data = train_batches(n_micro, micro, IMG, dev, SEED + 33)
     n_rule = sum(is_trainable(jax_path(model, n), model_name) for n, _ in model.named_parameters())
     n_all = sum(1 for _ in model.parameters())
     train0 = {n: p.detach().clone() for n, p in state.gen_params}
+    disc0 = {} if disc is None else {n: t.detach().clone() for n, t in disc.state_dict().items()}
     metrics = PixelMetrics.zeros(dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     probe, undo = dtype_probe()
-    n_steps = n_micro + TRAIN_TIMED_STEPS
+    n_steps = n_micro + timed
+    keys = ("gen_loss", "gen_foreground_loss") + (GAN_LOSSES[1:] if disc is not None else ())
     losses, step_s, event_ms, no_grad = [], [], [], set()
     try:
         reset_counts()
@@ -2869,7 +3007,7 @@ def train_family_phase(tag, model, model_name, n_micro, micro, dev, foreground_h
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
             event_ms.append(start.elapsed_time(end))
-            losses.append({k: float(log[k]) for k in ("gen_loss", "gen_foreground_loss")})
+            losses.append({k: float(log[k]) for k in keys})
             no_grad |= {n for n, g in log["grads"].items() if not bool(g.any())}
         counts = read_counts()
     finally:
@@ -2877,18 +3015,42 @@ def train_family_phase(tag, model, model_name, n_micro, micro, dev, foreground_h
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     moved = {n for n, p in state.gen_params if not torch.equal(p.detach(), train0[n])}
     still = sorted(set(train0) - moved - no_grad)
+    rounded = []
+    if vit_lr_decay:
+        # the layer decay scales block i's gradients by 0.65^(40 - i), the
+        # embeddings' by 0.65^41: Adam's step on a weight of the first blocks
+        # can fall below f32's resolution of the weight, so such a tensor
+        # stays put where its last update changes no element (a tensor left
+        # out of the update would not)
+        rounded = sorted(updates_round_away(state, family_optimizer(micro, True)) & set(still))
+        still = sorted(set(still) - set(rounded))
+    disc_still = sorted(n for n, t in (disc.state_dict().items() if disc is not None else ())
+                        if torch.equal(t, disc0[n]))
     steady = float(np.median(event_ms[n_micro:])) / 1e3
     n_params = sum(p.numel() for _, p in state.gen_params)
+    extra = ""
+    if disc is not None:
+        seen = disc.selected_channels
+        extra += (f"; discriminator on {3 + (MARKERS if seen is None else len(seen))} "
+                  f"channels (markers {'all' if seen is None else seen}): "
+                  + "; ".join(f"{k} " + ", ".join(f"{v[k]:.4f}" for v in losses)
+                              for k in GAN_LOSSES[1:])
+                  + f"; its tensors and spectral u that did not move: {disc_still}")
+    if vit_lr_decay:
+        scale = state.gen_opt_state.layer_scale
+        extra += (f"; layer decay multipliers {min(scale):.3e} to {max(scale):.3e}; "
+                  f"{len(rounded)} tensors whose updates are below f32's resolution stayed "
+                  f"{sorted({'.'.join(n.split('.')[:4]) for n in rounded})}")
     print(f"[{tag}] {model_name}, {n_steps} microbatches of {micro} x {IMG} px, one optimizer "
           f"step each: {1e3 * steady:.1f} ms a step (CUDA events, median of the "
-          f"{TRAIN_TIMED_STEPS} after {n_micro} warm-up steps: "
+          f"{timed} after {n_micro} warm-up steps: "
           f"{', '.join(f'{v:.1f}' for v in event_ms)} ms; host clock "
           f"{', '.join(f'{1e3 * v:.1f}' for v in step_s)} ms) = "
           f"{micro / steady:.2f} images/s; peak memory {peak:.2f} GiB; losses "
           f"{', '.join(f'{v['gen_loss']:.4f}' for v in losses)}, gen_foreground_loss "
-          f"{', '.join(f'{v['gen_foreground_loss']:.4f}' for v in losses)}; trainable tensors "
-          f"{len(train0)} ({n_params / 1e6:.1f} M values; the JAX rule's count {n_rule} of "
-          f"{n_all}), moved {len(moved)}, no gradient {len(no_grad)} "
+          f"{', '.join(f'{v['gen_foreground_loss']:.4f}' for v in losses)}{extra}; trainable "
+          f"tensors {len(train0)} ({n_params / 1e6:.1f} M values; the JAX rule's count {n_rule} "
+          f"of {n_all}), moved {len(moved)}, no gradient {len(no_grad)} "
           f"{sorted({'.'.join(n.split('.')[:3]) for n in no_grad})}; launch "
           f"dtypes {dict((k, sorted(v)) for k, v in probe.items())}; {counts_line(counts)} "
           f"({time.perf_counter() - t_all:.1f} s)", flush=True)
@@ -2897,31 +3059,48 @@ def train_family_phase(tag, model, model_name, n_micro, micro, dev, foreground_h
           f"[{tag}] gen_foreground_loss")
     check(len(train0) == n_rule, f"[{tag}] trains {len(train0)} tensors, the JAX rule {n_rule}")
     check(not still and len(moved) > 0, f"[{tag}] trainable tensors did not move: {still[:5]}")
+    check(not disc_still, f"[{tag}] discriminator tensors did not move: {disc_still}")
     if counted:
         check(all(v <= {"bfloat16"} for v in probe.values()), f"[{tag}] launch dtypes {probe}")
-    check_counts(f"[{tag}]", counts, k1=counted * n_steps, k2=counted * n_steps,
-                 k2b=counted * n_steps)
+    n = counted * n_steps
+    n_k2 = n if any(getattr(m, "swiglu", False) for m in model.modules()) else 0
+    check_counts(f"[{tag}]", counts, k1=n, k2=n_k2, k2b=n_k2)
     return counts, micro / steady
 
 
-def trainer_unetr_phase(tmp: Path, ckpt: Path, enc: Path, dev):
+def trainer_unetr_phase(tmp: Path, ckpt: Path, enc: Path, data: dict, dev, tag="trainer unetr",
+                        preset=UNETR_PRESET, unetr_rate=None):
     """[trainer unetr]: ``train_patchgan`` on the ``unetr`` preset as it
     ships (``unet_lora``, train: cell, cell metrics on a slide dataframe,
     monitor val_cell_auc) from the UNETR checkpoint dir: 1 epoch of
-    ``TRAINER_STEPS`` microbatches of 8 on .npy tiles. Checks finite losses
-    and val_cell_auc, the export loading back through ``load_generator``,
-    and the launches."""
+    ``TRAINER_STEPS`` microbatches of 8 on the .npy tiles of ``data``.
+    Checks finite losses and val_cell_auc, the export loading back through
+    ``load_generator``, and the launches. [trainer gan]: the same on the
+    ``gan/partial_gan`` preset (the PatchGAN on the structural markers),
+    its steady images/s beside [trainer unetr]'s (``unetr_rate``); its
+    adversarial losses finite and non-zero. It writes no snapshot and its
+    export stripped of the foundation encoder (the released checkpoints'
+    layout, reloaded with the encoder file; the export's tensors equal the
+    trained ones): the card machine caps a run's disk writes at 45 GiB,
+    and [trainer unetr] writes the whole of both. Returns the counts and
+    the steady images/s."""
     import mipheivit_tpu_torch.train.trainer as trainer
     from mipheivit_tpu_torch.config import Config
     from mipheivit_tpu_torch.infer import load_generator
+    from mipheivit_tpu_torch.train.checkpoints import generator_state_dict
 
     t_all = time.perf_counter()
-    data = write_cell_data(tmp / "unetr_data", SEED + 13)
-    logdir = tmp / "unetr_run"
-    cfg = Config.create(UNETR_PRESET)
+    gan = bool(preset["train"]["gan_train"])
+    logdir = tmp / tag.replace(" ", "_")
+    cfg = Config.create(preset)
     for key, value in {**data, "model.checkpoint_path": str(ckpt / "model.safetensors"),
                        "model.encoder.encoder_weights": str(enc), "train.epochs": 1}.items():
         cfg.set_dotted(key, value)
+    real_save = trainer.save_generator, trainer.save_train_state
+    if gan:
+        trainer.save_train_state = lambda *a, **k: None
+        trainer.save_generator = lambda model, path: real_save[0](model, path,
+                                                                  strip_foundation=True)
     rec, undo = instrument_trainer(trainer)
     try:
         reset_counts()
@@ -2931,9 +3110,12 @@ def trainer_unetr_phase(tmp: Path, ckpt: Path, enc: Path, dev):
         counts = read_counts()
     finally:
         undo()
+        trainer.save_generator, trainer.save_train_state = real_save
     state = out["state"]
     depth = state.generator.vit_cfg.depth
     n_trainable, n_all = len(state.gen_params), sum(1 for _ in state.generator.parameters())
+    trained = generator_state_dict(state.generator, strip_foundation=True) if gan else {}
+    disc_in = state.disc.convs[0].weight.shape[1] if gan else 0
     del out, state
     torch.cuda.empty_cache()
     lines = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
@@ -2942,32 +3124,184 @@ def trainer_unetr_phase(tmp: Path, ckpt: Path, enc: Path, dev):
     rate = 2 * 8 * 1000.0 / ev[1].elapsed_time(ev[3])
     reloaded = load_generator("unet_lora", "hoptimus0", logdir, (IMG, IMG), MARKERS,
                               dtype=torch.bfloat16, device=dev, encoder_ckpt_path=str(enc))
+    got = reloaded.state_dict()
+    differ = sorted(n for n, v in trained.items()
+                    if not torch.equal(got[n].cpu(), torch.from_numpy(v).to(got[n].dtype)))
     x = torch.from_numpy(np.random.default_rng(SEED + 14).standard_normal(
         (2, IMG, IMG, 3), dtype=np.float32)).to(dev)
     reset_counts()
     with torch.inference_mode():
         y = reloaded(x)
     reload_counts = read_counts()
-    del reloaded
+    del reloaded, got
     torch.cuda.empty_cache()
-    print(f"[trainer unetr] train_patchgan, unetr preset as it ships (unet_lora / hoptimus0, "
-          f"{depth} blocks, cell metrics, monitor val_cell_auc/max), {TRAINER_STEPS} "
-          f"microbatches of 8 at {IMG} px: {time.perf_counter() - t_all:.1f} s; steady "
-          f"{rate:.2f} images/s (CUDA events, two steps); trainable tensors {n_trainable} of "
-          f"{n_all}; gen_loss {epoch['gen_loss']:.5f} val_gen_loss_sim "
-          f"{epoch['val_gen_loss_sim']:.5f} val_cell_auc {epoch['val_cell_auc']:.4f}; export "
-          f"reloaded through load_generator: {tuple(y.shape)}, {counts_line(reload_counts)}; "
-          f"{counts_line(counts)}", flush=True)
-    check(all(np.isfinite(epoch[k]) for k in ("gen_loss", "val_gen_loss_sim", "val_cell_auc")),
-          "[trainer unetr] non-finite losses or val_cell_auc")
-    check(n_trainable == n_all, "[trainer unetr] the JAX rule trains every tensor of unet_lora")
+    keys = ("gen_loss", "val_gen_loss_sim", "val_cell_auc") + (GAN_LOSSES[1:] if gan else ())
+    extra = ""
+    if gan:
+        extra = (f" (unetr's {unetr_rate:.2f}); discriminator on {disc_in} channels; "
+                 f"gen_adv_loss {epoch['gen_adv_loss']:.5f} disc_adv_loss "
+                 f"{epoch['disc_adv_loss']:.5f}; no snapshot, the export stripped of the "
+                 f"foundation encoder ({len(trained)} tensors), {len(differ)} of them differ "
+                 f"from the trained ones")
+    print(f"[{tag}] train_patchgan, {preset['train']['wandb_note']} preset as it ships "
+          f"(unet_lora / hoptimus0, {depth} blocks, cell metrics, monitor val_cell_auc/max, "
+          f"gan_train {gan}), {TRAINER_STEPS} microbatches of 8 at {IMG} px: "
+          f"{time.perf_counter() - t_all:.1f} s; steady {rate:.2f} images/s (CUDA events, two "
+          f"steps){extra}; trainable tensors {n_trainable} of {n_all}; gen_loss "
+          f"{epoch['gen_loss']:.5f} val_gen_loss_sim {epoch['val_gen_loss_sim']:.5f} "
+          f"val_cell_auc {epoch['val_cell_auc']:.4f}; export reloaded through load_generator: "
+          f"{tuple(y.shape)}, {counts_line(reload_counts)}; {counts_line(counts)}", flush=True)
+    check(all(np.isfinite(epoch[k]) for k in keys), f"[{tag}] non-finite losses or val_cell_auc")
+    check(all(epoch[k] != 0 for k in GAN_LOSSES[1:] if gan), f"[{tag}] an adversarial loss is 0")
+    check(not differ, f"[{tag}] the export differs from the trained tensors: {differ[:5]}")
+    check(n_trainable == n_all, f"[{tag}] the JAX rule trains every tensor of unet_lora")
     check(bool(torch.isfinite(y).all()) and y.shape == (2, IMG, IMG, MARKERS),
-          "[trainer unetr] the export does not reload")
-    check_counts("[trainer unetr reload]", reload_counts, k1=depth, k2=depth)
+          f"[{tag}] the export does not reload")
+    check_counts(f"[{tag} reload]", reload_counts, k1=depth, k2=depth)
     n_fwd = TRAINER_STEPS + 1 + TRAINER_TILES["val"] // 8 + TRAINER_TILES["test"] // 8
-    check_counts("[trainer unetr]", counts, k1=depth * n_fwd, k2=depth * n_fwd,
+    check_counts(f"[{tag}]", counts, k1=depth * n_fwd, k2=depth * n_fwd,
                  k2b=depth * TRAINER_STEPS)
-    return counts
+    return counts, rate
+
+
+def gan_discriminator(gan_mode: str, data: dict, dev, seed: int):
+    """The trainer's PatchGAN for ``gan_mode`` on ``dev``: on the markers
+    that ``trainer.discriminator_channels`` picks from ``data``'s
+    ``channel_stats.json`` (``structural``) or on all of them, its weights
+    drawn on the CPU from a torch seed."""
+    from mipheivit_tpu_torch.data.stats import load_channel_stats
+    from mipheivit_tpu_torch.models.discriminator import DiscriminatorPatch
+    from mipheivit_tpu_torch.train.trainer import discriminator_channels
+
+    selected = discriminator_channels(gan_mode, load_channel_stats(
+        data["data.channel_stats_path"]), FLAGSHIP_PRESET["data"]["targ_channel_names"])
+    torch.manual_seed(seed)
+    disc = DiscriminatorPatch(3 + (MARKERS if selected is None else len(selected)),
+                              selected_channels=selected)
+    return disc.to(dev)
+
+
+def gan_one_step(model, disc, batch, dev, compute_dtype):
+    """One GAN step of ``unet_lora`` (``family_step`` with ``disc``) on
+    ``batch``, the label noise drawn from a numpy seed, alike on every device
+    (the step draws it from the state's generator, which the card and the
+    CPU draw otherwise): the losses (``GAN_LOSSES``), the generator's
+    gradients, the discriminator's (those its optimizer is handed) and the
+    spectral ``u`` after the step."""
+    from mipheivit_tpu_torch.metrics import PixelMetrics
+    from mipheivit_tpu_torch.train import steps
+    from mipheivit_tpu_torch.train.optim import AdamChain
+
+    rng = np.random.default_rng(SEED + 90)
+    names = {id(p): n for n, p in disc.named_parameters()}
+    d_grads = {}
+    real_noise, real_step = steps._label_noise, AdamChain.step
+
+    def noise(shape, generator):
+        return torch.from_numpy(rng.random(tuple(shape), dtype=np.float32)).to(generator.device)
+
+    def recorded(self, params, grads, *a, **kw):
+        if id(params[0]) in names:
+            d_grads.update((names[id(p)], g.detach().float().cpu()) for p, g in zip(params, grads))
+        return real_step(self, params, grads, *a, **kw)
+
+    steps._label_noise, AdamChain.step = noise, recorded
+    try:
+        state, step = family_step(model, "unet_lora", len(batch["image"]), dev, disc=disc,
+                                  compute_dtype=compute_dtype)
+        _, _, log = step(state, batch, PixelMetrics.zeros(dev))
+        return ({k: float(log[k]) for k in GAN_LOSSES},
+                {n: g.detach().float().cpu() for n, g in log["grads"].items()}, d_grads,
+                {n: u.detach().float().cpu() for n, u in disc.named_buffers()})
+    finally:
+        steps._label_noise, AdamChain.step = real_noise, real_step
+
+
+def numerics_gan_phase(data: dict, dev):
+    """[numerics gan]: the GAN step of ``gan/partial_gan`` (``unet_lora`` on
+    H-Optimus-0 at full width, the structural discriminator) on one batch of
+    two tiles, f32 on the card (K1, K2 and its backward terms in f32, TF32
+    off) against f32 on the CPU (plain versions) with the encoder cut to
+    ``UNETR_CUT`` blocks (the UNETR's taps need 4), the same weights and
+    label-noise draws on both: the three losses, the generator's and the
+    discriminator's gradients and the spectral ``u`` after the step; then
+    bf16 against f32 on the card at full depth, the first gen_loss."""
+    import copy
+
+    t0 = time.perf_counter()
+    model = contrast_heads(fresh_generator("unet_lora", "hoptimus0", dev, SEED + 80))
+    disc = gan_discriminator("structural", data, dev, SEED + 81)
+    batch = train_batches(1, 2, IMG, dev, SEED + 82)[0]
+    cut = cut_unetr(copy.deepcopy(model), UNETR_CUT)
+    cpu_model, cpu_disc = copy.deepcopy(cut).cpu(), copy.deepcopy(disc).cpu()
+    card = gan_one_step(cut, copy.deepcopy(disc), batch, dev, None)
+    del cut
+    torch.cuda.empty_cache()
+    cpu = gan_one_step(cpu_model, cpu_disc, {k: v.cpu() for k, v in batch.items()}, "cpu", None)
+    del cpu_model
+    f32 = gan_one_step(copy.deepcopy(model), copy.deepcopy(disc), batch, dev, None)
+    torch.cuda.empty_cache()
+    bf16 = gan_one_step(model, disc, batch, dev, torch.bfloat16)
+    del model
+    torch.cuda.empty_cache()
+    loss_rel = {k: abs(card[0][k] - cpu[0][k]) / abs(cpu[0][k]) for k in GAN_LOSSES}
+    gen_rel, disc_rel = grads_rel(card[1], cpu[1]), grads_rel(card[2], cpu[2])
+    u_diff = max(float((card[3][n] - u).abs().max()) for n, u in cpu[3].items())
+    bf16_rel = abs(bf16[0]["gen_loss"] - f32[0]["gen_loss"]) / abs(f32[0]["gen_loss"])
+    print(f"[numerics gan] f32 card vs f32 CPU at {UNETR_CUT} blocks, the same label noise: "
+          + ", ".join(f"{k} {card[0][k]:.6f} vs {cpu[0][k]:.6f} (rel {loss_rel[k]:.2e})"
+                      for k in GAN_LOSSES)
+          + f" (tol {TRAIN_LOSS_RTOL:g}); worst norm-relative gradient: generator "
+          f"{gen_rel:.2e} ({len(cpu[1])} tensors), discriminator {disc_rel:.2e} "
+          f"({len(cpu[2])}) (tol {TRAIN_GRAD_NORM_RTOL:g}); spectral u after the step max |diff| "
+          f"{u_diff:.2e} (tol {GAN_U_TOL:g}); bf16 vs f32 at full depth: gen_loss "
+          f"{bf16[0]['gen_loss']:.6f} vs {f32[0]['gen_loss']:.6f} (rel {bf16_rel:.2e}, tol "
+          f"{BF16_LOSS_RTOL:g}), gen_adv_loss {bf16[0]['gen_adv_loss']:.6f} vs "
+          f"{f32[0]['gen_adv_loss']:.6f} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(all(np.isfinite(list(r[0].values())).all() for r in (card, cpu, f32, bf16)),
+          "[numerics gan] non-finite loss")
+    check(max(loss_rel.values()) <= TRAIN_LOSS_RTOL and max(gen_rel, disc_rel)
+          <= TRAIN_GRAD_NORM_RTOL and u_diff <= GAN_U_TOL,
+          "[numerics gan] the f32 GAN step on the card differs from the CPU")
+    check(bf16_rel <= BF16_LOSS_RTOL, "[numerics gan] the bf16 GAN step does not track f32")
+
+
+def ablation_phases(data: dict, dev):
+    """The paper's ablation presets' steps at full width and depth, seeded
+    weights, each at its preset's microbatch (``ABLATION_PRESETS``): [train
+    gan structural] (``gan/partial_gan``: the PatchGAN on the structural
+    markers) and [train gan full] (``gan/full_gan``: on all 16; one timed
+    step), [numerics gan], [train univ2] (``foundation_models/univ2``),
+    [train unet univ2] (``finetuning/full_finetuning``: every tensor
+    trains, with the trainer's layer decay), [train frozen]
+    (``finetuning/frozen``), and ``unet_lora`` on phikonv2 and sp85m at
+    microbatch 8. Returns the launch counts and the rates."""
+    counts, numbers = {}, {}
+
+    def run(tag, preset, **kw):
+        train, model_cfg = preset["train"], preset["model"]
+        name, encoder = model_cfg["model_name"], model_cfg["encoder"]["encoder_name"]
+        model = fresh_generator(name, encoder, dev, SEED + 70 + len(counts))
+        if train["gan_train"]:
+            kw["disc"] = gan_discriminator(train["gan_mode"], data, dev, SEED + 80 + len(counts))
+        counts[tag], numbers[f"{tag} images/s"] = train_family_phase(
+            tag, model, name, 2, train["batch_size"], dev, counted=model.vit_cfg.depth, **kw)
+        del model, kw
+        torch.cuda.empty_cache()
+
+    run("train gan structural", ABLATION_PRESETS["gan=partial_gan"])
+    run("train gan full", ABLATION_PRESETS["gan=full_gan"], timed=1)
+    numerics_gan_phase(data, dev)
+    run("train univ2", ABLATION_PRESETS["foundation_models=univ2"])
+    # the trainer's rule: a fully trainable ``unet`` ViT takes the layer decay
+    run("train unet univ2", ABLATION_PRESETS["finetuning=full_finetuning"], vit_lr_decay=True)
+    # as the trainer runs it, without per-block checkpointing (JAX's default
+    # remat=True): it fits at batch 16 on an 80-GB H100
+    run("train frozen", ABLATION_PRESETS["finetuning=frozen"])
+    for name in ("phikonv2", "sp85m"):
+        run(f"train {name}", preset_with(ABLATION_PRESETS["foundation_models=univ2"], {
+            "train.batch_size": MICRO, "model.encoder.encoder_name": name}))
+    return counts, numbers
 
 
 def baseline_phases(tmp: Path, enc: Path, tiles: np.ndarray, dev):
@@ -2976,7 +3310,9 @@ def baseline_phases(tmp: Path, enc: Path, tiles: np.ndarray, dev):
     counts, numbers = {}, {}
     ckpt = write_unetr_checkpoint(tmp, SEED + 3)
     counts["unetr"], numbers["unetr tiles/s"] = unetr_phase(ckpt, SEED + 3, enc, tiles, dev)
-    counts["unetr provgigapath"] = unetr_giga_phase(dev)
+    for i, name in enumerate(("provgigapath",) + ABLATION_ENCODERS):
+        counts[f"unetr {name}"], numbers[f"unetr {name} tiles/s"] = unetr_encoder_phase(
+            name, dev, SEED + 30 + 2 * i)
     counts["smp convnext"], numbers["smp convnext tiles/s"] = cnn_phase(
         "smp convnext", "smp_unet", "tu-convnext_large", dev, SEED + 40, foreground_head=True)
     counts["unet resnet50"], numbers["unet resnet50 tiles/s"] = cnn_phase(
@@ -2992,7 +3328,17 @@ def baseline_phases(tmp: Path, enc: Path, tiles: np.ndarray, dev):
         "train convnext fg", model, "smp_unet", 2, SMP_BATCH, dev, foreground_head=True)
     del model
     torch.cuda.empty_cache()
-    counts["trainer unetr"] = trainer_unetr_phase(tmp, ckpt, enc, dev)
+    # the cell data of the trainer phases; its channel_stats.json marks the
+    # structural markers the GAN ablation's discriminator sees
+    data = write_cell_data(tmp / "unetr_data", SEED + 13)
+    ablation_counts, ablation = ablation_phases(data, dev)
+    counts.update(ablation_counts)
+    numbers.update(ablation)
+    counts["trainer unetr"], numbers["trainer unetr images/s"] = trainer_unetr_phase(
+        tmp, ckpt, enc, data, dev)
+    counts["trainer gan"], numbers["trainer gan images/s"] = trainer_unetr_phase(
+        tmp, ckpt, enc, data, dev, tag="trainer gan", preset=ABLATION_PRESETS["gan=partial_gan"],
+        unetr_rate=numbers["trainer unetr images/s"])
     # last: no timed phase runs after the profiler's trace
     need_w, frozen_w = k2_need_w_ms(dev)
     numbers["k2 need_w device ms"] = need_w["device"]
@@ -3821,6 +4167,9 @@ TP_LOSS_RTOL = 1e-3
 TP_BF16_LORA_COS = BF16_LORA_COS
 TP_F32_LOSS_RTOL = 1e-5
 TP_F32_LORA_COS = 0.9999
+# [tp train 1024]'s f32 microbatch: the encoder's first blocks, as
+# [numerics train]'s f32 region step
+TP_REGION_F32_DEPTH = 2
 TP_REPS = 3
 TP_SWIN_MICRO = CTRANSPATH_PRESET["train"]["batch_size"]     # [tp swin]'s microbatch
 
@@ -4455,9 +4804,11 @@ def tp_train_region_rank(ckpt, enc, dev):
     the encoder sharded over the ranks: K4 and K5 at 12 heads a rank, K2 at
     hidden 2048; one optimizer step of ACCUM microbatches of REGION_MICRO
     ([train 1024]'s first) with the launch counts at 0 and the all-reduces
-    tallied; the replicated tensors' digest after it; on rank 0 the
-    one-rank step's first microbatch: the loss and the LoRA q/v gradients
-    against the sharded step's."""
+    tallied; the replicated tensors' digest after it; then the first
+    microbatch in f32 sharded at TP_REGION_F32_DEPTH blocks (K4's and K5's
+    f32 paths; its launches counted too); on rank 0 the one-rank step's
+    first microbatch, bf16 at full depth and f32 at those blocks: the loss
+    and the LoRA q/v gradients against the sharded step's."""
     import torch.distributed as dist
 
     from mipheivit_tpu_torch.metrics import PixelMetrics
@@ -4485,16 +4836,29 @@ def tp_train_region_rank(ckpt, enc, dev):
             if a == 0:
                 grads0 = {n: g.detach().float().cpu() for n, g in log["grads"].items()}
     layouts = param_layouts(model)
-    res = {"counts": read_counts(), "losses": losses, "step_s": step_s, "tally": tally,
+    res = {"losses": losses, "step_s": step_s, "tally": tally,
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "digest": digest({n: t for n, t in model.state_dict().items() if n not in layouts})}
     del state, step, model, log
     torch.cuda.empty_cache()
+    # the same first microbatch in f32, sharded: rounding moves the gradients
+    # by ~1e-7 there, where bf16's noise would hide a sharding fault
+    got32 = one_step_grads(shard_params(train_model(ckpt, enc, REGION, dev,
+                                                    depth=TP_REGION_F32_DEPTH), mesh),
+                           data[0], dev, mesh=mesh)
+    torch.cuda.synchronize()
+    res["counts"] = read_counts()
+    torch.cuda.empty_cache()
     dist.barrier()
     if rank == 0:
         ref = one_step_grads(train_model(ckpt, enc, REGION, dev), data[0], dev, torch.bfloat16)
+        torch.cuda.empty_cache()
+        ref32 = one_step_grads(train_model(ckpt, enc, REGION, dev, depth=TP_REGION_F32_DEPTH),
+                               data[0], dev)
         res.update(cos=lora_cos((losses[0], grads0), ref), solo_loss=ref[0],
-                   ratio=norm_ratio(grad_norms(grads0), grad_norms(ref[1])))
+                   ratio=norm_ratio(grad_norms(grads0), grad_norms(ref[1])),
+                   cos32=lora_cos(got32, ref32), loss32=(got32[0], ref32[0]),
+                   ratio32=norm_ratio(grad_norms(got32[1]), grad_norms(ref32[1])))
         torch.cuda.empty_cache()
     dist.barrier()
     return res
@@ -4809,9 +5173,17 @@ def tp_report(ranks, depth: int, per_rank, counts: dict, t_all: float) -> None:
         check_counts(f"[tp swin] rank {r}", res["tp swin"]["counts"])
         check_counts(f"[tp swin] step, rank {r}", res["tp swin"]["train"]["counts"])
 
-    t = r0["tp train 1024"]
+    tp_region_report(ranks, depth, per_rank, t_all)
+
+
+def tp_region_report(ranks, depth: int, per_rank, t_all: float) -> None:
+    """Print and check [tp train 1024] from every rank's results (as
+    ``tp_report``)."""
+    t = ranks[0]["tp train 1024"]
     cos, least_cos, worst = t["cos"]
+    cos32, least32, worst32 = t["cos32"]
     rel = abs(t["losses"][0] - t["solo_loss"]) / abs(t["solo_loss"])
+    rel32 = abs(t["loss32"][0] - t["loss32"][1]) / abs(t["loss32"][1])
     same = len({res["tp train 1024"]["digest"] for res in ranks}) == 1
     peaks = ", ".join(f"{res['tp train 1024']['peak_gib']:.2f}" for res in ranks)
     print(f"[tp train 1024] the flagship preset's step on {REGION}-px regions ({REGION_S} "
@@ -4823,17 +5195,28 @@ def tp_report(ranks, depth: int, per_rank, counts: dict, t_all: float) -> None:
           f"{', '.join(f'{v:.4f}' for v in t['losses'])}, first against one rank's "
           f"{t['solo_loss']:.4f} (rel {rel:.2e}, tol {TP_LOSS_RTOL:g}); bf16 LoRA q/v grad "
           f"cosine against the one-rank step {cos:.6f}, least one {least_cos:.6f} ({worst}; "
-          f"target >= {TP_BF16_LORA_COS}); reduced gradient norm over the one-rank step's: "
-          f"LoRA {t['ratio']['lora']:.6f}, decoder {t['ratio']['decoder']:.6f}; replicated "
-          f"tensors identical {same}; {per_rank('tp train 1024', 'tp train 1024')} "
+          f"target >= {TP_BF16_LORA_COS}); f32 at {TP_REGION_F32_DEPTH} blocks, first "
+          f"microbatch: loss {t['loss32'][0]:.6f} vs {t['loss32'][1]:.6f} (rel {rel32:.2e}, tol "
+          f"{TP_F32_LOSS_RTOL:g}), LoRA q/v cosine {cos32:.7f}, least one {least32:.7f} "
+          f"({worst32}; target >= {TP_F32_LORA_COS}); reduced gradient norm over the one-rank "
+          f"step's: bf16 LoRA {t['ratio']['lora']:.6f}, decoder {t['ratio']['decoder']:.6f}, "
+          f"f32 LoRA {t['ratio32']['lora']:.6f}, decoder {t['ratio32']['decoder']:.6f} (f32 "
+          f"target within {GRAD_NORM_TOL:g} of 1); replicated tensors identical {same}; "
+          f"{per_rank('tp train 1024', 'tp train 1024')} "
           f"({time.perf_counter() - t_all:.1f} s for the spawned phases)", flush=True)
     check(all(np.isfinite(t["losses"])), "[tp train 1024] non-finite loss")
     check(rel <= TP_LOSS_RTOL, "[tp train 1024] the loss differs from one rank's")
     check(cos >= TP_BF16_LORA_COS, "[tp train 1024] bf16 gradients differ from one rank's")
+    check(rel32 <= TP_F32_LOSS_RTOL and cos32 >= TP_F32_LORA_COS,
+          "[tp train 1024] f32 gradients differ from one rank's")
+    check(all(abs(v - 1) <= GRAD_NORM_TOL for v in t["ratio32"].values()),
+          "[tp train 1024] the reduced gradient is scaled")
     check(same, "[tp train 1024] the replicated tensors differ between the ranks")
+    # the bf16 optimizer step, then the f32 microbatch at TP_REGION_F32_DEPTH blocks
+    n_blocks = depth * ACCUM + TP_REGION_F32_DEPTH
     for r, res in enumerate(ranks):
         check_counts(f"[tp train 1024] rank {r}", res["tp train 1024"]["counts"],
-                     k4=depth * ACCUM, k5=depth * ACCUM, k2=depth * ACCUM, k2b=depth * ACCUM)
+                     k4=n_blocks, k5=n_blocks, k2=n_blocks, k2b=n_blocks)
 
 
 def serve_dp_phase(model, tiles, dev, depth):
@@ -5590,8 +5973,13 @@ def main() -> None:
             check(rel <= SCALED_TOL[kind_dt][0] and fro <= SCALED_TOL[kind_dt][1],
                   f"K1 {name} disagrees with the plain version")
     del big, small, cases
-    # K1 at one rank's heads of [tp forward]'s tile batch
-    k1_tp = k1_tp_phase()
+    # K1 at one rank's heads of [tp forward]'s tile batch, and at the
+    # ablation encoders' shapes at batch 64 (univ2: 8 registers, S 333)
+    k1_tp = k1_fused_phase("bf16_tp", TP_TILES, 329, HEADS // PAR_RANKS, SEED + 65)
+    k1_encoders = {}
+    for i, name in enumerate(ABLATION_ENCODERS):
+        s_, _, heads, _ = ENCODER_GEOMETRY[name]
+        k1_encoders[name] = k1_fused_phase(f"bf16_{name}", BATCH, s_, heads, SEED + 66 + i)
 
     # 3b. K4 against the plain version: a 1024-px region (fused qkv layout),
     #     a sequence shard's rectangle, f32, and ragged lengths
@@ -6029,7 +6417,7 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": "k1_attention", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/attention.cu",
-         "replaces": "mipheivit_tpu/ops/attention.py:563", **k1, "tp": k1_tp,
+         "replaces": "mipheivit_tpu/ops/attention.py:563", **k1, "tp": k1_tp, **k1_encoders,
          **launches("attention")},
         {"name": "k4_flash_attention", "route": "cuda",
          "source": "mipheivit_tpu_torch/csrc/flash_attention.cu",

@@ -252,6 +252,16 @@ def cell_metric_keys(split: str, cm: Dict, marker_cols) -> Dict[str, float]:
     return out
 
 
+def discriminator_channels(gan_mode: str, channel_stats, channel_names) -> Optional[list]:
+    """The markers the PatchGAN discriminator sees: in the ``structural``
+    mode (the JAX trainer also takes its misspelling ``stuctural``) the
+    indices of ``channel_names`` that ``channel_stats`` marks structural,
+    otherwise all of them (None)."""
+    if gan_mode not in ("structural", "stuctural"):
+        return None
+    return [i for i, m in enumerate(channel_stats.structural_mask(channel_names)) if m]
+
+
 def get_width_height(dataframe: Table) -> tuple:
     if "image_path" not in dataframe.columns:
         return int(dataframe["tile_size_x"][0]), int(dataframe["tile_size_y"][0])
@@ -381,10 +391,7 @@ def train_patchgan(cfg: Config, logdir: str, dtype: Optional[str] = None,
     gan_train = bool(cfg.train.gan_train)
     disc = None
     if gan_train:
-        selected = None
-        if cfg.train.gan_mode in ("structural", "stuctural"):
-            mask = channel_stats.structural_mask(channel_names)
-            selected = [i for i, m in enumerate(mask) if m]
+        selected = discriminator_channels(cfg.train.gan_mode, channel_stats, channel_names)
         disc = DiscriminatorPatch(3 + (nc_out if selected is None else len(selected)),
                                   selected_channels=selected)
 
