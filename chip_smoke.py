@@ -10,10 +10,12 @@ K3 the fused marker heads, K8 the fused attention sublayer) from
 mipheivit_tpu_torch/csrc, one nvcc per source, all at once; holds each
 against its plain PyTorch version at the shapes the paths give it,
 then drives the port's paths at full width from a reference-layout
-MIPHEI-ViT checkpoint dir (H-Optimus-0 ViT-g/14 encoder, 16 markers, random
-weights from a numpy seed). Serving: load_generator(fast_heads=True) ->
-merge_lora -> cast_params(bf16); every encoder block runs K2 and every eval
-forward ends in K3:
+MIPHEI-ViT checkpoint dir (H-Optimus-0 ViT-g/14 encoder cut to its first
+FLAGSHIP_DEPTH = 10 of 40 blocks wherever the smoke builds it, 16 markers,
+random weights from a numpy seed; an encoder kernel launches once a block,
+so K1 launches 10 times a batch). Serving: load_generator(fast_heads=True)
+-> merge_lora -> cast_params(bf16); every encoder block runs K2 and every
+eval forward ends in K3:
 
   [slice]      predict_tiles on 150 uint8 256-px tiles at batch 64 (K1);
   [serve]      the daemon: build_serving_fn (batch 32, the CLI's default)
@@ -106,10 +108,10 @@ foundation-stripped beside the flagship's H-Optimus-0 encoder file):
 
   [unetr]      the unet_lora / H-Optimus-0 preset through load_generator ->
                merge_lora -> bf16: predict_tiles on the 150 tiles at batch
-               64 (K1 and K2 in bf16, 40 a batch), the steady forward's
+               64 (K1 and K2 in bf16, 10 a batch), the steady forward's
                tiles/s, f32 card vs CPU at 4 blocks (the taps need 4; held
                absolutely, against each marker map's spread and by
-               per-marker Pearson), bf16 vs f32 at 40 blocks;
+               per-marker Pearson), bf16 vs f32 at 10 blocks;
   [unetr bf16 probe] one tile with the heads as drawn (before contrast_head):
                each stage's relative bf16 error, the output's spread beside
                bf16's spacing, the Pearson that the contrast heads avoid;
@@ -131,18 +133,18 @@ foundation-stripped beside the flagship's H-Optimus-0 encoder file):
                compute), the second with the foreground term, then 4 steps
                timed with CUDA events (median): every trainable tensor with a
                gradient moves, the trainable count is the JAX rule's, K1 = K2
-               = K2's backward terms = 40 a microbatch on the UNETR;
+               = K2's backward terms = 10 a microbatch on the UNETR;
   [train gan structural], [train gan full] the GAN ablation's step
                (experiments/gan/partial_gan.yaml and full_gan.yaml: unet_lora
                on H-Optimus-0 at 8, the PatchGAN discriminator with spectral
                norm on the structural markers or on all 16, its optimizer the
                trainer's): ms a step, images/s, the three losses a step,
                every generator and discriminator tensor and spectral u moved,
-               K1 = K2 = K2's backward terms = 40 a microbatch in bf16;
+               K1 = K2 = K2's backward terms = 10 a microbatch in bf16;
   [numerics gan] that step f32 on the card against the CPU at 4 blocks
                (the same label-noise draws): the losses, the generator's and
                the discriminator's gradients and the spectral u; bf16 against
-               f32 at 40 blocks;
+               f32 at 10 blocks;
   [train univ2], [train unet univ2], [train frozen], [train phikonv2],
                [train sp85m] the foundation-model and fine-tuning ablations'
                steps at their presets' microbatches (univ2.yaml: unet_lora on
@@ -196,9 +198,19 @@ convolutions and host code, K1-K8 = 0), after the Swin models:
                configuration: the trace's path, size and five longest device
                ops (K1, K2 and K2's backward terms, counted).
 
+Data preparation (no kernel of the port, K1-K8 = 0):
+  [mif clean]  mif_cleaning on a 2896^2 x 17-channel uint16 slide on the
+               card and with --device cpu: histograms and p99 equal, the
+               uint8 pyramids within one step, Mpx/s and the read / upload /
+               device / write seconds;
+  [expression] extract_expression_matrix over ~16 000 disc nuclei on that
+               slide, card against CPU at tile_size 8192 and 2048;
+  [prep scripts] the host scripts in pipeline order on a 1024^2 H&E /
+               17-channel mIF pair, the registration shift recovered.
+
 Several cards (the machine shows one: the ranks are 2 processes spawned on
 it, joined over gloo, which carries CUDA tensors through the host; NCCL
-refuses a duplicate GPU), at full width and depth:
+refuses a duplicate GPU), at full width and the smoke's depth:
   [collectives] all_gather_into_tensor, reduce_scatter_tensor and
                all_reduce of the k|v of a 1024-px block between the ranks,
                timed, and whether NCCL carries them;
@@ -237,8 +249,8 @@ refuses a duplicate GPU), at full width and depth:
                ranks and the int32 partial products summed), one batch of
                16 tiles and one 1024-px region against the unsharded int8
                forward (per-marker Pearson, the share of uint8 codes equal),
-               the all-reduces tallied by dtype; launches a rank: K1 40
-               (tiles), K4 40 (region), K3 2, K2 0 (fc1 is an int8 product);
+               the all-reduces tallied by dtype; launches a rank: K1 10
+               (tiles), K4 10 (region), K3 2, K2 0 (fc1 is an int8 product);
   [tp swin]    unet_lora on ctranspath at full width sharded (stage 0's 3
                heads split 2 + 1, the Swin MLP whole): the f32 forward of
                16 tiles against the unsharded one (per-marker Pearson and
@@ -253,7 +265,7 @@ refuses a duplicate GPU), at full width and depth:
                step, the replicated tensors identical, and the first
                microbatch in f32 at 2 blocks against one rank's (loss, LoRA
                q/v cosine, reduced norms); launches a rank: K4 = K5 = K2 =
-               K2's backward terms = 80 + 2 (12 heads, hidden 2048).
+               K2's backward terms = 20 + 2 (12 heads, hidden 2048).
                [k4 bf16_tp_region] and [k5 bf16_tp_region] hold K4 and K5
                at [1, 5334, 12 x 64] against their plain versions.
 
@@ -286,8 +298,10 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import io
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -304,6 +318,11 @@ IMG = 256
 REGION = 1024                    # whole-region window side, px
 MARKERS = 16
 SEED = 0
+# H-Optimus-0 (ViT-g/14, 40 blocks) cut to its first blocks at full width
+# everywhere the smoke builds it (flagship, its UNETR and GAN presets, the
+# consumers, the trainers, the ranks): each model path's wall scales with
+# the depth, and the whole run has to finish well inside its time limit
+FLAGSHIP_DEPTH = 10
 # every kernel's output (K5's dQ, dK, dV) against its plain version, scaled
 # to the reference: max |err| / max |ref| and ||err|| / ||ref|| (at a region
 # the gradients are ~0.02 in RMS, so an absolute limit would say little);
@@ -574,6 +593,15 @@ def synth_value(name: str, shape, seed: int) -> np.ndarray:
     if len(shape) == 1 and name.endswith(".weight"):   # LN / BN scale
         return rng.uniform(0.9, 1.1, shape).astype(np.float32)
     return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+
+def cut_flagship_depth() -> None:
+    """Build H-Optimus-0 at FLAGSHIP_DEPTH blocks from here on in this
+    process (its spec's depth: the checkpoint written, every loader, the
+    trainers' presets and the UNETR's taps follow it)."""
+    from mipheivit_tpu_torch.models import foundation
+
+    foundation._VIT_SPECS["hoptimus0"][0]["depth"] = FLAGSHIP_DEPTH
 
 
 def write_checkpoint(root: Path, seed: int):
@@ -2029,7 +2057,7 @@ def instrument_trainer(trainer, norms: bool = False):
 
 
 def trainer_phase(tmp: Path, ckpt: Path, enc: Path, depth: int, train256_rate: float):
-    """The training driver on the flagship preset at full width and depth:
+    """The training driver on the flagship preset at full width:
     ``train_patchgan`` for 1 epoch of ``TRAINER_STEPS`` microbatches of 8,
     then again with ``resume`` to epoch 2, through K1 and K2 (forward and
     backward terms). Checks finite losses, frozen weights bit-identical,
@@ -2694,9 +2722,9 @@ def cut_unetr(model, depth: int):
 def unetr_phase(ckpt: Path, ckpt_seed: int, enc: Path, tiles: np.ndarray, dev):
     """[unetr]: the ``unet_lora`` / H-Optimus-0 preset through
     ``load_generator`` -> ``merge_lora`` -> ``cast_params(bf16)``:
-    ``predict_tiles`` on the tiles at batch 64 (K1 and K2, in bf16, 40 a
-    batch), the steady forward's tiles/s, f32 on the card against the CPU
-    at ``UNETR_CUT`` blocks, bf16 against f32 at 40 blocks, and
+    ``predict_tiles`` on the tiles at batch 64 (K1 and K2, in bf16, one a
+    block and batch), the steady forward's tiles/s, f32 on the card against the CPU
+    at ``UNETR_CUT`` blocks, bf16 against f32 at FLAGSHIP_DEPTH blocks, and
     ``unetr_rounding_probe``. Returns the launch counts and the rate."""
     from mipheivit_tpu_torch.infer import cast_params, load_generator, merge_lora
     from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE, predict_tiles
@@ -3267,7 +3295,8 @@ def numerics_gan_phase(data: dict, dev):
 
 
 def ablation_phases(data: dict, dev):
-    """The paper's ablation presets' steps at full width and depth, seeded
+    """The paper's ablation presets' steps at full width (H-Optimus-0 at
+    FLAGSHIP_DEPTH blocks, the other encoders at full depth), seeded
     weights, each at its preset's microbatch (``ABLATION_PRESETS``): [train
     gan structural] (``gan/partial_gan``: the PatchGAN on the structural
     markers) and [train gan full] (``gan/full_gan``: on all 16; one timed
@@ -4124,6 +4153,369 @@ def preprocessing_phases(tmp: Path, ckpt: Path, enc: Path, data_values: dict, de
     return counts
 
 
+# ---- data preparation: the mIF cleaning passes and the expression matrix on
+# the card, the host scripts around them ------------------------------------
+
+CLEAN_SLIDE = 2896               # [mif clean]: 2896^2 x 17 uint16 at 0.325 mpp (~285 MB raw),
+CLEAN_LEVELS = 2                 # its thumbnail level 1448^2: cut to 1024^2 at a fractional
+                                 # scale, as a real slide's is (slideio.resize's 4-channel chunks)
+CLEAN_CHANNELS = 17              # AF (channel 0), 15 markers, an artifact channel (16)
+CLEAN_STEPS = 1                  # card vs CPU: each uint8 within one step ...
+CLEAN_OFF_SHARE = 1e-4           # ... on at most this share of the values
+EXPR_NUCLEI = 16000              # [expression]: discs of radius 6-10 px on that slide
+EXPR_TILES = (8192, 2048)        # tile_size: the slide in one tile, and tiles that cut nuclei
+PREP_SLIDE = 1024                # [prep scripts]: the H&E / mIF pair (the scripts' deflate
+                                 # writes set their walls: 2048^2 takes ~3x longer)
+PREP_CHANNELS = 17               # its mIF: AF, 15 markers, an artifact channel
+PREP_SHIFT = (24, 16)            # the mIF's known offset from the H&E (x, y), px
+PREP_SHIFT_TOL = 2.0
+PREP_MPP = 0.325
+
+
+def mif_slide(rng, side: int, n_ch: int = CLEAN_CHANNELS) -> np.ndarray:
+    """``[C, side, side]`` uint16: a disc of tissue; AF (channel 0) leaking
+    into the markers at 0.1-0.3 of its level, marker signal in 64-px
+    blocks, saturated pixels in channel 5 and an artifact patch in the last
+    channel."""
+    yy, xx = np.ogrid[:side, :side]
+    tissue = (yy - side / 2) ** 2 + (xx - side / 2) ** 2 < (0.4 * side) ** 2
+    out = np.empty((n_ch, side, side), np.uint16)
+    out[0] = rng.integers(300, 3000, (side, side), dtype=np.uint16)
+    out[0][~tissue] //= 100
+    for c in range(1, n_ch - 1):
+        block = rng.integers(0, 2, (-(-side // 64),) * 2, dtype=np.uint16)
+        np.multiply(rng.integers(0, 600 * c, (side, side), dtype=np.uint16),
+                    block.repeat(64, 0).repeat(64, 1)[:side, :side], out=out[c])
+        out[c] *= tissue
+        out[c] += out[0] // (10 // (c % 3 + 1))
+    out[5, side // 3:side // 3 + 64, side // 3:side // 3 + 64] = 65535
+    out[-1] = rng.integers(0, 500, (side, side), dtype=np.uint16)
+    out[-1, side // 2:side // 2 + 80, side // 4:side // 2] = 4000
+    return out
+
+
+def disc_labels(rng, side: int, n: int) -> np.ndarray:
+    """``[side, side]`` int32: ``n`` discs of radius 6-10 px with scattered
+    ids below 1e7 (a later disc over an earlier one)."""
+    lab = np.zeros((side, side), np.int32)
+    yy, xx = np.ogrid[:side, :side]
+    ids = rng.choice(10 ** 7, n, replace=False) + 1
+    for lab_id, cy, cx, r in zip(ids, rng.integers(10, side - 10, n),
+                                 rng.integers(10, side - 10, n), rng.integers(6, 11, n)):
+        y0, y1, x0, x1 = cy - r, cy + r + 1, cx - r, cx + r + 1
+        lab[y0:y1, x0:x1][(yy[y0:y1] - cy) ** 2 + (xx[:, x0:x1] - cx) ** 2 <= r * r] = lab_id
+    return lab
+
+
+def read_levels(path) -> list:
+    from mipheivit_tpu_torch.slideio import TiffSlide
+
+    ts = TiffSlide(str(path))
+    try:
+        return [ts.read_region((0, 0), lvl, ts.level_dimensions[lvl])
+                for lvl in range(ts.n_levels)]
+    finally:
+        ts.close()
+
+
+def split_text(split: dict) -> str:
+    return ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+
+
+def mif_clean_phase(root: Path, dev):
+    """[mif clean]: mif_cleaning's CLI on a 2896^2 x 17 uint16 slide on the
+    card, then with --device cpu: histograms and p99 equal, the uint8
+    pyramids within CLEAN_STEPS, the share off printed; Mpx/s over both
+    passes and the read / upload / device / write seconds. Its thumbnail,
+    cut at a fractional scale in 4-channel chunks, is held against each
+    channel's own cv2 resize."""
+    import cv2
+
+    from mipheivit_tpu_torch.preprocessings.mif_cleaning import mif_cleaning
+    from mipheivit_tpu_torch.slideio import SlideReader, resize, write_pyramid
+
+    t0 = time.perf_counter()
+    slide = root / "mif.tiff"
+    # the inputs are written uncompressed: deflate would take ~50 s here
+    write_pyramid(str(slide), mif_slide(np.random.default_rng(SEED + 300), CLEAN_SLIDE),
+                  n_levels=CLEAN_LEVELS, tile_size=512, mpp=PREP_MPP, compression="none")
+    setup = time.perf_counter() - t0
+    reader = SlideReader(str(slide), mode="IF")
+    level = reader.read_region((0, 0), reader.n_levels - 1, reader.level_dimensions[-1])
+    reader.close()
+    thumb_from = level.shape[0]
+    thumb = resize(level, (1024, 1024), cv2.INTER_AREA)
+    thumb_equal = bool(np.array_equal(thumb, np.stack(
+        [cv2.resize(level[..., c], (1024, 1024), interpolation=cv2.INTER_AREA)
+         for c in range(CLEAN_CHANNELS)], -1)))
+    del level, thumb
+    names = ["AF"] + [f"m{c}" for c in range(1, CLEAN_CHANNELS - 1)] + ["ART"]
+    settings = root / "lambda.json"
+    settings.write_text(json.dumps({str(c): {"lambda": 0.1 * (c % 3 + 1), "bias": 10.0 * (c % 2)}
+                                    for c in range(1, CLEAN_CHANNELS)}))
+    runs = {}
+    reset_counts()
+    for tag, device in (("card", str(dev)), ("cpu", "cpu")):
+        argv = ["--slide_path", str(slide), "--out_path", str(root / f"clean_{tag}.tiff"),
+                "--lambda_settings", str(settings), "--channel_names", ",".join(names),
+                "--artifact_channel_name", "ART", "--device", device]
+        with contextlib.redirect_stdout(io.StringIO()):
+            runs[tag] = mif_cleaning.main(argv)
+        if tag == "card":
+            counts = read_counts()
+    card, cpu = runs["card"], runs["cpu"]
+    hists_equal = bool(np.array_equal(card["hists"], cpu["hists"]))
+    p99_equal = bool(np.array_equal(card["p99"], cpu["p99"]))
+    off, total, worst = 0, 0, 0
+    for a, b in zip(read_levels(root / "clean_card.tiff"), read_levels(root / "clean_cpu.tiff")):
+        diff = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        worst = max(worst, int(diff.max()))
+        off += int((diff > 0).sum())
+        total += diff.size
+    for f in ("clean_card.tiff", "clean_cpu.tiff"):
+        (root / f).unlink()
+    share = off / total
+    print(f"[mif clean] {CLEAN_SLIDE}^2 x {CLEAN_CHANNELS} uint16 at {PREP_MPP} mpp (written in "
+          f"{setup:.1f} s): card {card['wall_s']:.3f} s = {card['mpx_per_s']:.2f} Mpx/s over both "
+          f"passes ({split_text(card['split'])}); CPU {cpu['wall_s']:.3f} s = "
+          f"{cpu['mpx_per_s']:.2f} Mpx/s ({split_text(cpu['split'])}); histograms equal "
+          f"{hists_equal}, p99 equal {p99_equal} ({np.round(card['p99'], 1).tolist()}); uint8 "
+          f"pyramid card vs CPU: max {worst} step, {off} of {total} values off (share "
+          f"{share:.2e}, limit {CLEAN_OFF_SHARE:g}); thumbnail {thumb_from}^2 -> 1024^2 "
+          f"in 4-channel chunks = per-channel cv2 {thumb_equal}; {counts_line(counts)}", flush=True)
+    check(thumb_equal, "[mif clean] the chunked thumbnail differs from per-channel cv2")
+    check(hists_equal and p99_equal, "[mif clean] the card's histograms or p99 differ")
+    check(worst <= CLEAN_STEPS and share <= CLEAN_OFF_SHARE,
+          "[mif clean] the card's uint8 pyramid is off the CPU's")
+    check_counts("[mif clean]", counts)
+    return counts, slide
+
+
+def expression_phase(root: Path, mif: Path, dev):
+    """[expression]: extract_expression_matrix's CLI over ~16 000 nuclei on
+    the 2896^2 slide, on the card and with --device cpu, at tile_size 8192
+    (one tile) and 2048 (tiles cut nuclei): the CSVs equal; nuclei/s and
+    the split."""
+    from mipheivit_tpu_torch.data.table import Table
+    from mipheivit_tpu_torch.preprocessings.single_cell_analysis import (
+        extract_expression_matrix as expr)
+    from mipheivit_tpu_torch.slideio import write_pyramid
+
+    lab = disc_labels(np.random.default_rng(SEED + 310), CLEAN_SLIDE, EXPR_NUCLEI)
+    n_labels = len(np.unique(lab)) - 1
+    nuclei = root / "nuclei.tiff"
+    write_pyramid(str(nuclei), lab[None], n_levels=2, tile_size=512, mpp=PREP_MPP,
+                  compression="none")
+    del lab
+    Table({"in_slide_name": ["s0"], "targ_slide_path": [str(mif)],
+           "nuclei_slide_path": [str(nuclei)]}).to_csv(root / "slides.csv")
+    reset_counts()
+    parts, same = [], True
+    for tile in EXPR_TILES:
+        text = {}
+        for tag, device in (("card", str(dev)), ("cpu", "cpu")):
+            out = root / f"expr_{tag}_{tile}"
+            with contextlib.redirect_stdout(io.StringIO()):
+                (stats,) = expr.main(["--slide_dataframe", str(root / "slides.csv"), "--out_dir",
+                                      str(out), "--tile_size", str(tile), "--device", device])
+            text[tag] = Path(stats["csv"]).read_text()
+            shutil.rmtree(out)
+            parts.append(f"tile {tile} {tag}: {stats['cells']} cells in {stats['wall_s']:.3f} s"
+                         f" = {stats['nuclei_per_s']:.0f} nuclei/s, {stats['mpx_per_s']:.2f} "
+                         f"Mpx/s ({split_text(stats['split'])})")
+            cells = stats["cells"]
+        same = same and text["card"] == text["cpu"] and cells == n_labels
+    counts = read_counts()
+    print(f"[expression] {n_labels} nuclei of {EXPR_NUCLEI} discs on {CLEAN_SLIDE}^2 x "
+          f"{CLEAN_CHANNELS}: {'; '.join(parts)}; card CSV = CPU CSV at every tile size {same}; "
+          f"{counts_line(counts)}", flush=True)
+    check(same, "[expression] the card's expression matrix differs from the CPU's")
+    check_counts("[expression]", counts)
+    nuclei.unlink()
+    return counts
+
+
+def prep_pair(root: Path):
+    """[prep scripts]' inputs: an H&E slide of a random texture at
+    PREP_MPP, a 17-channel mIF slide whose channel 0 shows the same texture
+    offset by PREP_SHIFT, and its nuclei label slide on the mIF's grid."""
+    from mipheivit_tpu_torch.slideio import write_pyramid
+
+    root.mkdir()
+    rng = np.random.default_rng(SEED + 320)
+    side, (dx, dy) = PREP_SLIDE, PREP_SHIFT
+    texture = rng.integers(0, 256, (side // 8 + 8, side // 8 + 8), dtype=np.uint8)
+    texture = texture.repeat(8, 0).repeat(8, 1)
+    he = np.stack([texture[:side, :side], 255 - texture[:side, :side] // 2,
+                   texture[:side, :side] // 2 + 100])
+    mif = mif_slide(rng, side, PREP_CHANNELS)
+    mif[0] = texture[dy:dy + side, dx:dx + side].astype(np.uint16) * 16
+    paths = {"he": root / "he.tiff", "mif": root / "mif.tiff", "nuclei": root / "nuclei.tiff"}
+    for name, arr in (("he", he), ("mif", mif), ("nuclei", disc_labels(rng, side, 4000)[None])):
+        write_pyramid(str(paths[name]), arr, n_levels=2, tile_size=512, mpp=PREP_MPP,
+                      compression="none")
+    return {k: str(v) for k, v in paths.items()}
+
+
+def prep_scripts_phase(root: Path, dev):
+    """[prep scripts]: the host scripts in pipeline order on a 1024^2 pair
+    (the registration shift held within PREP_SHIFT_TOL px), with the two
+    card scripts between them where the pipeline runs them; each wall
+    printed, each output checked for what it must hold."""
+    from PIL import Image
+
+    from mipheivit_tpu_torch.data.table import Table
+    from mipheivit_tpu_torch.examples import visualize_dataset
+    from mipheivit_tpu_torch.hemit import orion_to_hemit_layout
+    from mipheivit_tpu_torch.io.safetensors import load_file, save_file
+    from mipheivit_tpu_torch.models import MipheiViT, ViTConfig
+    from mipheivit_tpu_torch.preprocessings import (
+        convert_to_ometiff, get_mean_std_channels, tiling, wsi2tiles)
+    from mipheivit_tpu_torch.preprocessings.artifacts_detection import extract_if_artifact_props
+    from mipheivit_tpu_torch.preprocessings.mif_cleaning import mif_cleaning, tune_af_settings
+    from mipheivit_tpu_torch.preprocessings.registration import registration
+    from mipheivit_tpu_torch.preprocessings.single_cell_analysis import (
+        extract_expression_matrix as expr)
+    from mipheivit_tpu_torch.scripts import (
+        ckpt_remove_foundation_model, create_dataframe, extract_std, scale_slides)
+
+    src = prep_pair(root)
+    names = ["AF"] + [f"m{c}" for c in range(1, PREP_CHANNELS - 1)] + ["ART"]
+    walls, ok = {}, {}
+
+    def run(tag, fn, argv):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            res = fn([str(a) for a in argv])
+        walls[tag] = time.perf_counter() - t0
+        return res, out.getvalue()
+
+    reset_counts()
+    run("scale_slides", scale_slides.main, ["--input", src["he"], "--out_dir", root / "scaled"])
+    scaled = read_levels(root / "scaled" / "he.tiff")[0]
+    side = round(PREP_SLIDE * PREP_MPP / 0.245)
+    ok["scale_slides"] = scaled.shape == (side, side, 3)
+    shutil.rmtree(root / "scaled")
+    _, text = run("registration", registration.main, [
+        "--fixed_slide", src["he"], "--moving_slide", src["mif"], "--out_path",
+        root / "reg.ome.tiff", "--backend", "rigid", "--nuclei_slide", src["nuclei"]])
+    dx, dy = (float(v.split("=")[1]) for v in text.split("(level 0): ")[1].split("\n")[0]
+              .split(", "))
+    ok["registration"] = (abs(dx + PREP_SHIFT[0]) <= PREP_SHIFT_TOL
+                          and abs(dy + PREP_SHIFT[1]) <= PREP_SHIFT_TOL)
+    reg, reg_nuc = root / "reg.ome.tiff", root / "reg_nuclei.ome.tiff"
+    run("tune_af_settings", tune_af_settings.main, [
+        "--slide_path", reg, "--out_json", root / "lambda.json", "--n_tiles", 8,
+        "--tile_size", 256])
+    ok["tune_af_settings"] = (len(json.loads((root / "lambda.json").read_text()))
+                              == PREP_CHANNELS - 1)
+    clean = root / "clean.ome.tiff"
+    run("mif_cleaning (card)", mif_cleaning.main, [
+        "--slide_path", reg, "--out_path", clean, "--lambda_settings", root / "lambda.json",
+        "--channel_names", ",".join(names), "--artifact_channel_name", "ART",
+        "--device", dev])
+    Table({"in_slide_name": ["s0"], "in_slide_path": [src["he"]],
+           "targ_slide_path": [str(clean)], "nuclei_slide_path": [str(reg_nuc)]}).to_csv(
+        root / "slides.csv")
+    run("tiling", tiling.main, ["--slide_dataframe", root / "slides.csv", "--out_csv",
+                                root / "tiles.csv", "--tile_size", 256])
+    n_tiles = len(Table.read_csv(root / "tiles.csv"))
+    ok["tiling"] = n_tiles >= (PREP_SLIDE // 256) ** 2 // 2
+    run("wsi2tiles", wsi2tiles.main, [
+        "--slide_dataframe", root / "slides.csv", "--tile_dataframe", root / "tiles.csv",
+        "--out_dir", root / "tiles", "--out_csv", root / "tile_files.csv"])
+    ok["wsi2tiles"] = len(Table.read_csv(root / "tile_files.csv")) == n_tiles
+    (stats,), _ = run("extract_expression_matrix (card)", expr.main, [
+        "--slide_dataframe", root / "slides.csv", "--out_dir", root / "cells",
+        "--device", dev])
+    cells = Table.read_csv(stats["csv"])
+    gated = {"label": cells["label"]}
+    for c, m in enumerate(names):             # a stand-in gate: above the marker's median
+        col = cells[f"mean_intensity-{c}"]
+        gated[f"{m}_pos"] = col > np.median(col)
+    Table(gated).to_csv(root / "gated.csv")
+    Table({"in_slide_name": ["s0"], "nuclei_csv_path": [str(root / "gated.csv")]}).to_csv(
+        root / "cell_slides.csv")
+    run("create_dataframe", create_dataframe.main, [
+        "--tile_dataframe", root / "tile_files.csv", "--slide_dataframe",
+        root / "cell_slides.csv", "--channel_names", ",".join(names), "--out_csv",
+        root / "train.csv"])
+    train = Table.read_csv(root / "train.csv")
+    ok["create_dataframe"] = (len(train) == n_tiles and train["m3_count"].sum() > 0
+                              and (train["AF_prop"] > 0).all())
+    run("get_mean_std_channels", get_mean_std_channels.main, [
+        "--tile_dataframe", root / "train.csv", "--channel_names", ",".join(names),
+        "--out_json", root / "channel_stats.json"])
+    ch_stats = json.loads((root / "channel_stats.json").read_text())
+    ok["get_mean_std_channels"] = (len(ch_stats) == PREP_CHANNELS + 1
+                                   and all(v["std"] > 0 for k, v in ch_stats.items()
+                                           if k != "RGB"))
+    run("extract_std", extract_std.main, ["--train_dataframe", root / "train.csv",
+                                          "--out", root / "stats.json"])
+    ok["extract_std"] = len(json.loads((root / "stats.json").read_text())["mean"]) == len(names)
+    run("extract_if_artifact_props", extract_if_artifact_props.main, [
+        "--tile_dataframe", root / "train.csv", "--artifact_channels",
+        f"0,{PREP_CHANNELS - 1}", "--out_csv", root / "artifacts.csv"])
+    ok["extract_if_artifact_props"] = f"artifact_prop_ch{PREP_CHANNELS - 1}" in Table.read_csv(
+        root / "artifacts.csv").columns
+    run("convert_to_ometiff", convert_to_ometiff.main, [
+        "--input", reg_nuc, "--output", root / "nuclei_converted.ome.tiff",
+        "--channel_names", "labels", "--n_levels", 3])
+    ok["convert_to_ometiff"] = np.array_equal(
+        read_levels(root / "nuclei_converted.ome.tiff")[0], read_levels(reg_nuc)[0])
+    n_held = n_tiles // 8                     # val and test: an eighth each
+    for name, rows in (("train", range(2 * n_held, n_tiles)), ("val", range(n_held)),
+                       ("test", range(n_held, 2 * n_held))):
+        train.take(np.asarray(rows)).to_csv(root / f"{name}_split.csv")
+    run("orion_to_hemit_layout", orion_to_hemit_layout.main, [
+        "--train_dataframe", root / "train_split.csv", "--val_dataframe", root / "val_split.csv",
+        "--test_dataframe", root / "test_split.csv", "--out_root", root / "hemit"])
+    ok["orion_to_hemit_layout"] = [len(list((root / "hemit" / name / "label").iterdir()))
+                                   for name in ("train", "val", "test")] == [
+        n_tiles - 2 * n_held, n_held, n_held]
+    run("visualize_dataset", visualize_dataset.main, [
+        "--tile_dataframe", root / "train.csv", "--out_png", root / "grid.png"])
+    with Image.open(root / "grid.png") as im:
+        ok["visualize_dataset"] = im.size == ((1 + PREP_CHANNELS) * 256, 4 * 256)
+    torch.manual_seed(SEED + 330)
+    small = MipheiViT(ViTConfig(img_size=(256, 256), patch_size=14, embed_dim=128, depth=2,
+                                num_heads=2, mlp_hidden_dim=256, lora_rank=8), MARKERS)
+    state = small.state_dict()
+    save_file(state, root / "export.safetensors")
+    run("ckpt_remove_foundation_model", ckpt_remove_foundation_model.main, [
+        "--checkpoint", root / "export.safetensors", "--out", root / "stripped.safetensors"])
+    stripped = load_file(root / "stripped.safetensors")
+    ok["ckpt_remove_foundation_model"] = (
+        sorted(stripped) == sorted(k for k in state if not k.startswith("encoder.vit.")
+                                   or ".lora" in k)
+        and all(torch.equal(stripped[k], state[k]) for k in stripped))
+    counts = read_counts()
+    shutil.rmtree(root)
+    print(f"[prep scripts] {PREP_SLIDE}^2 H&E / {PREP_CHANNELS}-channel mIF pair at {PREP_MPP} "
+          f"mpp, {n_tiles} tiles of 256: registration offset ({dx:.1f}, {dy:.1f}) for the true "
+          f"({-PREP_SHIFT[0]}, {-PREP_SHIFT[1]}); walls "
+          f"{'; '.join(f'{k} {v:.3f} s' for k, v in walls.items())}; held: "
+          f"{', '.join(k for k, v in ok.items() if v)}; {counts_line(counts)}", flush=True)
+    check(all(ok.values()), f"[prep scripts] failed: {[k for k, v in ok.items() if not v]}")
+    check_counts("[prep scripts]", counts)
+    return counts
+
+
+def data_prep_phases(tmp: Path, dev):
+    """[mif clean], [expression], [prep scripts]; returns each path's launch
+    counts (every kernel 0: no TPU kernel lies on them)."""
+    root = tmp / "data_prep"
+    root.mkdir()
+    counts = {}
+    counts["mif clean"], mif = mif_clean_phase(root, dev)
+    counts["expression"] = expression_phase(root, mif, dev)
+    mif.unlink()
+    counts["prep scripts"] = prep_scripts_phase(root / "pipeline", dev)
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def pearson(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Per-marker Pearson correlation of two ``[..., C]`` arrays."""
     a = a.reshape(-1, a.shape[-1]).astype(np.float64)
@@ -4155,7 +4547,7 @@ COLLECTIVE_REPS = 5
 # weights per marker, and f32 at 2 blocks against the CPU's plain chain,
 # scaled to max |ref|; [tp train 256] against the one-rank step: the bf16
 # first loss, and the first microbatch's LoRA q/v gradients in bf16 and in
-# f32. In bf16 at 40 blocks of these random weights any change of rounding
+# f32. In bf16 at many blocks of these random weights any change of rounding
 # moves those gradients by about bf16's own noise (the bf16 step against
 # the f32 one: cosine 0.9947 in [numerics train] on an H100), and the sharded products
 # (other GEMM shapes, partial sums) round otherwise, so bf16 is held at the
@@ -4874,18 +5266,25 @@ def parallel_rank_phases(tmp, ckpt, enc, ref_path, data_values):
     torch.backends.cudnn.allow_tf32 = False
     from mipheivit_tpu_torch.parallel.mesh import process_device
 
+    cut_flagship_depth()
     dev = process_device()
-    res = {"collectives": collectives_rank(dev)}
-    res["seq wsi"] = seq_wsi_rank(ckpt, enc, ref_path, dev)
-    res["seq 2048"] = seq_2048_rank(ckpt, enc, dev)
-    res["train seq"] = train_seq_rank(ckpt, enc, dev)
-    res["trainer ddp"] = trainer_ddp_rank(tmp, ckpt, enc, data_values)
-    res["tp forward"] = tp_forward_rank(ckpt, enc, dev)
-    res["tp train"] = tp_train_rank(ckpt, enc, dev)
-    res["tp int8"] = tp_int8_rank(ckpt, enc, dev)
-    res["tp swin"] = tp_swin_rank(dev)
-    res["tp train 1024"] = tp_train_region_rank(ckpt, enc, dev)
-    res["nccl"] = nccl_probe(dev)
+    phases = {"collectives": lambda: collectives_rank(dev),
+              "seq wsi": lambda: seq_wsi_rank(ckpt, enc, ref_path, dev),
+              "seq 2048": lambda: seq_2048_rank(ckpt, enc, dev),
+              "train seq": lambda: train_seq_rank(ckpt, enc, dev),
+              "trainer ddp": lambda: trainer_ddp_rank(tmp, ckpt, enc, data_values),
+              "tp forward": lambda: tp_forward_rank(ckpt, enc, dev),
+              "tp train": lambda: tp_train_rank(ckpt, enc, dev),
+              "tp int8": lambda: tp_int8_rank(ckpt, enc, dev),
+              "tp swin": lambda: tp_swin_rank(dev),
+              "tp train 1024": lambda: tp_train_region_rank(ckpt, enc, dev),
+              "nccl": lambda: nccl_probe(dev)}
+    res, walls = {}, {}
+    for name, fn in phases.items():
+        t0 = time.perf_counter()
+        res[name] = fn()
+        walls[name] = time.perf_counter() - t0
+    res["walls"] = walls
     return res
 
 
@@ -5204,6 +5603,8 @@ def tp_region_report(ranks, depth: int, per_rank, t_all: float) -> None:
           f"target within {GRAD_NORM_TOL:g} of 1); replicated tensors identical {same}; "
           f"{per_rank('tp train 1024', 'tp train 1024')} "
           f"({time.perf_counter() - t_all:.1f} s for the spawned phases)", flush=True)
+    print(f"[parallel walls] rank 0: "
+          f"{'; '.join(f'{k} {v:.1f} s' for k, v in ranks[0]['walls'].items())}", flush=True)
     check(all(np.isfinite(t["losses"])), "[tp train 1024] non-finite loss")
     check(rel <= TP_LOSS_RTOL, "[tp train 1024] the loss differs from one rank's")
     check(cos >= TP_BF16_LORA_COS, "[tp train 1024] bf16 gradients differ from one rank's")
@@ -5610,10 +6011,10 @@ def consumer_phases(tmp: Path, ckpt: Path, enc: Path, tiles: np.ndarray, cpu32: 
     synthetic data, one output of each checked against the CPU's f32 run:
 
     - [embeddings]: ``extract_embeddings`` over 64 tiles (center-cropped to
-      224 px, ViT-g/14 H-Optimus-0 in bf16, two batches: K1 and K2 2 x 40);
+      224 px, ViT-g/14 H-Optimus-0 in bf16, two batches: K1 and K2 2 x 10);
       tile 0's class token against the f32 encoder on the CPU (cosine);
     - [embedding map]: ``datasets_umap`` over 8 tiles a split at 224 px
-      (the encoder in f32 on the card: K1 and K2 3 x 40); the first train
+      (the encoder in f32 on the card: K1 and K2 3 x 10); the first train
       tile's class token against the CPU's; ``reduce_2d`` and
       ``plot_embedding`` only where umap-learn or scikit-learn and
       matplotlib are installed (the phase names the steps it ran);
@@ -5921,6 +6322,14 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
+    walls, t_lap = {}, [time.perf_counter()]
+    cut_flagship_depth()
+
+    def lap(name):
+        """Book the wall since the last lap to ``name`` ([walls] line)."""
+        now = time.perf_counter()
+        walls[name] = now - t_lap[0]
+        t_lap[0] = now
 
     from mipheivit_tpu_torch import _build
     from mipheivit_tpu_torch.infer.tiles import HOPTIMUS_HE, predict_tiles
@@ -5937,6 +6346,7 @@ def main() -> None:
     root = Path(__file__).resolve().parent
     print(f"[build] {', '.join(str(lib.relative_to(root)) for lib in libs)} "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    lap("build")
 
     # 3. K1 against the plain version on the card, at the flagship shapes
     rng = np.random.default_rng(SEED)
@@ -6112,6 +6522,7 @@ def main() -> None:
     #     on the CPU, at the flagship's GEMMs and fusion convs of 64 tiles
     int8_ops_phase(dev)
     torch.cuda.empty_cache()
+    lap("kernel checks")
 
     # 4. the slice at full width
     tiles = np.random.default_rng(SEED + 1).integers(0, 256, (N_TILES, IMG, IMG, 3),
@@ -6121,6 +6532,7 @@ def main() -> None:
         ckpt, enc, n_params = write_checkpoint(Path(tmp), SEED)
         print(f"[checkpoint] {n_params / 1e9:.3f} B synthetic params written "
               f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        lap("checkpoint")
         t0 = time.perf_counter()
         model = load(ckpt, enc, dev, torch.bfloat16)
         torch.cuda.synchronize()
@@ -6194,6 +6606,7 @@ def main() -> None:
         check_counts("[wsi 256 int8]", wsi256_int8, k1=depth * n_wsi, k3=n_wsi)
         del model, wsi256_out, wsi256_stats
         torch.cuda.empty_cache()
+        lap("serving at 256 px")
 
         # 5. full-width numerics: f32 on the card (K1) against f32 on the CPU
         #    (plain attention), one tile
@@ -6209,6 +6622,7 @@ def main() -> None:
         print(f"[numerics] bf16 card vs f32 CPU per-marker Pearson: min {r.min():.5f} "
               f"(target >= {MIN_PEARSON}) all {np.round(r, 5).tolist()}", flush=True)
         check(bool((r >= MIN_PEARSON).all()), "bf16 output does not track the f32 output")
+        lap("numerics")
 
         # 5b. the port's copies of the five scripts outside the JAX package
         #     that run a model, through their CLIs on the card: [embeddings],
@@ -6216,6 +6630,7 @@ def main() -> None:
         #     [inference hemit]
         consumer_counts = consumer_phases(Path(tmp), ckpt, enc, tiles, cpu32, pred_bf16, depth)
         torch.cuda.empty_cache()
+        lap("consumers")
 
         # 6. stitched whole-region inference at 1024-px windows (K4): the
         #    generator loaded at 1024 px, its position embedding re-gridded
@@ -6266,11 +6681,12 @@ def main() -> None:
         r = pearson(region_bf16, region_f32)
         print(f"[numerics region] {REGION} px, {REGION_S} tokens: f32 card vs f32 CPU, "
               f"2 blocks: max_abs_diff {diff:.3e} (target <= {F32_CARD_VS_CPU_TOL:g}); "
-              f"bf16 vs f32 card, 40 blocks, per-marker Pearson: min {r.min():.5f} "
+              f"bf16 vs f32 card, {depth} blocks, per-marker Pearson: min {r.min():.5f} "
               f"(target >= {MIN_PEARSON}) ({time.perf_counter() - t0:.1f} s)", flush=True)
         check(diff <= F32_CARD_VS_CPU_TOL, "f32 region output on the card differs from the CPU")
         check(bool((r >= MIN_PEARSON).all()), "bf16 region output does not track f32")
         torch.cuda.empty_cache()
+        lap("regions")
 
         # 8. training at 256 px: the flagship's generator step, K1 forward
         t0 = time.perf_counter()
@@ -6308,6 +6724,7 @@ def main() -> None:
         # 9c. the backward of dot_product_attention (K6), ln_matmul (K7) and
         #     ln_qkv_attention (K8)
         train_ops = train_ops_phase(dev)
+        lap("training")
 
         # 10. training numerics: the f32 step on the card against the CPU with
         #     the encoder cut to 2 blocks at full width (256 px: K1 and the plain
@@ -6348,6 +6765,7 @@ def main() -> None:
               flush=True)
         check(f32_ok, "the f32 train step on the card differs from the CPU")
         check(bf16_ok, "the bf16 train step does not track f32")
+        lap("numerics train")
 
         # 11. the training driver on the flagship preset (1 epoch, then a
         #     resume to 2) and the eval-only driver on its checkpoint dir
@@ -6357,6 +6775,7 @@ def main() -> None:
             Path(tmp), ckpt, enc, depth, train256_rate)
         test_driver_counts = test_driver_phase(cfg, logdir, depth)
         torch.cuda.empty_cache()
+        lap("trainer")
 
         # 12. the single-cell path: the flagship preset as it ships (cell
         #     metrics, val_cell_auc) with the cell loss, its eval-only run,
@@ -6366,24 +6785,34 @@ def main() -> None:
         cell_test_counts = cell_test_driver_phase(cell_cfg, cell_dir, depth)
         eval_counts = eval_phases(cell_cfg, cell_dir, cell_data, Path(tmp), depth)
         torch.cuda.empty_cache()
+        lap("cell path")
 
         # 13. the baseline generators: the UNETR preset served and trained
         #     (K1, K2), Prov-GigaPath's UNETR, the SMP U-Net on ConvNeXt-L
         #     with its foreground head and the ResNet-50 UNETR (no kernel)
         baseline_counts, baseline = baseline_phases(Path(tmp), enc, tiles, dev)
         torch.cuda.empty_cache()
+        lap("baselines")
 
         # 14. the Swin models: the ctranspath UNETR and the HEMIT generator
         #     served, the HEMIT zoo, both presets trained, the HEMIT
         #     reproduction and the HEMIT-pipeline evaluations (no kernel)
         swin_counts, swin = swin_phases(Path(tmp), dev)
         torch.cuda.empty_cache()
+        lap("swin")
 
         # 14b. preprocessing: the TIFF engine, Cellpose on the card, DAPI and
         #      H&E nuclei segmentation, the CycleGAN stain normaliser (no
         #      kernel), and the trainer's profiler hook (the [trainer] run)
         prep_counts = preprocessing_phases(Path(tmp), ckpt, enc, trainer_ref["data"], depth, dev)
         torch.cuda.empty_cache()
+        lap("preprocessing")
+
+        # 14c. data preparation: the mIF cleaning passes and the expression
+        #      matrix on the card against the CPU, then the host scripts of
+        #      the pipeline on a registered pair (no kernel)
+        data_prep_counts = data_prep_phases(Path(tmp), dev)
+        lap("data preparation")
 
         # 15. the multi-card paths over 2 ranks spawned on the one card:
         #     [collectives], [seq shard wsi 1024], [seq shard 2048], [train
@@ -6391,6 +6820,7 @@ def main() -> None:
         #     K5 in the backward, K1 = 0), [trainer ddp]
         parallel_counts = parallel_phases(Path(tmp), ckpt, enc, wsi1024_out, trainer_ref["data"],
                                           trainer_ref, depth)
+        lap("multi-card")
 
     # 16. summary lines
     k1 = kernel_rows["bf16_fused"]
@@ -6403,11 +6833,14 @@ def main() -> None:
              "trainer": trainer_counts, "test driver": test_driver_counts,
              "cell trainer": cell_counts, "cell test driver": cell_test_counts, **eval_counts,
              **consumer_counts, **baseline_counts, **swin_counts, **prep_counts,
-             **parallel_counts}
+             **data_prep_counts, **parallel_counts}
     print(f"[cell path] nucleus_pool {pool_ms[8]:.3f} ms at 8 tiles, {pool_ms[64]:.3f} ms at 64; "
           f"cell loss forward + backward {cell_loss_ms:.3f} ms at microbatch 8", flush=True)
     print(f"[baselines] {'; '.join(f'{k} {v:.3f}' for k, v in baseline.items())}", flush=True)
     print(f"[swin models] {'; '.join(f'{k} {v:.3f}' for k, v in swin.items())}", flush=True)
+    lap("temporary files removed")
+    print(f"[walls] {'; '.join(f'{k} {v:.1f} s' for k, v in walls.items())}; total "
+          f"{sum(walls.values()):.1f} s since the card was found", flush=True)
 
     def launches(key):
         by_path = {path: c[key] for path, c in paths.items() if c[key]}

@@ -1,3 +1,4 @@
-"""The port's copy of the repo's demo, ``examples/roi_inference.py``: an H&E
-region through the generator, then nuclei, per-cell marker means and
-gating. Runs as ``python -m mipheivit_tpu_torch.examples.roi_inference``."""
+"""The port's copies of the repo's demos: ``roi_inference`` (an H&E region
+through the generator, then nuclei, per-cell marker means and gating) and
+``visualize_dataset`` (a contact sheet of tiles). Each runs as ``python -m
+mipheivit_tpu_torch.examples.<name>``."""

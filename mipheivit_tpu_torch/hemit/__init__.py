@@ -1,1 +1,3 @@
-"""HEMIT reproduction on the card (``python -m mipheivit_tpu_torch.hemit.train_hemit``)."""
+"""HEMIT on the card: the reproduction (``python -m
+mipheivit_tpu_torch.hemit.train_hemit``) and ORION tiles in HEMIT's folder
+layout (``python -m mipheivit_tpu_torch.hemit.orion_to_hemit_layout``)."""

@@ -57,7 +57,8 @@ def _to_numpy(value):
         if value.dtype == torch.bfloat16:
             return "BF16", value.view(torch.int16).numpy()
         value = value.numpy()
-    arr = np.ascontiguousarray(value)
+    arr = np.asarray(value)
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)       # 0-d stays 0-d
     if arr.dtype.byteorder == ">":
         arr = arr.astype(arr.dtype.newbyteorder("<"))
     if arr.dtype not in _NAMES:

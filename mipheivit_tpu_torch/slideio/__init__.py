@@ -8,13 +8,14 @@ C++ engine on libtiff (native/slidetiff.cpp) + thin Python facade:
   * ``SlideReader`` — pyramid open, padded region reads (slidevips parity)
   * ``write_pyramid`` / ``build_ome_xml`` — tiled pyramidal OME-TIFF output
   * ``get_locs_otsu`` — tissue tiling
+  * ``resize`` — ``cv2.resize`` for any number of channels
   * ``read_image`` — small-tile decode dispatch (jpeg/png via cv2,
     tiff via the native engine, npy via numpy: the tile format that needs
     neither cv2 nor libtiff)
 """
 
 from .ome import build_ome_xml, parse_channel_names
-from .reader import SlideReader, SlideVips
+from .reader import SlideReader, SlideVips, resize
 from .tiffio import PyramidWriter, TiffSlide, write_pyramid
 from .tiling import get_locs_otsu, order_tiles_horizontally
 
@@ -55,5 +56,5 @@ def read_image(path, channel_idxs=None):
 __all__ = [
     "PyramidWriter", "SlideReader", "SlideVips", "TiffSlide", "write_pyramid",
     "build_ome_xml", "parse_channel_names", "get_locs_otsu",
-    "order_tiles_horizontally", "read_image",
+    "order_tiles_horizontally", "read_image", "resize",
 ]

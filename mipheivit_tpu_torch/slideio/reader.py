@@ -137,8 +137,7 @@ class SlideReader:
         arr = self.read_region((0, 0), lvl, (w, h))
         scale = min(max_size[0] / w, max_size[1] / h, 1.0)
         if scale < 1.0:
-            arr = cv2.resize(arr, (int(w * scale), int(h * scale)),
-                             interpolation=cv2.INTER_AREA)
+            arr = resize(arr, (int(w * scale), int(h * scale)), cv2.INTER_AREA)
         if arr.ndim == 2:
             arr = arr[..., None]
         return arr
@@ -154,6 +153,25 @@ class SlideReader:
         h = getattr(self._local, "handle", None)
         if h is not None:
             h.close()
+
+
+def resize(arr: np.ndarray, size: Tuple[int, int], interpolation: int) -> np.ndarray:
+    """``cv2.resize`` of an ``[H, W]`` or ``[H, W, C]`` array to ``size``
+    (w, h) for any C. cv2's area resampling at a fractional downscale takes
+    at most 4 channels; there a wider array goes through it 4 channels at a
+    time (each channel is resampled on its own). Everywhere else the array
+    goes through whole, as cv2 takes it (its results there depend on C)."""
+    import cv2
+
+    h, w = arr.shape[:2]
+    sx, sy = w / size[0], h / size[1]
+    fractional_area = (interpolation == cv2.INTER_AREA and sx >= 1 and sy >= 1
+                       and not (sx.is_integer() and sy.is_integer()))
+    if arr.ndim == 2 or arr.shape[-1] <= 4 or not fractional_area:
+        return cv2.resize(arr, size, interpolation=interpolation)
+    parts = [cv2.resize(arr[..., c:c + 4], size, interpolation=interpolation)
+             for c in range(0, arr.shape[-1], 4)]
+    return np.concatenate([p[..., None] if p.ndim == 2 else p for p in parts], axis=-1)
 
 
 # Back-compat alias matching the reference class name

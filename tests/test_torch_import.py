@@ -85,6 +85,27 @@ PREPROCESSING = [
     "mipheivit_tpu_torch.preprocessings.cycle_gan.normalize_tiles",
 ]
 
+# the copies of the repo's data-preparation scripts that read and write
+# slides: the port's slideio, data.table, io.safetensors; cv2 inside functions
+PREP_SCRIPTS = [
+    "mipheivit_tpu_torch.scripts.scale_slides",
+    "mipheivit_tpu_torch.preprocessings.registration.registration",
+    "mipheivit_tpu_torch.preprocessings.mif_cleaning.tune_af_settings",
+    "mipheivit_tpu_torch.preprocessings.mif_cleaning.mif_cleaning",
+    "mipheivit_tpu_torch.preprocessings.tiling",
+    "mipheivit_tpu_torch.preprocessings.wsi2tiles",
+    "mipheivit_tpu_torch.scripts.create_dataframe",
+    "mipheivit_tpu_torch.preprocessings.get_mean_std_channels",
+    "mipheivit_tpu_torch.scripts.extract_std",
+    "mipheivit_tpu_torch.preprocessings.single_cell_analysis.extract_expression_matrix",
+    "mipheivit_tpu_torch.preprocessings.artifacts_detection.extract_if_artifact_props",
+    "mipheivit_tpu_torch.preprocessings.convert_to_ometiff",
+    "mipheivit_tpu_torch.hemit.orion_to_hemit_layout",
+    "mipheivit_tpu_torch.examples.visualize_dataset",
+    "mipheivit_tpu_torch.scripts.ckpt_remove_foundation_model",
+]
+PREPROCESSING += PREP_SCRIPTS
+
 
 # the copies of the repo's scripts that run a model: their CLIs' host
 # libraries (cv2, matplotlib, the 2-D reducers) only inside their functions
@@ -135,7 +156,9 @@ def test_preprocessing_imports_without_jax_cv2_scipy_or_pandas():
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
         "             and m.split('.')[0] in ('jax', 'cv2', 'scipy', 'pandas', 'mipheivit_tpu',\n"
         "                                     'backends', 'flow_wsi', 'flow_dynamics',\n"
-        "                                     'resnet_generator', 'preprocessings'))\n"
+        "                                     'resnet_generator', 'preprocessings',\n"
+        "                                     'registration', 'mif_cleaning', 'tiling',\n"
+        "                                     'wsi2tiles', 'extract_expression_matrix'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -266,6 +289,8 @@ def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
              if "build" not in p.relative_to(PKG).parts]
     files.append(PKG.parent / "chip_smoke.py")
     assert len(files) > 20
+    for name in PREP_SCRIPTS:
+        assert PKG.parent / (name.replace(".", "/") + ".py") in files, name
     bad = []
     for path in files:
         for name in _imported_modules(path):
@@ -284,3 +309,48 @@ def test_package_sources_never_name_jax_or_library_attention():
         for banned in ("import jax", "from jax", "scaled_dot_product_attention",
                        "torch.compile(", "cudnn_attention", "flash_attn"):
             assert banned not in text, (path, banned)
+
+
+def test_prep_scripts_run_without_jax_or_pandas(tmp_path):
+    """``ckpt_remove_foundation_model`` and ``mif_cleaning --device cpu``
+    run end to end with jax, flax, optax and pandas unimportable, and load
+    nothing of the JAX package."""
+    code = (
+        "import json, sys\n"
+        "from pathlib import Path\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'pandas'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from mipheivit_tpu_torch.io.safetensors import load_file, save_file\n"
+        "from mipheivit_tpu_torch.slideio import TiffSlide, write_pyramid\n"
+        "from mipheivit_tpu_torch.scripts import ckpt_remove_foundation_model as strip\n"
+        "from mipheivit_tpu_torch.preprocessings.mif_cleaning import mif_cleaning\n"
+        "root = Path(sys.argv[1])\n"
+        "torch.save({'encoder.vit.blocks.0.mlp.fc1.weight': torch.ones(2, 2),\n"
+        "            'encoder.vit.blocks.0.attn.qkv.lora_q.A': torch.ones(2, 1),\n"
+        "            'decoder.conv.weight': torch.zeros(3)}, root / 'g.pth')\n"
+        "strip.main(['--checkpoint', str(root / 'g.pth'), '--out', str(root / 'g.safetensors')])\n"
+        "assert sorted(load_file(root / 'g.safetensors')) == [\n"
+        "    'decoder.conv.weight', 'encoder.vit.blocks.0.attn.qkv.lora_q.A']\n"
+        "rng = np.random.default_rng(0)\n"
+        "mif = rng.integers(0, 5000, (3, 96, 128)).astype(np.uint16)\n"
+        "mif[:, 20:70, 30:90] += 3000\n"
+        "write_pyramid(str(root / 'mif.tiff'), mif, n_levels=1, tile_size=64, mpp=0.5)\n"
+        "(root / 's.json').write_text(json.dumps({'1': {'lambda': 0.2, 'bias': 5.0}}))\n"
+        "out = mif_cleaning.main(['--slide_path', str(root / 'mif.tiff'), '--out_path',\n"
+        "                         str(root / 'o.tiff'), '--lambda_settings', str(root / 's.json'),\n"
+        "                         '--channel_names', 'AF,a,b', '--tile_size', '32',\n"
+        "                         '--device', 'cpu'])\n"
+        "ts = TiffSlide(str(root / 'o.tiff'))\n"
+        "assert ts.dtype == np.uint8 and ts.n_channels == 3 and (out['p99'] > 1).all()\n"
+        "ts.close()\n"
+        "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
+        "             and m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pandas',\n"
+        "                                     'mipheivit_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], capture_output=True,
+                          text=True, cwd=PKG.parent, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
